@@ -1,0 +1,3 @@
+from repro_torch.data.synth_trace import synth_workload
+from repro_torch.data.trace_io import load_supercloud, write_supercloud_csvs
+from repro_torch.data.validate import IngestionReport, validate_jobs

@@ -1,0 +1,18 @@
+"""Grid-signal scenarios for the twin: time-varying carbon / price /
+weather signals and demand-response power-cap events, as tensors."""
+
+from repro_torch.scenarios.events import (
+    CapSchedule,
+    cap_events,
+    next_cap_event,
+    no_cap,
+    power_cap_at,
+)
+from repro_torch.scenarios.scenario import Scenario, default_scenario
+from repro_torch.scenarios.signals import (
+    Signal,
+    constant,
+    eval_signal,
+    from_trace,
+    sinusoid,
+)
