@@ -16,11 +16,17 @@ Step order (matches RAPS' fixed-dt loop):
   4. progress running jobs (network-congestion-aware rate)
   5. energy/carbon/stat accumulation
 
+With ``cfg.thermal_enabled`` the rack thermal twin (``core.thermal``)
+derates the power chain and job progress from the previous tick's rack
+temperatures, closes the plant with the dynamic COP, gates new dispatch
+on the racks' trip, and commits the racks' RC update (the
+``rack_thermal`` kernel on the card) last in the tick.
+
 The step never reads a tensor on the host (no ``.item()``, no Python
 branch on a tensor value), so on the card the ticks queue work without a
-single sync. This slice runs with the thermal, fault and serving models
-off and per-tick stepping; their flags raise ``NotImplementedError``
-naming the ROADMAP slice that brings them.
+single sync. This slice runs with the fault and serving models off and
+per-tick stepping; their flags raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from repro_torch.configs.sim import SimConfig
 from repro_torch.core import placement as plc
 from repro_torch.core import schedulers as sched
+from repro_torch.core import thermal as thm
 from repro_torch.core.faults import release_jobs as _release
 from repro_torch.core.network import congestion_slowdown
 from repro_torch.core.power import PowerOut, compute_power
@@ -106,14 +113,18 @@ def _parse_weights(reward_weights) -> Tuple[float, float, float, float, float]:
 
 
 def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
-    """The per-tick accounting tail: grid signals at ``state.t``, the DVFS
-    throttle to the power cap, job progress, energy/carbon/cost
-    accumulation, reward and ``StepOut``. Only the branches with the
-    thermal, fault and serving models off exist in this slice."""
+    """The per-tick accounting tail: grid signals at ``state.t``, thermal
+    derating (when ``cfg.thermal_enabled``), the DVFS throttle to the power
+    cap, job progress, energy/carbon/cost accumulation, the rack RC update,
+    reward and ``StepOut``. The fault and serving branches arrive with
+    their slices."""
     w_thr, w_en, w_co2, w_q, w_cost = _parse_weights(reward_weights)
     scn = statics.scenario
     dev = statics.capacity.device
     zero = full(0.0, torch.float32, dev)
+    # a device tensor: on CUDA a division by a Python scalar is a multiply
+    # by its reciprocal, and the COP feeds the throttle's overhead
+    nameplate = full(max(cfg.nameplate_it_w, 1.0), torch.float32, dev)
     dt_h = cfg.dt / 3600.0
     en_scale = max(cfg.n_nodes * 0.4 * dt_h, 1e-9)
     co2_scale = max(cfg.n_nodes * 0.15 * dt_h, 1e-9)
@@ -134,10 +145,42 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         price = eval_signal(scn.price, state.t)              # $/kWh
         cap_w = power_cap_at(scn.power_cap, state.t)         # W; 0 = uncapped
         wb = eval_signal(scn.wetbulb, state.t)               # degC
-        # telemetry-only mirror of power.finish_power's static plant
-        cop = torch.clamp(
-            cfg.cop_base + cfg.cop_wetbulb_coef * (wb - cfg.wetbulb_ref_c),
-            min=cfg.cop_min)
+
+        if cfg.thermal_enabled:
+            # --- thermal feedback: derate from the PREVIOUS tick's outlet
+            # temps (one-tick control lag), then re-close the plant chain
+            # with the dynamic COP(wetbulb, load). Only node DYNAMIC power
+            # throttles; input power scales with IT.
+            th_r = thm.rack_throttle(cfg, state.rack_outlet_c)   # (R,)
+            node_th = th_r.index_select(0, statics.node_rack.long())
+            node_idle = statics.idle_w * state.node_up
+            node_dyn = torch.clamp(p.node_it_w - node_idle, min=0.0)
+            node_it = node_idle + node_th * node_dyn
+            node_input = p.node_input_w * (
+                node_it / torch.clamp(p.node_it_w, min=1e-9))
+            it_w = torch.sum(node_it)
+            input_w = torch.sum(node_input)
+            dyn_tot = torch.sum(node_dyn)
+            gscale = torch.where(
+                dyn_tot > 0.0,
+                torch.sum(node_th * node_dyn) / torch.clamp(dyn_tot, min=1e-9),
+                1.0)
+            cop = thm.cooling_cop(cfg, wb, it_w / nameplate)
+            cooling_w = input_w / cop
+            facility_w = input_w + cooling_w
+            pue = torch.where(it_w > 1.0,
+                              facility_w / torch.clamp(it_w, min=1.0), 1.0)
+            p = p._replace(
+                node_it_w=node_it, node_input_w=node_input, it_w=it_w,
+                input_w=input_w, cooling_w=cooling_w,
+                facility_w=facility_w, pue=pue, gflops=p.gflops * gscale)
+            # synchronous ranks run at the slowest clock over a job's nodes
+            rate = rate * thm.job_thermal_rate(state, statics, node_th)
+        else:
+            # telemetry-only mirror of power.finish_power's static plant
+            cop = torch.clamp(
+                cfg.cop_base + cfg.cop_wetbulb_coef * (wb - cfg.wetbulb_ref_c),
+                min=cfg.cop_min)
 
         # --- demand response: DVFS-throttle to the facility power cap;
         # `capped` gates the rescale exactly off when uncapped
@@ -179,7 +222,23 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             sum_power_w=state.sum_power_w + p.facility_w,
             n_steps=state.n_steps + 1.0,
         )
-        rack_max = torch.max(state.rack_outlet_c)
+
+        if cfg.thermal_enabled:
+            # --- rack RC update on the post-cap per-node input power (all
+            # of it room heat), committed LAST so this tick's derate used
+            # the pre-update temps
+            new_t, _ = thm.rack_thermal_update(
+                cfg, statics, state.rack_outlet_c, p.node_input_w * r,
+                thm.supply_temp(cfg, wb))
+            th_step = torch.where(torch.any(th_r < 1.0), cfg.dt, 0.0)
+            rack_max = torch.max(new_t)
+            state = state._replace(
+                rack_outlet_c=new_t,
+                thermal_throttle_s=state.thermal_throttle_s + th_step,
+                peak_rack_c=torch.maximum(state.peak_rack_c, rack_max))
+        else:
+            rack_max = torch.max(state.rack_outlet_c)
+            th_step = zero
 
         # reward: throughput-positive, energy/carbon/queue-negative,
         # normalized to O(1) per step
@@ -198,7 +257,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             net_load=net_load, reward=reward,
             carbon_gkwh=carbon_g, price_usd_kwh=price, power_cap_w=cap_w,
             cost_usd_step=cost_step, throttle=throttle,
-            rack_max_c=rack_max, cop=cop, thermal_throttle_s_step=zero,
+            rack_max_c=rack_max, cop=cop, thermal_throttle_s_step=th_step,
             killed_now=zero, lost_node_s_step=zero, degrade_level=zero,
         )
         return state, out
@@ -292,7 +351,7 @@ def make_step(
     if placement not in plc.PLACEMENTS:
         raise KeyError(f"unknown placement {placement}")
     tail = _make_tail(cfg, statics, reward_weights)
-    place_fn = (lambda s, j, fn=plc.PLACEMENTS[placement]: fn(s, statics, j))
+    place = plc.PLACEMENTS[placement]
     mask_fn = plc.PLACEMENT_MASKS[placement]
     dev = statics.capacity.device
 
@@ -300,7 +359,22 @@ def make_step(
         state = state._replace(t=state.t + cfg.dt)
         state, n_done = _complete_jobs(cfg, state)
 
-        # --- dispatch
+        # --- dispatch. Selection and placement see tripped racks' nodes
+        # as down (no NEW jobs there); candidates, eligibility masks, power
+        # and progress read the raw state. Dispatch moves no rack
+        # temperature, so the trip is read once per tick.
+        if cfg.thermal_enabled and scheduler != "none":
+            trip_ok = thm.node_trip_ok(cfg, state, statics)
+
+            def view(s: SimState) -> SimState:
+                return s._replace(node_up=torch.where(trip_ok, s.node_up, 0.0))
+        else:
+            def view(s: SimState) -> SimState:
+                return s
+
+        def place_fn(s: SimState, j: torch.Tensor):
+            return place(view(s), statics, j)
+
         if scheduler == "rl":
             cands = sched.rl_candidates(cfg, state)          # (k,)
             k = cands.shape[0]
@@ -316,7 +390,7 @@ def make_step(
             select = sched.SCHEDULERS[scheduler]
             node_mask = None if mask_fn is None else mask_fn(state, statics)
             for _ in range(starts_per_step):
-                job = select(cfg, state, statics, node_mask)
+                job = select(cfg, view(state), statics, node_mask)
                 state = _try_start(cfg, state, job, place_fn)
 
         # --- power chain (pre-throttle) + progress rate + telemetry counts

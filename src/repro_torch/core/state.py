@@ -3,9 +3,9 @@ plain ``step(state, action) -> state`` function on one device.
 
 Field names and dtypes (f32, int32) are those of the JAX package, so the
 parity tests compare the two field by field. ``SimState`` keeps every
-field, the thermal, fault and serving carries included; with those models
-off (the only mode this slice runs) they are written once here and never
-again.
+field, the thermal, fault and serving carries included; with a model off
+its carry is written once here and never again (faults and serving are
+always off in this slice).
 
 Job lifecycle: EMPTY -> QUEUED -> RUNNING -> DONE (slot then reusable),
 plus the terminal FAILED state of the faults slice.
@@ -29,10 +29,6 @@ NRES = 3  # cpu cores, gpus, mem_gb
 def check_slice(cfg: SimConfig) -> None:
     """Raise for a model flag this slice of the port does not run, naming
     the ROADMAP slice that brings it: no flag runs a partial model."""
-    if cfg.thermal_enabled:
-        raise NotImplementedError(
-            "cfg.thermal_enabled: the thermal twin arrives with the thermal "
-            "slice (ROADMAP queue 1, item 6)")
     if cfg.resilience_on:
         raise NotImplementedError(
             "faults / outages / degradation (cfg.resilience_on): the fault "

@@ -1,14 +1,43 @@
-"""Rack thermal twin: only ``supply_temp``, which ``init_state`` needs for
-the racks' initial outlet temperature. The RC loop, COP(wetbulb, load),
-throttle and trip gate (and the ``rack_thermal`` kernel) arrive with the
-thermal slice.
+"""Rack thermal twin: the cooling loop as simulation state.
+
+Per rack one outlet temperature with a first-order RC lag:
+
+    T[k+1] = T[k] + alpha * (T_ss - T[k]),  alpha = 1 - exp(-dt / tau)
+    T_ss   = supply + R_th * heat_w
+    supply = max(wetbulb + approach, supply_min)
+
+``heat_w`` is the rack's total input power. Feedback into the schedule,
+both from the PREVIOUS tick's outlet temperatures (a one-tick control
+lag): a continuous DVFS derate (``rack_throttle``) of node dynamic power
+and job progress, and a binary dispatch trip (``node_trip_ok``): racks
+at or above ``thermal_trip_c`` accept no new placements. The cooling COP
+depends on wetbulb and IT load (``cooling_cop``).
+
+``rack_thermal_update`` runs the ``rack_thermal`` kernel on the card and
+its plain version on the CPU; the device decides. Nothing here reads a
+tensor on the host. ``thermal_crossing_horizon`` arrives with the
+macro-stepping slice.
 """
 
 from __future__ import annotations
 
+import math
+from typing import TYPE_CHECKING, Tuple
+
 import torch
 
 from repro_torch.configs.sim import SimConfig
+from repro_torch.kernels.rack_thermal import rack_thermal
+from repro_torch.utils.device import full
+
+if TYPE_CHECKING:  # type hints only: state.py imports supply_temp
+    from repro_torch.core.state import SimState, Statics
+
+
+def thermal_alpha(cfg: SimConfig) -> float:
+    """Per-tick RC relaxation factor, as a Python float that every path
+    rounds to f32 once."""
+    return float(-math.expm1(-cfg.dt / max(cfg.rack_tau_s, 1e-6)))
 
 
 def supply_temp(cfg: SimConfig, wetbulb_c: torch.Tensor) -> torch.Tensor:
@@ -16,3 +45,63 @@ def supply_temp(cfg: SimConfig, wetbulb_c: torch.Tensor) -> torch.Tensor:
     floored at the plant's minimum supply setpoint."""
     return torch.clamp(wetbulb_c + cfg.cooling_approach_c,
                        min=cfg.cooling_supply_min_c)
+
+
+def cooling_cop(cfg: SimConfig, wetbulb_c: torch.Tensor,
+                load_frac: torch.Tensor) -> torch.Tensor:
+    """COP(wetbulb, IT load): linear wetbulb derate plus a part-load
+    penalty, floored at ``cop_min``."""
+    return torch.clamp(
+        cfg.cop_base
+        + cfg.cop_wetbulb_coef * (wetbulb_c - cfg.wetbulb_ref_c)
+        + cfg.cop_load_coef * (load_frac - cfg.cop_load_ref),
+        min=cfg.cop_min)
+
+
+def rack_throttle(cfg: SimConfig, rack_outlet_c: torch.Tensor) -> torch.Tensor:
+    """(R,) DVFS clock fraction per rack: 1 below ``throttle_start_c``,
+    linear ramp to ``thermal_throttle_floor`` at ``throttle_full_c``.
+    Monotone non-increasing in outlet temperature."""
+    # divide by a device tensor: on CUDA a division by a Python scalar is
+    # a multiply by its reciprocal, and the throttle scales job progress
+    span = full(max(cfg.throttle_full_c - cfg.throttle_start_c, 1e-6),
+                torch.float32, rack_outlet_c.device)
+    ramp = (rack_outlet_c - cfg.throttle_start_c) / span
+    return torch.clamp(1.0 - (1.0 - cfg.thermal_throttle_floor) * ramp,
+                       cfg.thermal_throttle_floor, 1.0)
+
+
+def job_thermal_rate(state: "SimState", statics: "Statics",
+                     node_th: torch.Tensor) -> torch.Tensor:
+    """(J,) progress factor per job: the MIN clock over the job's placed
+    nodes (synchronous ranks run at the slowest one). Unplaced slots
+    contribute 1, so queued and finished jobs are unaffected."""
+    place = state.placement                                   # (J, K)
+    valid = place >= 0
+    safe = torch.where(valid, place, 0).long()
+    slot_th = node_th.index_select(0, safe.reshape(-1)).reshape(place.shape)
+    return torch.amin(torch.where(valid, slot_th, 1.0), dim=1)
+
+
+def node_trip_ok(cfg: SimConfig, state: "SimState",
+                 statics: "Statics") -> torch.Tensor:
+    """(N,) bool: nodes whose rack is below the dispatch trip threshold —
+    the thermal half of placement eligibility."""
+    rack_ok = state.rack_outlet_c < cfg.thermal_trip_c
+    return rack_ok.index_select(0, statics.node_rack.long())
+
+
+def rack_thermal_update(
+    cfg: SimConfig,
+    statics: "Statics",
+    rack_outlet_c: torch.Tensor,     # (R,)
+    node_heat_w: torch.Tensor,       # (N,) post-throttle input power
+    supply_c: torch.Tensor,          # 0-d
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One RC step of every rack: scatter node heat onto racks and relax
+    toward the steady state. Returns (new_outlet_c (R,), rack_heat_w (R,))."""
+    new_t, heat = rack_thermal(
+        node_heat_w[None].contiguous(), statics.node_rack,
+        rack_outlet_c[None].contiguous(), supply_c.reshape(1),
+        statics.rack_r_th, alpha=thermal_alpha(cfg))
+    return new_t[0], heat[0]

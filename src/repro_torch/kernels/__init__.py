@@ -6,7 +6,8 @@ adds one where it launches its kernel and nowhere else, so a run can
 show that the main path went through the kernel.
 """
 
-LAUNCHES: dict[str, int] = {"power_scatter": 0}
+LAUNCHES: dict[str, int] = {"power_scatter": 0, "rack_thermal": 0,
+                             "node_power": 0}
 
 
 def reset_launches() -> None:

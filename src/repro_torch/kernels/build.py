@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, object] = {}
+_FUNCTIONS: Dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -100,3 +101,19 @@ def load(name: str):
         build([name])
         _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]
+
+
+def function(name: str, *, pointers: int, ints: int, floats: int):
+    """The C entry point ``<name>_launch`` of kernel ``name``, typed for
+    ``ctypes``: ``pointers`` device pointers, ``ints`` C ints, ``floats``
+    C floats, then the stream; it returns the launch's CUDA error code.
+    Typed once per process."""
+    if name not in _FUNCTIONS:
+        import ctypes
+
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_float] * floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    return _FUNCTIONS[name]

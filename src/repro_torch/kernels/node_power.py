@@ -1,19 +1,24 @@
-"""Fused placement-scatter + node power chain: the job table -> per-node
-IT power, input power and load fractions, in one pass.
+"""Node power chain kernels: the job table (or per-node load fractions)
+-> per-node IT power and input power.
 
-- ``power_scatter``: the wrapper the simulator calls. For CPU tensors it
-  runs the plain version; for CUDA tensors it launches the hand-written
-  kernel ``csrc/power_scatter.cu`` (which replaces the TPU kernel
+- ``power_scatter``: the wrapper the simulator calls, fusing the
+  placement scatter with the chain. For CPU tensors it runs the plain
+  version; for CUDA tensors it launches the hand-written kernel
+  ``csrc/power_scatter.cu`` (which replaces the TPU kernel
   ``power_scatter_pallas``) or raises. There is no fallback.
 - ``power_scatter_torch``: the plain PyTorch version of the same
   function, deterministic on every device.
 - ``node_chain``: the per-node power chain from load fractions (IT power,
   rectifier-efficiency parabola, conversion loss), shared with
-  ``core.power.power_from_fracs``.
+  ``core.power.power_from_fracs``, and the plain version of ``node_power``.
+- ``node_power``: the chain alone as a kernel, ``csrc/node_power.cu``
+  (which replaces the TPU kernel ``node_power_pallas``), with the same
+  dispatch rule. No path of the simulator calls it, as none of the JAX
+  package's does.
 
 Every function takes a leading replica dimension E: ``place`` and the
-slot amounts are (E, JK), ``node_up`` is (E, N), the node constants (N,),
-and the four outputs (E, N). The main path calls with E = 1.
+slot amounts are (E, JK), fractions and ``node_up`` (E, N), the node
+constants (N,), and the outputs (E, N). The main path calls with E = 1.
 """
 
 from __future__ import annotations
@@ -118,17 +123,6 @@ def _check(place, cpu_abs, gpu_abs, node_vecs, node_up) -> None:
         raise ValueError("power_scatter: E <= 65535 and JK, N < 2**31")
 
 
-def _load_library():
-    import ctypes
-
-    lib = build.load("power_scatter")
-    fn = lib.power_scatter_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def power_scatter(place, cpu_abs, gpu_abs, cap_cpu, cap_gpu, idle_w,
                   cpu_dyn_w, gpu_dyn_w, node_up, node_max_w, *,
                   rect_peak: float, rect_load: float, rect_curv: float,
@@ -144,7 +138,7 @@ def power_scatter(place, cpu_abs, gpu_abs, cap_cpu, cap_gpu, idle_w,
                                    node_up, node_max_w, **kw)
     if place.device.type != "cuda":
         raise ValueError(f"power_scatter: no kernel for {place.device}")
-    launch = _load_library()
+    launch = build.function("power_scatter", pointers=14, ints=3, floats=4)
     E, jk = place.shape
     n = idle_w.shape[0]
     outs = tuple(torch.empty((E, n), dtype=torch.float32, device=place.device)
@@ -160,4 +154,59 @@ def power_scatter(place, cpu_abs, gpu_abs, cap_cpu, cap_gpu, idle_w,
     if err != 0:
         raise RuntimeError(f"power_scatter kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["power_scatter"] += 1
+    return outs
+
+
+def _check_node_power(fracs, node_vecs, node_up) -> None:
+    """Raise on anything the ``node_power`` kernel does not take."""
+    tensors = (*fracs, node_up, *node_vecs)
+    dev = fracs[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("node_power: all tensors must be on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("node_power: every tensor must be f32")
+    shape = fracs[0].shape
+    if len(shape) != 2 or fracs[1].shape != shape or node_up.shape != shape:
+        raise ValueError(
+            "node_power: cpu_frac, gpu_frac and node_up must share one "
+            f"(E, N) shape, got {tuple(fracs[0].shape)}, "
+            f"{tuple(fracs[1].shape)}, {tuple(node_up.shape)}")
+    if any(v.shape != (shape[1],) for v in node_vecs):
+        raise ValueError(f"node_power: node vectors must all be (N,) = "
+                         f"({shape[1]},)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("node_power: tensors must be contiguous")
+    if shape[0] >= 2**31 or shape[1] >= 2**31:
+        raise ValueError("node_power: E, N < 2**31")
+
+
+def node_power(cpu_frac, gpu_frac, idle_w, cpu_dyn_w, gpu_dyn_w, node_up,
+               node_max_w, *, rect_peak: float, rect_load: float,
+               rect_curv: float, conv_eff: float):
+    """(E, N) load fractions -> (node_it_w, node_input_w), each (E, N).
+    CPU tensors take the plain version ``node_chain``; CUDA tensors launch
+    the kernel on the current stream."""
+    node_vecs = (idle_w, cpu_dyn_w, gpu_dyn_w, node_max_w)
+    _check_node_power((cpu_frac, gpu_frac), node_vecs, node_up)
+    kw = dict(rect_peak=rect_peak, rect_load=rect_load, rect_curv=rect_curv,
+              conv_eff=conv_eff)
+    if cpu_frac.device.type == "cpu":
+        return node_chain(cpu_frac, gpu_frac, idle_w, cpu_dyn_w, gpu_dyn_w,
+                          node_up, node_max_w, **kw)
+    if cpu_frac.device.type != "cuda":
+        raise ValueError(f"node_power: no kernel for {cpu_frac.device}")
+    launch = build.function("node_power", pointers=9, ints=2, floats=4)
+    E, n = cpu_frac.shape
+    outs = tuple(torch.empty((E, n), dtype=torch.float32,
+                             device=cpu_frac.device) for _ in range(2))
+    with torch.cuda.device(cpu_frac.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            cpu_frac.data_ptr(), gpu_frac.data_ptr(), idle_w.data_ptr(),
+            cpu_dyn_w.data_ptr(), gpu_dyn_w.data_ptr(), node_up.data_ptr(),
+            node_max_w.data_ptr(), *(o.data_ptr() for o in outs), E, n,
+            rect_peak, rect_load, rect_curv, conv_eff, stream)
+    if err != 0:
+        raise RuntimeError(f"node_power kernel launch failed: CUDA error {err}")
+    kernels.LAUNCHES["node_power"] += 1
     return outs

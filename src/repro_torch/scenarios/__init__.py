@@ -8,7 +8,15 @@ from repro_torch.scenarios.events import (
     no_cap,
     power_cap_at,
 )
-from repro_torch.scenarios.scenario import Scenario, default_scenario
+from repro_torch.scenarios.scenario import (
+    Scenario,
+    carbon_trace,
+    default_scenario,
+    demand_response,
+    heatwave,
+    solar_heavy,
+    thermal_stress,
+)
 from repro_torch.scenarios.signals import (
     Signal,
     constant,

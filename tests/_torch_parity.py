@@ -69,10 +69,38 @@ def assert_tree_close(ref, got, tag: str, skip=()) -> None:
             assert_close(r, g, f"{tag}.{f}")
 
 
+def assert_state_close(ref, got, tag: str) -> None:
+    """Every ``SimState`` field, with ``work_left`` held as the work done
+    (``dur_est - work_left``) to ``RTOL``. With the thermal throttle on,
+    progress is a float that carries the last-bit differences of the two
+    packages' rack-heat sums; for a finished job ``work_left`` is the
+    small overshoot past zero, where a relative tolerance means nothing
+    (the reference holds its own kernel tail at ``atol=1e-5`` for the same
+    reason)."""
+    assert_tree_close(ref, got, tag, skip=("work_left",))
+    r = ref_numpy(ref)
+    np.testing.assert_allclose(
+        to_numpy(got.dur_est) - to_numpy(got.work_left),
+        np.asarray(r.dur_est) - np.asarray(r.work_left), rtol=RTOL,
+        atol=0.0, err_msg=f"{tag}.work done")
+
+
 def assert_summary_close(ref: dict, got: dict, tag: str) -> None:
     assert set(ref) == set(got), f"{tag}: keys differ"
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=0.0,
+                                   err_msg=f"{tag}:{k}")
+
+
+def assert_pins(got: dict, case: str, tag: str) -> None:
+    """A summary against ``configs.acceptance.PINNED[case]``: the
+    completion count exactly, the rest to the cases' ``RTOL``."""
+    from repro_torch.configs import acceptance
+
+    pins = acceptance.PINNED[case]
+    assert got["completed"] == pins["completed"], tag
+    for k, v in pins.items():
+        np.testing.assert_allclose(got[k], v, rtol=acceptance.RTOL,
                                    err_msg=f"{tag}:{k}")
 
 

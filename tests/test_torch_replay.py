@@ -5,10 +5,14 @@ the port against the reference run with its Pallas power-scatter kernel
 against the port's own CPU path."""
 
 import jax
-import numpy as np
 import pytest
 
-from _torch_parity import assert_summary_close, assert_tree_close, make_pair
+from _torch_parity import (
+    assert_pins,
+    assert_summary_close,
+    assert_tree_close,
+    make_pair,
+)
 
 import repro.configs.sim as rcfg
 import repro.core as R
@@ -39,13 +43,6 @@ def test_tx_gaia_slice_matches_reference_kernel_path(tx_pair, sel):
     assert_summary_close(R.summary(rf, rt), C.summary(pf, pt), sel)
 
 
-def _check_pins(got: dict, tag: str):
-    assert got["completed"] == acceptance.PINNED["completed"], tag
-    for k, v in acceptance.PINNED.items():
-        np.testing.assert_allclose(got[k], v, rtol=acceptance.RTOL,
-                                   err_msg=f"{tag}:{k}")
-
-
 def _acceptance_inputs(cfg_mod):
     cfg = cfg_mod.tx_gaia(max_jobs=256, max_nodes_per_job=16)
     assert cfg == acceptance.config() or cfg_mod is rcfg
@@ -61,7 +58,7 @@ def test_pinned_values_are_a_live_reference_run():
     fs, tel = jax.jit(lambda s: R.run_episode(
         cfg, st, s, acceptance.N_STEPS, acceptance.SCHEDULER,
         summary_only=True))(s)
-    _check_pins(R.summary(fs, tel), "reference")
+    assert_pins(R.summary(fs, tel), "replay_tx_gaia_1h", "reference")
 
 
 def test_port_cpu_path_reproduces_pinned_values():
@@ -70,4 +67,4 @@ def test_port_cpu_path_reproduces_pinned_values():
     s = C.load_jobs(C.init_state(cfg, st, acceptance.SEED), jobs)
     fs, tel = C.run_episode(cfg, st, s, acceptance.N_STEPS,
                             acceptance.SCHEDULER, summary_only=True)
-    _check_pins(C.summary(fs, tel), "port (CPU)")
+    assert_pins(C.summary(fs, tel), "replay_tx_gaia_1h", "port (CPU)")

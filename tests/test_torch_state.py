@@ -94,7 +94,8 @@ def test_interop_round_trips_and_continues_in_lockstep():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(thermal_enabled=True),
+    # thermals run now; with a fault flag beside them the step still raises
+    dict(thermal_enabled=True, rack_mtbf_hours=10.0),
     dict(node_mtbf_hours=10.0),
     dict(rack_mtbf_hours=10.0),
     dict(outages_enabled=True),
