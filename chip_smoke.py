@@ -11,7 +11,9 @@ and no result line:
              (one nvcc per source, all at once).
 3. kernel    each kernel against its plain PyTorch version on the card, at
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
-             table, nodes and racks), and timed (CUDA events, median).
+             table, nodes and racks; gemma3-1b's and qwen3-4b's prefill
+             attention), and timed (CUDA events, median) beside its bound
+             and, for attention, ``scaled_dot_product_attention``.
 4. main      ``replay_tx_gaia_1h`` through build_statics -> init_state ->
              load_jobs -> run_episode(summary_only) -> summary, the ticks
              under ``torch.cuda.set_sync_debug_mode("error")``; held to the
@@ -22,6 +24,13 @@ and no result line:
              launch per tick.
 6. determinism  the first 600 ticks of the main path and the first 900 of
              the thermal stress hour, each twice: every field bitwise equal.
+7. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
+             weights from ``seeded_numpy_params``): the f32 and the bf16
+             model held to the JAX package's pins (``check_lm``), 26
+             flash_attn launches per prefill and none per decode step, the
+             bf16 prefill/decode invariant, and ``generate`` at B = 4,
+             prompt 1024, 32 new tokens under sync-debug "error" (prefill
+             ms, decode ms per token, tokens/s: median of 5 runs).
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -42,6 +51,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 KERNEL_RTOL = 1e-5
 TIMING_REPS = 50               # timed batches (median over these)
 TIMING_BATCH = 20              # back-to-back calls per timed batch
@@ -50,6 +60,19 @@ DETERMINISM = (("replay_tx_gaia_1h", 600),
 THERMAL_CASES = ("replay_tx_gaia_1h_thermal",
                  "replay_tx_gaia_1h_thermal_stress")
 INF_CLOCKS = {"next_fail_t", "rack_fail_t", "srv_retry_t", "srv_wake_t"}
+# flash_attn at gemma3-1b's prefill (B 4, S 1024, H 4, Kv 1, hd 256) and
+# qwen3-4b's GQA (H 32, Kv 8, hd 128): (name, dtype, b, s, h, kv, hd,
+# causal, window, tolerance (atol = rtol))
+ATTN_CASES = (
+    ("gemma3-1b causal", "bfloat16", 4, 1024, 4, 1, 256, True, 0, 2e-2),
+    ("gemma3-1b window 512", "bfloat16", 4, 1024, 4, 1, 256, True, 512, 2e-2),
+    ("gemma3-1b causal f32", "float32", 4, 1024, 4, 1, 256, True, 0, 2e-5),
+    ("qwen3-4b causal", "bfloat16", 4, 1024, 32, 8, 128, True, 0, 2e-2),
+)
+ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
+ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 5
+SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
 
 
 def emit(phase: str, **kw) -> None:
@@ -64,22 +87,23 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn) -> float:
-    """Median per-call milliseconds of ``fn`` over TIMING_REPS batches of
-    TIMING_BATCH back-to-back calls, timed with CUDA events after warm-up."""
+def time_ms(torch, fn, reps: int = TIMING_REPS,
+            batch: int = TIMING_BATCH) -> float:
+    """Median per-call milliseconds of ``fn`` over ``reps`` batches of
+    ``batch`` back-to-back calls, timed with CUDA events after warm-up."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(TIMING_BATCH):
+        for _ in range(batch):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / TIMING_BATCH)
+        times.append(start.elapsed_time(end) / batch)
     times.sort()
     return times[len(times) // 2]
 
@@ -181,6 +205,179 @@ def check_kernel(torch, name, got, want, fn, plain, bound_ms, bound_by,
     return rec
 
 
+def attention_pairs(np, sq: int, sk: int, causal: bool, window: int) -> int:
+    """Query-key pairs the masks leave live (queries end where the keys
+    end), per (batch, head)."""
+    q_pos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(q_pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
+                    tol) -> dict:
+    """flash_attn against ``attention_torch`` on the card at one shape:
+    within ``tol`` (atol = rtol), two calls bitwise equal; timed beside
+    the plain version, the bound and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import flash_attn as pfa
+
+    rng = np.random.default_rng(hd + h)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device="cuda").to(dt)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    got = pfa.flash_attention(q, k, v, causal=causal, window=window)
+    again = pfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = pfa.attention_torch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attn {name}: two calls differ")
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"flash_attn {name}: {m}")
+    abs_err = float((got.float() - want.float()).abs().max())
+
+    # yardstick: one PyTorch call of the same function (never used by the
+    # port), on (B, H, S, hd) views of the same tensors
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window > 0:
+        pos = torch.arange(s, device="cuda")
+        dist = pos[:, None] - pos[None, :]
+        mask = (dist >= 0) & (dist < window)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
+            enable_gqa=True)
+
+    try:
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        library_ms = time_ms(torch, library, *ATTN_TIMING)
+    except RuntimeError as exc:   # no backend for this shape
+        lib_err, library_ms = repr(exc), None
+
+    elem = q.element_size()
+    in_out = elem * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    flops = 4 * b * h * hd * attention_pairs(np, s, s, causal, window)
+    peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = in_out / HBM_BYTES_PER_S, flops / peak
+    rec = dict(max_abs_err=abs_err,
+               ms=time_ms(torch, lambda: pfa.flash_attention(
+                   q, k, v, causal=causal, window=window), *ATTN_TIMING),
+               plain_ms=time_ms(torch, lambda: pfa.attention_torch(
+                   q, k, v, causal=causal, window=window), *ATTN_TIMING),
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=library_ms)
+    emit("kernel", name="flash_attn", case=name, dtype=dtype, batch=b, seq=s,
+         heads=h, kv_heads=kv, head_dim=hd, causal=causal, window=window,
+         tol=tol, gflop=flops / 1e9, library_max_abs_err=lib_err, **rec)
+    return rec
+
+
+def serve(torch, np) -> int:
+    """gemma3-1b at full width and depth on the card: the f32 and bf16
+    models held to the pins, the launch counts, the bf16 prefill/decode
+    invariant, and timed ``generate`` runs under sync-debug "error".
+    Returns the flash_attn launches of one prefill."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import seeded_numpy_params
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.train.serve_step import generate
+
+    t0 = time.perf_counter()
+    cfg = A.lm_config("float32")
+    tree = seeded_numpy_params(cfg, A.LM_SEED)
+    toks = torch.tensor(A.lm_tokens(cfg), device="cuda")
+    emit("serve", step="weights", params=cfg.param_count(),
+         seconds=time.perf_counter() - t0)
+    S, N = A.LM_PROMPT, A.LM_DECODE
+    per_prefill = None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        model = lm_params_from_numpy(tree, A.lm_config(dtype), "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        logits, cache = prefill(model, toks[:, :S], cache_seq_len=S + N)
+        torch.cuda.synchronize()
+        prefill_launches = kernels.LAUNCHES["flash_attn"]
+        out = [logits]
+        kernels.reset_launches()
+        for i in range(N):
+            logits, cache = decode_step(model, cache,
+                                        toks[:, S + i:S + i + 1], S + i)
+            out.append(logits)
+        torch.cuda.synchronize()
+        decode_launches = kernels.LAUNCHES["flash_attn"]
+        finite = all(bool(torch.isfinite(x).all()) for x in out)
+        report = A.check_lm(A.lm_summary([x.cpu().numpy() for x in out]),
+                            dtype)
+        emit("serve", step="pins", case=A.LM_CASE, load_s=load_s, flash_attn_per_prefill=prefill_launches,
+             flash_attn_per_decode_step=decode_launches / N, **report)
+        if not finite:
+            raise AssertionError(f"{A.LM_CASE} ({dtype}): non-finite logits")
+        if prefill_launches != cfg.n_layers or decode_launches != 0:
+            raise AssertionError(
+                f"{A.LM_CASE} ({dtype}): flash_attn launched "
+                f"{prefill_launches} times in a prefill and {decode_launches} "
+                f"in {N} decode steps (expected {cfg.n_layers} and 0)")
+        per_prefill = prefill_launches
+        if dtype == "float32":
+            del model, cache, out
+            torch.cuda.empty_cache()
+    del tree
+
+    # bf16: prefill S then decode token S against a prefill of S + 1
+    want, _ = prefill(model, toks[:, :S + 1], cache_seq_len=S + 1)
+    _, cache = prefill(model, toks[:, :S], cache_seq_len=S + 1)
+    got, _ = decode_step(model, cache, toks[:, S:S + 1], S)
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    emit("serve", step="prefill_decode_invariant", dtype="bfloat16",
+         max_abs_err=err, tol=SERVE_TOL, argmax_agree_share=agree)
+    torch.testing.assert_close(got, want, atol=SERVE_TOL, rtol=SERVE_TOL)
+
+    # generate at B = 4, prompt 1024, 32 new tokens, no host sync
+    prompt = torch.tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT),
+                                          dtype=np.int32), device="cuda")
+    walls, prefill_ms, decode_ms = [], [], []
+    for run in range(SERVE_RUNS + 1):     # the first run warms up
+        events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        toks_out = generate(model, prompt, SERVE_GEN, events=events)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if run == 0:
+            continue
+        walls.append(time.perf_counter() - t0)
+        prefill_ms.append(events[0].elapsed_time(events[1]))
+        decode_ms.append(events[1].elapsed_time(events[2]) / (SERVE_GEN - 1))
+    if toks_out.shape != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
+        raise AssertionError(f"generate gave {tuple(toks_out.shape)} tokens "
+                             "out of range")
+    tok_s = SERVE_BATCH * SERVE_GEN / np.asarray(walls)
+    q = lambda a: [float(v) for v in np.percentile(np.asarray(a),
+                                                   [50, 10, 90])]
+    emit("serve", step="generate", dtype="bfloat16", batch=SERVE_BATCH,
+         prompt=SERVE_PROMPT, new_tokens=SERVE_GEN, runs=SERVE_RUNS,
+         prefill_ms_median_p10_p90=q(prefill_ms),
+         decode_ms_per_token_median_p10_p90=q(decode_ms),
+         tokens_per_s_median_p10_p90=q(tok_s),
+         wall_s_median=float(np.median(walls)),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         sample=toks_out[0, :8].tolist())
+    return per_prefill
+
+
 def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
     """One hour of ``case`` on the card, the ticks under sync-debug
     "error": held to the pinned values, one power_scatter launch per tick
@@ -209,7 +406,8 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
          launches=launches, **{k: got[k] for k in pins}, pinned=pins)
     acceptance.check(case, got)
     want = {"power_scatter": acceptance.N_STEPS, "node_power": 0,
-            "rack_thermal": acceptance.N_STEPS if cfg.thermal_enabled else 0}
+            "rack_thermal": acceptance.N_STEPS if cfg.thermal_enabled else 0,
+            "flash_attn": 0}
     if launches != want:
         raise AssertionError(f"{case}: launches {launches}, expected {want}")
     for name, v in final._asdict().items():
@@ -238,15 +436,17 @@ def main() -> int:
     from repro_torch.kernels import rack_thermal as prt
 
     # 1. env
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()   # no TF32, f32 accumulation inside bf16 products
     card = card_line()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          nvidia_smi=card)
 
     # 2. build
-    kernel_names = ["power_scatter", "rack_thermal", "node_power"]
+    kernel_names = ["power_scatter", "rack_thermal", "node_power",
+                    "flash_attn"]
     secs = build.build(kernel_names)
     emit("build", seconds=secs,
          ptxas=[ln for name in kernel_names
@@ -294,6 +494,9 @@ def main() -> int:
             lambda: npw.node_chain(*a, **chain),
             *np_bound, replicas=n_rep, nodes=n_nodes)
 
+    for case in ATTN_CASES:
+        record["flash_attn", case[0]] = check_attention(torch, np, *case)
+
     # 4. main path: replay_tx_gaia_1h on the card
     launches = drive(torch, "replay_tx_gaia_1h", cfg, statics, jobs, "main")
 
@@ -323,19 +526,25 @@ def main() -> int:
         if differ:
             raise AssertionError(f"{case}: runs differ in {differ}")
 
+    # 7. serve: gemma3-1b at full width; the kernels line reports the
+    # flash_attn launches of one prefill
+    launches["flash_attn"] = serve(torch, np)
+
     sources = {
-        "power_scatter": "src/repro/kernels/node_power.py:145",
-        "rack_thermal": "src/repro/kernels/rack_thermal.py:47",
-        "node_power": "src/repro/kernels/node_power.py:45",
+        "power_scatter": ("src/repro/kernels/node_power.py:145", 1),
+        "rack_thermal": ("src/repro/kernels/rack_thermal.py:47", 1),
+        "node_power": ("src/repro/kernels/node_power.py:45", 1),
+        "flash_attn": ("src/repro/kernels/flash_attn.py:105", ATTN_REPORTED),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
-        **{k: record[name, 1][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by")},
-        "library_ms": None,
-    } for name, replaces in sources.items()]}), flush=True)
+        **{k: record[name, shape][k] for k in ("max_abs_err", "ms",
+                                               "plain_ms", "bound_ms",
+                                               "bound_by")},
+        "library_ms": record[name, shape].get("library_ms"),
+    } for name, (replaces, shape) in sources.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,27 @@
+"""Architecture and simulator configs.
+
+Importing this package registers the dense architectures the port serves
+into ``repro_torch.configs.base.ARCHS``; select one with ``--arch <id>``.
+"""
+
+from repro_torch.configs.base import (
+    ARCHS,
+    SHAPES,
+    ModelConfig,
+    MoEConfig,
+    ShapeConfig,
+    SSMConfig,
+    get_arch,
+    reduced,
+)
+
+# Register the dense architectures (one module per arch id).
+from repro_torch.configs import (  # noqa: F401  (import side effects)
+    gemma3_1b,
+    granite_3_8b,
+    internlm2_20b,
+    qwen3_4b,
+)
 from repro_torch.configs.sim import (
     NodeType,
     SimConfig,

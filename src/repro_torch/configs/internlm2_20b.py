@@ -1,0 +1,20 @@
+"""internlm2-20b [dense] — GQA kv=8. [arXiv:2403.17297; hf]"""
+
+from repro_torch.configs.base import ARCHS, ModelConfig
+
+
+@ARCHS.register("internlm2-20b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="internlm2-20b",
+        family="dense",
+        n_layers=48,
+        d_model=6144,
+        n_heads=48,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=16384,
+        vocab=92544,
+        rope_theta=1e6,
+        source="arXiv:2403.17297; hf",
+    )

@@ -1,4 +1,5 @@
-"""Carry a ``Statics`` / ``SimState`` of the JAX package across to the port.
+"""Carry a ``Statics`` / ``SimState`` or an LM's parameters of the JAX
+package across to the port.
 
 Each function takes the reference's structure as a name -> numpy array
 mapping (or a NamedTuple of numpy arrays, such as ``jax.device_get`` of
@@ -65,3 +66,28 @@ def state_from_numpy(arrays: Any, device=None) -> SimState:
     """The reference's ``SimState`` as the port's, on ``device``. ``key``
     must already be raw key words (uint32 words become int64)."""
     return _build(SimState, arrays, resolve_device(device))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):
+    """An LM's parameter tree in the JAX package's layout (``jax.device_get``
+    of its ``init_params``, or ``models.seeded_numpy_params``) as the port's
+    ``DecoderLM`` on ``device``, in ``cfg.dtype``. On the CPU the model
+    shares the memory of writable f32 arrays (no copy of the weights)."""
+    from repro_torch.models.model import DecoderLM
+
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a, dtype=np.float32)
+        if not (a.flags.writeable and a.flags.c_contiguous):
+            a = np.array(a, order="C")
+        return torch.from_numpy(a).to(dev)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return DecoderLM.from_tree(cfg, walk(tree))

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # --fmad=false: no a*b+c contraction, so the kernel rounds each product and
-# sum as the plain PyTorch version does, op by op
+# sum as the plain PyTorch version does, op by op (a kernel that wants a
+# fused multiply-add, as attention's dot products do, calls fmaf itself)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -103,17 +104,19 @@ def load(name: str):
     return _LOADED[name]
 
 
-def function(name: str, *, pointers: int, ints: int, floats: int):
-    """The C entry point ``<name>_launch`` of kernel ``name``, typed for
-    ``ctypes``: ``pointers`` device pointers, ``ints`` C ints, ``floats``
-    C floats, then the stream; it returns the launch's CUDA error code.
-    Typed once per process."""
-    if name not in _FUNCTIONS:
+def function(name: str, *, pointers: int, ints: int, floats: int,
+             entry: str | None = None):
+    """The C entry point ``<entry>_launch`` (``entry`` defaults to
+    ``name``) of kernel ``name``, typed for ``ctypes``: ``pointers``
+    device pointers, ``ints`` C ints, ``floats`` C floats, then the stream;
+    it returns the launch's CUDA error code. Typed once per process."""
+    entry = entry or name
+    if entry not in _FUNCTIONS:
         import ctypes
 
-        fn = getattr(load(name), f"{name}_launch")
+        fn = getattr(load(name), f"{entry}_launch")
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_float] * floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FUNCTIONS[name] = fn
-    return _FUNCTIONS[name]
+        _FUNCTIONS[entry] = fn
+    return _FUNCTIONS[entry]

@@ -1,0 +1,116 @@
+"""GQA attention forward with causal and sliding-window masks: the LM's
+prefill attention.
+
+- ``flash_attention``: the wrapper ``models.layers.attention`` calls. For
+  CPU tensors it runs the plain version; for CUDA tensors it launches the
+  hand-written kernel ``csrc/flash_attn.cu`` (which replaces the TPU kernel
+  ``flash_attention_fwd``) or raises. There is no fallback.
+- ``attention_torch``: the plain PyTorch version of the same function,
+  with materialised f32 scores.
+
+Layout is the JAX package's: q (B, Sq, H, hd), k and v (B, Sk, Kv, hd),
+output (B, Sq, H, hd) in q's dtype, f32 or bf16. Queries end where the keys
+end (``q_pos = i + Sk - Sq``); ``causal`` keeps ``q_pos - k_pos >= 0`` and
+``window > 0`` keeps ``q_pos - k_pos < window``. Scores, the softmax and
+P.V are f32, as in the Pallas kernel and ``kernels/ref.py::attention_ref``
+(``models/layers.py::attention_full`` casts the probabilities to v's dtype;
+this function does not).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+_ENTRY = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
+
+
+def scale_of(head_dim: int) -> float:
+    """The softmax scale ``1 / sqrt(hd)``, rounded to f32 by both paths."""
+    return 1.0 / math.sqrt(head_dim)
+
+
+def attention_torch(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: (B, Kv, rep, Sq, Sk) f32 scores, masked with
+    ``NEG_INF``, softmax, then P.V in f32."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    qg = q.float().reshape(b, sq, kv, rep, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale_of(hd)
+    if causal or window > 0:
+        q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+        dist = q_pos[:, None] - torch.arange(sk, device=q.device)[None, :]
+        live = torch.ones_like(dist, dtype=torch.bool)
+        if causal:
+            live &= dist >= 0
+        if window > 0:
+            live &= dist < window
+        logits = logits.masked_fill(~live, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _check(q, k, v, window: int) -> None:
+    """Raise on anything the kernel does not take."""
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must all be f32 or all "
+                        f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            "flash_attention: need q (B, Sq, H, hd) and k, v (B, Sk, Kv, hd), "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    kb, sk, kv, khd = k.shape
+    if kb != b or khd != hd or kv == 0 or h % kv != 0:
+        raise ValueError(
+            "flash_attention: batch and head_dim must match and H must be a "
+            f"multiple of Kv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if sq > sk:
+        raise ValueError(f"flash_attention: Sq ({sq}) must not exceed Sk "
+                         f"({sk})")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"flash_attention: window must be an int >= 0, got "
+                         f"{window!r}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if max(q.numel(), k.numel()) >= 2**31:
+        raise ValueError("flash_attention: tensors must hold < 2**31 values")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Attention of q over k, v. CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_torch(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    launch = build.function("flash_attn", pointers=4, ints=8, floats=1,
+                            entry=_ENTRY[q.dtype])
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     b, sq, sk, h, kv, hd, int(causal), window, scale_of(hd),
+                     stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attn kernel launch failed: CUDA error {err}")
+    kernels.LAUNCHES["flash_attn"] += 1
+    return out

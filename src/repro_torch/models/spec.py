@@ -1,0 +1,178 @@
+"""Single source of truth for parameter shapes (the JAX package's
+``models/spec.py``, for the kinds the port runs).
+
+``model_param_specs(cfg)`` returns the JAX package's parameter tree with a
+shape tuple at each leaf; the port's random init, its numpy weights for the
+tests, and the analytic parameter count all read it.
+
+Layer layout
+------------
+Layers are grouped into *superblocks* of ``period`` layers (the LCM of the
+block pattern length and the MoE period). Params of position ``p`` inside
+the superblock are stacked over the ``n_repeats`` superblocks (leading axis
+R); any remainder layers live unstacked under ``tail``. Layer ``r * period
++ p`` is ``body[p][name][r]``; layer ``R * period + j`` is ``tail[j]``.
+
+Every layer = attention mixer (``attn`` / ``attn_local``) + a dense gated
+MLP. The other mixers (cross, mamba, mlstm, slstm) and MoE FFNs raise
+``NotImplementedError`` naming the slice of the port that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_LOCAL,
+    CROSS,
+    MAMBA,
+    MLSTM,
+    SLSTM,
+    ModelConfig,
+)
+
+Shape = Tuple[int, ...]
+
+# mixer kinds and features of the JAX package the port does not run yet
+LATER_SLICE = {
+    CROSS: "the VLM cross-attention slice",
+    MAMBA: "the Mamba/hybrid slice",
+    MLSTM: "the xLSTM slice",
+    SLSTM: "the xLSTM slice",
+    "moe": "the MoE slice",
+    "enc_dec": "the encoder-decoder slice",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with {LATER_SLICE[what]}")
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def superblock_period(cfg: ModelConfig) -> int:
+    p = len(cfg.block_pattern) if cfg.block_pattern else 1
+    if cfg.moe.n_experts > 0:
+        p = _lcm(p, cfg.moe.period)
+    if cfg.cross_attn_period:
+        p = _lcm(p, cfg.cross_attn_period)
+    return p
+
+
+def layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, n_repeats, n_tail) of the decoder stack."""
+    period = superblock_period(cfg)
+    n_repeats = cfg.n_layers // period
+    n_tail = cfg.n_layers - n_repeats * period
+    return period, n_repeats, n_tail
+
+
+def layer_kind_at(cfg: ModelConfig, layer_idx: int) -> str:
+    kind = cfg.layer_kind(layer_idx)
+    if cfg.cross_attn_period and (layer_idx % cfg.cross_attn_period) == (
+        cfg.cross_attn_period - 1
+    ):
+        kind = CROSS
+    return kind
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    if cfg.enc_dec:
+        raise not_ported("enc_dec")
+    if cfg.moe.n_experts > 0:
+        raise not_ported("moe")
+    for i in range(cfg.n_layers):
+        kind = layer_kind_at(cfg, i)
+        if kind not in (ATTN, ATTN_LOCAL):
+            raise not_ported(kind)
+
+
+def mixer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Shape]:
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if kind not in (ATTN, ATTN_LOCAL):
+        raise not_ported(kind)
+    s: Dict[str, Shape] = {
+        "ln1": (D,),
+        "wq": (D, H * hd),
+        "wk": (D, Kv * hd),
+        "wv": (D, Kv * hd),
+        "wo": (H * hd, D),
+    }
+    if cfg.qk_norm:
+        s.update(qn=(hd,), kn=(hd,))
+    return s
+
+
+def mlp_gated(cfg: ModelConfig) -> bool:
+    return cfg.family != "audio"   # whisper uses plain GELU MLPs
+
+
+def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Shape]:
+    D, F = cfg.d_model, cfg.d_ff
+    if F == 0:
+        return {}
+    if is_moe:
+        raise not_ported("moe")
+    s: Dict[str, Shape] = {"ln2": (D,), "wi": (D, F), "wo2": (F, D)}
+    if mlp_gated(cfg):
+        s["wg"] = (D, F)
+    return s
+
+
+def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Shape]:
+    s = dict(mixer_specs(cfg, layer_kind_at(cfg, layer_idx)))
+    s.update(ffn_specs(cfg, cfg.is_moe_layer(layer_idx)))
+    return s
+
+
+def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX package's parameter tree, with shape tuples as leaves."""
+    check_ported(cfg)
+    period, n_repeats, n_tail = layout(cfg)
+    specs: Dict[str, Any] = {
+        "emb": (cfg.vocab, cfg.d_model),
+        "final_ln": (cfg.d_model,),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = (cfg.d_model, cfg.vocab)
+    specs["body"] = [
+        {k: (n_repeats,) + v for k, v in layer_specs(cfg, p).items()}
+        for p in range(period)
+    ] if n_repeats > 0 else []
+    specs["tail"] = [
+        layer_specs(cfg, n_repeats * period + j) for j in range(n_tail)
+    ]
+    return specs
+
+
+def leaves_with_names(specs: Dict[str, Any]):
+    """``(name, shape)`` of every leaf in the JAX package's flatten order
+    (dict keys sorted, lists in order); names are '/'-joined paths such as
+    ``body/0/wq``."""
+    out = []
+
+    def visit(path: str, node) -> None:
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(f"{path}/{k}" if path else k, node[k])
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                visit(f"{path}/{i}" if path else str(i), v)
+        else:
+            out.append((path, node))
+
+    visit("", specs)
+    return out
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact element count of ``model_param_specs`` (no MoE layers here, so
+    ``active_only`` changes nothing)."""
+    return sum(math.prod(shape)
+               for _, shape in leaves_with_names(model_param_specs(cfg)))

@@ -1,0 +1,98 @@
+"""Where serving's time goes on the card: prefill and decode under
+torch.profiler.
+
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_serve \
+        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--steps 8]
+
+Builds the arch at full width in its own dtype with random weights
+(``models.init_params`` on the card), then, for one prefill of
+``--batch`` prompts of ``--prompt-len`` tokens and for ``--steps``
+decode steps after it, times the work on the host clock around a
+synchronised run and once more under ``torch.profiler`` with CPU and CUDA
+activities. Prints one JSON line per phase: host ms, CUDA kernels, device
+time, the device's busy share, the flash_attn kernel's device time and
+launches, and the top CUDA kernels and host ops. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.tools.profile_tick import device_summary
+    from repro_torch.utils.device import exact_matmul
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=10)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_serve: needs a CUDA device", file=sys.stderr)
+        return 1
+
+    exact_matmul()
+    dev = torch.device("cuda")
+    cfg = get_arch(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = DecoderLM.from_tree(cfg, init_params(cfg, gen))
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    S, n = args.prompt_len, args.steps
+
+    def run_prefill():
+        return prefill(model, prompt, cache_seq_len=S + n)
+
+    def run_decode(state):
+        logits, cache = state
+        for i in range(n):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, cache = decode_step(model, cache, tok, S + i)
+        return logits, cache
+
+    phases = (("prefill", 1, lambda _: run_prefill()),
+              ("decode", n, run_decode))
+    for name, per, fn in phases:
+        state = run_prefill()
+        fn(state)                          # warm-up
+        torch.cuda.synchronize()
+        state = run_prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / per
+        state = run_prefill()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(state)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        print(json.dumps({
+            "arch": cfg.name, "dtype": cfg.dtype, "phase": name,
+            "batch": args.batch, "prompt_len": S, "per": per,
+            "device": torch.cuda.get_device_name(0), "host_ms": host_ms,
+            "host_ms_profiled": wall_us / 1e3 / per,
+            "flash_attn_launches": kernels.LAUNCHES["flash_attn"] / per,
+            **device_summary(prof, wall_us, per, args.top)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,41 @@ import sys
 import time
 
 
+def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
+    """What a ``torch.profiler`` run over ``per`` repetitions (ticks, decode
+    steps) spent on the card, per repetition: CUDA kernels, device time,
+    the device's busy share of the profiled wall time, the port's own
+    kernels' device time, and the top kernels and host ops."""
+    import torch
+
+    from repro_torch import kernels as port_kernels
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a device event's own time range is the kernel's time on the card
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    host_ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {
+        "cuda_kernels": len(kernels) / per,
+        # device time of the port's own kernels (csrc/<name>.cu)
+        "port_kernel_us": {
+            k: sum(tot for name, (tot, _) in by_name.items()
+                   if f"{k}_kernel" in name) / per
+            for k in port_kernels.LAUNCHES},
+        "device_busy_share": (dev_us / wall_us) if kernels else None,
+        "device_us": dev_us / per if kernels else None,
+        "top_kernels_us": [[name[:80], tot / per, n / per]
+                           for name, (tot, n) in top_dev],
+        "top_host_ops_us": [[a.key, a.self_cpu_time_total / per,
+                             a.count / per] for a in host_ops[:top]],
+    }
+
+
 def _advance(step, state, action, n):
     for _ in range(n):
         state, _ = step(state, action)
@@ -71,37 +106,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    # a device event's own time range is the kernel's time on the card
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
-    host_ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    summary = device_summary(prof, prof_wall_us, args.ticks, args.top)
     out = {
         "case": args.case, "start_tick": args.start,
         "ticks": args.ticks, "device": torch.cuda.get_device_name(0),
         "ms_per_tick": host_ms,
         "ms_per_tick_profiled": prof_wall_us / 1e3 / args.ticks,
-        "cuda_kernels_per_tick": len(kernels) / args.ticks,
         "port_kernel_launches_per_tick": {
             k: v / args.ticks for k, v in port_kernels.LAUNCHES.items()},
-        # device time of the port's own kernels (csrc/<name>.cu)
-        "port_kernel_us_per_tick": {
-            k: sum(tot for name, (tot, _) in by_name.items()
-                   if f"{k}_kernel" in name) / args.ticks
-            for k in port_kernels.LAUNCHES},
-        "device_busy_share": (dev_us / prof_wall_us) if kernels else None,
-        "device_us_per_tick": dev_us / args.ticks if kernels else None,
-        "top_kernels_us_per_tick": [
-            [name[:80], tot / args.ticks, n / args.ticks]
-            for name, (tot, n) in top_dev],
-        "top_host_ops_us_per_tick": [
-            [a.key, a.self_cpu_time_total / args.ticks, a.count / args.ticks]
-            for a in host_ops[:args.top]],
+        **{k if k == "device_busy_share" else f"{k}_per_tick": v
+           for k, v in summary.items()},
     }
     print(json.dumps(out), flush=True)
     return 0

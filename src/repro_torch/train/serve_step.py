@@ -1,0 +1,74 @@
+"""Serving steps (the JAX package's ``train/serve_step.py``): prefill the
+prompt into a cache, then decode one token per step, greedy by default.
+
+``generate`` runs the decode steps as a Python loop: ``cache_len`` is a
+Python int and the tokens stay on the device, so the loop never reads the
+device (it runs under ``torch.cuda.set_sync_debug_mode("error")``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+
+from repro_torch.models.model import DecoderLM, decode_step, prefill
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(B, V) f32 logits -> (B, 1) int32 tokens: argmax (the first of equal
+    maxima, as ``jnp.argmax``) or, with ``temperature > 0`` and a
+    generator, a draw from softmax(logits / temperature)."""
+    if temperature > 0.0 and generator is not None:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    return nxt.to(torch.int32)[:, None]
+
+
+def make_decode_step(model: DecoderLM, *, temperature: float = 0.0
+                     ) -> Callable:
+    """``step(cache, tokens, cache_len, generator=None) -> (next tokens
+    (B, 1) int32, logits (B, V) f32, cache)``."""
+    def step(cache, tokens, cache_len: int, generator=None):
+        logits, cache = decode_step(model, cache, tokens, cache_len)
+        return _sample(logits, temperature, generator), logits, cache
+
+    return step
+
+
+def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, *,
+             cache_seq_len: Optional[int] = None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             events: Optional[List] = None) -> torch.Tensor:
+    """Prefill ``prompt`` (B, S), then ``n_tokens - 1`` decode steps.
+    Returns the (B, n_tokens) int32 tokens on the prompt's device; the
+    first is the prefill's argmax, as in the JAX package.
+
+    ``temperature > 0`` with a ``torch.Generator`` samples the decode steps
+    with ``torch.multinomial``; its draws are not comparable with the JAX
+    package's ``jax.random.categorical``, only greedy decoding is held to
+    it. ``events``, if given, receives three CUDA events recorded at the
+    start, after the prefill and at the end (timing without a sync).
+    """
+    B, S = prompt.shape
+    cache_seq_len = cache_seq_len or (S + n_tokens)
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    logits, cache = prefill(model, prompt, cache_seq_len=cache_seq_len)
+    tok = _sample(logits, 0.0, None)
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    step = make_decode_step(model, temperature=temperature)
+    out = [tok]
+    for i in range(n_tokens - 1):
+        tok, _, cache = step(cache, tok, S + i, generator)
+        out.append(tok)
+    if events is not None:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    return torch.cat(out, dim=1)

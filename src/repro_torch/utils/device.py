@@ -23,6 +23,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
+def exact_matmul() -> None:
+    """Matrix products accumulate in full f32, as XLA's do: no TF32 for
+    f32 products or convolutions, no reduced-precision reductions inside
+    bf16 products."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def take(t: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``t`` at the 0-d integer index ``idx`` along ``dim``, with no sync."""
     return t.index_select(dim, idx.reshape(1).long()).squeeze(dim)

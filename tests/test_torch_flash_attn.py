@@ -1,0 +1,109 @@
+"""The flash-attention kernel's plain PyTorch version against the JAX
+package's oracle (``kernels/ref.py::attention_ref``) and its Pallas kernel
+(``kernels/ops.py::flash_attention``, interpret mode), on the CPU, over the
+JAX package's own sweep (``tests/test_kernels.py``): GQA, Sq < Sk,
+non-causal, sliding windows; f32 to 2e-5 and bf16 to 2e-2. Also the
+wrapper's checks and its CPU path. The kernel itself runs only on the
+card: ``tests/test_torch_kernels_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+
+from repro_torch import kernels
+from repro_torch.kernels import flash_attn as pfa
+from repro_torch.models import layers
+
+# (b, sq, sk, h, kv, hd, causal, window, block_q, block_k) as in the JAX
+# package's sweep; the blocks are the Pallas kernel's
+SWEEP = [
+    (2, 128, 128, 4, 2, 16, True, 0, 32, 64),
+    (1, 256, 256, 4, 4, 32, True, 64, 64, 64),
+    (2, 64, 128, 2, 1, 16, True, 0, 32, 32),
+    (1, 64, 64, 8, 8, 64, False, 0, 64, 64),
+    (1, 512, 512, 2, 2, 16, True, 128, 128, 128),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(b, sq, sk, h, kv, hd, seed=7):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window,bq,bk", SWEEP)
+def test_plain_version_matches_reference_and_pallas(b, sq, sk, h, kv, hd,
+                                                    causal, window, bq, bk,
+                                                    dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(b, sq, sk, h, kv, hd)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.tensor(a).to(tdt) for a in arrays)
+    want_ref = ref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    want_pallas = ops.flash_attention(jq, jk, jv, causal, window, bq, bk)
+    kernels.reset_launches()
+    got = pfa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert kernels.LAUNCHES["flash_attn"] == 0     # CPU: the plain version
+    assert got.dtype == tdt and got.shape == tq.shape
+    torch.testing.assert_close(
+        got, pfa.attention_torch(tq, tk, tv, causal=causal, window=window),
+        rtol=0.0, atol=0.0)
+    for want in (want_ref, want_pallas):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (100, 230, True, 37),     # ragged, queries end where the keys end
+    (70, 70, False, 20),      # a window without the causal mask
+    (1, 49, True, 16),        # one query
+])
+def test_plain_version_matches_reference_off_the_pallas_grid(sq, sk, causal,
+                                                             window):
+    """Shapes the Pallas kernel's block divisibility refuses; the port
+    takes any Sq <= Sk."""
+    arrays = _inputs(2, sq, sk, 4, 2, 16, seed=sq)
+    want = ref.attention_ref(*(jnp.asarray(a) for a in arrays),
+                             causal=causal, window=window)
+    got = layers.attention(*(torch.tensor(a) for a in arrays), causal=causal,
+                           window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def _qkv(dtype=torch.float32, b=1, sq=8, sk=8, h=4, kv=2, hd=16):
+    return (torch.zeros(b, sq, h, hd, dtype=dtype),
+            torch.zeros(b, sk, kv, hd, dtype=dtype),
+            torch.zeros(b, sk, kv, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: tuple(t.to(torch.float16) for t in _qkv()), TypeError),
+    (lambda: (_qkv()[0], *_qkv(torch.bfloat16)[1:]), TypeError),
+    (lambda: (_qkv()[0].to(torch.int32), *_qkv()[1:]), TypeError),
+    (lambda: _qkv(hd=24), ValueError),                  # no instantiation
+    (lambda: _qkv(h=3, kv=2), ValueError),              # H % Kv
+    (lambda: _qkv(sq=9, sk=8), ValueError),             # Sq > Sk
+    (lambda: (_qkv()[0], _qkv()[1], _qkv(sk=9)[2]), ValueError),
+    (lambda: (_qkv()[0][0], *_qkv()[1:]), ValueError),  # rank
+    (lambda: (_qkv(b=2)[0], *_qkv()[1:]), ValueError),  # batch
+    (lambda: (_qkv(sq=8, h=4, hd=16)[0].transpose(1, 2).contiguous()
+              .transpose(1, 2), *_qkv()[1:]), ValueError),  # not contiguous
+])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
+    with pytest.raises(err):
+        pfa.flash_attention(*bad(), causal=True, window=0)
+
+
+def test_wrapper_refuses_a_negative_window():
+    with pytest.raises(ValueError):
+        pfa.flash_attention(*_qkv(), causal=True, window=-1)

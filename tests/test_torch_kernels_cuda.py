@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import flash_attn as pfa
 from repro_torch.kernels import node_power as npw
 from repro_torch.kernels import rack_thermal as prt
 
@@ -102,6 +103,49 @@ def test_node_power_kernel_matches_plain_version(cuda_device, E):
         torch.testing.assert_close(g.cpu(), c, rtol=RTOL, atol=0.0)
 
 
+# (b, sq, sk, h, kv, hd, causal, window): the JAX package's kernel sweep
+# (tests/test_kernels.py), then gemma3-1b's prefill shapes (head_dim 256,
+# MQA; causal and causal + window 512; a ragged 1025-token prompt) and
+# qwen3-4b's GQA
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 16, True, 0),
+    (1, 256, 256, 4, 4, 32, True, 64),
+    (2, 64, 128, 2, 1, 16, True, 0),
+    (1, 64, 64, 8, 8, 64, False, 0),
+    (1, 512, 512, 2, 2, 16, True, 128),
+    (1, 100, 230, 4, 1, 16, True, 37),
+    (4, 1024, 1024, 4, 1, 256, True, 0),
+    (4, 1024, 1024, 4, 1, 256, True, 512),
+    (2, 1025, 1025, 4, 1, 256, True, 512),
+    (2, 1024, 1024, 32, 8, 128, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window", FLASH_CASES)
+def test_flash_attn_kernel_matches_plain_version(cuda_device, b, sq, sk, h,
+                                                 kv, hd, causal, window,
+                                                 dtype):
+    """The kernel against ``attention_torch`` on the card, at the JAX
+    package's tolerances (f32 2e-5, bf16 2e-2); two calls bitwise equal."""
+    rng = np.random.default_rng(sq + hd)
+    q, k, v = (torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=cuda_device).to(dtype)
+               for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                             (b, sk, kv, hd)))
+    before = kernels.LAUNCHES["flash_attn"]
+    got = pfa.flash_attention(q, k, v, causal=causal, window=window)
+    again = pfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attn"] == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = pfa.attention_torch(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def _card_vs_cpu(device, case, ticks):
     import repro_torch.core as C
     from repro_torch.configs import acceptance
@@ -143,7 +187,7 @@ def test_thermal_stress_on_the_card_matches_the_cpu_path(cuda_device):
         cuda_device, "replay_tx_gaia_1h_thermal_stress", 900)
     assert n_cpu == {k: 0 for k in n_cpu}
     assert n_gpu == {"power_scatter": 900, "rack_thermal": 900,
-                     "node_power": 0}
+                     "node_power": 0, "flash_attn": 0}
     assert float(gpu.thermal_throttle_s) == 320.0
     for f in cpu._fields:
         a, b = getattr(cpu, f), getattr(gpu, f).cpu()
