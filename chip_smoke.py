@@ -11,9 +11,11 @@ and no result line:
              (one nvcc per source, all at once).
 3. kernel    each kernel against its plain PyTorch version on the card, at
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
-             table, nodes and racks; gemma3-1b's and qwen3-4b's prefill
-             attention), and timed (CUDA events, median) beside its bound
-             and, for attention, ``scaled_dot_product_attention``.
+             table, nodes and racks; gemma3-1b's, qwen3-4b's and jamba's
+             prefill attention; jamba's selective scan at its 8-layer
+             prefill and at a ragged length), and timed (CUDA events,
+             median) beside its bound and, for attention,
+             ``scaled_dot_product_attention``.
 4. main      ``replay_tx_gaia_1h`` through build_statics -> init_state ->
              load_jobs -> run_episode(summary_only) -> summary, the ticks
              under ``torch.cuda.set_sync_debug_mode("error")``; held to the
@@ -31,6 +33,15 @@ and no result line:
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of 5 runs).
+8. serve_hybrid  the jamba hybrid without experts at full width:
+             ``serve_jamba_1l`` (one Mamba layer, f32) held to
+             ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
+             random weights from ``init_params`` on the card) in f32 and in
+             bf16: the prefill/decode invariant (f32 within 1e-4; in bf16
+             the decode step within twice the bf16 prefill's distance from
+             the f32 model's answer), 7 selective_scan and 1 flash_attn
+             launches per prefill and none per decode step; then
+             ``generate`` in bf16 as in ``serve``.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -68,11 +79,36 @@ ATTN_CASES = (
     ("gemma3-1b window 512", "bfloat16", 4, 1024, 4, 1, 256, True, 512, 2e-2),
     ("gemma3-1b causal f32", "float32", 4, 1024, 4, 1, 256, True, 0, 2e-5),
     ("qwen3-4b causal", "bfloat16", 4, 1024, 32, 8, 128, True, 0, 2e-2),
+    ("jamba causal", "bfloat16", 4, 1024, 64, 8, 128, True, 0, 2e-2),
 )
 ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
 ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 5
 SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
+# selective_scan at jamba's 8-layer prefill (Ba 4, S 1024, di 16384, ds 16)
+# and at a length no 256-step chunk divides: (name, ba, s, di, ds)
+SCAN_CASES = (("jamba prefill", 4, 1024, 16384, 16),
+              ("ragged", 2, 1025, 16384, 16))
+SCAN_TOL = 1e-5      # atol = rtol: the plain version runs the kernel's order
+SCAN_TIMING = (10, 5)        # kernel: timed batches, calls per batch
+SCAN_PLAIN_TIMING = (3, 1)   # plain version: ~20 small kernels per step
+# H100 SXM special-function units: 16 exponentials a clock on each of the
+# 132 SMs at the 1.98 GHz boost clock (CUDA programming guide, throughput
+# of arithmetic instructions, compute capability 9.0)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+SCAN_F32_OPS = 6     # f32 operations per (step, channel, state) besides exp
+# serve_jamba_8l's prefill/decode invariant: f32 within 1e-4 (atol =
+# rtol). In bf16 its logits are of order 1 (gemma3-1b's of order 0.05),
+# and bf16's rounding, carried through 8 random-weight layers, moves them
+# by several hundredths (the JAX package's own bf16 decode step parts from
+# its prefill by 0.13 at the reduced widths), past SERVE_TOL, which is
+# reported. So the bf16 decode step's logits are held to the f32 model's
+# longer prefill: within BF16_DECODE_FACTOR times the bf16 prefill's own
+# distance from it. At the reduced widths on the CPU, zeroing one layer's
+# conv cache moves the decode step 37x that distance off, its ssm state
+# 3.5x; subtler faults are the f32 invariant's to find.
+HYBRID_TOL = 1e-4
+BF16_DECODE_FACTOR = 2.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -276,6 +312,191 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
     return rec
 
 
+def check_scan(torch, np, name, ba, s, di, ds) -> dict:
+    """selective_scan against ``selective_scan_torch`` on the card at one
+    shape: within ``SCAN_TOL`` (atol = rtol), two calls bitwise equal;
+    timed beside the plain version and the bound. No single PyTorch call
+    computes a selective scan, so there is no library time."""
+    from repro_torch.kernels import selective_scan as pss
+
+    rng = np.random.default_rng(s + ds)
+    arrays = (rng.normal(size=(ba, s, di)).astype(np.float32),
+              rng.uniform(1e-3, 0.1, (ba, s, di)).astype(np.float32),
+              -np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32),
+                               (di, ds)).copy(),
+              rng.normal(size=(ba, s, ds)).astype(np.float32),
+              rng.normal(size=(ba, s, ds)).astype(np.float32))
+    a = tuple(torch.tensor(x, device="cuda") for x in arrays)
+    got = pss.selective_scan(*a)
+    again = pss.selective_scan(*a)
+    want = pss.selective_scan_torch(*a)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, r) for g, r in zip(got, again)):
+        raise AssertionError(f"selective_scan {name}: two calls differ")
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel_err = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+                  for g, w in zip(got, want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(
+            g, w, rtol=SCAN_TOL, atol=SCAN_TOL,
+            msg=lambda m, i=i: f"selective_scan {name}[{i}]: {m}")
+    steps = ba * s * di * ds
+    t_bytes = (nbytes(a) + nbytes(got)) / HBM_BYTES_PER_S
+    t_ops = max(steps / SFU_EXP_PER_S, SCAN_F32_OPS * steps / F32_FLOPS)
+    rec = dict(max_abs_err=abs_err,
+               ms=time_ms(torch, lambda: pss.selective_scan(*a),
+                          *SCAN_TIMING),
+               plain_ms=time_ms(torch, lambda: pss.selective_scan_torch(*a),
+                                *SCAN_PLAIN_TIMING),
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None)
+    emit("kernel", name="selective_scan", case=name, batch=ba, seq=s,
+         d_inner=di, d_state=ds, tol=SCAN_TOL, max_rel_err=rel_err,
+         bytes_ms=1e3 * t_bytes, exp_ms=1e3 * steps / SFU_EXP_PER_S,
+         **rec)
+    return rec
+
+
+def _counted(torch, fn):
+    """``fn()``, synchronised, and the kernel launches it made."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES)
+
+
+def serve_hybrid(torch, np) -> int:
+    """The jamba hybrid without experts at full width on the card:
+    ``serve_jamba_1l`` in f32 against ``PINNED_JAMBA``; ``serve_jamba_8l``
+    in f32 and bf16 (the prefill/decode invariant and the launch counts),
+    then timed ``generate`` runs in bf16 under sync-debug "error". Returns
+    the selective_scan launches of one 8-layer prefill."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import DecoderLM, init_params, seeded_numpy_params
+    from repro_torch.models.model import decode_step, prefill
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. serve_jamba_1l: one Mamba layer in f32 against the JAX package
+    t0 = time.perf_counter()
+    cfg = A.jamba_config(1, "float32")
+    tree = seeded_numpy_params(cfg, A.JAMBA_SEED)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = lm_params_from_numpy(tree, cfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del tree
+    S, N = A.JAMBA_PROMPT, A.JAMBA_DECODE
+    toks = torch.tensor(A.lm_tokens(cfg, A.JAMBA_BATCH, S, N), device="cuda")
+    (logits, cache), per_prefill = _counted(
+        torch, lambda: prefill(model, toks[:, :S], cache_seq_len=S + N))
+    out = [logits]
+
+    def decode_all(cache):
+        for i in range(N):
+            logits, cache = decode_step(model, cache,
+                                        toks[:, S + i:S + i + 1], S + i)
+            out.append(logits)
+
+    _, per_decode = _counted(torch, lambda: decode_all(cache))
+    report = A.check_lm(A.lm_summary([x.cpu().numpy() for x in out]),
+                        "float32", pins=A.PINNED_JAMBA, case=A.JAMBA_CASE)
+    emit("serve_hybrid", step="pins", case=A.JAMBA_CASE,
+         params=cfg.param_count(), weights_s=weights_s, load_s=load_s,
+         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
+         **report)
+    if not all(bool(torch.isfinite(x).all()) for x in out):
+        raise AssertionError(f"{A.JAMBA_CASE}: non-finite logits")
+    if (per_prefill["selective_scan"], per_prefill["flash_attn"]) != (1, 0) \
+            or per_decode["selective_scan"] or per_decode["flash_attn"]:
+        raise AssertionError(f"{A.JAMBA_CASE}: launches {per_prefill} per "
+                             f"prefill, {per_decode} in {N} decode steps")
+    del model, cache, out, logits
+    torch.cuda.empty_cache()
+
+    # 2. serve_jamba_8l: one whole 7:1 period, f32 masters made on the card
+    n_layers = A.JAMBA_PATH_LAYERS
+    cfg = A.jamba_config(n_layers, "float32")
+    n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
+    t0 = time.perf_counter()
+    tree = init_params(cfg, torch.Generator("cuda").manual_seed(A.JAMBA_SEED))
+    torch.cuda.synchronize()
+    emit("serve_hybrid", step="weights", case=A.JAMBA_PATH_CASE,
+         params=cfg.param_count(), seconds=time.perf_counter() - t0)
+    prompt = torch.tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT + 1),
+                                          dtype=np.int32), device="cuda")
+    per_prefill = None
+    truth = None     # the f32 model's logits of the longer prefill
+    for dtype in ("float32", "bfloat16"):
+        model = DecoderLM.from_tree(A.jamba_config(n_layers, dtype), tree)
+        S = SERVE_PROMPT
+        t0 = time.perf_counter()
+        want, _ = prefill(model, prompt, cache_seq_len=S + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        (_, cache), per_prefill = _counted(
+            torch, lambda: prefill(model, prompt[:, :S], cache_seq_len=S + 1))
+        (got, _), per_decode = _counted(
+            torch, lambda: decode_step(model, cache, prompt[:, S:S + 1], S))
+        err = float((got - want).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if dtype == "float32":
+            truth = want
+            limit = dict(tol=HYBRID_TOL)
+        else:
+            # the bf16 decode step against the f32 answer, beside the bf16
+            # prefill's own distance from it
+            prefill_off = float((want - truth).abs().max())
+            limit = dict(
+                decode_vs_f32_max_abs=float((got - truth).abs().max()),
+                prefill_vs_f32_max_abs=prefill_off,
+                limit=BF16_DECODE_FACTOR * prefill_off,
+                below_serve_tol=err <= SERVE_TOL, serve_tol=SERVE_TOL)
+        emit("serve_hybrid", step="prefill_decode_invariant",
+             case=A.JAMBA_PATH_CASE, dtype=dtype, batch=SERVE_BATCH,
+             prompt=S, max_abs_err=err, **limit, argmax_agree_share=agree,
+             prefill_s=prefill_s, launches_per_prefill=per_prefill,
+             launches_per_decode_step=per_decode)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{A.JAMBA_PATH_CASE} ({dtype}): "
+                                 "non-finite logits")
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
+                                       rtol=HYBRID_TOL)
+        elif not limit["decode_vs_f32_max_abs"] <= limit["limit"]:
+            raise AssertionError(
+                f"{A.JAMBA_PATH_CASE} (bf16): the decode step is "
+                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
+                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
+        if (per_prefill["selective_scan"], per_prefill["flash_attn"]) != (
+                n_mamba, n_layers - n_mamba) \
+                or per_decode["selective_scan"] or per_decode["flash_attn"]:
+            raise AssertionError(
+                f"{A.JAMBA_PATH_CASE} ({dtype}): launches {per_prefill} per "
+                f"prefill and {per_decode} per decode step (expected "
+                f"{n_mamba} selective_scan, {n_layers - n_mamba} flash_attn "
+                "and none)")
+        if dtype == "float32":
+            del model, cache, got
+            torch.cuda.empty_cache()
+    del tree
+
+    # generate in bf16 at B = 4, prompt 1024, 32 new tokens, no host sync
+    time_generate(torch, np, model, prompt[:, :SERVE_PROMPT].contiguous(),
+                  "serve_hybrid", case=A.JAMBA_PATH_CASE)
+    del model
+    torch.cuda.empty_cache()
+    return per_prefill["selective_scan"]
+
+
 def serve(torch, np) -> int:
     """gemma3-1b at full width and depth on the card: the f32 and bf16
     models held to the pins, the launch counts, the bf16 prefill/decode
@@ -286,7 +507,6 @@ def serve(torch, np) -> int:
     from repro_torch.interop import lm_params_from_numpy
     from repro_torch.models import seeded_numpy_params
     from repro_torch.models.model import decode_step, prefill
-    from repro_torch.train.serve_step import generate
 
     t0 = time.perf_counter()
     cfg = A.lm_config("float32")
@@ -346,6 +566,17 @@ def serve(torch, np) -> int:
         np.random.default_rng(2).integers(0, cfg.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT),
                                           dtype=np.int32), device="cuda")
+    time_generate(torch, np, model, prompt, "serve")
+    return per_prefill
+
+
+def time_generate(torch, np, model, prompt, phase: str, **labels) -> None:
+    """``generate`` of SERVE_GEN tokens after ``prompt`` (bf16), SERVE_RUNS
+    timed runs after a warm-up, each under sync-debug "error": prefill ms
+    and decode ms per token (CUDA events inside ``generate``), tokens/s
+    (host clock around a synchronised run), median and p10-p90."""
+    from repro_torch.train.serve_step import generate
+
     walls, prefill_ms, decode_ms = [], [], []
     for run in range(SERVE_RUNS + 1):     # the first run warms up
         events = []
@@ -360,22 +591,22 @@ def serve(torch, np) -> int:
         walls.append(time.perf_counter() - t0)
         prefill_ms.append(events[0].elapsed_time(events[1]))
         decode_ms.append(events[1].elapsed_time(events[2]) / (SERVE_GEN - 1))
-    if toks_out.shape != (SERVE_BATCH, SERVE_GEN) or not bool(
-            ((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
+    batch = prompt.shape[0]
+    if toks_out.shape != (batch, SERVE_GEN) or not bool(
+            ((toks_out >= 0) & (toks_out < model.cfg.vocab)).all()):
         raise AssertionError(f"generate gave {tuple(toks_out.shape)} tokens "
                              "out of range")
-    tok_s = SERVE_BATCH * SERVE_GEN / np.asarray(walls)
+    tok_s = batch * SERVE_GEN / np.asarray(walls)
     q = lambda a: [float(v) for v in np.percentile(np.asarray(a),
                                                    [50, 10, 90])]
-    emit("serve", step="generate", dtype="bfloat16", batch=SERVE_BATCH,
-         prompt=SERVE_PROMPT, new_tokens=SERVE_GEN, runs=SERVE_RUNS,
+    emit(phase, step="generate", **labels, dtype="bfloat16", batch=batch,
+         prompt=prompt.shape[1], new_tokens=SERVE_GEN, runs=SERVE_RUNS,
          prefill_ms_median_p10_p90=q(prefill_ms),
          decode_ms_per_token_median_p10_p90=q(decode_ms),
          tokens_per_s_median_p10_p90=q(tok_s),
          wall_s_median=float(np.median(walls)),
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          sample=toks_out[0, :8].tolist())
-    return per_prefill
 
 
 def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
@@ -407,7 +638,7 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
     acceptance.check(case, got)
     want = {"power_scatter": acceptance.N_STEPS, "node_power": 0,
             "rack_thermal": acceptance.N_STEPS if cfg.thermal_enabled else 0,
-            "flash_attn": 0}
+            "flash_attn": 0, "selective_scan": 0}
     if launches != want:
         raise AssertionError(f"{case}: launches {launches}, expected {want}")
     for name, v in final._asdict().items():
@@ -446,7 +677,7 @@ def main() -> int:
 
     # 2. build
     kernel_names = ["power_scatter", "rack_thermal", "node_power",
-                    "flash_attn"]
+                    "flash_attn", "selective_scan"]
     secs = build.build(kernel_names)
     emit("build", seconds=secs,
          ptxas=[ln for name in kernel_names
@@ -496,6 +727,8 @@ def main() -> int:
 
     for case in ATTN_CASES:
         record["flash_attn", case[0]] = check_attention(torch, np, *case)
+    for case in SCAN_CASES:
+        record["selective_scan", case[0]] = check_scan(torch, np, *case)
 
     # 4. main path: replay_tx_gaia_1h on the card
     launches = drive(torch, "replay_tx_gaia_1h", cfg, statics, jobs, "main")
@@ -530,11 +763,19 @@ def main() -> int:
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
+    # 8. serve_hybrid: the jamba hybrid at full width; the kernels line
+    # reports the selective_scan launches of one 8-layer prefill
+    t0 = time.perf_counter()
+    launches["selective_scan"] = serve_hybrid(torch, np)
+    emit("serve_hybrid", step="done", seconds=time.perf_counter() - t0)
+
     sources = {
         "power_scatter": ("src/repro/kernels/node_power.py:145", 1),
         "rack_thermal": ("src/repro/kernels/rack_thermal.py:47", 1),
         "node_power": ("src/repro/kernels/node_power.py:45", 1),
         "flash_attn": ("src/repro/kernels/flash_attn.py:105", ATTN_REPORTED),
+        "selective_scan": ("src/repro/kernels/mamba_scan.py:61",
+                           SCAN_CASES[0][0]),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

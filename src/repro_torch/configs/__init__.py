@@ -1,7 +1,8 @@
 """Architecture and simulator configs.
 
-Importing this package registers the dense architectures the port serves
-into ``repro_torch.configs.base.ARCHS``; select one with ``--arch <id>``.
+Importing this package registers the architectures the port serves (the
+dense ones and the jamba hybrid) into ``repro_torch.configs.base.ARCHS``;
+select one with ``--arch <id>``.
 """
 
 from repro_torch.configs.base import (
@@ -15,11 +16,12 @@ from repro_torch.configs.base import (
     reduced,
 )
 
-# Register the dense architectures (one module per arch id).
+# Register the architectures (one module per arch id).
 from repro_torch.configs import (  # noqa: F401  (import side effects)
     gemma3_1b,
     granite_3_8b,
     internlm2_20b,
+    jamba_1_5_large_398b,
     qwen3_4b,
 )
 from repro_torch.configs.sim import (

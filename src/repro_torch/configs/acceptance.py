@@ -1,6 +1,7 @@
 """The port's acceptance cases: one hour of trace replay on the full
-TX-GAIA twin (672 nodes, 21 racks), the JAX package's benches, and one
-LM serving case at full width (``serve_gemma3_1b``, at the end).
+TX-GAIA twin (672 nodes, 21 racks), the JAX package's benches, and the LM
+serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
+``serve_jamba_1l`` and ``serve_jamba_8l``, at the end).
 
 - ``replay_tx_gaia_1h``: thermals off (``benchmarks/bench_sim.py:44-60``).
 - ``replay_tx_gaia_1h_thermal``: the rack thermal twin on
@@ -25,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig, get_arch
+from repro_torch.configs.base import ModelConfig, MoEConfig, get_arch
 from repro_torch.configs.sim import SimConfig, tx_gaia
 from repro_torch.data.synth_trace import synth_workload
 
@@ -217,25 +218,26 @@ def lm_config(dtype: str = "float32") -> ModelConfig:
     return dataclasses.replace(get_arch(LM_ARCH), dtype=dtype)
 
 
-def lm_tokens(cfg: ModelConfig) -> np.ndarray:
-    """(B, S + LM_DECODE) int32 token ids: the prompt, then the ids the
+def lm_tokens(cfg: ModelConfig, batch: int = LM_BATCH,
+              prompt: int = LM_PROMPT, decode: int = LM_DECODE) -> np.ndarray:
+    """(B, S + decode) int32 token ids: the prompt, then the ids the
     decode steps feed."""
     rng = np.random.default_rng(LM_TOKEN_SEED)
-    return rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT + LM_DECODE),
+    return rng.integers(0, cfg.vocab, (batch, prompt + decode),
                         dtype=np.int32)
 
 
-def run_lm(model, tokens):
-    """The case on the port: prefill ``tokens[:, :S]`` into a cache of
-    S + LM_DECODE, then one decode step per fed id. Returns the
-    1 + LM_DECODE (B, V) f32 logits."""
+def run_lm(model, tokens, prompt: int = LM_PROMPT, decode: int = LM_DECODE):
+    """The case on the port: prefill ``tokens[:, :prompt]`` into a cache
+    of prompt + decode, then one decode step per fed id. Returns the
+    1 + decode (B, V) f32 logits."""
     from repro_torch.models.model import decode_step, prefill
 
-    logits, cache = prefill(model, tokens[:, :LM_PROMPT],
-                            cache_seq_len=LM_PROMPT + LM_DECODE)
+    logits, cache = prefill(model, tokens[:, :prompt],
+                            cache_seq_len=prompt + decode)
     out = [logits]
-    for i in range(LM_DECODE):
-        pos = LM_PROMPT + i
+    for i in range(decode):
+        pos = prompt + i
         logits, cache = decode_step(model, cache, tokens[:, pos:pos + 1], pos)
         out.append(logits)
     return out
@@ -259,11 +261,13 @@ def lm_summary(logits) -> dict:
     }
 
 
-def check_lm(got: dict, dtype: str, pins: dict | None = None) -> dict:
-    """Hold ``lm_summary`` of a run in ``dtype`` to the pins: the top-1
-    value, the logsumexp and the leading logits within ``tol + tol *
-    |pin|``; in f32 also the margins, and every argmax id equal. Raises on
-    a miss; returns the largest errors and how many argmax ids agree."""
+def check_lm(got: dict, dtype: str, pins: dict | None = None,
+             case: str = LM_CASE) -> dict:
+    """Hold ``lm_summary`` of a run in ``dtype`` to the pins of ``case``
+    (``PINNED_LM`` by default): the top-1 value, the logsumexp and the
+    leading logits within ``tol + tol * |pin|``; in f32 also the margins,
+    and every argmax id equal. Raises on a miss; returns the largest
+    errors and how many argmax ids agree."""
     pins = pins or PINNED_LM
     tol = {"float32": LM_F32_TOL, "bfloat16": LM_BF16_TOL}[dtype]
     keys = ["top1", "logsumexp", "head"]
@@ -276,12 +280,137 @@ def check_lm(got: dict, dtype: str, pins: dict | None = None) -> dict:
         report[f"max_abs_err_{k}"] = float(err.max())
         if not np.all(err <= tol + tol * np.abs(w)):
             raise AssertionError(
-                f"{LM_CASE} ({dtype}): {k} off the pins by up to "
+                f"{case} ({dtype}): {k} off the pins by up to "
                 f"{err.max():.3g} (tol {tol})")
     same = np.asarray(got["argmax"]) == np.asarray(pins["argmax"])
     report["argmax_agree"] = int(same.sum())
     report["argmax_total"] = int(same.size)
     if dtype == "float32" and not same.all():
-        raise AssertionError(f"{LM_CASE} (f32): argmax ids differ from the "
+        raise AssertionError(f"{case} (f32): argmax ids differ from the "
                              f"pins at {np.argwhere(~same).tolist()}")
     return report
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the jamba hybrid (jamba-1.5-large-398b, arXiv:2403.19887) at
+# full width without its experts: d_model 8192, 64 query heads over 8 KV
+# heads of 128, d_ff 24576, vocab 65536, d_inner 16384, d_state 16, d_conv
+# 4, dt_rank 512; per 8 layers 7 Mamba mixers and one attention layer (at
+# position 3), each with the dense gated MLP. ``jamba_config`` lists the
+# cuts.
+#
+# - ``serve_jamba_1l`` (correctness, f32): one layer, the pattern's first
+#   (a Mamba mixer + the MLP; 2,098,077,696 parameters, 8.4 GB), weights
+#   from ``models.seeded_numpy_params(cfg, JAMBA_SEED)``; B = 2 prompts of
+#   640 ids (2.5 of the JAX package's 256-step scan chunks: the carried
+#   state and a ragged last chunk), then JAMBA_DECODE teacher-forced decode
+#   steps. ``PINNED_JAMBA`` holds what the JAX package gives for it on the
+#   CPU (jax 0.9.0, ``ShardCtx(enabled=False)``), in ``lm_summary``'s form;
+#   ``check_lm(..., pins=PINNED_JAMBA, case=JAMBA_CASE)`` holds a run to
+#   them. ``tests/test_torch_lm_pins.py`` re-derives them.
+# - ``serve_jamba_8l`` (the path): eight layers, one whole 7:1 period
+#   (8,999,034,880 parameters: 36.0 GB of f32 masters, 18.0 GB more for the
+#   bf16 copies), weights from the port's ``init_params`` on the card.
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_CASE = "serve_jamba_1l"
+JAMBA_PATH_CASE = "serve_jamba_8l"
+JAMBA_SEED = 0
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_DECODE = 2, 640, 8
+JAMBA_PATH_LAYERS = 8
+
+
+def jamba_config(n_layers: int, dtype: str = "float32") -> ModelConfig:
+    """jamba-1.5-large-398b as the port serves it. Cut from the JAX
+    package's config: the experts (16, top-2, on every second layer) become
+    the dense gated MLP of d_ff 24576 on every layer (``MoEConfig()``; the
+    experts come with the MoE slice), and 72 layers become ``n_layers`` (1
+    or 8 here: 16 layers of f32 masters and bf16 copies would not fit on an
+    80 GB card). Every width is kept."""
+    return dataclasses.replace(get_arch(JAMBA_ARCH), moe=MoEConfig(),
+                               n_layers=n_layers, dtype=dtype)
+
+
+PINNED_JAMBA = {
+    "argmax": [
+        [6169, 1664],
+        [9423, 14279],
+        [30804, 24935],
+        [17775, 5980],
+        [40949, 29627],
+        [34539, 2818],
+        [34351, 2744],
+        [49543, 64177],
+        [47788, 1314],
+    ],
+    "top1": [
+        [4.26663, 4.004552],
+        [4.313971, 4.137798],
+        [4.86158, 4.4081583],
+        [4.050841, 4.0174265],
+        [4.7239604, 4.330844],
+        [3.9554791, 4.0812635],
+        [4.2800274, 4.848716],
+        [4.5665817, 3.977894],
+        [4.125366, 4.3677573],
+    ],
+    "margin": [
+        [0.044883728, 0.08437371],
+        [0.14649391, 0.07010889],
+        [0.62314653, 0.31644154],
+        [0.052912474, 0.07705879],
+        [0.35744238, 0.4615929],
+        [0.26742172, 0.13928485],
+        [0.5080457, 0.6415725],
+        [0.47680426, 0.2843945],
+        [0.009070396, 0.12563229],
+    ],
+    "logsumexp": [
+        [11.594459117495877, 11.584887817570692],
+        [11.587633404206631, 11.586332516444873],
+        [11.592753720694796, 11.592056082589277],
+        [11.594529502942022, 11.589943471303755],
+        [11.589613995359507, 11.584681951580887],
+        [11.593039908721398, 11.586396719281742],
+        [11.594426989545315, 11.599211989206568],
+        [11.583752332872471, 11.589534641273474],
+        [11.591181723388935, 11.59577622863796],
+    ],
+    "head": [
+        [[0.0817264, -0.35211003, 0.635935, 0.8664484,
+          1.0162818, 0.43057883, 0.24072886, -1.7679887],
+         [-0.26660788, 1.092166, -1.2304416, 1.8111213,
+          -1.3632638, -0.9346876, -1.4413837, 0.6792925]],
+        [[0.04469548, 0.91833425, -0.020644277, 0.48844755,
+          0.86563575, 0.39050645, -2.0817142, -0.018901039],
+         [1.618506, -0.26093176, 0.2516619, 0.74933255,
+          -1.1518176, -0.91874075, 0.42181808, -0.7737146]],
+        [[0.68887854, -0.8613727, -1.72057, -1.6259968,
+          -0.49318868, -1.1485087, -0.029513977, 0.23372434],
+         [-0.15281923, 0.6988482, -0.111050606, 1.0338627,
+          1.8752282, -0.3216526, -0.5558152, -1.6755627]],
+        [[-0.48146337, 0.80798423, -1.7016534, 0.2099821,
+          -0.78266746, 1.920819, 2.4883657, 0.31472078],
+         [-0.078014016, -1.0893685, -0.63491285, -1.7761304,
+          0.11694802, -0.66514254, 0.072054446, 0.8201549]],
+        [[0.18427956, -0.8236083, -0.5973642, -1.5327412,
+          -1.1012139, 1.2691613, 1.2901788, 1.4178624],
+         [0.104516, -0.6681217, 1.3065315, 1.0089612,
+          -0.82871276, 0.7232224, 1.1564684, 0.11401411]],
+        [[1.2973205, -1.2428178, 0.5726751, 0.33562186,
+          -0.64264095, 0.54941845, -0.2494053, -0.111297876],
+         [0.8355464, 1.0573403, -1.8426775, -0.70718604,
+          0.36842513, 0.43562812, 1.7699851, 0.78844666]],
+        [[0.028212717, -0.20451023, -0.67776304, 1.2666166,
+          -0.37048873, -0.013444811, 1.6659143, -0.40289617],
+         [-0.83483094, 1.2301255, 0.4311179, 0.054315507,
+          1.1685724, 0.60264343, -0.46326095, 0.41428027]],
+        [[-0.763685, -0.9356588, 1.1465094, -1.1462969,
+          -0.03198898, -2.4039068, 0.44922674, -0.14201684],
+         [1.1865574, 0.5259769, 1.580555, -0.5041403,
+          -0.45831692, -0.5059694, 0.76897234, -0.040527984]],
+        [[0.03003712, -0.51256895, -0.47901925, -0.9542707,
+          -0.48987547, -0.104789436, 1.0377724, -1.3557949],
+         [0.6841691, -1.5831501, 0.824024, -0.2982995,
+          0.19363382, 0.59195757, 0.9863852, 0.19702941]],
+    ],
+}

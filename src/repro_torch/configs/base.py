@@ -5,8 +5,10 @@ config in both packages.
 Every architecture file of the port (``src/repro_torch/configs/<id>.py``)
 builds a :class:`ModelConfig`; the four input shapes are :data:`SHAPES`.
 ``reduced()`` derives the CPU-smoke-test variant of any config (same block
-structure, tiny widths). The port registers the dense archs only; the
-others raise ``NotImplementedError`` from ``get_arch`` naming their slice.
+structure, tiny widths). The port registers the dense archs and the jamba
+hybrid (whose experts the MoE slice brings: ``models.spec.check_ported``
+refuses its MoE layers); the others raise ``NotImplementedError`` from
+``get_arch`` naming their slice.
 """
 
 from __future__ import annotations
@@ -193,7 +195,6 @@ ARCHS: Registry[ModelConfig] = Registry("arch")
 # Archs of the JAX package whose layers the port does not run yet, with the
 # slice of the port that brings each (ROADMAP.md, "Modules still to port").
 NOT_YET_PORTED = {
-    "jamba-1.5-large-398b": "the Mamba/hybrid slice (selective_scan kernel)",
     "mixtral-8x22b": "the MoE slice",
     "grok-1-314b": "the MoE slice",
     "xlstm-125m": "the xLSTM slice",
@@ -210,6 +211,6 @@ def get_arch(name: str) -> ModelConfig:
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet: it comes with "
-            f"{NOT_YET_PORTED[name]}; the port serves the dense archs "
+            f"{NOT_YET_PORTED[name]}; the port serves the archs "
             f"{', '.join(ARCHS.names())}")
     return ARCHS.get(name)()

@@ -7,7 +7,8 @@ show that the main path went through the kernel.
 """
 
 LAUNCHES: dict[str, int] = {"power_scatter": 0, "rack_thermal": 0,
-                             "node_power": 0, "flash_attn": 0}
+                             "node_power": 0, "flash_attn": 0,
+                             "selective_scan": 0}
 
 
 def reset_launches() -> None:

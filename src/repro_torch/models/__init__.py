@@ -1,5 +1,5 @@
-"""The dense LMs of the port (the JAX package's ``repro.models``, for the
-``attn`` / ``attn_local`` layers with a dense gated MLP)."""
+"""The LMs of the port (the JAX package's ``repro.models``, for the
+``attn`` / ``attn_local`` and ``mamba`` layers with a dense gated MLP)."""
 
 from repro_torch.models.init import init_params, seeded_numpy_params
 from repro_torch.models.model import (

@@ -1,12 +1,13 @@
-"""Per-layer block application of the dense LMs (the JAX package's
-``models/blocks.py``): self-attention (global or sliding-window) + the
-dense gated MLP, for the parallel (prefill) and the one-token (decode)
-paths.
+"""Per-layer block application of the LMs (the JAX package's
+``models/blocks.py``): a mixer (self-attention, global or sliding-window,
+or the Mamba mixer) + the dense gated MLP, for the parallel (prefill) and
+the one-token (decode) paths.
 
 ``w`` is a layer's weights by the JAX package's leaf names, matrices in the
 compute dtype and norm scales in f32 (``model.DecoderLayer.weights``).
 ``rope`` is the ``(cos, sin)`` pair of ``layers.rope_cos_sin`` for the
-positions in flight, computed once per forward and shared by the layers.
+positions in flight, computed once per forward and shared by the
+attention layers.
 Other mixer kinds raise ``NotImplementedError`` naming the slice of the
 port that brings them (as do MoE configs, in ``spec.check_ported``).
 """
@@ -17,7 +18,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, ModelConfig
 from repro_torch.models import spec as S
 from repro_torch.models.layers import (
     apply_rope,
@@ -26,6 +27,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     rms_norm,
 )
+from repro_torch.models.mamba import mamba_apply, mamba_decode
 
 Weights = Mapping[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -78,11 +80,16 @@ def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig
 def block_parallel(w: Weights, x: torch.Tensor, kind: str, cfg: ModelConfig,
                    *, rope: Rope, return_kv: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One transformer layer. Returns (x, kv or None)."""
-    if kind not in (ATTN, ATTN_LOCAL):
+    """One layer. Returns (x, its cache state or None): ``{"k", "v"}``
+    (B, S, Kv, hd) of an attention layer, ``{"conv", "ssm"}`` of a Mamba
+    layer."""
+    if kind in (ATTN, ATTN_LOCAL):
+        o, kv = self_attention_parallel(w, x, cfg, rope=rope,
+                                        window=layer_window(cfg, kind))
+    elif kind == MAMBA:
+        o, kv = mamba_apply(w, x, cfg, return_state=True)
+    else:
         raise S.not_ported(kind)
-    o, kv = self_attention_parallel(w, x, cfg, rope=rope,
-                                    window=layer_window(cfg, kind))
     x = ffn_parallel(w, x + o, cfg)
     return x, (kv if return_kv else None)
 
@@ -116,8 +123,11 @@ def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cache_len: int, kind: str, cfg: ModelConfig, *,
                  rope: Rope) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if kind not in (ATTN, ATTN_LOCAL):
+    if kind in (ATTN, ATTN_LOCAL):
+        o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
+                               window=layer_window(cfg, kind))
+    elif kind == MAMBA:
+        o, cache = mamba_decode(w, x, cache, cfg)
+    else:
         raise S.not_ported(kind)
-    o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
-                           window=layer_window(cfg, kind))
     return ffn_parallel(w, x + o, cfg), cache

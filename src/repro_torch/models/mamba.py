@@ -1,0 +1,117 @@
+"""The Mamba (selective state-space) mixer (the JAX package's
+``models/mamba.py``).
+
+Parallel (prefill) path: ``mamba_apply``, whose scan goes through the
+``selective_scan`` kernel wrapper (the kernel on the card, its plain
+version on the CPU). Decode path: ``mamba_decode``, the O(1) recurrent
+update of the (conv, ssm) cache, plain PyTorch as it is jnp in the JAX
+package; its causal conv is an einsum over (conv cache, x), as there.
+
+Casts follow the JAX package: the projections and the causal conv run in
+the compute dtype (``w`` holds them already cast, with ``A_log`` kept f32,
+``model.DecoderLayer.weights``), the scan's inputs are cast to f32 and its
+output back, and the cache is f32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.selective_scan import (
+    selective_scan,
+    selective_scan_step,
+)
+from repro_torch.models import spec as S
+from repro_torch.models.layers import rms_norm
+
+Weights = Mapping[str, torch.Tensor]
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along the sequence, tap by tap in x's dtype.
+    x: (B, S, di); w: (dc, di); b: (di,); ``init`` (B, dc - 1, di) are the
+    steps before x (zeros when None)."""
+    dc = w.shape[0]
+    if init is None:
+        pad = torch.zeros(x.shape[0], dc - 1, x.shape[2], dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = init.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(dc):
+        out = out + xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def _dt_b_c(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
+    """(softplus'd step sizes (..., di), B (..., ds), C (..., ds)) from the
+    conv's output, in its dtype."""
+    dr, ds = S.dt_rank(cfg), cfg.ssm.d_state
+    proj = xc @ w["x_proj"]
+    dt_low, Bc, Cc = torch.split(proj, [dr, ds, ds], dim=-1)
+    dtv = F.softplus(dt_low @ w["dt_w"] + w["dt_b"])
+    return dtv, Bc, Cc
+
+
+def mamba_apply(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
+                return_state: bool = False):
+    """x: (B, S, D) -> (B, S, D), and with ``return_state`` the layer's
+    decode cache ``{"conv": (B, dc - 1, di), "ssm": (B, di, ds)}``, f32."""
+    dt_ = x.dtype
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    xz = h @ w["in_proj"]                                   # (B, S, 2di)
+    xb_raw, z = torch.chunk(xz, 2, dim=-1)
+    xb = F.silu(_causal_conv(xb_raw, w["conv_w"], w["conv_b"]))
+    dtv, Bc, Cc = _dt_b_c(w, xb, cfg)
+    A = -torch.exp(w["A_log"].float())                      # (di, ds)
+    y, final = selective_scan(
+        xb.float().contiguous(), dtv.float().contiguous(), A.contiguous(),
+        Bc.float().contiguous(), Cc.float().contiguous())
+    y = y.to(dt_) + xb * w["D_skip"]
+    y = y * F.silu(z)
+    out = y @ w["out_proj"]
+    if not return_state:
+        return out
+    dc = cfg.ssm.d_conv
+    conv = xb_raw[:, -(dc - 1):].float()
+    if conv.shape[1] < dc - 1:   # a prompt shorter than the conv's history
+        conv = F.pad(conv, (0, 0, dc - 1 - conv.shape[1], 0))
+    return out, {"conv": conv.contiguous(), "ssm": final}
+
+
+def mamba_cache_spec(cfg: ModelConfig, batch: int
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{"conv", "ssm"}`` -> (shape, dtype) of a Mamba layer's cache."""
+    di = S.d_inner(cfg)
+    return {"conv": ((batch, cfg.ssm.d_conv - 1, di), torch.float32),
+            "ssm": ((batch, di, cfg.ssm.d_state), torch.float32)}
+
+
+def mamba_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, D). Advances ``cache`` (``conv`` and ``ssm``) by one token
+    in place (the JAX package returns updated copies) and returns (out
+    (B, 1, D), cache)."""
+    dt_ = x.dtype
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    xz = h @ w["in_proj"]
+    xb, z = torch.chunk(xz, 2, dim=-1)                      # (B, 1, di)
+    conv_in = torch.cat([cache["conv"].to(dt_), xb], dim=1)  # (B, dc, di)
+    xc = torch.einsum("bcd,cd->bd", conv_in, w["conv_w"]) + w["conv_b"]
+    xc = F.silu(xc)                                         # (B, di)
+    dtv, Bc, Cc = _dt_b_c(w, xc, cfg)
+    A = -torch.exp(w["A_log"].float())
+    y, ssm = selective_scan_step(cache["ssm"], xc.float(), dtv.float(), A,
+                                 Bc.float(), Cc.float())
+    y = y.to(dt_) + xc * w["D_skip"]
+    out = (y[:, None, :] * F.silu(z)) @ w["out_proj"]
+    cache["conv"].copy_(conv_in[:, 1:])
+    cache["ssm"].copy_(ssm)
+    return out, cache

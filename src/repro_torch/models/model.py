@@ -1,18 +1,19 @@
-"""Model assembly of the dense LMs (the JAX package's ``models/model.py``):
+"""Model assembly of the LMs (the JAX package's ``models/model.py``):
 embedding -> decoder layers -> final norm -> head, with prefill and
-one-token decode over explicit KV caches.
+one-token decode over explicit caches.
 
 ``DecoderLM`` holds the f32 master weights: the embedding, the final norm,
 the untied head if any, and a ``ModuleList`` of ``DecoderLayer`` in layer
 order. The JAX package casts each master to ``cfg.dtype`` at every use; the
-port makes those copies of the matrices once, at load, which gives the same
-values (norm scales stay f32, as ``rms_norm`` reads them in f32).
+port makes those copies once, at load, which gives the same values (norm
+scales and ``A_log`` stay f32, as the JAX package reads them in f32).
 
-The cache is a list with one ``{"k", "v"}`` entry per layer, each
-(B, S_c, Kv, hd) in the compute dtype; a sliding-window layer keeps
-``min(cache_seq_len, window)`` slots as a ring (absolute position P in slot
-P % S_c). ``cache_len`` is a Python int everywhere, so prefill and decode
-never read the device.
+The cache is a list with one entry per layer. An attention layer's is
+``{"k", "v"}``, each (B, S_c, Kv, hd) in the compute dtype; a
+sliding-window layer keeps ``min(cache_seq_len, window)`` slots as a ring
+(absolute position P in slot P % S_c). A Mamba layer's is ``{"conv"
+(B, d_conv - 1, di), "ssm" (B, di, d_state)}`` in f32. ``cache_len`` is a
+Python int everywhere, so prefill and decode never read the device.
 """
 
 from __future__ import annotations
@@ -22,11 +23,14 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models import spec as S
 from repro_torch.models.blocks import block_decode, block_parallel, layer_window
 from repro_torch.models.init import NORMS
 from repro_torch.models.layers import rms_norm, rope_cos_sin
+from repro_torch.models.mamba import mamba_cache_spec
+
+F32_LEAVES = NORMS + ("A_log",)   # read in f32 by the JAX package
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -49,11 +53,12 @@ class DecoderLayer(nn.Module):
         self._weights: Optional[Dict[str, torch.Tensor]] = None
 
     def weights(self) -> Dict[str, torch.Tensor]:
-        """Norm scales as the f32 masters; matrices in the compute dtype
-        (the masters themselves when that is f32), made at first call."""
+        """Norm scales and ``A_log`` as the f32 masters; every other leaf
+        in the compute dtype (the masters themselves when that is f32),
+        made at first call."""
         if self._weights is None:
             self._weights = {
-                name: p if name in NORMS else p.to(self.dtype)
+                name: p if name in F32_LEAVES else p.to(self.dtype)
                 for name, p in self.named_parameters()}
         return self._weights
 
@@ -63,7 +68,7 @@ class DecoderLayer(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """A dense decoder-only LM, built from the JAX package's parameter tree
+    """A decoder-only LM, built from the JAX package's parameter tree
     (``from_tree``)."""
 
     def __init__(self, cfg: ModelConfig, tree: Mapping[str, Any]):
@@ -141,8 +146,11 @@ def _attn_cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
 def layer_cache_spec(cfg: ModelConfig, layer_idx: int, batch: int,
                      seq_len: int, dtype: torch.dtype
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """``{"k", "v"}`` -> (shape, dtype) of one layer's decode cache."""
+    """Name -> (shape, dtype) of one layer's decode cache: ``{"k", "v"}``
+    of an attention layer, ``{"conv", "ssm"}`` of a Mamba layer."""
     kind = S.layer_kind_at(cfg, layer_idx)
+    if kind == MAMBA:
+        return mamba_cache_spec(cfg, batch)
     sc = _attn_cache_len(cfg, kind, seq_len)
     shape = (batch, sc, cfg.n_kv_heads, cfg.hd)
     return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -158,11 +166,16 @@ def init_cache(model: DecoderLM, batch: int, seq_len: int) -> Cache:
 def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
                     cfg: ModelConfig, batch: int, cache_seq_len: int,
                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """A layer's decode-cache entry from its prefill k, v (B, S, Kv, hd)."""
+    """A layer's decode-cache entry from its prefill state: k, v
+    (B, S, Kv, hd) into their slots, or the Mamba layer's final conv and
+    ssm states as they are."""
     out = {}
     for name, (shape, dt) in layer_cache_spec(cfg, layer_idx, batch,
                                               cache_seq_len, dtype).items():
         src = kv[name].to(dt)
+        if name not in ("k", "v"):
+            out[name] = src
+            continue
         sc, full = shape[1], src.shape[1]
         if full >= sc:
             # ring-buffer layout: absolute position P lives in slot P % sc

@@ -13,8 +13,8 @@ the superblock are stacked over the ``n_repeats`` superblocks (leading axis
 R); any remainder layers live unstacked under ``tail``. Layer ``r * period
 + p`` is ``body[p][name][r]``; layer ``R * period + j`` is ``tail[j]``.
 
-Every layer = attention mixer (``attn`` / ``attn_local``) + a dense gated
-MLP. The other mixers (cross, mamba, mlstm, slstm) and MoE FFNs raise
+Every layer = mixer (``attn`` / ``attn_local`` / ``mamba``) + a dense
+gated MLP. The other mixers (cross, mlstm, slstm) and MoE FFNs raise
 ``NotImplementedError`` naming the slice of the port that brings them.
 """
 
@@ -38,7 +38,6 @@ Shape = Tuple[int, ...]
 # mixer kinds and features of the JAX package the port does not run yet
 LATER_SLICE = {
     CROSS: "the VLM cross-attention slice",
-    MAMBA: "the Mamba/hybrid slice",
     MLSTM: "the xLSTM slice",
     SLSTM: "the xLSTM slice",
     "moe": "the MoE slice",
@@ -72,6 +71,14 @@ def layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return period, n_repeats, n_tail
 
 
+def dt_rank(cfg: ModelConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
 def layer_kind_at(cfg: ModelConfig, layer_idx: int) -> str:
     kind = cfg.layer_kind(layer_idx)
     if cfg.cross_attn_period and (layer_idx % cfg.cross_attn_period) == (
@@ -89,23 +96,34 @@ def check_ported(cfg: ModelConfig) -> None:
         raise not_ported("moe")
     for i in range(cfg.n_layers):
         kind = layer_kind_at(cfg, i)
-        if kind not in (ATTN, ATTN_LOCAL):
+        if kind not in (ATTN, ATTN_LOCAL, MAMBA):
             raise not_ported(kind)
 
 
 def mixer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Shape]:
     D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if kind not in (ATTN, ATTN_LOCAL):
+    s: Dict[str, Shape] = {"ln1": (D,)}
+    if kind in (ATTN, ATTN_LOCAL):
+        s.update(wq=(D, H * hd), wk=(D, Kv * hd), wv=(D, Kv * hd),
+                 wo=(H * hd, D))
+        if cfg.qk_norm:
+            s.update(qn=(hd,), kn=(hd,))
+    elif kind == MAMBA:
+        di, ds, dc, dr = (d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv,
+                          dt_rank(cfg))
+        s.update(
+            in_proj=(D, 2 * di),
+            conv_w=(dc, di),
+            conv_b=(di,),
+            x_proj=(di, dr + 2 * ds),
+            dt_w=(dr, di),
+            dt_b=(di,),
+            A_log=(di, ds),
+            D_skip=(di,),
+            out_proj=(di, D),
+        )
+    else:
         raise not_ported(kind)
-    s: Dict[str, Shape] = {
-        "ln1": (D,),
-        "wq": (D, H * hd),
-        "wk": (D, Kv * hd),
-        "wv": (D, Kv * hd),
-        "wo": (H * hd, D),
-    }
-    if cfg.qk_norm:
-        s.update(qn=(hd,), kn=(hd,))
     return s
 
 

@@ -2,16 +2,20 @@
 torch.profiler.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_serve \
-        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--steps 8]
+        [--arch gemma3-1b | --case serve_jamba_8l] [--batch 4] \
+        [--prompt-len 1024] [--steps 8]
 
-Builds the arch at full width in its own dtype with random weights
-(``models.init_params`` on the card), then, for one prefill of
+Builds the arch at full width in its own dtype (or the jamba hybrid of an
+acceptance case, ``configs.acceptance.jamba_config``: no experts, 1 or 8
+layers, bf16) with random weights (``models.init_params`` on the card),
+then, for one prefill of
 ``--batch`` prompts of ``--prompt-len`` tokens and for ``--steps``
 decode steps after it, times the work on the host clock around a
 synchronised run and once more under ``torch.profiler`` with CPU and CUDA
 activities. Prints one JSON line per phase: host ms, CUDA kernels, device
-time, the device's busy share, the flash_attn kernel's device time and
-launches, and the top CUDA kernels and host ops. Needs a CUDA device.
+time, the device's busy share, the launches of each hand-written kernel
+(flash_attn, selective_scan), and the top CUDA kernels and host ops.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import acceptance, get_arch
     from repro_torch.models import DecoderLM, init_params
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.tools.profile_tick import device_summary
@@ -35,6 +39,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--case", choices=(acceptance.JAMBA_CASE,
+                                       acceptance.JAMBA_PATH_CASE),
+                    help="the jamba hybrid of this serving case, in bf16 "
+                         "(instead of --arch)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=8)
@@ -46,7 +54,12 @@ def main(argv=None) -> int:
 
     exact_matmul()
     dev = torch.device("cuda")
-    cfg = get_arch(args.arch)
+    if args.case:
+        n_layers = (1 if args.case == acceptance.JAMBA_CASE
+                    else acceptance.JAMBA_PATH_LAYERS)
+        cfg = acceptance.jamba_config(n_layers, "bfloat16")
+    else:
+        cfg = get_arch(args.arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = DecoderLM.from_tree(cfg, init_params(cfg, gen))
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
@@ -85,11 +98,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         print(json.dumps({
-            "arch": cfg.name, "dtype": cfg.dtype, "phase": name,
+            "arch": cfg.name, "case": args.case, "layers": cfg.n_layers,
+            "dtype": cfg.dtype, "phase": name,
             "batch": args.batch, "prompt_len": S, "per": per,
             "device": torch.cuda.get_device_name(0), "host_ms": host_ms,
             "host_ms_profiled": wall_us / 1e3 / per,
             "flash_attn_launches": kernels.LAUNCHES["flash_attn"] / per,
+            "selective_scan_launches":
+                kernels.LAUNCHES["selective_scan"] / per,
             **device_summary(prof, wall_us, per, args.top)}), flush=True)
     return 0
 

@@ -14,6 +14,7 @@ from repro_torch import kernels
 from repro_torch.kernels import flash_attn as pfa
 from repro_torch.kernels import node_power as npw
 from repro_torch.kernels import rack_thermal as prt
+from repro_torch.kernels import selective_scan as pss
 
 RTOL = 1e-5
 CHAIN = dict(rect_peak=0.965, rect_load=0.55, rect_curv=0.12, conv_eff=0.975)
@@ -146,6 +147,71 @@ def test_flash_attn_kernel_matches_plain_version(cuda_device, b, sq, sk, h,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (ba, s, di, ds): the JAX package's sweep (tests/test_kernels.py), one
+# step, lengths that no 256-step chunk divides, channels that no 128-thread
+# block divides, and jamba's prefill widths (di 16384, ds 16)
+SCAN_CASES = [
+    (2, 64, 128, 8),
+    (1, 128, 512, 16),
+    (3, 32, 256, 4),
+    (2, 1, 16384, 16),
+    (2, 300, 200, 16),
+    (1, 257, 96, 32),
+    (4, 1024, 16384, 16),
+    (2, 1025, 16384, 16),
+]
+
+
+def _scan_inputs(device, ba, s, di, ds, seed=11):
+    """x normal, dt in the init's softplus range [1e-3, 0.1], A the
+    model's -(1..ds) per channel, B and C normal; f32."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(ba, s, di)).astype(np.float32),
+              rng.uniform(1e-3, 0.1, (ba, s, di)).astype(np.float32),
+              -np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32),
+                               (di, ds)).copy(),
+              rng.normal(size=(ba, s, ds)).astype(np.float32),
+              rng.normal(size=(ba, s, ds)).astype(np.float32))
+    return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ba,s,di,ds", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain_version(cuda_device, ba, s, di,
+                                                     ds):
+    """The kernel against ``selective_scan_torch`` on the card (the same
+    order of operations: atol = rtol = 1e-5 on outputs of order 1), two
+    calls bitwise equal, one launch each."""
+    t = _scan_inputs(cuda_device, ba, s, di, ds)
+    before = kernels.LAUNCHES["selective_scan"]
+    got = pss.selective_scan(*t)
+    again = pss.selective_scan(*t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == before + 2
+    assert got[0].shape == (ba, s, di) and got[1].shape == (ba, di, ds)
+    want = pss.selective_scan_torch(*t)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.cuda
+def test_selective_scan_wrapper_raises_on_bad_inputs(cuda_device):
+    x, dt, A, B, C = _scan_inputs(cuda_device, 2, 8, 64, 16)
+    before = kernels.LAUNCHES["selective_scan"]
+    for bad, err in (
+            ((x.double(), dt, A, B, C), TypeError),
+            ((x, dt, A[:, :6].contiguous(), B[..., :6].contiguous(),
+              C[..., :6].contiguous()), ValueError),          # d_state 6
+            ((x, dt.transpose(0, 1).contiguous().transpose(0, 1), A, B, C),
+             ValueError),                                     # strides
+            ((x, dt, A, B.cpu(), C), ValueError),             # devices
+            ((x[:, :0], dt[:, :0], A, B[:, :0], C[:, :0]), ValueError)):
+        with pytest.raises(err):
+            pss.selective_scan(*bad)
+    assert kernels.LAUNCHES["selective_scan"] == before
+
+
 def _card_vs_cpu(device, case, ticks):
     import repro_torch.core as C
     from repro_torch.configs import acceptance
@@ -187,7 +253,7 @@ def test_thermal_stress_on_the_card_matches_the_cpu_path(cuda_device):
         cuda_device, "replay_tx_gaia_1h_thermal_stress", 900)
     assert n_cpu == {k: 0 for k in n_cpu}
     assert n_gpu == {"power_scatter": 900, "rack_thermal": 900,
-                     "node_power": 0, "flash_attn": 0}
+                     "node_power": 0, "flash_attn": 0, "selective_scan": 0}
     assert float(gpu.thermal_throttle_s) == 320.0
     for f in cpu._fields:
         a, b = getattr(cpu, f), getattr(gpu, f).cpu()

@@ -1,12 +1,16 @@
-"""The port's dense LMs against the JAX package's, on the CPU.
+"""The port's LMs against the JAX package's, on the CPU.
 
-Reduced configs (same block structure, narrow widths) of the dense archs;
-the weights are the JAX package's ``init_params``, carried across with
+Reduced configs (same block structure, narrow widths) of the dense archs
+and of the jamba hybrid without its experts (7 Mamba layers and one
+attention layer; the experts come with the MoE slice); the weights are the JAX package's ``init_params``, carried across with
 ``interop.lm_params_from_numpy``. The JAX side runs its serving path with
 ``attention_impl="pallas"`` (the flash-attention kernel in interpret
-mode); the port's runs the kernel's plain version, as it does on the CPU.
-Floats agree to ``rtol=1e-5`` (with ``atol=1e-5`` for values near zero:
-logits and the qk-normed caches are of order 1), tokens exactly.
+mode; the Mamba layers run its jnp scan, ``kernels/ref.py::
+selective_scan_ref``); the port's runs the kernels' plain versions, as it
+does on the CPU. Floats agree to ``rtol=1e-5`` (with ``atol=1e-5`` for
+values near zero: logits and the qk-normed caches are of order 1; the
+hybrid's logits are off the JAX package's by up to 6e-6, since its scan
+sums in chunks and the port's step by step), tokens exactly.
 """
 
 import dataclasses
@@ -19,6 +23,7 @@ import torch
 
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import reduced as jax_reduced
+from repro.configs.base import MoEConfig as JaxMoEConfig
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models.model import decode_step as jax_decode_step
@@ -27,7 +32,7 @@ from repro.sharding.ctx import ShardCtx
 from repro.train.serve_step import generate as jax_generate
 
 from repro_torch import kernels
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import MoEConfig, get_arch, reduced
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.models import (
     DecoderLM,
@@ -42,7 +47,9 @@ from repro_torch.train.serve_step import generate
 
 CTX = ShardCtx(enabled=False, attention_impl="pallas")
 RTOL, ATOL = 1e-5, 1e-5
+JAMBA = "jamba-1.5-large-398b"
 DENSE = ["gemma3-1b", "qwen3-4b", "granite-3-8b", "internlm2-20b"]
+NO_EXPERTS = {"moe": "none"}   # the hybrid's layers with the dense MLP
 # (arch, overrides): gemma's window 16 makes the ring and the window bind
 # at S = 48; its default window (512) leaves them unbound
 CASES = [
@@ -51,14 +58,22 @@ CASES = [
     ("qwen3-4b", {}),
     ("granite-3-8b", {}),
     ("internlm2-20b", {}),
+    (JAMBA, NO_EXPERTS),
 ]
-IDS = [a + ("-swa16" if o else "") for a, o in CASES]
+IDS = [a + ("-swa16" if "swa_window" in o else "")
+       + ("-no-experts" if "moe" in o else "") for a, o in CASES]
 B, S = 2, 48
 
 
-def _configs(arch, overrides):
-    jcfg = jax_reduced(jax_get_arch(arch))
-    tcfg = reduced(get_arch(arch))
+def _configs(arch, overrides, reduce=True):
+    jcfg = jax_get_arch(arch)
+    tcfg = get_arch(arch)
+    if reduce:
+        jcfg, tcfg = jax_reduced(jcfg), reduced(tcfg)
+    overrides = dict(overrides)
+    if overrides.pop("moe", None):
+        jcfg = dataclasses.replace(jcfg, moe=JaxMoEConfig())
+        tcfg = dataclasses.replace(tcfg, moe=MoEConfig())
     if overrides:
         jcfg = dataclasses.replace(jcfg, **overrides)
         tcfg = dataclasses.replace(tcfg, **overrides)
@@ -77,7 +92,7 @@ def case(request):
 
 
 def _layer_caches(jax_cache, cfg):
-    """The JAX package's stacked cache as one {'k', 'v'} per layer."""
+    """The JAX package's stacked cache as one entry per layer."""
     period, R, n_tail = layout(cfg)
     out = []
     for i in range(cfg.n_layers):
@@ -99,18 +114,19 @@ def _check_caches(port_cache, jax_cache, cfg):
     want = _layer_caches(jax_cache, cfg)
     assert len(port_cache) == len(want) == cfg.n_layers
     for i, (p, j) in enumerate(zip(port_cache, want)):
-        for name in ("k", "v"):
+        assert sorted(p) == sorted(j), i       # k, v or conv, ssm
+        for name in j:
             assert tuple(p[name].shape) == j[name].shape, (i, name)
             _close(p[name].numpy(), j[name], f"layer {i} {name}")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [JAMBA])
 def test_reduced_configs_and_param_specs_match(arch):
+    """Both packages' configs (full and reduced; jamba without its
+    experts), parameter trees and counts."""
     for full in (True, False):
-        jcfg = jax_get_arch(arch)
-        tcfg = get_arch(arch)
-        if not full:
-            jcfg, tcfg = jax_reduced(jcfg), reduced(tcfg)
+        jcfg, tcfg = _configs(arch, NO_EXPERTS if arch == JAMBA else {},
+                              reduce=not full)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
         want = jax.tree.map(lambda s: tuple(s.shape), jax_param_specs(jcfg))
         assert model_param_specs(tcfg) == want
@@ -132,6 +148,23 @@ def test_repeat_kv_matches():
 
 def test_gemma3_1b_parameter_count():
     assert count_params_analytic(get_arch("gemma3-1b")) == 999_826_048
+
+
+@pytest.mark.parametrize("n_layers,count", [(1, 2_098_077_696),
+                                            (8, 8_999_034_880)])
+def test_jamba_without_experts_parameter_counts(n_layers, count):
+    """The serving cases' full-width jamba (``acceptance.jamba_config``):
+    one layer (a Mamba mixer + the dense MLP) and one whole 7:1 period."""
+    from repro.models.spec import count_params_analytic as jax_count
+
+    from repro_torch.configs import acceptance
+
+    jcfg, tcfg = _configs(JAMBA, NO_EXPERTS, reduce=False)
+    jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+    cfg = acceptance.jamba_config(n_layers, "float32")
+    assert cfg == dataclasses.replace(tcfg, n_layers=n_layers,
+                                      dtype="float32")
+    assert count_params_analytic(cfg) == jax_count(jcfg) == count
 
 
 def test_model_holds_the_reference_weights(case):
@@ -158,6 +191,7 @@ def test_prefill_logits_and_caches_match(case):
     got_logits, got_cache = prefill(model, torch.tensor(toks[:, :S]),
                                     cache_seq_len=cache_len)
     assert kernels.LAUNCHES["flash_attn"] == 0    # the CPU path
+    assert kernels.LAUNCHES["selective_scan"] == 0
     assert got_logits.dtype == torch.float32
     _close(got_logits.numpy(), want_logits, "prefill logits")
     _check_caches(got_cache, want_cache, tcfg)
@@ -202,25 +236,94 @@ def test_prefill_then_decode_matches_longer_prefill(case):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-20b"])
+def test_hybrid_decodes_after_a_prompt_shorter_than_the_conv():
+    """A 2-token prompt leaves fewer steps than the conv's 3 of history:
+    the port's conv cache holds them after zeros, and the decode step
+    continues the prefill (the JAX package keeps a 2-step conv cache
+    there, and its decode step then fails on the einsum's shapes)."""
+    _, cfg = _configs(JAMBA, NO_EXPERTS)
+    model = DecoderLM.from_tree(
+        cfg, init_params(cfg, torch.Generator().manual_seed(1), "cpu"))
+    toks = torch.tensor([[5, 9, 2], [7, 1, 3]], dtype=torch.int32)
+    want, _ = prefill(model, toks, cache_seq_len=3)
+    _, cache = prefill(model, toks[:, :2], cache_seq_len=3)
+    assert cache[0]["conv"].shape == (2, cfg.ssm.d_conv - 1,
+                                      cfg.ssm.expand * cfg.d_model)
+    assert not cache[0]["conv"][:, 0].any()
+    got, _ = decode_step(model, cache, toks[:, 2:], 2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_decode_bound_catches_a_wrong_cache():
+    """``chip_smoke.py`` holds the hybrid's bf16 decode step within twice
+    the bf16 prefill's distance from the f32 model's logits (bf16 rounding
+    moves both by about the same). On the reduced hybrid the decode step
+    meets that bound, and a zeroed conv or ssm state in one layer does not
+    (37x and 3.5x the bf16 prefill's distance)."""
+    _, cfg = _configs(JAMBA, NO_EXPERTS)
+    tree = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    m32 = DecoderLM.from_tree(cfg, tree)
+    m16 = DecoderLM.from_tree(dataclasses.replace(cfg, dtype="bfloat16"),
+                              tree)
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, 41), dtype=np.int32))
+    truth, _ = prefill(m32, toks, cache_seq_len=41)
+    bound = 2.0 * float((prefill(m16, toks, cache_seq_len=41)[0]
+                         - truth).abs().max())
+
+    def off(spoil):
+        _, cache = prefill(m16, toks[:, :40], cache_seq_len=41)
+        spoil(cache)
+        got, _ = decode_step(m16, cache, toks[:, 40:], 40)
+        return float((got - truth).abs().max())
+
+    assert off(lambda c: None) <= bound
+    assert off(lambda c: c[0]["conv"].zero_()) > bound
+    assert off(lambda c: c[0]["ssm"].zero_()) > bound
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-20b", JAMBA])
 def test_seeded_numpy_params_follow_the_documented_leaf_order(arch):
     """The JAX package's tree, drawn leaf by leaf in ``jax.tree.leaves``
-    order from one generator: norms ones, the rest normal / sqrt(fan_in)."""
-    jcfg, tcfg = _configs(arch, {})
+    order from one generator: norms ones, the rest normal / sqrt(fan_in);
+    in the hybrid's Mamba layers ``A_log``, ``D_skip`` and ``conv_b`` draw
+    nothing and ``dt_b`` is the inverse softplus of one uniform draw. Those
+    four follow the JAX package's ``init_params`` rules."""
+    jcfg, tcfg = _configs(arch, NO_EXPERTS if arch == JAMBA else {})
     tree = seeded_numpy_params(tcfg, 3)
     specs = jax_param_specs(jcfg)
     assert jax.tree.structure(tree) == jax.tree.structure(specs)
     rng = np.random.default_rng(3)
+    jax_tree = jax.device_get(jax_init_params(jcfg, jax.random.key(3)))
+    jax_leaves = dict(
+        (jax.tree_util.keystr(p), v)
+        for p, v in jax.tree_util.tree_leaves_with_path(jax_tree))
+    n_mamba = 0
     for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
         name = jax.tree_util.keystr(path)
+        base = name.split("'")[-2]
         assert leaf.dtype == np.float32
-        if name.split("'")[-2] in ("ln1", "ln2", "final_ln", "qn", "kn"):
+        if base in ("ln1", "ln2", "final_ln", "qn", "kn"):
             np.testing.assert_array_equal(leaf, 1.0)
+            continue
+        if base in ("A_log", "D_skip", "conv_b"):
+            n_mamba += 1
+            np.testing.assert_array_equal(leaf, jax_leaves[name], name)
+            continue
+        if base == "dt_b":
+            n_mamba += 1
+            u = rng.uniform(1e-3, 1e-1, leaf.shape).astype(np.float32)
+            np.testing.assert_array_equal(leaf, u + np.log(-np.expm1(-u)))
+            for b in (leaf, jax_leaves[name]):   # softplus(dt_b) = u
+                dt = np.log1p(np.exp(b.astype(np.float64)))
+                assert 1e-3 * (1 - 1e-5) <= dt.min() <= dt.max() \
+                    <= 1e-1 * (1 + 1e-5)
             continue
         fan_in = leaf.shape[-2] if leaf.ndim >= 2 else leaf.shape[-1]
         want = rng.standard_normal(leaf.shape, dtype=np.float32)
         want /= np.float32(np.sqrt(fan_in))
         np.testing.assert_array_equal(leaf, want, err_msg=name)
+    assert n_mamba == (4 * 7 if arch == JAMBA else 0)
 
 
 def test_init_params_follow_the_reference_rules():
@@ -241,6 +344,29 @@ def test_init_params_follow_the_reference_rules():
     assert bool(torch.isfinite(logits).all())
 
 
+def test_init_params_follow_the_mamba_rules():
+    """The port's torch init of the hybrid's Mamba leaves, by the JAX
+    package's rules: ``A_log`` = log(1..d_state), ``D_skip`` ones,
+    ``conv_b`` zeros, ``softplus(dt_b)`` uniform in [1e-3, 1e-1]."""
+    _, cfg = _configs(JAMBA, NO_EXPERTS)
+    tree = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    layer = tree["body"][0]                        # a Mamba layer, (R, ...)
+    ds = cfg.ssm.d_state
+    want = np.log(np.arange(1, ds + 1, dtype=np.float32))
+    np.testing.assert_array_equal(layer["A_log"].numpy(),
+                                  np.broadcast_to(want, layer["A_log"].shape))
+    assert torch.equal(layer["D_skip"], torch.ones_like(layer["D_skip"]))
+    assert torch.equal(layer["conv_b"], torch.zeros_like(layer["conv_b"]))
+    dt = torch.nn.functional.softplus(layer["dt_b"].double())
+    assert 1e-3 * (1 - 1e-5) <= float(dt.min()) < float(dt.max()) \
+        <= 1e-1 * (1 + 1e-5)
+    assert abs(float(dt.mean()) - 0.0505) < 0.005
+    assert abs(float(layer["conv_w"].std()) - 0.88 / 2) < 0.05  # fan_in 4
+    model = DecoderLM.from_tree(cfg, tree)
+    logits, _ = prefill(model, torch.zeros(1, 4, dtype=torch.int32))
+    assert bool(torch.isfinite(logits).all())
+
+
 def test_serve_cli_runs_on_the_cpu(capsys):
     from repro_torch.launch import serve
 
@@ -251,9 +377,31 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
+def test_serve_cli_refuses_the_experts_of_jamba():
+    """The CLI takes jamba's config, whose MoE layers the port does not
+    run yet; the expert-free hybrid is ``acceptance.jamba_config``."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="the MoE slice"):
+        serve.main(["--arch", JAMBA, "--reduced", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m",
                                   "mixtral-8x22b", "whisper-small",
                                   "llama-3.2-vision-11b", "grok-1-314b"])
 def test_archs_of_later_slices_raise(arch):
+    """Archs of later slices raise from ``get_arch``. jamba's config is the
+    JAX package's (its Mamba layers are ported), but its experts come with
+    the MoE slice: building its model, or its parameter tree, raises."""
+    if arch == JAMBA:
+        cfg = get_arch(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jax_get_arch(arch))
+        assert cfg.moe.n_experts == 16
+        with pytest.raises(NotImplementedError, match="the MoE slice"):
+            model_param_specs(cfg)
+        with pytest.raises(NotImplementedError, match="the MoE slice"):
+            DecoderLM(cfg, {})
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         get_arch(arch)

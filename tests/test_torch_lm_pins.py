@@ -1,12 +1,23 @@
-"""``serve_gemma3_1b`` at full width and full depth on the CPU: the JAX
-package gives the values pinned in ``repro_torch.configs.acceptance``, and
-the port meets them with ``check_lm(..., "float32")``.
+"""The full-width serving cases on the CPU: the JAX package gives the
+values pinned in ``repro_torch.configs.acceptance``, and the port meets
+them with ``check_lm(..., "float32")``.
 
-gemma3-1b (26 layers, d_model 1152, vocab 262144; 999,826,048 parameters)
-at ``dtype="float32"``, weights from ``seeded_numpy_params(cfg, 0)``; B = 2
-prompts of 1024 ids, then 8 teacher-forced decode steps. The weights are
-made once for the module (about 4 GB, shared by the port's model without a
-copy); one run of each package takes about half a minute here.
+- ``serve_gemma3_1b``: gemma3-1b (26 layers, d_model 1152, vocab 262144;
+  999,826,048 parameters) at ``dtype="float32"``, weights from
+  ``seeded_numpy_params(cfg, 0)``; B = 2 prompts of 1024 ids, then 8
+  teacher-forced decode steps. About 4 GB of weights; one run of each
+  package takes about half a minute here.
+- ``serve_jamba_1l``: one full-width layer of the jamba hybrid without its
+  experts (a Mamba mixer + the dense MLP; 2,098,077,696 parameters) at
+  ``dtype="float32"``, weights from ``seeded_numpy_params(cfg, 0)``; B = 2
+  prompts of 640 ids (2.5 of the JAX scan's 256-step chunks), then 8
+  teacher-forced decode steps. About 8.4 GB of weights (42 s to draw); the
+  JAX package's run peaks near 20 GB of RSS and takes about 20 s here.
+
+The weights are held for one case at a time (``_weights``: drawing a
+case's drops the other's), and the port's model shares them without a
+copy. The cases stay in this one file, so that a run split by file never
+holds both at once.
 """
 
 import dataclasses
@@ -18,6 +29,7 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_get_arch
+from repro.configs.base import MoEConfig as JaxMoEConfig
 from repro.models import prefill as jax_prefill
 from repro.models.model import decode_step as jax_decode_step
 from repro.sharding.ctx import ShardCtx
@@ -30,28 +42,59 @@ from repro_torch.models import seeded_numpy_params
 CTX = ShardCtx(enabled=False, attention_impl="pallas")
 
 
-@pytest.fixture(scope="module")
+_HELD: dict = {}     # the one case whose weights are alive
+
+
+def _weights(case: str):
+    """(config, numpy weights, tokens) of ``case``, made once; making one
+    case's frees the other's."""
+    if case not in _HELD:
+        _HELD.clear()
+        if case == A.LM_CASE:
+            cfg = A.lm_config("float32")
+            toks = A.lm_tokens(cfg)
+            seed = A.LM_SEED
+        else:
+            cfg = A.jamba_config(1, "float32")
+            toks = A.lm_tokens(cfg, A.JAMBA_BATCH, A.JAMBA_PROMPT,
+                               A.JAMBA_DECODE)
+            seed = A.JAMBA_SEED
+        _HELD[case] = cfg, seeded_numpy_params(cfg, seed), toks
+    return _HELD[case]
+
+
+@pytest.fixture
 def weights():
-    cfg = A.lm_config("float32")
-    return cfg, seeded_numpy_params(cfg, A.LM_SEED), A.lm_tokens(cfg)
+    return _weights(A.LM_CASE)
+
+
+@pytest.fixture
+def jamba_weights():
+    return _weights(A.JAMBA_CASE)
+
+
+def _jax_logits(jcfg, tree, toks, prompt, decode, ctx):
+    """The JAX package's prefill + teacher-forced decode steps."""
+    params = jax.tree.map(jnp.asarray, tree)
+    run_prefill = jax.jit(lambda p, t: jax_prefill(
+        p, {"tokens": t}, jcfg, ctx, cache_seq_len=prompt + decode))
+    run_decode = jax.jit(lambda p, c, t, n: jax_decode_step(
+        p, c, t, n, jcfg, ctx))
+    logits, cache = run_prefill(params, jnp.asarray(toks[:, :prompt]))
+    out = [np.asarray(logits)]
+    for i in range(decode):
+        pos = prompt + i
+        logits, cache = run_decode(params, cache,
+                                   jnp.asarray(toks[:, pos:pos + 1]),
+                                   jnp.int32(pos))
+        out.append(np.asarray(logits))
+    return out
 
 
 def test_jax_package_gives_the_pins(weights):
     _, tree, toks = weights
     jcfg = dataclasses.replace(jax_get_arch(A.LM_ARCH), dtype="float32")
-    S, N = A.LM_PROMPT, A.LM_DECODE
-    params = jax.tree.map(jnp.asarray, tree)
-    run_prefill = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, jcfg, CTX, cache_seq_len=S + N))
-    run_decode = jax.jit(lambda p, c, t, n: jax_decode_step(
-        p, c, t, n, jcfg, CTX))
-    logits, cache = run_prefill(params, jnp.asarray(toks[:, :S]))
-    out = [np.asarray(logits)]
-    for i in range(N):
-        logits, cache = run_decode(params, cache,
-                                   jnp.asarray(toks[:, S + i:S + i + 1]),
-                                   jnp.int32(S + i))
-        out.append(np.asarray(logits))
+    out = _jax_logits(jcfg, tree, toks, A.LM_PROMPT, A.LM_DECODE, CTX)
     got = A.lm_summary(out)
     assert got["argmax"] == A.PINNED_LM["argmax"]
     A.check_lm(got, "float32")
@@ -69,4 +112,34 @@ def test_port_on_the_cpu_meets_the_pins(weights):
     assert all(x.shape == (A.LM_BATCH, cfg.vocab) and x.dtype == torch.float32
                and bool(torch.isfinite(x).all()) for x in logits)
     report = A.check_lm(A.lm_summary([x.numpy() for x in logits]), "float32")
+    assert report["argmax_agree"] == report["argmax_total"]
+
+
+def test_jax_package_gives_the_jamba_pins(jamba_weights):
+    _, tree, toks = jamba_weights
+    jcfg = dataclasses.replace(jax_get_arch(A.JAMBA_ARCH),
+                               moe=JaxMoEConfig(), n_layers=1,
+                               dtype="float32")
+    out = _jax_logits(jcfg, tree, toks, A.JAMBA_PROMPT, A.JAMBA_DECODE,
+                      ShardCtx(enabled=False))
+    got = A.lm_summary(out)
+    assert got["argmax"] == A.PINNED_JAMBA["argmax"]
+    A.check_lm(got, "float32", pins=A.PINNED_JAMBA, case=A.JAMBA_CASE)
+
+
+def test_port_on_the_cpu_meets_the_jamba_pins(jamba_weights):
+    cfg, tree, toks = jamba_weights
+    model = lm_params_from_numpy(tree, cfg, "cpu")
+    assert model.emb.data_ptr() == tree["emb"].ctypes.data   # no copy
+    assert model.layers[0].kind == "mamba"
+    kernels.reset_launches()
+    logits = A.run_lm(model, torch.tensor(toks), A.JAMBA_PROMPT,
+                      A.JAMBA_DECODE)
+    assert kernels.LAUNCHES["selective_scan"] == 0     # the CPU path
+    assert len(logits) == 1 + A.JAMBA_DECODE
+    assert all(x.shape == (A.JAMBA_BATCH, cfg.vocab)
+               and x.dtype == torch.float32
+               and bool(torch.isfinite(x).all()) for x in logits)
+    report = A.check_lm(A.lm_summary([x.numpy() for x in logits]),
+                        "float32", pins=A.PINNED_JAMBA, case=A.JAMBA_CASE)
     assert report["argmax_agree"] == report["argmax_total"]
