@@ -8,7 +8,9 @@ and no result line:
 
 1. env       torch/CUDA versions, the card's name and power limit; TF32 off.
 2. build     compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, all at once).
+             (one nvcc per source, all at once); the bf16 flash_attn
+             kernels must hold ``HGMMA`` (wgmma) in their SASS and spill
+             nothing (ptxas).
 3. kernel    each kernel against its plain PyTorch version on the card, at
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
              table, nodes and racks; gemma3-1b's, qwen3-4b's and jamba's
@@ -52,6 +54,7 @@ without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -609,6 +612,34 @@ def time_generate(torch, np, model, prompt, phase: str, **labels) -> None:
          sample=toks_out[0, :8].tolist())
 
 
+def flash_attn_bf16_build(build) -> dict:
+    """The bf16 flash_attn kernels run on the tensor cores: ``HGMMA`` (the
+    SASS of wgmma) in the library's code, and ptxas reports no spill for
+    any of the bf16 instantiations (one per head dim)."""
+    from repro_torch.kernels.flash_attn import HEAD_DIMS
+
+    spills, head_dim = {}, None
+    for ln in build.build_log("flash_attn").splitlines():
+        if "Compiling entry function" in ln:
+            found = re.search(r"flash_attn_bf16_kernelILi(\d+)E", ln)
+            head_dim = int(found.group(1)) if found else None
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if found and head_dim is not None:
+            spills[head_dim] = int(found.group(1)) + int(found.group(2))
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attn"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    hgmma = sass.count("HGMMA")
+    if sorted(spills) != sorted(HEAD_DIMS) or any(spills.values()):
+        raise AssertionError(f"flash_attn bf16: ptxas spill bytes by head "
+                             f"dim {spills} (expected 0 for {HEAD_DIMS})")
+    if hgmma == 0:
+        raise AssertionError("flash_attn bf16: no HGMMA in the library's SASS")
+    return {"hgmma_in_sass": hgmma, "spill_bytes_by_head_dim": spills}
+
+
 def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
     """One hour of ``case`` on the card, the ticks under sync-debug
     "error": held to the pinned values, one power_scatter launch per tick
@@ -679,10 +710,12 @@ def main() -> int:
     kernel_names = ["power_scatter", "rack_thermal", "node_power",
                     "flash_attn", "selective_scan"]
     secs = build.build(kernel_names)
+    tensor_cores = flash_attn_bf16_build(build)
     emit("build", seconds=secs,
          ptxas=[ln for name in kernel_names
                 for ln in build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln])
+                if "registers" in ln or "spill" in ln],
+         flash_attn_bf16=tensor_cores)
 
     # 3. kernels against their plain versions, at the paths' shapes
     cfg = acceptance.config()

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.
 PyTorch's headers stay out, so a build takes seconds, not minutes. The
 library lands in ``build/repro_torch/`` at the root of the checkout,
-named by a hash of its source and flags: an edited source rebuilds, an
-unchanged one is reused. ``nvcc`` and ``ctypes`` are touched only inside
-the functions here, so the CPU tests import the kernel modules freely.
+named by a hash of its source, the local headers and the flags: an
+edited source or header rebuilds, an unchanged one is reused. ``nvcc``
+and ``ctypes`` are touched only inside the functions here, so the CPU
+tests import the kernel modules freely.
 """
 
 from __future__ import annotations
@@ -47,8 +48,12 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives, keyed by a hash of
-    the source and the flags."""
+    the source, the local headers (``csrc/*.cuh``) and the flags: an
+    edited header rebuilds every kernel."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

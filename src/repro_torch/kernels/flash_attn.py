@@ -3,8 +3,10 @@ prefill attention.
 
 - ``flash_attention``: the wrapper ``models.layers.attention`` calls. For
   CPU tensors it runs the plain version; for CUDA tensors it launches the
-  hand-written kernel ``csrc/flash_attn.cu`` (which replaces the TPU kernel
-  ``flash_attention_fwd``) or raises. There is no fallback.
+  hand-written kernels of ``csrc/flash_attn.cu`` (which replace the TPU
+  kernel ``flash_attention_fwd``) or raises. The dtype picks the entry
+  (``kernel_entry``): bf16 runs on the tensor cores (wgmma, TMA), f32 on
+  the CUDA cores, the reference path. There is no fallback.
 - ``attention_torch``: the plain PyTorch version of the same function,
   with materialised f32 scores.
 
@@ -12,9 +14,11 @@ Layout is the JAX package's: q (B, Sq, H, hd), k and v (B, Sk, Kv, hd),
 output (B, Sq, H, hd) in q's dtype, f32 or bf16. Queries end where the keys
 end (``q_pos = i + Sk - Sq``); ``causal`` keeps ``q_pos - k_pos >= 0`` and
 ``window > 0`` keeps ``q_pos - k_pos < window``. Scores, the softmax and
-P.V are f32, as in the Pallas kernel and ``kernels/ref.py::attention_ref``
-(``models/layers.py::attention_full`` casts the probabilities to v's dtype;
-this function does not).
+P.V are f32, as in the Pallas kernel and ``kernels/ref.py::attention_ref``.
+The bf16 kernel alone rounds the probabilities to bf16 before P.V (its
+tensor-core product takes bf16 operands), as
+``models/layers.py::attention_full`` casts them to v's dtype; it is held
+to the plain version at the bf16 tolerance, 2e-2.
 """
 
 from __future__ import annotations
@@ -90,6 +94,23 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError("flash_attention: tensors must hold < 2**31 values")
 
 
+def kernel_entry(q, k, v) -> str:
+    """The C entry point for tensors that passed ``_check``: the dtype
+    picks it. The bf16 kernel reads q, k and v through TMA tensor maps,
+    which need 16-byte aligned base addresses and strides: raise if a
+    tensor does not give them (the f32 kernel reads with plain loads)."""
+    entry = _ENTRY[q.dtype]
+    if q.dtype == torch.bfloat16:
+        for name, t in zip("qkv", (q, k, v)):
+            strides = [s * t.element_size() for s in t.stride()[:-1]]
+            if t.data_ptr() % 16 or any(s % 16 for s in strides):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} needs a 16-byte aligned "
+                    f"address and strides for its tensor map, got address "
+                    f"{t.data_ptr():#x} and byte strides {strides}")
+    return entry
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Attention of q over k, v. CPU tensors take the plain version; CUDA
@@ -100,7 +121,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     launch = build.function("flash_attn", pointers=4, ints=8, floats=1,
-                            entry=_ENTRY[q.dtype])
+                            entry=kernel_entry(q, k, v))
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

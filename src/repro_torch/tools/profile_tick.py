@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -43,10 +44,11 @@ def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
     host_ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
         "cuda_kernels": len(kernels) / per,
-        # device time of the port's own kernels (csrc/<name>.cu)
+        # device time of the port's own kernels (csrc/<name>.cu: a kernel
+        # named <name>_kernel or <name>_<variant>_kernel)
         "port_kernel_us": {
             k: sum(tot for name, (tot, _) in by_name.items()
-                   if f"{k}_kernel" in name) / per
+                   if re.search(rf"\b{k}_(\w+_)?kernel\b", name)) / per
             for k in port_kernels.LAUNCHES},
         "device_busy_share": (dev_us / wall_us) if kernels else None,
         "device_us": dev_us / per if kernels else None,

@@ -2,9 +2,11 @@
 package's oracle (``kernels/ref.py::attention_ref``) and its Pallas kernel
 (``kernels/ops.py::flash_attention``, interpret mode), on the CPU, over the
 JAX package's own sweep (``tests/test_kernels.py``): GQA, Sq < Sk,
-non-causal, sliding windows; f32 to 2e-5 and bf16 to 2e-2. Also the
-wrapper's checks and its CPU path. The kernel itself runs only on the
-card: ``tests/test_torch_kernels_cuda.py``.
+non-causal, sliding windows; f32 to 2e-5 and bf16 to 2e-2. The bf16
+kernel's one extra rounding (P in bf16 before P.V), emulated here, stays
+within the same 2e-2. Also the wrapper's checks, its choice of entry and
+its CPU path. The kernels themselves run only on the card:
+``tests/test_torch_kernels_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -80,6 +82,52 @@ def test_plain_version_matches_reference_off_the_pallas_grid(sq, sk, causal,
                                rtol=2e-5)
 
 
+def _bf16_kernel_rounding(q, k, v, *, causal, window):
+    """The bf16 kernel's arithmetic in plain torch: bf16 inputs, f32
+    Q.K^T and softmax, the probabilities rounded to bf16 for P.V (the
+    tensor cores' operand type), P.V summed in f32 and divided by the f32
+    row sums, the output rounded to bf16."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kv, h // kv, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * pfa.scale_of(hd)
+    dist = (torch.arange(sq)[:, None] + (sk - sq)) - torch.arange(sk)[None, :]
+    live = torch.ones_like(dist, dtype=torch.bool)
+    if causal:
+        live &= dist >= 0
+    if window > 0:
+        live &= dist < window
+    s = s.masked_fill(~live, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p.bfloat16().float(), v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, sq, h, hd).bfloat16()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window", [
+    *(case[:8] for case in SWEEP),
+    (1, 48, 80, 2, 1, 256, True, 16),   # gemma3-1b-shaped: hd 256, MQA,
+])                                      # a window, Sq < Sk
+def test_bf16_probabilities_stay_within_the_bf16_tolerance(b, sq, sk, h, kv,
+                                                           hd, causal,
+                                                           window):
+    """Rounding P to bf16 before P.V, as the bf16 kernel does, keeps the
+    output within 2e-2 of the f32-probability oracle: the error budget of
+    the kernel's rounding, shown before any card run."""
+    arrays = _inputs(b, sq, sk, h, kv, hd, seed=hd + sq)
+    tq, tk, tv = (torch.tensor(a).bfloat16() for a in arrays)
+    got = _bf16_kernel_rounding(tq, tk, tv, causal=causal, window=window)
+    want = ref.attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in arrays),
+                             causal=causal, window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(
+        got.float(),
+        pfa.attention_torch(tq, tk, tv, causal=causal, window=window).float(),
+        atol=2e-2, rtol=2e-2)
+
+
 def _qkv(dtype=torch.float32, b=1, sq=8, sk=8, h=4, kv=2, hd=16):
     return (torch.zeros(b, sq, h, hd, dtype=dtype),
             torch.zeros(b, sk, kv, hd, dtype=dtype),
@@ -107,3 +155,47 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
 def test_wrapper_refuses_a_negative_window():
     with pytest.raises(ValueError):
         pfa.flash_attention(*_qkv(), causal=True, window=-1)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.float32, "flash_attn_f32"),
+                                         (torch.bfloat16, "flash_attn_bf16")])
+def test_the_dtype_picks_the_kernel_entry(dtype, entry):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one."""
+    assert pfa.kernel_entry(*_qkv(dtype)) == entry
+
+
+def _offset_by_one(t):
+    """``t``'s values in a contiguous tensor one element past an aligned
+    address."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_bf16_entry_refuses_what_tma_cannot_read(which):
+    """The bf16 kernel's tensor maps need 16-byte aligned addresses and
+    byte strides: a tensor one element off an aligned address, or with a
+    row stride of 34 bytes, is refused before any launch. The f32 entry
+    reads with plain loads and takes the same shifted tensors."""
+    qkv = list(_qkv(torch.bfloat16))
+    qkv[which] = _offset_by_one(qkv[which])
+    assert qkv[which].is_contiguous() and qkv[which].data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa.kernel_entry(*qkv)
+    padded = list(_qkv(torch.bfloat16))
+    shape = padded[which].shape
+    padded[which] = torch.zeros(*shape[:-1], 17, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa.kernel_entry(*padded)
+    f32 = list(_qkv())
+    f32[which] = _offset_by_one(f32[which])
+    assert pfa.kernel_entry(*f32) == "flash_attn_f32"
+
+
+def test_cpu_path_takes_unaligned_bf16():
+    """The alignment rule is the kernel's: on the CPU the plain version
+    runs on the same shifted tensors."""
+    q, k, v = (_offset_by_one(t) for t in _qkv(torch.bfloat16))
+    got = pfa.flash_attention(q, k, v, causal=True, window=0)
+    assert torch.equal(got, pfa.attention_torch(q, k, v, causal=True,
+                                                window=0))

@@ -106,8 +106,10 @@ def test_node_power_kernel_matches_plain_version(cuda_device, E):
 
 # (b, sq, sk, h, kv, hd, causal, window): the JAX package's kernel sweep
 # (tests/test_kernels.py), then gemma3-1b's prefill shapes (head_dim 256,
-# MQA; causal and causal + window 512; a ragged 1025-token prompt) and
-# qwen3-4b's GQA
+# MQA; causal and causal + window 512; a ragged 1025-token prompt),
+# qwen3-4b's GQA, and the bf16 kernel's tile edges: hd 128 (two TMA boxes
+# a row, 128-key stages) with Sq < Sk and a window, and hd 256 (four
+# boxes, 64-key stages) without the causal mask at B > 1
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 16, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -119,6 +121,8 @@ FLASH_CASES = [
     (4, 1024, 1024, 4, 1, 256, True, 512),
     (2, 1025, 1025, 4, 1, 256, True, 512),
     (2, 1024, 1024, 32, 8, 128, True, 0),
+    (1, 100, 230, 8, 2, 128, True, 37),
+    (2, 300, 300, 4, 2, 256, False, 0),
 ]
 
 
