@@ -17,7 +17,11 @@ and no result line:
              prefill attention; jamba's selective scan at its 8-layer
              prefill and at a ragged length), and timed (CUDA events,
              median) beside its bound and, for attention,
-             ``scaled_dot_product_attention``.
+             ``scaled_dot_product_attention``. The replay tick's fused
+             entries (``power_tick`` with thermals off at E=1 and on at
+             E=1 and 64, ``rack_tick`` at E=1 and 64) also against the CPU
+             plain version: per-node and per-rack values bitwise. An empty
+             kernel's back-to-back time is the launch floor.
 4. main      ``replay_tx_gaia_1h`` through build_statics -> init_state ->
              load_jobs -> run_episode(summary_only) -> summary, the ticks
              under ``torch.cuda.set_sync_debug_mode("error")``; held to the
@@ -208,6 +212,88 @@ def rack_thermal_inputs(torch, np, statics, n_rep: int, seed: int):
     return (t(rng.uniform(150.0, 1400.0, (n_rep, n))), statics.node_rack,
             t(rng.uniform(18.0, 34.0, (n_rep, r))),
             t(rng.uniform(14.0, 24.0, n_rep)), statics.rack_r_th)
+
+
+def tick_state(torch, np, cfg, n_rep: int, seed: int):
+    """Seeded per-tick state of ``n_rep`` replicas at the main path's
+    shapes, as ``power_tick`` takes it: ~70% of the jobs running at ages
+    across the trace quanta, a third of the slots -1, ~5% nodes down,
+    outlet temperatures across the throttle ramp, a wetbulb."""
+    rng = np.random.default_rng(seed)
+    J, K, N, R = cfg.max_jobs, cfg.max_nodes_per_job, cfg.n_nodes, cfg.n_racks
+    place = rng.integers(0, N, (n_rep, J, K))
+    place[rng.random((n_rep, J, K)) < 0.33] = -1
+    lo, hi = cfg.throttle_start_c - 10.0, cfg.throttle_full_c + 5.0
+    arrays = ((rng.choice([1, 2, 2, 2, 3], (n_rep, J)), np.int32),
+              (rng.uniform(600, 3600, n_rep), np.float32),
+              (rng.uniform(0, 3000, (n_rep, J)), np.float32),
+              (place, np.int32),
+              (rng.uniform(1, 24, (n_rep, 3, J)), np.float32),
+              (rng.random((n_rep, N)) > 0.05, np.float32),
+              (rng.uniform(lo, hi, (n_rep, R)), np.float32),
+              (rng.uniform(8, 26, n_rep), np.float32))
+    return [torch.tensor(np.array(a, dt, order="C"), device="cuda")
+            for a, dt in arrays]
+
+
+def power_tick_bound(ts, st) -> tuple[float, str]:
+    """What ``power_tick`` must move and do on these inputs: each per-tick
+    input once (two rows of ``req``), one trace entry per job and bank,
+    the node vectors (and racks, with thermals) once; the outputs. About 6
+    f32 operations per used slot, 10 per job, 40 per node."""
+    jstate, t, start_t, place, req, up, outlet, wb = st
+    E, J = jstate.shape
+    N = ts.idle_w.shape[0]
+    thermal = ts.consts.thermal
+    in_bytes = 4 * (E * (2 * J + 1 + 2 * J + N + 1 + 2 * J)
+                    + place.numel() + 7 * N
+                    + (E * outlet.shape[1] + N if thermal else 0))
+    out_bytes = 4 * E * (2 * N + 8 + (J if thermal else 0))
+    ops = 6 * int((place >= 0).sum()) + E * (10 * J + 40 * N)
+    return bound(in_bytes, out_bytes, ops)
+
+
+def rack_tick_inputs(torch, np, cfg, n_rep: int, seed: int):
+    """Seeded inputs of the thermal tail: post-throttle node input power,
+    the cap's scale, a wetbulb, outlet temperatures across the throttle
+    ramp and a running peak."""
+    rng = np.random.default_rng(seed)
+    N, R = cfg.n_nodes, cfg.n_racks
+
+    def t(a):
+        return torch.tensor(np.array(a, np.float32, order="C"), device="cuda")
+
+    return [t(rng.uniform(150.0, 1400.0, (n_rep, N))),
+            t(rng.uniform(0.6, 1.0, n_rep)), t(rng.uniform(8, 26, n_rep)),
+            t(rng.uniform(cfg.throttle_start_c - 10, cfg.throttle_full_c + 5,
+                          (n_rep, R))),
+            t(rng.uniform(20, 40, n_rep))]
+
+
+def check_tick_kernel(torch, name, launch, plain, cpu_statics, gpu_statics,
+                      args, bound_ms, bound_by, bitwise, **shape) -> dict:
+    """A fused tick entry against its plain version on the card (rtol) and
+    on the CPU: the outputs at positions ``bitwise`` (the per-node and
+    per-rack values) must have the CPU's bits; timed beside the plain
+    version and the bound."""
+    got = [g for g in launch(gpu_statics, *args)]
+    again = [g for g in launch(gpu_statics, *args)]
+    cpu = plain(cpu_statics, *(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    same_bits = all(torch.equal(got[i].cpu(), cpu[i]) for i in bitwise
+                    if got[i] is not None)
+    keep = [i for i, g in enumerate(got) if g is not None]
+    rec = check_kernel(
+        torch, name, [got[i] for i in keep],
+        [w for w in plain(gpu_statics, *args) if w is not None],
+        lambda: launch(gpu_statics, *args), lambda: plain(gpu_statics, *args),
+        bound_ms, bound_by, **shape, bitwise_vs_cpu=same_bits)
+    if not same_bits:
+        raise AssertionError(f"{name}: per-node or per-rack values differ "
+                             "from the CPU plain version's bits")
+    return rec
 
 
 def node_power_inputs(torch, np, statics, n_rep: int, seed: int):
@@ -758,6 +844,45 @@ def main() -> int:
             lambda: npw.node_chain(*a, **chain),
             *np_bound, replicas=n_rep, nodes=n_nodes)
 
+    # the replay tick's fused entries: the main path's (thermals off) at
+    # E = 1, and the thermal hours' at E = 1 and 64
+    from repro_torch.core import power as cpower
+    from repro_torch.core import thermal as cthermal
+
+    tcfg = acceptance.config("replay_tx_gaia_1h_thermal")
+    tstatics = build_statics(tcfg, bank)
+    cpu_bank = build_statics(tcfg, bank, device="cpu")
+    for n_rep, hcfg, hstatics, cpu_st in (
+            (1, cfg, statics, build_statics(cfg, bank, device="cpu")),
+            (1, tcfg, tstatics, cpu_bank), (64, tcfg, tstatics, cpu_bank)):
+        ts = cpower.tick_statics(hcfg, hstatics)
+        st = tick_state(torch, np, hcfg, n_rep, seed=n_rep)
+        record["power_tick", n_rep, hcfg.thermal_enabled] = check_tick_kernel(
+            torch, "power_tick", npw.power_tick, npw.power_tick_torch,
+            cpower.tick_statics(hcfg, cpu_st), ts, st,
+            *power_tick_bound(ts, st), bitwise=(0, 1, 3), replicas=n_rep,
+            thermal=hcfg.thermal_enabled, jobs=hcfg.max_jobs, slots=jk,
+            nodes=n_nodes)
+    for n_rep in (1, 64):
+        rs = cthermal.rack_tick_statics(tcfg, tstatics)
+        a = rack_tick_inputs(torch, np, tcfg, n_rep, seed=n_rep)
+        # a multiply and an add per node, ~12 operations per rack
+        rt_bound = bound(nbytes(a) + nbytes((rs.rack_ptr, rs.rack_nodes,
+                                             rs.r_th)),
+                         4 * n_rep * (n_racks + 3),
+                         n_rep * (2 * n_nodes + 12 * n_racks))
+        record["rack_tick", n_rep] = check_tick_kernel(
+            torch, "rack_tick", prt.rack_tick, prt.rack_tick_torch,
+            cthermal.rack_tick_statics(tcfg, cpu_bank), rs, a, *rt_bound,
+            bitwise=(0, 1, 2, 3), replicas=n_rep, nodes=n_nodes,
+            racks=n_racks)
+    # the floor under every launch's back-to-back time: one empty kernel
+    floor_launch = build.function("power_scatter", pointers=0, ints=0,
+                                  floats=0, entry="launch_floor")
+    launch_floor_ms = time_ms(torch, lambda: floor_launch(
+        torch.cuda.current_stream().cuda_stream))
+    emit("kernel", name="launch_floor", launch_floor_ms=launch_floor_ms)
+
     for case in ATTN_CASES:
         record["flash_attn", case[0]] = check_attention(torch, np, *case)
     for case in SCAN_CASES:
@@ -802,23 +927,32 @@ def main() -> int:
     launches["selective_scan"] = serve_hybrid(torch, np)
     emit("serve_hybrid", step="done", seconds=time.perf_counter() - t0)
 
+    # each TPU kernel's row reports the entry its path launches: the fused
+    # tick entries for the replay kernels (power_tick at the main path's
+    # E = 1, rack_tick at the thermal hour's), and beside them the
+    # TPU kernel's own signature at E = 1
     sources = {
-        "power_scatter": ("src/repro/kernels/node_power.py:145", 1),
-        "rack_thermal": ("src/repro/kernels/rack_thermal.py:47", 1),
-        "node_power": ("src/repro/kernels/node_power.py:45", 1),
-        "flash_attn": ("src/repro/kernels/flash_attn.py:105", ATTN_REPORTED),
+        "power_scatter": ("src/repro/kernels/node_power.py:145",
+                          ("power_tick", 1, False), ("power_scatter", 1)),
+        "rack_thermal": ("src/repro/kernels/rack_thermal.py:47",
+                         ("rack_tick", 1), ("rack_thermal", 1)),
+        "node_power": ("src/repro/kernels/node_power.py:45",
+                       ("node_power", 1), None),
+        "flash_attn": ("src/repro/kernels/flash_attn.py:105",
+                       ("flash_attn", ATTN_REPORTED), None),
         "selective_scan": ("src/repro/kernels/mamba_scan.py:61",
-                           SCAN_CASES[0][0]),
+                           ("selective_scan", SCAN_CASES[0][0]), None),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
-        **{k: record[name, shape][k] for k in ("max_abs_err", "ms",
-                                               "plain_ms", "bound_ms",
-                                               "bound_by")},
-        "library_ms": record[name, shape].get("library_ms"),
-    } for name, (replaces, shape) in sources.items()]}), flush=True)
+        **{k: record[main][k] for k in keys},
+        "library_ms": record[main].get("library_ms"),
+        **({"signature_entry": {k: record[sig][k] for k in keys}}
+           if sig else {}),
+    } for name, (replaces, main, sig) in sources.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

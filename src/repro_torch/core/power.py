@@ -2,12 +2,16 @@
 voltage-conversion losses -> cooling (COP model) -> facility power, plus
 delivered GFLOP/s.
 
-``compute_power`` takes the job table straight into the fused
-placement-scatter + power-chain pass (``kernels.node_power.power_scatter``):
-the CUDA kernel for tensors on the card, its plain PyTorch version for
-tensors on the CPU. There is one formulation, so float results are held
-to a tolerance against the JAX package (whose dense and scatter paths sum
-in other orders), not to bit-equality.
+The replay tick calls ``power_tick``: one launch of
+``kernels.node_power.power_tick`` takes the job table through utilisation,
+the placement scatter, the node chain and the facility totals, and with
+the thermal twin on through the tail's derate as well (its plain version
+on the CPU). ``compute_power`` is the same chain without the derate,
+composed from the plain pieces below with the placement-scatter +
+power-chain pass (``kernels.node_power.power_scatter``); the tick's plain
+version is held to it bitwise. Float results are held to a tolerance
+against the JAX package (whose dense and scatter paths sum in other
+orders), not to bit-equality.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import torch
 
 from repro_torch.configs.sim import SimConfig
 from repro_torch.core.state import RUNNING, SimState, Statics
+from repro_torch.core.thermal import throttle_params
+from repro_torch.kernels import node_power as npw
 from repro_torch.kernels.node_power import node_chain, power_scatter, scatter_loads
 from repro_torch.scenarios.signals import eval_signal
 from repro_torch.utils.device import full
@@ -128,3 +134,41 @@ def compute_power(cfg: SimConfig, state: SimState,
     node_it, node_input, cpu_frac, gpu_frac = (o[0] for o in outs)
     return finish_power(cfg, state, statics, node_it, node_input,
                         cpu_frac, gpu_frac)
+
+
+def tick_consts(cfg: SimConfig) -> npw.TickConsts:
+    """The config numbers ``power_tick`` needs, as its kernel and its plain
+    version take them."""
+    return npw.TickConsts(
+        trace_quanta=cfg.trace_quanta, **_chain_kw(cfg),
+        cop_base=cfg.cop_base, cop_wetbulb_coef=cfg.cop_wetbulb_coef,
+        wetbulb_ref_c=cfg.wetbulb_ref_c, cop_min=cfg.cop_min,
+        thermal=cfg.thermal_enabled,
+        throttle=throttle_params(cfg),
+        nameplate_w=max(cfg.nameplate_it_w, 1.0),
+        cop_load_coef=cfg.cop_load_coef, cop_load_ref=cfg.cop_load_ref)
+
+
+def tick_statics(cfg: SimConfig, statics: Statics) -> npw.TickStatics:
+    """``power_tick``'s fixed inputs, checked (and on the card packed) once
+    per ``make_step``."""
+    return npw.tick_statics(
+        statics.cpu_trace, statics.gpu_trace, statics.capacity[0],
+        statics.capacity[1], statics.idle_w, statics.cpu_dyn_w,
+        statics.gpu_dyn_w, statics.node_max_w, statics.peak_gflops,
+        statics.node_rack, n_slots=cfg.max_nodes_per_job,
+        n_racks=statics.rack_r_th.shape[0], n_res=statics.capacity.shape[0],
+        consts=tick_consts(cfg))
+
+
+def power_tick(ts: npw.TickStatics, state: SimState, wetbulb: torch.Tensor):
+    """One tick's power chain in one launch (the plain version on the
+    CPU), at the wetbulb the step evaluated. Returns (``PowerOut``, cop,
+    the up nodes' idle power, and with thermals each job's clock factor
+    (J,), else None); with thermals the ``PowerOut`` is the derated one."""
+    node_it, node_input, s, job_th = npw.power_tick(
+        ts, state.jstate, state.t, state.start_t, state.placement, state.req,
+        state.node_up, state.rack_outlet_c, wetbulb)
+    it_w, input_w, cooling_w, facility_w, pue, gflops, cop, idle_w = s.unbind(-1)
+    return (PowerOut(node_it, node_input, it_w, input_w, cooling_w,
+                     facility_w, pue, gflops), cop, idle_w, job_th)

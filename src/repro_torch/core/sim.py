@@ -12,15 +12,17 @@ green), both named by strings here.
 Step order (matches RAPS' fixed-dt loop):
   1. job completions -> free resources, stats
   2. scheduling: ``starts_per_step`` dispatch attempts via the policy
-  3. power chain (the fused power-scatter kernel on the card)
+  3. grid signals at t, then the power chain (``power_tick``: one
+     kernel launch on the card)
   4. progress running jobs (network-congestion-aware rate)
   5. energy/carbon/stat accumulation
 
 With ``cfg.thermal_enabled`` the rack thermal twin (``core.thermal``)
 derates the power chain and job progress from the previous tick's rack
-temperatures, closes the plant with the dynamic COP, gates new dispatch
-on the racks' trip, and commits the racks' RC update (the
-``rack_thermal`` kernel on the card) last in the tick.
+temperatures (inside ``power_tick``), closes the plant with the dynamic
+COP, gates new dispatch on the racks' trip, and commits the racks' RC
+update (``rack_tick``, one launch of the ``rack_thermal`` kernel on the
+card) last in the tick.
 
 The step never reads a tensor on the host (no ``.item()``, no Python
 branch on a tensor value), so on the card the ticks queue work without a
@@ -42,7 +44,7 @@ from repro_torch.core import schedulers as sched
 from repro_torch.core import thermal as thm
 from repro_torch.core.faults import release_jobs as _release
 from repro_torch.core.network import congestion_slowdown
-from repro_torch.core.power import PowerOut, compute_power
+from repro_torch.core.power import PowerOut, power_tick, tick_statics
 from repro_torch.core.state import (
     DONE,
     QUEUED,
@@ -112,19 +114,26 @@ def _parse_weights(reward_weights) -> Tuple[float, float, float, float, float]:
     return w_thr, w_en, w_co2, w_q, w_cost
 
 
+def _grid_signals(statics: Statics, t: torch.Tensor):
+    """(carbon gCO2/kWh, price $/kWh, facility cap W (0 = uncapped),
+    wetbulb degC) of the scenario at ``t``."""
+    scn = statics.scenario
+    return (eval_signal(scn.carbon, t), eval_signal(scn.price, t),
+            power_cap_at(scn.power_cap, t), eval_signal(scn.wetbulb, t))
+
+
 def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
-    """The per-tick accounting tail: grid signals at ``state.t``, thermal
-    derating (when ``cfg.thermal_enabled``), the DVFS throttle to the power
-    cap, job progress, energy/carbon/cost accumulation, the rack RC update,
+    """The per-tick accounting tail after the power chain (which, with
+    ``cfg.thermal_enabled``, already carries the thermal derate): the
+    jobs' thermal clock, the DVFS throttle to the power cap, job progress,
+    energy/carbon/cost accumulation, the rack RC update (``rack_tick``),
     reward and ``StepOut``. The fault and serving branches arrive with
     their slices."""
     w_thr, w_en, w_co2, w_q, w_cost = _parse_weights(reward_weights)
-    scn = statics.scenario
     dev = statics.capacity.device
     zero = full(0.0, torch.float32, dev)
-    # a device tensor: on CUDA a division by a Python scalar is a multiply
-    # by its reciprocal, and the COP feeds the throttle's overhead
-    nameplate = full(max(cfg.nameplate_it_w, 1.0), torch.float32, dev)
+    racks = (thm.rack_tick_statics(cfg, statics) if cfg.thermal_enabled
+             else None)
     dt_h = cfg.dt / 3600.0
     en_scale = max(cfg.n_nodes * 0.4 * dt_h, 1e-9)
     co2_scale = max(cfg.n_nodes * 0.15 * dt_h, 1e-9)
@@ -132,7 +141,11 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
 
     def tail(
         state: SimState,
+        signals: Tuple[torch.Tensor, ...],   # _grid_signals at state.t
         p: PowerOut,
+        cop: torch.Tensor,
+        idle_total: torch.Tensor,  # idle power of the up nodes
+        job_th: torch.Tensor | None,  # per-job thermal clock (thermals on)
         rate: torch.Tensor,        # pre-throttle per-job progress rate (J,)
         net_load: torch.Tensor,
         n_done: torch.Tensor,      # int32 completions this tick
@@ -140,52 +153,14 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         running: torch.Tensor,
         util: torch.Tensor,
     ) -> Tuple[SimState, StepOut]:
-        # --- grid signals at t (scenario engine)
-        carbon_g = eval_signal(scn.carbon, state.t)          # gCO2/kWh
-        price = eval_signal(scn.price, state.t)              # $/kWh
-        cap_w = power_cap_at(scn.power_cap, state.t)         # W; 0 = uncapped
-        wb = eval_signal(scn.wetbulb, state.t)               # degC
-
+        carbon_g, price, cap_w, wb = signals
         if cfg.thermal_enabled:
-            # --- thermal feedback: derate from the PREVIOUS tick's outlet
-            # temps (one-tick control lag), then re-close the plant chain
-            # with the dynamic COP(wetbulb, load). Only node DYNAMIC power
-            # throttles; input power scales with IT.
-            th_r = thm.rack_throttle(cfg, state.rack_outlet_c)   # (R,)
-            node_th = th_r.index_select(0, statics.node_rack.long())
-            node_idle = statics.idle_w * state.node_up
-            node_dyn = torch.clamp(p.node_it_w - node_idle, min=0.0)
-            node_it = node_idle + node_th * node_dyn
-            node_input = p.node_input_w * (
-                node_it / torch.clamp(p.node_it_w, min=1e-9))
-            it_w = torch.sum(node_it)
-            input_w = torch.sum(node_input)
-            dyn_tot = torch.sum(node_dyn)
-            gscale = torch.where(
-                dyn_tot > 0.0,
-                torch.sum(node_th * node_dyn) / torch.clamp(dyn_tot, min=1e-9),
-                1.0)
-            cop = thm.cooling_cop(cfg, wb, it_w / nameplate)
-            cooling_w = input_w / cop
-            facility_w = input_w + cooling_w
-            pue = torch.where(it_w > 1.0,
-                              facility_w / torch.clamp(it_w, min=1.0), 1.0)
-            p = p._replace(
-                node_it_w=node_it, node_input_w=node_input, it_w=it_w,
-                input_w=input_w, cooling_w=cooling_w,
-                facility_w=facility_w, pue=pue, gflops=p.gflops * gscale)
             # synchronous ranks run at the slowest clock over a job's nodes
-            rate = rate * thm.job_thermal_rate(state, statics, node_th)
-        else:
-            # telemetry-only mirror of power.finish_power's static plant
-            cop = torch.clamp(
-                cfg.cop_base + cfg.cop_wetbulb_coef * (wb - cfg.wetbulb_ref_c),
-                min=cfg.cop_min)
+            rate = rate * job_th
 
         # --- demand response: DVFS-throttle to the facility power cap;
         # `capped` gates the rescale exactly off when uncapped
         capped = cap_w > 0.0
-        idle_total = torch.sum(statics.idle_w * state.node_up)
         dyn = torch.clamp(p.it_w - idle_total, min=0.0)
         overhead = p.facility_w / torch.clamp(p.it_w, min=1.0)
         cap_it = cap_w / torch.clamp(overhead, min=1e-6)
@@ -224,18 +199,10 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         )
 
         if cfg.thermal_enabled:
-            # --- rack RC update on the post-cap per-node input power (all
-            # of it room heat), committed LAST so this tick's derate used
-            # the pre-update temps
-            new_t, _ = thm.rack_thermal_update(
-                cfg, statics, state.rack_outlet_c, p.node_input_w * r,
-                thm.supply_temp(cfg, wb))
-            th_step = torch.where(torch.any(th_r < 1.0), cfg.dt, 0.0)
-            rack_max = torch.max(new_t)
-            state = state._replace(
-                rack_outlet_c=new_t,
-                thermal_throttle_s=state.thermal_throttle_s + th_step,
-                peak_rack_c=torch.maximum(state.peak_rack_c, rack_max))
+            # --- rack RC update on the post-cap per-node input power,
+            # committed LAST so this tick's derate used the pre-update temps
+            state, th_step, rack_max = thm.rack_tick(
+                racks, state, p.node_input_w, r, wb)
         else:
             rack_max = torch.max(state.rack_outlet_c)
             th_step = zero
@@ -351,6 +318,7 @@ def make_step(
     if placement not in plc.PLACEMENTS:
         raise KeyError(f"unknown placement {placement}")
     tail = _make_tail(cfg, statics, reward_weights)
+    power_statics = tick_statics(cfg, statics)
     place = plc.PLACEMENTS[placement]
     mask_fn = plc.PLACEMENT_MASKS[placement]
     dev = statics.capacity.device
@@ -393,11 +361,16 @@ def make_step(
                 job = select(cfg, view(state), statics, node_mask)
                 state = _try_start(cfg, state, job, place_fn)
 
-        # --- power chain (pre-throttle) + progress rate + telemetry counts
-        p = compute_power(cfg, state, statics)
+        # --- grid signals at t (dispatch does not move t), the power
+        # chain (pre-cap; with thermals derated), progress rate and
+        # telemetry counts
+        signals = _grid_signals(statics, state.t)
+        p, cop, idle_total, job_th = power_tick(power_statics, state,
+                                                signals[3])
         rate, net_load = congestion_slowdown(cfg, state, statics)
         queued, running, util = _counts_and_util(state, statics)
-        return tail(state, p, rate, net_load, n_done, queued, running, util)
+        return tail(state, signals, p, cop, idle_total, job_th, rate,
+                    net_load, n_done, queued, running, util)
 
     return step
 

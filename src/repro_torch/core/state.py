@@ -57,6 +57,8 @@ class Statics(NamedTuple):
     node_rack: torch.Tensor    # (N,) int32 in [0, R)
     rack_r_th: torch.Tensor    # (R,) degC per W of rack heat
     rack_cap_w: torch.Tensor   # (R,) sum of member node_max_w
+    rack_ptr: torch.Tensor     # (R+1,) int32: rack r's nodes are
+    rack_nodes: torch.Tensor   # (N,) int32  rack_nodes[rack_ptr[r]:rack_ptr[r+1]]
     cpu_trace: torch.Tensor    # (J, Q) in [0,1]
     gpu_trace: torch.Tensor    # (J, Q)
     net_tx: torch.Tensor       # (J,) GB/s per job
@@ -130,6 +132,19 @@ class SimState(NamedTuple):
     workload: torch.Tensor
 
 
+def rack_csr(node_rack, n_racks: int):
+    """The racks' node lists as a CSR, from each node's rack id in
+    [0, ``n_racks``): (``rack_ptr`` (R+1,), ``rack_nodes`` (N,)), both
+    int32, each rack's nodes ascending. Racks need not be contiguous."""
+    node_rack = np.asarray(node_rack)
+    if node_rack.ndim != 1 or np.any((node_rack < 0) | (node_rack >= n_racks)):
+        raise ValueError(f"rack ids must be (N,) in [0, {n_racks})")
+    counts = np.bincount(node_rack, minlength=n_racks)
+    ptr = np.zeros(n_racks + 1, np.int32)
+    ptr[1:] = np.cumsum(counts)
+    return ptr, np.argsort(node_rack, kind="stable").astype(np.int32)
+
+
 def build_statics(
     cfg: SimConfig,
     trace_bank: Dict[str, Any] | None = None,
@@ -169,6 +184,7 @@ def build_statics(
     rack_cap = np.zeros((cfg.n_racks,), np.float32)
     np.add.at(rack_cap, node_rack, np.array(nmax, np.float32))
     rack_r_th = cfg.rack_dt_full_load_c / np.maximum(rack_cap, 1.0)
+    rack_ptr, rack_nodes = rack_csr(node_rack, cfg.n_racks)
 
     def f32(a):
         return torch.tensor(np.array(a, np.float32, order="C"), device=dev)
@@ -187,6 +203,8 @@ def build_statics(
         node_rack=i32(node_rack),
         rack_r_th=f32(rack_r_th),
         rack_cap_w=f32(rack_cap),
+        rack_ptr=i32(rack_ptr),
+        rack_nodes=i32(rack_nodes),
         cpu_trace=f32(trace_bank["cpu"]),
         gpu_trace=f32(trace_bank["gpu"]),
         net_tx=f32(trace_bank["net_tx"]),

@@ -13,9 +13,11 @@ and job progress, and a binary dispatch trip (``node_trip_ok``): racks
 at or above ``thermal_trip_c`` accept no new placements. The cooling COP
 depends on wetbulb and IT load (``cooling_cop``).
 
-``rack_thermal_update`` runs the ``rack_thermal`` kernel on the card and
-its plain version on the CPU; the device decides. Nothing here reads a
-tensor on the host. ``thermal_crossing_horizon`` arrives with the
+The tick's thermal tail is ``rack_tick``: one launch of the
+``rack_thermal`` kernel's fused entry over the racks' static CSR (its
+plain version on the CPU). ``rack_thermal_update`` runs the kernel's
+plain-signature entry the same way; the device decides. Nothing here
+reads a tensor on the host. ``thermal_crossing_horizon`` arrives with the
 macro-stepping slice.
 """
 
@@ -27,8 +29,8 @@ from typing import TYPE_CHECKING, Tuple
 import torch
 
 from repro_torch.configs.sim import SimConfig
-from repro_torch.kernels.rack_thermal import rack_thermal
-from repro_torch.utils.device import full
+from repro_torch.kernels import rack_thermal as prt
+from repro_torch.kernels.throttle import Throttle, throttle_curve
 
 if TYPE_CHECKING:  # type hints only: state.py imports supply_temp
     from repro_torch.core.state import SimState, Statics
@@ -62,13 +64,16 @@ def rack_throttle(cfg: SimConfig, rack_outlet_c: torch.Tensor) -> torch.Tensor:
     """(R,) DVFS clock fraction per rack: 1 below ``throttle_start_c``,
     linear ramp to ``thermal_throttle_floor`` at ``throttle_full_c``.
     Monotone non-increasing in outlet temperature."""
-    # divide by a device tensor: on CUDA a division by a Python scalar is
-    # a multiply by its reciprocal, and the throttle scales job progress
-    span = full(max(cfg.throttle_full_c - cfg.throttle_start_c, 1e-6),
-                torch.float32, rack_outlet_c.device)
-    ramp = (rack_outlet_c - cfg.throttle_start_c) / span
-    return torch.clamp(1.0 - (1.0 - cfg.thermal_throttle_floor) * ramp,
-                       cfg.thermal_throttle_floor, 1.0)
+    return throttle_curve(rack_outlet_c, throttle_params(cfg))
+
+
+def throttle_params(cfg: SimConfig) -> Throttle:
+    """``rack_throttle``'s ramp as ``throttle_curve`` and the kernels take
+    it."""
+    return Throttle(cfg.throttle_start_c,
+                    max(cfg.throttle_full_c - cfg.throttle_start_c, 1e-6),
+                    1.0 - cfg.thermal_throttle_floor,
+                    cfg.thermal_throttle_floor)
 
 
 def job_thermal_rate(state: "SimState", statics: "Statics",
@@ -100,8 +105,37 @@ def rack_thermal_update(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One RC step of every rack: scatter node heat onto racks and relax
     toward the steady state. Returns (new_outlet_c (R,), rack_heat_w (R,))."""
-    new_t, heat = rack_thermal(
+    new_t, heat = prt.rack_thermal(
         node_heat_w[None].contiguous(), statics.node_rack,
         rack_outlet_c[None].contiguous(), supply_c.reshape(1),
         statics.rack_r_th, alpha=thermal_alpha(cfg))
     return new_t[0], heat[0]
+
+
+def rack_tick_statics(cfg: SimConfig, statics: "Statics") -> prt.RackStatics:
+    """``rack_tick``'s fixed inputs, checked (and on the card packed) once
+    per ``make_step``."""
+    return prt.rack_statics(
+        statics.rack_ptr, statics.rack_nodes, statics.node_rack,
+        statics.rack_r_th, consts=prt.RackConsts(
+            cfg.cooling_approach_c, cfg.cooling_supply_min_c,
+            thermal_alpha(cfg), cfg.dt, throttle_params(cfg)))
+
+
+def rack_tick(rs: prt.RackStatics, state: "SimState",
+              node_input_w: torch.Tensor, r: torch.Tensor,
+              wetbulb_c: torch.Tensor
+              ) -> Tuple["SimState", torch.Tensor, torch.Tensor]:
+    """The tick's last act with thermals on: the racks' RC step on the
+    post-cap input power ``node_input_w * r`` (all of it room heat),
+    committed after the derate used the pre-update temperatures. Returns
+    the state with the new outlets, throttled seconds and peak, and the
+    tick's (throttled seconds, hottest rack)."""
+    new_t, th_step, rack_max, peak = prt.rack_tick(
+        rs, node_input_w, r, wetbulb_c, state.rack_outlet_c,
+        state.peak_rack_c)
+    state = state._replace(
+        rack_outlet_c=new_t,
+        thermal_throttle_s=state.thermal_throttle_s + th_step,
+        peak_rack_c=peak)
+    return state, th_step, rack_max

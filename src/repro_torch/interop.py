@@ -16,7 +16,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.state import SimState, Statics
+from repro_torch.core.state import SimState, Statics, rack_csr
 from repro_torch.scenarios.events import CapSchedule
 from repro_torch.scenarios.scenario import Scenario
 from repro_torch.scenarios.signals import Signal
@@ -53,9 +53,12 @@ def scenario_from_numpy(arrays: Any, device=None) -> Scenario:
 
 
 def statics_from_numpy(arrays: Any, device=None) -> Statics:
-    """The reference's ``Statics`` as the port's, on ``device``."""
+    """The reference's ``Statics`` as the port's, on ``device``; the racks'
+    CSR, which the reference does not keep, is made from its rack ids."""
     dev = resolve_device(device)
-    m = _fields(arrays)
+    m = dict(_fields(arrays))
+    m["rack_ptr"], m["rack_nodes"] = rack_csr(
+        np.asarray(m["node_rack"]), np.shape(m["rack_r_th"])[0])
     return Statics(**{
         f: (scenario_from_numpy(m[f], dev) if f == "scenario"
             else _tensor(m[f], dev))

@@ -1,11 +1,19 @@
 """Node power chain kernels: the job table (or per-node load fractions)
 -> per-node IT power and input power.
 
-- ``power_scatter``: the wrapper the simulator calls, fusing the
-  placement scatter with the chain. For CPU tensors it runs the plain
-  version; for CUDA tensors it launches the hand-written kernel
+- ``power_tick``: the entry the replay tick calls. From the job table it
+  computes the jobs' utilisation, the slot amounts, the placement scatter
+  and the node chain, then the facility totals, COP, cooling, PUE and
+  GFLOP/s, and with the thermal twin on the derate and each job's
+  slowest-node clock, in one launch of ``csrc/power_scatter.cu``. Its
+  statics are checked and packed once (``tick_statics``). ``power_tick_torch``
+  is its plain version.
+- ``power_scatter``: the TPU kernel's function, the placement scatter
+  fused with the chain, on the same scatter design. For CPU tensors it runs
+  the plain version; for CUDA tensors it launches the hand-written kernel
   ``csrc/power_scatter.cu`` (which replaces the TPU kernel
-  ``power_scatter_pallas``) or raises. There is no fallback.
+  ``power_scatter_pallas``) or raises. There is no fallback, for either
+  entry.
 - ``power_scatter_torch``: the plain PyTorch version of the same
   function, deterministic on every device.
 - ``node_chain``: the per-node power chain from load fractions (IT power,
@@ -18,17 +26,21 @@
 
 Every function takes a leading replica dimension E: ``place`` and the
 slot amounts are (E, JK), fractions and ``node_up`` (E, N), the node
-constants (N,), and the outputs (E, N). The main path calls with E = 1.
+constants (N,), and the outputs (E, N). ``power_tick`` also takes one
+replica with no leading dimension, as the main path calls it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.throttle import CThrottle, Throttle, throttle_curve
+from repro_torch.utils.device import full
 
 Out4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -141,8 +153,8 @@ def power_scatter(place, cpu_abs, gpu_abs, cap_cpu, cap_gpu, idle_w,
     launch = build.function("power_scatter", pointers=14, ints=3, floats=4)
     E, jk = place.shape
     n = idle_w.shape[0]
-    outs = tuple(torch.empty((E, n), dtype=torch.float32, device=place.device)
-                 for _ in range(4))
+    outs = torch.empty((4, E, n), dtype=torch.float32,
+                       device=place.device).unbind(0)
     with torch.cuda.device(place.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
@@ -210,3 +222,269 @@ def node_power(cpu_frac, gpu_frac, idle_w, cpu_dyn_w, gpu_dyn_w, node_up,
         raise RuntimeError(f"node_power kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["node_power"] += 1
     return outs
+
+
+# --------------------------------------------------------------- the tick
+RUNNING = 2              # core/state.py: a running job
+N_SCALARS = 8            # it, input, cooling, facility, pue, gflops, cop, idle
+Tick = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+class TickConsts(NamedTuple):
+    """The config numbers of the tick, as Python floats; each meets the
+    f32 arithmetic as a rounded f32, in the kernel and the plain version
+    alike (``core.power.tick_consts`` makes them from a ``SimConfig``)."""
+
+    trace_quanta: float
+    rect_peak: float
+    rect_load: float
+    rect_curv: float
+    conv_eff: float
+    cop_base: float
+    cop_wetbulb_coef: float
+    wetbulb_ref_c: float
+    cop_min: float
+    thermal: bool
+    throttle: Throttle
+    nameplate_w: float        # max(nameplate IT power, 1)
+    cop_load_coef: float
+    cop_load_ref: float
+
+
+class _CTickStatics(ctypes.Structure):
+    """``TickStatics`` of csrc/power_scatter.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "cpu_trace", "gpu_trace", "cap_cpu", "cap_gpu", "idle_w",
+        "cpu_dyn_w", "gpu_dyn_w", "node_max_w", "peak_gflops", "node_rack")]
+        + [(f, ctypes.c_int) for f in (
+            "n_jobs", "n_slots", "n_quanta", "n_nodes", "n_racks", "n_res",
+            "thermal")]
+        + [(f, ctypes.c_float) for f in (
+            "quanta", "rect_peak", "rect_load", "rect_curv", "conv_eff",
+            "cop_base", "cop_wetbulb_coef", "wetbulb_ref", "cop_min")]
+        + [("throttle", CThrottle)]
+        + [(f, ctypes.c_float) for f in (
+            "nameplate", "cop_load_coef", "cop_load_ref")])
+
+
+class TickStatics(NamedTuple):
+    """What ``power_tick`` takes that is fixed for a simulation: the trace
+    bank (J, Q), the node vectors (N,), the node racks, the shapes and the
+    constants, checked once by ``tick_statics``; on the card also the
+    packed C struct and the resolved launcher."""
+
+    cpu_trace: torch.Tensor
+    gpu_trace: torch.Tensor
+    cap_cpu: torch.Tensor
+    cap_gpu: torch.Tensor
+    idle_w: torch.Tensor
+    cpu_dyn_w: torch.Tensor
+    gpu_dyn_w: torch.Tensor
+    node_max_w: torch.Tensor
+    peak_gflops: torch.Tensor
+    node_rack: torch.Tensor       # (N,) int32
+    n_slots: int                  # K, slots per job
+    n_racks: int
+    n_res: int                    # rows of the job table's ``req``
+    consts: TickConsts
+    c_struct: Optional[_CTickStatics] = None
+    launch: Optional[object] = None
+
+
+def tick_statics(cpu_trace, gpu_trace, cap_cpu, cap_gpu, idle_w, cpu_dyn_w,
+                 gpu_dyn_w, node_max_w, peak_gflops, node_rack, *,
+                 n_slots: int, n_racks: int, n_res: int,
+                 consts: TickConsts) -> TickStatics:
+    """Check the tick's fixed inputs once and, on the card, pack them for
+    the kernel (and build it on first use). Raises on anything the kernel
+    does not take."""
+    node_vecs = (cap_cpu, cap_gpu, idle_w, cpu_dyn_w, gpu_dyn_w, node_max_w,
+                 peak_gflops)
+    tensors = (cpu_trace, gpu_trace, *node_vecs, node_rack)
+    dev = cpu_trace.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("power_tick: all statics must be on one device")
+    if node_rack.dtype != torch.int32 or any(
+            t.dtype != torch.float32 for t in tensors[:-1]):
+        raise TypeError("power_tick: node_rack must be int32, the trace "
+                        "bank and node vectors f32")
+    n = idle_w.shape[0] if idle_w.dim() == 1 else -1
+    if cpu_trace.dim() != 2 or gpu_trace.shape != cpu_trace.shape \
+            or cpu_trace.shape[1] < 1 \
+            or any(t.shape != (n,) for t in (*node_vecs, node_rack)):
+        raise ValueError(
+            "power_tick: the trace bank must be (J, Q) twice and every node "
+            f"vector (N,), got {tuple(cpu_trace.shape)}, "
+            f"{tuple(gpu_trace.shape)} and {[tuple(t.shape) for t in node_vecs]}")
+    if n_slots < 1 or n_racks < 1 or n_res < 2:
+        raise ValueError("power_tick: need K >= 1 slots, R >= 1 racks and "
+                         "two resource rows (cpu, gpu) at least")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("power_tick: statics must be contiguous")
+    J, Q = cpu_trace.shape
+    if J * n_slots >= 2**31 or n >= 2**31 or J * n_res >= 2**31 \
+            or J * Q >= 2**31:
+        raise ValueError("power_tick: J*K, J*Q, J*NRES and N < 2**31")
+    ts = TickStatics(cpu_trace, gpu_trace, *node_vecs, node_rack, n_slots,
+                     n_racks, n_res, consts)
+    if dev.type == "cpu":
+        return ts
+    if dev.type != "cuda":
+        raise ValueError(f"power_tick: no kernel for {dev}")
+    launch = build.function("power_scatter", pointers=10, ints=2, floats=0,
+                            entry="power_tick")
+    size = build.load("power_scatter").power_tick_statics_size()
+    if size != ctypes.sizeof(_CTickStatics):
+        raise RuntimeError(f"power_tick: the C struct has {size} bytes, its "
+                           f"ctypes mirror {ctypes.sizeof(_CTickStatics)}")
+    c = consts
+    packed = _CTickStatics(
+        *(t.data_ptr() for t in tensors),
+        J, n_slots, Q, n, n_racks, n_res, int(c.thermal),
+        c.trace_quanta, c.rect_peak, c.rect_load, c.rect_curv, c.conv_eff,
+        c.cop_base, c.cop_wetbulb_coef, c.wetbulb_ref_c, c.cop_min,
+        CThrottle(*c.throttle), c.nameplate_w, c.cop_load_coef,
+        c.cop_load_ref)
+    # the launcher takes the struct's address before the tensor pointers
+    launch.argtypes = [ctypes.POINTER(_CTickStatics)] + launch.argtypes[1:]
+    return ts._replace(c_struct=packed, launch=launch)
+
+
+def _tick_shapes(ts: TickStatics, lead) -> tuple:
+    J = ts.cpu_trace.shape[0]
+    return (lead + (J,), lead, lead + (J,), lead + (J, ts.n_slots),
+            lead + (ts.n_res, J), lead + ts.idle_w.shape,
+            lead + (ts.n_racks,), lead)
+
+
+_TICK_NAMES = ("jstate", "t", "start_t", "placement", "req", "node_up",
+               "rack_outlet", "wetbulb")
+_TICK_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
+                torch.float32, torch.float32, torch.float32, torch.float32)
+
+
+def _check_tick(ts: TickStatics, tensors) -> None:
+    """Raise on per-tick tensors the kernel does not take: one replica
+    (``t`` 0-d) or E (``t`` (E,)), each in its shape, dtype and layout on
+    the statics' device."""
+    lead = tuple(tensors[1].shape)
+    if len(lead) > 1 or (lead and not 0 < lead[0] <= 65535):
+        raise ValueError("power_tick: t must be 0-d or (E,), 0 < E <= 65535")
+    dev = ts.cpu_trace.device
+    for name, x, shape, dtype in zip(_TICK_NAMES, tensors,
+                                     _tick_shapes(ts, lead), _TICK_DTYPES):
+        if x.device != dev:
+            raise ValueError(f"power_tick: {name} is on {x.device}, the "
+                             f"statics on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"power_tick: {name} must be {dtype}, got {x.dtype}")
+        if x.shape != shape:
+            raise ValueError(f"power_tick: {name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"power_tick: {name} must be contiguous")
+
+
+def power_tick_torch(ts: TickStatics, jstate, t, start_t, placement, req,
+                     node_up, rack_outlet, wetbulb) -> Tick:
+    """Plain PyTorch version of the fused tick: ``core.power``'s
+    ``job_utilization``, ``placement_amounts``, the scatter and chain
+    (``power_scatter_torch``) and ``finish_power`` with the static COP at
+    ``wetbulb``; with ``consts.thermal``, the tail's derate from the
+    previous tick's ``rack_outlet`` and ``job_thermal_rate``. Returns
+    (node_it_w, node_input_w, scalars, job factor or None): the node
+    values (..., N), the scalars (..., 8) in the order it_w, input_w,
+    cooling_w, facility_w, pue, gflops, cop, idle_w (the up nodes' idle
+    power), the job factor (..., J)."""
+    lead = tuple(t.shape)
+    if not lead:
+        outs = power_tick_torch(ts, jstate[None], t[None], start_t[None],
+                                placement[None], req[None], node_up[None],
+                                rack_outlet[None], wetbulb[None])
+        return tuple(None if o is None else o[0] for o in outs)
+    c = ts.consts
+    E, J = jstate.shape
+    running = (jstate == RUNNING).to(torch.float32)
+    age = torch.clamp(t[:, None] - start_t, min=0.0)
+    quanta = full(c.trace_quanta, torch.float32, t.device)
+    q = ts.cpu_trace.shape[-1]
+    qi = torch.clamp((age / quanta).to(torch.int32), 0, q - 1).long()
+    cpu = torch.gather(ts.cpu_trace.expand(E, J, q), 2, qi[..., None])[..., 0]
+    gpu = torch.gather(ts.gpu_trace.expand(E, J, q), 2, qi[..., None])[..., 0]
+    cpu, gpu = cpu * running, gpu * running
+    w = (placement >= 0).to(torch.float32)
+    cpu_abs = (req[:, 0, :, None] * cpu[..., None]) * w
+    gpu_abs = (req[:, 1, :, None] * gpu[..., None]) * w
+    place = placement.reshape(E, -1)
+    node_it, node_input, cf, gf = power_scatter_torch(
+        place, cpu_abs.reshape(E, -1), gpu_abs.reshape(E, -1), ts.cap_cpu,
+        ts.cap_gpu, ts.idle_w, ts.cpu_dyn_w, ts.gpu_dyn_w, node_up,
+        ts.node_max_w, rect_peak=c.rect_peak, rect_load=c.rect_load,
+        rect_curv=c.rect_curv, conv_eff=c.conv_eff)
+    gflops = torch.sum(ts.peak_gflops * torch.maximum(cf, gf) * node_up, -1)
+    node_idle = ts.idle_w * node_up
+    cop = c.cop_base + c.cop_wetbulb_coef * (wetbulb - c.wetbulb_ref_c)
+    job_th = None
+    if c.thermal:
+        th_r = throttle_curve(rack_outlet, c.throttle)
+        node_th = th_r.index_select(1, ts.node_rack.long())
+        node_dyn = torch.clamp(node_it - node_idle, min=0.0)
+        it2 = node_idle + node_th * node_dyn
+        node_input = node_input * (it2 / torch.clamp(node_it, min=1e-9))
+        node_it = it2
+        dyn_tot = torch.sum(node_dyn, -1)
+        gscale = torch.where(
+            dyn_tot > 0.0,
+            torch.sum(node_th * node_dyn, -1) / torch.clamp(dyn_tot, min=1e-9),
+            1.0)
+        it_w = torch.sum(node_it, -1)
+        nameplate = full(c.nameplate_w, torch.float32, t.device)
+        cop = cop + c.cop_load_coef * (it_w / nameplate - c.cop_load_ref)
+        gflops = gflops * gscale
+        valid = place >= 0
+        slot_th = torch.gather(node_th, 1, torch.where(valid, place, 0).long())
+        job_th = torch.amin(torch.where(valid, slot_th, 1.0).reshape(
+            E, J, ts.n_slots), dim=2)
+    it_w = torch.sum(node_it, -1)
+    input_w = torch.sum(node_input, -1)
+    cop = torch.clamp(cop, min=c.cop_min)
+    cooling_w = input_w / cop
+    facility_w = input_w + cooling_w
+    pue = torch.where(it_w > 1.0,
+                      facility_w / torch.clamp(it_w, min=1.0), 1.0)
+    scalars = torch.stack([it_w, input_w, cooling_w, facility_w, pue, gflops,
+                           cop, torch.sum(node_idle, -1)], -1)
+    return node_it, node_input, scalars, job_th
+
+
+def power_tick(ts: TickStatics, jstate, t, start_t, placement, req, node_up,
+               rack_outlet, wetbulb) -> Tick:
+    """One tick's power chain from the job table (see ``power_tick_torch``
+    for what it returns). CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream, one output allocation a
+    call."""
+    tensors = (jstate, t, start_t, placement, req, node_up, rack_outlet,
+               wetbulb)
+    _check_tick(ts, tensors)
+    if ts.launch is None:
+        return power_tick_torch(ts, *tensors)
+    lead = tuple(t.shape)
+    E = lead[0] if lead else 1
+    J = ts.cpu_trace.shape[0]
+    n = ts.idle_w.shape[0]
+    dev = t.device
+    out = torch.empty(E * (2 * n + N_SCALARS + J), dtype=torch.float32,
+                      device=dev)
+    idx = dev.index
+    err = ts.launch(ts.c_struct, *(x.data_ptr() for x in tensors),
+                    out.data_ptr(), E, idx,
+                    torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:
+        raise RuntimeError(f"power_tick kernel launch failed: CUDA error {err}")
+    kernels.LAUNCHES["power_scatter"] += 1
+    node_it, node_input, scalars, job_th = out.split(
+        [E * n, E * n, E * N_SCALARS, E * J])
+    return (node_it.view(lead + (n,)), node_input.view(lead + (n,)),
+            scalars.view(lead + (N_SCALARS,)),
+            job_th.view(lead + (J,)) if ts.consts.thermal else None)

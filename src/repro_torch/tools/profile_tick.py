@@ -65,15 +65,33 @@ def _advance(step, state, action, n):
     return state
 
 
+def setup_case(case: str, start: int, device=None):
+    """An acceptance case (``configs/acceptance.py``) built on ``device``
+    (the card when ``None``) and run to tick ``start``: returns (step,
+    state, action). Shared by the tick tools, so each reads the same
+    tick."""
+    import torch
+
+    from repro_torch.configs import acceptance
+    from repro_torch.core import build_statics, init_state, load_jobs
+    from repro_torch.core.sim import make_step
+    from repro_torch.utils.device import full
+
+    cfg = acceptance.config(case)
+    jobs, bank = acceptance.workload(cfg)
+    statics = build_statics(cfg, bank, device=device)
+    state = load_jobs(init_state(cfg, statics, acceptance.SEED), jobs)
+    step = make_step(cfg, statics, acceptance.SCHEDULER)
+    action = full(-1, torch.int64, statics.capacity.device)
+    return step, _advance(step, state, action, start), action
+
+
 def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels as port_kernels
     from repro_torch.configs import acceptance
-    from repro_torch.core import build_statics, init_state, load_jobs
-    from repro_torch.core.sim import make_step
-    from repro_torch.utils.device import full
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
@@ -86,13 +104,7 @@ def main(argv=None) -> int:
         print("profile_tick: needs a CUDA device", file=sys.stderr)
         return 1
 
-    cfg = acceptance.config(args.case)
-    jobs, bank = acceptance.workload(cfg)
-    statics = build_statics(cfg, bank)
-    state = load_jobs(init_state(cfg, statics, acceptance.SEED), jobs)
-    step = make_step(cfg, statics, acceptance.SCHEDULER)
-    action = full(-1, torch.int64, statics.capacity.device)
-    state = _advance(step, state, action, args.start)
+    step, state, action = setup_case(args.case, args.start)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()

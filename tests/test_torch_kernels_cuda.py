@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attn as pfa
 from repro_torch.kernels import node_power as npw
 from repro_torch.kernels import rack_thermal as prt
 from repro_torch.kernels import selective_scan as pss
+from repro_torch.kernels.throttle import Throttle
 
 RTOL = 1e-5
 CHAIN = dict(rect_peak=0.965, rect_load=0.55, rect_curv=0.12, conv_eff=0.975)
@@ -79,6 +80,162 @@ def test_rack_thermal_kernel_matches_plain_version(cuda_device, E):
     for g, w, c in zip(got, want, cpu):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=0.0)
         assert torch.equal(g.cpu(), c)
+
+
+# (E, N, JK): the main path's shapes, a table wider than one 4096-slot
+# tile and not a multiple of it, and more nodes than one 1024-node chunk
+SCATTER_SHAPES = [(3, 672, 4800), (2, 1500, 700), (64, 672, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,JK", SCATTER_SHAPES)
+def test_power_scatter_kernel_tiles_and_chunks(cuda_device, E, N, JK):
+    """Shapes that loop over slot tiles and node chunks, with one node
+    holding a long run of slots: bitwise against the CPU plain version."""
+    t = list(_inputs(cuda_device, E, N=N, JK=JK, seed=E + N))
+    t[0][:, ::3] = 7                      # node 7 takes a third of the slots
+    t[1][:, ::3] = 1.5
+    t[2][:, ::3] = 0.25
+    got = npw.power_scatter(*t, **CHAIN)
+    again = npw.power_scatter(*t, **CHAIN)
+    cpu = npw.power_scatter_torch(*(a.cpu() for a in t), **CHAIN)
+    for g, a, c in zip(got, again, cpu):
+        assert torch.equal(g, a)
+        assert torch.equal(g.cpu(), c)
+
+
+TICK_CHAIN = dict(rect_peak=0.965, rect_load=0.55, rect_curv=0.12,
+                  conv_eff=0.975)
+
+
+def _tick_consts(thermal):
+    return npw.TickConsts(
+        trace_quanta=10.0, **TICK_CHAIN, cop_base=5.2, cop_wetbulb_coef=-0.08,
+        wetbulb_ref_c=18.0, cop_min=1.5, thermal=thermal,
+        throttle=Throttle(24.0, 10.0, 0.6, 0.4), nameplate_w=3.0e5,
+        cop_load_coef=1.2, cop_load_ref=0.5)
+
+
+def _tick_inputs(device, E, J, K, N, R, thermal, seed, Q=12, layout="mixed"):
+    """Statics and E replicas' per-tick state: ~70% of jobs running, a
+    third of the slots -1, outlet temperatures across the throttle ramp.
+    ``layout``: "mixed" (ids anywhere), "half" (the upper half of the
+    nodes holds no slot), "hot" (every job on node 3)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    place = rng.integers(0, N, (E, J, K))
+    if layout == "half":
+        place = place % max(N // 2, 1)
+    elif layout == "hot":
+        place[:, :, 0] = 3
+    place[rng.random((E, J, K)) < 0.33] = -1
+    node_cpu = rng.uniform(8, 48, N)
+    statics = [rng.random((J, Q)).astype(f32), rng.random((J, Q)).astype(f32),
+               node_cpu.astype(f32), rng.uniform(0, 4, N).astype(f32),
+               rng.uniform(80, 300, N).astype(f32),
+               rng.uniform(100, 400, N).astype(f32),
+               rng.uniform(0, 600, N).astype(f32),
+               rng.uniform(700, 1400, N).astype(f32),
+               rng.uniform(1e3, 2e4, N).astype(f32),
+               rng.integers(0, R, N).astype(np.int32)]
+    state = [rng.choice([1, 2, 2, 2, 3], (E, J)).astype(np.int32),
+             rng.uniform(100, 3600, E).astype(f32),
+             rng.uniform(0, 3000, (E, J)).astype(f32),
+             place.astype(np.int32),
+             rng.uniform(1, 24, (E, 3, J)).astype(f32),
+             (rng.random((E, N)) > 0.05).astype(f32),
+             rng.uniform(18, 38, (E, R)).astype(f32),
+             rng.uniform(5, 28, E).astype(f32)]
+
+    def on(dev):
+        ts = npw.tick_statics(*(torch.tensor(a, device=dev) for a in statics),
+                              n_slots=K, n_racks=R, n_res=3,
+                              consts=_tick_consts(thermal))
+        return ts, [torch.tensor(a, device=dev) for a in state]
+
+    return on(device), on("cpu")
+
+
+# (E, J, K, N, R, layout): the main path's TX-GAIA shapes; nodes with no
+# slot; every job on one node (the longest run after the sort); a table of
+# 4800 slots (over one tile, not a multiple of it) on 1500 nodes (two
+# node chunks) and 40 racks
+TICK_CASES = [(1, 256, 16, 672, 21, "mixed"), (3, 256, 16, 672, 21, "half"),
+              (3, 300, 16, 672, 21, "hot"), (3, 600, 8, 1500, 40, "mixed"),
+              (64, 256, 16, 672, 21, "mixed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thermal", [False, True])
+@pytest.mark.parametrize("E,J,K,N,R,layout", TICK_CASES)
+def test_power_tick_kernel_matches_plain_version(cuda_device, E, J, K, N, R,
+                                                 layout, thermal):
+    """The fused tick against ``power_tick_torch`` on the card (rtol) and
+    on the CPU: node values and job factors bitwise (each node adds its
+    slots in ascending order, as ``index_add_`` does), the block sums to
+    rtol; two calls bitwise equal; one launch each."""
+    (ts, st), (cts, cst) = _tick_inputs(cuda_device, E, J, K, N, R, thermal,
+                                        seed=E * 7 + J + N)
+    before = kernels.LAUNCHES["power_scatter"]
+    got = npw.power_tick(ts, *st)
+    again = npw.power_tick(ts, *st)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["power_scatter"] == before + 2
+    want = npw.power_tick_torch(ts, *st)
+    cpu = npw.power_tick_torch(cts, *cst)
+    for i, (g, a, w, c) in enumerate(zip(got, again, want, cpu)):
+        if c is None:
+            assert g is None and w is None
+            continue
+        assert torch.equal(g, a), i
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=0.0)
+        if i == 2:
+            torch.testing.assert_close(g.cpu(), c, rtol=RTOL, atol=0.0)
+        else:
+            assert torch.equal(g.cpu(), c), i
+    # one replica without a leading axis, as the main path calls it
+    one = npw.power_tick(ts, *(x[0] for x in st))
+    for g, o in zip(got, one):
+        assert (g is None and o is None) or torch.equal(g[0], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,R", [(1, 672, 21), (3, 672, 21),
+                                   (64, 672, 21), (3, 1500, 40)])
+def test_rack_tick_kernel_matches_plain_version(cuda_device, E, N, R):
+    """The fused thermal tail against ``rack_tick_torch`` on the card
+    (rtol) and on the CPU (bitwise: each rack adds its own nodes in
+    ascending order), racks interleaved; two calls bitwise equal."""
+    from repro_torch.core.state import rack_csr
+
+    rng = np.random.default_rng(E + N)
+    node_rack = rng.integers(0, R, N)
+    ptr, nodes = rack_csr(node_rack, R)
+    consts = prt.RackConsts(4.0, 14.0, 0.0083, 1.0,
+                            Throttle(24.0, 10.0, 0.6, 0.4))
+    arrays = (rng.uniform(150, 1500, (E, N)), rng.uniform(0.5, 1.0, E),
+              rng.uniform(5, 28, E), rng.uniform(18, 38, (E, R)),
+              rng.uniform(20, 40, E))
+
+    r_th = (20.0 / rng.uniform(3e4, 6e4, R)).astype(np.float32)
+    tens = {dev: [torch.tensor(a.astype(np.float32), device=dev)
+                  for a in arrays] for dev in ("cpu", "cuda")}
+    rs = {dev: prt.rack_statics(
+        torch.tensor(ptr, device=dev), torch.tensor(nodes, device=dev),
+        torch.tensor(node_rack.astype(np.int32), device=dev),
+        torch.tensor(r_th, device=dev), consts=consts) for dev in tens}
+    before = kernels.LAUNCHES["rack_thermal"]
+    got = prt.rack_tick(rs["cuda"], *tens["cuda"])
+    again = prt.rack_tick(rs["cuda"], *tens["cuda"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rack_thermal"] == before + 2
+    want = prt.rack_tick_torch(rs["cuda"], *tens["cuda"])
+    cpu = prt.rack_tick_torch(rs["cpu"], *tens["cpu"])
+    for g, a, w, c in zip(got, again, want, cpu):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=0.0)
+        assert torch.equal(g.cpu(), c)
+    assert float(got[1].max()) == 1.0     # some rack is on the ramp
 
 
 @pytest.mark.cuda

@@ -32,8 +32,24 @@ def _cfgs(name, **kw):
 def test_setup_matches_reference_field_by_field(name):
     rc, pc = _cfgs(name)
     rst, rs, pst, ps, _, _ = make_pair(rc, pc, 40, 600.0, seed=7)
-    assert_tree_close(rst, pst, "statics")
+    assert_tree_close(rst, pst, "statics", skip=_PORT_ONLY)
+    _assert_rack_csr(rst, pst)
     assert_tree_close(rs, ps, "state")
+
+
+# the racks' CSR, which only the port keeps: checked against the
+# reference's rack ids
+_PORT_ONLY = ("rack_ptr", "rack_nodes")
+
+
+def _assert_rack_csr(rst, pst):
+    rack = np.asarray(rst.node_rack)
+    ptr, nodes = pst.rack_ptr.numpy(), pst.rack_nodes.numpy()
+    assert ptr.dtype == nodes.dtype == np.int32
+    assert ptr.shape == (np.shape(rst.rack_r_th)[0] + 1,)
+    for r in range(ptr.shape[0] - 1):
+        np.testing.assert_array_equal(nodes[ptr[r]:ptr[r + 1]],
+                                      np.flatnonzero(rack == r))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -83,11 +99,12 @@ def test_interop_round_trips_and_continues_in_lockstep():
     ps = interop.state_from_numpy(ref_numpy(rs), device="cpu")
     for want, got in ((ref_numpy(rs), ps), (jax.device_get(rst), pst)):
         for f in got._fields:
-            if f == "scenario":
+            if f == "scenario" or f in _PORT_ONLY:
                 continue
             np.testing.assert_array_equal(
                 to_numpy(getattr(got, f)).astype(np.float64),
                 np.asarray(getattr(want, f)).astype(np.float64), err_msg=f)
+    _assert_rack_csr(jax.device_get(rst), pst)
     rs2, _ = jax.jit(lambda s: R.run_episode(rc, rst, s, 80, "easy"))(rs)
     ps2, _ = C.run_episode(pc, pst, ps, 80, "easy")
     assert_tree_close(rs2, ps2, "state after 80 more ticks")
