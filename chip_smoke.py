@@ -15,9 +15,11 @@ and no result line:
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
              table, nodes and racks; gemma3-1b's, qwen3-4b's and jamba's
              prefill attention; jamba's selective scan at its 8-layer
-             prefill and at a ragged length), and timed (CUDA events,
-             median) beside its bound and, for attention,
-             ``scaled_dot_product_attention``. The replay tick's fused
+             prefill and at a ragged length, the signature entry in f32
+             and the Mamba mixer's fused entry ``mamba_scan`` in bf16 and
+             f32), and timed (CUDA events, median) beside its bound and,
+             for attention, ``scaled_dot_product_attention``. The replay
+             tick's fused
              entries (``power_tick`` with thermals off at E=1 and on at
              E=1 and 64, ``rack_tick`` at E=1 and 64) also against the CPU
              plain version: per-node and per-rack values bitwise. An empty
@@ -45,9 +47,10 @@ and no result line:
              random weights from ``init_params`` on the card) in f32 and in
              bf16: the prefill/decode invariant (f32 within 1e-4; in bf16
              the decode step within twice the bf16 prefill's distance from
-             the f32 model's answer), 7 selective_scan and 1 flash_attn
-             launches per prefill and none per decode step; then
-             ``generate`` in bf16 as in ``serve``.
+             the f32 model's answer), 7 selective_scan (the Mamba mixer's
+             fused ``mamba_scan``) and 1 flash_attn launches per prefill
+             and none per decode step; then ``generate`` in bf16 as in
+             ``serve``.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -96,7 +99,10 @@ SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.
 # and at a length no 256-step chunk divides: (name, ba, s, di, ds)
 SCAN_CASES = (("jamba prefill", 4, 1024, 16384, 16),
               ("ragged", 2, 1025, 16384, 16))
-SCAN_TOL = 1e-5      # atol = rtol: the plain version runs the kernel's order
+SCAN_TOL = 1e-5      # atol = rtol: the signature entry, the fused f32 output
+#                      and the fused final state (f32) in both dtypes
+MAMBA_BF16_TOL = 1.6e-2   # atol = rtol: two bf16 ulps at order 1
+MAMBA_DT_RANK = 512       # jamba's x_proj output: dt_rank + 2 ds columns
 SCAN_TIMING = (10, 5)        # kernel: timed batches, calls per batch
 SCAN_PLAIN_TIMING = (3, 1)   # plain version: ~20 small kernels per step
 # H100 SXM special-function units: 16 exponentials a clock on each of the
@@ -104,6 +110,9 @@ SCAN_PLAIN_TIMING = (3, 1)   # plain version: ~20 small kernels per step
 # of arithmetic instructions, compute capability 9.0)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 SCAN_F32_OPS = 6     # f32 operations per (step, channel, state) besides exp
+# the fused entry's transcendentals per (step, channel) besides the decays:
+# softplus's exp and log1p, silu's exp
+MAMBA_SFU_PER_ELEM = 3
 # serve_jamba_8l's prefill/decode invariant: f32 within 1e-4 (atol =
 # rtol). In bf16 its logits are of order 1 (gemma3-1b's of order 0.05),
 # and bf16's rounding, carried through 8 random-weight layers, moves them
@@ -402,10 +411,11 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
 
 
 def check_scan(torch, np, name, ba, s, di, ds) -> dict:
-    """selective_scan against ``selective_scan_torch`` on the card at one
-    shape: within ``SCAN_TOL`` (atol = rtol), two calls bitwise equal;
-    timed beside the plain version and the bound. No single PyTorch call
-    computes a selective scan, so there is no library time."""
+    """selective_scan (the TPU kernel's signature) against
+    ``selective_scan_torch`` on the card at one shape: within ``SCAN_TOL``
+    (atol = rtol), two calls bitwise equal; timed beside the plain version
+    and the bound. No single PyTorch call computes a selective scan, so
+    there is no library time."""
     from repro_torch.kernels import selective_scan as pss
 
     rng = np.random.default_rng(s + ds)
@@ -444,6 +454,69 @@ def check_scan(torch, np, name, ba, s, di, ds) -> dict:
          d_inner=di, d_state=ds, tol=SCAN_TOL, max_rel_err=rel_err,
          bytes_ms=1e3 * t_bytes, exp_ms=1e3 * steps / SFU_EXP_PER_S,
          **rec)
+    return rec
+
+
+def check_mamba_scan(torch, np, name, dtype, ba, s, di, ds) -> dict:
+    """The fused entry ``mamba_scan`` against ``mamba_scan_torch`` on the
+    card at one shape, its inputs laid out as the mixer passes them (z the
+    second half of in_proj's output, Bc and Cc slices of x_proj's): the
+    output in f32 within ``SCAN_TOL``, in bf16 within ``MAMBA_BF16_TOL``
+    (atol = rtol), the share of outputs that differ at all reported; the
+    final state, f32 in both, within ``SCAN_TOL``; two calls bitwise equal;
+    timed beside the plain version and the bound (each tensor read or
+    written once; the decays and the prologue's transcendentals at the
+    SFUs' rate, the other f32 operations at the f32 peak)."""
+    from repro_torch.kernels import selective_scan as pss
+
+    rng = np.random.default_rng(s + ds + 1)
+    dt = getattr(torch, dtype)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device="cuda").to(dt)
+
+    dt_proj = rng.normal(0.0, 0.5, (ba, s, di)).astype(np.float32)
+    xz = t(rng.standard_normal((ba, s, 2 * di), np.float32))
+    proj = t(rng.standard_normal((ba, s, MAMBA_DT_RANK + 2 * ds), np.float32))
+    A = torch.tensor(-np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32),
+                                      (di, ds)).copy(), device="cuda")
+    a = (t(rng.standard_normal((ba, s, di), np.float32)), t(dt_proj),
+         t(rng.uniform(-6.9, -2.3, di)), A,
+         proj[..., MAMBA_DT_RANK:MAMBA_DT_RANK + ds],
+         proj[..., MAMBA_DT_RANK + ds:], xz[..., di:],
+         t(rng.standard_normal(di, np.float32)))
+    del dt_proj
+    got = pss.mamba_scan(*a)
+    again = pss.mamba_scan(*a)
+    want = pss.mamba_scan_torch(*a)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, r) for g, r in zip(got, again)):
+        raise AssertionError(f"mamba_scan {name} ({dtype}): two calls differ")
+    tol = SCAN_TOL if dtype == "float32" else MAMBA_BF16_TOL
+    out_err, state_err = (float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+    differ = float((got[0] != want[0]).float().mean())
+    for i, (g, w, tl) in enumerate(zip(got, want, (tol, SCAN_TOL))):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=tl, atol=tl,
+            msg=lambda m, i=i: f"mamba_scan {name} ({dtype})[{i}]: {m}")
+    steps = ba * s * di * ds
+    elems = ba * s * di
+    t_bytes = (nbytes(a) + nbytes(got)) / HBM_BYTES_PER_S
+    t_sfu = (steps + MAMBA_SFU_PER_ELEM * elems) / SFU_EXP_PER_S
+    t_ops = max(t_sfu, SCAN_F32_OPS * steps / F32_FLOPS)
+    rec = dict(max_abs_err=max(out_err, state_err),
+               ms=time_ms(torch, lambda: pss.mamba_scan(*a), *SCAN_TIMING),
+               plain_ms=time_ms(torch, lambda: pss.mamba_scan_torch(*a),
+                                *SCAN_PLAIN_TIMING),
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None)
+    emit("kernel", name="selective_scan", entry="mamba_scan", case=name,
+         dtype=dtype, batch=ba, seq=s, d_inner=di, d_state=ds, tol=tol,
+         state_tol=SCAN_TOL, out_err=out_err, state_err=state_err,
+         differing_share=differ, bytes_ms=1e3 * t_bytes,
+         sfu_ms=1e3 * t_sfu, **rec)
     return rec
 
 
@@ -887,6 +960,9 @@ def main() -> int:
         record["flash_attn", case[0]] = check_attention(torch, np, *case)
     for case in SCAN_CASES:
         record["selective_scan", case[0]] = check_scan(torch, np, *case)
+        for dtype in ("bfloat16", "float32"):
+            record["mamba_scan", dtype, case[0]] = check_mamba_scan(
+                torch, np, case[0], dtype, *case[1:])
 
     # 4. main path: replay_tx_gaia_1h on the card
     launches = drive(torch, "replay_tx_gaia_1h", cfg, statics, jobs, "main")
@@ -929,8 +1005,9 @@ def main() -> int:
 
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
-    # E = 1, rack_tick at the thermal hour's), and beside them the
-    # TPU kernel's own signature at E = 1
+    # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
+    # scan in bf16 at jamba's prefill, and beside them the TPU kernel's own
+    # signature (E = 1; the scan in f32)
     sources = {
         "power_scatter": ("src/repro/kernels/node_power.py:145",
                           ("power_tick", 1, False), ("power_scatter", 1)),
@@ -941,7 +1018,8 @@ def main() -> int:
         "flash_attn": ("src/repro/kernels/flash_attn.py:105",
                        ("flash_attn", ATTN_REPORTED), None),
         "selective_scan": ("src/repro/kernels/mamba_scan.py:61",
-                           ("selective_scan", SCAN_CASES[0][0]), None),
+                           ("mamba_scan", "bfloat16", SCAN_CASES[0][0]),
+                           ("selective_scan", SCAN_CASES[0][0])),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{

@@ -618,31 +618,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_bf16_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// does not link libcuda
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
+using hopper::EncodeTiled;
 
 // a 4-D map of a contiguous (batch, seq, heads, hd) bf16 tensor, boxes of
 // `box_rows` positions of one head and `box` values along hd
@@ -680,7 +656,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const EncodeTiled encode = encode_tiled();
+  const EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(encode, &tm_q, q, batch, sq, n_heads, HD, 64, T::BOX, T::SW) ||

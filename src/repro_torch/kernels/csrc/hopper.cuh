@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, warpgroup register moves and the wgmma products with their shared
-// memory descriptors. Used by flash_attn.cu. PTX is written out here, and
-// no CUTLASS header is included, so a kernel that uses this builds in
-// seconds.
+// loads and stores, warpgroup register moves and the wgmma products with
+// their shared memory descriptors; on the host, the driver's tensor-map
+// encoder. Used by flash_attn.cu and selective_scan.cu. PTX is written out
+// here, and no CUTLASS header is included, so a kernel that uses this
+// builds in seconds.
 //
 // Shared-memory operands. A TMA box whose rows are SW bytes long (SW = 32,
 // 64 or 128, at most 64 bf16 values) lands with SW-byte swizzle; a tile of
@@ -17,6 +18,9 @@
 //   between SW-byte column chunks; a k16 step moves 16 rows (16 * SW bytes).
 
 #pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -86,6 +90,54 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// a 3-D box at coordinates (c0, c1, c2), innermost first, into shared
+// memory at `dst`; as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 3-D box from shared memory at `src` to coordinates (c0, c1, c2); the
+// part of the box past the tensor's end is not written. Completes in the
+// thread's current bulk group (bulk_commit, bulk_wait_read)
+__device__ __forceinline__ void tma_store_3d(const void* tmap,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's writes to shared memory become visible to the async proxy
+// (a TMA store that a later barrier orders after them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- warpgroups ------------------------------------------------------------
@@ -346,6 +398,34 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- host: tensor maps ------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime so that a library
+// does not link libcuda; nullptr where the driver does not have it
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace hopper

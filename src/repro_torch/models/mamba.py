@@ -1,11 +1,13 @@
 """The Mamba (selective state-space) mixer (the JAX package's
 ``models/mamba.py``).
 
-Parallel (prefill) path: ``mamba_apply``, whose scan goes through the
-``selective_scan`` kernel wrapper (the kernel on the card, its plain
-version on the CPU). Decode path: ``mamba_decode``, the O(1) recurrent
-update of the (conv, ssm) cache, plain PyTorch as it is jnp in the JAX
-package; its causal conv is an einsum over (conv cache, x), as there.
+Parallel (prefill) path: ``mamba_apply``, whose scan and the elementwise
+work around it (dt's bias and softplus, the casts to f32 and back, the
+gated D skip) go through the fused ``mamba_scan`` kernel wrapper (the
+kernel on the card, its plain version on the CPU). Decode path:
+``mamba_decode``, the O(1) recurrent update of the (conv, ssm) cache,
+plain PyTorch as it is jnp in the JAX package; its causal conv is an
+einsum over (conv cache, x), as there.
 
 Casts follow the JAX package: the projections and the causal conv run in
 the compute dtype (``w`` holds them already cast, with ``A_log`` kept f32,
@@ -21,10 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.selective_scan import (
-    selective_scan,
-    selective_scan_step,
-)
+from repro_torch.kernels.selective_scan import mamba_scan, selective_scan_step
 from repro_torch.models import spec as S
 from repro_torch.models.layers import rms_norm
 
@@ -49,32 +48,35 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def _dt_b_c(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
-    """(softplus'd step sizes (..., di), B (..., ds), C (..., ds)) from the
-    conv's output, in its dtype."""
+def _x_proj(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
+    """(step sizes before their bias and softplus (..., di), B (..., ds), C
+    (..., ds)) from the conv's output, in its dtype; B and C are views of
+    one projection."""
     dr, ds = S.dt_rank(cfg), cfg.ssm.d_state
     proj = xc @ w["x_proj"]
     dt_low, Bc, Cc = torch.split(proj, [dr, ds, ds], dim=-1)
-    dtv = F.softplus(dt_low @ w["dt_w"] + w["dt_b"])
-    return dtv, Bc, Cc
+    return dt_low @ w["dt_w"], Bc, Cc
+
+
+def _dt_b_c(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
+    """(softplus'd step sizes (..., di), B (..., ds), C (..., ds)) from the
+    conv's output, in its dtype."""
+    dt_proj, Bc, Cc = _x_proj(w, xc, cfg)
+    return F.softplus(dt_proj + w["dt_b"]), Bc, Cc
 
 
 def mamba_apply(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
                 return_state: bool = False):
     """x: (B, S, D) -> (B, S, D), and with ``return_state`` the layer's
     decode cache ``{"conv": (B, dc - 1, di), "ssm": (B, di, ds)}``, f32."""
-    dt_ = x.dtype
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     xz = h @ w["in_proj"]                                   # (B, S, 2di)
     xb_raw, z = torch.chunk(xz, 2, dim=-1)
     xb = F.silu(_causal_conv(xb_raw, w["conv_w"], w["conv_b"]))
-    dtv, Bc, Cc = _dt_b_c(w, xb, cfg)
+    dt_proj, Bc, Cc = _x_proj(w, xb, cfg)
     A = -torch.exp(w["A_log"].float())                      # (di, ds)
-    y, final = selective_scan(
-        xb.float().contiguous(), dtv.float().contiguous(), A.contiguous(),
-        Bc.float().contiguous(), Cc.float().contiguous())
-    y = y.to(dt_) + xb * w["D_skip"]
-    y = y * F.silu(z)
+    y, final = mamba_scan(xb, dt_proj, w["dt_b"], A, Bc, Cc, z,
+                          w["D_skip"])
     out = y @ w["out_proj"]
     if not return_state:
         return out

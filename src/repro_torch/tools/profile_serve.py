@@ -14,8 +14,9 @@ decode steps after it, times the work on the host clock around a
 synchronised run and once more under ``torch.profiler`` with CPU and CUDA
 activities. Prints one JSON line per phase: host ms, CUDA kernels, device
 time, the device's busy share, the launches of each hand-written kernel
-(flash_attn, selective_scan), and the top CUDA kernels and host ops.
-Needs a CUDA device.
+(flash_attn, selective_scan) as its wrapper counts them and, from the
+trace, by entry (``selective_scan_fused_kernel`` is the Mamba mixer's
+fused scan), and the top CUDA kernels and host ops. Needs a CUDA device.
 """
 
 from __future__ import annotations

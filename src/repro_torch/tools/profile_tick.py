@@ -42,14 +42,24 @@ def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     host_ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    # the port's own kernels (csrc/<name>.cu: a kernel named <name>_kernel
+    # or <name>_<variant>_kernel), by entry
+    own = {}
+    for name, (tot, n) in by_name.items():
+        for k in port_kernels.LAUNCHES:
+            found = re.search(rf"\b{k}_(\w+_)?kernel\b", name)
+            if found:
+                key = found.group(0)
+                us, count = own.get(key, (0.0, 0))
+                own[key] = (us + tot, count + n)
     return {
         "cuda_kernels": len(kernels) / per,
-        # device time of the port's own kernels (csrc/<name>.cu: a kernel
-        # named <name>_kernel or <name>_<variant>_kernel)
         "port_kernel_us": {
-            k: sum(tot for name, (tot, _) in by_name.items()
-                   if re.search(rf"\b{k}_(\w+_)?kernel\b", name)) / per
+            k: sum(us for key, (us, _) in own.items()
+                   if key.startswith(f"{k}_")) / per
             for k in port_kernels.LAUNCHES},
+        "port_kernel_launches": {key: n / per
+                                 for key, (_, n) in sorted(own.items())},
         "device_busy_share": (dev_us / wall_us) if kernels else None,
         "device_us": dev_us / per if kernels else None,
         "top_kernels_us": [[name[:80], tot / per, n / per]

@@ -9,6 +9,7 @@ runs where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.kernels import flash_attn as pfa
@@ -340,8 +341,9 @@ def _scan_inputs(device, ba, s, di, ds, seed=11):
 @pytest.mark.parametrize("ba,s,di,ds", SCAN_CASES)
 def test_selective_scan_kernel_matches_plain_version(cuda_device, ba, s, di,
                                                      ds):
-    """The kernel against ``selective_scan_torch`` on the card (the same
-    order of operations: atol = rtol = 1e-5 on outputs of order 1), two
+    """The kernel against ``selective_scan_torch`` on the card (atol =
+    rtol = 1e-5 on outputs of order 1: the kernel's exponential is
+    ``ex2.approx`` and its state update and sum over states fmaf), two
     calls bitwise equal, one launch each."""
     t = _scan_inputs(cuda_device, ba, s, di, ds)
     before = kernels.LAUNCHES["selective_scan"]
@@ -370,6 +372,106 @@ def test_selective_scan_wrapper_raises_on_bad_inputs(cuda_device):
             ((x[:, :0], dt[:, :0], A, B[:, :0], C[:, :0]), ValueError)):
         with pytest.raises(err):
             pss.selective_scan(*bad)
+    assert kernels.LAUNCHES["selective_scan"] == before
+
+
+# the fused entry: (ba, s, di, ds) over every d_state, lengths no tile
+# divides, channels no block divides, and jamba's prefill widths
+MAMBA_SCAN_CASES = [
+    (2, 64, 128, 4),
+    (2, 300, 200, 8),
+    (1, 257, 96, 16),
+    (2, 33, 256, 32),
+    (4, 1024, 16384, 16),
+]
+# the output: f32 the signature entry's 1e-5; bf16 two bf16 ulps at order
+# 1. The final state is f32 in both: 1e-5
+MAMBA_SCAN_TOL = {torch.float32: RTOL, torch.bfloat16: 1.6e-2}
+
+
+def _mamba_inputs(device, dtype, ba, s, di, ds, seed=13):
+    """The fused entry's inputs as the mixer passes them: z the second
+    half of an in_proj output (ba, s, 2 di), Bc and Cc slices of an x_proj
+    output (ba, s, 8 + 2 ds); dt_proj + dt_b in the init's softplus range,
+    with channel 0 above softplus's threshold (dt ~ 25); A = -(1..ds); A
+    in f32, the rest in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    dt_proj = rng.normal(0.0, 0.5, (ba, s, di))
+    dt_proj[..., 0] = 30.0
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device).to(
+            dtype)
+
+    xb = t(rng.normal(size=(ba, s, di)))
+    xz = t(rng.normal(size=(ba, s, 2 * di)))
+    proj = t(rng.normal(size=(ba, s, 8 + 2 * ds)))
+    A = -np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32), (di, ds))
+    return (xb, t(dt_proj), t(rng.uniform(-6.9, -2.3, di)),
+            torch.tensor(A.copy(), device=device), proj[..., 8:8 + ds],
+            proj[..., 8 + ds:], xz[..., di:], t(rng.normal(size=di)))
+
+
+def _terms(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip):
+    """The size of what y's sum adds, times the gate: ``sum_n |s_n C_n|
+    * |silu(z)|`` (Ba, S, di), bounded by the scan of |x|, |B| and |C|
+    (its decays are the same and positive)."""
+    dtv = F.softplus(dt_proj + dt_b).float()
+    size, _ = pss.selective_scan_torch(xb.float().abs(), dtv, A,
+                                       Bc.float().abs(), Cc.float().abs())
+    return size * F.silu(z.float()).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ba,s,di,ds", MAMBA_SCAN_CASES)
+def test_mamba_scan_kernel_matches_plain_version(cuda_device,
+                                                 record_property, dtype, ba,
+                                                 s, di, ds):
+    """The fused kernel against ``mamba_scan_torch`` on the card: the
+    output within ``MAMBA_SCAN_TOL`` (the share of outputs that differ at
+    all is recorded), the f32 final state within 1e-5 in both dtypes; z
+    and Bc, Cc read in place as strided views; two calls bitwise equal,
+    one launch each. Channel 0, above softplus's threshold, sums ds terms
+    near 25 |x B C| that cancel to y: there the two orders of summation
+    part by rounding of the terms' size, and its output is held to the
+    tolerance times (1 + |out| + sum_n |s_n C_n| |silu(z)|)."""
+    t = _mamba_inputs(cuda_device, dtype, ba, s, di, ds)
+    assert not t[6].is_contiguous() and not t[4].is_contiguous()
+    before = kernels.LAUNCHES["selective_scan"]
+    got = pss.mamba_scan(*t)
+    again = pss.mamba_scan(*t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == before + 2
+    assert got[0].shape == (ba, s, di) and got[0].dtype == dtype
+    assert got[1].shape == (ba, di, ds) and got[1].dtype == torch.float32
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = pss.mamba_scan_torch(*t)
+    record_property("differing_share",
+                    float((got[0] != want[0]).float().mean()))
+    tol = MAMBA_SCAN_TOL[dtype]
+    out, ref = got[0].float(), want[0].float()
+    torch.testing.assert_close(out[..., 1:], ref[..., 1:], rtol=tol,
+                               atol=tol)
+    err0 = (out[..., 0] - ref[..., 0]).abs()
+    bound0 = tol * (1 + ref[..., 0].abs() + _terms(*t)[..., 0])
+    assert bool((err0 <= bound0).all()), (
+        f"channel 0: error {float(err0.max())}, "
+        f"{int((err0 > bound0).sum())} over the bound")
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_wrapper_raises_on_bad_inputs(cuda_device):
+    """What TMA cannot read (a z view off 16 bytes) and inputs on two
+    devices: refused before any launch."""
+    t = list(_mamba_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 16))
+    wide = torch.zeros(2, 8, 129, dtype=torch.bfloat16, device=cuda_device)
+    before = kernels.LAUNCHES["selective_scan"]
+    for bad in (t[:6] + [wide[..., 65:]] + t[7:],   # z misaligned
+                t[:4] + [t[4].cpu()] + t[5:]):
+        with pytest.raises(ValueError):
+            pss.mamba_scan(*bad)
     assert kernels.LAUNCHES["selective_scan"] == before
 
 
