@@ -13,7 +13,8 @@ and no result line:
              nothing (ptxas).
 3. kernel    each kernel against its plain PyTorch version on the card, at
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
-             table, nodes and racks; gemma3-1b's, qwen3-4b's and jamba's
+             table, nodes and racks; the fleet's tick over a banked trace
+             of three workloads at E=72 and 1152; gemma3-1b's, qwen3-4b's and jamba's
              prefill attention; jamba's selective scan at its 8-layer
              prefill and at a ragged length, the signature entry in f32
              and the Mamba mixer's fused entry ``mamba_scan`` in bf16 and
@@ -32,16 +33,27 @@ and no result line:
              ``replay_tx_gaia_1h_thermal_stress`` (the rack thermal twin):
              pinned values, and one power_scatter and one rack_thermal
              launch per tick.
-6. determinism  the first 600 ticks of the main path and the first 900 of
+6. fleet     the fleet case (``acceptance.fleet_grid``: 8 policies x 9
+             grid scenarios, 72 replicas of ``replay_tx_gaia_1h``) for the
+             hour in one ``run_fleet`` under sync-debug "error": every
+             replica at ``PINNED_FLEET`` (the JAX package's vmapped
+             ``run_fleet``), replica 0 at ``replay_tx_gaia_1h``'s pins, one
+             power_scatter launch a tick for all replicas; five replicas
+             rerun alone through ``run_episode`` (integers equal, floats
+             within 1e-5); the thermal hour's config for 600 ticks at E =
+             72 (one rack_thermal launch a tick), two replicas rerun
+             alone; ms per tick, us per replica-tick, CUDA kernels per
+             tick and the device's busy share at E = 1, 72 and 1152.
+7. determinism  the first 600 ticks of the main path and the first 900 of
              the thermal stress hour, each twice: every field bitwise equal.
-7. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
+8. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
              weights from ``seeded_numpy_params``): the f32 and the bf16
              model held to the JAX package's pins (``check_lm``), 26
              flash_attn launches per prefill and none per decode step, the
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of 5 runs).
-8. serve_hybrid  the jamba hybrid without experts at full width:
+9. serve_hybrid  the jamba hybrid without experts at full width:
              ``serve_jamba_1l`` (one Mamba layer, f32) held to
              ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
              random weights from ``init_params`` on the card) in f32 and in
@@ -125,6 +137,11 @@ MAMBA_SFU_PER_ELEM = 3
 # 3.5x; subtler faults are the f32 invariant's to find.
 HYBRID_TOL = 1e-4
 BF16_DECODE_FACTOR = 2.0
+# the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
+# timed at each, and (start tick, ticks) of each profile
+FLEET_SIZES = (1, 72, 1152)
+FLEET_TIMING = 600
+FLEET_PROFILE = (300, 30)
 
 
 def emit(phase: str, **kw) -> None:
@@ -247,14 +264,15 @@ def tick_state(torch, np, cfg, n_rep: int, seed: int):
 
 def power_tick_bound(ts, st) -> tuple[float, str]:
     """What ``power_tick`` must move and do on these inputs: each per-tick
-    input once (two rows of ``req``), one trace entry per job and bank,
+    input once (two rows of ``req``; the workload ids when given), one
+    trace entry per job and bank,
     the node vectors (and racks, with thermals) once; the outputs. About 6
     f32 operations per used slot, 10 per job, 40 per node."""
-    jstate, t, start_t, place, req, up, outlet, wb = st
+    jstate, t, start_t, place, req, up, outlet, wb = st[:8]
     E, J = jstate.shape
     N = ts.idle_w.shape[0]
     thermal = ts.consts.thermal
-    in_bytes = 4 * (E * (2 * J + 1 + 2 * J + N + 1 + 2 * J)
+    in_bytes = 4 * (E * (2 * J + 1 + 2 * J + N + 1 + 2 * J + len(st[8:]))
                     + place.numel() + 7 * N
                     + (E * outlet.shape[1] + N if thermal else 0))
     out_bytes = 4 * E * (2 * N + 8 + (J if thermal else 0))
@@ -280,11 +298,14 @@ def rack_tick_inputs(torch, np, cfg, n_rep: int, seed: int):
 
 
 def check_tick_kernel(torch, name, launch, plain, cpu_statics, gpu_statics,
-                      args, bound_ms, bound_by, bitwise, **shape) -> dict:
+                      args, bound_ms, bound_by, bitwise,
+                      plain_timing=(TIMING_REPS, TIMING_BATCH),
+                      **shape) -> dict:
     """A fused tick entry against its plain version on the card (rtol) and
     on the CPU: the outputs at positions ``bitwise`` (the per-node and
     per-rack values) must have the CPU's bits; timed beside the plain
-    version and the bound."""
+    version (``plain_timing``: timed batches, calls per batch) and the
+    bound."""
     got = [g for g in launch(gpu_statics, *args)]
     again = [g for g in launch(gpu_statics, *args)]
     cpu = plain(cpu_statics, *(a.cpu() for a in args))
@@ -298,7 +319,8 @@ def check_tick_kernel(torch, name, launch, plain, cpu_statics, gpu_statics,
         torch, name, [got[i] for i in keep],
         [w for w in plain(gpu_statics, *args) if w is not None],
         lambda: launch(gpu_statics, *args), lambda: plain(gpu_statics, *args),
-        bound_ms, bound_by, **shape, bitwise_vs_cpu=same_bits)
+        bound_ms, bound_by, plain_timing=plain_timing, **shape,
+        bitwise_vs_cpu=same_bits)
     if not same_bits:
         raise AssertionError(f"{name}: per-node or per-rack values differ "
                              "from the CPU plain version's bits")
@@ -321,9 +343,10 @@ def node_power_inputs(torch, np, statics, n_rep: int, seed: int):
 
 
 def check_kernel(torch, name, got, want, fn, plain, bound_ms, bound_by,
-                 **shape):
-    """Hold a kernel's outputs to its plain version's (rtol), time both,
-    emit the phase line and return the record."""
+                 plain_timing=(TIMING_REPS, TIMING_BATCH), **shape):
+    """Hold a kernel's outputs to its plain version's (rtol), time both
+    (the plain version over ``plain_timing``: timed batches, calls per
+    batch), emit the phase line and return the record."""
     torch.cuda.synchronize()
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     rel_err = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
@@ -332,8 +355,8 @@ def check_kernel(torch, name, got, want, fn, plain, bound_ms, bound_by,
         torch.testing.assert_close(g, w, rtol=KERNEL_RTOL, atol=0.0,
                                    msg=lambda m, i=i: f"{name}[{i}]: {m}")
     rec = dict(max_abs_err=abs_err, ms=time_ms(torch, fn),
-               plain_ms=time_ms(torch, plain), bound_ms=bound_ms,
-               bound_by=bound_by)
+               plain_ms=time_ms(torch, plain, *plain_timing),
+               bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel", name=name, **shape, max_rel_err=rel_err,
          rtol=KERNEL_RTOL, **rec)
     return rec
@@ -840,6 +863,193 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
     return launches
 
 
+def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
+                    fleet_telem=None) -> dict:
+    """Replica ``e`` of a fleet's final state against the same replica run
+    alone: integer fields (and the key words) equal, floats within
+    KERNEL_RTOL (job progress as work done, ``dur_est - work_left``; the
+    fault and serving clocks may be +inf on both sides). Raises on a
+    miss, naming the jobs whose state or end time differ and their end
+    times (the ticks they completed) and work left on both sides."""
+    pairs = [(f, getattr(alone, f), getattr(fleet_state, f)[e])
+             for f in alone._fields]
+    if telem is not None:
+        pairs += [(f"telemetry.{f}", getattr(telem, f),
+                   getattr(fleet_telem, f)[e]) for f in telem._fields]
+    worst, bitwise = 0.0, True
+    for f, a, b in pairs:
+        bitwise = bitwise and torch.equal(a, b)
+        if f == "work_left":
+            a, b = alone.dur_est - a, fleet_state.dur_est[e] - b
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                jobs = torch.nonzero(
+                    (alone.jstate != fleet_state.jstate[e])
+                    | (alone.end_t != fleet_state.end_t[e])).flatten()
+                raise AssertionError(
+                    f"{name}: replica {e} alone differs from the fleet's in "
+                    f"{f}; jobs {jobs.tolist()}: end_t alone "
+                    f"{alone.end_t[jobs].tolist()} / fleet "
+                    f"{fleet_state.end_t[e][jobs].tolist()}, work_left "
+                    f"{alone.work_left[jobs].tolist()} / "
+                    f"{fleet_state.work_left[e][jobs].tolist()}")
+            continue
+        fin = torch.isfinite(a)
+        if not torch.equal(fin, torch.isfinite(b)) or not torch.equal(
+                a[~fin], b[~fin]):
+            raise AssertionError(f"{name}: replica {e}: {f} non-finite apart")
+        rel = ((a - b).abs() / b.abs().clamp(min=1e-30))[fin]
+        err = float(rel.max()) if rel.numel() else 0.0
+        worst = max(worst, err)
+        if err > KERNEL_RTOL:
+            raise AssertionError(f"{name}: replica {e}: {f} off by rel "
+                                 f"{err} (> {KERNEL_RTOL})")
+    return {"replica": e, "max_rel_err": worst, "bitwise": bitwise}
+
+
+def _run_fleet_timed(torch, run_fleet, cfg, statics, state, ticks, pol, scn):
+    """``run_fleet`` (summary_only) under sync-debug "error", timed on the
+    host clock around a synchronised run; the port's launches counted
+    from 0. Returns (final, telemetry, wall seconds, launches)."""
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    final, telem = run_fleet(cfg, statics, state, ticks, policies=pol,
+                             scenarios=scn, summary_only=True)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return final, telem, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def _profile_fleet(torch, replicas: int) -> dict:
+    """CUDA kernels, device us and the device's busy share per tick of
+    ``replay_tx_gaia_1h`` as a fleet of ``replicas`` (the grid tiled;
+    ``profile_tick.setup_case``), over FLEET_PROFILE ticks after tick
+    FLEET_PROFILE_START."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.tools.profile_tick import (
+        _advance,
+        device_summary,
+        setup_case,
+    )
+
+    start, ticks = FLEET_PROFILE
+    step, state, action = setup_case("replay_tx_gaia_1h", start,
+                                     replicas=replicas)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _advance(step, state, action, ticks)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summ = device_summary(prof, wall_us, ticks, top=6)
+    return {k: summ[k] for k in ("cuda_kernels", "device_us",
+                                 "device_busy_share", "port_kernel_us",
+                                 "top_kernels_us")}
+
+
+def fleet(torch, np, jobs, bank) -> dict:
+    """The fleet case (``acceptance.fleet_grid``: 8 policies x 9 scenarios,
+    72 replicas of ``replay_tx_gaia_1h``) for the hour in one batched run
+    under sync-debug "error": every replica at ``PINNED_FLEET``, replica 0
+    at ``replay_tx_gaia_1h``'s pins, one power_scatter launch a tick;
+    FLEET_ALONE rerun alone through ``run_episode``; the thermal hour's
+    config for FLEET_THERMAL_TICKS at E = 72 (one rack_thermal launch a
+    tick) with FLEET_THERMAL_ALONE rerun alone; then ms per tick, us per
+    replica-tick, CUDA kernels per tick and the device's busy share at
+    E = 1, 72 and 1152 (the grid tiled 16x). Returns the hour's launches."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import (
+        build_statics,
+        init_state,
+        load_jobs,
+        run_episode,
+        summary,
+        summary_columns,
+    )
+    from repro_torch.core.fleet import _scenario_list, run_fleet
+    from repro_torch.utils.device import tree_to
+
+    def no_launches(**kw):
+        return {"power_scatter": 0, "rack_thermal": 0, "node_power": 0,
+                "flash_attn": 0, "selective_scan": 0, **kw}
+
+    runs = {}
+    for case, ticks, alone_ids in (
+            ("replay_tx_gaia_1h", A.N_STEPS, A.FLEET_ALONE),
+            ("replay_tx_gaia_1h_thermal", A.FLEET_THERMAL_TICKS,
+             A.FLEET_THERMAL_ALONE)):
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank)
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        names, pol, scn = A.fleet_grid(cfg)
+        n_rep = len(names)
+        final, telem, wall, launches = _run_fleet_timed(
+            torch, run_fleet, cfg, statics, state, ticks, pol, scn)
+        cols = summary_columns(final, telem)
+        want = no_launches(power_scatter=ticks, rack_thermal=(
+            ticks if cfg.thermal_enabled else 0))
+        rec = dict(case=case, replicas=n_rep, ticks=ticks, wall_s=wall,
+                   ms_per_tick=1e3 * wall / ticks,
+                   us_per_replica_tick=1e6 * wall / ticks / n_rep,
+                   launches=launches,
+                   completed=cols["completed"].tolist())
+        for name, v in final._asdict().items():
+            ok = (~torch.isnan(v) if name in INF_CLOCKS
+                  else torch.isfinite(v))
+            if v.is_floating_point() and not bool(ok.all()):
+                raise AssertionError(f"fleet {case}: {name}: bad values")
+        if ticks == A.N_STEPS:
+            rec["pins"] = A.check_fleet(cols)
+            A.check("replay_tx_gaia_1h", summary(
+                type(final)(*(v[0] for v in final)),
+                type(telem)(*(v[0] for v in telem))))
+            rec["replica0_pinned"] = True
+            rec["demand_response_mean_throttle"] = telem.mean_throttle[
+                8::9].tolist()
+        emit("fleet", step="grid", **rec)
+        if launches != want:
+            raise AssertionError(f"fleet {case}: launches {launches}, "
+                                 f"expected {want}")
+        scns = _scenario_list(scn)
+        n_scn = n_rep // (len(A.FLEET_SELECTS) * len(A.FLEET_PLACES))
+        for e in alone_ids:
+            sel, place = names[e].split("+")
+            st = statics._replace(scenario=tree_to(scns[e], statics.idle_w.device))
+            f1, t1 = run_episode(cfg, st, state._replace(key=final.key[e]),
+                                 ticks, sel, placement=place,
+                                 summary_only=True)
+            emit("fleet", step="alone", case=case, policy=names[e],
+                 scenario=e % n_scn,
+                 **_alone_vs_fleet(torch, f"fleet {case}", f1, final, e,
+                                   t1, telem))
+        runs[case] = launches
+
+    # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
+    # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
+    cfg = A.config()
+    statics = build_statics(cfg, bank)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    for n_rep in FLEET_SIZES:
+        _, pol, scn = A.fleet_grid(cfg, n_rep)
+        _, _, wall, launches = _run_fleet_timed(
+            torch, run_fleet, cfg, statics, state, FLEET_TIMING, pol, scn)
+        emit("fleet", step="scale", replicas=n_rep, ticks=FLEET_TIMING,
+             ms_per_tick=1e3 * wall / FLEET_TIMING,
+             us_per_replica_tick=1e6 * wall / FLEET_TIMING / n_rep,
+             replica_ticks_per_s=n_rep * FLEET_TIMING / wall,
+             launches=launches, profile=_profile_fleet(torch, n_rep),
+             profile_ticks=FLEET_PROFILE)
+        if launches != no_launches(power_scatter=FLEET_TIMING):
+            raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
+    return runs["replay_tx_gaia_1h"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -936,6 +1146,27 @@ def main() -> int:
             *power_tick_bound(ts, st), bitwise=(0, 1, 3), replicas=n_rep,
             thermal=hcfg.thermal_enabled, jobs=hcfg.max_jobs, slots=jk,
             nodes=n_nodes)
+    # a fleet's tick over a banked trace of three workloads, each replica
+    # reading its own slice inside the kernel: the fleet's E = 72 and the
+    # grid tiled 16x
+    from repro_torch.data import stack_workloads, synth_workload
+
+    wls = [(jobs, bank)] + [synth_workload(cfg, 200, 3600.0, seed=seed)
+                            for seed in (1, 2)]
+    banked = stack_workloads(cfg, wls)[1]
+    ts_banked = cpower.tick_statics(cfg, build_statics(cfg, banked))
+    ts_banked_cpu = cpower.tick_statics(
+        cfg, build_statics(cfg, banked, device="cpu"))
+    for n_rep in (72, 1152):
+        st = tick_state(torch, np, cfg, n_rep, seed=n_rep)
+        st.append(torch.arange(n_rep, dtype=torch.int32, device="cuda") % 3)
+        record["power_tick", n_rep, "banked"] = check_tick_kernel(
+            torch, "power_tick", npw.power_tick, npw.power_tick_torch,
+            ts_banked_cpu, ts_banked, st, *power_tick_bound(ts_banked, st),
+            bitwise=(0, 1, 3), plain_timing=(5, 2) if n_rep > 100 else (
+                TIMING_REPS, TIMING_BATCH), replicas=n_rep,
+            banked_workloads=len(wls), thermal=False, jobs=cfg.max_jobs,
+            slots=jk, nodes=n_nodes)
     for n_rep in (1, 64):
         rs = cthermal.rack_tick_statics(tcfg, tstatics)
         a = rack_tick_inputs(torch, np, tcfg, n_rep, seed=n_rep)
@@ -976,7 +1207,12 @@ def main() -> int:
                              jobs, "thermal"))
     launches["rack_thermal"] = thermal[0]["rack_thermal"]
 
-    # 6. determinism: the same ticks twice, bitwise
+    # 6. fleet: the replay tick batched over a replica axis
+    t0 = time.perf_counter()
+    fleet(torch, np, jobs, bank)
+    emit("fleet", step="done", seconds=time.perf_counter() - t0)
+
+    # 7. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:
         dcfg = acceptance.config(case)
         dstatics = build_statics(dcfg, bank)
@@ -993,11 +1229,11 @@ def main() -> int:
         if differ:
             raise AssertionError(f"{case}: runs differ in {differ}")
 
-    # 7. serve: gemma3-1b at full width; the kernels line reports the
+    # 8. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
-    # 8. serve_hybrid: the jamba hybrid at full width; the kernels line
+    # 9. serve_hybrid: the jamba hybrid at full width; the kernels line
     # reports the selective_scan launches of one 8-layer prefill
     t0 = time.perf_counter()
     launches["selective_scan"] = serve_hybrid(torch, np)

@@ -11,6 +11,9 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
 - ``replay_tx_gaia_1h_thermal_stress``: the same with a short rack time
   constant and low thresholds, so racks ride the throttle ramp and cross
   the dispatch trip at full width.
+- ``fleet_tx_gaia_1h``: ``replay_tx_gaia_1h`` as a fleet of 72 replicas
+  (8 policies x 9 grid scenarios, ``fleet_grid``), pinned per replica in
+  ``PINNED_FLEET``.
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -84,6 +87,225 @@ def config(case: str = "replay_tx_gaia_1h") -> SimConfig:
 def workload(cfg: SimConfig):
     """(jobs dict, trace bank): 200 synthetic jobs over one hour."""
     return synth_workload(cfg, 200, 3600.0, seed=SEED)
+
+
+# ---------------------------------------------------------------------------
+# The fleet case: ``replay_tx_gaia_1h``'s config, workload and 3600 ticks
+# (``summary_only``) over a policy x scenario grid in one batched run,
+# ``policy_scenario_grid(policy_grid(FLEET_SELECTS, FLEET_PLACES)[1],
+# fleet_scenarios(cfg))``: 8 policies x 9 scenarios = 72 replicas, replica
+# i = policy i // 9 with scenario i % 9. The scenarios are the default grid,
+# ``sample_scenarios(cfg, 7, seed=SEED)`` and one ``demand_response`` whose
+# cap binds inside the hour (the one demand-response window the sampler
+# draws opens after 8 h). Replica 0 (replay + first_fit, default grid) is
+# ``replay_tx_gaia_1h``.
+FLEET_CASE = "fleet_tx_gaia_1h"
+FLEET_SELECTS = ("replay", "fcfs", "sjf", "easy")
+FLEET_PLACES = ("first_fit", "best_fit")
+FLEET_SAMPLED = 7
+# facility cap: 35% of the IT nameplate from 30 min on
+FLEET_DR = dict(cap_frac=0.35, event_start_s=1800.0, event_len_s=3600.0)
+FLEET_KEYS = ("energy_kwh", "carbon_kg", "elec_cost_usd", "avg_pue")
+# replicas the card reruns alone through run_episode: the first, one of
+# each other policy family, the demand-response replica and the last
+FLEET_ALONE = (0, 9, 27, 63, 71)
+FLEET_THERMAL_TICKS = 600
+FLEET_THERMAL_ALONE = (0, 71)
+
+
+# ``PINNED_FLEET``: what the JAX package's vmapped ``run_fleet`` gives for
+# the fleet case on the CPU (jax 0.9.0), per replica, made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fleet_pins.py
+# (72 replicas in 67 s on 8 cores). The demand-response replicas (every
+# ninth, from 8) run at a mean DVFS throttle of 0.65 and complete 63 jobs.
+PINNED_FLEET = {
+    "completed": [
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+        104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 63.0,
+        104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 104.0, 63.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0,
+    ],
+    "energy_kwh": [
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+        264.79730224609375, 267.3423156738281, 266.8589782714844,
+        268.6976318359375, 267.1056823730469, 268.2356872558594,
+        269.0105895996094, 265.344970703125, 254.84408569335938,
+        264.8282470703125, 267.3741149902344, 266.89056396484375,
+        268.729248046875, 267.1372375488281, 268.26708984375,
+        269.04229736328125, 265.37652587890625, 254.86317443847656,
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+    ],
+    "carbon_kg": [
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+        132.02122497558594, 136.4258575439453, 135.14588928222656,
+        95.38777923583984, 143.74493408203125, 134.13516235351562,
+        143.54336547851562, 132.95985412597656, 127.0713882446289,
+        132.03659057617188, 136.4416046142578, 135.162109375,
+        95.39906311035156, 143.7616424560547, 134.15109252929688,
+        143.5606231689453, 132.9757537841797, 127.0811538696289,
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+    ],
+    "elec_cost_usd": [
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+        27.710851669311523, 36.80022430419922, 35.15156936645508,
+        29.115570068359375, 31.829471588134766, 31.965402603149414,
+        27.040788650512695, 47.86094665527344, 26.698801040649414,
+        27.714082717895508, 36.80455017089844, 35.155677795410156,
+        29.11899185180664, 31.833192825317383, 31.969158172607422,
+        27.04398536682129, 47.866607666015625, 26.700910568237305,
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+    ],
+    "avg_pue": [
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+        1.252403571182939, 1.2644406420993217, 1.262154616208397,
+        1.2708508388313497, 1.263321444930599, 1.2686659939070584,
+        1.2723310254402291, 1.254993861663968, 1.2523711046138486,
+        1.2524862045111136, 1.264526704282133, 1.2622397843814845,
+        1.2709357089011484, 1.263406409408745, 1.2687499648193925,
+        1.2724162531953012, 1.255079249820994, 1.2524080945509002,
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+    ],
+}
+
+
+def fleet_scenarios(cfg: SimConfig) -> list:
+    """The fleet case's 9 scenarios, unbatched, on the CPU."""
+    from repro_torch.core.fleet import _scenario_list
+    from repro_torch.scenarios.scenario import (
+        default_scenario,
+        demand_response,
+        sample_scenarios,
+    )
+
+    dr = demand_response(
+        cfg, cap_w=FLEET_DR["cap_frac"] * cfg.nameplate_it_w,
+        event_start_s=FLEET_DR["event_start_s"],
+        event_len_s=FLEET_DR["event_len_s"])
+    return ([default_scenario(cfg)]
+            + _scenario_list(sample_scenarios(cfg, FLEET_SAMPLED, seed=SEED))
+            + [dr])
+
+
+def fleet_grid(cfg: SimConfig, replicas: int | None = None):
+    """(policy names, batched Policy, batched Scenario) of the fleet case:
+    ``policy_scenario_grid`` of ``policy_grid(FLEET_SELECTS,
+    FLEET_PLACES)`` and ``fleet_scenarios``, the names one per replica;
+    with ``replicas``, the grid tiled (or cut) to that many replicas,
+    replica i being the grid's i mod 72."""
+    import torch
+
+    from repro_torch.core.fleet import policy_scenario_grid
+    from repro_torch.core.placement import Policy, policy_grid
+
+    names, pols = policy_grid(FLEET_SELECTS, FLEET_PLACES)
+    scns = fleet_scenarios(cfg)
+    pol, scn = policy_scenario_grid(pols, scns)
+    names = [n for n in names for _ in scns]
+    if replicas is None:
+        return names, pol, scn
+    idx = torch.arange(replicas) % len(names)
+
+    def tile(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree[idx]
+        return type(tree)(*(tile(v) for v in tree))
+
+    return ([names[i] for i in idx.tolist()], Policy(*tile(pol)),
+            tile(scn))
+
+
+def check_fleet(cols: dict, replicas=None) -> dict:
+    """Hold ``summary_columns`` of the fleet case (all replicas, or the
+    ``replicas`` they are) to ``PINNED_FLEET``: ``completed`` exactly,
+    ``FLEET_KEYS`` to ``RTOL``. Returns the largest relative error."""
+    idx = np.arange(len(PINNED_FLEET["completed"])) if replicas is None \
+        else np.asarray(replicas)
+    want = np.asarray(PINNED_FLEET["completed"])[idx]
+    got = np.asarray(cols["completed"])
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)
+        raise AssertionError(
+            f"{FLEET_CASE}: completed differs at replicas {idx[bad].tolist()}"
+            f": {got[bad].tolist()} vs pinned {want[bad].tolist()}")
+    worst = 0.0
+    for k in FLEET_KEYS:
+        w = np.asarray(PINNED_FLEET[k])[idx]
+        rel = np.abs(np.asarray(cols[k]) - w) / np.abs(w)
+        worst = max(worst, float(rel.max()))
+        if not np.all(rel <= RTOL):
+            bad = np.flatnonzero(rel > RTOL)
+            raise AssertionError(
+                f"{FLEET_CASE}: {k} off the pins at replicas "
+                f"{idx[bad].tolist()} (largest rel err {rel.max():.3g})")
+    return {"max_rel_err": worst, "replicas": len(idx)}
 
 
 def check(case: str, got: dict) -> None:

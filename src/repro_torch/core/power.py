@@ -26,7 +26,7 @@ from repro_torch.core.thermal import throttle_params
 from repro_torch.kernels import node_power as npw
 from repro_torch.kernels.node_power import node_chain, power_scatter, scatter_loads
 from repro_torch.scenarios.signals import eval_signal
-from repro_torch.utils.device import full
+from repro_torch.utils.device import full, take
 
 
 class PowerOut(NamedTuple):
@@ -55,8 +55,12 @@ def job_utilization(cfg: SimConfig, state: SimState, statics: Statics):
     # a multiply by its reciprocal, which can round the quantum index
     quanta = full(cfg.trace_quanta, torch.float32, age.device)
     qi = torch.clamp((age / quanta).to(torch.int32), 0, q - 1).long()[:, None]
-    cpu = torch.gather(statics.cpu_trace, 1, qi)[:, 0]
-    gpu = torch.gather(statics.gpu_trace, 1, qi)[:, 0]
+    cpu_trace, gpu_trace = statics.cpu_trace, statics.gpu_trace
+    if cpu_trace.dim() == 3:     # banked: this state's slice
+        cpu_trace = take(cpu_trace, state.workload, dim=0)
+        gpu_trace = take(gpu_trace, state.workload, dim=0)
+    cpu = torch.gather(cpu_trace, 1, qi)[:, 0]
+    gpu = torch.gather(gpu_trace, 1, qi)[:, 0]
     return cpu * running, gpu * running
 
 
@@ -151,7 +155,7 @@ def tick_consts(cfg: SimConfig) -> npw.TickConsts:
 
 def tick_statics(cfg: SimConfig, statics: Statics) -> npw.TickStatics:
     """``power_tick``'s fixed inputs, checked (and on the card packed) once
-    per ``make_step``."""
+    per ``make_step``; a banked trace keeps its (W, J, Q) layout."""
     return npw.tick_statics(
         statics.cpu_trace, statics.gpu_trace, statics.capacity[0],
         statics.capacity[1], statics.idle_w, statics.cpu_dyn_w,
@@ -163,12 +167,14 @@ def tick_statics(cfg: SimConfig, statics: Statics) -> npw.TickStatics:
 
 def power_tick(ts: npw.TickStatics, state: SimState, wetbulb: torch.Tensor):
     """One tick's power chain in one launch (the plain version on the
-    CPU), at the wetbulb the step evaluated. Returns (``PowerOut``, cop,
-    the up nodes' idle power, and with thermals each job's clock factor
-    (J,), else None); with thermals the ``PowerOut`` is the derated one."""
+    CPU), at the wetbulb the step evaluated, for one state or a fleet's
+    (each replica reads its workload's slice of a banked trace). Returns
+    (``PowerOut``, cop, the up nodes' idle power, and with thermals each
+    job's clock factor (..., J), else None); with thermals the
+    ``PowerOut`` is the derated one."""
     node_it, node_input, s, job_th = npw.power_tick(
         ts, state.jstate, state.t, state.start_t, state.placement, state.req,
-        state.node_up, state.rack_outlet_c, wetbulb)
+        state.node_up, state.rack_outlet_c, wetbulb, state.workload)
     it_w, input_w, cooling_w, facility_w, pue, gflops, cop, idle_w = s.unbind(-1)
     return (PowerOut(node_it, node_input, it_w, input_w, cooling_w,
                      facility_w, pue, gflops), cop, idle_w, job_th)

@@ -1,7 +1,9 @@
 """Job-selection policies — stage (a) of the two-stage policy engine.
 
 Each policy looks at the job table and returns the index of the queued job
-to attempt next (or -1) as a 0-d int64 tensor on the state's device.
+to attempt next (or -1) as an int64 tensor on the state's device: 0-d for
+one state, (E,) for a fleet's state (a leading replica axis on every
+field; every reduction runs over the last axis, replica by replica).
 Node placement is the second, independent stage (``core.placement``).
 The RL policy is external: its action picks among the top
 ``sched_max_candidates`` FCFS-ordered queue candidates (or no-op).
@@ -13,13 +15,18 @@ No policy reads a tensor on the host. Where the JAX package branches
 with ``lax.cond`` (EASY's head-or-backfill choice), both sides are
 computed and one is picked with ``torch.where``. Ties break by lowest
 index everywhere (stable sorts, first-occurrence argmin/argmax), as the
-JAX package's ``argsort``/``top_k`` do. Policy-as-data (traced select
-ids) arrives with the fleets slice.
+JAX package's ``argsort``/``top_k`` do.
+
+Policy-as-data: every selection carries an int32 id (``SELECT_IDS``);
+``select_job`` resolves each replica's id, where the JAX package's
+``lax.switch`` runs under ``vmap``, as a select over the strategies the
+fleet names: each of them runs on every replica, and ``torch.where``
+keeps each replica's own pick.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,22 +38,22 @@ BIG = 1e18
 
 
 def queued_mask(state: SimState) -> torch.Tensor:
-    return (state.jstate == QUEUED) & (state.submit_t <= state.t)
+    return (state.jstate == QUEUED) & (state.submit_t <= state.t[..., None])
 
 
 def feasible_nodes(state: SimState, job: torch.Tensor) -> torch.Tensor:
-    """(N,) bool: nodes that can host one rank of `job` right now."""
-    req = take(state.req, job, dim=1)                   # (NRES,)
-    ok = torch.all(state.free >= req[:, None], dim=0)
+    """(..., N) bool: nodes that can host one rank of `job` right now."""
+    req = take(state.req, job, dim=-1)                  # (..., NRES)
+    ok = torch.all(state.free >= req[..., None], dim=-2)
     return ok & (state.node_up > 0.5)
 
 
 def capacity_feasible_nodes(state: SimState, statics: Statics,
                             job: torch.Tensor) -> torch.Tensor:
-    """(N,) bool: up nodes whose *total* capacity can host one rank of
+    """(..., N) bool: up nodes whose *total* capacity can host one rank of
     `job` — nodes that could host it once their current tenants leave."""
-    req = take(state.req, job, dim=1)
-    ok = torch.all(statics.capacity >= req[:, None], dim=0)
+    req = take(state.req, job, dim=-1)
+    ok = torch.all(statics.capacity >= req[..., None], dim=-2)
     return ok & (state.node_up > 0.5)
 
 
@@ -57,19 +64,22 @@ def partition_ok(part: torch.Tensor, node_type: torch.Tensor) -> torch.Tensor:
 
 
 def partition_mask_all(state: SimState, statics: Statics) -> torch.Tensor:
-    """(J, N) bool: per-job node eligibility under partition semantics."""
-    return partition_ok(state.part[:, None], statics.node_type[None, :])
+    """(..., J, N) bool: per-job node eligibility under partition
+    semantics."""
+    return partition_ok(state.part[..., None], statics.node_type)
 
 
 def fits_now_mask(state: SimState,
                   node_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """(J,) bool: jobs whose whole-node request is satisfiable against the
-    current free pool (optionally restricted to ``node_mask`` (J, N))."""
-    ok = torch.all(state.free[:, None, :] >= state.req[:, :, None], dim=0)
-    ok = ok & (state.node_up > 0.5)[None, :]                 # (J, N)
+    """(..., J) bool: jobs whose whole-node request is satisfiable against
+    the current free pool (optionally restricted to ``node_mask``
+    (..., J, N))."""
+    ok = torch.all(state.free[..., None, :] >= state.req[..., None],
+                   dim=-3)                                   # (..., J, N)
+    ok = ok & (state.node_up > 0.5)[..., None, :]
     if node_mask is not None:
         ok = ok & node_mask
-    return torch.sum(ok, dim=1) >= state.n_nodes
+    return torch.sum(ok, dim=-1) >= state.n_nodes
 
 
 def first_fit(state: SimState, job: torch.Tensor,
@@ -78,25 +88,28 @@ def first_fit(state: SimState, job: torch.Tensor,
     node filling slot ``s`` is the first index where the running count of
     feasible nodes reaches ``s + 1`` (``searchsorted``, left side).
 
-    Returns (placement_row (K,) int32, feasible 0-d bool)."""
+    Returns (placement_row (..., K) int32, feasible (...) bool)."""
     ok = feasible_nodes(state, job)
     n_req = take(state.n_nodes, job)
-    csum = torch.cumsum(ok, 0)                       # int64
+    csum = torch.cumsum(ok, -1)                      # int64
     slots = torch.arange(K, device=ok.device)
-    idx = torch.searchsorted(csum, slots + 1).to(torch.int32)
-    row = torch.where(slots < n_req, idx, -1)
-    enough = csum[-1] >= n_req
-    return torch.where(enough, row, -1), enough
+    want = slots + 1
+    if csum.dim() > 1:      # one row of slots per replica
+        want = want.expand(csum.shape[:-1] + (K,)).contiguous()
+    idx = torch.searchsorted(csum, want).to(torch.int32)
+    row = torch.where(slots < n_req[..., None], idx, -1)
+    enough = csum[..., -1] >= n_req
+    return torch.where(enough[..., None], row, -1), enough
 
 
 # ---------------------------------------------------------------------------
 # candidate orderings — uniform signature (cfg, state, statics[, node_mask])
-# -> job id. ``node_mask`` (J, N) is the placement backend's node
+# -> job id. ``node_mask`` (..., J, N) is the placement backend's node
 # eligibility (None = every node): only EASY consults it.
 def _masked_argmin(score: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     s = torch.where(mask, score, BIG)
-    idx = torch.argmin(s)
-    return torch.where(torch.any(mask), idx, -1)
+    idx = torch.argmin(s, -1)
+    return torch.where(torch.any(mask, -1), idx, -1)
 
 
 def select_fcfs(cfg: SimConfig, state: SimState, statics: Statics,
@@ -118,7 +131,7 @@ def select_replay(cfg: SimConfig, state: SimState, statics: Statics,
                   node_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Replay: dispatch in recorded start order — priority carries the
     recorded start time; a job becomes eligible once t >= recorded start."""
-    m = queued_mask(state) & (state.priority <= state.t)
+    m = queued_mask(state) & (state.priority <= state.t[..., None])
     return _masked_argmin(state.priority, m)
 
 
@@ -130,26 +143,27 @@ def shadow_time(cfg: SimConfig, state: SimState, statics: Statics,
     releases of head-feasible nodes count."""
     running = state.jstate == RUNNING
     est_end = torch.where(running, state.start_t + state.dur_est, BIG)
-    head_ok = capacity_feasible_nodes(state, statics, head)   # (N,)
+    head_ok = capacity_feasible_nodes(state, statics, head)   # (..., N)
     free_ok = feasible_nodes(state, head)
     if node_mask is not None:
-        head_mask = take(node_mask, head)
+        head_mask = take(node_mask, head, dim=-2)
         head_ok = head_ok & head_mask
         free_ok = free_ok & head_mask
     # nodes each running job will release that could host the head
-    valid = state.placement >= 0                              # (J, K)
+    valid = state.placement >= 0                              # (..., J, K)
     safe = torch.where(valid, state.placement, 0).long()
-    rel_nodes = torch.sum(valid & head_ok[safe], dim=1).to(torch.float32)
+    rel_ok = torch.gather(head_ok, -1, safe.flatten(-2)).view(safe.shape)
+    rel_nodes = torch.sum(valid & rel_ok, dim=-1).to(torch.float32)
     rel_nodes = torch.where(running, rel_nodes, 0.0)
-    order = torch.sort(est_end, stable=True).indices
-    cum = torch.cumsum(rel_nodes[order], 0)
-    free_now = torch.sum(free_ok)
+    order = torch.sort(est_end, dim=-1, stable=True).indices
+    cum = torch.cumsum(torch.gather(rel_nodes, -1, order), -1)
+    free_now = torch.sum(free_ok, -1)
     need = torch.clamp(
         take(state.n_nodes, head).to(torch.float32) - free_now, min=0.0)
-    reached = cum >= need
-    first = torch.argmax(reached.to(torch.int32))
-    t_shadow = torch.where(torch.any(reached),
-                           take(est_end[order], first), BIG)
+    reached = cum >= need[..., None]
+    first = torch.argmax(reached.to(torch.int32), -1)
+    t_shadow = torch.where(torch.any(reached, -1),
+                           take(est_end, take(order, first)), BIG)
     return torch.where(need > 0, t_shadow, state.t)
 
 
@@ -163,15 +177,16 @@ def select_easy(cfg: SimConfig, state: SimState, statics: Statics,
     h = torch.clamp(head, min=0)
     head_ok = feasible_nodes(state, h)
     if node_mask is not None:
-        head_ok = head_ok & take(node_mask, h)
-    head_fits = torch.sum(head_ok) >= take(state.n_nodes, h)
+        head_ok = head_ok & take(node_mask, h, dim=-2)
+    head_fits = torch.sum(head_ok, -1) >= take(state.n_nodes, h)
 
     t_sh = shadow_time(cfg, state, statics, h, node_mask)
     # candidate must be currently feasible, fit before the reservation,
     # and not be the head
     m = queued_mask(state) & fits_now_mask(state, node_mask)
-    fits_window = (state.t + state.dur_est) <= t_sh
-    not_head = torch.arange(m.shape[0], device=m.device) != h
+    fits_window = (state.t[..., None] + state.dur_est) <= t_sh[..., None]
+    not_head = (torch.arange(m.shape[-1], device=m.device)
+                != h[..., None])
     cand = _masked_argmin(state.submit_t, m & fits_window & not_head)
 
     pick = torch.where(head_fits, h, cand)
@@ -186,14 +201,35 @@ SCHEDULERS = {
     "easy": select_easy,
 }
 
+# policy-as-data ids: position in SCHEDULERS (insertion-ordered), the
+# JAX package's branch order
+SELECT_IDS = {name: i for i, name in enumerate(SCHEDULERS)}
+
+
+def select_job(cfg: SimConfig, state: SimState, statics: Statics,
+               use: Dict[str, torch.Tensor | None],
+               node_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Each replica's pick under its own selection id. ``use`` maps every
+    strategy the fleet names to the replicas that run it (a bool tensor of
+    the state's leading shape; ``None`` for the only strategy named): each
+    named strategy runs on every replica and ``torch.where`` keeps each
+    replica's own pick. ``node_mask`` is the placement stage's eligibility
+    (or None)."""
+    job = None
+    for name, mask in use.items():
+        pick = SCHEDULERS[name](cfg, state, statics, node_mask)
+        job = pick if job is None or mask is None else torch.where(
+            mask, pick, job)
+    return job
+
 
 def rl_candidates(cfg: SimConfig, state: SimState) -> torch.Tensor:
-    """Top-k FCFS-ordered queued jobs the RL agent chooses among: (k,)
+    """Top-k FCFS-ordered queued jobs the RL agent chooses among: (..., k)
     int32, -1 where fewer than k are queued. A stable sort keeps the
     lowest index first among equal submit times."""
     k = cfg.sched_max_candidates
     m = queued_mask(state)
     score = torch.where(m, state.submit_t, BIG)
-    idx = torch.sort(score, stable=True).indices[:k]
-    ok = m[idx]
+    idx = torch.sort(score, dim=-1, stable=True).indices[..., :k]
+    ok = torch.gather(m, -1, idx)
     return torch.where(ok, idx.to(torch.int32), -1)

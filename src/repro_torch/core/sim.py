@@ -7,7 +7,14 @@ episode is a Python loop over steps (the JAX package's ``lax.scan``).
 Scheduling is a two-stage engine: job *selection* (``core.schedulers``:
 replay/fcfs/sjf/priority/easy, or the external RL action) x node
 *placement* (``core.placement``: first_fit/best_fit/spread/partition/
-green), both named by strings here.
+green), named by strings or given as data: a ``placement.Policy`` of
+per-replica (select, place) ids.
+
+One step serves one state and a fleet's: every function below takes the
+state's fields with or without a leading replica axis E (each reduction
+runs over the last axes, each index is per replica), and a fleet's
+``Statics.scenario`` is batched the same way. The kernels take E as
+their grid. ``core.fleet.run_fleet`` builds the fleet.
 
 Step order (matches RAPS' fixed-dt loop):
   1. job completions -> free resources, stats
@@ -45,6 +52,7 @@ from repro_torch.core import thermal as thm
 from repro_torch.core.faults import release_jobs as _release
 from repro_torch.core.network import congestion_slowdown
 from repro_torch.core.power import PowerOut, power_tick, tick_statics
+from repro_torch.core.placement import Policy
 from repro_torch.core.state import (
     DONE,
     QUEUED,
@@ -55,7 +63,7 @@ from repro_torch.core.state import (
 )
 from repro_torch.scenarios.events import power_cap_at
 from repro_torch.scenarios.signals import eval_signal
-from repro_torch.utils.device import full, put, take
+from repro_torch.utils.device import full, put, take, to_device
 from repro_torch.utils.errors import ConfigError
 
 
@@ -116,7 +124,8 @@ def _parse_weights(reward_weights) -> Tuple[float, float, float, float, float]:
 
 def _grid_signals(statics: Statics, t: torch.Tensor):
     """(carbon gCO2/kWh, price $/kWh, facility cap W (0 = uncapped),
-    wetbulb degC) of the scenario at ``t``."""
+    wetbulb degC) of the scenario at ``t``: each (E,) for a fleet's
+    batched scenario and clocks."""
     scn = statics.scenario
     return (eval_signal(scn.carbon, t), eval_signal(scn.price, t),
             power_cap_at(scn.power_cap, t), eval_signal(scn.wetbulb, t))
@@ -131,7 +140,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
     their slices."""
     w_thr, w_en, w_co2, w_q, w_cost = _parse_weights(reward_weights)
     dev = statics.capacity.device
-    zero = full(0.0, torch.float32, dev)
+    zeros = {}     # the off models' telemetry, one tensor per replica shape
     racks = (thm.rack_tick_statics(cfg, statics) if cfg.thermal_enabled
              else None)
     dt_h = cfg.dt / 3600.0
@@ -146,7 +155,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         cop: torch.Tensor,
         idle_total: torch.Tensor,  # idle power of the up nodes
         job_th: torch.Tensor | None,  # per-job thermal clock (thermals on)
-        rate: torch.Tensor,        # pre-throttle per-job progress rate (J,)
+        rate: torch.Tensor,        # pre-throttle per-job progress rate (..., J)
         net_load: torch.Tensor,
         n_done: torch.Tensor,      # int32 completions this tick
         queued: torch.Tensor,
@@ -154,6 +163,10 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         util: torch.Tensor,
     ) -> Tuple[SimState, StepOut]:
         carbon_g, price, cap_w, wb = signals
+        lead = tuple(state.t.shape)
+        if lead not in zeros:
+            zeros[lead] = torch.zeros(lead, dtype=torch.float32, device=dev)
+        zero = zeros[lead]
         if cfg.thermal_enabled:
             # synchronous ranks run at the slowest clock over a job's nodes
             rate = rate * job_th
@@ -177,7 +190,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         )
 
         # --- progress (congestion- and throttle-aware)
-        rate = rate * throttle
+        rate = rate * throttle[..., None]
         state = state._replace(work_left=state.work_left - rate * cfg.dt)
         e_step = p.facility_w * dt_h / 1000.0                # kWh
         it_step = p.it_w * dt_h / 1000.0
@@ -204,7 +217,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             state, th_step, rack_max = thm.rack_tick(
                 racks, state, p.node_input_w, r, wb)
         else:
-            rack_max = torch.max(state.rack_outlet_c)
+            rack_max = torch.amax(state.rack_outlet_c, -1)
             th_step = zero
 
         # reward: throughput-positive, energy/carbon/queue-negative,
@@ -233,13 +246,13 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
 
 
 def _counts_and_util(state: SimState, statics: Statics):
-    """(queued, running, util) telemetry scalars."""
-    running = torch.sum(state.jstate == RUNNING).to(torch.float32)
-    queued = torch.sum(sched.queued_mask(state)).to(torch.float32)
-    up = torch.clamp(torch.sum(state.node_up), min=1.0)
+    """(queued, running, util) telemetry, one per replica."""
+    running = torch.sum(state.jstate == RUNNING, -1).to(torch.float32)
+    queued = torch.sum(sched.queued_mask(state), -1).to(torch.float32)
+    up = torch.clamp(torch.sum(state.node_up, -1), min=1.0)
     busy = torch.sum(
-        (statics.capacity[0] - state.free[0])
-        / torch.clamp(statics.capacity[0], min=1e-6) * state.node_up)
+        (statics.capacity[0] - state.free[..., 0, :])
+        / torch.clamp(statics.capacity[0], min=1e-6) * state.node_up, -1)
     return queued, running, busy / up
 
 
@@ -247,81 +260,118 @@ def _complete_jobs(cfg: SimConfig,
                    state: SimState) -> Tuple[SimState, torch.Tensor]:
     done_now = (state.jstate == RUNNING) & (state.work_left <= 0.0)
     free = _release(state.free, state, done_now)
+    t = state.t[..., None]
     wait = torch.clamp(state.start_t - state.submit_t, min=0.0)
-    run = torch.clamp(state.t - state.start_t, min=cfg.dt)
+    run = torch.clamp(t - state.start_t, min=cfg.dt)
     slowdown = torch.clamp((wait + run) / run, min=1.0)
-    n_done = torch.sum(done_now).to(torch.int32)
+    n_done = torch.sum(done_now, -1).to(torch.int32)
     state = state._replace(
         free=free,
         jstate=torch.where(done_now, DONE, state.jstate).to(torch.int32),
-        end_t=torch.where(done_now, state.t, state.end_t),
-        placement=torch.where(done_now[:, None], -1, state.placement),
+        end_t=torch.where(done_now, t, state.end_t),
+        placement=torch.where(done_now[..., None], -1, state.placement),
         n_completed=state.n_completed + n_done,
-        sum_wait=state.sum_wait + torch.sum(torch.where(done_now, wait, 0.0)),
+        sum_wait=state.sum_wait
+        + torch.sum(torch.where(done_now, wait, 0.0), -1),
         sum_slowdown=state.sum_slowdown
-        + torch.sum(torch.where(done_now, slowdown, 0.0)),
+        + torch.sum(torch.where(done_now, slowdown, 0.0), -1),
     )
     return state, n_done
 
 
 def _try_start(cfg: SimConfig, state: SimState, job: torch.Tensor,
                place_fn) -> SimState:
-    """Attempt to place & start `job` via the placement stage `place_fn`
-    (state, job) -> (row, ok); no-op when job < 0 or infeasible."""
+    """Attempt to place & start each replica's `job` via the placement
+    stage `place_fn` (state, job) -> (row, ok); no-op where job < 0 or
+    infeasible."""
     j = torch.clamp(job, min=0)
     row, ok = place_fn(state, j)
     js = take(state.jstate, j)
     ok = ok & (job >= 0) & (js == QUEUED)
-    valid = (row >= 0) & ok
+    valid = (row >= 0) & ok[..., None]                      # (..., K)
     safe = torch.where(valid, row, 0).long()
-    amounts = take(state.req, j, dim=1)[:, None] * valid[None, :]   # (R, K)
-    # index_add accumulates duplicate ids (invalid slots all point at node
-    # 0 with a zero amount); a job's own nodes are distinct, so the sum is
-    # exact in any order
-    free = state.free.index_add(1, safe, -amounts)
+    amounts = (take(state.req, j, dim=-1)[..., None]
+               * valid[..., None, :])                        # (..., R, K)
+    # scatter_add accumulates duplicate ids (invalid slots all point at
+    # node 0 with a zero amount); a job's own nodes are distinct, so the
+    # sum is exact in any order
+    free = state.free.scatter_add(
+        -1, safe[..., None, :].expand(amounts.shape), -amounts)
     return state._replace(
-        free=torch.where(ok, free, state.free),
+        free=torch.where(ok[..., None, None], free, state.free),
         jstate=put(state.jstate, j, torch.where(ok, RUNNING, js)),
         start_t=put(state.start_t, j,
                     torch.where(ok, state.t, take(state.start_t, j))),
         placement=put(state.placement, j, torch.where(
-            ok, torch.where(valid, row, -1), take(state.placement, j))),
+            ok[..., None], torch.where(valid, row, -1),
+            take(state.placement, j))),
     )
+
+
+def _policy_use(ids_host: np.ndarray, ids: dict, dev: torch.device) -> dict:
+    """{strategy name: replicas that run it} for the strategies that a
+    Policy's host-side ids name (``None`` for a lone one, which needs no
+    select); the masks go to ``dev`` once, without a sync."""
+    names = [n for n, i in ids.items() if (ids_host == i).any()]
+    if len(names) == 1:
+        return {names[0]: None}
+    return {n: to_device(torch.from_numpy(ids_host == ids[n]), dev)
+            for n in names}
 
 
 def make_step(
     cfg: SimConfig,
     statics: Statics,
-    scheduler: str = "fcfs",
+    scheduler: str | Policy = "fcfs",
     *,
     placement: str | None = None,
     starts_per_step: int = 2,
     reward_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 0.05),
 ):
-    """Returns step(state, action) -> (state, StepOut).
+    """Returns step(state, action) -> (state, StepOut), for one state or a
+    fleet's (a leading replica axis E; ``statics.scenario`` batched alike).
 
     ``scheduler``: a selection name ('replay'|'fcfs'|'sjf'|'priority'|
-    'easy'), 'rl' (external action-driven selection) or 'none' (no
-    dispatch at all). ``placement``: node-placement strategy name
-    (``core.placement``); default 'first_fit'. ``action``: for 'rl', an
-    int index into ``rl_candidates`` (k = no-op); ignored otherwise.
+    'easy'), 'rl' (external action-driven selection, one state only),
+    'none' (no dispatch at all), or a ``placement.Policy`` of host-side
+    (select, place) ids, one per replica: the step runs the strategies
+    those ids name on every replica and keeps each replica's own result
+    (the Policy carries the placement, so combining it with ``placement=``
+    is an error). ``placement``: node-placement strategy name
+    (``core.placement``) for the string modes; default 'first_fit'.
+    ``action``: for 'rl', an int index into ``rl_candidates`` (k = no-op);
+    ignored otherwise.
     """
     check_slice(cfg)
-    if not isinstance(scheduler, str):
-        raise NotImplementedError(
-            "Policy-as-data schedulers (traced select/place ids) arrive "
-            "with the fleets slice (ROADMAP queue 1, item 3)")
-    if scheduler not in ("rl", "none") and scheduler not in sched.SCHEDULERS:
-        raise KeyError(f"unknown scheduler {scheduler}")
-    if placement is None:
-        placement = "first_fit"
-    if placement not in plc.PLACEMENTS:
-        raise KeyError(f"unknown placement {placement}")
+    dev = statics.capacity.device
+    policy_mode = isinstance(scheduler, Policy)
+    if policy_mode:
+        if placement is not None:
+            raise ConfigError(
+                f"both a Policy scheduler and placement={placement!r} given "
+                "— the Policy carries the placement id, so the string would "
+                "be silently ignored; pass exactly one")
+        if scheduler.select.device.type != "cpu":
+            raise ConfigError(
+                "a Policy's ids are host data: keep them on the CPU "
+                "(make_policy, stack_policies, policy_grid)")
+        select_use = _policy_use(scheduler.select.numpy(), sched.SELECT_IDS,
+                                 dev)
+        place_use = _policy_use(scheduler.place.numpy(), plc.PLACE_IDS, dev)
+    else:
+        if scheduler not in ("rl", "none") \
+                and scheduler not in sched.SCHEDULERS:
+            raise KeyError(f"unknown scheduler {scheduler}")
+        if placement is None:
+            placement = "first_fit"
+        if placement not in plc.PLACEMENTS:
+            raise KeyError(f"unknown placement {placement}")
+        select_use = ({} if scheduler in ("rl", "none")
+                      else {scheduler: None})
+        place_use = {placement: None}
     tail = _make_tail(cfg, statics, reward_weights)
     power_statics = tick_statics(cfg, statics)
-    place = plc.PLACEMENTS[placement]
-    mask_fn = plc.PLACEMENT_MASKS[placement]
-    dev = statics.capacity.device
+    dispatch = policy_mode or scheduler != "none"
 
     def step(state: SimState, action) -> Tuple[SimState, StepOut]:
         state = state._replace(t=state.t + cfg.dt)
@@ -331,7 +381,7 @@ def make_step(
         # as down (no NEW jobs there); candidates, eligibility masks, power
         # and progress read the raw state. Dispatch moves no rack
         # temperature, so the trip is read once per tick.
-        if cfg.thermal_enabled and scheduler != "none":
+        if cfg.thermal_enabled and dispatch:
             trip_ok = thm.node_trip_ok(cfg, state, statics)
 
             def view(s: SimState) -> SimState:
@@ -341,9 +391,14 @@ def make_step(
                 return s
 
         def place_fn(s: SimState, j: torch.Tensor):
-            return place(view(s), statics, j)
+            return plc.place_job(view(s), statics, j, place_use)
 
-        if scheduler == "rl":
+        if not policy_mode and scheduler == "rl":
+            if state.t.dim():
+                raise NotImplementedError(
+                    "scheduler='rl' on a fleet's state: batched RL "
+                    "environments arrive with the RL slice (ROADMAP queue "
+                    "1, item 4)")
             cands = sched.rl_candidates(cfg, state)          # (k,)
             k = cands.shape[0]
             if not isinstance(action, torch.Tensor):
@@ -352,13 +407,13 @@ def make_step(
                 action < k, take(cands, torch.clamp(action, 0, k - 1)),
                 -1).long()
             state = _try_start(cfg, state, job, place_fn)
-        elif scheduler != "none":
+        elif dispatch:
             # eligibility depends only on part/node_type, so it is
             # computed once per step, not per dispatch attempt
-            select = sched.SCHEDULERS[scheduler]
-            node_mask = None if mask_fn is None else mask_fn(state, statics)
+            node_mask = plc.placement_node_mask(state, statics, place_use)
             for _ in range(starts_per_step):
-                job = select(cfg, view(state), statics, node_mask)
+                job = sched.select_job(cfg, view(state), statics,
+                                       select_use, node_mask)
                 state = _try_start(cfg, state, job, place_fn)
 
         # --- grid signals at t (dispatch does not move t), the power
@@ -422,10 +477,11 @@ _SRV_TELEM = ("srv_arrived", "srv_completed", "srv_shed", "srv_dropped",
 _OFF = ("killed", "lost_node_s") + _SRV_TELEM
 
 
-def _telem_zero(device: torch.device) -> TelemetrySummary:
-    """Zero accumulator; the fault and serving fields ride as ``None``
-    (restored to zeros by ``_telem_finalize``) while those models are off."""
-    z = torch.zeros((), dtype=torch.float32, device=device)
+def _telem_zero(device: torch.device, lead=()) -> TelemetrySummary:
+    """Zero accumulator, one per replica (``lead``: the state's replica
+    shape); the fault and serving fields ride as ``None`` (restored to
+    zeros by ``_telem_finalize``) while those models are off."""
+    z = torch.zeros(lead, dtype=torch.float32, device=device)
     acc = TelemetrySummary(*([z] * len(TelemetrySummary._fields)))
     return acc._replace(**{f: None for f in _OFF})
 
@@ -468,15 +524,17 @@ def _telem_finalize(acc: TelemetrySummary) -> TelemetrySummary:
     z = torch.zeros_like(acc.n_steps)
     return acc._replace(
         **{f: z for f in _OFF[:-1]},
-        srv_lat_hist=torch.zeros((8,), dtype=torch.float32,
+        srv_lat_hist=torch.zeros(z.shape + (8,), dtype=torch.float32,
                                  device=z.device))
 
 
-def _stack(items: List[NamedTuple]):
-    """Stack a list of NamedTuples leaf-wise along a new leading axis."""
+def _stack(items: List[NamedTuple], dim: int = 0):
+    """Stack a list of NamedTuples leaf-wise along a new axis ``dim``
+    (after a fleet's replica axis)."""
     first = items[0]
     return type(first)(*(
-        None if v is None else torch.stack([getattr(it, f) for it in items])
+        None if v is None else torch.stack([getattr(it, f) for it in items],
+                                           dim)
         for f, v in zip(first._fields, first)))
 
 
@@ -496,12 +554,16 @@ def run_episode(
     snapshot_keep: int = 3,
     **kw,
 ):
-    """Run ``n_steps`` ticks of the twin under a non-RL policy.
+    """Run ``n_steps`` ticks of the twin under a non-RL policy (a name or
+    a ``placement.Policy``), for one state or a fleet's (a leading replica
+    axis E on the state and on ``statics.scenario``; ``core.fleet``
+    builds them).
 
     Telemetry modes:
-      - default: stacked per-step ``StepOut`` ((n_steps,) per field);
+      - default: stacked per-step ``StepOut`` ((n_steps,) per field, (E,
+        n_steps) for a fleet);
       - ``telemetry_every=k``: one ``TelemetrySummary`` per k-step window,
-        stacked ((n_steps // k,) per field);
+        stacked ((n_steps // k,) per field, after the replica axis);
       - ``summary_only=True``: a single episode-wide ``TelemetrySummary``
         accumulated tick by tick — constant memory in ``n_steps``.
 
@@ -528,10 +590,11 @@ def run_episode(
             f"telemetry_every={telemetry_every}")
     step = make_step(cfg, statics, scheduler, **kw)
     dev = state.t.device
+    lead = tuple(state.t.shape)
     action = full(-1, torch.int64, dev)
 
     if summary_only:
-        acc = _telem_zero(dev)
+        acc = _telem_zero(dev, lead)
         for _ in range(n_steps):
             state, out = step(state, action)
             acc = _telem_update(acc, out)
@@ -539,17 +602,17 @@ def run_episode(
     if telemetry_every > 1:
         windows = []
         for _ in range(n_steps // telemetry_every):
-            acc = _telem_zero(dev)
+            acc = _telem_zero(dev, lead)
             for _ in range(telemetry_every):
                 state, out = step(state, action)
                 acc = _telem_update(acc, out)
             windows.append(_telem_finalize(acc))
-        return state, _stack(windows)
+        return state, _stack(windows, len(lead))
     outs = []
     for _ in range(n_steps):
         state, out = step(state, action)
         outs.append(out)
-    return state, _stack(outs)
+    return state, _stack(outs, len(lead))
 
 
 def _host(x) -> np.ndarray:

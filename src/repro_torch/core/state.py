@@ -2,10 +2,12 @@
 plain ``step(state, action) -> state`` function on one device.
 
 Field names and dtypes (f32, int32) are those of the JAX package, so the
-parity tests compare the two field by field. ``SimState`` keeps every
-field, the thermal, fault and serving carries included; with a model off
-its carry is written once here and never again (faults and serving are
-always off in this slice).
+parity tests compare the two field by field. A fleet's state is the same
+NamedTuple with a leading replica axis E on every field
+(``broadcast_state`` makes one from a single state); the step runs on
+either form. ``SimState`` keeps every field, the thermal, fault and
+serving carries included; with a model off its carry is written once
+here and never again (faults and serving are always off in this slice).
 
 Job lifecycle: EMPTY -> QUEUED -> RUNNING -> DONE (slot then reusable),
 plus the terminal FAILED state of the faults slice.
@@ -43,8 +45,11 @@ def check_slice(cfg: SimConfig) -> None:
 class Statics(NamedTuple):
     """Per-node constants + telemetry bank; not carried through the ticks.
 
-    The bank is unbatched: ``cpu_trace``/``gpu_trace`` are (J, Q) and
-    ``net_tx`` is (J,). The banked (W, J, Q) layout arrives with fleets.
+    The bank is single — ``cpu_trace``/``gpu_trace`` (J, Q), ``net_tx``
+    (J,) — or banked (``data.stack_workloads``): (W, J, Q) and (W, J),
+    shared by every replica, which reads the slice of its
+    ``SimState.workload``. A fleet's ``scenario`` is batched (a leading
+    replica axis on every leaf).
     """
 
     capacity: torch.Tensor     # (NRES, N)
@@ -59,9 +64,9 @@ class Statics(NamedTuple):
     rack_cap_w: torch.Tensor   # (R,) sum of member node_max_w
     rack_ptr: torch.Tensor     # (R+1,) int32: rack r's nodes are
     rack_nodes: torch.Tensor   # (N,) int32  rack_nodes[rack_ptr[r]:rack_ptr[r+1]]
-    cpu_trace: torch.Tensor    # (J, Q) in [0,1]
-    gpu_trace: torch.Tensor    # (J, Q)
-    net_tx: torch.Tensor       # (J,) GB/s per job
+    cpu_trace: torch.Tensor    # (J, Q) or banked (W, J, Q), in [0,1]
+    gpu_trace: torch.Tensor    # (J, Q) or (W, J, Q)
+    net_tx: torch.Tensor       # (J,) or (W, J), GB/s per job
     scenario: Scenario
 
 
@@ -128,7 +133,7 @@ class SimState(NamedTuple):
     srv_slo_viol: torch.Tensor
     srv_lat_sum: torch.Tensor
     srv_lat_hist: torch.Tensor    # (8,)
-    # workload id into a banked trace (fleets slice); 0-d int32
+    # id into a banked trace (0 for a single one); 0-d int32, (E,) batched
     workload: torch.Tensor
 
 
@@ -174,10 +179,6 @@ def build_statics(
             "gpu": np.zeros((J, q), np.float32),
             "net_tx": np.zeros((J,), np.float32),
         }
-    if np.ndim(trace_bank["cpu"]) != 2:
-        raise NotImplementedError(
-            "banked (W, J, Q) trace banks arrive with the fleets slice "
-            "(ROADMAP queue 1, item 3)")
     # rack topology: consecutive index blocks; R_th per rack from the
     # design delta-T at the rack's IT nameplate
     node_rack = np.arange(cfg.n_nodes, dtype=np.int32) // cfg.nodes_per_rack
@@ -211,6 +212,14 @@ def build_statics(
         scenario=tree_to(
             scenario if scenario is not None else default_scenario(cfg), dev),
     )
+
+
+def broadcast_state(state: SimState, n: int) -> SimState:
+    """``n`` replicas of one state: every field with a leading axis of
+    ``n``, each in its own memory (the caller's state is not aliased)."""
+    return type(state)(*(
+        v.unsqueeze(0).expand((n,) + tuple(v.shape)).contiguous()
+        for v in state))
 
 
 def key_words(seed: int) -> np.ndarray:

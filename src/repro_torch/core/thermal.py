@@ -78,38 +78,44 @@ def throttle_params(cfg: SimConfig) -> Throttle:
 
 def job_thermal_rate(state: "SimState", statics: "Statics",
                      node_th: torch.Tensor) -> torch.Tensor:
-    """(J,) progress factor per job: the MIN clock over the job's placed
-    nodes (synchronous ranks run at the slowest one). Unplaced slots
-    contribute 1, so queued and finished jobs are unaffected."""
-    place = state.placement                                   # (J, K)
+    """(..., J) progress factor per job: the MIN clock over the job's
+    placed nodes (synchronous ranks run at the slowest one). Unplaced
+    slots contribute 1, so queued and finished jobs are unaffected."""
+    place = state.placement                                   # (..., J, K)
     valid = place >= 0
     safe = torch.where(valid, place, 0).long()
-    slot_th = node_th.index_select(0, safe.reshape(-1)).reshape(place.shape)
-    return torch.amin(torch.where(valid, slot_th, 1.0), dim=1)
+    slot_th = torch.gather(node_th, -1, safe.flatten(-2)).view(place.shape)
+    return torch.amin(torch.where(valid, slot_th, 1.0), dim=-1)
 
 
 def node_trip_ok(cfg: SimConfig, state: "SimState",
                  statics: "Statics") -> torch.Tensor:
-    """(N,) bool: nodes whose rack is below the dispatch trip threshold —
-    the thermal half of placement eligibility."""
+    """(..., N) bool: nodes whose rack is below the dispatch trip
+    threshold — the thermal half of placement eligibility."""
     rack_ok = state.rack_outlet_c < cfg.thermal_trip_c
-    return rack_ok.index_select(0, statics.node_rack.long())
+    return rack_ok.index_select(-1, statics.node_rack.long())
 
 
 def rack_thermal_update(
     cfg: SimConfig,
     statics: "Statics",
-    rack_outlet_c: torch.Tensor,     # (R,)
-    node_heat_w: torch.Tensor,       # (N,) post-throttle input power
-    supply_c: torch.Tensor,          # 0-d
+    rack_outlet_c: torch.Tensor,     # (..., R)
+    node_heat_w: torch.Tensor,       # (..., N) post-throttle input power
+    supply_c: torch.Tensor,          # (...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One RC step of every rack: scatter node heat onto racks and relax
-    toward the steady state. Returns (new_outlet_c (R,), rack_heat_w (R,))."""
+    """One RC step of every rack of one replica (``supply_c`` 0-d) or of E
+    (a leading E on every argument): scatter node heat onto racks and relax
+    toward the steady state. Returns (new_outlet_c, rack_heat_w), each
+    (..., R)."""
+    lead = tuple(supply_c.shape)
     new_t, heat = prt.rack_thermal(
-        node_heat_w[None].contiguous(), statics.node_rack,
-        rack_outlet_c[None].contiguous(), supply_c.reshape(1),
-        statics.rack_r_th, alpha=thermal_alpha(cfg))
-    return new_t[0], heat[0]
+        node_heat_w.reshape((-1,) + node_heat_w.shape[-1:]).contiguous(),
+        statics.node_rack,
+        rack_outlet_c.reshape((-1,) + rack_outlet_c.shape[-1:]).contiguous(),
+        supply_c.reshape(-1).contiguous(), statics.rack_r_th,
+        alpha=thermal_alpha(cfg))
+    return (new_t.view(lead + new_t.shape[-1:]),
+            heat.view(lead + heat.shape[-1:]))
 
 
 def rack_tick_statics(cfg: SimConfig, statics: "Statics") -> prt.RackStatics:
@@ -128,7 +134,8 @@ def rack_tick(rs: prt.RackStatics, state: "SimState",
               ) -> Tuple["SimState", torch.Tensor, torch.Tensor]:
     """The tick's last act with thermals on: the racks' RC step on the
     post-cap input power ``node_input_w * r`` (all of it room heat),
-    committed after the derate used the pre-update temperatures. Returns
+    committed after the derate used the pre-update temperatures; one
+    launch for one state or a fleet's (E, ...) fields as they are. Returns
     the state with the new outlets, throttled seconds and peak, and the
     tick's (throttled seconds, hottest rack)."""
     new_t, th_step, rack_max, peak = prt.rack_tick(

@@ -1,3 +1,4 @@
+from repro_torch.data.bank import stack_workloads
 from repro_torch.data.grid_signals import (
     load_signal_csv,
     synth_grid_trace,

@@ -1,12 +1,14 @@
-"""Carry a ``Statics`` / ``SimState`` or an LM's parameters of the JAX
-package across to the port.
+"""Carry a ``Statics`` / ``SimState`` / ``Policy`` or an LM's parameters
+of the JAX package across to the port.
 
 Each function takes the reference's structure as a name -> numpy array
 mapping (or a NamedTuple of numpy arrays, such as ``jax.device_get`` of
 one) and builds the port's tensors on ``device``. Nothing here imports
 JAX: the caller turns the reference's typed PRNG key into its raw words
 (``jax.random.key_data``) first. Fields the port's slice does not carry
-(the scenario's outage, traffic and burst schedules) are dropped.
+(the scenario's outage, traffic and burst schedules) are dropped. Every
+array may carry a fleet's leading replica axis, and the trace bank its
+workload axis (W, J, Q), as the reference's do.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.placement import Policy
 from repro_torch.core.state import SimState, Statics, rack_csr
 from repro_torch.scenarios.events import CapSchedule
 from repro_torch.scenarios.scenario import Scenario
@@ -69,6 +72,14 @@ def state_from_numpy(arrays: Any, device=None) -> SimState:
     """The reference's ``SimState`` as the port's, on ``device``. ``key``
     must already be raw key words (uint32 words become int64)."""
     return _build(SimState, arrays, resolve_device(device))
+
+
+def policy_from_numpy(arrays: Any) -> Policy:
+    """The reference's ``Policy`` (0-d or (E,) ids) as the port's: int32
+    tensors on the host, where ``make_step`` reads them."""
+    m = _fields(arrays)
+    return Policy(*(torch.tensor(np.asarray(m[f], np.int32))
+                    for f in Policy._fields))
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):

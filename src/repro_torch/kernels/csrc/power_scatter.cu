@@ -20,8 +20,10 @@
 //   amounts, then the chain, then fixed-order block sums to the facility
 //   totals, the COP, cooling, PUE and GFLOP/s, and with thermals the DVFS
 //   derate from the previous tick's rack temperatures and each job's
-//   slowest-node clock. Its plain version is
-//   kernels/node_power.py::power_tick_torch.
+//   slowest-node clock. The trace bank is (W, J, Q): replica e reads the
+//   slice of its workload id (W = 1 and ids of 0 for a single bank; an id
+//   outside [0, W) reads nothing and gives the replica NaN). Its plain
+//   version is kernels/node_power.py::power_tick_torch.
 //
 // What bounds it. At TX-GAIA shapes (4096 slots, 672 nodes, 256 jobs) one
 // replica's tick reads ~45 KB and writes ~6.5 KB: ~15 ns at 3.35 TB/s, and
@@ -49,8 +51,8 @@
 // once by the wrapper (kernels/node_power.py::TickStatics, which mirrors
 // this layout field for field) and passed by value to every launch.
 struct TickStatics {
-  const float* cpu_trace;    // (J, Q)
-  const float* gpu_trace;    // (J, Q)
+  const float* cpu_trace;    // (W, J, Q)
+  const float* gpu_trace;    // (W, J, Q)
   const float* cap_cpu;      // (N,)
   const float* cap_gpu;
   const float* idle_w;
@@ -59,7 +61,7 @@ struct TickStatics {
   const float* node_max_w;
   const float* peak_gflops;
   const int* node_rack;      // (N,)
-  int n_jobs, n_slots, n_quanta, n_nodes, n_racks, n_res, thermal;
+  int n_jobs, n_slots, n_quanta, n_nodes, n_racks, n_res, thermal, n_work;
   float quanta, rect_peak, rect_load, rect_curv, conv_eff;
   float cop_base, cop_wetbulb_coef, wetbulb_ref, cop_min;
   Throttle throttle;
@@ -77,6 +79,7 @@ struct TickState {
   const float* node_up;      // (E, N)
   const float* rack_outlet;  // (E, R)
   const float* wetbulb;      // (E,)
+  const int* workload;       // (E,) slice of the trace bank
   float* out;
 };
 
@@ -207,6 +210,19 @@ __global__ void __launch_bounds__(kBlock) power_scatter_tick_kernel(
   float* job_th = d.out + 2 * static_cast<size_t>(n_rep) * N
                   + static_cast<size_t>(n_rep) * kScalars
                   + static_cast<size_t>(e) * J;
+  // the replica's slice of the bank; an id out of range reads nothing
+  const int w = d.workload[e];
+  if (w < 0 || w >= st.n_work) {   // the same for the whole block
+    const float nan = __int_as_float(0x7fc00000);
+    for (int i = tid; i < N; i += kBlock) node_it[i] = node_input[i] = nan;
+    if (tid < kScalars) scal[tid] = nan;
+    if (st.thermal)
+      for (int j = tid; j < J; j += kBlock) job_th[j] = nan;
+    return;
+  }
+  const size_t bank = static_cast<size_t>(w) * J * st.n_quanta;
+  const float* cpu_trace = st.cpu_trace + bank;
+  const float* gpu_trace = st.gpu_trace + bank;
 
   // one node chunk and one slot tile (the main path's shapes): the node's
   // throttle is loaded ahead, its dependent loads hidden behind the sort,
@@ -244,8 +260,8 @@ __global__ void __launch_bounds__(kBlock) power_scatter_tick_kernel(
         int qi = static_cast<int>(age / st.quanta);
         qi = min(max(qi, 0), st.n_quanta - 1);
         const size_t q = static_cast<size_t>(j) * st.n_quanta + qi;
-        ts.job[0][jj] = req[j] * (st.cpu_trace[q] * running);
-        ts.job[1][jj] = req[J + j] * (st.gpu_trace[q] * running);
+        ts.job[0][jj] = req[j] * (cpu_trace[q] * running);
+        ts.job[1][jj] = req[J + j] * (gpu_trace[q] * running);
       }
       __syncthreads();
       // slot base + tid + r * kBlock is job jj's slot k; one division a
@@ -421,7 +437,7 @@ extern "C" int power_tick_launch(
     const TickStatics* st, const void* jstate, const void* t,
     const void* start_t, const void* placement, const void* req,
     const void* node_up, const void* rack_outlet, const void* wetbulb,
-    void* out, int n_rep, int device, void* stream) {
+    const void* workload, void* out, int n_rep, int device, void* stream) {
   if (n_rep == 0 || st->n_nodes == 0) return 0;
   const seg::DeviceGuard guard(device);
   if (guard.err != 0) return guard.err;
@@ -434,7 +450,8 @@ extern "C" int power_tick_launch(
       static_cast<const float*>(start_t), static_cast<const int*>(placement),
       static_cast<const float*>(req), static_cast<const float*>(node_up),
       static_cast<const float*>(rack_outlet),
-      static_cast<const float*>(wetbulb), static_cast<float*>(out)};
+      static_cast<const float*>(wetbulb), static_cast<const int*>(workload),
+      static_cast<float*>(out)};
   power_scatter_tick_kernel<<<n_rep, kBlock, sizeof(TickSmem),
                               static_cast<cudaStream_t>(stream)>>>(*st, d,
                                                                    n_rep);

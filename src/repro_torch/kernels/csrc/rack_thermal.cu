@@ -51,7 +51,6 @@ namespace {
 
 using Smem = seg::Smem<1>;
 constexpr int kTickBlock = 256;
-constexpr int kTickScalars = 3;   // rack_tick's per-replica scalars
 
 __global__ void __launch_bounds__(seg::kBlock) rack_thermal_kernel(
     const float* __restrict__ heat_w,     // (E, N)
@@ -98,7 +97,7 @@ __global__ void __launch_bounds__(kTickBlock) rack_thermal_tick_kernel(
     const float* __restrict__ wetbulb,     // (E,)
     const float* __restrict__ outlet,      // (E, R) pre-update
     const float* __restrict__ peak,        // (E,)
-    float* __restrict__ out,               // new_outlet (E, R), scalars (E, 3)
+    float* __restrict__ out,               // new_outlet (E, R), scalars (3, E)
     int n_rep, RackStatics c) {
   __shared__ float s_max[kTickBlock / 32];
   __shared__ int s_hot[kTickBlock / 32];
@@ -140,11 +139,11 @@ __global__ void __launch_bounds__(kTickBlock) rack_thermal_tick_kernel(
       hottest = fmaxf(hottest, s_max[w]);
       hot |= s_hot[w];
     }
-    float* scal = out + static_cast<size_t>(n_rep) * n_racks
-                  + static_cast<size_t>(e) * kTickScalars;
+    // each scalar a row of E, so a fleet's peak comes back contiguous
+    float* scal = out + static_cast<size_t>(n_rep) * n_racks + e;
     scal[0] = hot ? c.dt : 0.0f;
-    scal[1] = hottest;
-    scal[2] = fmaxf(peak[e], hottest);
+    scal[n_rep] = hottest;
+    scal[2 * static_cast<size_t>(n_rep)] = fmaxf(peak[e], hottest);
   }
 }
 

@@ -27,7 +27,9 @@
 Every function takes a leading replica dimension E: ``place`` and the
 slot amounts are (E, JK), fractions and ``node_up`` (E, N), the node
 constants (N,), and the outputs (E, N). ``power_tick`` also takes one
-replica with no leading dimension, as the main path calls it.
+replica with no leading dimension, as the main path calls it, and reads
+its trace bank as (W, J, Q): replica e the slice of its workload id
+(``SimState.workload``; a single (J, Q) bank is W = 1).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.throttle import CThrottle, Throttle, throttle_curve
 from repro_torch.utils.device import full
+from repro_torch.utils.errors import ConfigError
 
 Out4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -259,7 +262,7 @@ class _CTickStatics(ctypes.Structure):
         "cpu_dyn_w", "gpu_dyn_w", "node_max_w", "peak_gflops", "node_rack")]
         + [(f, ctypes.c_int) for f in (
             "n_jobs", "n_slots", "n_quanta", "n_nodes", "n_racks", "n_res",
-            "thermal")]
+            "thermal", "n_work")]
         + [(f, ctypes.c_float) for f in (
             "quanta", "rect_peak", "rect_load", "rect_curv", "conv_eff",
             "cop_base", "cop_wetbulb_coef", "wetbulb_ref", "cop_min")]
@@ -270,8 +273,8 @@ class _CTickStatics(ctypes.Structure):
 
 class TickStatics(NamedTuple):
     """What ``power_tick`` takes that is fixed for a simulation: the trace
-    bank (J, Q), the node vectors (N,), the node racks, the shapes and the
-    constants, checked once by ``tick_statics``; on the card also the
+    bank (W, J, Q), the node vectors (N,), the node racks, the shapes and
+    the constants, checked once by ``tick_statics``; on the card also the
     packed C struct and the resolved launcher."""
 
     cpu_trace: torch.Tensor
@@ -297,8 +300,8 @@ def tick_statics(cpu_trace, gpu_trace, cap_cpu, cap_gpu, idle_w, cpu_dyn_w,
                  n_slots: int, n_racks: int, n_res: int,
                  consts: TickConsts) -> TickStatics:
     """Check the tick's fixed inputs once and, on the card, pack them for
-    the kernel (and build it on first use). Raises on anything the kernel
-    does not take."""
+    the kernel (and build it on first use). The trace bank is (J, Q) or
+    banked (W, J, Q). Raises on anything the kernel does not take."""
     node_vecs = (cap_cpu, cap_gpu, idle_w, cpu_dyn_w, gpu_dyn_w, node_max_w,
                  peak_gflops)
     tensors = (cpu_trace, gpu_trace, *node_vecs, node_rack)
@@ -310,29 +313,31 @@ def tick_statics(cpu_trace, gpu_trace, cap_cpu, cap_gpu, idle_w, cpu_dyn_w,
         raise TypeError("power_tick: node_rack must be int32, the trace "
                         "bank and node vectors f32")
     n = idle_w.shape[0] if idle_w.dim() == 1 else -1
-    if cpu_trace.dim() != 2 or gpu_trace.shape != cpu_trace.shape \
-            or cpu_trace.shape[1] < 1 \
+    if cpu_trace.dim() not in (2, 3) or gpu_trace.shape != cpu_trace.shape \
+            or cpu_trace.shape[-1] < 1 or cpu_trace.shape[0] < 1 \
             or any(t.shape != (n,) for t in (*node_vecs, node_rack)):
         raise ValueError(
-            "power_tick: the trace bank must be (J, Q) twice and every node "
-            f"vector (N,), got {tuple(cpu_trace.shape)}, "
+            "power_tick: the trace bank must be (J, Q) or (W, J, Q) twice "
+            f"and every node vector (N,), got {tuple(cpu_trace.shape)}, "
             f"{tuple(gpu_trace.shape)} and {[tuple(t.shape) for t in node_vecs]}")
     if n_slots < 1 or n_racks < 1 or n_res < 2:
         raise ValueError("power_tick: need K >= 1 slots, R >= 1 racks and "
                          "two resource rows (cpu, gpu) at least")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("power_tick: statics must be contiguous")
-    J, Q = cpu_trace.shape
+    if cpu_trace.dim() == 2:
+        cpu_trace, gpu_trace = cpu_trace[None], gpu_trace[None]
+    W, J, Q = cpu_trace.shape
     if J * n_slots >= 2**31 or n >= 2**31 or J * n_res >= 2**31 \
-            or J * Q >= 2**31:
-        raise ValueError("power_tick: J*K, J*Q, J*NRES and N < 2**31")
+            or J * Q >= 2**31 or W >= 2**31:
+        raise ValueError("power_tick: J*K, J*Q, J*NRES, W and N < 2**31")
     ts = TickStatics(cpu_trace, gpu_trace, *node_vecs, node_rack, n_slots,
                      n_racks, n_res, consts)
     if dev.type == "cpu":
         return ts
     if dev.type != "cuda":
         raise ValueError(f"power_tick: no kernel for {dev}")
-    launch = build.function("power_scatter", pointers=10, ints=2, floats=0,
+    launch = build.function("power_scatter", pointers=11, ints=2, floats=0,
                             entry="power_tick")
     size = build.load("power_scatter").power_tick_statics_size()
     if size != ctypes.sizeof(_CTickStatics):
@@ -341,7 +346,7 @@ def tick_statics(cpu_trace, gpu_trace, cap_cpu, cap_gpu, idle_w, cpu_dyn_w,
     c = consts
     packed = _CTickStatics(
         *(t.data_ptr() for t in tensors),
-        J, n_slots, Q, n, n_racks, n_res, int(c.thermal),
+        J, n_slots, Q, n, n_racks, n_res, int(c.thermal), W,
         c.trace_quanta, c.rect_peak, c.rect_load, c.rect_curv, c.conv_eff,
         c.cop_base, c.cop_wetbulb_coef, c.wetbulb_ref_c, c.cop_min,
         CThrottle(*c.throttle), c.nameplate_w, c.cop_load_coef,
@@ -352,22 +357,25 @@ def tick_statics(cpu_trace, gpu_trace, cap_cpu, cap_gpu, idle_w, cpu_dyn_w,
 
 
 def _tick_shapes(ts: TickStatics, lead) -> tuple:
-    J = ts.cpu_trace.shape[0]
+    J = ts.cpu_trace.shape[1]
     return (lead + (J,), lead, lead + (J,), lead + (J, ts.n_slots),
             lead + (ts.n_res, J), lead + ts.idle_w.shape,
-            lead + (ts.n_racks,), lead)
+            lead + (ts.n_racks,), lead, lead)
 
 
 _TICK_NAMES = ("jstate", "t", "start_t", "placement", "req", "node_up",
-               "rack_outlet", "wetbulb")
+               "rack_outlet", "wetbulb", "workload")
 _TICK_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
-                torch.float32, torch.float32, torch.float32, torch.float32)
+                torch.float32, torch.float32, torch.float32, torch.float32,
+                torch.int32)
 
 
 def _check_tick(ts: TickStatics, tensors) -> None:
     """Raise on per-tick tensors the kernel does not take: one replica
     (``t`` 0-d) or E (``t`` (E,)), each in its shape, dtype and layout on
-    the statics' device."""
+    the statics' device. Workload ids outside [0, W) are refused here when
+    they lie on the CPU; the card reads no tensor on the host, so there the
+    kernel reads nothing for such a replica and gives it NaN."""
     lead = tuple(tensors[1].shape)
     if len(lead) > 1 or (lead and not 0 < lead[0] <= 65535):
         raise ValueError("power_tick: t must be 0-d or (E,), 0 < E <= 65535")
@@ -384,12 +392,28 @@ def _check_tick(ts: TickStatics, tensors) -> None:
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"power_tick: {name} must be contiguous")
+    ids = tensors[-1]
+    W = ts.cpu_trace.shape[0]
+    if ids.device.type == "cpu" and bool(((ids < 0) | (ids >= W)).any()):
+        raise ConfigError(
+            f"workload ids must be in [0, {W}) for this bank; got "
+            f"[{int(ids.min())}, {int(ids.max())}] — an out-of-range id "
+            "would read outside the bank")
+
+
+def _ids(workload, t):
+    """Each replica's bank slice: ``workload``, or slice 0."""
+    if workload is None:
+        return torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+    return workload
 
 
 def power_tick_torch(ts: TickStatics, jstate, t, start_t, placement, req,
-                     node_up, rack_outlet, wetbulb) -> Tick:
+                     node_up, rack_outlet, wetbulb, workload=None) -> Tick:
     """Plain PyTorch version of the fused tick: ``core.power``'s
-    ``job_utilization``, ``placement_amounts``, the scatter and chain
+    ``job_utilization`` (from each replica's slice of the bank: its
+    ``workload`` id, or slice 0 when None),
+    ``placement_amounts``, the scatter and chain
     (``power_scatter_torch``) and ``finish_power`` with the static COP at
     ``wetbulb``; with ``consts.thermal``, the tail's derate from the
     previous tick's ``rack_outlet`` and ``job_thermal_rate``. Returns
@@ -398,10 +422,12 @@ def power_tick_torch(ts: TickStatics, jstate, t, start_t, placement, req,
     cooling_w, facility_w, pue, gflops, cop, idle_w (the up nodes' idle
     power), the job factor (..., J)."""
     lead = tuple(t.shape)
+    workload = _ids(workload, t)
     if not lead:
         outs = power_tick_torch(ts, jstate[None], t[None], start_t[None],
                                 placement[None], req[None], node_up[None],
-                                rack_outlet[None], wetbulb[None])
+                                rack_outlet[None], wetbulb[None],
+                                workload[None])
         return tuple(None if o is None else o[0] for o in outs)
     c = ts.consts
     E, J = jstate.shape
@@ -410,8 +436,10 @@ def power_tick_torch(ts: TickStatics, jstate, t, start_t, placement, req,
     quanta = full(c.trace_quanta, torch.float32, t.device)
     q = ts.cpu_trace.shape[-1]
     qi = torch.clamp((age / quanta).to(torch.int32), 0, q - 1).long()
-    cpu = torch.gather(ts.cpu_trace.expand(E, J, q), 2, qi[..., None])[..., 0]
-    gpu = torch.gather(ts.gpu_trace.expand(E, J, q), 2, qi[..., None])[..., 0]
+    w = workload.long()[:, None]
+    jj = torch.arange(J, device=t.device)
+    cpu = ts.cpu_trace[w, jj, qi]
+    gpu = ts.gpu_trace[w, jj, qi]
     cpu, gpu = cpu * running, gpu * running
     w = (placement >= 0).to(torch.float32)
     cpu_abs = (req[:, 0, :, None] * cpu[..., None]) * w
@@ -459,19 +487,19 @@ def power_tick_torch(ts: TickStatics, jstate, t, start_t, placement, req,
 
 
 def power_tick(ts: TickStatics, jstate, t, start_t, placement, req, node_up,
-               rack_outlet, wetbulb) -> Tick:
+               rack_outlet, wetbulb, workload=None) -> Tick:
     """One tick's power chain from the job table (see ``power_tick_torch``
     for what it returns). CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream, one output allocation a
     call."""
     tensors = (jstate, t, start_t, placement, req, node_up, rack_outlet,
-               wetbulb)
+               wetbulb, _ids(workload, t))
     _check_tick(ts, tensors)
     if ts.launch is None:
         return power_tick_torch(ts, *tensors)
     lead = tuple(t.shape)
     E = lead[0] if lead else 1
-    J = ts.cpu_trace.shape[0]
+    J = ts.cpu_trace.shape[1]
     n = ts.idle_w.shape[0]
     dev = t.device
     out = torch.empty(E * (2 * n + N_SCALARS + J), dtype=torch.float32,

@@ -282,6 +282,5 @@ def rack_tick(rs: RackStatics, node_input, r, wetbulb, outlet, peak) -> Tick:
         raise RuntimeError(f"rack_tick kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["rack_thermal"] += 1
     new_t, scalars = out.split([E * R, E * N_SCALARS])
-    scalars = scalars.view(lead + (N_SCALARS,))
-    return (new_t.view(lead + (R,)), scalars[..., 0], scalars[..., 1],
-            scalars[..., 2])
+    th_step, rack_max, peak = scalars.view((N_SCALARS,) + lead).unbind(0)
+    return new_t.view(lead + (R,)), th_step, rack_max, peak

@@ -14,7 +14,10 @@ from repro_torch.scenarios.scenario import (
     default_scenario,
     demand_response,
     heatwave,
+    n_replicas,
+    sample_scenarios,
     solar_heavy,
+    stack_scenarios,
     thermal_stress,
 )
 from repro_torch.scenarios.signals import (

@@ -1,7 +1,8 @@
 """Time-series grid signals on tensors.
 
 A ``Signal`` is a fixed-shape NamedTuple of tensors that evaluates to a
-0-d f32 tensor at any sim time ``t``. Two families share one
+0-d f32 tensor at any sim time ``t``; a batched one (a leading replica
+axis E on every leaf, ``values`` (E, T)) evaluates to (E,) at ``t`` (E,). Two families share one
 representation: parametric (sinusoid plus a deterministic multi-harmonic
 "weather noise" term) and trace (samples linearly interpolated at ``t``,
 edge-held outside the sampled range). ``use_trace`` selects the family;
@@ -104,19 +105,23 @@ def _harmonic_noise(sig: Signal, t: torch.Tensor) -> torch.Tensor:
 
 
 def eval_signal(sig: Signal, t: torch.Tensor) -> torch.Tensor:
-    """Evaluate ``sig`` at time ``t`` (0-d f32). Both families are
-    computed and one is picked on the device."""
+    """Evaluate ``sig`` at time ``t`` (0-d f32, or (E,) for a batched
+    signal or replica clocks). Both families are computed and one is
+    picked on the device; the trace samples are gathered row by row."""
     x = 2.0 * math.pi * t / torch.clamp(sig.period_s, min=1e-6) + sig.phase
     para = (sig.mean + sig.amp * torch.sin(x)
             + sig.noise_amp * _harmonic_noise(sig, t))
 
-    T = sig.values.shape[0]
+    T = sig.values.shape[-1]
     u = (t - sig.t0) / torch.clamp(sig.dt, min=1e-6)
     # clamping before the floor gives clip(floor(u), 0, T-2) for every
     # finite u and keeps the int cast in range
     i0 = torch.floor(torch.clamp(u, 0.0, float(T - 2))).to(torch.int32)
     frac = torch.clamp(u - i0.to(torch.float32), 0.0, 1.0)
-    trace = (take(sig.values, i0) * (1.0 - frac)
-             + take(sig.values, i0 + 1) * frac)
+    values = sig.values
+    if values.dim() != i0.dim() + 1:     # one trace for every replica
+        values = values.expand(i0.shape + (T,))
+    trace = (take(values, i0) * (1.0 - frac)
+             + take(values, i0 + 1) * frac)
 
     return torch.where(sig.use_trace > 0.5, trace, para)

@@ -3,7 +3,8 @@ interleaved pairs, and each side's ``profile_tick`` and ``tick_ops``.
 
     mkdir -p build/parent && git archive HEAD~ | tar -x -C build/parent
     PYTHONPATH=src python3 -m repro_torch.tools.compare_tick \
-        --parent build/parent [--pairs 10] [--window 200] [--case ...]
+        --parent build/parent [--pairs 10] [--window 200] [--case ...] \
+        [--replicas E]
 
 For each case it starts one worker process per checkout. Each builds the
 case and runs it to tick ``--start``; then the two take turns, ``--pairs``
@@ -17,7 +18,9 @@ side it measures, so both sides are measured by the same code and
 nothing is written into the parent's tree. Prints each tool's JSON line
 with ``tree`` added, then one summary line per case: every window's ms
 per tick, each side's median and interquartile range, and how many pairs
-the change won. Needs a CUDA device.
+the change won. ``--replicas E`` > 1 runs every side as a fleet of E
+replicas (``profile_tick.setup_case``), so both trees need
+``core.fleet``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,14 +46,14 @@ CASES = ("replay_tx_gaia_1h", "replay_tx_gaia_1h_thermal",
          "replay_tx_gaia_1h_thermal_stress")
 
 
-def worker(case: str, start: int) -> int:
+def worker(case: str, start: int, replicas: int) -> int:
     """Run ``case`` to tick ``start``, then time the next N ticks for each
     N read from stdin, printing ms per tick, until stdin closes."""
     import torch
 
     from repro_torch.tools.profile_tick import setup_case
 
-    step, state, action = setup_case(case, start)
+    step, state, action = setup_case(case, start, replicas=replicas)
     torch.cuda.synchronize()
     print("ready", flush=True)
     for line in sys.stdin:
@@ -85,13 +88,13 @@ def _quartiles(xs):
 
 
 def compare(trees: dict, case: str, pairs: int, window: int,
-            start: int) -> dict:
+            start: int, replicas: int) -> dict:
     procs = {}
     try:
         for side, tree in trees.items():
             procs[side] = subprocess.Popen(
                 _cmd("compare_tick", "--worker", "--case", case, "--start",
-                     str(start)),
+                     str(start), "--replicas", str(replicas)),
                 cwd=tree, env=_env(tree), stdin=subprocess.PIPE,
                 stdout=subprocess.PIPE, text=True)
         for p in procs.values():
@@ -126,13 +129,14 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--window", type=int, default=200)
     ap.add_argument("--start", type=int, default=600)
+    ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--worker", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_tick: needs a CUDA device", file=sys.stderr)
         return 1
     if args.worker:
-        return worker(args.case[0], args.start)
+        return worker(args.case[0], args.start, args.replicas)
     if args.parent is None:
         ap.error("--parent is required")
     trees = {"parent": args.parent.resolve(), "change": CHANGE}
@@ -140,10 +144,13 @@ def main(argv=None) -> int:
     for case in args.case:
         for side, tree in trees.items():
             for module in ("profile_tick", "tick_ops"):
-                rec = _tool(tree, module, ["--case", case])
+                rec = _tool(tree, module, ["--case", case, "--replicas",
+                                           str(args.replicas)])
                 print(json.dumps({"tree": side, **rec}), flush=True)
-        summary = compare(trees, case, args.pairs, args.window, args.start)
-        print(json.dumps({"case": case, "device": device,
+        summary = compare(trees, case, args.pairs, args.window, args.start,
+                          args.replicas)
+        print(json.dumps({"case": case, "replicas": args.replicas,
+                          "device": device,
                           "host_ms_per_tick": summary}), flush=True)
     return 0
 

@@ -1,11 +1,13 @@
 """Where a tick's time goes on the card: the main path under torch.profiler.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
-        [--case replay_tx_gaia_1h_thermal] [--ticks 100]
+        [--case replay_tx_gaia_1h_thermal] [--ticks 100] [--replicas 72]
 
 Runs an acceptance case (``configs/acceptance.py``; default
 ``replay_tx_gaia_1h``) on the card up to tick ``--start`` (so jobs are
-running), then times ``--ticks`` more ticks twice: once on the host
+running), with ``--replicas E`` > 1 as a fleet of E replicas (the fleet
+case's policy x scenario grid, ``acceptance.fleet_grid``, tiled to E),
+then times ``--ticks`` more ticks twice: once on the host
 clock around a synchronised loop, once under ``torch.profiler`` with CPU
 and CUDA activities. Prints one JSON line: ms per tick, CUDA kernels per
 tick (and launches of the port's own kernels per tick), the device's
@@ -75,11 +77,13 @@ def _advance(step, state, action, n):
     return state
 
 
-def setup_case(case: str, start: int, device=None):
+def setup_case(case: str, start: int, device=None, replicas: int = 1):
     """An acceptance case (``configs/acceptance.py``) built on ``device``
     (the card when ``None``) and run to tick ``start``: returns (step,
-    state, action). Shared by the tick tools, so each reads the same
-    tick."""
+    state, action). With ``replicas`` > 1, a fleet of that many replicas
+    of the case under the fleet grid (``acceptance.fleet_grid`` tiled,
+    set up as ``run_fleet`` does). Shared by the tick tools, so each
+    reads the same tick."""
     import torch
 
     from repro_torch.configs import acceptance
@@ -91,7 +95,14 @@ def setup_case(case: str, start: int, device=None):
     jobs, bank = acceptance.workload(cfg)
     statics = build_statics(cfg, bank, device=device)
     state = load_jobs(init_state(cfg, statics, acceptance.SEED), jobs)
-    step = make_step(cfg, statics, acceptance.SCHEDULER)
+    who = acceptance.SCHEDULER
+    if replicas > 1:
+        from repro_torch.core.fleet import prepare_fleet
+
+        _, pol, scn = acceptance.fleet_grid(cfg, replicas)
+        statics, state, who = prepare_fleet(cfg, statics, state,
+                                            policies=pol, scenarios=scn)
+    step = make_step(cfg, statics, who)
     action = full(-1, torch.int64, statics.capacity.device)
     return step, _advance(step, state, action, start), action
 
@@ -109,12 +120,14 @@ def main(argv=None) -> int:
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=100)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--replicas", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick: needs a CUDA device", file=sys.stderr)
         return 1
 
-    step, state, action = setup_case(args.case, args.start)
+    step, state, action = setup_case(args.case, args.start,
+                                     replicas=args.replicas)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -132,9 +145,11 @@ def main(argv=None) -> int:
 
     summary = device_summary(prof, prof_wall_us, args.ticks, args.top)
     out = {
-        "case": args.case, "start_tick": args.start,
+        "case": args.case, "replicas": args.replicas,
+        "start_tick": args.start,
         "ticks": args.ticks, "device": torch.cuda.get_device_name(0),
         "ms_per_tick": host_ms,
+        "us_per_replica_tick": 1e3 * host_ms / args.replicas,
         "ms_per_tick_profiled": prof_wall_us / 1e3 / args.ticks,
         "port_kernel_launches_per_tick": {
             k: v / args.ticks for k, v in port_kernels.LAUNCHES.items()},

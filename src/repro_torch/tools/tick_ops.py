@@ -3,9 +3,10 @@ tick, counted stage by stage.
 
     PYTHONPATH=src python3 -m repro_torch.tools.tick_ops \
         [--case replay_tx_gaia_1h_thermal] [--start 600] [--ticks 5] \
-        [--device cpu]
+        [--device cpu] [--replicas 72]
 
-Runs an acceptance case on the card (or on ``--device``) up to tick
+Runs an acceptance case on the card (or on ``--device``), as a fleet of
+``--replicas`` under the fleet grid when that is > 1, up to tick
 ``--start`` (``profile_tick.setup_case``), then counts the non-view
 aten operations of ``--ticks`` more ticks under a ``TorchDispatchMode``
 and prints one JSON line of operations per tick: in total and by stage
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card")
+    ap.add_argument("--replicas", type=int, default=1)
     args = ap.parse_args(argv)
 
     stack = ["rest of the tail"]
@@ -97,7 +99,8 @@ def main(argv=None) -> int:
     for k, fn in select.items():
         sched.SCHEDULERS[k] = staged("dispatch", fn)
     try:
-        step, state, action = setup_case(args.case, args.start, args.device)
+        step, state, action = setup_case(args.case, args.start, args.device,
+                                         args.replicas)
         counts.clear()
         with Count():
             for _ in range(args.ticks):
@@ -107,7 +110,8 @@ def main(argv=None) -> int:
             setattr(mod, name, fn)
         sched.SCHEDULERS.update(select)
     per_tick = {k: v / args.ticks for k, v in sorted(counts.items())}
-    print(json.dumps({"case": args.case, "start_tick": args.start,
+    print(json.dumps({"case": args.case, "replicas": args.replicas,
+                      "start_tick": args.start,
                       "ticks": args.ticks, "device": str(state.t.device),
                       "aten_ops_per_tick": sum(per_tick.values()),
                       "by_stage": per_tick}), flush=True)

@@ -3,8 +3,12 @@
 The entry points run on the card unless the caller names another device;
 with no device given and no CUDA, they raise instead of quietly running
 on the CPU. Inside the per-tick step nothing may read a tensor on the
-host: ``take``/``put`` index with a one-element index tensor because
-``t[j]`` with a 0-d tensor calls ``__index__`` and synchronises.
+host: ``take``/``put`` gather and scatter with an index tensor because
+``t[j]`` with a 0-d tensor calls ``__index__`` and synchronises. They are
+row-wise: the index holds one entry per replica (0-d for one replica,
+(E,) for E), and each replica reads or writes its own entry. Copies from
+the host to the card (``to_device``) are asynchronous, so they are no
+sync either.
 """
 
 from __future__ import annotations
@@ -32,17 +36,42 @@ def exact_matmul() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def take(t: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """``t`` at the 0-d integer index ``idx`` along ``dim``, with no sync."""
-    return t.index_select(dim, idx.reshape(1).long()).squeeze(dim)
+def _row_index(t: torch.Tensor, idx: torch.Tensor, dim: int | None):
+    """(dim, gather index): ``idx``'s shape is ``t``'s leading dims, and
+    the index has ``t``'s shape with 1 at ``dim`` (default: the first dim
+    after the leading ones)."""
+    lead = idx.dim()
+    d = lead if dim is None else dim % t.dim()
+    shape = list(t.shape)
+    shape[d] = 1
+    index = idx.long().reshape(tuple(idx.shape) + (1,) * (t.dim() - lead))
+    return d, index.expand(shape)
+
+
+def take(t: torch.Tensor, idx: torch.Tensor,
+         dim: int | None = None) -> torch.Tensor:
+    """Row-wise ``t[..., idx, ...]``: each replica's entry at its own index
+    ``idx`` (shaped like ``t``'s leading replica dims: 0-d for one) along
+    ``dim``, with no sync. One replica takes a one-element
+    ``index_select``, whose host cost is a third of the gather's set-up."""
+    if idx.dim() == 0:
+        d = 0 if dim is None else dim
+        return t.index_select(d, idx.reshape(1).long()).squeeze(d)
+    d, index = _row_index(t, idx, dim)
+    return torch.gather(t, d, index).squeeze(d)
 
 
 def put(t: torch.Tensor, idx: torch.Tensor, value: torch.Tensor,
-        dim: int = 0) -> torch.Tensor:
-    """Copy of ``t`` with the slice at the 0-d index ``idx`` along ``dim``
-    replaced by ``value`` (the slice's shape), with no sync."""
-    return t.index_copy(dim, idx.reshape(1).long(),
-                        value.to(t.dtype).unsqueeze(dim))
+        dim: int | None = None) -> torch.Tensor:
+    """Copy of ``t`` with each replica's slice at its index ``idx`` along
+    ``dim`` replaced by ``value`` (``take``'s shape), with no sync; one
+    replica by a one-element ``index_copy``, as ``take``."""
+    if idx.dim() == 0:
+        d = 0 if dim is None else dim
+        return t.index_copy(d, idx.reshape(1).long(),
+                            value.to(t.dtype).unsqueeze(d))
+    d, index = _row_index(t, idx, dim)
+    return t.scatter(d, index, value.to(t.dtype).unsqueeze(d))
 
 
 def full(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -50,11 +79,17 @@ def full(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
+def to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``; a copy from the host to the card is queued on
+    the current stream (the host keeps no reference it must hold)."""
+    return x.to(device, non_blocking=x.device.type == "cpu")
+
+
 def tree_to(x, device: torch.device):
-    """Move every tensor of a (nested) NamedTuple to ``device``; ``None``
-    leaves stay ``None``."""
+    """Move every tensor of a (nested) NamedTuple to ``device`` (from the
+    host asynchronously, as ``to_device``); ``None`` leaves stay ``None``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return to_device(x, device)
     if x is None:
         return None
     return type(x)(*(tree_to(v, device) for v in x))

@@ -117,11 +117,14 @@ def _tick_consts(thermal):
         cop_load_coef=1.2, cop_load_ref=0.5)
 
 
-def _tick_inputs(device, E, J, K, N, R, thermal, seed, Q=12, layout="mixed"):
+def _tick_inputs(device, E, J, K, N, R, thermal, seed, Q=12, layout="mixed",
+                 W=0):
     """Statics and E replicas' per-tick state: ~70% of jobs running, a
     third of the slots -1, outlet temperatures across the throttle ramp.
     ``layout``: "mixed" (ids anywhere), "half" (the upper half of the
-    nodes holds no slot), "hot" (every job on node 3)."""
+    nodes holds no slot), "hot" (every job on node 3). ``W`` > 0: a
+    banked (W, J, Q) trace and each replica's workload id after the
+    wetbulb."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     place = rng.integers(0, N, (E, J, K))
@@ -131,7 +134,8 @@ def _tick_inputs(device, E, J, K, N, R, thermal, seed, Q=12, layout="mixed"):
         place[:, :, 0] = 3
     place[rng.random((E, J, K)) < 0.33] = -1
     node_cpu = rng.uniform(8, 48, N)
-    statics = [rng.random((J, Q)).astype(f32), rng.random((J, Q)).astype(f32),
+    bank = (W, J, Q) if W else (J, Q)
+    statics = [rng.random(bank).astype(f32), rng.random(bank).astype(f32),
                node_cpu.astype(f32), rng.uniform(0, 4, N).astype(f32),
                rng.uniform(80, 300, N).astype(f32),
                rng.uniform(100, 400, N).astype(f32),
@@ -147,6 +151,8 @@ def _tick_inputs(device, E, J, K, N, R, thermal, seed, Q=12, layout="mixed"):
              (rng.random((E, N)) > 0.05).astype(f32),
              rng.uniform(18, 38, (E, R)).astype(f32),
              rng.uniform(5, 28, E).astype(f32)]
+    if W:
+        state.append(rng.integers(0, W, E).astype(np.int32))
 
     def on(dev):
         ts = npw.tick_statics(*(torch.tensor(a, device=dev) for a in statics),
@@ -198,6 +204,38 @@ def test_power_tick_kernel_matches_plain_version(cuda_device, E, J, K, N, R,
     one = npw.power_tick(ts, *(x[0] for x in st))
     for g, o in zip(got, one):
         assert (g is None and o is None) or torch.equal(g[0], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thermal", [False, True])
+@pytest.mark.parametrize("E", [1, 64, 1024])
+def test_power_tick_banked_kernel_matches_plain_version(cuda_device, E,
+                                                        thermal):
+    """A fleet's tick over a banked (3, J, Q) trace, each replica reading
+    its workload's slice inside the kernel: one launch, node values and
+    job factors bitwise against the CPU plain version, the block sums to
+    rtol; a replica whose id lies outside the bank gets NaN and reads
+    nothing, the others are unchanged."""
+    (ts, st), (cts, cst) = _tick_inputs(cuda_device, E, 256, 16, 672, 21,
+                                        thermal, seed=E + 3, W=3)
+    before = kernels.LAUNCHES["power_scatter"]
+    got = npw.power_tick(ts, *st)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["power_scatter"] == before + 1
+    cpu = npw.power_tick_torch(cts, *cst)
+    for i, (g, c) in enumerate(zip(got, cpu)):
+        if c is None:
+            assert g is None
+        elif i == 2:
+            torch.testing.assert_close(g.cpu(), c, rtol=RTOL, atol=0.0)
+        else:
+            assert torch.equal(g.cpu(), c), i
+    bad = st[-1].clone()
+    bad[0] = 3
+    out = npw.power_tick(ts, *st[:-1], bad)
+    assert all(bool(torch.isnan(o[0]).all()) for o in out if o is not None)
+    for o, g in zip(out, got):
+        assert o is None or torch.equal(o[1:], g[1:])
 
 
 @pytest.mark.cuda
@@ -518,6 +556,45 @@ def test_thermal_stress_on_the_card_matches_the_cpu_path(cuda_device):
     assert n_gpu == {"power_scatter": 900, "rack_thermal": 900,
                      "node_power": 0, "flash_attn": 0, "selective_scan": 0}
     assert float(gpu.thermal_throttle_s) == 320.0
+    for f in cpu._fields:
+        a, b = getattr(cpu, f), getattr(gpu, f).cpu()
+        if f == "work_left":
+            a, b = cpu.dur_est - a, gpu.dur_est.cpu() - b
+        if a.is_floating_point():
+            torch.testing.assert_close(b, a, rtol=RTOL, atol=0.0, msg=f)
+        else:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_fleet_on_the_card_matches_the_cpu_path(cuda_device):
+    """Nine replicas of the thermal stress fleet (policies x scenarios,
+    ``acceptance.fleet_grid``), 600 ticks on the card and on the CPU (by
+    then a job has completed on each and the throttle has fired): integer
+    state equal, floats to rtol=1e-5 (progress as work done), one launch
+    of each tick kernel per tick for all replicas."""
+    import repro_torch.core as C
+    from repro_torch.configs import acceptance
+    from repro_torch.core.fleet import run_fleet
+
+    cfg = acceptance.config("replay_tx_gaia_1h_thermal_stress")
+    jobs, bank = acceptance.workload(cfg)
+    _, pol, scn = acceptance.fleet_grid(cfg)
+    idx = torch.arange(0, 72, 8)       # every policy, each scenario
+    pol = type(pol)(*(x[idx] for x in pol))
+    scn = type(scn)(*(type(f)(*(x[idx] for x in f)) for f in scn))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        st = C.build_statics(cfg, bank, device=dev)
+        s = C.load_jobs(C.init_state(cfg, st, 0), jobs)
+        kernels.reset_launches()
+        fs, _ = run_fleet(cfg, st, s, 600, policies=pol, scenarios=scn,
+                          summary_only=True)
+        runs[str(dev)] = (fs, dict(kernels.LAUNCHES))
+    (cpu, _), (gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    assert n_gpu["power_scatter"] == 600 and n_gpu["rack_thermal"] == 600
+    assert bool((cpu.n_completed > 0).all())
+    assert bool((cpu.thermal_throttle_s > 0).all())
     for f in cpu._fields:
         a, b = getattr(cpu, f), getattr(gpu, f).cpu()
         if f == "work_left":

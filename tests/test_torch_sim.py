@@ -138,6 +138,14 @@ def test_run_episode_refuses_what_the_slice_lacks(pair, kw, err, match):
 
 
 def test_policy_scheduler_raises(pair):
+    """A Policy runs as the scheduler (``tests/test_torch_fleet.py`` holds
+    it to the reference); what is neither a name nor a Policy, or a Policy
+    beside ``placement=``, raises."""
+    from repro_torch.core.placement import make_policy
+
     _, _, pst, _, _, _ = pair
-    with pytest.raises(NotImplementedError, match="fleets"):
+    with pytest.raises(KeyError, match="unknown scheduler"):
         C.make_step(pcfg.tiny_cluster(), pst, (0, 0))
+    with pytest.raises(ConfigError, match="placement"):
+        C.make_step(pcfg.tiny_cluster(), pst, make_policy("fcfs", "spread"),
+                    placement="spread")

@@ -14,6 +14,7 @@ import repro.configs.sim as rcfg
 import repro.core as R
 import repro_torch.configs.sim as pcfg
 import repro_torch.core as C
+from repro_torch.utils.errors import ConfigError
 from repro_torch import interop
 
 CONFIGS = {
@@ -129,12 +130,23 @@ def test_flags_of_later_slices_raise(flag):
 
 
 def test_banked_trace_raises():
+    """A banked (W, J, Q) bank builds (``tests/test_torch_fleet.py`` runs
+    it); a bank whose two traces differ in shape, or a workload id outside
+    [0, W), raises."""
     cfg = pcfg.tiny_cluster()
     bank = {"cpu": np.zeros((2, 64, 8), np.float32),
             "gpu": np.zeros((2, 64, 8), np.float32),
             "net_tx": np.zeros((2, 64), np.float32)}
-    with pytest.raises(NotImplementedError, match="fleets"):
-        C.build_statics(cfg, bank, device="cpu")
+    st = C.build_statics(cfg, bank, device="cpu")
+    assert tuple(st.cpu_trace.shape) == (2, 64, 8)
+    s = C.init_state(cfg, st, 0)
+    C.run_episode(cfg, st, s, 2, "fcfs")
+    with pytest.raises(ConfigError, match=r"workload ids must be in \[0, 2\)"):
+        C.run_episode(cfg, st, s._replace(workload=torch.tensor(
+            2, dtype=torch.int32)), 2, "fcfs")
+    bad = dict(bank, gpu=np.zeros((3, 64, 8), np.float32))
+    with pytest.raises(ValueError, match="trace bank"):
+        C.make_step(cfg, C.build_statics(cfg, bad, device="cpu"), "fcfs")
 
 
 def test_state_dtypes_are_f32_and_int32():
