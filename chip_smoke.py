@@ -44,16 +44,33 @@ and no result line:
              72 (one rack_thermal launch a tick), two replicas rerun
              alone; ms per tick, us per replica-tick, CUDA kernels per
              tick and the device's busy share at E = 1, 72 and 1152.
-7. determinism  the first 600 ticks of the main path and the first 900 of
+7. rl        the paper's experiment at full width (``acceptance.RL_CASES``:
+             TX-GAIA, 672 nodes, the 256 x 16 job table, four 40-job
+             workloads, 15 ticks a decision, ``macro=False``): 8
+             environments of ``SchedEnv`` as the replicas of one batched
+             state, driven by a fixed action script for 32 decisions
+             (``rl_tx_gaia``) and 8 on the thermal stress config, under
+             sync-debug "error", held to ``PINNED_RL`` (the JAX package's
+             ``SchedEnv``), one power_scatter (and, with thermals, one
+             rack_thermal) launch per batched tick; ``ppo_train(seed=0)``
+             for 2 iterations: iteration 0's sampled actions equal to the
+             pins, its rollout stats within 1e-5, the loss stats within
+             1e-3, one host sync per chunk and none inside it, a rerun
+             bitwise equal; then env decisions and replica-ticks per
+             second at 8, 64 and 512 environments (twice each), ms per
+             PPO iteration (rollout and update), and over 4 decisions of
+             the rollout CUDA kernels per env step by stage and the
+             device's busy share (``profile_tick.profile_rl``).
+8. determinism  the first 600 ticks of the main path and the first 900 of
              the thermal stress hour, each twice: every field bitwise equal.
-8. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
+9. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
              weights from ``seeded_numpy_params``): the f32 and the bf16
              model held to the JAX package's pins (``check_lm``), 26
              flash_attn launches per prefill and none per decode step, the
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of 5 runs).
-9. serve_hybrid  the jamba hybrid without experts at full width:
+10. serve_hybrid  the jamba hybrid without experts at full width:
              ``serve_jamba_1l`` (one Mamba layer, f32) held to
              ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
              random weights from ``init_params`` on the card) in f32 and in
@@ -142,6 +159,10 @@ BF16_DECODE_FACTOR = 2.0
 FLEET_SIZES = (1, 72, 1152)
 FLEET_TIMING = 600
 FLEET_PROFILE = (300, 30)
+# the rl phase: environments timed, decisions per timed rollout
+RL_SCALE_ENVS = (8, 64, 512)
+RL_SCALE_STEPS = 8
+RL_PROFILE_STEPS = 4   # decisions of the rollout under the profiler
 
 
 def emit(phase: str, **kw) -> None:
@@ -975,10 +996,6 @@ def fleet(torch, np, jobs, bank) -> dict:
     from repro_torch.core.fleet import _scenario_list, run_fleet
     from repro_torch.utils.device import tree_to
 
-    def no_launches(**kw):
-        return {"power_scatter": 0, "rack_thermal": 0, "node_power": 0,
-                "flash_attn": 0, "selective_scan": 0, **kw}
-
     runs = {}
     for case, ticks, alone_ids in (
             ("replay_tx_gaia_1h", A.N_STEPS, A.FLEET_ALONE),
@@ -1049,6 +1066,180 @@ def fleet(torch, np, jobs, bank) -> dict:
             raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
     return runs["replay_tx_gaia_1h"]
 
+
+def no_launches(**kw) -> dict:
+    return {"power_scatter": 0, "rack_thermal": 0, "node_power": 0,
+            "flash_attn": 0, "selective_scan": 0, **kw}
+
+
+def no_sync(torch):
+    """Context manager: a synchronised start, then sync-debug "error"
+    (any host sync raises) until it closes."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def guard():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return guard
+
+
+def _rl_rollout_timed(torch, env, n_envs: int, steps: int) -> dict:
+    """``steps`` decisions of a PPO rollout over ``n_envs`` environments
+    (a fresh policy, keys as ``ppo_train``'s) under sync-debug "error",
+    timed on the host clock around a synchronised run, after one untimed
+    decision at the same width (the allocator's first blocks of that
+    size are not the rollout's cost)."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.rl import ActorCritic, PPOConfig
+    from repro_torch.rl.ppo import make_rollout
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import to_device
+
+    cfg = PPOConfig(n_envs=n_envs, rollout_len=steps)
+    policy = ActorCritic(env.obs_dim, env.n_actions, device=env.device)
+    key = to_device(torch.from_numpy(prng.key_words(A.RL_SEED)), env.device)
+    key, kp, ke = prng.split(key, 3)
+    params = policy.init(kp)
+    states, _ = env.reset(prng.split(ke, n_envs))
+    make_rollout(env, policy, PPOConfig(n_envs=n_envs, rollout_len=1))(
+        params, states, key)
+    rollout = make_rollout(env, policy, cfg)
+    kernels.reset_launches()
+    with no_sync(torch)():
+        t0 = time.perf_counter()
+        _, batch, _, _ = rollout(params, states, key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(batch.reward).all()):
+        raise AssertionError(f"rl at E = {n_envs}: rewards not finite")
+    launches = dict(kernels.LAUNCHES)
+    ticks = steps * A.RL_SIM_STEPS
+    if launches != no_launches(power_scatter=ticks):
+        raise AssertionError(f"rl at E = {n_envs}: launches {launches}")
+    return {"envs": n_envs, "env_steps": steps, "wall_s": wall,
+            "ms_per_env_step": 1e3 * wall / steps,
+            "decisions_per_s": n_envs * steps / wall,
+            "replica_ticks_per_s": n_envs * ticks / wall,
+            "launches": launches}
+
+
+def rl(torch, np) -> None:
+    """The RL phase (see the module docstring, phase 7)."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.envs import SchedEnv
+    from repro_torch.rl import ppo as P
+    from repro_torch.tools.profile_tick import profile_rl, setup_rl
+
+    start = time.perf_counter()
+    guard = no_sync(torch)
+    envs = {}
+    # (a), (b): the scripted rollouts against PINNED_RL
+    for case, steps in A.RL_SCRIPT_STEPS.items():
+        cfg = A.rl_config(case)
+        t0 = time.perf_counter()
+        env = envs[case] = SchedEnv(cfg, A.rl_workloads(cfg),
+                                    **A.rl_env_kwargs())
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = A.run_rl_script(env, case, guard=guard)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        ticks = steps * A.RL_SIM_STEPS
+        report = A.check_rl(case, got)
+        emit("rl", step="script", case=case, envs=A.RL_ENVS,
+             env_steps=steps, ticks=ticks, setup_s=setup_s, wall_s=wall,
+             launches=launches, past_queued=got["past_queued"],
+             obs_dim=env.obs_dim, n_actions=env.n_actions,
+             completed=got["n_completed"], at_s=time.perf_counter() - start,
+             **report)
+        want = no_launches(power_scatter=ticks, rack_thermal=(
+            ticks if cfg.thermal_enabled else 0))
+        if launches != want:
+            raise AssertionError(f"{case}: launches {launches}, expected "
+                                 f"{want}")
+
+    # (c) PPO: pins, one host sync per chunk (the drain), a bitwise rerun
+    env = envs["rl_tx_gaia"]
+    drains = []
+    drain = P._drain
+
+    def counted_drain(stats):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return drain(stats)
+        finally:
+            drains.append(len(stats))
+            torch.cuda.set_sync_debug_mode("error")
+
+    P._drain = counted_drain
+    runs = []
+    try:
+        for _ in range(2):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got, params = A.run_ppo(env, guard=guard)
+            runs.append((got, params, time.perf_counter() - t0,
+                         dict(kernels.LAUNCHES)))
+    finally:
+        P._drain = drain
+    (got, params, wall, launches), (got2, params2, _, _) = runs
+    report = A.check_ppo(got)
+    same = (got == got2 and all(torch.equal(params[k], params2[k])
+                                for k in params))
+    ticks = (1 + A.RL_ITERATIONS) * A.RL_ROLLOUT * A.RL_SIM_STEPS
+    emit("rl", step="ppo", iterations=A.RL_ITERATIONS, wall_s=wall,
+         launches=launches, drains=drains, rerun_bitwise=same,
+         history=got["history"], at_s=time.perf_counter() - start,
+         **report)
+    if drains != [A.RL_ITERATIONS] * 2:
+        raise AssertionError(f"ppo: host drains {drains}, expected one "
+                             "per chunk")
+    if not same:
+        raise AssertionError("ppo: the rerun differs")
+    if launches != no_launches(power_scatter=ticks):
+        raise AssertionError(f"ppo: launches {launches}")
+
+    # (d) timing: the rollout at 8, 64 and 512 environments, one PPO
+    # iteration split into rollout and update, and the profile
+    for n_envs in RL_SCALE_ENVS:
+        for repeat in range(2):      # the host clock's spread, in one call
+            emit("rl", step="scale", repeat=repeat,
+                 at_s=time.perf_counter() - start,
+                 **_rl_rollout_timed(torch, env, n_envs, RL_SCALE_STEPS))
+    env2, policy2, iteration, carry = setup_rl("rl_tx_gaia", A.RL_ENVS)
+    cfg = P.PPOConfig(n_envs=A.RL_ENVS, rollout_len=A.RL_ROLLOUT)
+    rollout = P.make_rollout(env2, policy2, cfg)
+    update = P.make_update(policy2, cfg, P.AdamW(lr=cfg.lr, b2=0.999,
+                                                 weight_decay=0.0))
+    step0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    params, opt_state, states, ep, key = iteration(*carry, step0)[:5]
+    times = []
+    for _ in range(2):               # the first is a warm-up
+        with guard():
+            t0 = time.perf_counter()
+            states, batch, last_val, ep = rollout(params, states, key, ep)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt_state, _ = update(params, opt_state, batch,
+                                          last_val, key, step0)
+            torch.cuda.synchronize()
+            times.append((t1 - t0, time.perf_counter() - t1))
+    rollout_s, update_s = times[-1]
+    emit("rl", step="iteration", envs=A.RL_ENVS, env_steps=A.RL_ROLLOUT,
+         ms_per_iteration=1e3 * (rollout_s + update_s),
+         rollout_ms=1e3 * rollout_s, update_ms=1e3 * update_s,
+         at_s=time.perf_counter() - start)
+    emit("rl", step="profile", at_s=time.perf_counter() - start,
+         **profile_rl("rl_tx_gaia", A.RL_ENVS, decisions=RL_PROFILE_STEPS))
 
 def main() -> int:
     import numpy as np
@@ -1212,7 +1403,12 @@ def main() -> int:
     fleet(torch, np, jobs, bank)
     emit("fleet", step="done", seconds=time.perf_counter() - t0)
 
-    # 7. determinism: the same ticks twice, bitwise
+    # 7. rl: SchedEnv batched over the replica axis, PPO end to end
+    t0 = time.perf_counter()
+    rl(torch, np)
+    emit("rl", step="done", seconds=time.perf_counter() - t0)
+
+    # 8. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:
         dcfg = acceptance.config(case)
         dstatics = build_statics(dcfg, bank)
@@ -1229,11 +1425,11 @@ def main() -> int:
         if differ:
             raise AssertionError(f"{case}: runs differ in {differ}")
 
-    # 8. serve: gemma3-1b at full width; the kernels line reports the
+    # 9. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
-    # 9. serve_hybrid: the jamba hybrid at full width; the kernels line
+    # 10. serve_hybrid: the jamba hybrid at full width; the kernels line
     # reports the selective_scan launches of one 8-layer prefill
     t0 = time.perf_counter()
     launches["selective_scan"] = serve_hybrid(torch, np)

@@ -636,3 +636,756 @@ PINNED_JAMBA = {
           0.19363382, 0.59195757, 0.9863852, 0.19702941]],
     ],
 }
+
+
+# ---------------------------------------------------------------------------
+# The RL cases: the paper's experiment (Fig. 2), ``launch/rl_train.py
+# --cluster tx-gaia``'s setting at full width: ``tx_gaia(max_jobs=256,
+# max_nodes_per_job=16)`` (672 nodes, the whole job table), a bank of
+# RL_WORKLOADS ``synth_workload(cfg, 40, 1800.0, seed=s)``, episodes of 32
+# decisions of 15 ticks each, per-tick stepping (``macro=False``).
+#
+# - ``rl_tx_gaia``: RL_ENVS environments reset from ``split(key(0), 8)``,
+#   then ``RL_SCRIPT_STEPS`` decisions of ``rl_script`` (every candidate
+#   index, the no-op k, and indices past the queued candidates).
+# - ``rl_tx_gaia_thermal_stress``: the same on the stress hour's config
+#   with the thermal observation block, for fewer decisions.
+# - ``ppo``: ``ppo_train(seed=0, n_iterations=RL_ITERATIONS)`` with
+#   ``PPOConfig(n_envs=8, rollout_len=32)``: iteration 0's rollout (its
+#   sampled actions, mean reward and mean value, before any update) and
+#   the stats of every iteration.
+RL_CASES = {
+    "rl_tx_gaia": {},
+    "rl_tx_gaia_thermal_stress": dict(thermal_enabled=True,
+                                      **THERMAL_STRESS),
+}
+RL_SCRIPT_STEPS = {"rl_tx_gaia": 32, "rl_tx_gaia_thermal_stress": 8}
+RL_WORKLOADS, RL_JOBS, RL_HORIZON_S = 4, 40, 1800.0
+RL_EPISODE_STEPS, RL_SIM_STEPS = 32, 15
+RL_ENVS, RL_ROLLOUT, RL_ITERATIONS = 8, 32, 2
+RL_SEED = 0
+RL_INFO = ("facility_w", "queue_len", "completed", "energy_kwh",
+           "carbon_kg")
+RL_INT_FIELDS = ("jstate", "placement", "n_nodes", "workload")
+RL_STATS_RTOL = 1e-3   # PPO stats after Adam updates
+
+
+def rl_config(case: str = "rl_tx_gaia") -> SimConfig:
+    return tx_gaia(max_jobs=256, max_nodes_per_job=16, **RL_CASES[case])
+
+
+def rl_workloads(cfg: SimConfig) -> list:
+    return [synth_workload(cfg, RL_JOBS, RL_HORIZON_S, seed=s)
+            for s in range(RL_WORKLOADS)]
+
+
+def rl_env_kwargs() -> dict:
+    """``SchedEnv`` keywords of the RL cases, the same in both packages."""
+    return dict(episode_steps=RL_EPISODE_STEPS,
+                sim_steps_per_action=RL_SIM_STEPS, macro=False)
+
+
+def rl_script(k: int, n_envs: int, steps: int) -> np.ndarray:
+    """(steps, n_envs) int32 actions: env e at step t takes
+    (t + 3 e) mod (k + 1), so every candidate index and the no-op k
+    recur in every env."""
+    t = np.arange(steps)[:, None]
+    e = np.arange(n_envs)[None, :]
+    return ((t + 3 * e) % (k + 1)).astype(np.int32)
+
+
+def int_digest(a) -> list:
+    """One exact int per row of an integer array (a leading env axis):
+    sum over the row's flat entries of value * (position + 1)."""
+    a = np.asarray(a).astype(np.int64)
+    a = a.reshape(a.shape[0], -1)
+    return (a * np.arange(1, a.shape[1] + 1, dtype=np.int64)).sum(1).tolist()
+
+
+def rl_record(actions, k: int, n_valid, rewards, dones, infos, obs,
+              sim) -> dict:
+    """The pinned form of a scripted rollout, from numpy: per step the
+    (E,) rewards, dones and info fields, the final observations, the
+    final integer sim fields as ``int_digest``s and the completions, and
+    how many of the (steps, E) ``actions`` pointed past the queued
+    candidates (``n_valid``: valid candidates before each step)."""
+    actions = np.asarray(actions)
+    past = (actions < k) & (actions >= np.asarray(n_valid))
+    return {
+        "reward": np.asarray(rewards, np.float64).tolist(),
+        "done": np.asarray(dones).astype(bool).tolist(),
+        **{f: np.asarray(infos[f], np.float64).tolist() for f in RL_INFO},
+        "final_obs": np.asarray(obs, np.float64).tolist(),
+        **{f"digest_{f}": int_digest(sim[f]) for f in RL_INT_FIELDS},
+        "n_completed": np.asarray(sim["n_completed"], np.float64).tolist(),
+        "past_queued": int(past.sum()),
+    }
+
+
+def run_rl_script(env, case: str, steps: int | None = None,
+                  guard=None) -> dict:
+    """A scripted rollout of the port's ``SchedEnv`` for ``case``:
+    RL_ENVS environments reset from ``split(key(RL_SEED), RL_ENVS)``, then
+    ``steps`` decisions of ``rl_script`` (default ``RL_SCRIPT_STEPS``),
+    inside the context manager ``guard()`` when one is given (the reset
+    and the steps; the results reach the host after it). Returns
+    ``rl_record``'s form."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import to_device
+
+    steps = RL_SCRIPT_STEPS[case] if steps is None else steps
+    dev = env.device
+    script = rl_script(env.k, RL_ENVS, steps)
+    rec = {"reward": [], "done": [], "n_valid": [],
+           **{f: [] for f in RL_INFO}}
+    # the candidates' "valid" flags open the candidate block, the last
+    # 8 k entries of an observation
+    valid_at = slice(env.obs_dim - 8 * env.k, env.obs_dim - 7 * env.k)
+    with (guard or contextlib.nullcontext)():
+        key = to_device(torch.from_numpy(prng.key_words(RL_SEED)), dev)
+        st, obs = env.reset(prng.split(key, RL_ENVS))
+        acts = to_device(torch.from_numpy(script).long(), dev)
+        for t in range(steps):
+            rec["n_valid"].append(obs[:, valid_at].sum(-1))
+            st, obs, r, d, info = env.step(st, acts[t])
+            rec["reward"].append(r)
+            rec["done"].append(d)
+            for f in RL_INFO:
+                rec[f].append(info[f])
+
+    def host(x):
+        return torch.stack(x).cpu().numpy()
+
+    sim = {f: getattr(st.sim, f).cpu().numpy()
+           for f in RL_INT_FIELDS + ("n_completed",)}
+    return rl_record(script, env.k, host(rec["n_valid"]), host(rec["reward"]),
+                     host(rec["done"]), {f: host(rec[f]) for f in RL_INFO},
+                     obs.cpu().numpy(), sim)
+
+
+def check_rl(case: str, got: dict, pins: dict | None = None) -> dict:
+    """Hold a scripted rollout (``rl_record``'s form) to ``PINNED_RL[case]``:
+    dones, digests and the past-queued count exactly, every float within
+    ``RTOL`` of its pin (``completed`` and ``n_completed`` exactly). Raises
+    on a miss; returns the largest relative error."""
+    pins = PINNED_RL[case] if pins is None else pins
+    worst = 0.0
+    for f, want in pins.items():
+        g, w = np.asarray(got[f]), np.asarray(want)
+        if g.shape != w.shape:
+            raise AssertionError(f"{case}: {f} shape {g.shape} vs pinned "
+                                 f"{w.shape}")
+        if f in ("done", "past_queued", "completed", "n_completed") \
+                or f.startswith("digest_"):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{case}: {f} differs from the pins "
+                                     f"at {np.argwhere(g != w).tolist()[:8]}")
+            continue
+        rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+        rel = np.where(g == w, 0.0, rel)
+        worst = max(worst, float(rel.max()))
+        if not np.all(rel <= RTOL):
+            raise AssertionError(
+                f"{case}: {f} off the pins by rel {rel.max():.3g} at "
+                f"{np.argwhere(rel > RTOL).tolist()[:8]} (rtol {RTOL})")
+    return {"max_rel_err": worst}
+
+
+def run_ppo(env, guard=None, n_iterations: int = RL_ITERATIONS) -> dict:
+    """The ``ppo`` case on the port: iteration 0's rollout, its keys split
+    as ``ppo_train`` splits them (before any update), then
+    ``ppo_train(seed=RL_SEED, n_iterations=...)`` with ``PPOConfig(n_envs=
+    RL_ENVS, rollout_len=RL_ROLLOUT)``, each inside ``guard()`` when one is
+    given. Returns ``check_ppo``'s form and the trained parameters."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.rl import ActorCritic, PPOConfig, ppo_train
+    from repro_torch.rl.ppo import make_rollout
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import to_device
+
+    guard = guard or contextlib.nullcontext
+    cfg = PPOConfig(n_envs=RL_ENVS, rollout_len=RL_ROLLOUT)
+    policy = ActorCritic(env.obs_dim, env.n_actions, device=env.device)
+    with guard():
+        key = to_device(torch.from_numpy(prng.key_words(RL_SEED)), env.device)
+        key, kp, ke = prng.split(key, 3)
+        params = policy.init(kp)
+        states, _ = env.reset(prng.split(ke, cfg.n_envs))
+        _, kroll, _ = prng.split(key, 3)
+        _, batch, _, _ = make_rollout(env, policy, cfg)(params, states,
+                                                        kroll)
+    out = {"actions0": batch.action.cpu().numpy().tolist(),
+           "mean_reward0": float(batch.reward.mean()),
+           "mean_value0": float(batch.value.mean())}
+    with guard():
+        params, history = ppo_train(env, cfg=cfg, n_iterations=n_iterations,
+                                    seed=RL_SEED)
+    out["history"] = history
+    return out, params
+
+
+def check_ppo(got: dict, pins: dict | None = None) -> dict:
+    """Hold a PPO run to ``PINNED_RL["ppo"]``: iteration 0's sampled
+    actions exactly, its rollout's mean reward and mean value within
+    ``RTOL``, every iteration's stats within ``RL_STATS_RTOL``. Raises on
+    a miss; returns the largest relative errors."""
+    pins = PINNED_RL["ppo"] if pins is None else pins
+    a, w = np.asarray(got["actions0"]), np.asarray(pins["actions0"])
+    if not np.array_equal(a, w):
+        raise AssertionError(f"ppo: iteration 0's actions differ at "
+                             f"{np.argwhere(a != w).tolist()[:8]}")
+    out = {}
+    for f, tol in (("mean_reward0", RTOL), ("mean_value0", RTOL)):
+        rel = abs(got[f] - pins[f]) / abs(pins[f])
+        out[f"rel_err_{f}"] = rel
+        if rel > tol:
+            raise AssertionError(f"ppo: {f} {got[f]!r} vs pinned "
+                                 f"{pins[f]!r} (rtol {tol})")
+    worst = 0.0
+    for i, (gs, ws) in enumerate(zip(got["history"], pins["history"])):
+        for k, v in ws.items():
+            rel = abs(gs[k] - v) / max(abs(v), 1e-30)
+            worst = max(worst, rel)
+            if rel > RL_STATS_RTOL:
+                raise AssertionError(
+                    f"ppo: iteration {i} {k} {gs[k]!r} vs pinned {v!r} "
+                    f"(rtol {RL_STATS_RTOL})")
+    if len(got["history"]) != len(pins["history"]):
+        raise AssertionError("ppo: iteration counts differ")
+    out["max_rel_err_stats"] = worst
+    return out
+
+
+# ``PINNED_RL``: what the JAX package gives for the RL cases on the CPU (jax
+# 0.9.0, ``SchedEnv(macro=False)``), in ``rl_record``'s form, and for
+# ``ppo``, iteration 0's rollout and the stats of RL_ITERATIONS iterations
+# of ``ppo_train``; made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_rl_pins.py
+# (25 s on 8 cores). ``check_rl`` and ``check_ppo`` hold a run to them.
+PINNED_RL = {
+    "rl_tx_gaia": {
+        "reward": [[-3.1442566, -3.151687, -3.151687, -3.1439064, -3.150687,
+            -3.153687, -3.1439064, -3.151687], [-3.1510234, -3.1581867,
+            -3.1581867, -3.1533337, -3.150687, -3.1581867, -3.1533337,
+            -3.1581867], [-3.1513844, -3.1581864, -3.1581864, -3.158251,
+            -3.1506855, -3.164686, -3.158251, -3.1581864], [-3.1516461,
+            -3.1581843, -3.1507533, -3.1616635, -3.172184, -3.1585217,
+            -3.1616635, -3.1581843], [-3.1519957, -3.158183, -3.1510181,
+            -3.1643724, -3.1751823, -3.1579285, -3.1643724, -3.158183],
+            [-3.151966, -3.15818, -3.1513789, -3.1696324, -3.1806793,
+            -3.1620994, -3.1696324, -3.15818], [-3.1520357, -3.1507463,
+            -3.151639, -3.1731215, -3.1748374, -3.1640158, -3.1731215,
+            -3.1507463], [-3.1520367, -3.1510105, -3.1519866, -3.172401,
+            -3.1746058, -3.1671817, -3.172401, -3.1510105], [-3.1520383,
+            -3.1513689, -3.1519563, -3.1733036, -3.1771884, -3.1741574,
+            -3.1733036, -3.1513689], [-3.1449497, -3.151627, -3.152025,
+            -3.1655972, -3.189691, -3.1746476, -3.1655972, -3.151627],
+            [-3.1472738, -3.1519744, -3.1520236, -3.1654172, -3.20267,
+            -3.1738667, -3.1654172, -3.1519744], [-3.1501267, -3.1519418,
+            -3.1520243, -3.165823, -3.2057414, -3.174261, -3.165823,
+            -3.1519418], [-3.1526875, -3.152009, -3.1449347, -3.1728818,
+            -3.2106519, -3.1759887, -3.1728818, -3.152009], [-3.1546576,
+            -3.1520069, -3.1472569, -3.1819475, -3.2103093, -3.1795337,
+            -3.1819475, -3.1520069], [-3.1552398, -3.1520061, -3.1501083,
+            -3.1872387, -3.2155044, -3.1774893, -3.1872387, -3.1520061],
+            [-3.1542397, -3.1449146, -3.1526673, -3.1982167, -3.2084594,
+            -3.177203, -3.1982167, -3.1449146], [-3.1542673, -3.147236,
+            -3.1546366, -3.2016263, -3.202606, -3.1854641, -3.2016263,
+            -3.147236], [-3.1623106, -3.1575856, -3.1627173, -2.1993966,
+            -3.1937423, -3.192275, -2.1993966, -3.1575856], [-3.1652377,
+            -3.1706433, -3.1722155, -3.1895876, -3.1981633, -3.1946435,
+            -3.1895876, -3.1706433], [-3.1627498, -3.1771114, -3.1767416,
+            -3.1905813, -3.200392, -3.196644, -3.1905813, -3.1771114],
+            [-3.1625803, -3.1776905, -3.177284, -3.1957605, -3.2027535,
+            -3.19729, -3.1957605, -3.1776905], [-3.1634877, -3.176687,
+            -3.1697097, -3.1965091, -3.2022634, -3.1900158, -3.1965091,
+            -3.176687], [-3.1645458, -3.176712, -3.16272, -3.1969995,
+            -3.2047267, -3.1925771, -3.1969995, -3.176712], [-3.165065,
+            -3.178253, -3.1635492, -3.2044778, -3.2087352, -3.196089,
+            -3.2044778, -3.178253], [-3.171016, -3.1771772, -3.1709552,
+            -3.2046094, -3.1985748, -3.2035863, -3.2046094, -3.1771772],
+            [-3.1771598, -3.1751864, -3.177012, -3.2027555, -3.189743,
+            -3.2102177, -3.2027555, -3.1751864], [-3.1794572, -3.1702888,
+            -3.1790297, -3.202749, -3.189187, -3.2217498, -3.202749,
+            -3.1702888], [-3.1860619, -3.186337, -3.1924791, -3.1950555,
+            -3.19331, -3.2241511, -3.1950555, -3.186337], [-3.1806915,
+            -3.1899652, -3.1946216, -3.185587, -3.1945577, -3.2248719,
+            -3.185587, -3.1899652], [-3.1793108, -3.195372, -3.198918,
+            -3.186577, -3.197395, -2.2293715, -3.186577, -3.195372],
+            [-3.1854262, -3.198808, -3.194521, -3.1971843, -3.2000272,
+            -3.2230248, -3.1971843, -3.198808], [-3.189425, -3.199946,
+            -3.1881492, -3.2027102, -3.2001736, -3.2217264, -3.2027102,
+            -3.199946]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [True, True, True, True,
+            True, True, True, True]],
+        "facility_w": [[241412.77, 241396.77, 241396.77, 241562.39, 241396.77,
+            241396.77, 241562.39, 241396.77], [241427.56, 241396.78, 241396.78,
+            241734.06, 241396.78, 241396.78, 241734.06, 241396.78], [241458.1,
+            241396.78, 241396.78, 242136.38, 241396.78, 241396.78, 242136.38,
+            241396.78], [241476.92, 241396.8, 241412.8, 242291.8, 241396.8,
+            241474.5, 242291.8, 241396.8], [241504.86, 241396.81, 241427.6,
+            242431.78, 241396.81, 241571.19, 242431.78, 241396.81], [241490.97,
+            241396.83, 241458.14, 242486.7, 241396.83, 241758.34, 242486.7,
+            241396.83], [241502.67, 241412.84, 241476.97, 242520.5, 241779.4,
+            241889.36, 242520.5, 241412.84], [241500.97, 241427.66, 241504.92,
+            242474.02, 242240.75, 242054.1, 242474.02, 241427.66], [241496.39,
+            241458.22, 241491.05, 242557.2, 243183.48, 242035.34, 242557.2,
+            241458.22], [241613.88, 241477.06, 241502.75, 242539.62, 243787.17,
+            242058.03, 242539.62, 241477.06], [241752.05, 241505.03, 241501.06,
+            242535.94, 244475.06, 242005.9, 242535.94, 241505.03], [242004.12,
+            241491.16, 241496.5, 242517.7, 244168.81, 242004.97, 242517.7,
+            241491.16], [242198.48, 241502.88, 241614.0, 242439.53, 244108.22,
+            241998.2, 242439.53, 241502.88], [242273.3, 241501.2, 241752.17,
+            242525.08, 244264.47, 242079.69, 242525.08, 241501.2], [242359.84,
+            241496.64, 242004.25, 242519.16, 244067.8, 242190.38, 242519.16,
+            241496.64], [242194.16, 241614.16, 242198.62, 242342.84, 244139.55,
+            242470.1, 242342.84, 241614.16], [242283.5, 241752.34, 242273.47,
+            242430.56, 244215.08, 242679.52, 242430.56, 241752.34], [242193.38,
+            242004.44, 242360.02, 241438.03, 244079.31, 242982.12, 241438.03,
+            242004.44], [242339.06, 242198.81, 242194.34, 241433.19, 244579.64,
+            243088.6, 241433.19, 242198.81], [242303.34, 242273.66, 242283.69,
+            241770.17, 244659.64, 243202.56, 241770.17, 242273.66], [242320.47,
+            242360.22, 242193.56, 242096.47, 244849.34, 243293.19, 242096.47,
+            242360.22], [242395.03, 242194.56, 242339.28, 242941.78, 244744.23,
+            243365.31, 242941.78, 242194.56], [242511.23, 242283.9, 242303.56,
+            243385.38, 244742.48, 243565.72, 243385.38, 242283.9], [242365.47,
+            242193.81, 242320.7, 243814.28, 244698.86, 244032.72, 243814.28,
+            242193.81], [242394.75, 242339.53, 242395.27, 243822.53, 244583.69,
+            244455.73, 243822.53, 242339.53], [242515.48, 242303.81, 242511.5,
+            243615.94, 244361.31, 244831.94, 243615.94, 242303.81], [242444.67,
+            242384.28, 242365.72, 243707.89, 244475.1, 245231.2, 243707.89,
+            242384.28], [242570.69, 242527.27, 242395.03, 243615.94, 244786.6,
+            245346.73, 243615.94, 242527.27], [242599.25, 242799.25, 242515.77,
+            243493.83, 245039.94, 245391.12, 243493.83, 242799.25], [242740.31,
+            242726.84, 242444.97, 243504.66, 244922.66, 244762.34, 243504.66,
+            242726.84], [243034.66, 242807.72, 242570.98, 243759.61, 245246.17,
+            245033.92, 243759.61, 242807.72], [243154.27, 242928.06, 242599.58,
+            243731.61, 245178.06, 245395.44, 243731.61, 242928.06]],
+        "queue_len": [[1.0, 2.0, 2.0, 0.0, 1.0, 2.0, 0.0, 2.0], [1.0, 2.0, 2.0,
+            1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0, 1.0, 1.0, 3.0, 1.0, 2.0],
+            [1.0, 2.0, 1.0, 1.0, 4.0, 2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 1.0, 5.0,
+            2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 2.0, 5.0, 2.0, 2.0, 2.0], [1.0,
+            1.0, 1.0, 2.0, 4.0, 2.0, 2.0, 1.0], [1.0, 1.0, 1.0, 2.0, 3.0, 3.0,
+            2.0, 1.0], [1.0, 1.0, 1.0, 2.0, 2.0, 3.0, 2.0, 1.0], [0.0, 1.0,
+            1.0, 1.0, 3.0, 3.0, 1.0, 1.0], [0.0, 1.0, 1.0, 1.0, 3.0, 3.0, 1.0,
+            1.0], [0.0, 1.0, 1.0, 2.0, 4.0, 4.0, 2.0, 1.0], [0.0, 1.0, 0.0,
+            3.0, 4.0, 4.0, 3.0, 1.0], [0.0, 1.0, 0.0, 4.0, 5.0, 4.0, 4.0, 1.0],
+            [0.0, 1.0, 0.0, 4.0, 5.0, 4.0, 4.0, 1.0], [0.0, 0.0, 0.0, 6.0, 4.0,
+            3.0, 6.0, 0.0], [0.0, 0.0, 0.0, 6.0, 3.0, 4.0, 6.0, 0.0], [1.0,
+            1.0, 1.0, 6.0, 2.0, 4.0, 6.0, 1.0], [2.0, 3.0, 3.0, 7.0, 2.0, 4.0,
+            7.0, 3.0], [1.0, 3.0, 3.0, 7.0, 2.0, 4.0, 7.0, 3.0], [1.0, 3.0,
+            3.0, 6.0, 2.0, 4.0, 6.0, 3.0], [1.0, 3.0, 2.0, 5.0, 2.0, 3.0, 5.0,
+            3.0], [1.0, 3.0, 1.0, 4.0, 3.0, 3.0, 4.0, 3.0], [2.0, 4.0, 2.0,
+            4.0, 3.0, 3.0, 4.0, 4.0], [2.0, 3.0, 2.0, 4.0, 2.0, 3.0, 4.0, 3.0],
+            [3.0, 3.0, 3.0, 4.0, 1.0, 4.0, 4.0, 3.0], [3.0, 2.0, 3.0, 4.0, 1.0,
+            4.0, 4.0, 2.0], [4.0, 4.0, 5.0, 3.0, 1.0, 4.0, 3.0, 4.0], [3.0,
+            4.0, 5.0, 2.0, 1.0, 4.0, 2.0, 4.0], [3.0, 5.0, 6.0, 3.0, 1.0, 5.0,
+            3.0, 5.0], [3.0, 5.0, 5.0, 4.0, 1.0, 5.0, 4.0, 5.0], [3.0, 5.0,
+            4.0, 4.0, 1.0, 4.0, 4.0, 5.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0058422, 1.00582, 1.00582, 1.0060499, 1.00582,
+            1.00582, 1.0060499, 1.00582], [1.0059277, 1.00582, 1.00582,
+            1.0069867, 1.00582, 1.00582, 1.0069867, 1.00582], [1.0060436,
+            1.0058202, 1.0058202, 1.0082408, 1.0058202, 1.0058202, 1.0082408,
+            1.0058202], [1.0061277, 1.0058202, 1.0058422, 1.0093335, 1.0058202,
+            1.005928, 1.0093335, 1.0058202], [1.0062402, 1.0058202, 1.0059277,
+            1.0102009, 1.0058202, 1.0063788, 1.0102009, 1.0058202], [1.0062319,
+            1.0058202, 1.0060438, 1.010285, 1.0058202, 1.0070745, 1.010285,
+            1.0058202], [1.0062551, 1.0058423, 1.0061278, 1.0106024, 1.0063516,
+            1.0076886, 1.0106024, 1.0058423], [1.0062563, 1.0059279, 1.0062406,
+            1.010373, 1.0086786, 1.0085429, 1.010373, 1.0059279], [1.0062584,
+            1.006044, 1.006232, 1.0106632, 1.0119061, 1.0085361, 1.0106632,
+            1.006044], [1.0063914, 1.0061283, 1.0062554, 1.0105987, 1.0149488,
+            1.0086948, 1.0105987, 1.0061283], [1.0071367, 1.006241, 1.0062569,
+            1.0105426, 1.0176636, 1.0084465, 1.0105426, 1.006241], [1.0080515,
+            1.0062323, 1.0062586, 1.0105143, 1.0178483, 1.0084145, 1.0105143,
+            1.0062323], [1.0088729, 1.006256, 1.006392, 1.010375, 1.0178217,
+            1.0083293, 1.010375, 1.006256], [1.0095055, 1.0062573, 1.0071373,
+            1.0103983, 1.0175542, 1.0083458, 1.0103983, 1.0062573], [1.0096942,
+            1.0062593, 1.0080522, 1.0103337, 1.0169789, 1.0089741, 1.0103337,
+            1.0062593], [1.0093766, 1.0063927, 1.0088733, 1.0100092, 1.017127,
+            1.009525, 1.0100092, 1.0063927], [1.009388, 1.007138, 1.0095062,
+            1.0101429, 1.0176567, 1.0108911, 1.0101429, 1.007138], [1.0095649,
+            1.0080527, 1.0096948, 1.0094321, 1.017223, 1.0119534, 1.0094321,
+            1.0080527], [1.0095445, 1.008874, 1.0093771, 1.0059762, 1.0186409,
+            1.0127143, 1.0059762, 1.008874], [1.0097114, 1.0095072, 1.0093888,
+            1.0064574, 1.0193572, 1.0133576, 1.0064574, 1.0095072], [1.0096604,
+            1.0096956, 1.0095657, 1.008278, 1.0201163, 1.0135674, 1.008278,
+            1.0096956], [1.0099543, 1.0093781, 1.0095453, 1.0109214, 1.0199629,
+            1.0136435, 1.0109214, 1.0093781], [1.0102966, 1.0093896, 1.0097122,
+            1.0134819, 1.0193149, 1.0144666, 1.0134819, 1.0093896], [1.0101464,
+            1.0095667, 1.0096612, 1.0158788, 1.0196415, 1.0157543, 1.0158788,
+            1.0095667], [1.0099746, 1.0095463, 1.0099553, 1.0159247, 1.0187941,
+            1.0179976, 1.0159247, 1.0095463], [1.0103449, 1.0097134, 1.0102975,
+            1.0153358, 1.0183719, 1.0198036, 1.0153358, 1.0097134], [1.0102844,
+            1.0097505, 1.0101476, 1.0153381, 1.0181984, 1.0214186, 1.0153381,
+            1.0097505], [1.0103222, 1.0104103, 1.0099758, 1.0152806, 1.0195222,
+            1.0221916, 1.0152806, 1.0104103], [1.0106883, 1.0112559, 1.0103459,
+            1.0146551, 1.0199263, 1.022427, 1.0146551, 1.0112559], [1.0112114,
+            1.0115511, 1.0102855, 1.0148169, 1.0208391, 1.0216317, 1.0148169,
+            1.0115511], [1.0122135, 1.0116956, 1.0103235, 1.0153362, 1.0216866,
+            1.0204058, 1.0153362, 1.0116956], [1.0134983, 1.0120648, 1.0106897,
+            1.0153497, 1.0217384, 1.0214354, 1.0153497, 1.0120648]],
+        "carbon_kg": [[0.5029211, 0.50290996, 0.50290996, 0.50302494,
+            0.50290996, 0.50290996, 0.50302494, 0.50290996], [0.50296366,
+            0.50290984, 0.50290984, 0.50349325, 0.50290984, 0.50290984,
+            0.50349325, 0.50290984], [0.50302136, 0.5029095, 0.5029095,
+            0.50412005, 0.5029095, 0.5029095, 0.50412005, 0.5029095],
+            [0.503063, 0.5029091, 0.50292027, 0.5046658, 0.5029091, 0.50296307,
+            0.5046658, 0.5029091], [0.5031187, 0.5029085, 0.5029624, 0.5050988,
+            0.5029085, 0.503188, 0.5050988, 0.5029085], [0.5031136, 0.5029079,
+            0.5030197, 0.5051403, 0.5029079, 0.503535, 0.5051403, 0.5029079],
+            [0.50312454, 0.5029182, 0.5030609, 0.5052982, 0.50317276,
+            0.50384134, 0.5052982, 0.5029182], [0.5031242, 0.50295997,
+            0.5031162, 0.5051824, 0.50433517, 0.50426733, 0.5051824,
+            0.50295997], [0.50312394, 0.50301677, 0.50311077, 0.50532633,
+            0.5059479, 0.5042629, 0.50532633, 0.50301677], [0.5031892,
+            0.5030576, 0.50312126, 0.5052927, 0.5074678, 0.5043408, 0.5052927,
+            0.5030576], [0.5035604, 0.5031125, 0.5031204, 0.5052633, 0.5088238,
+            0.5042153, 0.5052633, 0.5031125], [0.50401616, 0.5031067,
+            0.5031199, 0.50524765, 0.5089145, 0.5041977, 0.50524765,
+            0.5031067], [0.5044251, 0.50311667, 0.5031847, 0.5051762,
+            0.5088994, 0.50415343, 0.5051762, 0.50311667], [0.50473964,
+            0.50311553, 0.5035555, 0.50518596, 0.5087638, 0.50415975,
+            0.50518596, 0.50311553], [0.5048319, 0.50311446, 0.50401086,
+            0.5051517, 0.50847423, 0.5044718, 0.5051517, 0.50311446],
+            [0.5046709, 0.50317895, 0.5044194, 0.50498724, 0.50854605,
+            0.50474507, 0.50498724, 0.50317895], [0.50467426, 0.50354934,
+            0.50473344, 0.5050518, 0.50880843, 0.5054259, 0.5050518,
+            0.50354934], [0.50476027, 0.5040043, 0.5048253, 0.5046939,
+            0.50858915, 0.5059545, 0.5046939, 0.5040043], [0.50474745,
+            0.5044124, 0.5046639, 0.5029635, 0.5092954, 0.5063323, 0.5029635,
+            0.5044124], [0.5048283, 0.50472605, 0.5046669, 0.50320125,
+            0.5096508, 0.5066513, 0.50320125, 0.50472605], [0.5047999,
+            0.5048174, 0.50475246, 0.5041087, 0.5100274, 0.5067533, 0.5041087,
+            0.5048174], [0.5049437, 0.50465566, 0.5047393, 0.5054271,
+            0.50994766, 0.5067882, 0.5054271, 0.50465566], [0.5051117,
+            0.5046582, 0.50481963, 0.5067042, 0.5096205, 0.50719655, 0.5067042,
+            0.5046582], [0.5050333, 0.5047434, 0.5047908, 0.5078993,
+            0.50978047, 0.50783706, 0.5078993, 0.5047434], [0.5049439,
+            0.50472975, 0.5049343, 0.5079188, 0.50935316, 0.5089551, 0.5079188,
+            0.50472975], [0.50512546, 0.5048097, 0.50510186, 0.50762063,
+            0.50913864, 0.5098545, 0.50762063, 0.5048097], [0.5050914,
+            0.50482446, 0.505023, 0.50761807, 0.509048, 0.510658, 0.50761807,
+            0.50482446], [0.50510645, 0.50515044, 0.50493324, 0.50758535,
+            0.50970596, 0.51104045, 0.50758535, 0.50515044], [0.50528544,
+            0.5055692, 0.5051143, 0.5072687, 0.5099039, 0.5111541, 0.5072687,
+            0.5055692], [0.50554276, 0.50571257, 0.50508, 0.50734526, 0.510356,
+            0.5107522, 0.50734526, 0.50571257], [0.5060394, 0.5057805,
+            0.5050945, 0.50760055, 0.5107753, 0.51013494, 0.50760055,
+            0.5057805], [0.50667727, 0.5059606, 0.5052731, 0.5076028,
+            0.5107968, 0.51064515, 0.5076028, 0.5059606]],
+        "final_obs": [[0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0,
+            0.01171875, 0.02734375, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.99118304, 0.99107146, 0.99329907, 1.0, 0.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.033764876, 0.020639123,
+            0.010716875, 0.0, 0.0, 0.0, 0.0, 0.0, 0.344182, 0.5, 0.44492534,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.125, 0.125, 0.0625, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.25, 0.16666667, 0.20833334, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+            1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.04302275, 0.0625, 0.027807834,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.6592262, 0.6592262, 0.66071427, 0.0,
+            0.0, 0.0, 0.0, 0.0], [0.034899496, 0.99939084, 1.3155972,
+            0.9873093, 1.0, 0.01953125, 0.01953125, 1.0, 0.0055555557, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.99347097, 0.9933036, 0.99515736, 1.0,
+            0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.057704367,
+            0.033764876, 0.020639123, 0.020267708, 0.010716875, 0.0, 0.0, 0.0,
+            0.30511844, 0.344182, 0.5, 0.5, 0.44492534, 0.0, 0.0, 0.0, 0.125,
+            0.125, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.3125, 0.25,
+            0.16666667, 0.22916667, 0.20833334, 0.0, 0.0, 0.0, 0.5, 1.0, 1.0,
+            0.0, 0.5, 0.0, 0.0, 0.0, 0.038139805, 0.04302275, 0.0625, 0.03125,
+            0.027807834, 0.0, 0.0, 0.0, 0.6622024, 0.66071427, 0.66071427,
+            0.9970238, 0.6622024, 0.0, 0.0, 0.0], [0.034899496, 0.99939084,
+            1.3155972, 0.9873093, 1.0, 0.015625, 0.0234375, 1.0, 0.0055555557,
+            1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99179685, 0.99107146, 0.9934729,
+            1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.033764876,
+            0.020639123, 0.020267708, 0.010716875, 0.0, 0.0, 0.0, 0.0,
+            0.344182, 0.5, 0.5, 0.44492534, 0.0, 0.0, 0.0, 0.0, 0.125, 0.125,
+            0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.25, 0.16666667, 0.22916667,
+            0.20833334, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.04302275, 0.0625, 0.03125, 0.027807834, 0.0, 0.0, 0.0, 0.0,
+            0.6592262, 0.6592262, 0.9970238, 0.66071427, 0.0, 0.0, 0.0, 0.0],
+            [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625,
+            0.03125, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.99229914, 0.9899554, 0.99520224, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.07594989, 0.055894777, 0.008408543,
+            0.005076896, 0.0, 0.0, 0.0, 0.0, 0.34126368, 0.39685744,
+            0.27704287, 0.1448695, 0.0, 0.0, 0.0, 0.0, 0.25, 0.125, 0.0625,
+            0.0625, 0.0, 0.0, 0.0, 0.0, 0.39583334, 0.083333336, 0.16666667,
+            0.125, 0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.08531592, 0.04960718, 0.01731518, 0.009054344, 0.0, 0.0, 0.0,
+            0.0, 0.6592262, 0.66071427, 0.99553573, 0.99553573, 0.0, 0.0, 0.0,
+            0.0], [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0,
+            0.00390625, 0.03125, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.99084824, 0.9866072, 0.995553, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.084639095, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.4375, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.99404764, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625,
+            0.0390625, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.9852679, 0.97544646, 0.9912549, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.064638324, 0.025492428, 0.012137205,
+            0.006608963, 0.0, 0.0, 0.0, 0.0, 0.5, 0.38274416, 0.5, 0.36078066,
+            0.0, 0.0, 0.0, 0.0, 0.0625, 0.25, 0.125, 0.125, 0.0, 0.0, 0.0, 0.0,
+            0.4166667, 0.10416667, 0.3125, 0.20833334, 0.0, 0.0, 0.0, 0.0, 0.0,
+            1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.09568604, 0.0625,
+            0.045097582, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.64880955,
+            0.64880955, 0.64880955, 0.0, 0.0, 0.0, 0.0], [0.034899496,
+            0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625, 0.03125, 1.0,
+            0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99229914, 0.9899554,
+            0.99520224, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.07594989, 0.055894777, 0.008408543, 0.005076896, 0.0, 0.0, 0.0,
+            0.0, 0.34126368, 0.39685744, 0.27704287, 0.1448695, 0.0, 0.0, 0.0,
+            0.0, 0.25, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.39583334,
+            0.083333336, 0.16666667, 0.125, 0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.08531592, 0.04960718, 0.01731518,
+            0.009054344, 0.0, 0.0, 0.0, 0.0, 0.6592262, 0.66071427, 0.99553573,
+            0.99553573, 0.0, 0.0, 0.0, 0.0], [0.034899496, 0.99939084,
+            1.3155972, 0.9873093, 1.0, 0.01953125, 0.01953125, 1.0,
+            0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99347097, 0.9933036,
+            0.99515736, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.057704367, 0.033764876, 0.020639123, 0.020267708, 0.010716875,
+            0.0, 0.0, 0.0, 0.30511844, 0.344182, 0.5, 0.5, 0.44492534, 0.0,
+            0.0, 0.0, 0.125, 0.125, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0,
+            0.3125, 0.25, 0.16666667, 0.22916667, 0.20833334, 0.0, 0.0, 0.0,
+            0.5, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.038139805, 0.04302275,
+            0.0625, 0.03125, 0.027807834, 0.0, 0.0, 0.0, 0.6622024, 0.66071427,
+            0.66071427, 0.9970238, 0.6622024, 0.0, 0.0, 0.0]],
+        "digest_jstate": [851, 838, 842, 871, 858, 897, 871, 838],
+        "digest_placement": [-8388821, -8389846, -8389208, -8388547, -8388716,
+            -8377680, -8388547, -8389846],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "n_completed": [0.0, 0.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0],
+        "past_queued": 170,
+    },
+    "rl_tx_gaia_thermal_stress": {
+        "reward": [[-3.1619353, -3.1693664, -3.1693664, -3.1615815, -3.168366,
+            -3.171367, -3.1615815, -3.1693664], [-3.1687012, -3.1758657,
+            -3.1758657, -3.170994, -3.1683657, -3.1758657, -3.170994,
+            -3.1758657], [-3.16906, -3.1758647, -3.1758647, -3.1758928,
+            -3.1683648, -3.1823647, -3.1758928, -3.1758647], [-3.1693208,
+            -3.1758642, -3.1684322, -3.1792881, -3.1898634, -3.1761992,
+            -3.1792881, -3.1758642], [-3.1696677, -3.1758618, -3.1686962,
+            -3.181984, -3.192862, -3.1755998, -3.181984, -3.1758618],
+            [-3.1696386, -3.175859, -3.1690543, -3.187243, -3.1983595,
+            -3.1797593, -3.187243, -3.175859], [-3.169709, -3.1684253,
+            -3.1693134, -3.1907268, -3.192509, -3.1816673, -3.1907268,
+            -3.1684253], [-3.1697097, -3.1686883, -3.1696599, -3.19001,
+            -3.1922407, -3.184821, -3.19001, -3.1686883]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False]],
+        "facility_w": [[242770.47, 242754.55, 242754.55, 242919.34, 242754.55,
+            242754.55, 242919.34, 242754.55], [242785.19, 242754.56, 242754.56,
+            243090.16, 242754.56, 242754.56, 243090.16, 242754.56], [242815.56,
+            242754.56, 242754.56, 243490.5, 242754.56, 242754.56, 243490.5,
+            242754.56], [242834.3, 242754.58, 242770.5, 243645.14, 242754.58,
+            242831.89, 243645.14, 242754.58], [242862.11, 242754.6, 242785.22,
+            243784.44, 242754.6, 242928.1, 243784.44, 242754.6], [242848.28,
+            242754.61, 242815.62, 243839.08, 242754.61, 243114.34, 243839.08,
+            242754.61], [242859.94, 242770.56, 242834.36, 243872.72, 243135.3,
+            243244.75, 243872.72, 242770.56], [242858.25, 242785.3, 242862.19,
+            243826.47, 243594.36, 243408.75, 243826.47, 242785.3]],
+        "queue_len": [[1.0, 2.0, 2.0, 0.0, 1.0, 2.0, 0.0, 2.0], [1.0, 2.0, 2.0,
+            1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0, 1.0, 1.0, 3.0, 1.0, 2.0],
+            [1.0, 2.0, 1.0, 1.0, 4.0, 2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 1.0, 5.0,
+            2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 2.0, 5.0, 2.0, 2.0, 2.0], [1.0,
+            1.0, 1.0, 2.0, 4.0, 2.0, 2.0, 1.0], [1.0, 1.0, 1.0, 2.0, 3.0, 3.0,
+            2.0, 1.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0]],
+        "energy_kwh": [[1.0114993, 1.0114772, 1.0114772, 1.0117061, 1.0114772,
+            1.0114772, 1.0117061, 1.0114772], [1.0115845, 1.0114772, 1.0114772,
+            1.0126384, 1.0114772, 1.0114772, 1.0126384, 1.0114772], [1.0116999,
+            1.0114774, 1.0114774, 1.0138863, 1.0114774, 1.0114774, 1.0138863,
+            1.0114774], [1.0117836, 1.0114774, 1.0114995, 1.0149734, 1.0114774,
+            1.0115849, 1.0149734, 1.0114774], [1.0118954, 1.0114774, 1.0115846,
+            1.0158365, 1.0114774, 1.0120336, 1.0158365, 1.0114774], [1.0118871,
+            1.0114777, 1.0117002, 1.0159204, 1.0114777, 1.0127256, 1.0159204,
+            1.0114777], [1.0119103, 1.0114999, 1.0117838, 1.0162362, 1.0120065,
+            1.0133371, 1.0162362, 1.0114999], [1.0119116, 1.0115849, 1.0118959,
+            1.0160079, 1.0143217, 1.0141873, 1.0160079, 1.0115849]],
+        "carbon_kg": [[0.5057497, 0.5057387, 0.5057387, 0.5058531, 0.5057387,
+            0.5057387, 0.5058531, 0.5057387], [0.50579214, 0.50573856,
+            0.50573856, 0.5063191, 0.50573856, 0.50573856, 0.5063191,
+            0.50573856], [0.5058494, 0.5057382, 0.5057382, 0.5069428,
+            0.5057382, 0.5057382, 0.5069428, 0.5057382], [0.5058909, 0.5057378,
+            0.50574887, 0.5074858, 0.5057378, 0.5057915, 0.5074858, 0.5057378],
+            [0.50594634, 0.50573736, 0.5057909, 0.50791675, 0.50573736,
+            0.50601524, 0.50791675, 0.50573736], [0.50594133, 0.50573653,
+            0.5058478, 0.5079579, 0.50573653, 0.5063606, 0.5079579,
+            0.50573653], [0.5059521, 0.50574684, 0.5058889, 0.50811505,
+            0.5060001, 0.5066654, 0.50811505, 0.50574684], [0.5059518,
+            0.5057884, 0.50594383, 0.50799984, 0.5071568, 0.50708956,
+            0.50799984, 0.5057884]],
+        "final_obs": [[0.008726535, 0.9999619, 1.3157775, 0.99682677, 1.0,
+            0.00390625, 0.00390625, 1.0, 0.0013888889, 0.25, 0.7082702,
+            0.70547366, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0,
+            0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.029477669, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.008726535,
+            0.9999619, 1.3157775, 0.99682677, 1.0, 0.00390625, 0.00390625, 1.0,
+            0.0013888889, 0.25, 0.7082702, 0.7054319, 1.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.99905133, 1.0, 0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.029477669, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.008726535, 0.9999619, 1.3157775, 0.99682677, 1.0,
+            0.00390625, 0.00390625, 1.0, 0.0013888889, 0.25, 0.7082702,
+            0.70545256, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0,
+            0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.029477669, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.008726535,
+            0.9999619, 1.3157775, 0.99682677, 1.0, 0.0078125, 0.00390625, 1.0,
+            0.0013888889, 0.25, 0.7141907, 0.70591354, 1.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.9991071, 0.99553573, 0.99951744, 1.0, 0.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.028462622, 0.010968361, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.42749566, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.22916667,
+            0.0625, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.026718479, 0.03125, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.008726535, 0.9999619,
+            1.3157775, 0.99682677, 1.0, 0.01171875, 0.0078125, 1.0,
+            0.0013888889, 0.25, 0.7082702, 0.7055131, 1.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.9955915, 0.99107146, 0.99707717, 1.0, 0.0, 1.0, 1.0,
+            1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.02058837, 0.02031242,
+            0.013433134, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.25129122, 0.5, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0625, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.3541667, 0.083333336, 0.39583334, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.015705701,
+            0.03125, 0.0, 0.0, 0.0, 0.0, 0.0, 0.9985119, 1.0, 0.66071427, 0.0,
+            0.0, 0.0, 0.0, 0.0], [0.008726535, 0.9999619, 1.3157775,
+            0.99682677, 1.0, 0.01171875, 0.0078125, 1.0, 0.0013888889, 0.25,
+            0.7082702, 0.7055743, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.99810266, 0.9977679, 0.99947387, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.030598547, 0.015336463, 0.00017203226,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.12621523, 0.20077494, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0625, 0.125, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.4375, 0.125, 0.375, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.03125, 0.015776904, 0.012548434, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.9985119, 0.6651786, 0.6651786, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.008726535, 0.9999619, 1.3157775, 0.99682677, 1.0,
+            0.0078125, 0.00390625, 1.0, 0.0013888889, 0.25, 0.7141907,
+            0.70591354, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.9991071,
+            0.99553573, 0.99951744, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.028462622, 0.010968361, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.42749566, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.0625,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.22916667, 0.0625, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.026718479,
+            0.03125, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.008726535, 0.9999619, 1.3157775, 0.99682677,
+            1.0, 0.00390625, 0.00390625, 1.0, 0.0013888889, 0.25, 0.7082702,
+            0.7054319, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0,
+            0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.029477669, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+        "digest_jstate": [821, 821, 821, 821, 824, 824, 821, 821],
+        "digest_placement": [-8390655, -8390655, -8390655, -8390626, -8390593,
+            -8390622, -8390626, -8390655],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "past_queued": 49,
+    },
+    "ppo": {
+        "actions0": [[3, 6, 8, 6, 2, 6, 7, 1], [5, 2, 2, 4, 2, 6, 2, 8], [7, 4,
+            4, 4, 5, 7, 5, 7], [2, 2, 8, 2, 3, 3, 6, 3], [3, 4, 2, 0, 1, 8, 0,
+            2], [2, 1, 1, 1, 2, 3, 8, 7], [1, 2, 0, 6, 2, 3, 6, 0], [1, 6, 1,
+            3, 5, 0, 1, 4], [2, 0, 8, 8, 4, 8, 7, 6], [8, 1, 8, 8, 4, 6, 2, 3],
+            [0, 1, 7, 8, 6, 3, 3, 5], [8, 1, 2, 8, 0, 1, 1, 5], [2, 3, 1, 3, 7,
+            4, 8, 3], [5, 6, 0, 2, 0, 7, 1, 6], [7, 4, 5, 2, 3, 7, 5, 4], [4,
+            4, 1, 0, 4, 5, 1, 7], [4, 8, 8, 2, 7, 8, 8, 7], [7, 4, 0, 7, 6, 7,
+            0, 1], [5, 5, 2, 1, 8, 0, 4, 0], [5, 7, 6, 1, 6, 7, 3, 5], [1, 2,
+            1, 2, 4, 2, 6, 8], [0, 4, 0, 7, 6, 4, 4, 2], [4, 0, 0, 3, 5, 1, 1,
+            5], [0, 8, 7, 7, 2, 3, 0, 5], [5, 8, 7, 8, 6, 2, 1, 5], [2, 0, 0,
+            0, 2, 2, 6, 3], [4, 7, 6, 0, 7, 8, 0, 7], [0, 4, 6, 6, 1, 7, 5, 7],
+            [1, 1, 3, 1, 3, 2, 2, 7], [5, 0, 7, 0, 2, 0, 5, 5], [7, 7, 6, 0, 8,
+            5, 4, 5], [6, 3, 7, 8, 0, 8, 1, 5]],
+        "mean_reward0": -3.1819003,
+        "mean_value0": -0.12771964,
+        "history": [{"approx_kl": 0.0031227982, "entropy": 2.187633,
+            "mean_episode_len": 32.0, "mean_episode_return": -101.82082,
+            "mean_reward": -3.1819003, "mean_value": -0.12771964, "pg_loss":
+            -0.023924114, "v_loss": 543.9121}, {"approx_kl": 0.0047107073,
+            "entropy": 2.1713538, "mean_episode_len": 32.0,
+            "mean_episode_return": -101.63076, "mean_reward": -3.175961,
+            "mean_value": -2.1037676, "pg_loss": -0.0011547555, "v_loss":
+            515.5}],
+    },
+}

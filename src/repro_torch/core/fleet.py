@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.sim import SimConfig
 from repro_torch.core.placement import Policy, make_policy, stack_policies
 from repro_torch.core.sim import (
+    MACRO_REFUSAL,
     StepOut,
     TelemetrySummary,
     run_episode,
@@ -201,9 +202,7 @@ def prepare_fleet(
             "snapshot/resume of a fleet arrives with the durable slice "
             "(ROADMAP queue 1, item 9)")
     if macro:
-        raise NotImplementedError(
-            "macro=True: macro-stepping arrives with the macro slice "
-            "(ROADMAP queue 1, item 5)")
+        raise NotImplementedError(MACRO_REFUSAL)
     if policies is not None and scheduler is not None:
         raise ConfigError(
             f"both scheduler={scheduler!r} and policies= given — policies "

@@ -67,6 +67,11 @@ from repro_torch.utils.device import full, put, take, to_device
 from repro_torch.utils.errors import ConfigError
 
 
+# every entry point that takes ``macro`` refuses it with these words
+MACRO_REFUSAL = ("macro=True: macro-stepping arrives with the macro slice "
+                 "(ROADMAP queue 1, item 5)")
+
+
 class StepOut(NamedTuple):
     facility_w: torch.Tensor
     it_w: torch.Tensor
@@ -332,15 +337,16 @@ def make_step(
     fleet's (a leading replica axis E; ``statics.scenario`` batched alike).
 
     ``scheduler``: a selection name ('replay'|'fcfs'|'sjf'|'priority'|
-    'easy'), 'rl' (external action-driven selection, one state only),
-    'none' (no dispatch at all), or a ``placement.Policy`` of host-side
-    (select, place) ids, one per replica: the step runs the strategies
-    those ids name on every replica and keeps each replica's own result
-    (the Policy carries the placement, so combining it with ``placement=``
-    is an error). ``placement``: node-placement strategy name
+    'easy'), 'rl' (external action-driven selection: one action per
+    replica), 'none' (no dispatch at all), or a ``placement.Policy`` of
+    host-side (select, place) ids, one per replica: the step runs the
+    strategies those ids name on every replica and keeps each replica's
+    own result (the Policy carries the placement, so combining it with
+    ``placement=`` is an error). ``placement``: node-placement strategy name
     (``core.placement``) for the string modes; default 'first_fit'.
-    ``action``: for 'rl', an int index into ``rl_candidates`` (k = no-op);
-    ignored otherwise.
+    ``action``: for 'rl', an int index into ``rl_candidates`` (k = no-op),
+    a Python int or an integer tensor of the state's replica shape (0-d
+    or (E,)); ignored otherwise.
     """
     check_slice(cfg)
     dev = statics.capacity.device
@@ -394,13 +400,9 @@ def make_step(
             return plc.place_job(view(s), statics, j, place_use)
 
         if not policy_mode and scheduler == "rl":
-            if state.t.dim():
-                raise NotImplementedError(
-                    "scheduler='rl' on a fleet's state: batched RL "
-                    "environments arrive with the RL slice (ROADMAP queue "
-                    "1, item 4)")
-            cands = sched.rl_candidates(cfg, state)          # (k,)
-            k = cands.shape[0]
+            # each replica dispatches its own candidate (action >= k: none)
+            cands = sched.rl_candidates(cfg, state)          # (..., k)
+            k = cands.shape[-1]
             if not isinstance(action, torch.Tensor):
                 action = full(int(action), torch.int64, dev)
             job = torch.where(
@@ -572,9 +574,7 @@ def run_episode(
     and durable slices and raise here.
     """
     if macro:
-        raise NotImplementedError(
-            "macro=True: macro-stepping arrives with the macro slice "
-            "(ROADMAP queue 1, item 5)")
+        raise NotImplementedError(MACRO_REFUSAL)
     if snapshot_every_s is not None or resume_from is not None \
             or snapshot_dir is not None:
         raise NotImplementedError(

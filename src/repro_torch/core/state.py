@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.sim import SimConfig
 from repro_torch.scenarios.scenario import Scenario, default_scenario
 from repro_torch.utils.device import resolve_device, tree_to
+from repro_torch.utils.prng import key_words
 
 EMPTY, QUEUED, RUNNING, DONE, FAILED = 0, 1, 2, 3, 4
 NRES = 3  # cpu cores, gpus, mem_gb
@@ -222,21 +223,27 @@ def broadcast_state(state: SimState, n: int) -> SimState:
         for v in state))
 
 
-def key_words(seed: int) -> np.ndarray:
-    """The two raw words of the threefry2x32 key the JAX package makes
-    from ``seed`` with 64-bit mode off (its default): the seed taken
-    modulo 2**32 in the low word. The faults slice draws from them."""
-    return np.array([0, int(seed) & 0xFFFFFFFF], np.int64)
-
-
-def init_state(cfg: SimConfig, statics: Statics, seed: int = 0) -> SimState:
-    """Empty twin at t = 0 on the device of ``statics``. Nothing on this
-    path draws random numbers: ``seed`` only fills the ``key`` words."""
+def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
+    """Empty twin at t = 0 on the device of ``statics``. ``seed`` is an
+    int (the words of ``jax.random.key(seed)``, ``prng.key_words``) or
+    key words, numpy or int64 torch: (2,) for one state, (E, 2) for E
+    replicas, which gives every field a leading replica axis E (the JAX
+    package's ``vmap`` of ``init_state`` over keys). Nothing on this path
+    draws random numbers: the key only fills the ``key`` words."""
     from repro_torch.core.thermal import supply_temp
     from repro_torch.scenarios.signals import eval_signal
 
     check_slice(cfg)
     dev = statics.capacity.device
+    if isinstance(seed, (int, np.integer)):
+        key = torch.tensor(key_words(seed), device=dev)
+    elif isinstance(seed, torch.Tensor):
+        key = seed.to(device=dev, dtype=torch.int64)
+    else:
+        key = torch.tensor(np.asarray(seed, np.int64), device=dev)
+    if key.dim() not in (1, 2) or key.shape[-1] != 2:
+        raise ValueError(f"key words must be (2,) or (E, 2); got "
+                         f"{tuple(key.shape)}")
     N = cfg.n_nodes
     J = cfg.max_jobs
     K = cfg.max_nodes_per_job
@@ -253,9 +260,9 @@ def init_state(cfg: SimConfig, statics: Statics, seed: int = 0) -> SimState:
 
     # racks start at the cooling supply temperature
     supply0 = supply_temp(cfg, eval_signal(statics.scenario.wetbulb, zf()))
-    return SimState(
+    state = SimState(
         t=zf(),
-        key=torch.tensor(key_words(seed), device=dev),
+        key=key if key.dim() == 1 else key[0],
         free=statics.capacity.clone(),
         node_up=cf(1.0, N),
         repair_t=zf(N),
@@ -312,6 +319,9 @@ def init_state(cfg: SimConfig, statics: Statics, seed: int = 0) -> SimState:
         srv_lat_hist=zf(8),
         workload=torch.zeros((), dtype=torch.int32, device=dev),
     )
+    if key.dim() == 2:
+        state = broadcast_state(state, key.shape[0])._replace(key=key)
+    return state
 
 
 def load_jobs(state: SimState, jobs: Dict[str, np.ndarray],

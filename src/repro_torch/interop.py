@@ -1,5 +1,5 @@
-"""Carry a ``Statics`` / ``SimState`` / ``Policy`` or an LM's parameters
-of the JAX package across to the port.
+"""Carry a ``Statics`` / ``SimState`` / ``Policy``, an LM's parameters or
+the actor-critic's of the JAX package across to the port.
 
 Each function takes the reference's structure as a name -> numpy array
 mapping (or a NamedTuple of numpy arrays, such as ``jax.device_get`` of
@@ -105,3 +105,14 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):
         return leaf(node)
 
     return DecoderLM.from_tree(cfg, walk(tree))
+
+
+def actor_critic_params_from_numpy(tree: Mapping[str, Any],
+                                   device=None) -> dict:
+    """The JAX package's ``ActorCritic`` parameters (``jax.device_get`` of
+    its ``init``: ``w0, b0, ..., w_pi, b_pi, w_v, b_v``, weights (in, out))
+    as the port's parameter dict of f32 tensors on ``device``, for
+    ``rl.ActorCritic.apply`` or ``load``."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.array(v, np.float32, order="C"), device=dev)
+            for k, v in tree.items()}

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
         [--case replay_tx_gaia_1h_thermal] [--ticks 100] [--replicas 72]
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
+        --case rl_tx_gaia [--replicas 8] [--decisions 4]
 
 Runs an acceptance case (``configs/acceptance.py``; default
 ``replay_tx_gaia_1h``) on the card up to tick ``--start`` (so jobs are
@@ -14,6 +16,17 @@ tick (and launches of the port's own kernels per tick), the device's
 busy share (sum of kernel times over the profiled wall time; the rest is
 idle, waiting on the host), and the top CUDA kernels and host ops by
 time. Needs a CUDA device.
+
+With an RL case (``acceptance.RL_CASES``) it profiles one PPO iteration
+of ``--replicas`` environments instead (``setup_rl``: a rollout of one
+episode, ``RL_EPISODE_STEPS`` decisions, its auto-reset and the update)
+and reports per env step: ms on the host clock, CUDA kernels, the
+device's busy share, and the kernel launches of each stage (``rl_stages``:
+sampling, key splits, the ``"rl"`` tick, the idle ticks, observe, reset,
+update and the rest of the rollout), counted as the CUDA launch calls
+inside each stage's ``record_function`` range. A stage is a function the
+iteration calls; an operation counts for the outermost stage running.
+``--decisions N`` profiles N decisions of the rollout alone instead.
 """
 
 from __future__ import annotations
@@ -34,8 +47,11 @@ def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
 
     from repro_torch import kernels as port_kernels
 
+    # the CUDA-side events, less the ranges ``record_function`` marks on
+    # the device's timeline
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(RANGE_PREFIX)]
     # a device event's own time range is the kernel's time on the card
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
@@ -107,6 +123,177 @@ def setup_case(case: str, start: int, device=None, replicas: int = 1):
     return step, _advance(step, state, action, start), action
 
 
+def setup_rl(case: str, replicas: int, device=None,
+             rollout_len: int | None = None):
+    """An RL case's ``SchedEnv`` on ``device`` (the card when ``None``),
+    a policy and one PPO iteration over ``replicas`` environments
+    (``rollout_len`` decisions, default one episode), set up as
+    ``ppo_train`` sets up: returns (env, policy, iteration, carry), where
+    ``iteration(*carry, step)`` runs it."""
+    import torch
+
+    from repro_torch.configs import acceptance as A
+    from repro_torch.envs import SchedEnv
+    from repro_torch.rl import ActorCritic, PPOConfig
+    from repro_torch.rl.ppo import _zero_ep, make_train_iteration
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import to_device
+
+    cfg = A.rl_config(case)
+    env = SchedEnv(cfg, A.rl_workloads(cfg), device=device,
+                   **A.rl_env_kwargs())
+    ppo_cfg = PPOConfig(n_envs=replicas,
+                        rollout_len=rollout_len or A.RL_EPISODE_STEPS)
+    policy = ActorCritic(env.obs_dim, env.n_actions, device=env.device)
+    iteration, opt = make_train_iteration(env, policy, ppo_cfg)
+    key = to_device(torch.from_numpy(prng.key_words(A.RL_SEED)), env.device)
+    key, kp, ke = prng.split(key, 3)
+    params = policy.init(kp)
+    states, obs = env.reset(prng.split(ke, replicas))
+    carry = (params, opt.init(params), states, _zero_ep(obs[:, 0]), key)
+    return env, policy, iteration, carry
+
+
+RANGE_PREFIX = "rl_stage::"
+RL_STAGES = ("sampling", "keys", "rl tick", "idle ticks", "observe",
+             "reset", "update")
+
+
+def rl_stages(env, policy, hook):
+    """Context manager: while it is open, each stage of a PPO iteration
+    (``RL_STAGES``) runs inside ``hook(stage)`` (a context manager), for
+    the outermost stage only. The stages are the functions an iteration
+    calls: ``policy.apply`` and ``prng.categorical`` (sampling; in the
+    update, ``policy.apply`` is the update's), ``prng.split`` (keys), the
+    env's ``"rl"`` and idle steps, ``observe``, ``reset``, and the update
+    (GAE, ``permutation``, the loss and its gradients, clipping, AdamW)."""
+    import contextlib
+
+    from repro_torch.optim import AdamW
+    from repro_torch.rl import ppo as P
+    from repro_torch.utils import prng
+
+    depth = [0]
+
+    def staged(stage, fn):
+        def run(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            try:
+                with hook(stage):
+                    return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    patches = [
+        (env, "_step_rl", "rl tick"), (env, "_step_idle", "idle ticks"),
+        (env, "observe", "observe"), (env, "reset", "reset"),
+        (policy, "apply", "sampling"), (prng, "categorical", "sampling"),
+        (prng, "split", "keys"), (prng, "permutation", "update"),
+        (P, "gae", "update"), (P, "loss_and_grads", "update"),
+        (P, "clip_by_global_norm", "update"), (AdamW, "update", "update")]
+
+    @contextlib.contextmanager
+    def patched():
+        saved = []
+        try:
+            for obj, name, stage in patches:
+                saved.append((obj, name, obj.__dict__.get(name)))
+                # on a class the wrapper is a method too: self comes first
+                setattr(obj, name, staged(stage, getattr(obj, name)))
+            yield
+        finally:
+            for obj, name, old in reversed(saved):
+                if old is None:
+                    delattr(obj, name)
+                else:
+                    setattr(obj, name, old)
+
+    return patched()
+
+
+def profile_rl(case: str, replicas: int, top: int = 8,
+               decisions: int | None = None) -> dict:
+    """One PPO iteration of an RL case over ``replicas`` environments on
+    the card (after a warm-up iteration): host ms per env step, then
+    under ``torch.profiler`` CUDA kernels, device time and busy share per
+    env step, and the CUDA launch calls of each stage per env step. With
+    ``decisions``, that many decisions of the rollout alone instead (no
+    update, no reset): the profiler's own processing grows with the
+    events, ~3 s a decision."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import kernels as port_kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.rl import PPOConfig
+    from repro_torch.rl.ppo import make_rollout
+
+    env, policy, iteration, carry = setup_rl(case, replicas)
+    step0 = torch.zeros((), dtype=torch.int32, device=env.device)
+    carry = iteration(*carry, step0)[:5]                 # warm-up
+    if decisions is None:
+        steps = A.RL_EPISODE_STEPS
+
+        def run(c):
+            return iteration(*c, step0)[:5]
+    else:
+        steps = decisions
+        rollout = make_rollout(env, policy, PPOConfig(
+            n_envs=replicas, rollout_len=decisions))
+
+        def run(c):
+            params, opt_state, states, ep, key = c
+            states, _, _, ep = rollout(params, states, key, ep)
+            return params, opt_state, states, ep, key
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry2 = run(carry)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    def hook(stage):
+        return record_function(RANGE_PREFIX + stage)
+
+    port_kernels.reset_launches()
+    with rl_stages(env, policy, hook), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(carry2)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = device_summary(prof, wall_us, steps, top)
+    events = list(prof.events())
+    ranges = [(e.name.split("::", 1)[1], e.time_range.start,
+               e.time_range.end) for e in events
+              if e.name.startswith(RANGE_PREFIX)
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    launches = [e.time_range.start for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA
+                and "LaunchKernel" in e.name]
+    by_stage = {s: 0 for s in RL_STAGES}
+    by_stage["rest of the rollout"] = 0
+    for t in launches:
+        stage = next((s for s, a, b in ranges if a <= t <= b),
+                     "rest of the rollout")
+        by_stage[stage] += 1
+    return {"case": case, "replicas": replicas, "env_steps": steps,
+            "what": "iteration" if decisions is None else "rollout",
+            "ms_per_env_step": host_ms,
+            "ms_per_env_step_profiled": wall_us / 1e3 / steps,
+            "port_kernel_launches_per_env_step": {
+                k: v / steps for k, v in port_kernels.LAUNCHES.items()},
+            "launch_calls_per_env_step": len(launches) / steps,
+            "launch_calls_by_stage_per_env_step": {
+                k: v / steps for k, v in by_stage.items()},
+            **{k if k == "device_busy_share" else f"{k}_per_env_step": v
+               for k, v in summary.items()}}
+
+
 def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -116,15 +303,25 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
-                    choices=sorted(acceptance.CASES))
+                    choices=sorted(acceptance.CASES)
+                    + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=100)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--decisions", type=int, default=None,
+                    help="RL cases: profile this many decisions of the "
+                    "rollout instead of one whole iteration")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.case in acceptance.RL_CASES:
+        out = profile_rl(args.case, args.replicas, args.top,
+                         args.decisions)
+        out["device"] = torch.cuda.get_device_name(0)
+        print(json.dumps(out), flush=True)
+        return 0
 
     step, state, action = setup_case(args.case, args.start,
                                      replicas=args.replicas)

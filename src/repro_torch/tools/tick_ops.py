@@ -4,6 +4,8 @@ tick, counted stage by stage.
     PYTHONPATH=src python3 -m repro_torch.tools.tick_ops \
         [--case replay_tx_gaia_1h_thermal] [--start 600] [--ticks 5] \
         [--device cpu] [--replicas 72]
+    PYTHONPATH=src python3 -m repro_torch.tools.tick_ops \
+        --case rl_tx_gaia [--replicas 8] [--device cpu]
 
 Runs an acceptance case on the card (or on ``--device``), as a fleet of
 ``--replicas`` under the fleet grid when that is > 1, up to tick
@@ -22,6 +24,13 @@ kernel's launch is not an aten operation, so a fused entry counts only
 its wrapper's output allocation; with ``--device cpu`` the plain
 versions run instead and their operations count, so the CPU's numbers
 are not the card's.
+
+With an RL case (``acceptance.RL_CASES``) it counts the operations of
+one PPO iteration over ``--replicas`` environments instead (one episode
+of decisions, its auto-reset and the update; ``profile_tick.setup_rl``)
+per env step, by ``profile_tick.rl_stages``' stages (the outermost stage
+running takes an operation): sampling, key splits, the ``"rl"`` tick, the
+idle ticks, observe, reset, update and the rest of the rollout.
 """
 
 from __future__ import annotations
@@ -62,7 +71,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
-                    choices=sorted(acceptance.CASES))
+                    choices=sorted(acceptance.CASES)
+                    + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--device", default=None,
@@ -87,6 +97,9 @@ def main(argv=None) -> int:
             finally:
                 stack.pop()
         return run
+
+    if args.case in acceptance.RL_CASES:
+        return rl_ops(args, Count, stack, counts)
 
     modules = {"sim": sim, "thermal": thermal}
     saved = []
@@ -115,6 +128,39 @@ def main(argv=None) -> int:
                       "ticks": args.ticks, "device": str(state.t.device),
                       "aten_ops_per_tick": sum(per_tick.values()),
                       "by_stage": per_tick}), flush=True)
+    return 0
+
+
+def rl_ops(args, count_mode, stack, counts) -> int:
+    """Operations per env step of one PPO iteration, by stage."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.configs import acceptance
+    from repro_torch.tools.profile_tick import rl_stages, setup_rl
+
+    @contextlib.contextmanager
+    def hook(stage):
+        stack.append(stage)
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    env, policy, iteration, carry = setup_rl(args.case, args.replicas,
+                                             args.device)
+    stack[:] = ["rest of the rollout"]
+    step0 = torch.zeros((), dtype=torch.int32, device=env.device)
+    counts.clear()
+    with rl_stages(env, policy, hook), count_mode():
+        iteration(*carry, step0)
+    steps = acceptance.RL_EPISODE_STEPS
+    per_step = {k: v / steps for k, v in sorted(counts.items())}
+    print(json.dumps({"case": args.case, "replicas": args.replicas,
+                      "env_steps": steps, "device": str(env.device),
+                      "aten_ops_per_env_step": sum(per_step.values()),
+                      "by_stage": per_step}), flush=True)
     return 0
 
 

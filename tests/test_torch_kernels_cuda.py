@@ -603,3 +603,29 @@ def test_fleet_on_the_card_matches_the_cpu_path(cuda_device):
             torch.testing.assert_close(b, a, rtol=RTOL, atol=0.0, msg=f)
         else:
             assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rl_tx_gaia", "rl_tx_gaia_thermal_stress"])
+def test_rl_env_step_on_the_card_matches_the_cpu_path(cuda_device, case):
+    """The RL case's 8 environments as one batched state, driven by the
+    action script on the card and on the CPU (``acceptance.run_rl_script``):
+    dones, integer digests and completions equal, rewards, info fields
+    and observations within rtol=1e-5, one launch of each tick kernel per
+    batched tick."""
+    from repro_torch.configs import acceptance
+    from repro_torch.envs import SchedEnv
+
+    cfg = acceptance.rl_config(case)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        env = SchedEnv(cfg, acceptance.rl_workloads(cfg), device=dev,
+                       **acceptance.rl_env_kwargs())
+        kernels.reset_launches()
+        runs[str(dev)] = (acceptance.run_rl_script(env, case),
+                          dict(kernels.LAUNCHES))
+    (cpu, _), (gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    ticks = acceptance.RL_SCRIPT_STEPS[case] * acceptance.RL_SIM_STEPS
+    assert n_gpu["power_scatter"] == ticks
+    assert n_gpu["rack_thermal"] == (ticks if cfg.thermal_enabled else 0)
+    acceptance.check_rl(case, gpu, pins=cpu)
