@@ -61,16 +61,31 @@ and no result line:
              PPO iteration (rollout and update), and over 4 decisions of
              the rollout CUDA kernels per env step by stage and the
              device's busy share (``profile_tick.profile_rl``).
-8. determinism  the first 600 ticks of the main path and the first 900 of
+8. macro     macro-stepping (quiet ticks fast-forwarded): the three replay
+             hours through ``run_episode(macro=True)`` at ``PINNED_MACRO``
+             (the JAX package's macro path; the event-tick count exactly
+             with thermals off), integers equal to the per-tick hours of
+             phases 4-5 and the largest float difference reported; one
+             power_scatter (and rack_thermal) launch per tick issued;
+             every host read through ``utils.device.host_read``, at most
+             1 + ceil(segment / 16) a macro step, and no other sync; ms
+             per simulated tick beside the per-tick hour's (kernels per
+             event and per fast tick: ``profile_tick --macro``). The
+             fleet hour at ``macro=True`` (72 replicas in
+             lockstep) at ``PINNED_FLEET_MACRO``, two replicas rerun
+             alone; ``SchedEnv(macro=True)``: ``rl_tx_gaia``'s script and
+             one PPO iteration at ``PINNED_RL_MACRO``, decisions/s at 8 and
+             512 environments, host reads and kernels per env step.
+9. determinism  the first 600 ticks of the main path and the first 900 of
              the thermal stress hour, each twice: every field bitwise equal.
-9. serve     gemma3-1b at full width and depth (``serve_gemma3_1b``,
+10. serve    gemma3-1b at full width and depth (``serve_gemma3_1b``,
              weights from ``seeded_numpy_params``): the f32 and the bf16
              model held to the JAX package's pins (``check_lm``), 26
              flash_attn launches per prefill and none per decode step, the
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of 5 runs).
-10. serve_hybrid  the jamba hybrid without experts at full width:
+11. serve_hybrid  the jamba hybrid without experts at full width:
              ``serve_jamba_1l`` (one Mamba layer, f32) held to
              ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
              random weights from ``init_params`` on the card) in f32 and in
@@ -90,6 +105,7 @@ without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -163,6 +179,11 @@ FLEET_PROFILE = (300, 30)
 RL_SCALE_ENVS = (8, 64, 512)
 RL_SCALE_STEPS = 8
 RL_PROFILE_STEPS = 4   # decisions of the rollout under the profiler
+# the macro phase: the engine's chunk of fast ticks a host read (its
+# default), the fleet replicas rerun alone, and the environments timed
+MACRO_CHUNK = 16
+MACRO_FLEET_ALONE = (8, 71)
+MACRO_RL_ENVS = (8, 512)
 
 
 def emit(phase: str, **kw) -> None:
@@ -843,10 +864,11 @@ def flash_attn_bf16_build(build) -> dict:
     return {"hgmma_in_sass": hgmma, "spill_bytes_by_head_dim": spills}
 
 
-def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
+def drive(torch, case: str, cfg, statics, jobs, phase: str):
     """One hour of ``case`` on the card, the ticks under sync-debug
     "error": held to the pinned values, one power_scatter launch per tick
-    and, with the thermal twin on, one rack_thermal launch per tick."""
+    and, with the thermal twin on, one rack_thermal launch per tick.
+    Returns (launches, final state, telemetry, wall seconds)."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance
     from repro_torch.core import init_state, load_jobs, run_episode, summary
@@ -881,7 +903,7 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str) -> dict:
         if v.is_floating_point() and not bool(ok.all()):
             raise AssertionError(f"{case}: final state field {name}: "
                                  "bad values")
-    return launches
+    return launches, final, telem, wall_s
 
 
 def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
@@ -983,7 +1005,8 @@ def fleet(torch, np, jobs, bank) -> dict:
     config for FLEET_THERMAL_TICKS at E = 72 (one rack_thermal launch a
     tick) with FLEET_THERMAL_ALONE rerun alone; then ms per tick, us per
     replica-tick, CUDA kernels per tick and the device's busy share at
-    E = 1, 72 and 1152 (the grid tiled 16x). Returns the hour's launches."""
+    E = 1, 72 and 1152 (the grid tiled 16x). Returns the hour's launches
+    and wall seconds."""
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
         build_statics,
@@ -1045,7 +1068,7 @@ def fleet(torch, np, jobs, bank) -> dict:
                  scenario=e % n_scn,
                  **_alone_vs_fleet(torch, f"fleet {case}", f1, final, e,
                                    t1, telem))
-        runs[case] = launches
+        runs[case] = launches, wall
 
     # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
     # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
@@ -1110,7 +1133,12 @@ def _rl_rollout_timed(torch, env, n_envs: int, steps: int) -> dict:
     make_rollout(env, policy, PPOConfig(n_envs=n_envs, rollout_len=1))(
         params, states, key)
     rollout = make_rollout(env, policy, cfg)
+    from repro_torch.core import sim
+    from repro_torch.utils import device as D
+
     kernels.reset_launches()
+    sim.reset_macro_ticks()
+    D.reset_host_reads()
     with no_sync(torch)():
         t0 = time.perf_counter()
         _, batch, _, _ = rollout(params, states, key)
@@ -1120,13 +1148,48 @@ def _rl_rollout_timed(torch, env, n_envs: int, steps: int) -> dict:
         raise AssertionError(f"rl at E = {n_envs}: rewards not finite")
     launches = dict(kernels.LAUNCHES)
     ticks = steps * A.RL_SIM_STEPS
-    if launches != no_launches(power_scatter=ticks):
-        raise AssertionError(f"rl at E = {n_envs}: launches {launches}")
-    return {"envs": n_envs, "env_steps": steps, "wall_s": wall,
-            "ms_per_env_step": 1e3 * wall / steps,
+    # a macro env issues one "rl" tick a decision, then its event and
+    # fast ticks; each tick is one power_tick for all environments
+    issued = (steps + sim.MACRO_TICKS["event"] + sim.MACRO_TICKS["fast"]
+              if env.macro else ticks)
+    if launches != no_launches(power_scatter=issued):
+        raise AssertionError(f"rl at E = {n_envs}: launches {launches}, "
+                             f"{issued} ticks issued")
+    return {"envs": n_envs, "env_steps": steps, "macro": env.macro,
+            "wall_s": wall, "ms_per_env_step": 1e3 * wall / steps,
             "decisions_per_s": n_envs * steps / wall,
             "replica_ticks_per_s": n_envs * ticks / wall,
+            "ticks_issued": issued,
+            "host_reads_per_env_step": D.HOST_READS["count"] / steps,
             "launches": launches}
+
+
+def counted_drains(torch, drains: list):
+    """Context manager: ``ppo_train``'s chunk drain (its one host sync)
+    runs with sync-debug "error" lifted, and appends each chunk's length
+    to ``drains``."""
+    import contextlib
+
+    from repro_torch.rl import ppo as P
+
+    @contextlib.contextmanager
+    def patched():
+        drain = P._drain
+
+        def counted_drain(stats):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return drain(stats)
+            finally:
+                drains.append(len(stats))
+                torch.cuda.set_sync_debug_mode("error")
+
+        P._drain = counted_drain
+        try:
+            yield
+        finally:
+            P._drain = drain
+    return patched()
 
 
 def rl(torch, np) -> None:
@@ -1170,27 +1233,14 @@ def rl(torch, np) -> None:
     # (c) PPO: pins, one host sync per chunk (the drain), a bitwise rerun
     env = envs["rl_tx_gaia"]
     drains = []
-    drain = P._drain
-
-    def counted_drain(stats):
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return drain(stats)
-        finally:
-            drains.append(len(stats))
-            torch.cuda.set_sync_debug_mode("error")
-
-    P._drain = counted_drain
     runs = []
-    try:
+    with counted_drains(torch, drains):
         for _ in range(2):
             kernels.reset_launches()
             t0 = time.perf_counter()
             got, params = A.run_ppo(env, guard=guard)
             runs.append((got, params, time.perf_counter() - t0,
                          dict(kernels.LAUNCHES)))
-    finally:
-        P._drain = drain
     (got, params, wall, launches), (got2, params2, _, _) = runs
     report = A.check_ppo(got)
     same = (got == got2 and all(torch.equal(params[k], params2[k])
@@ -1240,6 +1290,235 @@ def rl(torch, np) -> None:
          at_s=time.perf_counter() - start)
     emit("rl", step="profile", at_s=time.perf_counter() - start,
          **profile_rl("rl_tx_gaia", A.RL_ENVS, decisions=RL_PROFILE_STEPS))
+
+def _recorded_reads(torch, reads: list):
+    """Context manager: every host read of the macro engine
+    (``core.sim``'s ``host_read``) is appended to ``reads`` as (event
+    ticks issued, fast ticks issued, the read's first value: after an
+    event tick, the largest budget)."""
+    import contextlib
+
+    from repro_torch.core import sim
+
+    @contextlib.contextmanager
+    def patched():
+        real = sim.host_read
+
+        def recorded(x):
+            out = real(x)
+            reads.append((sim.MACRO_TICKS["event"], sim.MACRO_TICKS["fast"],
+                          int(out[0])))
+            return out
+
+        sim.host_read = recorded
+        try:
+            yield
+        finally:
+            sim.host_read = real
+    return patched()
+
+
+def _read_gate(reads: list, name: str) -> dict:
+    """The reads of a macro run against their bound: per macro step one
+    after the event tick and one per chunk of fast ticks, so at most
+    1 + ceil(segment / MACRO_CHUNK), the segment being the largest budget
+    read after the event tick. Returns the counts."""
+    steps = {}
+    for event, _, first in reads:
+        n, budget = steps.get(event, (0, first))
+        steps[event] = (n + 1, budget)
+    worst = max((n - 1 - math.ceil(b / MACRO_CHUNK)
+                 for n, b in steps.values()), default=0)
+    if worst > 0:
+        raise AssertionError(f"{name}: a macro step made {worst} host "
+                             "reads over 1 + ceil(segment / chunk)")
+    return {"host_reads": len(reads), "macro_steps_read": len(steps),
+            "host_reads_per_macro_step": len(reads) / max(len(steps), 1),
+            "reads_over_bound": worst}
+
+
+def _macro_counts(torch, fn, guard: bool = True):
+    """``fn()`` with the launches, the macro ticks and the host reads
+    counted from 0, under sync-debug "error" (the engine's own reads
+    excepted; ``guard=False``: ``fn`` guards itself) and timed on the host
+    clock around a synchronised run. Returns (fn's result, wall seconds,
+    launches, (event, fast) ticks issued, the recorded reads)."""
+    import contextlib
+
+    from repro_torch import kernels
+    from repro_torch.core import sim
+    from repro_torch.utils import device as D
+
+    reads = []
+    kernels.reset_launches()
+    sim.reset_macro_ticks()
+    D.reset_host_reads()
+    with _recorded_reads(torch, reads), (
+            no_sync(torch) if guard else contextlib.nullcontext)():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if D.HOST_READS["count"] != len(reads):
+        raise AssertionError(f"{D.HOST_READS['count']} counted host reads, "
+                             f"{len(reads)} of them the macro engine's")
+    return (out, wall, dict(kernels.LAUNCHES),
+            (sim.MACRO_TICKS["event"], sim.MACRO_TICKS["fast"]), reads)
+
+
+def _against_per_tick(torch, name, macro_run, per_tick_run) -> dict:
+    """A macro run's final state and telemetry against the per-tick
+    run's: integer fields equal (raises on a miss), the largest float
+    difference of the state and of the telemetry (``macro_steps`` aside)
+    reported."""
+    (fm, tm), (fp, tp) = macro_run, per_tick_run
+    worst = {"state": 0.0, "telemetry": 0.0}
+    for part, a, b, skip in (("state", fm, fp, ()),
+                             ("telemetry", tm, tp, ("macro_steps",))):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if f in skip or x is None:
+                continue
+            if not x.is_floating_point():
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: {part}.{f} differs from "
+                                         "the per-tick run")
+                continue
+            fin = torch.isfinite(y)
+            if not torch.equal(fin, torch.isfinite(x)) or not torch.equal(
+                    x[~fin], y[~fin]):
+                raise AssertionError(f"{name}: {part}.{f} non-finite apart")
+            if fin.any():
+                worst[part] = max(worst[part],
+                                  float((x - y)[fin].abs().max()))
+    return {"max_abs_diff_vs_per_tick_state": worst["state"],
+            "max_abs_diff_vs_per_tick_telemetry": worst["telemetry"]}
+
+
+def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
+    """The macro phase (see the module docstring, phase 8)."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import (
+        build_statics,
+        init_state,
+        load_jobs,
+        run_episode,
+        summary,
+        summary_columns,
+    )
+    from repro_torch.core.fleet import _scenario_list, run_fleet
+    from repro_torch.envs import SchedEnv
+    from repro_torch.tools.profile_tick import profile_rl
+    from repro_torch.utils.device import tree_to
+
+    start = time.perf_counter()
+    # (a) the three replay hours
+    for case in A.MACRO_CASES:
+        base = A.base_case(case)
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank)
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        (final, telem), wall, launches, (events, fast), reads = \
+            _macro_counts(torch, lambda: run_episode(
+                cfg, statics, state, A.N_STEPS, A.SCHEDULER, macro=True))
+        got = summary(final, telem)
+        _, pt_final, pt_telem, pt_wall = per_tick[base]
+        committed = int(got["ticks_simulated"] - got["macro_steps_taken"])
+        pins = A.PINNED_MACRO[case]
+        rec = dict(
+            case=case, ticks_simulated=got["ticks_simulated"],
+            event_ticks=events, fast_ticks_issued=fast,
+            fast_ticks_masked=fast - committed,
+            ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
+            per_tick_ms_per_tick=1e3 * pt_wall / A.N_STEPS,
+            wall_s=wall, launches=launches,
+            **_read_gate(reads, case),
+            **{k: got[k] for k in pins},
+            reference_macro_steps_taken=pins["macro_steps_taken"],
+            **_against_per_tick(torch, case, (final, telem),
+                                (pt_final, pt_telem)),
+            at_s=time.perf_counter() - start)
+        emit("macro", step="hour", **rec)
+        A.check(case, got)
+        if events != got["macro_steps_taken"]:
+            raise AssertionError(f"{case}: {events} event ticks issued, "
+                                 f"{got['macro_steps_taken']} counted")
+        want = no_launches(power_scatter=events + fast, rack_thermal=(
+            events + fast if cfg.thermal_enabled else 0))
+        if launches != want:
+            raise AssertionError(f"{case}: launches {launches}, expected "
+                                 f"{want} (one a tick issued)")
+
+    # (b) the fleet hour: 72 replicas in lockstep
+    cfg = A.config()
+    statics = build_statics(cfg, bank)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    names, pol, scn = A.fleet_grid(cfg)
+    (final, telem), wall, launches, (events, fast), reads = _macro_counts(
+        torch, lambda: run_fleet(cfg, statics, state, A.N_STEPS,
+                                 policies=pol, scenarios=scn,
+                                 summary_only=True, macro=True))
+    cols = summary_columns(final, telem)
+    committed = int((cols["ticks_simulated"]
+                     - cols["macro_steps_taken"]).sum())
+    rec = dict(replicas=len(names), ticks=A.N_STEPS, wall_s=wall,
+               ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
+               per_tick_ms_per_tick=1e3 * fleet_hour[1] / A.N_STEPS,
+               outer_iterations=events, fast_ticks_issued=fast,
+               fast_replica_ticks_committed=committed,
+               fast_replica_ticks_masked=fast * len(names) - committed,
+               launches=launches, **_read_gate(reads, A.FLEET_CASE),
+               macro_steps_taken=cols["macro_steps_taken"].tolist())
+    rec["pins"] = A.check_fleet(cols, pins=A.PINNED_FLEET_MACRO)
+    emit("macro", step="fleet", **rec, at_s=time.perf_counter() - start)
+    if launches != no_launches(power_scatter=events + fast):
+        raise AssertionError(f"macro fleet: launches {launches}")
+    scns = _scenario_list(scn)
+    for e in MACRO_FLEET_ALONE:
+        sel, place = names[e].split("+")
+        st = statics._replace(scenario=tree_to(scns[e],
+                                               statics.idle_w.device))
+        f1, t1 = run_episode(cfg, st, state._replace(key=final.key[e]),
+                             A.N_STEPS, sel, placement=place, macro=True)
+        emit("macro", step="alone", policy=names[e], **_alone_vs_fleet(
+            torch, "macro fleet", f1, final, e, t1, telem))
+
+    # (c) the RL env at macro=True: the script, one PPO iteration, timings
+    cfg = A.rl_config("rl_tx_gaia")
+    env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(macro=True))
+    guard = no_sync(torch)
+    steps = A.RL_SCRIPT_STEPS["rl_tx_gaia"]
+    got, wall, launches, (events, fast), reads = _macro_counts(
+        torch, lambda: A.run_rl_script(env, "rl_tx_gaia", guard=guard),
+        guard=False)
+    report = A.check_rl("rl_tx_gaia", got, pins=A.PINNED_RL_MACRO[
+        "rl_tx_gaia"])
+    emit("macro", step="rl_script", envs=A.RL_ENVS, env_steps=steps,
+         event_ticks=events, fast_ticks_issued=fast, wall_s=wall,
+         launches=launches, host_reads_per_env_step=len(reads) / steps,
+         **_read_gate(reads, "rl_tx_gaia macro"), **report,
+         at_s=time.perf_counter() - start)
+    if launches != no_launches(power_scatter=steps + events + fast):
+        raise AssertionError(f"rl_tx_gaia macro: launches {launches}")
+    drains = []
+    with counted_drains(torch, drains):
+        (got, _), wall, launches, (events, fast), reads = _macro_counts(
+            torch, lambda: A.run_ppo(env, guard=guard, n_iterations=1),
+            guard=False)
+    report = A.check_ppo(got, pins=A.PINNED_RL_MACRO["ppo"])
+    emit("macro", step="ppo", iterations=1, wall_s=wall, launches=launches,
+         drains=drains, history=got["history"],
+         **_read_gate(reads, "ppo macro"), **report,
+         at_s=time.perf_counter() - start)
+    if drains != [1]:
+        raise AssertionError(f"ppo macro: host drains {drains}")
+    for n_envs in MACRO_RL_ENVS:
+        emit("macro", step="rl_scale", at_s=time.perf_counter() - start,
+             **_rl_rollout_timed(torch, env, n_envs, RL_SCALE_STEPS))
+    emit("macro", step="rl_profile", at_s=time.perf_counter() - start,
+         **profile_rl("rl_tx_gaia", A.RL_ENVS, decisions=RL_PROFILE_STEPS,
+                      macro=True))
+
 
 def main() -> int:
     import numpy as np
@@ -1387,20 +1666,21 @@ def main() -> int:
                 torch, np, case[0], dtype, *case[1:])
 
     # 4. main path: replay_tx_gaia_1h on the card
-    launches = drive(torch, "replay_tx_gaia_1h", cfg, statics, jobs, "main")
+    per_tick = {"replay_tx_gaia_1h": drive(torch, "replay_tx_gaia_1h", cfg,
+                                           statics, jobs, "main")}
+    launches = per_tick["replay_tx_gaia_1h"][0]
 
     # 5. the thermal twin: both hours; the kernels line reports the first
     # hour's rack_thermal launches
-    thermal = []
     for case in THERMAL_CASES:
         tcfg = acceptance.config(case)
-        thermal.append(drive(torch, case, tcfg, build_statics(tcfg, bank),
-                             jobs, "thermal"))
-    launches["rack_thermal"] = thermal[0]["rack_thermal"]
+        per_tick[case] = drive(torch, case, tcfg, build_statics(tcfg, bank),
+                               jobs, "thermal")
+    launches["rack_thermal"] = per_tick[THERMAL_CASES[0]][0]["rack_thermal"]
 
     # 6. fleet: the replay tick batched over a replica axis
     t0 = time.perf_counter()
-    fleet(torch, np, jobs, bank)
+    fleet_hour = fleet(torch, np, jobs, bank)
     emit("fleet", step="done", seconds=time.perf_counter() - t0)
 
     # 7. rl: SchedEnv batched over the replica axis, PPO end to end
@@ -1408,7 +1688,13 @@ def main() -> int:
     rl(torch, np)
     emit("rl", step="done", seconds=time.perf_counter() - t0)
 
-    # 8. determinism: the same ticks twice, bitwise
+    # 8. macro: the replay hours, the fleet hour and the RL env with quiet
+    # ticks fast-forwarded, against the pins and the per-tick runs above
+    t0 = time.perf_counter()
+    macro(torch, np, jobs, bank, per_tick, fleet_hour)
+    emit("macro", step="done", seconds=time.perf_counter() - t0)
+
+    # 9. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:
         dcfg = acceptance.config(case)
         dstatics = build_statics(dcfg, bank)
@@ -1425,11 +1711,11 @@ def main() -> int:
         if differ:
             raise AssertionError(f"{case}: runs differ in {differ}")
 
-    # 9. serve: gemma3-1b at full width; the kernels line reports the
+    # 10. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
-    # 10. serve_hybrid: the jamba hybrid at full width; the kernels line
+    # 11. serve_hybrid: the jamba hybrid at full width; the kernels line
     # reports the selective_scan launches of one 8-layer prefill
     t0 = time.perf_counter()
     launches["selective_scan"] = serve_hybrid(torch, np)

@@ -14,6 +14,10 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
 - ``fleet_tx_gaia_1h``: ``replay_tx_gaia_1h`` as a fleet of 72 replicas
   (8 policies x 9 grid scenarios, ``fleet_grid``), pinned per replica in
   ``PINNED_FLEET``.
+- ``MACRO_CASES`` (``<hour>_macro``): each hour macro-stepped
+  (``run_episode(..., macro=True)``), pinned in ``PINNED_MACRO``; the
+  fleet hour macro-stepped in ``PINNED_FLEET_MACRO``, the RL cases'
+  ``SchedEnv(macro=True)`` in ``PINNED_RL_MACRO``.
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -79,9 +83,60 @@ PINNED = {
 }
 RTOL = 1e-5   # float metrics; "completed" must match exactly
 
+# The macro-stepped hours: each replay hour's config, workload and ticks
+# through ``run_episode(..., macro=True)``. ``PINNED_MACRO[case]`` holds
+# what the JAX package's macro path gives on the CPU (jax 0.9.0), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_macro_pins.py replay
+# ``macro_steps_taken`` (the event ticks) is held exactly with thermals
+# off; with thermals on the thermal horizon floors a difference of rack
+# temperatures, which agree to ~1e-6, so it is reported, not held.
+MACRO_CASES = tuple(f"{case}_macro" for case in CASES)
+MACRO_KEYS = ("completed", "energy_kwh", "avg_pue", "carbon_kg",
+              "mean_wait_s", "macro_steps_taken")
+MACRO_THERMAL_KEYS = ("peak_rack_outlet_c", "thermal_throttle_s",
+                      "mean_cop")
+PINNED_MACRO = {
+    "replay_tx_gaia_1h_macro": {
+        "completed": 103.0,
+        "energy_kwh": 264.79302978515625,
+        "avg_pue": 1.2523986388179378,
+        "carbon_kg": 132.01934814453125,
+        "mean_wait_s": 0.7530097591066823,
+        "macro_steps_taken": 271.0
+    },
+    "replay_tx_gaia_1h_thermal_macro": {
+        "completed": 103.0,
+        "energy_kwh": 266.0106201171875,
+        "avg_pue": 1.2581575082100478,
+        "carbon_kg": 132.62652587890625,
+        "mean_wait_s": 0.7530097591066823,
+        "macro_steps_taken": 271.0,
+        "peak_rack_outlet_c": 28.327625274658203,
+        "thermal_throttle_s": 0.0,
+        "mean_cop": 5.6555938720703125
+    },
+    "replay_tx_gaia_1h_thermal_stress_macro": {
+        "completed": 94.0,
+        "energy_kwh": 264.5250549316406,
+        "avg_pue": 1.2582372818223801,
+        "carbon_kg": 131.8872528076172,
+        "mean_wait_s": 0.7990804631659325,
+        "macro_steps_taken": 2517.0,
+        "peak_rack_outlet_c": 27.689422607421875,
+        "thermal_throttle_s": 3020.0,
+        "mean_cop": 5.653233528137207
+    }
+}
+
+
+def base_case(case: str) -> str:
+    """The replay hour a case runs: a macro case's per-tick twin."""
+    return case[:-len("_macro")] if case.endswith("_macro") else case
+
 
 def config(case: str = "replay_tx_gaia_1h") -> SimConfig:
-    return tx_gaia(max_jobs=256, max_nodes_per_job=16, **CASES[case])
+    return tx_gaia(max_jobs=256, max_nodes_per_job=16,
+                   **CASES[base_case(case)])
 
 
 def workload(cfg: SimConfig):
@@ -236,6 +291,142 @@ PINNED_FLEET = {
 }
 
 
+# ``PINNED_FLEET_MACRO``: the JAX package's vmapped ``run_fleet(...,
+# macro=True)`` over the fleet case on the CPU (jax 0.9.0), per replica,
+# made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_macro_pins.py fleet
+# (19 s on 8 cores). Its ``completed`` and ``FLEET_KEYS`` come out equal to
+# ``PINNED_FLEET``'s in every replica; ``macro_steps_taken`` is each
+# replica's event ticks (the demand-response replicas' cap edges and
+# throttled progress move theirs).
+PINNED_FLEET_MACRO = {
+    "completed": [
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0, 103.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0, 103.0, 103.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 63.0, 103.0, 103.0, 103.0,
+        103.0, 103.0, 103.0, 103.0, 103.0, 63.0, 104.0, 104.0, 104.0, 104.0,
+        104.0, 104.0, 104.0, 104.0, 63.0, 104.0, 104.0, 104.0, 104.0, 104.0,
+        104.0, 104.0, 104.0, 63.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0,
+        103.0, 103.0, 63.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0, 103.0,
+        103.0, 63.0,
+    ],
+    "energy_kwh": [
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+        264.79730224609375, 267.3423156738281, 266.8589782714844,
+        268.6976318359375, 267.1056823730469, 268.2356872558594,
+        269.0105895996094, 265.344970703125, 254.84408569335938,
+        264.8282470703125, 267.3741149902344, 266.89056396484375,
+        268.729248046875, 267.1372375488281, 268.26708984375,
+        269.04229736328125, 265.37652587890625, 254.86317443847656,
+        264.79302978515625, 267.3382873535156, 266.855224609375,
+        268.6934814453125, 267.1015319824219, 268.2316589355469,
+        269.00689697265625, 265.34088134765625, 254.84127807617188,
+        264.8257141113281, 267.3713684082031, 266.88787841796875,
+        268.7263488769531, 267.1347961425781, 268.2645568847656,
+        269.0401306152344, 265.3737487792969, 254.8614501953125,
+    ],
+    "carbon_kg": [
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+        132.02122497558594, 136.4258575439453, 135.14588928222656,
+        95.38777923583984, 143.74493408203125, 134.13516235351562,
+        143.54336547851562, 132.95985412597656, 127.0713882446289,
+        132.03659057617188, 136.4416046142578, 135.162109375,
+        95.39906311035156, 143.7616424560547, 134.15109252929688,
+        143.5606231689453, 132.9757537841797, 127.0811538696289,
+        132.01934814453125, 136.42376708984375, 135.14389038085938,
+        95.38638305664062, 143.74264526367188, 134.1333770751953,
+        143.54153442382812, 132.9582061767578, 127.0703353881836,
+        132.03536987304688, 136.44029235839844, 135.16050720214844,
+        95.3981704711914, 143.76036071777344, 134.1495361328125,
+        143.55897521972656, 132.97434997558594, 127.08051300048828,
+    ],
+    "elec_cost_usd": [
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+        27.710851669311523, 36.80022430419922, 35.15156936645508,
+        29.115570068359375, 31.829471588134766, 31.965402603149414,
+        27.040788650512695, 47.86094665527344, 26.698801040649414,
+        27.714082717895508, 36.80455017089844, 35.155677795410156,
+        29.11899185180664, 31.833192825317383, 31.969158172607422,
+        27.04398536682129, 47.866607666015625, 26.700910568237305,
+        27.710453033447266, 36.79965591430664, 35.15105056762695,
+        29.11516761779785, 31.829038619995117, 31.964967727661133,
+        27.040409088134766, 47.86032485961914, 26.69858169555664,
+        27.713825225830078, 36.80421447753906, 35.15534210205078,
+        29.118696212768555, 31.83289909362793, 31.968875885009766,
+        27.043704986572266, 47.86611557006836, 26.700754165649414,
+    ],
+    "avg_pue": [
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+        1.252403571182939, 1.2644406420993217, 1.262154616208397,
+        1.2708508388313497, 1.263321444930599, 1.2686659939070584,
+        1.2723310254402291, 1.254993861663968, 1.2523711046138486,
+        1.2524862045111136, 1.264526704282133, 1.2622397843814845,
+        1.2709357089011484, 1.263406409408745, 1.2687499648193925,
+        1.2724162531953012, 1.255079249820994, 1.2524080945509002,
+        1.2523986388179378, 1.2644370112654328, 1.2621522565507175,
+        1.2708467088215867, 1.263317223086978, 1.2686624146085737,
+        1.2723290785808972, 1.2549898269308046, 1.2523694216085732,
+        1.252490404230041, 1.2645300492094653, 1.2622433884320483,
+        1.2709384149556824, 1.2634111831899906, 1.2687543746297418,
+        1.272422442356642, 1.2550823283757744, 1.2524131444218478,
+    ],
+    "macro_steps_taken": [
+        271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 232.0, 271.0,
+        271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 232.0, 271.0, 271.0,
+        271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 232.0, 271.0, 271.0, 271.0,
+        271.0, 271.0, 271.0, 271.0, 271.0, 232.0, 272.0, 272.0, 272.0, 272.0,
+        272.0, 272.0, 272.0, 272.0, 232.0, 272.0, 272.0, 272.0, 272.0, 272.0,
+        272.0, 272.0, 272.0, 232.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0,
+        271.0, 271.0, 232.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0, 271.0,
+        271.0, 232.0,
+    ],
+}
+
+
 def fleet_scenarios(cfg: SimConfig) -> list:
     """The fleet case's 9 scenarios, unbatched, on the CPU."""
     from repro_torch.core.fleet import _scenario_list
@@ -282,13 +473,26 @@ def fleet_grid(cfg: SimConfig, replicas: int | None = None):
             tile(scn))
 
 
-def check_fleet(cols: dict, replicas=None) -> dict:
+def check_fleet(cols: dict, replicas=None, pins: dict | None = None
+                ) -> dict:
     """Hold ``summary_columns`` of the fleet case (all replicas, or the
-    ``replicas`` they are) to ``PINNED_FLEET``: ``completed`` exactly,
-    ``FLEET_KEYS`` to ``RTOL``. Returns the largest relative error."""
-    idx = np.arange(len(PINNED_FLEET["completed"])) if replicas is None \
+    ``replicas`` they are) to ``PINNED_FLEET`` (or ``pins``, e.g.
+    ``PINNED_FLEET_MACRO``): ``completed`` (and ``macro_steps_taken``
+    where pinned) exactly, ``FLEET_KEYS`` to ``RTOL``. Returns the largest
+    relative error."""
+    pins = PINNED_FLEET if pins is None else pins
+    idx = np.arange(len(pins["completed"])) if replicas is None \
         else np.asarray(replicas)
-    want = np.asarray(PINNED_FLEET["completed"])[idx]
+    if "macro_steps_taken" in pins:
+        got, want = (np.asarray(cols["macro_steps_taken"]),
+                     np.asarray(pins["macro_steps_taken"])[idx])
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise AssertionError(
+                f"{FLEET_CASE}: macro_steps_taken differs at replicas "
+                f"{idx[bad].tolist()}: {got[bad].tolist()} vs pinned "
+                f"{want[bad].tolist()}")
+    want = np.asarray(pins["completed"])[idx]
     got = np.asarray(cols["completed"])
     if not np.array_equal(got, want):
         bad = np.flatnonzero(got != want)
@@ -297,7 +501,7 @@ def check_fleet(cols: dict, replicas=None) -> dict:
             f": {got[bad].tolist()} vs pinned {want[bad].tolist()}")
     worst = 0.0
     for k in FLEET_KEYS:
-        w = np.asarray(PINNED_FLEET[k])[idx]
+        w = np.asarray(pins[k])[idx]
         rel = np.abs(np.asarray(cols[k]) - w) / np.abs(w)
         worst = max(worst, float(rel.max()))
         if not np.all(rel <= RTOL):
@@ -309,12 +513,19 @@ def check_fleet(cols: dict, replicas=None) -> dict:
 
 
 def check(case: str, got: dict) -> None:
-    """Raise unless the summary ``got`` meets ``PINNED[case]``: the
-    completion count exactly, every other value to ``RTOL``."""
-    pins = PINNED[case]
-    if got["completed"] != pins["completed"]:
-        raise AssertionError(f"{case}: completed {got['completed']} != "
-                             f"pinned {pins['completed']}")
+    """Raise unless the summary ``got`` meets ``PINNED[case]`` (a macro
+    case: ``PINNED_MACRO[case]``): the completion count exactly, with
+    thermals off the event-tick count (``macro_steps_taken``) exactly,
+    every other value to ``RTOL``; a thermal hour's event-tick count is
+    only reported."""
+    pins = dict(PINNED_MACRO[case] if case in PINNED_MACRO
+                else PINNED[case])
+    if case in PINNED_MACRO and config(case).thermal_enabled:
+        pins.pop("macro_steps_taken")
+    for k in ("completed", "macro_steps_taken"):
+        if k in pins and got[k] != pins[k]:
+            raise AssertionError(f"{case}: {k} {got[k]} != pinned "
+                                 f"{pins[k]}")
     for k, v in pins.items():
         if abs(got[k] - v) > RTOL * abs(v):
             raise AssertionError(f"{case}: {k} {got[k]!r} vs pinned {v!r} "
@@ -643,7 +854,8 @@ PINNED_JAMBA = {
 # --cluster tx-gaia``'s setting at full width: ``tx_gaia(max_jobs=256,
 # max_nodes_per_job=16)`` (672 nodes, the whole job table), a bank of
 # RL_WORKLOADS ``synth_workload(cfg, 40, 1800.0, seed=s)``, episodes of 32
-# decisions of 15 ticks each, per-tick stepping (``macro=False``).
+# decisions of 15 ticks each, per-tick stepping (``macro=False``; the
+# macro env, the JAX package's default, in ``PINNED_RL_MACRO``).
 #
 # - ``rl_tx_gaia``: RL_ENVS environments reset from ``split(key(0), 8)``,
 #   then ``RL_SCRIPT_STEPS`` decisions of ``rl_script`` (every candidate
@@ -679,10 +891,11 @@ def rl_workloads(cfg: SimConfig) -> list:
             for s in range(RL_WORKLOADS)]
 
 
-def rl_env_kwargs() -> dict:
-    """``SchedEnv`` keywords of the RL cases, the same in both packages."""
+def rl_env_kwargs(macro: bool = False) -> dict:
+    """``SchedEnv`` keywords of the RL cases, the same in both packages
+    (``PINNED_RL``: per-tick; ``PINNED_RL_MACRO``: ``macro=True``)."""
     return dict(episode_steps=RL_EPISODE_STEPS,
-                sim_steps_per_action=RL_SIM_STEPS, macro=False)
+                sim_steps_per_action=RL_SIM_STEPS, macro=macro)
 
 
 def rl_script(k: int, n_envs: int, steps: int) -> np.ndarray:
@@ -1387,5 +1600,382 @@ PINNED_RL = {
             "mean_episode_return": -101.63076, "mean_reward": -3.175961,
             "mean_value": -2.1037676, "pg_loss": -0.0011547555, "v_loss":
             515.5}],
+    },
+}
+
+
+# ``PINNED_RL_MACRO``: the JAX package's ``SchedEnv(macro=True)`` (its
+# default) on ``rl_tx_gaia`` and one ``ppo_train`` iteration with it, on
+# the CPU (jax 0.9.0), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_macro_pins.py rl
+# (22 s on 8 cores): the scripted rollout, iteration 0's actions and
+# rollout stats, and the first iteration's stats. The values come out
+# equal to ``PINNED_RL``'s (the JAX package's macro idle advance is exact
+# on these cases).
+PINNED_RL_MACRO = {
+    "rl_tx_gaia": {
+        "reward": [[-3.1442566, -3.151687, -3.151687, -3.1439064, -3.150687,
+            -3.153687, -3.1439064, -3.151687], [-3.1510234, -3.1581867,
+            -3.1581867, -3.1533337, -3.150687, -3.1581867, -3.1533337,
+            -3.1581867], [-3.1513844, -3.1581864, -3.1581864, -3.158251,
+            -3.1506855, -3.164686, -3.158251, -3.1581864], [-3.1516461,
+            -3.1581843, -3.1507533, -3.1616635, -3.172184, -3.1585217,
+            -3.1616635, -3.1581843], [-3.1519957, -3.158183, -3.1510181,
+            -3.1643724, -3.1751823, -3.1579285, -3.1643724, -3.158183],
+            [-3.151966, -3.15818, -3.1513789, -3.1696324, -3.1806793,
+            -3.1620994, -3.1696324, -3.15818], [-3.1520357, -3.1507463,
+            -3.151639, -3.1731215, -3.1748374, -3.1640158, -3.1731215,
+            -3.1507463], [-3.1520367, -3.1510105, -3.1519866, -3.172401,
+            -3.1746058, -3.1671817, -3.172401, -3.1510105], [-3.1520383,
+            -3.1513689, -3.1519563, -3.1733036, -3.1771884, -3.1741574,
+            -3.1733036, -3.1513689], [-3.1449497, -3.151627, -3.152025,
+            -3.1655972, -3.189691, -3.1746476, -3.1655972, -3.151627],
+            [-3.1472738, -3.1519744, -3.1520236, -3.1654172, -3.20267,
+            -3.1738667, -3.1654172, -3.1519744], [-3.1501267, -3.1519418,
+            -3.1520243, -3.165823, -3.2057414, -3.174261, -3.165823,
+            -3.1519418], [-3.1526875, -3.152009, -3.1449347, -3.1728818,
+            -3.2106519, -3.1759887, -3.1728818, -3.152009], [-3.1546576,
+            -3.1520069, -3.1472569, -3.1819475, -3.2103093, -3.1795337,
+            -3.1819475, -3.1520069], [-3.1552398, -3.1520061, -3.1501083,
+            -3.1872387, -3.2155044, -3.1774893, -3.1872387, -3.1520061],
+            [-3.1542397, -3.1449146, -3.1526673, -3.1982167, -3.2084594,
+            -3.177203, -3.1982167, -3.1449146], [-3.1542673, -3.147236,
+            -3.1546366, -3.2016263, -3.202606, -3.1854641, -3.2016263,
+            -3.147236], [-3.1623106, -3.1575856, -3.1627173, -2.1993966,
+            -3.1937423, -3.192275, -2.1993966, -3.1575856], [-3.1652377,
+            -3.1706433, -3.1722155, -3.1895876, -3.1981633, -3.1946435,
+            -3.1895876, -3.1706433], [-3.1627498, -3.1771114, -3.1767416,
+            -3.1905813, -3.200392, -3.196644, -3.1905813, -3.1771114],
+            [-3.1625803, -3.1776905, -3.177284, -3.1957605, -3.2027535,
+            -3.19729, -3.1957605, -3.1776905], [-3.1634877, -3.176687,
+            -3.1697097, -3.1965091, -3.2022634, -3.1900158, -3.1965091,
+            -3.176687], [-3.1645458, -3.176712, -3.16272, -3.1969995,
+            -3.2047267, -3.1925771, -3.1969995, -3.176712], [-3.165065,
+            -3.178253, -3.1635492, -3.2044778, -3.2087352, -3.196089,
+            -3.2044778, -3.178253], [-3.171016, -3.1771772, -3.1709552,
+            -3.2046094, -3.1985748, -3.2035863, -3.2046094, -3.1771772],
+            [-3.1771598, -3.1751864, -3.177012, -3.2027555, -3.189743,
+            -3.2102177, -3.2027555, -3.1751864], [-3.1794572, -3.1702888,
+            -3.1790297, -3.202749, -3.189187, -3.2217498, -3.202749,
+            -3.1702888], [-3.1860619, -3.186337, -3.1924791, -3.1950555,
+            -3.19331, -3.2241511, -3.1950555, -3.186337], [-3.1806915,
+            -3.1899652, -3.1946216, -3.185587, -3.1945577, -3.2248719,
+            -3.185587, -3.1899652], [-3.1793108, -3.195372, -3.198918,
+            -3.186577, -3.197395, -2.2293715, -3.186577, -3.195372],
+            [-3.1854262, -3.198808, -3.194521, -3.1971843, -3.2000272,
+            -3.2230248, -3.1971843, -3.198808], [-3.189425, -3.199946,
+            -3.1881492, -3.2027102, -3.2001736, -3.2217264, -3.2027102,
+            -3.199946]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [True, True, True, True,
+            True, True, True, True]],
+        "facility_w": [[241412.77, 241396.77, 241396.77, 241562.39, 241396.77,
+            241396.77, 241562.39, 241396.77], [241427.56, 241396.78, 241396.78,
+            241734.06, 241396.78, 241396.78, 241734.06, 241396.78], [241458.1,
+            241396.78, 241396.78, 242136.38, 241396.78, 241396.78, 242136.38,
+            241396.78], [241476.92, 241396.8, 241412.8, 242291.8, 241396.8,
+            241474.5, 242291.8, 241396.8], [241504.86, 241396.81, 241427.6,
+            242431.78, 241396.81, 241571.19, 242431.78, 241396.81], [241490.97,
+            241396.83, 241458.14, 242486.7, 241396.83, 241758.34, 242486.7,
+            241396.83], [241502.67, 241412.84, 241476.97, 242520.5, 241779.4,
+            241889.36, 242520.5, 241412.84], [241500.97, 241427.66, 241504.92,
+            242474.02, 242240.75, 242054.1, 242474.02, 241427.66], [241496.39,
+            241458.22, 241491.05, 242557.2, 243183.48, 242035.34, 242557.2,
+            241458.22], [241613.88, 241477.06, 241502.75, 242539.62, 243787.17,
+            242058.03, 242539.62, 241477.06], [241752.05, 241505.03, 241501.06,
+            242535.94, 244475.06, 242005.9, 242535.94, 241505.03], [242004.12,
+            241491.16, 241496.5, 242517.7, 244168.81, 242004.97, 242517.7,
+            241491.16], [242198.48, 241502.88, 241614.0, 242439.53, 244108.22,
+            241998.2, 242439.53, 241502.88], [242273.3, 241501.2, 241752.17,
+            242525.08, 244264.47, 242079.69, 242525.08, 241501.2], [242359.84,
+            241496.64, 242004.25, 242519.16, 244067.8, 242190.38, 242519.16,
+            241496.64], [242194.16, 241614.16, 242198.62, 242342.84, 244139.55,
+            242470.1, 242342.84, 241614.16], [242283.5, 241752.34, 242273.47,
+            242430.56, 244215.08, 242679.52, 242430.56, 241752.34], [242193.38,
+            242004.44, 242360.02, 241438.03, 244079.31, 242982.12, 241438.03,
+            242004.44], [242339.06, 242198.81, 242194.34, 241433.19, 244579.64,
+            243088.6, 241433.19, 242198.81], [242303.34, 242273.66, 242283.69,
+            241770.17, 244659.64, 243202.56, 241770.17, 242273.66], [242320.47,
+            242360.22, 242193.56, 242096.47, 244849.34, 243293.19, 242096.47,
+            242360.22], [242395.03, 242194.56, 242339.28, 242941.78, 244744.23,
+            243365.31, 242941.78, 242194.56], [242511.23, 242283.9, 242303.56,
+            243385.38, 244742.48, 243565.72, 243385.38, 242283.9], [242365.47,
+            242193.81, 242320.7, 243814.28, 244698.86, 244032.72, 243814.28,
+            242193.81], [242394.75, 242339.53, 242395.27, 243822.53, 244583.69,
+            244455.73, 243822.53, 242339.53], [242515.48, 242303.81, 242511.5,
+            243615.94, 244361.31, 244831.94, 243615.94, 242303.81], [242444.67,
+            242384.28, 242365.72, 243707.89, 244475.1, 245231.2, 243707.89,
+            242384.28], [242570.69, 242527.27, 242395.03, 243615.94, 244786.6,
+            245346.73, 243615.94, 242527.27], [242599.25, 242799.25, 242515.77,
+            243493.83, 245039.94, 245391.12, 243493.83, 242799.25], [242740.31,
+            242726.84, 242444.97, 243504.66, 244922.66, 244762.34, 243504.66,
+            242726.84], [243034.66, 242807.72, 242570.98, 243759.61, 245246.17,
+            245033.92, 243759.61, 242807.72], [243154.27, 242928.06, 242599.58,
+            243731.61, 245178.06, 245395.44, 243731.61, 242928.06]],
+        "queue_len": [[1.0, 2.0, 2.0, 0.0, 1.0, 2.0, 0.0, 2.0], [1.0, 2.0, 2.0,
+            1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0, 1.0, 1.0, 3.0, 1.0, 2.0],
+            [1.0, 2.0, 1.0, 1.0, 4.0, 2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 1.0, 5.0,
+            2.0, 1.0, 2.0], [1.0, 2.0, 1.0, 2.0, 5.0, 2.0, 2.0, 2.0], [1.0,
+            1.0, 1.0, 2.0, 4.0, 2.0, 2.0, 1.0], [1.0, 1.0, 1.0, 2.0, 3.0, 3.0,
+            2.0, 1.0], [1.0, 1.0, 1.0, 2.0, 2.0, 3.0, 2.0, 1.0], [0.0, 1.0,
+            1.0, 1.0, 3.0, 3.0, 1.0, 1.0], [0.0, 1.0, 1.0, 1.0, 3.0, 3.0, 1.0,
+            1.0], [0.0, 1.0, 1.0, 2.0, 4.0, 4.0, 2.0, 1.0], [0.0, 1.0, 0.0,
+            3.0, 4.0, 4.0, 3.0, 1.0], [0.0, 1.0, 0.0, 4.0, 5.0, 4.0, 4.0, 1.0],
+            [0.0, 1.0, 0.0, 4.0, 5.0, 4.0, 4.0, 1.0], [0.0, 0.0, 0.0, 6.0, 4.0,
+            3.0, 6.0, 0.0], [0.0, 0.0, 0.0, 6.0, 3.0, 4.0, 6.0, 0.0], [1.0,
+            1.0, 1.0, 6.0, 2.0, 4.0, 6.0, 1.0], [2.0, 3.0, 3.0, 7.0, 2.0, 4.0,
+            7.0, 3.0], [1.0, 3.0, 3.0, 7.0, 2.0, 4.0, 7.0, 3.0], [1.0, 3.0,
+            3.0, 6.0, 2.0, 4.0, 6.0, 3.0], [1.0, 3.0, 2.0, 5.0, 2.0, 3.0, 5.0,
+            3.0], [1.0, 3.0, 1.0, 4.0, 3.0, 3.0, 4.0, 3.0], [2.0, 4.0, 2.0,
+            4.0, 3.0, 3.0, 4.0, 4.0], [2.0, 3.0, 2.0, 4.0, 2.0, 3.0, 4.0, 3.0],
+            [3.0, 3.0, 3.0, 4.0, 1.0, 4.0, 4.0, 3.0], [3.0, 2.0, 3.0, 4.0, 1.0,
+            4.0, 4.0, 2.0], [4.0, 4.0, 5.0, 3.0, 1.0, 4.0, 3.0, 4.0], [3.0,
+            4.0, 5.0, 2.0, 1.0, 4.0, 2.0, 4.0], [3.0, 5.0, 6.0, 3.0, 1.0, 5.0,
+            3.0, 5.0], [3.0, 5.0, 5.0, 4.0, 1.0, 5.0, 4.0, 5.0], [3.0, 5.0,
+            4.0, 4.0, 1.0, 4.0, 4.0, 5.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0058422, 1.00582, 1.00582, 1.0060499, 1.00582,
+            1.00582, 1.0060499, 1.00582], [1.0059277, 1.00582, 1.00582,
+            1.0069867, 1.00582, 1.00582, 1.0069867, 1.00582], [1.0060436,
+            1.0058202, 1.0058202, 1.0082408, 1.0058202, 1.0058202, 1.0082408,
+            1.0058202], [1.0061277, 1.0058202, 1.0058422, 1.0093335, 1.0058202,
+            1.005928, 1.0093335, 1.0058202], [1.0062402, 1.0058202, 1.0059277,
+            1.0102009, 1.0058202, 1.0063788, 1.0102009, 1.0058202], [1.0062319,
+            1.0058202, 1.0060438, 1.010285, 1.0058202, 1.0070745, 1.010285,
+            1.0058202], [1.0062551, 1.0058423, 1.0061278, 1.0106024, 1.0063516,
+            1.0076886, 1.0106024, 1.0058423], [1.0062563, 1.0059279, 1.0062406,
+            1.010373, 1.0086786, 1.0085429, 1.010373, 1.0059279], [1.0062584,
+            1.006044, 1.006232, 1.0106632, 1.0119061, 1.0085361, 1.0106632,
+            1.006044], [1.0063914, 1.0061283, 1.0062554, 1.0105987, 1.0149488,
+            1.0086948, 1.0105987, 1.0061283], [1.0071367, 1.006241, 1.0062569,
+            1.0105426, 1.0176636, 1.0084465, 1.0105426, 1.006241], [1.0080515,
+            1.0062323, 1.0062586, 1.0105143, 1.0178483, 1.0084145, 1.0105143,
+            1.0062323], [1.0088729, 1.006256, 1.006392, 1.010375, 1.0178217,
+            1.0083293, 1.010375, 1.006256], [1.0095055, 1.0062573, 1.0071373,
+            1.0103983, 1.0175542, 1.0083458, 1.0103983, 1.0062573], [1.0096942,
+            1.0062593, 1.0080522, 1.0103337, 1.0169789, 1.0089741, 1.0103337,
+            1.0062593], [1.0093766, 1.0063927, 1.0088733, 1.0100092, 1.017127,
+            1.009525, 1.0100092, 1.0063927], [1.009388, 1.007138, 1.0095062,
+            1.0101429, 1.0176567, 1.0108911, 1.0101429, 1.007138], [1.0095649,
+            1.0080527, 1.0096948, 1.0094321, 1.017223, 1.0119534, 1.0094321,
+            1.0080527], [1.0095445, 1.008874, 1.0093771, 1.0059762, 1.0186409,
+            1.0127143, 1.0059762, 1.008874], [1.0097114, 1.0095072, 1.0093888,
+            1.0064574, 1.0193572, 1.0133576, 1.0064574, 1.0095072], [1.0096604,
+            1.0096956, 1.0095657, 1.008278, 1.0201163, 1.0135674, 1.008278,
+            1.0096956], [1.0099543, 1.0093781, 1.0095453, 1.0109214, 1.0199629,
+            1.0136435, 1.0109214, 1.0093781], [1.0102966, 1.0093896, 1.0097122,
+            1.0134819, 1.0193149, 1.0144666, 1.0134819, 1.0093896], [1.0101464,
+            1.0095667, 1.0096612, 1.0158788, 1.0196415, 1.0157543, 1.0158788,
+            1.0095667], [1.0099746, 1.0095463, 1.0099553, 1.0159247, 1.0187941,
+            1.0179976, 1.0159247, 1.0095463], [1.0103449, 1.0097134, 1.0102975,
+            1.0153358, 1.0183719, 1.0198036, 1.0153358, 1.0097134], [1.0102844,
+            1.0097505, 1.0101476, 1.0153381, 1.0181984, 1.0214186, 1.0153381,
+            1.0097505], [1.0103222, 1.0104103, 1.0099758, 1.0152806, 1.0195222,
+            1.0221916, 1.0152806, 1.0104103], [1.0106883, 1.0112559, 1.0103459,
+            1.0146551, 1.0199263, 1.022427, 1.0146551, 1.0112559], [1.0112114,
+            1.0115511, 1.0102855, 1.0148169, 1.0208391, 1.0216317, 1.0148169,
+            1.0115511], [1.0122135, 1.0116956, 1.0103235, 1.0153362, 1.0216866,
+            1.0204058, 1.0153362, 1.0116956], [1.0134983, 1.0120648, 1.0106897,
+            1.0153497, 1.0217384, 1.0214354, 1.0153497, 1.0120648]],
+        "carbon_kg": [[0.5029211, 0.50290996, 0.50290996, 0.50302494,
+            0.50290996, 0.50290996, 0.50302494, 0.50290996], [0.50296366,
+            0.50290984, 0.50290984, 0.50349325, 0.50290984, 0.50290984,
+            0.50349325, 0.50290984], [0.50302136, 0.5029095, 0.5029095,
+            0.50412005, 0.5029095, 0.5029095, 0.50412005, 0.5029095],
+            [0.503063, 0.5029091, 0.50292027, 0.5046658, 0.5029091, 0.50296307,
+            0.5046658, 0.5029091], [0.5031187, 0.5029085, 0.5029624, 0.5050988,
+            0.5029085, 0.503188, 0.5050988, 0.5029085], [0.5031136, 0.5029079,
+            0.5030197, 0.5051403, 0.5029079, 0.503535, 0.5051403, 0.5029079],
+            [0.50312454, 0.5029182, 0.5030609, 0.5052982, 0.50317276,
+            0.50384134, 0.5052982, 0.5029182], [0.5031242, 0.50295997,
+            0.5031162, 0.5051824, 0.50433517, 0.50426733, 0.5051824,
+            0.50295997], [0.50312394, 0.50301677, 0.50311077, 0.50532633,
+            0.5059479, 0.5042629, 0.50532633, 0.50301677], [0.5031892,
+            0.5030576, 0.50312126, 0.5052927, 0.5074678, 0.5043408, 0.5052927,
+            0.5030576], [0.5035604, 0.5031125, 0.5031204, 0.5052633, 0.5088238,
+            0.5042153, 0.5052633, 0.5031125], [0.50401616, 0.5031067,
+            0.5031199, 0.50524765, 0.5089145, 0.5041977, 0.50524765,
+            0.5031067], [0.5044251, 0.50311667, 0.5031847, 0.5051762,
+            0.5088994, 0.50415343, 0.5051762, 0.50311667], [0.50473964,
+            0.50311553, 0.5035555, 0.50518596, 0.5087638, 0.50415975,
+            0.50518596, 0.50311553], [0.5048319, 0.50311446, 0.50401086,
+            0.5051517, 0.50847423, 0.5044718, 0.5051517, 0.50311446],
+            [0.5046709, 0.50317895, 0.5044194, 0.50498724, 0.50854605,
+            0.50474507, 0.50498724, 0.50317895], [0.50467426, 0.50354934,
+            0.50473344, 0.5050518, 0.50880843, 0.5054259, 0.5050518,
+            0.50354934], [0.50476027, 0.5040043, 0.5048253, 0.5046939,
+            0.50858915, 0.5059545, 0.5046939, 0.5040043], [0.50474745,
+            0.5044124, 0.5046639, 0.5029635, 0.5092954, 0.5063323, 0.5029635,
+            0.5044124], [0.5048283, 0.50472605, 0.5046669, 0.50320125,
+            0.5096508, 0.5066513, 0.50320125, 0.50472605], [0.5047999,
+            0.5048174, 0.50475246, 0.5041087, 0.5100274, 0.5067533, 0.5041087,
+            0.5048174], [0.5049437, 0.50465566, 0.5047393, 0.5054271,
+            0.50994766, 0.5067882, 0.5054271, 0.50465566], [0.5051117,
+            0.5046582, 0.50481963, 0.5067042, 0.5096205, 0.50719655, 0.5067042,
+            0.5046582], [0.5050333, 0.5047434, 0.5047908, 0.5078993,
+            0.50978047, 0.50783706, 0.5078993, 0.5047434], [0.5049439,
+            0.50472975, 0.5049343, 0.5079188, 0.50935316, 0.5089551, 0.5079188,
+            0.50472975], [0.50512546, 0.5048097, 0.50510186, 0.50762063,
+            0.50913864, 0.5098545, 0.50762063, 0.5048097], [0.5050914,
+            0.50482446, 0.505023, 0.50761807, 0.509048, 0.510658, 0.50761807,
+            0.50482446], [0.50510645, 0.50515044, 0.50493324, 0.50758535,
+            0.50970596, 0.51104045, 0.50758535, 0.50515044], [0.50528544,
+            0.5055692, 0.5051143, 0.5072687, 0.5099039, 0.5111541, 0.5072687,
+            0.5055692], [0.50554276, 0.50571257, 0.50508, 0.50734526, 0.510356,
+            0.5107522, 0.50734526, 0.50571257], [0.5060394, 0.5057805,
+            0.5050945, 0.50760055, 0.5107753, 0.51013494, 0.50760055,
+            0.5057805], [0.50667727, 0.5059606, 0.5052731, 0.5076028,
+            0.5107968, 0.51064515, 0.5076028, 0.5059606]],
+        "final_obs": [[0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0,
+            0.01171875, 0.02734375, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.99118304, 0.99107146, 0.99329907, 1.0, 0.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.033764876, 0.020639123,
+            0.010716875, 0.0, 0.0, 0.0, 0.0, 0.0, 0.344182, 0.5, 0.44492534,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.125, 0.125, 0.0625, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.25, 0.16666667, 0.20833334, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0,
+            1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.04302275, 0.0625, 0.027807834,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.6592262, 0.6592262, 0.66071427, 0.0,
+            0.0, 0.0, 0.0, 0.0], [0.034899496, 0.99939084, 1.3155972,
+            0.9873093, 1.0, 0.01953125, 0.01953125, 1.0, 0.0055555557, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.99347097, 0.9933036, 0.99515736, 1.0,
+            0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.057704367,
+            0.033764876, 0.020639123, 0.020267708, 0.010716875, 0.0, 0.0, 0.0,
+            0.30511844, 0.344182, 0.5, 0.5, 0.44492534, 0.0, 0.0, 0.0, 0.125,
+            0.125, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.3125, 0.25,
+            0.16666667, 0.22916667, 0.20833334, 0.0, 0.0, 0.0, 0.5, 1.0, 1.0,
+            0.0, 0.5, 0.0, 0.0, 0.0, 0.038139805, 0.04302275, 0.0625, 0.03125,
+            0.027807834, 0.0, 0.0, 0.0, 0.6622024, 0.66071427, 0.66071427,
+            0.9970238, 0.6622024, 0.0, 0.0, 0.0], [0.034899496, 0.99939084,
+            1.3155972, 0.9873093, 1.0, 0.015625, 0.0234375, 1.0, 0.0055555557,
+            1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99179685, 0.99107146, 0.9934729,
+            1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.033764876,
+            0.020639123, 0.020267708, 0.010716875, 0.0, 0.0, 0.0, 0.0,
+            0.344182, 0.5, 0.5, 0.44492534, 0.0, 0.0, 0.0, 0.0, 0.125, 0.125,
+            0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.25, 0.16666667, 0.22916667,
+            0.20833334, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.04302275, 0.0625, 0.03125, 0.027807834, 0.0, 0.0, 0.0, 0.0,
+            0.6592262, 0.6592262, 0.9970238, 0.66071427, 0.0, 0.0, 0.0, 0.0],
+            [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625,
+            0.03125, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.99229914, 0.9899554, 0.99520224, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.07594989, 0.055894777, 0.008408543,
+            0.005076896, 0.0, 0.0, 0.0, 0.0, 0.34126368, 0.39685744,
+            0.27704287, 0.1448695, 0.0, 0.0, 0.0, 0.0, 0.25, 0.125, 0.0625,
+            0.0625, 0.0, 0.0, 0.0, 0.0, 0.39583334, 0.083333336, 0.16666667,
+            0.125, 0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.08531592, 0.04960718, 0.01731518, 0.009054344, 0.0, 0.0, 0.0,
+            0.0, 0.6592262, 0.66071427, 0.99553573, 0.99553573, 0.0, 0.0, 0.0,
+            0.0], [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0,
+            0.00390625, 0.03125, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.99084824, 0.9866072, 0.995553, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.084639095, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.4375, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.99404764, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.034899496, 0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625,
+            0.0390625, 1.0, 0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.9852679, 0.97544646, 0.9912549, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.064638324, 0.025492428, 0.012137205,
+            0.006608963, 0.0, 0.0, 0.0, 0.0, 0.5, 0.38274416, 0.5, 0.36078066,
+            0.0, 0.0, 0.0, 0.0, 0.0625, 0.25, 0.125, 0.125, 0.0, 0.0, 0.0, 0.0,
+            0.4166667, 0.10416667, 0.3125, 0.20833334, 0.0, 0.0, 0.0, 0.0, 0.0,
+            1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.09568604, 0.0625,
+            0.045097582, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.64880955,
+            0.64880955, 0.64880955, 0.0, 0.0, 0.0, 0.0], [0.034899496,
+            0.99939084, 1.3155972, 0.9873093, 1.0, 0.015625, 0.03125, 1.0,
+            0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99229914, 0.9899554,
+            0.99520224, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.07594989, 0.055894777, 0.008408543, 0.005076896, 0.0, 0.0, 0.0,
+            0.0, 0.34126368, 0.39685744, 0.27704287, 0.1448695, 0.0, 0.0, 0.0,
+            0.0, 0.25, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.39583334,
+            0.083333336, 0.16666667, 0.125, 0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.08531592, 0.04960718, 0.01731518,
+            0.009054344, 0.0, 0.0, 0.0, 0.0, 0.6592262, 0.66071427, 0.99553573,
+            0.99553573, 0.0, 0.0, 0.0, 0.0], [0.034899496, 0.99939084,
+            1.3155972, 0.9873093, 1.0, 0.01953125, 0.01953125, 1.0,
+            0.0055555557, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99347097, 0.9933036,
+            0.99515736, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.057704367, 0.033764876, 0.020639123, 0.020267708, 0.010716875,
+            0.0, 0.0, 0.0, 0.30511844, 0.344182, 0.5, 0.5, 0.44492534, 0.0,
+            0.0, 0.0, 0.125, 0.125, 0.125, 0.0625, 0.0625, 0.0, 0.0, 0.0,
+            0.3125, 0.25, 0.16666667, 0.22916667, 0.20833334, 0.0, 0.0, 0.0,
+            0.5, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.038139805, 0.04302275,
+            0.0625, 0.03125, 0.027807834, 0.0, 0.0, 0.0, 0.6622024, 0.66071427,
+            0.66071427, 0.9970238, 0.6622024, 0.0, 0.0, 0.0]],
+        "digest_jstate": [851, 838, 842, 871, 858, 897, 871, 838],
+        "digest_placement": [-8388821, -8389846, -8389208, -8388547, -8388716,
+            -8377680, -8388547, -8389846],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "n_completed": [0.0, 0.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0],
+        "past_queued": 170,
+    },
+    "ppo": {
+        "actions0": [[3, 6, 8, 6, 2, 6, 7, 1], [5, 2, 2, 4, 2, 6, 2, 8], [7, 4,
+            4, 4, 5, 7, 5, 7], [2, 2, 8, 2, 3, 3, 6, 3], [3, 4, 2, 0, 1, 8, 0,
+            2], [2, 1, 1, 1, 2, 3, 8, 7], [1, 2, 0, 6, 2, 3, 6, 0], [1, 6, 1,
+            3, 5, 0, 1, 4], [2, 0, 8, 8, 4, 8, 7, 6], [8, 1, 8, 8, 4, 6, 2, 3],
+            [0, 1, 7, 8, 6, 3, 3, 5], [8, 1, 2, 8, 0, 1, 1, 5], [2, 3, 1, 3, 7,
+            4, 8, 3], [5, 6, 0, 2, 0, 7, 1, 6], [7, 4, 5, 2, 3, 7, 5, 4], [4,
+            4, 1, 0, 4, 5, 1, 7], [4, 8, 8, 2, 7, 8, 8, 7], [7, 4, 0, 7, 6, 7,
+            0, 1], [5, 5, 2, 1, 8, 0, 4, 0], [5, 7, 6, 1, 6, 7, 3, 5], [1, 2,
+            1, 2, 4, 2, 6, 8], [0, 4, 0, 7, 6, 4, 4, 2], [4, 0, 0, 3, 5, 1, 1,
+            5], [0, 8, 7, 7, 2, 3, 0, 5], [5, 8, 7, 8, 6, 2, 1, 5], [2, 0, 0,
+            0, 2, 2, 6, 3], [4, 7, 6, 0, 7, 8, 0, 7], [0, 4, 6, 6, 1, 7, 5, 7],
+            [1, 1, 3, 1, 3, 2, 2, 7], [5, 0, 7, 0, 2, 0, 5, 5], [7, 7, 6, 0, 8,
+            5, 4, 5], [6, 3, 7, 8, 0, 8, 1, 5]],
+        "mean_reward0": -3.1819003,
+        "mean_value0": -0.12771964,
+        "history": [{"approx_kl": 0.0031227982, "entropy": 2.187633,
+            "mean_episode_len": 32.0, "mean_episode_return": -101.82082,
+            "mean_reward": -3.1819003, "mean_value": -0.12771964, "pg_loss":
+            -0.023924114, "v_loss": 543.9121}],
     },
 }

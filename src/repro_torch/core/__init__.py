@@ -1,7 +1,7 @@
 """The datacenter digital twin on tensors: trace replay, rescheduling,
-the power/cooling/carbon chain and the rack thermal twin, for one
-datacenter or a fleet of replicas (faults and serving arrive with their
-slices)."""
+the power/cooling/carbon chain and the rack thermal twin, tick by tick or
+macro-stepped, for one datacenter or a fleet of replicas (faults and
+serving arrive with their slices)."""
 
 from repro_torch.core.fleet import (
     fleet_summary,
@@ -22,7 +22,9 @@ from repro_torch.core.schedulers import SCHEDULERS, SELECT_IDS
 from repro_torch.core.sim import (
     StepOut,
     TelemetrySummary,
+    make_macro_step,
     make_step,
+    quiet_horizon,
     run_episode,
     summary,
     summary_columns,

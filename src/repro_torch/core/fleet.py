@@ -11,12 +11,17 @@ and runs ``run_episode`` on the batched state: every field carries a
 leading replica axis E, the step's reductions run per replica, and each
 of the tick's kernels takes E as its grid, so the host issues one tick's
 launches for all R replicas. This is the JAX package's vmapped
-``run_fleet``; its device-sharded path (``mesh=``), snapshots and
-macro-stepping arrive with later slices.
+``run_fleet``; its device-sharded path (``mesh=``) and snapshots arrive
+with later slices. With ``macro=True`` the replicas macro-step in
+lockstep (``sim.make_macro_step``): each macro step runs an event tick
+on every replica with ticks left, then fast ticks under a per-replica
+mask, so replicas sit at different times and each keeps its own
+segments, as under the JAX package's ``vmap``.
 
 Nothing here reads a tensor on the host once the inputs are on the card:
 the keys are derived on the state's device, and the host data (policy
-ids, workload ids, scenarios) go there by asynchronous copies.
+ids, workload ids, scenarios) go there by asynchronous copies. (The
+macro engine's counted reads are its own: ``utils.device.host_read``.)
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ import torch
 from repro_torch.configs.sim import SimConfig
 from repro_torch.core.placement import Policy, make_policy, stack_policies
 from repro_torch.core.sim import (
-    MACRO_REFUSAL,
     StepOut,
     TelemetrySummary,
     run_episode,
@@ -158,10 +162,11 @@ def run_fleet(
     ``**kw`` forwards to ``run_episode``/``make_step``: ``summary_only=True``
     returns per-replica ``TelemetrySummary`` with memory independent of
     ``n_steps``, ``telemetry_every=k`` stacks one windowed summary per k
-    steps after the replica axis.
+    steps after the replica axis, and ``macro=True`` macro-steps every
+    replica (its summary is episode-wide or windowed).
 
-    ``mesh``, the snapshot arguments and ``macro=True`` arrive with the
-    multi-GPU, durable and macro-stepping slices and raise here.
+    ``mesh`` and the snapshot arguments arrive with the multi-GPU and
+    durable slices and raise here.
 
     Returns (final_states, outs) with a leading replica axis on every leaf.
     """
@@ -169,7 +174,7 @@ def run_fleet(
         cfg, statics, state, scheduler, scenarios=scenarios,
         policies=policies, workloads=workloads, mesh=mesh,
         snapshot_every_s=snapshot_every_s, snapshot_dir=snapshot_dir,
-        resume_from=resume_from, macro=kw.get("macro", False))
+        resume_from=resume_from)
     return run_episode(cfg, fleet_statics, state, n_steps, who, **kw)
 
 
@@ -186,12 +191,12 @@ def prepare_fleet(
     snapshot_every_s: float | None = None,
     snapshot_dir: str | None = None,
     resume_from: str | None = None,
-    macro: bool = False,
 ) -> Tuple[Statics, SimState, str | Policy]:
     """``run_fleet``'s checks and set-up without the ticks: (the statics
     with the batched scenario on the state's device, the batched state
     with its keys and workload ids, the scheduler name or batched Policy),
-    ready for ``run_episode`` or ``make_step``."""
+    ready for ``run_episode``, ``make_step`` or ``make_macro_step`` (the
+    set-up is the same for both engines)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the device-sharded fleet arrives with the multi-GPU "
@@ -201,8 +206,6 @@ def prepare_fleet(
         raise NotImplementedError(
             "snapshot/resume of a fleet arrives with the durable slice "
             "(ROADMAP queue 1, item 9)")
-    if macro:
-        raise NotImplementedError(MACRO_REFUSAL)
     if policies is not None and scheduler is not None:
         raise ConfigError(
             f"both scheduler={scheduler!r} and policies= given — policies "

@@ -33,9 +33,18 @@ card) last in the tick.
 
 The step never reads a tensor on the host (no ``.item()``, no Python
 branch on a tensor value), so on the card the ticks queue work without a
-single sync. This slice runs with the fault and serving models off and
-per-tick stepping; their flags raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+single sync. The fault and serving models are off; their flags raise
+``NotImplementedError`` naming the ROADMAP slice that brings them.
+
+Macro-stepping (``make_macro_step``, ``run_episode(macro=True)``) runs
+one full event tick, then fast-forwards the quiet ticks after it: ticks
+that change no machine state, so only time, work left, the accumulators
+and (with thermals) the racks move. A fast tick runs the grid signals,
+``power_tick`` and the step's own tail on the frozen segment, so it
+gives the per-tick path's numbers. How far to go depends on the data:
+the host reads it through ``utils.device.host_read``, once after the
+event tick and once per chunk of ``chunk_ticks`` fast ticks; no other
+read is made.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.sim import SimConfig
 from repro_torch.core import placement as plc
@@ -61,15 +71,10 @@ from repro_torch.core.state import (
     Statics,
     check_slice,
 )
-from repro_torch.scenarios.events import power_cap_at
+from repro_torch.scenarios.events import next_cap_event, power_cap_at
 from repro_torch.scenarios.signals import eval_signal
-from repro_torch.utils.device import full, put, take, to_device
+from repro_torch.utils.device import full, host_read, put, take, to_device
 from repro_torch.utils.errors import ConfigError
-
-
-# every entry point that takes ``macro`` refuses it with these words
-MACRO_REFUSAL = ("macro=True: macro-stepping arrives with the macro slice "
-                 "(ROADMAP queue 1, item 5)")
 
 
 class StepOut(NamedTuple):
@@ -488,8 +493,10 @@ def _telem_zero(device: torch.device, lead=()) -> TelemetrySummary:
     return acc._replace(**{f: None for f in _OFF})
 
 
-def _telem_update(acc: TelemetrySummary, out: StepOut) -> TelemetrySummary:
-    # mean_* fields hold running sums until _telem_finalize divides by n
+def _telem_update(acc: TelemetrySummary, out: StepOut,
+                  macro_inc: float = 1.0) -> TelemetrySummary:
+    # mean_* fields hold running sums until _telem_finalize divides by n;
+    # ``macro_inc`` is 1 for a full (event) tick and 0 for a fast tick
     return acc._replace(
         completed=acc.completed + out.completed_now,
         energy_kwh=acc.energy_kwh + out.energy_kwh_step,
@@ -513,7 +520,7 @@ def _telem_update(acc: TelemetrySummary, out: StepOut) -> TelemetrySummary:
         max_queue_len=torch.maximum(acc.max_queue_len, out.queue_len),
         max_rack_c=torch.maximum(acc.max_rack_c, out.rack_max_c),
         n_steps=acc.n_steps + 1.0,
-        macro_steps=acc.macro_steps + 1.0,   # every tick is a full step
+        macro_steps=acc.macro_steps + macro_inc,
     )
 
 
@@ -538,6 +545,359 @@ def _stack(items: List[NamedTuple], dim: int = 0):
         None if v is None else torch.stack([getattr(it, f) for it in items],
                                            dim)
         for f, v in zip(first._fields, first)))
+
+
+# ---------------------------------------------------------------------------
+# Macro-stepping: fast-forward quiet ticks with exact segment accounting.
+#
+# A tick is QUIET when advancing it changes no machine state: no queued job
+# becomes newly visible or eligible to selection, no running job completes,
+# no node returns from repair, no cap-schedule breakpoint is crossed, and
+# the last dispatch attempt proved the current queue unservable. Across a
+# quiet segment the running set, placement, free pool and congestion rate
+# are constant; only time, work left, the accumulators and the racks move.
+# A fast tick re-runs the grid signals, ``power_tick`` and the step's tail
+# on the frozen segment and skips completions, dispatch and the telemetry
+# counts.
+
+_BIG_T = float("inf")
+
+# SimState fields a fast tick may change; every other keeps its
+# segment-start value, so the commit touches only these
+_FAST_FIELDS = (
+    "t", "work_left", "energy_kwh", "it_energy_kwh", "loss_energy_kwh",
+    "cool_energy_kwh", "carbon_kg", "elec_cost_usd", "flops_integral",
+    "sum_power_w", "n_steps",
+)
+
+# how many event and fast ticks the macro engine issued (host counts: a
+# fast tick is issued for every replica, and commits only where its mask
+# is open), like ``kernels.LAUNCHES``
+MACRO_TICKS: dict[str, int] = {"event": 0, "fast": 0}
+# the profiler range each kind of tick runs in, so the tick tools
+# (``tools/profile_tick.py``, ``tools/tick_ops.py``) count them apart
+TICK_RANGES = {"event": "macro::event tick", "fast": "macro::fast tick"}
+
+
+def reset_macro_ticks() -> None:
+    for k in MACRO_TICKS:
+        MACRO_TICKS[k] = 0
+
+
+def _fast_fields(cfg: SimConfig) -> tuple:
+    """Fast-tick-mutable SimState fields for this config: the thermal
+    carry joins when the cooling loop is on. (The serving fields join
+    with the serving slice, which ``check_slice`` refuses.)"""
+    if cfg.thermal_enabled:
+        return _FAST_FIELDS + ("rack_outlet_c", "thermal_throttle_s",
+                               "peak_rack_c")
+    return _FAST_FIELDS
+
+
+def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
+                   rate: torch.Tensor | None, dispatch_on: bool,
+                   replay_gated: bool, eligibility_vis: bool,
+                   max_ticks: int):
+    """(next_event_t, visible_now, k_time, k_complete), one each per
+    replica: the earliest deterministic breakpoint strictly after
+    ``state.t``, whether a dispatch-visible queued job exists now, and the
+    conservative quiet-tick counts from time events and from completions
+    (``None`` without ``rate``). The fault and serving breakpoints join
+    with their slices, which ``check_slice`` refuses."""
+    t = state.t
+    tt = t[..., None]
+    dev = t.device
+    q = state.jstate == QUEUED
+    # arrivals: the queued count (telemetry and reward) changes when a
+    # submit time is crossed; selection visibility changes with it
+    next_t = torch.amin(torch.where(q & (state.submit_t > tt),
+                                    state.submit_t, _BIG_T), -1)
+    visible_now = torch.zeros(t.shape, dtype=torch.bool, device=dev)
+    if dispatch_on:
+        vis_t = state.submit_t
+        if eligibility_vis:
+            # eager replay: a queued job is only dispatchable once both
+            # its submit and its recorded start (priority) are crossed
+            vis_t = torch.maximum(state.submit_t, state.priority)
+        visible_now = torch.any(q & (vis_t <= tt), -1)
+    if dispatch_on and replay_gated:
+        # replay eligibility: a queued job becomes dispatchable when its
+        # recorded start (carried in ``priority``) is crossed
+        next_t = torch.minimum(next_t, torch.amin(torch.where(
+            q & (state.priority > tt), state.priority, _BIG_T), -1))
+    # node repairs return capacity at recorded times
+    next_t = torch.minimum(next_t, torch.amin(torch.where(
+        state.node_up < 0.5, state.repair_t, _BIG_T), -1))
+    # demand-response cap windows open and close at schedule breakpoints
+    next_t = torch.minimum(next_t,
+                           next_cap_event(statics.scenario.power_cap, t))
+
+    kf = float(max_ticks)
+    # true divisions by the tick length (a device tensor divisor)
+    dt = full(cfg.dt, torch.float32, dev)
+    k_time = torch.where(torch.isfinite(next_t),
+                         torch.floor((next_t - t) / dt - 1e-6), kf)
+    k_time = torch.clamp(k_time, 0.0, kf).to(torch.int32)
+    if rate is None:
+        return next_t, visible_now, k_time, None
+    # completions: per-tick progress never exceeds rate * dt (throttle <=
+    # 1), so floor(work / (rate * dt)) - 1 ticks can never cross zero
+    ticks_c = torch.where(
+        state.jstate == RUNNING,
+        torch.floor(state.work_left / (torch.clamp(rate, min=1e-9) * dt))
+        - 1.0, kf)
+    k_complete = torch.clamp(torch.amin(ticks_c, -1), 0.0, kf)
+    return next_t, visible_now, k_time, k_complete.to(torch.int32)
+
+
+def _modes(scheduler) -> Tuple[bool, bool, bool]:
+    """(dispatch_on, replay_gated, eligibility_vis) of a scheduler."""
+    policy_mode = isinstance(scheduler, Policy)
+    return (policy_mode or scheduler != "none",
+            policy_mode or scheduler == "replay",
+            (not policy_mode) and scheduler == "replay")
+
+
+def quiet_horizon(
+    cfg: SimConfig,
+    statics: Statics,
+    state: SimState,
+    scheduler: str | Policy = "fcfs",
+    *,
+    max_ticks: int = 4096,
+    assume_undispatchable: bool | torch.Tensor = False,
+) -> torch.Tensor:
+    """Ticks after ``state.t`` guaranteed quiet (int32 >= 0, one per
+    replica): the min over the next arrival, the next replay-eligibility
+    crossing, the next completion (conservative: full-rate progress less
+    one tick of float margin), the next node repair and the next
+    cap-schedule breakpoint, clamped to ``max_ticks``.
+
+    A visible queued job forces 0 (selection might start one any tick)
+    unless ``assume_undispatchable``: the caller has just run a dispatch
+    tick that started nothing, which proves the visible queue unservable
+    for a frozen machine state. With ``cfg.thermal_enabled`` and dispatch
+    on, ``thermal.thermal_crossing_horizon`` joins the min (the trip gate
+    makes dispatch depend on rack temperatures)."""
+    check_slice(cfg)
+    dispatch_on, replay_gated, eligibility_vis = _modes(scheduler)
+    rate, _ = congestion_slowdown(cfg, state, statics)
+    _, visible_now, k_time, k_complete = _horizon_parts(
+        cfg, state, statics, rate, dispatch_on, replay_gated,
+        eligibility_vis, max_ticks)
+    blocked = visible_now & ~torch.as_tensor(assume_undispatchable,
+                                             device=state.t.device)
+    horizon = torch.where(blocked, 0, torch.minimum(k_time, k_complete))
+    if cfg.thermal_enabled and dispatch_on:
+        horizon = torch.minimum(horizon, thm.thermal_crossing_horizon(
+            cfg, statics, state, max_ticks))
+    return horizon.to(torch.int32)
+
+
+def _where_leaf(pred: torch.Tensor, old: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """``old`` where ``pred`` (one per replica), else ``new``."""
+    return torch.where(pred.reshape(pred.shape + (1,) * (old.dim()
+                                                         - pred.dim())),
+                       old, new)
+
+
+def _where_tree(pred: torch.Tensor, old, new):
+    """``_where_leaf`` over a NamedTuple or dict of tensors (``None``
+    leaves stay ``None``)."""
+    if isinstance(old, dict):
+        return {k: _where_tree(pred, v, new[k]) for k, v in old.items()}
+    if old is None:
+        return None
+    if isinstance(old, torch.Tensor):
+        return _where_leaf(pred, old, new)
+    return type(old)(*(_where_tree(pred, a, b) for a, b in zip(old, new)))
+
+
+def make_macro_step(
+    cfg: SimConfig,
+    statics: Statics,
+    scheduler: str | Policy = "fcfs",
+    *,
+    placement: str | None = None,
+    starts_per_step: int = 2,
+    reward_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 0.05),
+    horizon_cap: int = 4096,
+    chunk_ticks: int = 16,
+    update=None,
+):
+    """Returns ``macro_step(state, acc, max_ticks) -> (state, acc, ticks)``:
+    one full event tick (``make_step``'s, with action -1), then the quiet
+    segment after it fast-forwarded, never past ``max_ticks`` ticks (an
+    int, or one per replica); ``ticks`` (int32, one per replica) counts
+    both. ``macro_step.run(state, acc, n)`` drives macro steps until every
+    replica has taken ``n`` ticks, and returns (state, acc).
+
+    For one state or a fleet's, in lockstep: each macro step runs the
+    event tick on every replica that has ticks left (masked for the
+    rest), then fast ticks under a per-replica ``go`` mask, which closes
+    where that replica's segment ends. The host reads, through
+    ``utils.device.host_read``, the largest budget and the ticks left
+    after the event tick, then issues fast ticks in chunks of
+    ``chunk_ticks``, reading after each whether any replica goes on: at
+    most 1 + ceil(segment / chunk_ticks) reads a macro step. Ticks issued
+    after a replica stopped change nothing of it.
+
+    A fast tick evaluates the grid signals at its time, runs
+    ``power_tick`` and the step's tail with the segment's rate, network
+    load and telemetry counts, and commits only the fast fields, where
+    its replica goes on. It stops (uncommitted) where a running job has
+    finished or the next event time is reached; with thermals and
+    dispatch on, the segment also ends on the tick a rack crosses the
+    trip, and its budget is capped by ``thermal_crossing_horizon``. Job
+    and queue state equal the per-tick path's, and so do the
+    accumulators: a fast tick runs the same ``power_tick`` and tail.
+
+    ``update(acc, out, macro_inc)`` folds each tick's ``StepOut`` into the
+    caller's accumulator (default: the ``TelemetrySummary`` update;
+    ``SchedEnv`` passes its info reducer); ``macro_inc`` is 1.0 for the
+    event tick and 0.0 for fast ticks."""
+    step = make_step(cfg, statics, scheduler, placement=placement,
+                     starts_per_step=starts_per_step,
+                     reward_weights=reward_weights)
+    tail = _make_tail(cfg, statics, reward_weights)
+    power_statics = tick_statics(cfg, statics)
+    dispatch_on, replay_gated, eligibility_vis = _modes(scheduler)
+    # the trip gate makes dispatch depend on rack temperatures, which keep
+    # moving across fast ticks: a segment ends on the tick a rack crosses
+    # the trip (either way). Stopping after the crossing tick is exact: a
+    # tick's dispatch reads the temperatures its predecessor committed.
+    # Without dispatch nothing reads the trip.
+    thermal_gate = cfg.thermal_enabled and dispatch_on
+    trip_c = cfg.thermal_trip_c
+    fast_fields = _fast_fields(cfg)
+    chunk = max(int(chunk_ticks), 1)
+    dev = statics.capacity.device
+    action = full(-1, torch.int64, dev)
+    if update is None:
+        update = _telem_update
+
+    def event(state, acc, left, active):
+        """The event tick and the segment's constants: (state, acc, left
+        after the tick, budget, frozen inputs of the fast ticks)."""
+        was_queued = state.jstate == QUEUED
+        new, out = step(state, action)
+        new_acc = update(acc, out, 1.0)
+        MACRO_TICKS["event"] += 1
+        if active is None:
+            state, acc, left = new, new_acc, left - 1
+        else:
+            state = _where_tree(~active, state, new)
+            acc = _where_tree(~active, acc, new_acc)
+            left = left - active.to(torch.int32)
+        started = torch.any(was_queued & (state.jstate == RUNNING), -1)
+        # the segment's frozen inputs: the event tick's own telemetry
+        # counts and network load (its tail moved none of their inputs)
+        # and the pre-throttle progress rate
+        rate, _ = congestion_slowdown(cfg, state, statics)
+        next_t, visible_now, k_time, _ = _horizon_parts(
+            cfg, state, statics, None, dispatch_on, replay_gated,
+            eligibility_vis, horizon_cap)
+        # dispatch gate: a start with jobs still visible may have made the
+        # leftovers servable, so step on per tick; a start that drained
+        # the queue, or no start with a visible queue (proven unservable),
+        # both allow fast-forward. Completions are peeked per fast tick,
+        # so the budget carries only the time events (and the thermal
+        # horizon) and the ticks left (``left`` counts this event tick).
+        k_quiet = torch.minimum(k_time, left)
+        if thermal_gate:
+            k_quiet = torch.minimum(k_quiet, thm.thermal_crossing_horizon(
+                cfg, statics, state, horizon_cap))
+        budget = torch.where(started & visible_now, 0, k_quiet)
+        if active is not None:
+            budget = torch.where(active, budget, 0)
+        budget = torch.clamp(budget, min=0)
+        zero_done = torch.zeros(state.t.shape, dtype=torch.int32, device=dev)
+        seg = (rate, out.net_load, out.queue_len, out.running, out.util,
+               next_t, budget, zero_done)
+        return state, acc, left, budget, seg
+
+    def fast(state, acc, seg, go, took):
+        """One fast tick, committed where ``go`` and no stop is peeked."""
+        rate, net_load, queued, running, util, next_t, budget, zero = seg
+        t_next = state.t + cfg.dt
+        # authoritative and side-effect free: a finished job or the next
+        # event time leaves the tick to the next event tick
+        stop = (~go | torch.any((state.jstate == RUNNING)
+                                & (state.work_left <= 0.0), -1)
+                | (t_next >= next_t))
+        sn = state._replace(t=t_next)
+        signals = _grid_signals(statics, t_next)
+        p, cop, idle_total, job_th = power_tick(power_statics, sn,
+                                                signals[3])
+        ns, out = tail(sn, signals, p, cop, idle_total, job_th, rate,
+                       net_load, zero, queued, running, util)
+        MACRO_TICKS["fast"] += 1
+        was_hot = state.rack_outlet_c >= trip_c if thermal_gate else None
+        state = state._replace(**{
+            f: _where_leaf(stop, getattr(state, f), getattr(ns, f))
+            for f in fast_fields})
+        acc = _where_tree(stop, acc, update(acc, out, 0.0))
+        took = took + (~stop).to(torch.int32)
+        go = ~stop & (took < budget)
+        if thermal_gate:       # authoritative trip-crossing breakpoint
+            go = go & ~torch.any((state.rack_outlet_c >= trip_c) != was_hot,
+                                 -1)
+        return state, acc, go, took
+
+    def advance(state, acc, left, active):
+        """One macro step for the replicas with ``left`` > 0 (all of them
+        when ``active`` is None): returns (state, acc, ticks taken, ticks
+        left, and the host's (min, max) of the ticks left)."""
+        with record_function(TICK_RANGES["event"]):
+            state, acc, left, budget, seg = event(state, acc, left, active)
+        ticks = (torch.ones_like(left) if active is None
+                 else active.to(torch.int32))
+        bmax, lo, hi = (int(v) for v in host_read(torch.stack(
+            [torch.amax(budget), torch.amin(left), torch.amax(left)])))
+        if bmax > 0:
+            go = budget > 0
+            took = torch.zeros_like(budget)
+            issued = 0
+            while True:
+                n = min(chunk, bmax - issued)
+                for _ in range(n):
+                    with record_function(TICK_RANGES["fast"]):
+                        state, acc, go, took = fast(state, acc, seg, go,
+                                                    took)
+                issued += n
+                rest = left - took
+                any_go, lo, hi = (int(v) for v in host_read(torch.stack(
+                    [torch.any(go).to(torch.int32), torch.amin(rest),
+                     torch.amax(rest)])))
+                if not any_go or issued >= bmax:
+                    break
+            left, ticks = left - took, ticks + took
+        return state, acc, ticks, left, lo, hi
+
+    def macro_step(state, acc, max_ticks):
+        shape = tuple(state.t.shape)
+        if isinstance(max_ticks, torch.Tensor):
+            left = max_ticks.to(device=dev, dtype=torch.int32).expand(
+                shape).clone()
+        else:
+            left = torch.full(shape, int(max_ticks), dtype=torch.int32,
+                              device=dev)
+        state, acc, ticks, _, _, _ = advance(state, acc, left, None)
+        return state, acc, ticks
+
+    def run(state, acc, n: int):
+        left = torch.full(tuple(state.t.shape), n, dtype=torch.int32,
+                          device=dev)
+        lo = hi = n
+        while hi > 0:
+            # replicas with no ticks left sit out the event tick
+            active = None if lo > 0 else left > 0
+            state, acc, _, left, lo, hi = advance(state, acc, left, active)
+        return state, acc
+
+    macro_step.run = run
+    return macro_step
 
 
 def run_episode(
@@ -569,12 +929,17 @@ def run_episode(
       - ``summary_only=True``: a single episode-wide ``TelemetrySummary``
         accumulated tick by tick — constant memory in ``n_steps``.
 
-    The ticks run on the device of ``state`` and never synchronise with
-    the host. ``macro`` and the snapshot arguments arrive with the macro
-    and durable slices and raise here.
+    ``macro=True`` drives the episode with ``make_macro_step`` (its
+    ``horizon_cap`` and ``chunk_ticks`` pass through ``**kw``): quiet
+    ticks are fast-forwarded. Ticks can no longer be stacked one by one,
+    so telemetry is episode-wide (``summary_only`` is implied) or windowed
+    by ``telemetry_every``, whose window edges clamp the fast-forward, so
+    windows stay tick-aligned with the per-tick path.
+
+    The per-tick ticks never synchronise with the host; the macro engine
+    reads how far to go through ``utils.device.host_read`` alone. The
+    snapshot arguments arrive with the durable slice and raise here.
     """
-    if macro:
-        raise NotImplementedError(MACRO_REFUSAL)
     if snapshot_every_s is not None or resume_from is not None \
             or snapshot_dir is not None:
         raise NotImplementedError(
@@ -588,9 +953,19 @@ def run_episode(
         raise ConfigError(
             f"n_steps={n_steps} not divisible by "
             f"telemetry_every={telemetry_every}")
-    step = make_step(cfg, statics, scheduler, **kw)
     dev = state.t.device
     lead = tuple(state.t.shape)
+    if macro:
+        run = make_macro_step(cfg, statics, scheduler, **kw).run
+        if telemetry_every <= 1:
+            state, acc = run(state, _telem_zero(dev, lead), n_steps)
+            return state, _telem_finalize(acc)
+        windows = []
+        for _ in range(n_steps // telemetry_every):
+            state, acc = run(state, _telem_zero(dev, lead), telemetry_every)
+            windows.append(_telem_finalize(acc))
+        return state, _stack(windows, len(lead))
+    step = make_step(cfg, statics, scheduler, **kw)
     action = full(-1, torch.int64, dev)
 
     if summary_only:

@@ -17,8 +17,8 @@ The tick's thermal tail is ``rack_tick``: one launch of the
 ``rack_thermal`` kernel's fused entry over the racks' static CSR (its
 plain version on the CPU). ``rack_thermal_update`` runs the kernel's
 plain-signature entry the same way; the device decides. Nothing here
-reads a tensor on the host. ``thermal_crossing_horizon`` arrives with the
-macro-stepping slice.
+reads a tensor on the host. ``thermal_crossing_horizon`` bounds the ticks
+before any rack can cross the trip, for the macro-stepping engine.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ import torch
 from repro_torch.configs.sim import SimConfig
 from repro_torch.kernels import rack_thermal as prt
 from repro_torch.kernels.throttle import Throttle, throttle_curve
+from repro_torch.scenarios.signals import signal_bounds
+from repro_torch.utils.device import full
 
 if TYPE_CHECKING:  # type hints only: state.py imports supply_temp
     from repro_torch.core.state import SimState, Statics
@@ -146,3 +148,38 @@ def rack_tick(rs: prt.RackStatics, state: "SimState",
         thermal_throttle_s=state.thermal_throttle_s + th_step,
         peak_rack_c=peak)
     return state, th_step, rack_max
+
+
+def thermal_crossing_horizon(cfg: SimConfig, statics: "Statics",
+                             state: "SimState",
+                             max_ticks: int) -> torch.Tensor:
+    """Conservative tick count free of dispatch-trip crossings, int32, one
+    per replica.
+
+    The RC update is a contraction: every rack temperature stays inside
+    the box [min(T, ss_lo), max(T, ss_hi)] spanned by its current value
+    and the extreme steady states (the wetbulb's ``signal_bounds`` x zero
+    to nameplate heat through the worst-case chain: load clip 1.2,
+    rectifier efficiency floor 0.5), and moves at most ``alpha * width``
+    a tick. A rack whose trip lies outside its box never crosses;
+    otherwise it needs at least ``distance / (alpha * width)`` ticks, less
+    a margin for float drift. Divisions by a config number divide by a
+    device tensor, so they are true divisions on every device."""
+    dev = state.rack_outlet_c.device
+    kf = float(max_ticks)
+    wb_lo, wb_hi = signal_bounds(statics.scenario.wetbulb)
+    sup_lo = supply_temp(cfg, wb_lo)[..., None]
+    sup_hi = supply_temp(cfg, wb_hi)[..., None]
+    heat_hi = statics.rack_cap_w * 1.2 / full(0.5 * cfg.conv_eff,
+                                              torch.float32, dev)
+    ss_hi = sup_hi + heat_hi * statics.rack_r_th                 # (..., R)
+    T = state.rack_outlet_c
+    lo = torch.minimum(T, sup_lo)
+    hi = torch.maximum(T, ss_hi)
+    width = torch.clamp(hi - lo, min=1e-6)
+    trip = cfg.thermal_trip_c
+    reachable = (trip >= lo) & (trip <= hi)
+    ticks = torch.floor(torch.abs(T - trip) / (thermal_alpha(cfg) * width)
+                        - 1e-3)
+    ticks = torch.where(reachable, ticks, kf)
+    return torch.clamp(torch.amin(ticks, -1), 0.0, kf).to(torch.int32)

@@ -19,13 +19,18 @@ and each environment reads its workload through ``sim.workload``. A step
 runs ONE ``"rl"`` sub-step (the agent's action) and then
 ``sim_steps_per_action - 1`` steps of ``make_step(..., "none")``.
 
+With ``macro=True`` (the default, as in the JAX package) the idle
+sub-steps are one macro advance instead (``core.sim.make_macro_step``
+with ``"none"``, clamped to the decision boundary): event ticks run in
+full, quiet ticks are fast-forwarded, and the result equals the per-tick
+idle path (``macro=False``, the oracle).
+
 ``EnvState.host_steps`` is the host's own copy of the step counters
 (numpy, or ``None`` when unknown): ``reset`` and ``step`` keep it without
 reading the device, so a rollout knows which environments are done
-without a host sync. Nothing here reads a tensor on the host.
-
-Macro-stepping (``macro=True``, the JAX package's default) arrives with
-the macro slice and raises here; pass ``macro=False``.
+without a host sync. With ``macro=False`` nothing here reads a tensor on
+the host; the macro advance reads how far to go through
+``utils.device.host_read``, its only reads.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from repro_torch.configs.sim import SimConfig
 from repro_torch.core import placement as plc
 from repro_torch.core import schedulers as sched
 from repro_torch.core import thermal
-from repro_torch.core.sim import MACRO_REFUSAL, make_step
+from repro_torch.core.sim import make_macro_step, make_step
 from repro_torch.core.state import (
     QUEUED,
     RUNNING,
@@ -123,8 +128,6 @@ class SchedEnv:
         self.reward_weights = tuple(reward_weights)
         if placement not in plc.PLACEMENTS:
             raise KeyError(f"unknown placement {placement}")
-        if macro:
-            raise NotImplementedError(MACRO_REFUSAL)
         self.placement = placement
         dev = resolve_device(device)
         self.device = dev
@@ -152,6 +155,13 @@ class SchedEnv:
                                   reward_weights=reward_weights)
         self._step_idle = make_step(cfg, self._statics, "none",
                                     reward_weights=reward_weights)
+        # macro idle advance: one event-driven fast-forward between agent
+        # decisions instead of the per-tick idle sub-steps
+        self.macro = macro
+        self._macro_idle = make_macro_step(
+            cfg, self._statics, "none", reward_weights=reward_weights,
+            update=lambda acc, out, _inc: self._acc_of(acc, out),
+        ) if macro else None
 
         # observation invariants (constant per env instance)
         st = self._statics
@@ -232,18 +242,23 @@ class SchedEnv:
                Dict[str, torch.Tensor]]:
         """One agent decision: the ``"rl"`` sub-step dispatches ``action``
         (an int, or an integer tensor of the env shape), then
-        ``sim_steps_per_action - 1`` idle sub-steps advance the twin.
-        Returns (state, obs, reward, done, info)."""
+        ``sim_steps_per_action - 1`` idle sub-steps advance the twin (one
+        macro advance with ``macro``). Returns (state, obs, reward, done,
+        info)."""
         sim, out = self._step_rl(st.sim, action)
         lead = tuple(st.step_count.shape)
         z = torch.zeros(lead, dtype=torch.float32, device=self.device)
         acc = self._acc_of({"reward": z, "completed": z, "energy_kwh": z,
                             "carbon_kg": z, "facility_w": z,
                             "queue_len": z}, out)
-        idle = full(-1, torch.int64, self.device)
-        for _ in range(self.sim_steps_per_action - 1):
-            sim, out = self._step_idle(sim, idle)
-            acc = self._acc_of(acc, out)
+        n_idle = self.sim_steps_per_action - 1
+        if self.macro and n_idle > 0:
+            sim, acc = self._macro_idle.run(sim, acc, n_idle)
+        else:
+            idle = full(-1, torch.int64, self.device)
+            for _ in range(n_idle):
+                sim, out = self._step_idle(sim, idle)
+                acc = self._acc_of(acc, out)
         host = None if st.host_steps is None else st.host_steps + 1
         st = EnvState(sim=sim, step_count=st.step_count + 1, host_steps=host)
         done = st.step_count >= self.episode_steps

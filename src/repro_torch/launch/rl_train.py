@@ -2,15 +2,21 @@
 build the TX-GAIA (or tiny) twin, wrap it in the batched ``SchedEnv``,
 train PPO, write the reward history and a power trace under the learned
 policy. The same flags as the JAX package's ``repro.launch.rl_train``,
-plus ``--device`` (default: the CUDA card). The environment steps tick
-by tick (``macro=False``).
+plus ``--device`` (default: the CUDA card). The environment is built as
+the JAX package builds it, macro-stepping its idle ticks (``SchedEnv``'s
+default ``macro=True``). On the card that default is, for now, slower
+than ``macro=False``: the environments step in lockstep, so a decision
+issues ~20 ticks instead of 15, and a fast tick launches about as many
+kernels as an idle tick. On an NVIDIA H100 80GB HBM3 at 700 W
+(``chip_smoke.py``, phases ``rl`` and ``macro``) an env step of 8
+environments ran 7,532 CUDA kernels against 6,225, and 512 environments
+took 4,524-4,949 decisions/s against 5,171-6,643 (``PERF.md`` §6).
 
   PYTHONPATH=src python -m repro_torch.launch.rl_train --cluster tx-gaia \\
       --iterations 3 [--device cpu] [--out experiments/rl]
 
-``--macro``, ``--ckpt`` / ``--resume`` and ``--mesh`` refuse: macro-
-stepping, checkpointing and sharded training arrive with ROADMAP queue 1,
-items 5, 9 and 10.
+``--ckpt`` / ``--resume`` and ``--mesh`` refuse: checkpointing and sharded
+training arrive with ROADMAP queue 1, items 9 and 10.
 """
 
 from __future__ import annotations
@@ -23,7 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.sim import tiny_cluster, tx_gaia
-from repro_torch.core.sim import MACRO_REFUSAL
 from repro_torch.data import synth_workload
 from repro_torch.envs import SchedEnv
 from repro_torch.rl import ActorCritic, PPOConfig, ppo_train
@@ -45,14 +50,11 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--macro", action="store_true")
     ap.add_argument("--mesh", type=int, default=0,
                     help="devices to shard the environments over")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card")
     args = ap.parse_args(argv)
-    if args.macro:
-        raise NotImplementedError(MACRO_REFUSAL)
     if args.mesh:
         raise NotImplementedError(
             "--mesh: distributed PPO arrives with the multi-GPU slice "
@@ -68,7 +70,7 @@ def main(argv=None):
         for s in range(args.n_workloads)
     ]
     env = SchedEnv(cfg, wls, episode_steps=args.episode_steps,
-                   sim_steps_per_action=15, macro=False, device=args.device)
+                   sim_steps_per_action=15, device=args.device)
     print(f"cluster={cfg.name} nodes={cfg.n_nodes} obs={env.obs_dim} "
           f"actions={env.n_actions} device={env.device}")
 

@@ -25,5 +25,9 @@ from repro_torch.scenarios.signals import (
     constant,
     eval_signal,
     from_trace,
+    integrate_signal,
+    mean_signal,
+    signal_bounds,
     sinusoid,
+    to_trace,
 )

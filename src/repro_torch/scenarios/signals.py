@@ -10,8 +10,10 @@ edge-held outside the sampled range). ``use_trace`` selects the family;
 never reads a tensor on the host.
 
 The builders make CPU tensors; ``core.state.build_statics`` moves the
-scenario to the simulation's device. ``integrate_signal`` and
-``signal_bounds`` arrive with the macro-stepping slice.
+scenario to the simulation's device. ``signal_bounds`` bounds a signal
+over all time (the macro-stepping engine's thermal horizon reads it);
+``integrate_signal`` and ``mean_signal`` are its exact window integrals,
+and ``to_trace`` samples any signal onto a uniform grid.
 """
 
 from __future__ import annotations
@@ -125,3 +127,90 @@ def eval_signal(sig: Signal, t: torch.Tensor) -> torch.Tensor:
              + take(values, i0 + 1) * frac)
 
     return torch.where(sig.use_trace > 0.5, trace, para)
+
+
+def _sin_antideriv(amp, w, phase, t: torch.Tensor) -> torch.Tensor:
+    """Antiderivative of ``amp * sin(w t + phase)`` at ``t``."""
+    return -amp * torch.cos(w * t + phase) / torch.clamp(w, min=1e-12)
+
+
+def _trace_antideriv(sig: Signal, t: torch.Tensor) -> torch.Tensor:
+    """Antiderivative (w.r.t. ``sig.t0``) of the edge-held piecewise-linear
+    trace interpolant at ``t``: a prefix sum of trapezoids."""
+    v = sig.values
+    T = v.shape[-1]
+    dt = torch.clamp(sig.dt, min=1e-6)
+    # cumulative trapezoid areas up to each sample (in units of dt)
+    csum = torch.cat([torch.zeros_like(v[..., :1]),
+                      torch.cumsum(0.5 * (v[..., :-1] + v[..., 1:]), -1)], -1)
+    u = (t - sig.t0) / dt
+    uc = torch.clamp(u, 0.0, float(T - 1))
+    i0 = torch.clamp(torch.floor(uc), 0.0, float(T - 2)).to(torch.int32)
+    frac = uc - i0.to(torch.float32)
+    if v.dim() != i0.dim() + 1:          # one trace for every replica
+        v = v.expand(i0.shape + (T,))
+        csum = csum.expand(i0.shape + (T,))
+    v0, v1 = take(v, i0), take(v, i0 + 1)
+    seg = v0 * frac + 0.5 * (v1 - v0) * frac * frac
+    inside = dt * (take(csum, i0) + seg)
+    # edge-hold tails: v[0] before the sampled range, v[-1] after it
+    before = v[..., 0] * torch.clamp(t - sig.t0, max=0.0)
+    after = v[..., -1] * torch.clamp(u - float(T - 1), min=0.0) * dt
+    return inside + before + after
+
+
+def integrate_signal(sig: Signal, t0, t1) -> torch.Tensor:
+    """Exact ``integral of sig(t) dt`` over [t0, t1]: closed form for the
+    parametric family (sums of sines), prefix-sum trapezoids for the trace
+    family (its interpolant is piecewise linear with edge-hold). ``t1 <
+    t0`` gives the negated integral. The macro-stepping engine evaluates
+    signals on the tick grid instead; this is the continuous reference
+    for validation and window statistics."""
+    dev = sig.mean.device
+    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    w = 2.0 * math.pi / torch.clamp(sig.period_s, min=1e-6)
+
+    def para_f(t):
+        total = sig.mean * t + _sin_antideriv(sig.amp, w, sig.phase, t)
+        scale = sig.noise_amp / 2.0       # sqrt(len(_NOISE_HARMONICS))
+        for i, h in enumerate(_NOISE_HARMONICS):
+            ph = sig.noise_seed * (1.0 + i) * 2.39996
+            total = total + _sin_antideriv(scale, w * h, ph, t)
+        return total
+
+    para = para_f(t1) - para_f(t0)
+    trace = _trace_antideriv(sig, t1) - _trace_antideriv(sig, t0)
+    return torch.where(sig.use_trace > 0.5, trace, para)
+
+
+def mean_signal(sig: Signal, t0, t1) -> torch.Tensor:
+    """Exact time-average of ``sig`` over [t0, t1] (the point value for a
+    window of zero width)."""
+    dev = sig.mean.device
+    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    span = t1 - t0
+    avg = integrate_signal(sig, t0, t1) / torch.where(span == 0.0, 1.0, span)
+    return torch.where(span == 0.0, eval_signal(sig, t0), avg)
+
+
+def signal_bounds(sig: Signal) -> tuple[torch.Tensor, torch.Tensor]:
+    """Conservative (lo, hi) envelope of ``sig`` over all time: parametric
+    ``mean -+ (|amp| + |noise_amp| * 2)`` (four unit sines over sqrt(4)
+    bound the noise by 2); trace the samples' min and max (the edge-held
+    linear interpolant never leaves their hull). Each (E,) for a batched
+    signal."""
+    swing = torch.abs(sig.amp) + torch.abs(sig.noise_amp) * 2.0
+    tr = sig.use_trace > 0.5
+    return (torch.where(tr, torch.amin(sig.values, -1), sig.mean - swing),
+            torch.where(tr, torch.amax(sig.values, -1), sig.mean + swing))
+
+
+def to_trace(sig: Signal, horizon_s: float, dt: float) -> Signal:
+    """Sample one (unbatched) signal onto a uniform grid of spacing ``dt``
+    over [0, ``horizon_s``], as a trace signal on the CPU."""
+    n = max(int(np.ceil(horizon_s / dt)) + 1, 2)
+    ts = torch.arange(n, dtype=torch.float32, device=sig.mean.device) * dt
+    vals = eval_signal(sig, ts)
+    return from_trace(vals.cpu().numpy(), dt, 0.0)

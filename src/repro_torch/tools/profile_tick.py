@@ -4,6 +4,8 @@
         [--case replay_tx_gaia_1h_thermal] [--ticks 100] [--replicas 72]
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
         --case rl_tx_gaia [--replicas 8] [--decisions 4]
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_tick --macro \
+        [--case replay_tx_gaia_1h] [--ticks 600] [--replicas 72]
 
 Runs an acceptance case (``configs/acceptance.py``; default
 ``replay_tx_gaia_1h``) on the card up to tick ``--start`` (so jobs are
@@ -27,12 +29,22 @@ update and the rest of the rollout), counted as the CUDA launch calls
 inside each stage's ``record_function`` range. A stage is a function the
 iteration calls; an operation counts for the outermost stage running.
 ``--decisions N`` profiles N decisions of the rollout alone instead.
+
+``--macro`` macro-steps instead (``core.sim.make_macro_step``; the RL
+env with ``macro=True``). For a replay case it runs ``--ticks``
+simulated ticks after ``--start`` through the macro engine
+(``profile_macro``) and reports host ms per simulated tick, the event
+and fast ticks issued, the host reads per macro step, and the CUDA
+launch calls per event tick and per fast tick (inside each kind's
+``record_function`` range; the rest, per macro step, is the loop's own:
+the reads' reductions).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import sys
 import time
@@ -47,11 +59,16 @@ def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
 
     from repro_torch import kernels as port_kernels
 
+    from repro_torch.core import sim
+
     # the CUDA-side events, less the ranges ``record_function`` marks on
-    # the device's timeline
+    # the device's timeline (the tools' stages, the macro engine's ticks;
+    # a tree from before the macro engine has none of the latter)
+    marks = tuple(getattr(sim, "TICK_RANGES", {}).values())
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(RANGE_PREFIX)]
+               and not e.name.startswith(RANGE_PREFIX)
+               and e.name not in marks]
     # a device event's own time range is the kernel's time on the card
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
@@ -93,18 +110,21 @@ def _advance(step, state, action, n):
     return state
 
 
-def setup_case(case: str, start: int, device=None, replicas: int = 1):
+def setup_case(case: str, start: int, device=None, replicas: int = 1,
+               macro: bool = False):
     """An acceptance case (``configs/acceptance.py``) built on ``device``
     (the card when ``None``) and run to tick ``start``: returns (step,
     state, action). With ``replicas`` > 1, a fleet of that many replicas
     of the case under the fleet grid (``acceptance.fleet_grid`` tiled,
-    set up as ``run_fleet`` does). Shared by the tick tools, so each
-    reads the same tick."""
+    set up as ``run_fleet`` does). With ``macro``, ``step`` is the case's
+    macro step (``make_macro_step``; the state still reaches ``start``
+    tick by tick). Shared by the tick tools, so each reads the same
+    tick."""
     import torch
 
     from repro_torch.configs import acceptance
     from repro_torch.core import build_statics, init_state, load_jobs
-    from repro_torch.core.sim import make_step
+    from repro_torch.core.sim import make_macro_step, make_step
     from repro_torch.utils.device import full
 
     cfg = acceptance.config(case)
@@ -120,16 +140,19 @@ def setup_case(case: str, start: int, device=None, replicas: int = 1):
                                             policies=pol, scenarios=scn)
     step = make_step(cfg, statics, who)
     action = full(-1, torch.int64, statics.capacity.device)
-    return step, _advance(step, state, action, start), action
+    state = _advance(step, state, action, start)
+    if macro:
+        step = make_macro_step(cfg, statics, who)
+    return step, state, action
 
 
 def setup_rl(case: str, replicas: int, device=None,
-             rollout_len: int | None = None):
-    """An RL case's ``SchedEnv`` on ``device`` (the card when ``None``),
-    a policy and one PPO iteration over ``replicas`` environments
-    (``rollout_len`` decisions, default one episode), set up as
-    ``ppo_train`` sets up: returns (env, policy, iteration, carry), where
-    ``iteration(*carry, step)`` runs it."""
+             rollout_len: int | None = None, macro: bool = False):
+    """An RL case's ``SchedEnv`` on ``device`` (the card when ``None``;
+    ``macro``: the macro env), a policy and one PPO iteration over
+    ``replicas`` environments (``rollout_len`` decisions, default one
+    episode), set up as ``ppo_train`` sets up: returns (env, policy,
+    iteration, carry), where ``iteration(*carry, step)`` runs it."""
     import torch
 
     from repro_torch.configs import acceptance as A
@@ -141,7 +164,7 @@ def setup_rl(case: str, replicas: int, device=None,
 
     cfg = A.rl_config(case)
     env = SchedEnv(cfg, A.rl_workloads(cfg), device=device,
-                   **A.rl_env_kwargs())
+                   **A.rl_env_kwargs(macro))
     ppo_cfg = PPOConfig(n_envs=replicas,
                         rollout_len=rollout_len or A.RL_EPISODE_STEPS)
     policy = ActorCritic(env.obs_dim, env.n_actions, device=env.device)
@@ -165,8 +188,9 @@ def rl_stages(env, policy, hook):
     the outermost stage only. The stages are the functions an iteration
     calls: ``policy.apply`` and ``prng.categorical`` (sampling; in the
     update, ``policy.apply`` is the update's), ``prng.split`` (keys), the
-    env's ``"rl"`` and idle steps, ``observe``, ``reset``, and the update
-    (GAE, ``permutation``, the loss and its gradients, clipping, AdamW)."""
+    env's ``"rl"`` and idle steps (a macro env's macro advance), ``observe``,
+    ``reset``, and the update (GAE, ``permutation``, the loss and its
+    gradients, clipping, AdamW)."""
     import contextlib
 
     from repro_torch.optim import AdamW
@@ -194,6 +218,8 @@ def rl_stages(env, policy, hook):
         (prng, "split", "keys"), (prng, "permutation", "update"),
         (P, "gae", "update"), (P, "loss_and_grads", "update"),
         (P, "clip_by_global_norm", "update"), (AdamW, "update", "update")]
+    if env.macro:
+        patches.append((env._macro_idle, "run", "idle ticks"))
 
     @contextlib.contextmanager
     def patched():
@@ -214,8 +240,80 @@ def rl_stages(env, policy, hook):
     return patched()
 
 
+def profile_macro(case: str, start: int, ticks: int, replicas: int = 1,
+                  top: int = 8) -> dict:
+    """``ticks`` simulated ticks of a replay case after tick ``start``
+    through its macro step on the card (``setup_case(..., macro=True)``;
+    one untimed run first): host ms per simulated tick, the event and
+    fast ticks issued and the host reads, then under ``torch.profiler``
+    the CUDA launch calls per event tick and per fast tick and the
+    device's time and busy share per simulated tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import sim
+    from repro_torch.utils import device as D
+
+    ms, state, _ = setup_case(case, start, replicas=replicas, macro=True)
+    lead = tuple(state.t.shape)
+
+    def run():
+        acc = sim._telem_zero(state.t.device, lead)
+        return ms.run(state, acc, ticks)
+
+    run()                                                  # warm-up
+    torch.cuda.synchronize()
+    sim.reset_macro_ticks()
+    D.reset_host_reads()
+    t0 = time.perf_counter()
+    _, acc = run()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    issued = dict(sim.MACRO_TICKS)
+    reads = D.HOST_READS["count"]
+    committed = float(acc.n_steps.sum() - acc.macro_steps.sum())
+
+    # the engine runs each tick inside its profiler range
+    kinds = {name: f"{k} tick" for k, name in sim.TICK_RANGES.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = device_summary(prof, wall_us, ticks, top)
+    events = list(prof.events())
+    ranges = [(kinds[e.name], e.time_range.start, e.time_range.end)
+              for e in events if e.name in kinds
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    by_kind = {"event tick": 0, "fast tick": 0, "macro loop": 0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                and "LaunchKernel" in e.name:
+            t = e.time_range.start
+            by_kind[next((k for k, a, b in ranges if a <= t <= b),
+                         "macro loop")] += 1
+    return {
+        "case": case, "replicas": replicas, "start_tick": start,
+        "ticks": ticks, "ms_per_simulated_tick": host_ms,
+        "event_ticks": issued["event"], "fast_ticks_issued": issued["fast"],
+        "fast_replica_ticks_committed": committed,
+        "fast_replica_ticks_masked": issued["fast"] * math.prod(lead)
+        - committed,
+        "host_reads": reads,
+        "host_reads_per_macro_step": reads / max(issued["event"], 1),
+        "launch_calls_per_event_tick":
+            by_kind["event tick"] / max(issued["event"], 1),
+        "launch_calls_per_fast_tick":
+            by_kind["fast tick"] / max(issued["fast"], 1),
+        "loop_launch_calls_per_macro_step":
+            by_kind["macro loop"] / max(issued["event"], 1),
+        **{k if k == "device_busy_share" else f"{k}_per_simulated_tick": v
+           for k, v in summary.items()}}
+
+
 def profile_rl(case: str, replicas: int, top: int = 8,
-               decisions: int | None = None) -> dict:
+               decisions: int | None = None, macro: bool = False) -> dict:
     """One PPO iteration of an RL case over ``replicas`` environments on
     the card (after a warm-up iteration): host ms per env step, then
     under ``torch.profiler`` CUDA kernels, device time and busy share per
@@ -233,7 +331,9 @@ def profile_rl(case: str, replicas: int, top: int = 8,
     from repro_torch.rl import PPOConfig
     from repro_torch.rl.ppo import make_rollout
 
-    env, policy, iteration, carry = setup_rl(case, replicas)
+    from repro_torch.utils import device as D
+
+    env, policy, iteration, carry = setup_rl(case, replicas, macro=macro)
     step0 = torch.zeros((), dtype=torch.int32, device=env.device)
     carry = iteration(*carry, step0)[:5]                 # warm-up
     if decisions is None:
@@ -251,10 +351,12 @@ def profile_rl(case: str, replicas: int, top: int = 8,
             states, _, _, ep = rollout(params, states, key, ep)
             return params, opt_state, states, ep, key
     torch.cuda.synchronize()
+    D.reset_host_reads()
     t0 = time.perf_counter()
     carry2 = run(carry)
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    reads = D.HOST_READS["count"]
 
     def hook(stage):
         return record_function(RANGE_PREFIX + stage)
@@ -283,7 +385,8 @@ def profile_rl(case: str, replicas: int, top: int = 8,
         by_stage[stage] += 1
     return {"case": case, "replicas": replicas, "env_steps": steps,
             "what": "iteration" if decisions is None else "rollout",
-            "ms_per_env_step": host_ms,
+            "macro": env.macro, "ms_per_env_step": host_ms,
+            "host_reads_per_env_step": reads / steps,
             "ms_per_env_step_profiled": wall_us / 1e3 / steps,
             "port_kernel_launches_per_env_step": {
                 k: v / steps for k, v in port_kernels.LAUNCHES.items()},
@@ -312,13 +415,22 @@ def main(argv=None) -> int:
     ap.add_argument("--decisions", type=int, default=None,
                     help="RL cases: profile this many decisions of the "
                     "rollout instead of one whole iteration")
+    ap.add_argument("--macro", action="store_true",
+                    help="macro-step (replay: --ticks simulated ticks; "
+                    "RL: the macro env)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick: needs a CUDA device", file=sys.stderr)
         return 1
     if args.case in acceptance.RL_CASES:
         out = profile_rl(args.case, args.replicas, args.top,
-                         args.decisions)
+                         args.decisions, args.macro)
+        out["device"] = torch.cuda.get_device_name(0)
+        print(json.dumps(out), flush=True)
+        return 0
+    if args.macro:
+        out = profile_macro(args.case, args.start, args.ticks,
+                            args.replicas, args.top)
         out["device"] = torch.cuda.get_device_name(0)
         print(json.dumps(out), flush=True)
         return 0

@@ -6,6 +6,8 @@ tick, counted stage by stage.
         [--device cpu] [--replicas 72]
     PYTHONPATH=src python3 -m repro_torch.tools.tick_ops \
         --case rl_tx_gaia [--replicas 8] [--device cpu]
+    PYTHONPATH=src python3 -m repro_torch.tools.tick_ops --macro \
+        [--case replay_tx_gaia_1h] [--ticks 600] [--device cpu]
 
 Runs an acceptance case on the card (or on ``--device``), as a fleet of
 ``--replicas`` under the fleet grid when that is > 1, up to tick
@@ -31,6 +33,14 @@ of decisions, its auto-reset and the update; ``profile_tick.setup_rl``)
 per env step, by ``profile_tick.rl_stages``' stages (the outermost stage
 running takes an operation): sampling, key splits, the ``"rl"`` tick, the
 idle ticks, observe, reset, update and the rest of the rollout.
+
+``--macro`` macro-steps (``core.sim.make_macro_step``; the RL env with
+``macro=True``, whose macro advance is the stage "idle ticks"). For a
+replay case it runs ``--ticks`` simulated ticks through the macro step
+and prints the operations per event tick and per fast tick, each by
+stage (the fast tick's commit and the event tick's horizons are stages
+of their own), the macro loop's own operations per macro step (the
+reads' reductions), and the host reads per macro step.
 """
 
 from __future__ import annotations
@@ -58,6 +68,10 @@ STAGES = (
     ("rack update", "thermal", "supply_temp"),
     ("congestion", "sim", "congestion_slowdown"),
     ("telemetry counts", "sim", "_counts_and_util"),
+    ("horizon", "sim", "_horizon_parts"),
+    ("horizon", "thermal", "thermal_crossing_horizon"),
+    ("commit", "sim", "_where_tree"),
+    ("commit", "sim", "_where_leaf"),
 )
 
 
@@ -78,6 +92,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card")
     ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--macro", action="store_true",
+                    help="macro-step (replay: --ticks simulated ticks; "
+                    "RL: the macro env)")
     args = ap.parse_args(argv)
 
     stack = ["rest of the tail"]
@@ -85,7 +102,10 @@ def main(argv=None) -> int:
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, fargs=(), kwargs=None):
-            if not getattr(func, "is_view", False):
+            # a profiler range's markers (the macro engine's ticks) are
+            # not operations of the tick
+            if not getattr(func, "is_view", False) \
+                    and func.namespace != "profiler":
                 counts[stack[-1]] += 1
             return func(*fargs, **(kwargs or {}))
 
@@ -113,7 +133,9 @@ def main(argv=None) -> int:
         sched.SCHEDULERS[k] = staged("dispatch", fn)
     try:
         step, state, action = setup_case(args.case, args.start, args.device,
-                                         args.replicas)
+                                         args.replicas, args.macro)
+        if args.macro:
+            return macro_ops(args, step, state, stack, counts)
         counts.clear()
         with Count():
             for _ in range(args.ticks):
@@ -128,6 +150,63 @@ def main(argv=None) -> int:
                       "ticks": args.ticks, "device": str(state.t.device),
                       "aten_ops_per_tick": sum(per_tick.values()),
                       "by_stage": per_tick}), flush=True)
+    return 0
+
+
+def macro_ops(args, ms, state, stack, counts) -> int:
+    """Operations per event tick and per fast tick by stage, the loop's
+    own per macro step, and host reads per macro step, over ``--ticks``
+    simulated ticks of the macro step ``ms``: each operation counts for
+    the kind of tick running and the innermost stage ("kind: stage")."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import sim
+    from repro_torch.utils import device as D
+
+    # the kind of tick running: the engine runs each tick inside its
+    # profiler range (``sim.TICK_RANGES``), whose markers pass through here
+    kinds = {name: f"{k} tick" for k, name in sim.TICK_RANGES.items()}
+    ranges = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, fargs=(), kwargs=None):
+            if func.namespace == "profiler":
+                if func.__name__.startswith("_record_function_enter"):
+                    ranges.append(fargs[0])
+                elif ranges:
+                    ranges.pop()
+            elif not getattr(func, "is_view", False):
+                now = next((kinds[r] for r in reversed(ranges)
+                            if r in kinds), "macro loop")
+                counts[f"{now}: {stack[-1]}"] += 1
+            return func(*fargs, **(kwargs or {}))
+
+    acc = sim._telem_zero(state.t.device, tuple(state.t.shape))
+    sim.reset_macro_ticks()
+    D.reset_host_reads()
+    counts.clear()
+    with Count():
+        ms.run(state, acc, args.ticks)
+    n = {"event tick": sim.MACRO_TICKS["event"],
+         "fast tick": sim.MACRO_TICKS["fast"],
+         "macro loop": sim.MACRO_TICKS["event"]}
+    per = {k: {} for k in n}
+    for key, v in sorted(counts.items()):
+        k, stage = key.split(": ", 1)
+        per[k][stage] = v / max(n[k], 1)
+    print(json.dumps({
+        "case": args.case, "replicas": args.replicas,
+        "start_tick": args.start, "ticks": args.ticks,
+        "device": str(state.t.device), "event_ticks": n["event tick"],
+        "fast_ticks_issued": n["fast tick"],
+        "host_reads_per_macro_step":
+            D.HOST_READS["count"] / max(n["event tick"], 1),
+        "aten_ops_per_event_tick": sum(per["event tick"].values()),
+        "aten_ops_per_fast_tick": sum(per["fast tick"].values()),
+        "loop_aten_ops_per_macro_step": sum(per["macro loop"].values()),
+        "by_stage_per_event_tick": per["event tick"],
+        "by_stage_per_fast_tick": per["fast tick"],
+        "by_stage_per_macro_step_loop": per["macro loop"]}), flush=True)
     return 0
 
 
@@ -149,7 +228,7 @@ def rl_ops(args, count_mode, stack, counts) -> int:
             stack.pop()
 
     env, policy, iteration, carry = setup_rl(args.case, args.replicas,
-                                             args.device)
+                                             args.device, macro=args.macro)
     stack[:] = ["rest of the rollout"]
     step0 = torch.zeros((), dtype=torch.int32, device=env.device)
     counts.clear()
@@ -159,6 +238,7 @@ def rl_ops(args, count_mode, stack, counts) -> int:
     per_step = {k: v / steps for k, v in sorted(counts.items())}
     print(json.dumps({"case": args.case, "replicas": args.replicas,
                       "env_steps": steps, "device": str(env.device),
+                      "macro": env.macro,
                       "aten_ops_per_env_step": sum(per_step.values()),
                       "by_stage": per_step}), flush=True)
     return 0

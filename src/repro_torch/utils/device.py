@@ -9,11 +9,38 @@ row-wise: the index holds one entry per replica (0-d for one replica,
 (E,) for E), and each replica reads or writes its own entry. Copies from
 the host to the card (``to_device``) are asynchronous, so they are no
 sync either.
+
+A loop whose trip count depends on the data (the macro-stepping
+engine's fast-forward) must read how far to go: it reads through
+``host_read``, the port's one counted read. On the card it lifts
+sync-debug "error" for its own copy only, so any other sync still
+raises; ``HOST_READS`` counts the reads.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+HOST_READS: dict[str, int] = {"count": 0}
+
+
+def reset_host_reads() -> None:
+    HOST_READS["count"] = 0
+
+
+def host_read(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array on the host: one counted read (a sync on the
+    card), allowed under sync-debug "error" for this copy alone."""
+    HOST_READS["count"] += 1
+    if x.device.type != "cuda":
+        return x.detach().numpy()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return x.detach().cpu().numpy()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -2,9 +2,10 @@
 batched over a leading replica axis) against the JAX package's vmapped
 ``run_fleet``, over policy x scenario grids (EASY, partition placement, a
 trace-carbon scenario, a binding demand-response cap), a banked workload
-axis, the three telemetry modes and a chained sweep; the fleet-building
-helpers leaf for leaf; ``run_fleet``'s refusals word for word; the power
-tick over a banked trace; and the threefry key words of every replica.
+axis, the three telemetry modes, a chained sweep and the macro-stepped grid;
+the fleet-building helpers leaf for leaf; ``run_fleet``'s refusals word
+for word; the power tick over a banked trace; and the threefry key words
+of every replica.
 
 Integer state and ``key`` words match exactly, floats to ``RTOL``
 (``_torch_parity``).
@@ -269,11 +270,29 @@ def test_run_fleet_refuses_as_the_reference_does(pair, case):
     assert str(got.value) == str(want.value)
 
 
+def test_macro_fleet_runs_and_matches_per_tick(pair, grid_run):
+    """``run_fleet(..., macro=True)`` runs the 12-replica grid in lockstep:
+    every replica's final state and telemetry equal the per-tick grid's
+    (``macro_steps`` aside), and each replica segments on its own."""
+    pc = pcfg.tiny_cluster()
+    _, _, pst, ps, _, _ = pair
+    _, _, (pf, pt) = grid_run
+    (_, _), (ppol, pscn) = _grids()
+    mf, mt = PF.run_fleet(pc, pst, ps, N_TICKS, policies=ppol,
+                          scenarios=pscn, summary_only=True, macro=True)
+    for f in pf._fields:
+        assert torch.equal(getattr(pf, f), getattr(mf, f)), f
+    for f in pt._fields:
+        if f != "macro_steps":
+            assert torch.equal(getattr(pt, f), getattr(mt, f)), f
+    steps = to_numpy(mt.macro_steps)
+    assert (steps < N_TICKS).all() and len(set(steps.tolist())) > 1
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 10"),
     (dict(snapshot_every_s=60.0, snapshot_dir="x"), "item 9"),
     (dict(resume_from="x"), "item 9"),
-    (dict(macro=True, summary_only=True), "item 5"),
 ])
 def test_run_fleet_refuses_what_later_slices_bring(pair, kw, item):
     _, _, pst, ps, _, _ = pair

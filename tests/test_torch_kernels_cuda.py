@@ -629,3 +629,43 @@ def test_rl_env_step_on_the_card_matches_the_cpu_path(cuda_device, case):
     assert n_gpu["power_scatter"] == ticks
     assert n_gpu["rack_thermal"] == (ticks if cfg.thermal_enabled else 0)
     acceptance.check_rl(case, gpu, pins=cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["replay_tx_gaia_1h",
+                                  "replay_tx_gaia_1h_thermal_stress"])
+def test_macro_on_the_card_equals_per_tick(cuda_device, case):
+    """900 ticks of a replay hour macro-stepped on the card under
+    sync-debug "error" (only the engine's counted reads pass): every
+    state and telemetry field bitwise equal to the per-tick run on the
+    card (``macro_steps`` aside), one ``power_tick`` launch per tick
+    issued, and the reads within 1 + ceil(issued / 16) per macro step."""
+    import math
+
+    import repro_torch.core as C
+    from repro_torch.configs import acceptance
+    from repro_torch.core import sim
+    from repro_torch.utils import device as D
+
+    cfg = acceptance.config(case)
+    jobs, bank = acceptance.workload(cfg)
+    st = C.build_statics(cfg, bank, device=cuda_device)
+    s = C.load_jobs(C.init_state(cfg, st, 0), jobs)
+    f1, t1 = C.run_episode(cfg, st, s, 900, "replay", summary_only=True)
+    kernels.reset_launches()
+    sim.reset_macro_ticks()
+    D.reset_host_reads()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f2, t2 = C.run_episode(cfg, st, s, 900, "replay", macro=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    events, fast = sim.MACRO_TICKS["event"], sim.MACRO_TICKS["fast"]
+    assert events == float(t2.macro_steps) < 900
+    assert kernels.LAUNCHES["power_scatter"] == events + fast
+    assert D.HOST_READS["count"] <= events + events + math.ceil(fast / 16)
+    for a, b, skip in ((f1, f2, ()), (t1, t2, ("macro_steps",))):
+        for f in a._fields:
+            if f not in skip and getattr(a, f) is not None:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f

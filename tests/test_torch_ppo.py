@@ -276,20 +276,25 @@ def test_checkpointing_is_refused(envs):
 
 
 def test_rl_train_runs_on_the_cpu_and_refuses_later_slices(tmp_path):
-    """The launcher trains with ``--device cpu`` and writes its history
-    and the greedy policy's power trace; ``--macro``, ``--ckpt`` and
-    ``--mesh`` refuse, naming ROADMAP queue 1, items 5, 9 and 10."""
+    """The launcher trains on the tiny cluster with ``--device cpu``,
+    building the env as the JAX package does (``macro=True``, the
+    default: its idle ticks are fast-forwarded), and writes its history
+    and the greedy policy's power trace; ``--ckpt`` and ``--mesh`` refuse,
+    naming ROADMAP queue 1, items 9 and 10."""
+    from repro_torch.core import sim as PSIM
     from repro_torch.launch import rl_train
 
     base = ["--device", "cpu", "--iterations", "1", "--n-envs", "2",
             "--rollout", "4", "--episode-steps", "4", "--n-jobs", "12",
             "--horizon", "300"]
+    PSIM.reset_macro_ticks()
     _, history = rl_train.main(base + ["--out", str(tmp_path)])
     assert len(history) == 1 and np.isfinite(history[0]["mean_reward"])
+    assert PSIM.MACRO_TICKS["fast"] > 0       # the macro env ran
     trace = np.load(tmp_path / "power_trace_rl.npy")
     assert trace.shape == (4,) and np.all(trace > 0)
     assert (tmp_path / "ppo_history.json").exists()
-    for flags, item in ((["--macro"], "item 5"), (["--ckpt", "c"], "item 9"),
+    for flags, item in ((["--ckpt", "c"], "item 9"),
                         (["--mesh", "4"], "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             rl_train.main(base + flags)

@@ -11,8 +11,8 @@ fields within ``RTOL``, dones and every integer sim field exactly, the
 whole state field by field (``_torch_parity``). Also with
 ``placement="partition"`` and with the thermal twin at settings where
 racks trip mid-episode (so the trip gates the candidates' feasibility),
-the ``macro=True`` refusal word for word, and ``scheduler="rl"`` on a
-batched state against its replicas run alone.
+the default ``macro=True`` against the JAX package's macro env, and
+``scheduler="rl"`` on a batched state against its replicas run alone.
 """
 
 import jax
@@ -49,8 +49,6 @@ CASES = {
     "partition": ({}, "partition"),
     "thermal_trip": (TRIP, "first_fit"),
 }
-MACRO = ("macro=True: macro-stepping arrives with the macro slice "
-         "(ROADMAP queue 1, item 5)")
 
 
 def _envs(extra, placement):
@@ -171,18 +169,31 @@ def test_one_env_scripted_episodes_match_reference():
     _run_episodes(ref, port, None, "one env")
 
 
-def test_macro_is_refused_word_for_word():
+def test_macro_is_the_default_and_runs():
+    """``macro=True`` is the default, as in the JAX package, and a step of
+    it equals the JAX package's macro env and the port's ``macro=False``
+    (``tests/test_torch_macro.py`` holds whole episodes); an unknown
+    placement still raises."""
+    rc = rcfg.tiny_cluster(sched_max_candidates=4)
     pc = pcfg.tiny_cluster(sched_max_candidates=4)
-    wls = [synth_workload(pc, 24, 900.0, seed=0)]
-    for kw in ({}, {"macro": True}):      # the default is macro=True
-        with pytest.raises(NotImplementedError) as exc:
-            SchedEnv(pc, wls, device="cpu", **kw)
-        assert str(exc.value) == MACRO
-    with pytest.raises(NotImplementedError) as exc:
-        C.run_episode(pc, C.build_statics(pc, device="cpu"),
-                      C.init_state(pc, C.build_statics(pc, device="cpu")),
-                      1, macro=True)
-    assert str(exc.value) == MACRO
+    wls = [synth_workload(rc, 24, 900.0, seed=0)]
+    ref = RefEnv(rc, wls, **ENV_KW)
+    port = SchedEnv(pc, wls, device="cpu", **ENV_KW)
+    oracle = SchedEnv(pc, wls, macro=False, device="cpu", **ENV_KW)
+    assert port.macro and ref.macro
+    key = jax.random.key(5)
+    rs, _ = ref.reset(key)
+    st, _ = port.reset(_words(key))
+    so, _ = oracle.reset(_words(key))
+    step = jax.jit(ref.step)
+    for a in (0, 4, 1):
+        rs, robs, rr, _, _ = step(rs, jnp.int32(a))
+        st, obs, r, _, _ = port.step(st, a)
+        so, oobs, orr, _, _ = oracle.step(so, a)
+        assert torch.equal(obs, oobs) and torch.equal(r, orr)
+        _close(obs, robs, f"action {a} obs")
+        _close(r, rr, f"action {a} reward")
+    _assert_env_state(rs, st, "macro env")
     with pytest.raises(KeyError):
         SchedEnv(pc, wls, placement="nowhere", macro=False, device="cpu")
 

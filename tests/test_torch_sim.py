@@ -1,6 +1,7 @@
 """Episode parity on ``tiny_cluster``: the port's step and episode runner
 against the JAX package across the full 5 x 5 selection x placement grid,
-the three telemetry modes, and the RL-driven step.
+the three telemetry modes, the macro-stepped episode, and the RL-driven
+step.
 
 On the JAX side the grid runs through ONE jitted runner taking a
 ``make_policy`` Policy argument (policy-as-data), so the 25 cases share a
@@ -14,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import (
     assert_summary_close,
@@ -121,8 +123,27 @@ def test_none_scheduler_only_runs_the_clock(pair):
     assert int((pf.jstate == C.RUNNING).sum()) == 0
 
 
+def test_macro_episode_runs_and_matches_reference(pair):
+    """``macro=True`` runs: the episode-wide summary of the macro path
+    (stacked ``StepOut`` summarises, as in the JAX package), its state
+    and telemetry against the JAX package's macro episode, and its state
+    bitwise equal to the port's per-tick episode
+    (``tests/test_torch_macro.py`` holds the rest)."""
+    cfg, pc = rcfg.tiny_cluster(), pcfg.tiny_cluster()
+    rst, rs, pst, ps, _, _ = pair
+    rf, rt = jax.jit(lambda s: R.run_episode(cfg, rst, s, N_TICKS, "fcfs",
+                                             macro=True))(rs)
+    pf, pt = C.run_episode(pc, pst, ps, N_TICKS, "fcfs", macro=True)
+    assert isinstance(pt, C.TelemetrySummary)
+    assert_tree_close(rf, pf, "state")
+    assert_tree_close(rt, pt, "telemetry")
+    per_tick, _ = C.run_episode(pc, pst, ps, N_TICKS, "fcfs",
+                                summary_only=True)
+    for f in pf._fields:
+        assert torch.equal(getattr(pf, f), getattr(per_tick, f)), f
+
+
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(macro=True), NotImplementedError, "macro"),
     (dict(snapshot_every_s=60.0, snapshot_dir="x"), NotImplementedError,
      "durable"),
     (dict(resume_from="x"), NotImplementedError, "durable"),

@@ -35,17 +35,18 @@ from repro.rl.ppo import make_rollout
 from repro_torch.configs import acceptance as A
 
 
-def reference_env(case: str) -> SchedEnv:
+def reference_env(case: str, env_kw: dict | None = None) -> SchedEnv:
     cfg = rcfg.tx_gaia(max_jobs=256, max_nodes_per_job=16,
                        **A.RL_CASES[case])
     wls = [synth_workload(cfg, A.RL_JOBS, A.RL_HORIZON_S, seed=s)
            for s in range(A.RL_WORKLOADS)]
-    return SchedEnv(cfg, wls, **A.rl_env_kwargs())
+    return SchedEnv(cfg, wls, **(env_kw or A.rl_env_kwargs()))
 
 
-def scripted(case: str) -> dict:
-    """The JAX side of ``acceptance.run_rl_script``."""
-    env = reference_env(case)
+def scripted(case: str, env_kw: dict | None = None) -> dict:
+    """The JAX side of ``acceptance.run_rl_script`` (``env_kw``: the
+    ``SchedEnv`` keywords, default ``acceptance.rl_env_kwargs()``)."""
+    env = reference_env(case, env_kw)
     steps = A.RL_SCRIPT_STEPS[case]
     script = A.rl_script(env.k, A.RL_ENVS, steps)
     keys = jax.random.split(jax.random.key(A.RL_SEED), A.RL_ENVS)
@@ -72,8 +73,9 @@ def scripted(case: str) -> dict:
     return out
 
 
-def ppo() -> dict:
-    env = reference_env("rl_tx_gaia")
+def ppo(env_kw: dict | None = None,
+        n_iterations: int = A.RL_ITERATIONS) -> dict:
+    env = reference_env("rl_tx_gaia", env_kw)
     cfg = PPOConfig(n_envs=A.RL_ENVS, rollout_len=A.RL_ROLLOUT)
     policy = ActorCritic(env.obs_dim, env.n_actions)
     # iteration 0's rollout, keys split as ppo_train splits them
@@ -84,7 +86,7 @@ def ppo() -> dict:
     _, kroll, _ = jax.random.split(key, 3)
     _, batch, _, _ = jax.jit(make_rollout(env, policy, cfg))(
         params, states, kroll)
-    _, history = ppo_train(env, cfg=cfg, n_iterations=A.RL_ITERATIONS,
+    _, history = ppo_train(env, cfg=cfg, n_iterations=n_iterations,
                            seed=A.RL_SEED)
     mean_reward = float(jnp.mean(batch.reward))
     np.testing.assert_allclose(history[0]["mean_reward"], mean_reward,
@@ -120,9 +122,9 @@ def _text(x) -> str:
     return repr(x)
 
 
-def literal(pins: dict) -> str:
-    """``PINNED_RL = {...}`` wrapped to 79 columns."""
-    lines = ["PINNED_RL = {"]
+def literal(pins: dict, name: str = "PINNED_RL") -> str:
+    """``PINNED_RL = {...}`` (or ``name``) wrapped to 79 columns."""
+    lines = [f"{name} = {{"]
     for case, fields in pins.items():
         lines.append(f'    "{case}": {{')
         for f, v in fields.items():
