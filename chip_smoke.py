@@ -22,9 +22,13 @@ and no result line:
              for attention, ``scaled_dot_product_attention``. The replay
              tick's fused
              entries (``power_tick`` with thermals off at E=1 and on at
-             E=1 and 64, ``rack_tick`` at E=1 and 64) also against the CPU
-             plain version: per-node and per-rack values bitwise. An empty
-             kernel's back-to-back time is the launch floor.
+             E=1 and 64, ``rack_tick`` at E=1 and 64; then each at E=1 and
+             64 with rack 0 down and ~5% of the other nodes down, as the
+             fault engine leaves them) also against the CPU plain
+             version: per-node and per-rack values bitwise. An empty
+             kernel's back-to-back time is the launch floor. The fault
+             clocks' exponential transform on all 2**23 values the
+             uniform can give, card against CPU: 0 differing bits.
 4. main      ``replay_tx_gaia_1h`` through build_statics -> init_state ->
              load_jobs -> run_episode(summary_only) -> summary, the ticks
              under ``torch.cuda.set_sync_debug_mode("error")``; held to the
@@ -76,16 +80,33 @@ and no result line:
              alone; ``SchedEnv(macro=True)``: ``rl_tx_gaia``'s script and
              one PPO iteration at ``PINNED_RL_MACRO``, decisions/s at 8 and
              512 environments, host reads and kernels per env step.
-9. determinism  the first 600 ticks of the main path and the first 900 of
+9. faults    the resilience twin (``acceptance.FAULT_CASES``) under
+             sync-debug "error": ``replay_tx_gaia_1h_faults`` (random node
+             and rack faults, checkpoints, retries) and
+             ``replay_tx_gaia_1h_drill`` (a rack's maintenance window and
+             an evicting brownout, thermals on) for the hour at
+             ``PINNED_FAULTS`` (the JAX package's per-tick values), one
+             power_scatter (and on the drill one rack_thermal) launch per
+             tick, ms per tick beside phase 4's; both macro-stepped:
+             bitwise equal to per tick, at the pinned event ticks, within
+             the read gate, one launch per tick issued; the fault fleet
+             (``FLEET_FAULTS_E`` replicas with their own keys and clocks,
+             default grid and drill, ``FLEET_FAULTS_TICKS`` ticks of fcfs)
+             at ``PINNED_FLEET_FAULTS``, two replicas rerun alone;
+             ``rl_tx_gaia_faults`` (the ladder's actions, the lost-work
+             reward) per tick and macro at ``PINNED_RL_FAULTS``; CUDA
+             kernels a tick of the faults hour with the fault engine's
+             share (``profile_tick.profile_replay``); the phase's seconds.
+10. determinism  the first 600 ticks of the main path and the first 900 of
              the thermal stress hour, each twice: every field bitwise equal.
-10. serve    gemma3-1b at full width and depth (``serve_gemma3_1b``,
+11. serve    gemma3-1b at full width and depth (``serve_gemma3_1b``,
              weights from ``seeded_numpy_params``): the f32 and the bf16
              model held to the JAX package's pins (``check_lm``), 26
              flash_attn launches per prefill and none per decode step, the
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of 5 runs).
-11. serve_hybrid  the jamba hybrid without experts at full width:
+12. serve_hybrid  the jamba hybrid without experts at full width:
              ``serve_jamba_1l`` (one Mamba layer, f32) held to
              ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
              random weights from ``init_params`` on the card) in f32 and in
@@ -95,6 +116,11 @@ and no result line:
              fused ``mamba_scan``) and 1 flash_attn launches per prefill
              and none per decode step; then ``generate`` in bf16 as in
              ``serve``.
+
+Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``) each run in
+a worker process of their own on the card (``run_alone``: this script
+with ``--alone``, ALONE_WORKERS at once), so the checks of a phase run
+together; the parent waits for all of them and stops any that fails.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -174,7 +200,7 @@ BF16_DECODE_FACTOR = 2.0
 # timed at each, and (start tick, ticks) of each profile
 FLEET_SIZES = (1, 72, 1152)
 FLEET_TIMING = 600
-FLEET_PROFILE = (300, 30)
+FLEET_PROFILE = (300, 10)
 # the rl phase: environments timed, decisions per timed rollout
 RL_SCALE_ENVS = (8, 64, 512)
 RL_SCALE_STEPS = 8
@@ -184,6 +210,13 @@ RL_PROFILE_STEPS = 4   # decisions of the rollout under the profiler
 MACRO_CHUNK = 16
 MACRO_FLEET_ALONE = (8, 71)
 MACRO_RL_ENVS = (8, 512)
+# phase faults: the faults hour profiled from this tick, for this many
+# ticks (the profiler's processing of a tick of ~1,250 kernels is slow)
+FAULTS_PROFILE = (600, 10)
+# replicas rerun alone run in worker processes on the card, this many at
+# once (the machine has 8 cores; each run is host-bound)
+ALONE_WORKERS = 6
+ALONE_TIMEOUT_S = 600
 
 
 def emit(phase: str, **kw) -> None:
@@ -282,22 +315,33 @@ def rack_thermal_inputs(torch, np, statics, n_rep: int, seed: int):
             t(rng.uniform(14.0, 24.0, n_rep)), statics.rack_r_th)
 
 
-def tick_state(torch, np, cfg, n_rep: int, seed: int):
+def down_nodes(np, cfg, rng, n_rep: int):
+    """(n_rep, N) node_up as the fault engine leaves it: rack 0 down (a
+    maintenance window or a rack fault) and ~5% of the others down."""
+    up = rng.random((n_rep, cfg.n_nodes)) > 0.05
+    up[:, :cfg.nodes_per_rack] = False
+    return up
+
+
+def tick_state(torch, np, cfg, n_rep: int, seed: int, rack_down=False):
     """Seeded per-tick state of ``n_rep`` replicas at the main path's
     shapes, as ``power_tick`` takes it: ~70% of the jobs running at ages
-    across the trace quanta, a third of the slots -1, ~5% nodes down,
-    outlet temperatures across the throttle ramp, a wetbulb."""
+    across the trace quanta, a third of the slots -1, ~5% nodes down (and
+    with ``rack_down`` rack 0 too), outlet temperatures across the
+    throttle ramp, a wetbulb."""
     rng = np.random.default_rng(seed)
     J, K, N, R = cfg.max_jobs, cfg.max_nodes_per_job, cfg.n_nodes, cfg.n_racks
     place = rng.integers(0, N, (n_rep, J, K))
     place[rng.random((n_rep, J, K)) < 0.33] = -1
     lo, hi = cfg.throttle_start_c - 10.0, cfg.throttle_full_c + 5.0
+    up = (down_nodes(np, cfg, rng, n_rep) if rack_down
+          else rng.random((n_rep, N)) > 0.05)
     arrays = ((rng.choice([1, 2, 2, 2, 3], (n_rep, J)), np.int32),
               (rng.uniform(600, 3600, n_rep), np.float32),
               (rng.uniform(0, 3000, (n_rep, J)), np.float32),
               (place, np.int32),
               (rng.uniform(1, 24, (n_rep, 3, J)), np.float32),
-              (rng.random((n_rep, N)) > 0.05, np.float32),
+              (up, np.float32),
               (rng.uniform(lo, hi, (n_rep, R)), np.float32),
               (rng.uniform(8, 26, n_rep), np.float32))
     return [torch.tensor(np.array(a, dt, order="C"), device="cuda")
@@ -322,17 +366,22 @@ def power_tick_bound(ts, st) -> tuple[float, str]:
     return bound(in_bytes, out_bytes, ops)
 
 
-def rack_tick_inputs(torch, np, cfg, n_rep: int, seed: int):
-    """Seeded inputs of the thermal tail: post-throttle node input power,
-    the cap's scale, a wetbulb, outlet temperatures across the throttle
-    ramp and a running peak."""
+def rack_tick_inputs(torch, np, cfg, n_rep: int, seed: int,
+                     rack_down=False):
+    """Seeded inputs of the thermal tail: post-throttle node input power
+    (with ``rack_down``, 0 W on rack 0 and ~5% of the other nodes, which
+    are down), the cap's scale, a wetbulb, outlet temperatures across the
+    throttle ramp and a running peak."""
     rng = np.random.default_rng(seed)
     N, R = cfg.n_nodes, cfg.n_racks
 
     def t(a):
         return torch.tensor(np.array(a, np.float32, order="C"), device="cuda")
 
-    return [t(rng.uniform(150.0, 1400.0, (n_rep, N))),
+    heat = rng.uniform(150.0, 1400.0, (n_rep, N))
+    if rack_down:
+        heat = heat * down_nodes(np, cfg, rng, n_rep)
+    return [t(heat),
             t(rng.uniform(0.6, 1.0, n_rep)), t(rng.uniform(8, 26, n_rep)),
             t(rng.uniform(cfg.throttle_start_c - 10, cfg.throttle_full_c + 5,
                           (n_rep, R))),
@@ -887,7 +936,8 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str):
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     got = summary(final, telem)
-    pins = acceptance.PINNED[case]
+    pins = (acceptance.PINNED_FAULTS if case in acceptance.PINNED_FAULTS
+            else acceptance.PINNED)[case]
     emit(phase, case=case, ticks=acceptance.N_STEPS, setup_s=setup_s,
          wall_s=wall_s, ms_per_tick=1e3 * wall_s / acceptance.N_STEPS,
          launches=launches, **{k: got[k] for k in pins}, pinned=pins)
@@ -950,6 +1000,74 @@ def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
     return {"replica": e, "max_rel_err": worst, "bitwise": bitwise}
 
 
+def run_alone(torch, runs: list) -> list:
+    """Each of ``runs`` (``run_episode``'s arguments: a dict of ``cfg``,
+    ``statics``, ``state``, ``n_steps``, ``scheduler`` and ``kw``) in a
+    worker process of its own on the card (``chip_smoke.py --alone``),
+    ALONE_WORKERS at a time: a replica rerun alone shares nothing with the
+    fleet it is compared with, not even the process. Returns each run's
+    (final state, telemetry) on the card; a worker that fails or outlives
+    ALONE_TIMEOUT_S fails the phase, and every worker is stopped first."""
+    import subprocess
+
+    work = ROOT / "build" / "alone"
+    work.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, run in enumerate(runs):
+        src, out, log = (work / f"run{i}.pt", work / f"out{i}.pt",
+                         work / f"log{i}.txt")
+        out.unlink(missing_ok=True)
+        torch.save(run, src)
+        paths.append((src, out, log))
+    pending = list(range(len(runs)))
+    live = {}
+    try:
+        while pending or live:
+            while pending and len(live) < ALONE_WORKERS:
+                i = pending.pop(0)
+                src, out, log = paths[i]
+                with open(log, "w") as f:
+                    live[i] = (subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"),
+                         "--alone", str(src), str(out)],
+                        stdout=f, stderr=subprocess.STDOUT),
+                        time.perf_counter())
+            for i, (proc, t0) in list(live.items()):
+                if proc.poll() is None:
+                    if time.perf_counter() - t0 > ALONE_TIMEOUT_S:
+                        raise AssertionError(f"alone run {i}: over "
+                                             f"{ALONE_TIMEOUT_S} s")
+                    continue
+                del live[i]
+                if proc.returncode != 0:
+                    raise AssertionError(f"alone run {i} failed:\n"
+                                         f"{paths[i][2].read_text()}")
+            time.sleep(0.2)
+    finally:
+        for proc, _ in live.values():
+            proc.kill()
+            proc.wait()
+    return [torch.load(out, map_location="cuda", weights_only=False)
+            for _, out, _ in paths]
+
+
+def alone_main(src: str, out: str) -> int:
+    """Worker of ``run_alone``: one ``run_episode`` on the card."""
+    import torch
+
+    from repro_torch.core import run_episode
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()
+    run = torch.load(src, map_location="cuda", weights_only=False)
+    final, telem = run_episode(run["cfg"], run["statics"], run["state"],
+                               run["n_steps"], run["scheduler"],
+                               **run["kw"])
+    torch.cuda.synchronize()
+    torch.save((final, telem), out)
+    return 0
+
+
 def _run_fleet_timed(torch, run_fleet, cfg, statics, state, ticks, pol, scn):
     """``run_fleet`` (summary_only) under sync-debug "error", timed on the
     host clock around a synchronised run; the port's launches counted
@@ -1001,7 +1119,8 @@ def fleet(torch, np, jobs, bank) -> dict:
     72 replicas of ``replay_tx_gaia_1h``) for the hour in one batched run
     under sync-debug "error": every replica at ``PINNED_FLEET``, replica 0
     at ``replay_tx_gaia_1h``'s pins, one power_scatter launch a tick;
-    FLEET_ALONE rerun alone through ``run_episode``; the thermal hour's
+    FLEET_ALONE rerun alone through ``run_episode`` (in worker processes,
+    ``run_alone``); the thermal hour's
     config for FLEET_THERMAL_TICKS at E = 72 (one rack_thermal launch a
     tick) with FLEET_THERMAL_ALONE rerun alone; then ms per tick, us per
     replica-tick, CUDA kernels per tick and the device's busy share at
@@ -1012,7 +1131,6 @@ def fleet(torch, np, jobs, bank) -> dict:
         build_statics,
         init_state,
         load_jobs,
-        run_episode,
         summary,
         summary_columns,
     )
@@ -1020,6 +1138,7 @@ def fleet(torch, np, jobs, bank) -> dict:
     from repro_torch.utils.device import tree_to
 
     runs = {}
+    alone, checks = [], []
     for case, ticks, alone_ids in (
             ("replay_tx_gaia_1h", A.N_STEPS, A.FLEET_ALONE),
             ("replay_tx_gaia_1h_thermal", A.FLEET_THERMAL_TICKS,
@@ -1061,14 +1180,19 @@ def fleet(torch, np, jobs, bank) -> dict:
         for e in alone_ids:
             sel, place = names[e].split("+")
             st = statics._replace(scenario=tree_to(scns[e], statics.idle_w.device))
-            f1, t1 = run_episode(cfg, st, state._replace(key=final.key[e]),
-                                 ticks, sel, placement=place,
-                                 summary_only=True)
-            emit("fleet", step="alone", case=case, policy=names[e],
-                 scenario=e % n_scn,
-                 **_alone_vs_fleet(torch, f"fleet {case}", f1, final, e,
-                                   t1, telem))
+            alone.append(dict(cfg=cfg, statics=st, state=state._replace(
+                key=final.key[e]), n_steps=ticks, scheduler=sel,
+                kw=dict(placement=place, summary_only=True)))
+            checks.append((case, names[e], e % n_scn, e, final, telem))
         runs[case] = launches, wall
+    t0 = time.perf_counter()
+    for (f1, t1), (case, name, scn_id, e, final, telem) in zip(
+            run_alone(torch, alone), checks):
+        emit("fleet", step="alone", case=case, policy=name,
+             scenario=scn_id, **_alone_vs_fleet(
+                 torch, f"fleet {case}", f1, final, e, t1, telem))
+    emit("fleet", step="alone runs", runs=len(alone),
+         workers=ALONE_WORKERS, wall_s=time.perf_counter() - t0)
 
     # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
     # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
@@ -1474,12 +1598,13 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
     if launches != no_launches(power_scatter=events + fast):
         raise AssertionError(f"macro fleet: launches {launches}")
     scns = _scenario_list(scn)
-    for e in MACRO_FLEET_ALONE:
-        sel, place = names[e].split("+")
-        st = statics._replace(scenario=tree_to(scns[e],
-                                               statics.idle_w.device))
-        f1, t1 = run_episode(cfg, st, state._replace(key=final.key[e]),
-                             A.N_STEPS, sel, placement=place, macro=True)
+    alone = [dict(cfg=cfg, statics=statics._replace(scenario=tree_to(
+        scns[e], statics.idle_w.device)), state=state._replace(
+        key=final.key[e]), n_steps=A.N_STEPS,
+        scheduler=names[e].split("+")[0],
+        kw=dict(placement=names[e].split("+")[1], macro=True))
+        for e in MACRO_FLEET_ALONE]
+    for e, (f1, t1) in zip(MACRO_FLEET_ALONE, run_alone(torch, alone)):
         emit("macro", step="alone", policy=names[e], **_alone_vs_fleet(
             torch, "macro fleet", f1, final, e, t1, telem))
 
@@ -1518,6 +1643,177 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
     emit("macro", step="rl_profile", at_s=time.perf_counter() - start,
          **profile_rl("rl_tx_gaia", A.RL_ENVS, decisions=RL_PROFILE_STEPS,
                       macro=True))
+
+
+def exponential_on_card(torch, np) -> dict:
+    """The fault clocks' draw on the card against the CPU: ``-log1p(-u)``
+    (``prng.log1p_f32``) on all 2**23 values ``uniform`` can give, whole
+    ``prng.exponential`` draws, and ``prng.fma_f32`` on random f32
+    triples, each with 0 differing bits (``tests/test_torch_faults.py``
+    holds the CPU to XLA's bits)."""
+    from repro_torch.utils import prng
+
+    u = (np.arange(2 ** 23, dtype=np.float64) * 2.0 ** -23).astype(np.float32)
+    cpu = (-prng.log1p_f32(-torch.from_numpy(u))).numpy().view(np.int32)
+    t0 = time.perf_counter()
+    card = (-prng.log1p_f32(-torch.from_numpy(u).cuda())).cpu().numpy()
+    secs = time.perf_counter() - t0
+    differ = int(np.count_nonzero(card.view(np.int32) != cpu))
+    keys = torch.from_numpy(np.stack([prng.key_words(s) for s in range(8)]))
+    draw_cpu = prng.exponential(keys, (672,)).numpy().view(np.int32)
+    draw_card = prng.exponential(keys.cuda(), (672,)).cpu().numpy()
+    draws_differ = int(np.count_nonzero(draw_card.view(np.int32)
+                                        != draw_cpu))
+    rng = np.random.default_rng(0)
+    abc = [torch.from_numpy((rng.standard_normal(1 << 20)
+                             * 10.0 ** rng.uniform(-3, 5, 1 << 20))
+                            .astype(np.float32)) for _ in range(3)]
+    fma_cpu = prng.fma_f32(*abc).numpy().view(np.int32)
+    fma_card = prng.fma_f32(*(x.cuda() for x in abc)).cpu().numpy()
+    fma_differ = int(np.count_nonzero(fma_card.view(np.int32) != fma_cpu))
+    rec = dict(inputs=int(u.size), bits_differing=differ,
+               draws_differing=draws_differ, fma_inputs=1 << 20,
+               fma_bits_differing=fma_differ, card_seconds=secs)
+    emit("kernel", name="exponential", **rec)
+    if differ or draws_differ or fma_differ:
+        raise AssertionError(f"exponential: card and CPU differ: {rec}")
+    return rec
+
+
+def faults(torch, np, jobs, bank, per_tick: dict) -> None:
+    """The faults phase (see the module docstring, phase 9)."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import (
+        build_statics,
+        init_state,
+        load_jobs,
+        run_episode,
+        summary,
+        summary_columns,
+    )
+    from repro_torch.core.fleet import prepare_fleet
+    from repro_torch.envs import SchedEnv
+    from repro_torch.tools.profile_tick import profile_replay
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import tree_to
+
+    start = time.perf_counter()
+    main_ms = 1e3 * per_tick["replay_tx_gaia_1h"][3] / A.N_STEPS
+    hours = {}
+    # (a) both hours per tick, at the JAX package's per-tick values
+    for case in A.FAULT_CASES:
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
+        hours[case] = drive(torch, case, cfg, statics, jobs, "faults")
+        emit("faults", step="hour", case=case,
+             ms_per_tick=1e3 * hours[case][3] / A.N_STEPS,
+             replay_tx_gaia_1h_ms_per_tick=main_ms,
+             at_s=time.perf_counter() - start)
+
+    # (b) both hours macro-stepped: bitwise equal to per tick, the pinned
+    # event ticks, the read gate, one power_tick launch a tick issued
+    for case in A.FAULT_MACRO_CASES:
+        base = A.base_case(case)
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        (final, telem), wall, launches, (events, fast), reads = \
+            _macro_counts(torch, lambda: run_episode(
+                cfg, statics, state, A.N_STEPS, A.SCHEDULER, macro=True))
+        got = summary(final, telem)
+        _, pt_final, pt_telem, pt_wall = hours[base]
+        pins = A.PINNED_FAULTS[case]
+        diffs = _against_per_tick(torch, case, (final, telem),
+                                  (pt_final, pt_telem))
+        emit("faults", step="macro hour", case=case, event_ticks=events,
+             fast_ticks_issued=fast,
+             ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
+             per_tick_ms_per_tick=1e3 * pt_wall / A.N_STEPS,
+             replay_tx_gaia_1h_ms_per_tick=main_ms, wall_s=wall,
+             launches=launches, **_read_gate(reads, case),
+             **{k: got[k] for k in pins if k in got},
+             reference_macro_steps_taken=pins["reference_macro_steps_taken"],
+             **diffs, at_s=time.perf_counter() - start)
+        A.check(case, got)
+        if any(diffs.values()):
+            raise AssertionError(f"{case}: not bitwise with per tick: "
+                                 f"{diffs}")
+        if events != got["macro_steps_taken"]:
+            raise AssertionError(f"{case}: {events} event ticks issued, "
+                                 f"{got['macro_steps_taken']} counted")
+        want = no_launches(power_scatter=events + fast, rack_thermal=(
+            events + fast if cfg.thermal_enabled else 0))
+        if launches != want:
+            raise AssertionError(f"{case}: launches {launches}, expected "
+                                 f"{want} (one a tick issued)")
+
+    # (c) the fault fleet: own keys and clocks, default grid and drill
+    cfg = A.fleet_faults_config()
+    statics = build_statics(cfg, bank)
+    keys = torch.from_numpy(np.stack([prng.key_words(e)
+                                      for e in range(A.FLEET_FAULTS_E)]))
+    state = load_jobs(init_state(cfg, statics, keys), jobs)
+    scns = A.fleet_faults_scenarios(cfg)
+    fstatics, fstate, who = prepare_fleet(
+        cfg, statics, state, A.FLEET_FAULTS_SCHEDULER, scenarios=scns)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    final, telem = run_episode(cfg, fstatics, fstate, A.FLEET_FAULTS_TICKS,
+                               who, summary_only=True)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cols = summary_columns(final, telem)
+    report = A.check_fleet_faults(cols)
+    emit("faults", step="fleet", ticks=A.FLEET_FAULTS_TICKS, wall_s=wall,
+         ms_per_tick=1e3 * wall / A.FLEET_FAULTS_TICKS, launches=launches,
+         killed=cols["killed_by_failures"].tolist(), **report,
+         at_s=time.perf_counter() - start)
+    if launches != no_launches(power_scatter=A.FLEET_FAULTS_TICKS):
+        raise AssertionError(f"fault fleet: launches {launches}")
+    alone = [dict(cfg=cfg, statics=statics._replace(scenario=tree_to(
+        scns[e], statics.idle_w.device)), state=type(fstate)(*(
+            v[e] for v in fstate)), n_steps=A.FLEET_FAULTS_TICKS,
+        scheduler=A.FLEET_FAULTS_SCHEDULER, kw=dict(summary_only=True))
+        for e in A.FLEET_FAULTS_ALONE]
+    for e, (f1, t1) in zip(A.FLEET_FAULTS_ALONE, run_alone(torch, alone)):
+        emit("faults", step="alone", **_alone_vs_fleet(
+            torch, "fault fleet", f1, final, e, t1, telem),
+            at_s=time.perf_counter() - start)
+
+    # (d) the RL env with the ladder's actions, per tick and macro
+    cfg = A.rl_config(A.RL_FAULTS_CASE)
+    guard = no_sync(torch)
+    steps = A.RL_FAULTS_STEPS
+    for macro in (False, True):
+        env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(
+            macro=macro, case=A.RL_FAULTS_CASE))
+        got, wall, launches, (events, fast), reads = _macro_counts(
+            torch, lambda: A.run_rl_script(env, A.RL_FAULTS_CASE,
+                                           guard=guard), guard=False)
+        report = A.check_rl(A.RL_FAULTS_CASE, got,
+                            pins=A.PINNED_RL_FAULTS[
+                                "macro" if macro else "per_tick"])
+        ticks = (steps + events + fast if macro
+                 else steps * A.RL_SIM_STEPS)
+        emit("faults", step="rl_script", macro=macro, envs=A.RL_ENVS,
+             env_steps=steps, n_actions=env.n_actions, obs_dim=env.obs_dim,
+             ticks_issued=ticks, wall_s=wall, launches=launches,
+             **(_read_gate(reads, "rl faults macro") if macro else {}),
+             **report, at_s=time.perf_counter() - start)
+        if launches != no_launches(power_scatter=ticks):
+            raise AssertionError(f"rl faults (macro={macro}): launches "
+                                 f"{launches}")
+
+    # (e) where the faults hour's tick goes: CUDA kernels, the fault
+    # engine's share
+    emit("faults", step="profile", **profile_replay(
+        "replay_tx_gaia_1h_faults", *FAULTS_PROFILE, top=6),
+        at_s=time.perf_counter() - start)
 
 
 def main() -> int:
@@ -1637,19 +1933,38 @@ def main() -> int:
                 TIMING_REPS, TIMING_BATCH), replicas=n_rep,
             banked_workloads=len(wls), thermal=False, jobs=cfg.max_jobs,
             slots=jk, nodes=n_nodes)
-    for n_rep in (1, 64):
+    # with the fault engine's down nodes: rack 0 and ~5% of the others
+    for n_rep, hcfg, hstatics, cpu_st in (
+            (1, cfg, statics, build_statics(cfg, bank, device="cpu")),
+            (64, cfg, statics, build_statics(cfg, bank, device="cpu")),
+            (1, tcfg, tstatics, cpu_bank), (64, tcfg, tstatics, cpu_bank)):
+        ts = cpower.tick_statics(hcfg, hstatics)
+        st = tick_state(torch, np, hcfg, n_rep, seed=100 + n_rep,
+                        rack_down=True)
+        record["power_tick", n_rep, hcfg.thermal_enabled, "down"] = \
+            check_tick_kernel(
+                torch, "power_tick", npw.power_tick, npw.power_tick_torch,
+                cpower.tick_statics(hcfg, cpu_st), ts, st,
+                *power_tick_bound(ts, st), bitwise=(0, 1, 3),
+                replicas=n_rep, thermal=hcfg.thermal_enabled,
+                rack_down=True, jobs=hcfg.max_jobs, slots=jk, nodes=n_nodes)
+    for n_rep, rack_down in ((1, False), (64, False), (1, True),
+                             (64, True)):
         rs = cthermal.rack_tick_statics(tcfg, tstatics)
-        a = rack_tick_inputs(torch, np, tcfg, n_rep, seed=n_rep)
+        a = rack_tick_inputs(torch, np, tcfg, n_rep, seed=n_rep,
+                             rack_down=rack_down)
         # a multiply and an add per node, ~12 operations per rack
         rt_bound = bound(nbytes(a) + nbytes((rs.rack_ptr, rs.rack_nodes,
                                              rs.r_th)),
                          4 * n_rep * (n_racks + 3),
                          n_rep * (2 * n_nodes + 12 * n_racks))
-        record["rack_tick", n_rep] = check_tick_kernel(
-            torch, "rack_tick", prt.rack_tick, prt.rack_tick_torch,
-            cthermal.rack_tick_statics(tcfg, cpu_bank), rs, a, *rt_bound,
-            bitwise=(0, 1, 2, 3), replicas=n_rep, nodes=n_nodes,
-            racks=n_racks)
+        record[("rack_tick", n_rep) + (("down",) if rack_down else ())] = \
+            check_tick_kernel(
+                torch, "rack_tick", prt.rack_tick, prt.rack_tick_torch,
+                cthermal.rack_tick_statics(tcfg, cpu_bank), rs, a, *rt_bound,
+                bitwise=(0, 1, 2, 3), replicas=n_rep, nodes=n_nodes,
+                racks=n_racks, rack_down=rack_down)
+    exponential_on_card(torch, np)
     # the floor under every launch's back-to-back time: one empty kernel
     floor_launch = build.function("power_scatter", pointers=0, ints=0,
                                   floats=0, entry="launch_floor")
@@ -1694,7 +2009,12 @@ def main() -> int:
     macro(torch, np, jobs, bank, per_tick, fleet_hour)
     emit("macro", step="done", seconds=time.perf_counter() - t0)
 
-    # 9. determinism: the same ticks twice, bitwise
+    # 9. faults: the resilience twin's hours, fleet and env
+    t0 = time.perf_counter()
+    faults(torch, np, jobs, bank, per_tick)
+    emit("faults", step="done", seconds=time.perf_counter() - t0)
+
+    # 10. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:
         dcfg = acceptance.config(case)
         dstatics = build_statics(dcfg, bank)
@@ -1711,11 +2031,11 @@ def main() -> int:
         if differ:
             raise AssertionError(f"{case}: runs differ in {differ}")
 
-    # 10. serve: gemma3-1b at full width; the kernels line reports the
+    # 11. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
-    # 11. serve_hybrid: the jamba hybrid at full width; the kernels line
+    # 12. serve_hybrid: the jamba hybrid at full width; the kernels line
     # reports the selective_scan launches of one 8-layer prefill
     t0 = time.perf_counter()
     launches["selective_scan"] = serve_hybrid(torch, np)
@@ -1757,4 +2077,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--alone"]:
+        sys.exit(alone_main(*sys.argv[2:4]))
     sys.exit(main())

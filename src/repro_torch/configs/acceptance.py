@@ -18,6 +18,13 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
   (``run_episode(..., macro=True)``), pinned in ``PINNED_MACRO``; the
   fleet hour macro-stepped in ``PINNED_FLEET_MACRO``, the RL cases'
   ``SchedEnv(macro=True)`` in ``PINNED_RL_MACRO``.
+- ``FAULT_CASES``: the resilience twin on the same hour, per tick and
+  macro-stepped (``replay_tx_gaia_1h_faults``: random node and rack
+  faults with checkpoint-restart and retries; ``replay_tx_gaia_1h_drill``:
+  a rack's maintenance window and an evicting brownout, thermals on),
+  their fleet (``fleet_tx_gaia_faults``) and the RL env with the ladder's
+  actions (``rl_tx_gaia_faults``), pinned in ``PINNED_FAULTS``,
+  ``PINNED_FLEET_FAULTS`` and ``PINNED_RL_FAULTS``.
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -135,8 +142,9 @@ def base_case(case: str) -> str:
 
 
 def config(case: str = "replay_tx_gaia_1h") -> SimConfig:
+    base = base_case(case)
     return tx_gaia(max_jobs=256, max_nodes_per_job=16,
-                   **CASES[base_case(case)])
+                   **(CASES[base] if base in CASES else FAULT_CASES[base]))
 
 
 def workload(cfg: SimConfig):
@@ -514,15 +522,21 @@ def check_fleet(cols: dict, replicas=None, pins: dict | None = None
 
 def check(case: str, got: dict) -> None:
     """Raise unless the summary ``got`` meets ``PINNED[case]`` (a macro
-    case: ``PINNED_MACRO[case]``): the completion count exactly, with
-    thermals off the event-tick count (``macro_steps_taken``) exactly,
-    every other value to ``RTOL``; a thermal hour's event-tick count is
-    only reported."""
-    pins = dict(PINNED_MACRO[case] if case in PINNED_MACRO
-                else PINNED[case])
-    if case in PINNED_MACRO and config(case).thermal_enabled:
-        pins.pop("macro_steps_taken")
-    for k in ("completed", "macro_steps_taken"):
+    case: ``PINNED_MACRO[case]``; a fault case: ``PINNED_FAULTS[case]``):
+    the counts (completions, kills, terminal failures) exactly, with
+    thermals off or on a fault hour the event-tick count
+    (``macro_steps_taken``) exactly, every other value to ``RTOL``; a
+    thermal replay hour's event-tick count is only reported."""
+    if case in PINNED_FAULTS:
+        pins = dict(PINNED_FAULTS[case])
+    else:
+        pins = dict(PINNED_MACRO[case] if case in PINNED_MACRO
+                    else PINNED[case])
+        if case in PINNED_MACRO and config(case).thermal_enabled:
+            pins.pop("macro_steps_taken")
+    # the JAX package's own event ticks on a fault hour: reported only
+    pins.pop("reference_macro_steps_taken", None)
+    for k in ("completed", "macro_steps_taken") + FAULT_COUNTS:
         if k in pins and got[k] != pins[k]:
             raise AssertionError(f"{case}: {k} {got[k]} != pinned "
                                  f"{pins[k]}")
@@ -530,6 +544,120 @@ def check(case: str, got: dict) -> None:
         if abs(got[k] - v) > RTOL * abs(v):
             raise AssertionError(f"{case}: {k} {got[k]!r} vs pinned {v!r} "
                                  f"(rtol {RTOL})")
+
+
+# ---------------------------------------------------------------------------
+# The resilience twin (``core.faults``) on the replay hour's job table and
+# workload, 3600 ticks of "replay", per tick and macro-stepped:
+# - ``replay_tx_gaia_1h_faults``: the JAX package's faults bench
+#   (``benchmarks/bench_sim.py:386-430``): node MTBF 6 h (repair 0.5 h),
+#   rack MTBF 48 h (repair 1 h), checkpoints every 900 s at 30 s each, 4
+#   retries; the clocks drawn from key ``SEED``;
+# - ``replay_tx_gaia_1h_drill``: thermals and outages on, no random
+#   faults; ``resilience_drill`` squeezed into the hour (``DRILL``): rack
+#   0 down for maintenance from 600 s to 1500 s, then from 2100 s to 2700 s
+#   a brownout at level 4 (throttle to the floor, no new dispatch, every
+#   running job checkpoint-evicted), so it runs every rung, the mass
+#   release and ``rack_tick`` with a downed rack.
+# ``PINNED_FAULTS`` holds what the JAX package gives for each hour and its
+# ``_macro`` twin on the CPU (jax 0.9.0), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fault_pins.py
+FAULTS = dict(node_mtbf_hours=6.0, node_repair_hours=0.5,
+              rack_mtbf_hours=48.0, rack_repair_hours=1.0,
+              ckpt_interval_s=900.0, ckpt_overhead_s=30.0, max_job_retries=4)
+DRILL = dict(maint_rack=0, maint_start_s=600.0, maint_len_s=900.0,
+             brownout_start_s=2100.0, brownout_len_s=600.0,
+             brownout_level=4)
+FAULT_CASES = {
+    "replay_tx_gaia_1h_faults": FAULTS,
+    "replay_tx_gaia_1h_drill": dict(thermal_enabled=True,
+                                    outages_enabled=True),
+}
+FAULT_MACRO_CASES = tuple(f"{case}_macro" for case in FAULT_CASES)
+FAULT_KEYS = ("completed", "killed_by_failures", "lost_node_seconds",
+              "jobs_failed_terminal", "goodput_frac", "energy_kwh",
+              "avg_pue", "carbon_kg")
+FAULT_THERMAL_KEYS = ("peak_rack_outlet_c", "thermal_throttle_s")
+# held exactly (``check``)
+FAULT_COUNTS = ("killed_by_failures", "jobs_failed_terminal")
+
+
+def fault_scenario(case: str, cfg: SimConfig):
+    """The scenario a fault case runs under: the drill's outages for the
+    drill hours, else ``None`` (the default grid)."""
+    if "drill" not in case:
+        return None
+    from repro_torch.scenarios.scenario import resilience_drill
+
+    return resilience_drill(cfg, **DRILL)
+
+
+def fault_keys(case: str) -> tuple:
+    """The summary keys ``PINNED_FAULTS[case]`` holds."""
+    keys = FAULT_KEYS + (FAULT_THERMAL_KEYS if config(case).thermal_enabled
+                         else ())
+    return keys + (("macro_steps_taken",) if case.endswith("_macro")
+                   else ())
+
+
+# The fleet: the faults hour's config with outages on, FLEET_FAULTS_E
+# replicas whose state comes from keys 0..E-1 (each with its own clocks),
+# the even ones under the default grid and the odd ones under the drill,
+# FLEET_FAULTS_TICKS ticks of "fcfs" per tick, against the JAX package's
+# vmapped ``run_fleet`` (``PINNED_FLEET_FAULTS``, per replica); replicas
+# FLEET_FAULTS_ALONE rerun alone (integers equal, floats 1e-5).
+FLEET_FAULTS_CASE = "fleet_tx_gaia_faults"
+FLEET_FAULTS_E = 8
+FLEET_FAULTS_TICKS = 1200
+FLEET_FAULTS_SCHEDULER = "fcfs"
+FLEET_FAULTS_ALONE = (0, 1)
+FLEET_FAULTS_KEYS = ("completed", "killed_by_failures",
+                     "jobs_failed_terminal", "lost_node_seconds",
+                     "energy_kwh", "carbon_kg", "avg_pue")
+
+
+def fleet_faults_config() -> SimConfig:
+    return tx_gaia(max_jobs=256, max_nodes_per_job=16, outages_enabled=True,
+                   **FAULTS)
+
+
+def fleet_faults_scenarios(cfg: SimConfig) -> list:
+    """The fleet's scenarios, unbatched: default grid and drill, alternating."""
+    from repro_torch.scenarios.scenario import (
+        default_scenario,
+        resilience_drill,
+    )
+
+    return [default_scenario(cfg) if e % 2 == 0
+            else resilience_drill(cfg, **DRILL)
+            for e in range(FLEET_FAULTS_E)]
+
+
+def check_fleet_faults(cols: dict, replicas=None) -> dict:
+    """Hold ``summary_columns`` of the fault fleet (all replicas, or the
+    ``replicas`` they are) to ``PINNED_FLEET_FAULTS``: the counts exactly,
+    the rest to ``RTOL``. Returns the largest relative error."""
+    idx = (np.arange(FLEET_FAULTS_E) if replicas is None
+           else np.asarray(replicas))
+    worst = 0.0
+    for k in FLEET_FAULTS_KEYS:
+        want = np.asarray(PINNED_FLEET_FAULTS[k])[idx]
+        got = np.asarray(cols[k])
+        if k in ("completed",) + FAULT_COUNTS:
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{FLEET_FAULTS_CASE}: {k} {got.tolist()} vs pinned "
+                    f"{want.tolist()}")
+            continue
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+        rel = np.where(got == want, 0.0, rel)
+        worst = max(worst, float(rel.max()))
+        if not np.all(rel <= RTOL):
+            raise AssertionError(
+                f"{FLEET_FAULTS_CASE}: {k} off the pins by rel "
+                f"{rel.max():.3g} at replicas "
+                f"{idx[rel > RTOL].tolist()}")
+    return {"max_rel_err": worst, "replicas": len(idx)}
 
 
 # ---------------------------------------------------------------------------
@@ -870,6 +998,7 @@ RL_CASES = {
     "rl_tx_gaia": {},
     "rl_tx_gaia_thermal_stress": dict(thermal_enabled=True,
                                       **THERMAL_STRESS),
+    "rl_tx_gaia_faults": dict(degrade_enabled=True, **FAULTS),
 }
 RL_SCRIPT_STEPS = {"rl_tx_gaia": 32, "rl_tx_gaia_thermal_stress": 8}
 RL_WORKLOADS, RL_JOBS, RL_HORIZON_S = 4, 40, 1800.0
@@ -891,11 +1020,36 @@ def rl_workloads(cfg: SimConfig) -> list:
             for s in range(RL_WORKLOADS)]
 
 
-def rl_env_kwargs(macro: bool = False) -> dict:
+def rl_env_kwargs(macro: bool = False, case: str = "rl_tx_gaia") -> dict:
     """``SchedEnv`` keywords of the RL cases, the same in both packages
-    (``PINNED_RL``: per-tick; ``PINNED_RL_MACRO``: ``macro=True``)."""
-    return dict(episode_steps=RL_EPISODE_STEPS,
-                sim_steps_per_action=RL_SIM_STEPS, macro=macro)
+    (``PINNED_RL``: per-tick; ``PINNED_RL_MACRO``: ``macro=True``; the
+    fault case adds its reward weights)."""
+    kw = dict(episode_steps=RL_EPISODE_STEPS,
+              sim_steps_per_action=RL_SIM_STEPS, macro=macro)
+    if case == RL_FAULTS_CASE:
+        kw["reward_weights"] = RL_FAULTS_WEIGHTS
+    return kw
+
+
+# ``rl_tx_gaia_faults``: ``rl_tx_gaia`` with the faults hour's MTBFs,
+# checkpoints and retries and the degradation ladder schedulable (5 more
+# actions), the lost-work reward term on; RL_FAULTS_STEPS decisions of
+# ``rl_fault_script``, per tick and macro (``PINNED_RL_FAULTS``, made by
+# ``tests/torch_fault_pins.py``): floats to RTOL, dones, the integer
+# digests (the ladder level among them) exactly.
+RL_FAULTS_CASE = "rl_tx_gaia_faults"
+RL_FAULTS_STEPS = 16
+RL_FAULTS_WEIGHTS = (1.0, 1.0, 1.0, 0.05, 0.0, 0.5)
+RL_FAULTS_INT_FIELDS = RL_INT_FIELDS + ("degrade_level", "n_failures")
+
+
+def rl_fault_script(k: int, n_envs: int, steps: int) -> np.ndarray:
+    """(steps, n_envs) int32 actions over the ladder's action space: env e
+    at step t takes (t + 3 e) mod (k + 6), so every dispatch index, the
+    no-op k and the five rungs k + 1 + r recur."""
+    t = np.arange(steps)[:, None]
+    e = np.arange(n_envs)[None, :]
+    return ((t + 3 * e) % (k + 6)).astype(np.int32)
 
 
 def rl_script(k: int, n_envs: int, steps: int) -> np.ndarray:
@@ -916,7 +1070,7 @@ def int_digest(a) -> list:
 
 
 def rl_record(actions, k: int, n_valid, rewards, dones, infos, obs,
-              sim) -> dict:
+              sim, int_fields=RL_INT_FIELDS) -> dict:
     """The pinned form of a scripted rollout, from numpy: per step the
     (E,) rewards, dones and info fields, the final observations, the
     final integer sim fields as ``int_digest``s and the completions, and
@@ -929,7 +1083,7 @@ def rl_record(actions, k: int, n_valid, rewards, dones, infos, obs,
         "done": np.asarray(dones).astype(bool).tolist(),
         **{f: np.asarray(infos[f], np.float64).tolist() for f in RL_INFO},
         "final_obs": np.asarray(obs, np.float64).tolist(),
-        **{f"digest_{f}": int_digest(sim[f]) for f in RL_INT_FIELDS},
+        **{f"digest_{f}": int_digest(sim[f]) for f in int_fields},
         "n_completed": np.asarray(sim["n_completed"], np.float64).tolist(),
         "past_queued": int(past.sum()),
     }
@@ -939,10 +1093,11 @@ def run_rl_script(env, case: str, steps: int | None = None,
                   guard=None) -> dict:
     """A scripted rollout of the port's ``SchedEnv`` for ``case``:
     RL_ENVS environments reset from ``split(key(RL_SEED), RL_ENVS)``, then
-    ``steps`` decisions of ``rl_script`` (default ``RL_SCRIPT_STEPS``),
-    inside the context manager ``guard()`` when one is given (the reset
-    and the steps; the results reach the host after it). Returns
-    ``rl_record``'s form."""
+    ``steps`` decisions of ``rl_script`` (default ``RL_SCRIPT_STEPS``; the
+    fault case: ``rl_fault_script``, RL_FAULTS_STEPS, its integer fields
+    with the ladder level), inside the context manager ``guard()`` when
+    one is given (the reset and the steps; the results reach the host
+    after it). Returns ``rl_record``'s form."""
     import contextlib
 
     import torch
@@ -950,9 +1105,12 @@ def run_rl_script(env, case: str, steps: int | None = None,
     from repro_torch.utils import prng
     from repro_torch.utils.device import to_device
 
-    steps = RL_SCRIPT_STEPS[case] if steps is None else steps
+    faults = case == RL_FAULTS_CASE
+    if steps is None:
+        steps = RL_FAULTS_STEPS if faults else RL_SCRIPT_STEPS[case]
     dev = env.device
-    script = rl_script(env.k, RL_ENVS, steps)
+    script = (rl_fault_script if faults else rl_script)(env.k, RL_ENVS, steps)
+    int_fields = RL_FAULTS_INT_FIELDS if faults else RL_INT_FIELDS
     rec = {"reward": [], "done": [], "n_valid": [],
            **{f: [] for f in RL_INFO}}
     # the candidates' "valid" flags open the candidate block, the last
@@ -974,10 +1132,10 @@ def run_rl_script(env, case: str, steps: int | None = None,
         return torch.stack(x).cpu().numpy()
 
     sim = {f: getattr(st.sim, f).cpu().numpy()
-           for f in RL_INT_FIELDS + ("n_completed",)}
+           for f in int_fields + ("n_completed",)}
     return rl_record(script, env.k, host(rec["n_valid"]), host(rec["reward"]),
                      host(rec["done"]), {f: host(rec[f]) for f in RL_INFO},
-                     obs.cpu().numpy(), sim)
+                     obs.cpu().numpy(), sim, int_fields)
 
 
 def check_rl(case: str, got: dict, pins: dict | None = None) -> dict:
@@ -1977,5 +2135,556 @@ PINNED_RL_MACRO = {
             "mean_episode_len": 32.0, "mean_episode_return": -101.82082,
             "mean_reward": -3.1819003, "mean_value": -0.12771964, "pg_loss":
             -0.023924114, "v_loss": 543.9121}],
+    },
+}
+
+
+# ``PINNED_FAULTS``, ``PINNED_FLEET_FAULTS``, ``PINNED_RL_FAULTS``: what the
+# JAX package gives for the fault cases on the CPU (jax 0.9.0), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fault_pins.py
+PINNED_FAULTS = {
+    "replay_tx_gaia_1h_faults": {
+        "completed": 97.0,
+        "killed_by_failures": 42.0,
+        "lost_node_seconds": 31359.83984375,
+        "jobs_failed_terminal": 1.0,
+        "goodput_frac": 0.8024425418423966,
+        "energy_kwh": 246.7763214111328,
+        "avg_pue": 1.2522939743788486,
+        "carbon_kg": 123.04259490966797,
+    },
+    "replay_tx_gaia_1h_faults_macro": {
+        "completed": 97.0,
+        "killed_by_failures": 42.0,
+        "lost_node_seconds": 31359.83984375,
+        "jobs_failed_terminal": 1.0,
+        "goodput_frac": 0.8024425418423966,
+        "energy_kwh": 246.7763214111328,
+        "avg_pue": 1.2522939743788486,
+        "carbon_kg": 123.04259490966797,
+        "macro_steps_taken": 463.0,
+        "reference_macro_steps_taken": 457.0,
+    },
+    "replay_tx_gaia_1h_drill": {
+        "completed": 88.0,
+        "killed_by_failures": 27.0,
+        "lost_node_seconds": 13345.0,
+        "jobs_failed_terminal": 0.0,
+        "goodput_frac": 0.8941479480751121,
+        "energy_kwh": 260.3149719238281,
+        "avg_pue": 1.258488953293615,
+        "carbon_kg": 129.783203125,
+        "peak_rack_outlet_c": 27.00355339050293,
+        "thermal_throttle_s": 0.0,
+    },
+    "replay_tx_gaia_1h_drill_macro": {
+        "completed": 88.0,
+        "killed_by_failures": 27.0,
+        "lost_node_seconds": 13345.0,
+        "jobs_failed_terminal": 0.0,
+        "goodput_frac": 0.8941479480751121,
+        "energy_kwh": 260.3149719238281,
+        "avg_pue": 1.258488953293615,
+        "carbon_kg": 129.783203125,
+        "peak_rack_outlet_c": 27.00355339050293,
+        "thermal_throttle_s": 0.0,
+        "macro_steps_taken": 315.0,
+        "reference_macro_steps_taken": 311.0,
+    },
+}
+PINNED_FLEET_FAULTS = {
+    "completed": [
+        16.0, 11.0, 15.0, 11.0, 16.0, 11.0, 16.0, 11.0,
+    ],
+    "killed_by_failures": [
+        14.0, 28.0, 9.0, 36.0, 1.0, 32.0, 7.0, 27.0,
+    ],
+    "jobs_failed_terminal": [
+        0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+    ],
+    "lost_node_seconds": [
+        4588.083984375, 13189.46875, 6158.7333984375, 13227.2080078125,
+        681.3125, 15331.1484375, 3097.828857421875, 12914.6298828125,
+    ],
+    "energy_kwh": [
+        80.88875579833984, 79.26609802246094, 80.29265594482422,
+        77.50067138671875, 81.92184448242188, 79.00578308105469,
+        81.88793182373047, 79.97368621826172,
+    ],
+    "carbon_kg": [
+        40.432003021240234, 39.621063232421875, 40.134002685546875,
+        38.738826751708984, 40.94832229614258, 39.49091720581055,
+        40.93133544921875, 39.974708557128906,
+    ],
+    "avg_pue": [
+        1.2526018163832233, 1.2525639753580595, 1.2526216799175973,
+        1.252560968858012, 1.252617041100742, 1.2525720619756366,
+        1.252612425927776, 1.2525755185511183,
+    ],
+}
+PINNED_RL_FAULTS = {
+    "per_tick": {
+        "reward": [[-3.1442566, -3.151687, -3.151687, -3.1489468, -3.150687,
+            -3.153687, -3.150687, -3.1478794], [-3.1510234, -3.1581867,
+            -3.1581867, -3.1545768, -3.150687, -3.1581867, -3.1571867,
+            -3.146764], [-3.1513844, -3.1581864, -3.1576643, -3.155576,
+            -3.1506855, -3.164686, -3.153617, -3.1467636], [-3.1498077,
+            -3.1581843, -3.1551936, -3.1555743, -3.172184, -3.1565456,
+            -3.1524727, -3.1467617], [-3.1436744, -3.153614, -3.1498616,
+            -3.1555727, -3.1751823, -3.1597598, -3.152091, -3.1460643],
+            [-3.1436453, -3.152469, -3.1468127, -3.1605697, -3.176872,
+            -3.159322, -3.1574688, -3.1441476], [-3.143715, -3.1524658,
+            -3.1441445, -3.1630676, -3.1749659, -3.159145, -3.1599655,
+            -3.1441445], [-3.1437154, -3.1524625, -3.1441412, -3.163064,
+            -3.1749628, -3.1596417, -3.1599622, -3.1441412], [-3.1437173,
+            -3.1513166, -3.1441374, -3.1630597, -3.1703897, -3.1624498,
+            -3.1599586, -3.1384263], [-3.1424556, -3.1436975, -3.1441336,
+            -3.159629, -3.1722434, -3.1609225, -3.1595738, -3.1384225],
+            [-3.1368148, -3.1379814, -3.1368952, -3.1568184, -3.1767385,
+            -3.1563485, -3.1542385, -3.138418], [-3.1318357, -3.133049,
+            -3.1316576, -3.1552258, -3.179234, -3.1537876, -3.1515033,
+            -3.1349857], [-3.1312919, -3.1326962, -3.1300862, -3.1627195,
+            -3.1804204, -3.1599212, -3.153907, -3.1326962], [-3.138401,
+            -3.1281207, -3.13008, -3.1717138, -3.1790106, -3.1642158,
+            -3.1629012, -3.1326897], [-3.1349676, -3.1212606, -3.1300733,
+            -3.1741614, -3.1860042, -3.1661432, -3.1683946, -3.132683],
+            [-3.1326761, -3.121254, -3.1300669, -3.1785393, -3.185997,
+            -3.1769664, -3.1803873, -3.128107]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False]],
+        "facility_w": [[241412.77, 241396.77, 241396.77, 241196.34, 241396.77,
+            241396.77, 241396.77, 240519.52], [241427.56, 241396.78, 241396.78,
+            241196.34, 241396.78, 241396.78, 241396.78, 240519.53], [241458.1,
+            241396.78, 241196.36, 241196.36, 241396.78, 241396.78, 240958.16,
+            240519.53], [240837.86, 241396.8, 240757.75, 241196.38, 241396.8,
+            240519.55, 240958.17, 240519.55], [240865.81, 240958.19, 240757.77,
+            241196.39, 241396.81, 240519.56, 240958.19, 240319.12], [240851.9,
+            240958.2, 240319.16, 241196.4, 240958.2, 240319.16, 240958.2,
+            240319.16], [240863.61, 240958.22, 240319.17, 241196.42, 240958.22,
+            240319.17, 240958.22, 240319.17], [240861.92, 240958.25, 240319.2,
+            241196.45, 240958.25, 240319.2, 240958.25, 240319.2], [240857.34,
+            240519.66, 240319.22, 241196.48, 240519.66, 239880.6, 240958.28,
+            239880.6], [240413.9, 240081.06, 240319.27, 240757.89, 240519.69,
+            239880.64, 240519.69, 239880.64], [239949.86, 239642.47, 239442.05,
+            240557.5, 240519.72, 239442.05, 240519.72, 239880.67], [239952.48,
+            239442.08, 239241.66, 240557.53, 240519.77, 239241.66, 239880.72,
+            239442.08], [239912.06, 239442.12, 239241.7, 240557.58, 240081.19,
+            238803.11, 239880.75, 239442.12], [239880.8, 239003.55, 239241.75,
+            240557.62, 240081.22, 238402.3, 239880.8, 239442.17], [239442.22,
+            238564.97, 239241.8, 240119.05, 240081.28, 238402.34, 239880.84,
+            239442.22], [239442.28, 238565.02, 239241.84, 239680.47, 240081.33,
+            238841.0, 239880.9, 239003.66]],
+        "queue_len": [[1.0, 2.0, 2.0, 1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0,
+            2.0, 1.0, 2.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 1.0, 3.0, 2.0, 2.0],
+            [1.0, 2.0, 2.0, 2.0, 4.0, 3.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 5.0,
+            4.0, 2.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 4.0, 3.0, 2.0], [1.0,
+            2.0, 2.0, 3.0, 5.0, 4.0, 3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 5.0,
+            3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 5.0, 3.0, 2.0], [1.0, 2.0,
+            2.0, 3.0, 6.0, 5.0, 3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 6.0, 5.0, 3.0,
+            2.0], [1.0, 2.0, 2.0, 4.0, 7.0, 6.0, 4.0, 2.0], [1.0, 2.0, 2.0,
+            5.0, 7.0, 7.0, 5.0, 2.0], [2.0, 2.0, 2.0, 6.0, 8.0, 8.0, 6.0, 2.0],
+            [2.0, 2.0, 2.0, 6.0, 8.0, 9.0, 6.0, 2.0], [2.0, 2.0, 2.0, 8.0, 8.0,
+            9.0, 8.0, 2.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0058422, 1.00582, 1.00582, 1.005263, 1.00582,
+            1.00582, 1.00582, 1.0046014], [1.0059277, 1.00582, 1.00582,
+            1.0049846, 1.00582, 1.00582, 1.00582, 1.0021646], [1.0060436,
+            1.0058202, 1.0056531, 1.004985, 1.0058202, 1.0058202, 1.0043577,
+            1.0021647], [1.0055394, 1.0058202, 1.0048631, 1.004985, 1.0058202,
+            1.0028957, 1.0039924, 1.0021647], [1.0035776, 1.0043582, 1.0031571,
+            1.0049851, 1.0058202, 1.0021647, 1.0038707, 1.001942], [1.0035689,
+            1.0039927, 1.0021825, 1.0049851, 1.0046018, 1.0013853, 1.0039927,
+            1.0013297], [1.0035924, 1.0039927, 1.0013299, 1.0049852, 1.0039927,
+            1.0013299, 1.0039927, 1.0013299], [1.0035937, 1.0039928, 1.00133,
+            1.0049852, 1.0039928, 1.00133, 1.0039928, 1.00133], [1.0035957,
+            1.0036273, 1.0013301, 1.0049853, 1.0025308, 0.99999, 1.0039928,
+            0.9995026], [1.0031934, 1.0011907, 1.0013303, 1.0038888, 1.0021653,
+            0.9995027, 1.0038711, 0.9995027], [1.0013899, 0.9993632, 0.9990155,
+            1.0029908, 1.0021654, 0.99804074, 1.0021654, 0.9995028],
+            [0.99979854, 0.99778664, 0.9973413, 1.0023229, 1.0021656,
+            0.9970629, 1.0011319, 0.99840635], [0.99962616, 0.9976754,
+            0.9968403, 1.0023234, 1.0009472, 0.9959875, 0.99950296, 0.9976754],
+            [0.9995035, 0.99621344, 0.9968405, 1.0023234, 1.0003386, 0.9938438,
+            0.9995035, 0.99767554], [0.99840707, 0.99402046, 0.9968409,
+            1.0013489, 1.0003387, 0.9933429, 0.99950355, 0.997676],
+            [0.99767613, 0.99402106, 0.996841, 0.9989123, 1.0003388, 0.995049,
+            0.9995037, 0.9962141]],
+        "carbon_kg": [[0.5029211, 0.50290996, 0.50290996, 0.5026316,
+            0.50290996, 0.50290996, 0.50290996, 0.5023007], [0.50296366,
+            0.50290984, 0.50290984, 0.5024922, 0.50290984, 0.50290984,
+            0.50290984, 0.50108224], [0.50302136, 0.5029095, 0.502826,
+            0.5024919, 0.5029095, 0.5029095, 0.50217843, 0.5010819],
+            [0.5027689, 0.5029091, 0.50243056, 0.50249153, 0.5029091,
+            0.50144696, 0.5019952, 0.50108147], [0.5017873, 0.50217754,
+            0.50157726, 0.502491, 0.5029085, 0.50108105, 0.5019339,
+            0.50096965], [0.5017823, 0.5019941, 0.5010891, 0.50249034,
+            0.50229865, 0.5006905, 0.5019941, 0.5006627], [0.5017932,
+            0.50199324, 0.5006619, 0.5024895, 0.50199324, 0.5006619,
+            0.50199324, 0.5006619], [0.5017928, 0.5019923, 0.5006609,
+            0.5024885, 0.5019923, 0.5006609, 0.5019923, 0.5006609], [0.5017926,
+            0.5018084, 0.5006598, 0.5024875, 0.50126016, 0.49998978, 0.5019912,
+            0.49974608], [0.5015902, 0.50058883, 0.50065863, 0.5019379,
+            0.50107616, 0.49974483, 0.50192904, 0.49974483], [0.50068706,
+            0.49967366, 0.4994998, 0.50148755, 0.5010748, 0.49901244,
+            0.5010748, 0.49974346], [0.4998897, 0.49888387, 0.4986612,
+            0.50115204, 0.50107336, 0.49852198, 0.5005565, 0.49919373],
+            [0.4998019, 0.4988266, 0.49840903, 0.50115037, 0.50046253,
+            0.49798262, 0.49974036, 0.4988266], [0.49973857, 0.49809378,
+            0.49840727, 0.5011486, 0.50015616, 0.49690896, 0.49973857,
+            0.4988248], [0.4991884, 0.49699533, 0.49840534, 0.50065935,
+            0.50015426, 0.4966566, 0.4997367, 0.49882287], [0.49882084,
+            0.49699333, 0.4984033, 0.49943897, 0.50015223, 0.4975073,
+            0.49973467, 0.49808982]],
+        "final_obs": [[0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.0078125, 0.0, 0.99255955, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.99107146, 0.99107146,
+            0.99553573, 0.0, 0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.99255955, 0.66071427,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.0078125, 0.0, 0.9895834, 0.0027777778, 0.5, 1.0,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.98660713, 0.9866072,
+            0.98660713, 0.99553573, 0.0, 0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.9895834, 0.6577381, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.0078125, 0.0, 0.99107146, 0.0027777778, 0.5, 1.0,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.99107146,
+            0.99107146, 0.99107146, 0.0, 0.99107146, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.66071427,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.03125, 0.0, 0.99255955, 0.0027777778, 0.5, 0.25,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.9933036, 0.9933036,
+            0.9933036, 0.99107146, 0.0, 0.99107146, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 0.06666667, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.07424609,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.25, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625,
+            0.083333336, 0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334,
+            0.083333336, 0.25, 0.5, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5,
+            0.018561523, 0.026718479, 0.03125, 0.013960943, 0.031629283,
+            0.08531592, 0.01986743, 0.03125, 0.6622024, 0.99255955, 0.99255955,
+            0.99255955, 0.6622024, 0.6622024, 0.99255955, 0.6622024],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.03125, 0.0,
+            0.99553573, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.9933036, 0.9933036, 0.9933036, 1.0, 0.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.06666667, 0.053921703, 0.053674124,
+            0.053645752, 0.046766467, 0.026392212, 0.017972425, 0.00853116,
+            0.5, 0.5, 0.42290732, 0.25129122, 0.5, 0.5, 0.5, 0.5, 0.25, 0.0625,
+            0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.3125, 0.3541667,
+            0.39583334, 0.083333336, 0.39583334, 0.20833334, 0.4375, 0.4375,
+            1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.125, 0.03125,
+            0.026431708, 0.015705701, 0.03125, 0.03125, 0.03125, 0.03125,
+            0.6622024, 0.99553573, 0.99553573, 0.99553573, 0.6622024,
+            0.99553573, 0.99553573, 0.99553573], [0.017452406, 0.9998477,
+            1.3157414, 0.9936537, 1.0, 0.03515625, 0.0, 0.9880953,
+            0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.99107146, 0.99107146, 0.99107146, 0.98214287, 0.0, 0.98214287,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.06666667, 0.06393188,
+            0.057513393, 0.0486698, 0.033505365, 0.016758198, 0.013663017,
+            0.01148193, 0.4147965, 0.5, 0.16752377, 0.12621523, 0.20077494,
+            0.5, 0.26978844, 0.5, 0.0625, 0.0625, 0.0625, 0.125, 0.0625, 0.125,
+            0.0625, 0.125, 0.3125, 0.4375, 0.39583334, 0.125, 0.375,
+            0.20833334, 0.10416667, 0.27083334, 1.0, 0.0, 0.0, 1.0, 1.0, 1.0,
+            0.0, 0.5, 0.025924781, 0.03125, 0.010470236, 0.015776904,
+            0.012548434, 0.0625, 0.016861778, 0.0625, 0.66071427, 0.9880953,
+            0.9880953, 0.66071427, 0.66071427, 0.66071427, 0.9880953,
+            0.66071427], [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.03125, 0.0, 0.99404764, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.9933036, 0.9933036, 0.9933036,
+            0.99553573, 0.0, 0.99553573, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.06666667, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.07424609,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.25, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625,
+            0.083333336, 0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334,
+            0.083333336, 0.25, 0.5, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5,
+            0.018561523, 0.026718479, 0.03125, 0.013960943, 0.031629283,
+            0.08531592, 0.01986743, 0.03125, 0.6622024, 0.99404764, 0.99404764,
+            0.99404764, 0.6622024, 0.6622024, 0.99404764, 0.6622024],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.0078125, 0.0,
+            0.99107146, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.98883927, 0.9888393, 0.9888393, 0.99553573, 0.0,
+            0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.06666667,
+            0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.18023093, 0.312406, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433, 0.0781015, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.99107146, 0.6592262, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0]],
+        "digest_jstate": [820, 820, 820, 820, 820, 820, 820, 820],
+        "digest_placement": [-8390656, -8390656, -8390656, -8390656, -8390656,
+            -8390656, -8390656, -8390656],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "digest_degrade_level": [4, 4, 4, 1, 4, 4, 4, 4],
+        "digest_n_failures": [0, 0, 0, 0, 0, 0, 0, 0],
+        "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "past_queued": 50,
+    },
+    "macro": {
+        "reward": [[-3.1442566, -3.151687, -3.151687, -3.1489468, -3.150687,
+            -3.153687, -3.150687, -3.1478794], [-3.1510234, -3.1581867,
+            -3.1581867, -3.1545768, -3.150687, -3.1581867, -3.1571867,
+            -3.146764], [-3.1513844, -3.1581864, -3.1576643, -3.155576,
+            -3.1506855, -3.164686, -3.153617, -3.1467636], [-3.1498077,
+            -3.1581843, -3.1551936, -3.1555743, -3.172184, -3.1565456,
+            -3.1524727, -3.1467617], [-3.1436744, -3.153614, -3.1498616,
+            -3.1555727, -3.1751823, -3.1597598, -3.152091, -3.1460643],
+            [-3.1436453, -3.152469, -3.1468127, -3.1605697, -3.176872,
+            -3.159322, -3.1574688, -3.1441476], [-3.143715, -3.1524658,
+            -3.1441445, -3.1630676, -3.1749659, -3.159145, -3.1599655,
+            -3.1441445], [-3.1437154, -3.1524625, -3.1441412, -3.163064,
+            -3.1749628, -3.1596417, -3.1599622, -3.1441412], [-3.1437173,
+            -3.1513166, -3.1441374, -3.1630597, -3.1703897, -3.1624498,
+            -3.1599586, -3.1384263], [-3.1424556, -3.1436975, -3.1441336,
+            -3.159629, -3.1722434, -3.1609225, -3.1595738, -3.1384225],
+            [-3.1368148, -3.1379814, -3.1368952, -3.1568184, -3.1767385,
+            -3.1563485, -3.1542385, -3.138418], [-3.1318357, -3.133049,
+            -3.1316576, -3.1552258, -3.179234, -3.1537876, -3.1515033,
+            -3.1349857], [-3.1312919, -3.1326962, -3.1300862, -3.1627195,
+            -3.1804204, -3.1599212, -3.153907, -3.1326962], [-3.138401,
+            -3.1281207, -3.13008, -3.1717138, -3.1790106, -3.1642158,
+            -3.1629012, -3.1326897], [-3.1349676, -3.1212606, -3.1300733,
+            -3.1741614, -3.1860042, -3.1661432, -3.1683946, -3.132683],
+            [-3.1326761, -3.121254, -3.1300669, -3.1785393, -3.185997,
+            -3.1769664, -3.1803873, -3.128107]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False]],
+        "facility_w": [[241412.77, 241396.77, 241396.77, 241196.34, 241396.77,
+            241396.77, 241396.77, 240519.52], [241427.56, 241396.78, 241396.78,
+            241196.34, 241396.78, 241396.78, 241396.78, 240519.53], [241458.1,
+            241396.78, 241196.36, 241196.36, 241396.78, 241396.78, 240958.16,
+            240519.53], [240837.86, 241396.8, 240757.75, 241196.38, 241396.8,
+            240519.55, 240958.17, 240519.55], [240865.81, 240958.19, 240757.77,
+            241196.39, 241396.81, 240519.56, 240958.19, 240319.12], [240851.9,
+            240958.2, 240319.16, 241196.4, 240958.2, 240319.16, 240958.2,
+            240319.16], [240863.61, 240958.22, 240319.17, 241196.42, 240958.22,
+            240319.17, 240958.22, 240319.17], [240861.92, 240958.25, 240319.2,
+            241196.45, 240958.25, 240319.2, 240958.25, 240319.2], [240857.34,
+            240519.66, 240319.22, 241196.48, 240519.66, 239880.6, 240958.28,
+            239880.6], [240413.9, 240081.06, 240319.27, 240757.89, 240519.69,
+            239880.64, 240519.69, 239880.64], [239949.86, 239642.47, 239442.05,
+            240557.5, 240519.72, 239442.05, 240519.72, 239880.67], [239952.48,
+            239442.08, 239241.66, 240557.53, 240519.77, 239241.66, 239880.72,
+            239442.08], [239912.06, 239442.12, 239241.7, 240557.58, 240081.19,
+            238803.11, 239880.75, 239442.12], [239880.8, 239003.55, 239241.75,
+            240557.62, 240081.22, 238402.3, 239880.8, 239442.17], [239442.22,
+            238564.97, 239241.8, 240119.05, 240081.28, 238402.34, 239880.84,
+            239442.22], [239442.28, 238565.02, 239241.84, 239680.47, 240081.33,
+            238841.0, 239880.9, 239003.66]],
+        "queue_len": [[1.0, 2.0, 2.0, 1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0,
+            2.0, 1.0, 2.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 1.0, 3.0, 2.0, 2.0],
+            [1.0, 2.0, 2.0, 2.0, 4.0, 3.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 5.0,
+            4.0, 2.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 4.0, 3.0, 2.0], [1.0,
+            2.0, 2.0, 3.0, 5.0, 4.0, 3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 5.0,
+            3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 5.0, 5.0, 3.0, 2.0], [1.0, 2.0,
+            2.0, 3.0, 6.0, 5.0, 3.0, 2.0], [1.0, 2.0, 2.0, 3.0, 6.0, 5.0, 3.0,
+            2.0], [1.0, 2.0, 2.0, 4.0, 7.0, 6.0, 4.0, 2.0], [1.0, 2.0, 2.0,
+            5.0, 7.0, 7.0, 5.0, 2.0], [2.0, 2.0, 2.0, 6.0, 8.0, 8.0, 6.0, 2.0],
+            [2.0, 2.0, 2.0, 6.0, 8.0, 9.0, 6.0, 2.0], [2.0, 2.0, 2.0, 8.0, 8.0,
+            9.0, 8.0, 2.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0058422, 1.00582, 1.00582, 1.005263, 1.00582,
+            1.00582, 1.00582, 1.0046014], [1.0059277, 1.00582, 1.00582,
+            1.0049846, 1.00582, 1.00582, 1.00582, 1.0021646], [1.0060436,
+            1.0058202, 1.0056531, 1.004985, 1.0058202, 1.0058202, 1.0043577,
+            1.0021647], [1.0055394, 1.0058202, 1.0048631, 1.004985, 1.0058202,
+            1.0028957, 1.0039924, 1.0021647], [1.0035776, 1.0043582, 1.0031571,
+            1.0049851, 1.0058202, 1.0021647, 1.0038707, 1.001942], [1.0035689,
+            1.0039927, 1.0021825, 1.0049851, 1.0046018, 1.0013853, 1.0039927,
+            1.0013297], [1.0035924, 1.0039927, 1.0013299, 1.0049852, 1.0039927,
+            1.0013299, 1.0039927, 1.0013299], [1.0035937, 1.0039928, 1.00133,
+            1.0049852, 1.0039928, 1.00133, 1.0039928, 1.00133], [1.0035957,
+            1.0036273, 1.0013301, 1.0049853, 1.0025308, 0.99999, 1.0039928,
+            0.9995026], [1.0031934, 1.0011907, 1.0013303, 1.0038888, 1.0021653,
+            0.9995027, 1.0038711, 0.9995027], [1.0013899, 0.9993632, 0.9990155,
+            1.0029908, 1.0021654, 0.99804074, 1.0021654, 0.9995028],
+            [0.99979854, 0.99778664, 0.9973413, 1.0023229, 1.0021656,
+            0.9970629, 1.0011319, 0.99840635], [0.99962616, 0.9976754,
+            0.9968403, 1.0023234, 1.0009472, 0.9959875, 0.99950296, 0.9976754],
+            [0.9995035, 0.99621344, 0.9968405, 1.0023234, 1.0003386, 0.9938438,
+            0.9995035, 0.99767554], [0.99840707, 0.99402046, 0.9968409,
+            1.0013489, 1.0003387, 0.9933429, 0.99950355, 0.997676],
+            [0.99767613, 0.99402106, 0.996841, 0.9989123, 1.0003388, 0.995049,
+            0.9995037, 0.9962141]],
+        "carbon_kg": [[0.5029211, 0.50290996, 0.50290996, 0.5026316,
+            0.50290996, 0.50290996, 0.50290996, 0.5023007], [0.50296366,
+            0.50290984, 0.50290984, 0.5024922, 0.50290984, 0.50290984,
+            0.50290984, 0.50108224], [0.50302136, 0.5029095, 0.502826,
+            0.5024919, 0.5029095, 0.5029095, 0.50217843, 0.5010819],
+            [0.5027689, 0.5029091, 0.50243056, 0.50249153, 0.5029091,
+            0.50144696, 0.5019952, 0.50108147], [0.5017873, 0.50217754,
+            0.50157726, 0.502491, 0.5029085, 0.50108105, 0.5019339,
+            0.50096965], [0.5017823, 0.5019941, 0.5010891, 0.50249034,
+            0.50229865, 0.5006905, 0.5019941, 0.5006627], [0.5017932,
+            0.50199324, 0.5006619, 0.5024895, 0.50199324, 0.5006619,
+            0.50199324, 0.5006619], [0.5017928, 0.5019923, 0.5006609,
+            0.5024885, 0.5019923, 0.5006609, 0.5019923, 0.5006609], [0.5017926,
+            0.5018084, 0.5006598, 0.5024875, 0.50126016, 0.49998978, 0.5019912,
+            0.49974608], [0.5015902, 0.50058883, 0.50065863, 0.5019379,
+            0.50107616, 0.49974483, 0.50192904, 0.49974483], [0.50068706,
+            0.49967366, 0.4994998, 0.50148755, 0.5010748, 0.49901244,
+            0.5010748, 0.49974346], [0.4998897, 0.49888387, 0.4986612,
+            0.50115204, 0.50107336, 0.49852198, 0.5005565, 0.49919373],
+            [0.4998019, 0.4988266, 0.49840903, 0.50115037, 0.50046253,
+            0.49798262, 0.49974036, 0.4988266], [0.49973857, 0.49809378,
+            0.49840727, 0.5011486, 0.50015616, 0.49690896, 0.49973857,
+            0.4988248], [0.4991884, 0.49699533, 0.49840534, 0.50065935,
+            0.50015426, 0.4966566, 0.4997367, 0.49882287], [0.49882084,
+            0.49699333, 0.4984033, 0.49943897, 0.50015223, 0.4975073,
+            0.49973467, 0.49808982]],
+        "final_obs": [[0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.0078125, 0.0, 0.99255955, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.99107146, 0.99107146,
+            0.99553573, 0.0, 0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.99255955, 0.66071427,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.0078125, 0.0, 0.9895834, 0.0027777778, 0.5, 1.0,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.98660713, 0.9866072,
+            0.98660713, 0.99553573, 0.0, 0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.9895834, 0.6577381, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.0078125, 0.0, 0.99107146, 0.0027777778, 0.5, 1.0,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.99107146,
+            0.99107146, 0.99107146, 0.0, 0.99107146, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.06666667, 0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.18023093, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433,
+            0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.99107146, 0.66071427,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414,
+            0.9936537, 1.0, 0.03125, 0.0, 0.99255955, 0.0027777778, 0.5, 0.25,
+            0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.9933036, 0.9933036,
+            0.9933036, 0.99107146, 0.0, 0.99107146, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 0.06666667, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.07424609,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.25, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625,
+            0.083333336, 0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334,
+            0.083333336, 0.25, 0.5, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5,
+            0.018561523, 0.026718479, 0.03125, 0.013960943, 0.031629283,
+            0.08531592, 0.01986743, 0.03125, 0.6622024, 0.99255955, 0.99255955,
+            0.99255955, 0.6622024, 0.6622024, 0.99255955, 0.6622024],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.03125, 0.0,
+            0.99553573, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.9933036, 0.9933036, 0.9933036, 1.0, 0.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.06666667, 0.053921703, 0.053674124,
+            0.053645752, 0.046766467, 0.026392212, 0.017972425, 0.00853116,
+            0.5, 0.5, 0.42290732, 0.25129122, 0.5, 0.5, 0.5, 0.5, 0.25, 0.0625,
+            0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.3125, 0.3541667,
+            0.39583334, 0.083333336, 0.39583334, 0.20833334, 0.4375, 0.4375,
+            1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.125, 0.03125,
+            0.026431708, 0.015705701, 0.03125, 0.03125, 0.03125, 0.03125,
+            0.6622024, 0.99553573, 0.99553573, 0.99553573, 0.6622024,
+            0.99553573, 0.99553573, 0.99553573], [0.017452406, 0.9998477,
+            1.3157414, 0.9936537, 1.0, 0.03515625, 0.0, 0.9880953,
+            0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.99107146, 0.99107146, 0.99107146, 0.98214287, 0.0, 0.98214287,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.06666667, 0.06393188,
+            0.057513393, 0.0486698, 0.033505365, 0.016758198, 0.013663017,
+            0.01148193, 0.4147965, 0.5, 0.16752377, 0.12621523, 0.20077494,
+            0.5, 0.26978844, 0.5, 0.0625, 0.0625, 0.0625, 0.125, 0.0625, 0.125,
+            0.0625, 0.125, 0.3125, 0.4375, 0.39583334, 0.125, 0.375,
+            0.20833334, 0.10416667, 0.27083334, 1.0, 0.0, 0.0, 1.0, 1.0, 1.0,
+            0.0, 0.5, 0.025924781, 0.03125, 0.010470236, 0.015776904,
+            0.012548434, 0.0625, 0.016861778, 0.0625, 0.66071427, 0.9880953,
+            0.9880953, 0.66071427, 0.66071427, 0.66071427, 0.9880953,
+            0.66071427], [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.03125, 0.0, 0.99404764, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0,
+            1.0, 0.0, 0.0, 0.0, 0.0, 0.9933036, 0.9933036, 0.9933036,
+            0.99553573, 0.0, 0.99553573, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 0.06666667, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.07424609,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.25, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625,
+            0.083333336, 0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334,
+            0.083333336, 0.25, 0.5, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5,
+            0.018561523, 0.026718479, 0.03125, 0.013960943, 0.031629283,
+            0.08531592, 0.01986743, 0.03125, 0.6622024, 0.99404764, 0.99404764,
+            0.99404764, 0.6622024, 0.6622024, 0.99404764, 0.6622024],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.0078125, 0.0,
+            0.99107146, 0.0027777778, 0.5, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.98883927, 0.9888393, 0.9888393, 0.99553573, 0.0,
+            0.99553573, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.06666667,
+            0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.18023093, 0.312406, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.3541667, 0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.011264433, 0.0781015, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.99107146, 0.6592262, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0]],
+        "digest_jstate": [820, 820, 820, 820, 820, 820, 820, 820],
+        "digest_placement": [-8390656, -8390656, -8390656, -8390656, -8390656,
+            -8390656, -8390656, -8390656],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "digest_degrade_level": [4, 4, 4, 1, 4, 4, 4, 4],
+        "digest_n_failures": [0, 0, 0, 0, 0, 0, 0, 0],
+        "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "past_queued": 50,
     },
 }

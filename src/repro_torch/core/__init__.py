@@ -1,8 +1,19 @@
 """The datacenter digital twin on tensors: trace replay, rescheduling,
-the power/cooling/carbon chain and the rack thermal twin, tick by tick or
-macro-stepped, for one datacenter or a fleet of replicas (faults and
-serving arrive with their slices)."""
+the power/cooling/carbon chain, the rack thermal twin and the resilience
+twin (faults, outages, checkpoint-restart, the degradation ladder), tick
+by tick or macro-stepped, for one datacenter or a fleet of replicas
+(serving arrives with its slice)."""
 
+from repro_torch.core.faults import (
+    LVL_DRAIN,
+    LVL_EVICT,
+    LVL_GATE,
+    LVL_NORMAL,
+    LVL_THROTTLE,
+    apply_faults,
+    effective_level,
+    next_fault_event,
+)
 from repro_torch.core.fleet import (
     fleet_summary,
     policy_scenario_grid,

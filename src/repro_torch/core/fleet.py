@@ -144,7 +144,11 @@ def run_fleet(
     ``policy_scenario_grid``. The step runs each named strategy on every
     replica and keeps each replica's own.
     All other statics (node constants, telemetry bank) are shared; each
-    replica gets its own PRNG key words.
+    replica gets its own PRNG key words. With the fault engine on, each
+    replica redraws its fault clocks from its own key and takes its
+    outage windows from its scenario; a single ``state`` gives every
+    replica its clocks (as the JAX package's broadcast does), a state
+    from ``init_state`` with (E, 2) key words its own.
 
     ``workloads``: per-replica TELEMETRY axis — int ids (length R) into a
     *banked* Statics trace ((W, J, Q) ``cpu_trace``, e.g. from

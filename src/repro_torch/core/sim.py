@@ -31,10 +31,18 @@ COP, gates new dispatch on the racks' trip, and commits the racks' RC
 update (``rack_tick``, one launch of the ``rack_thermal`` kernel on the
 card) last in the tick.
 
+With ``cfg.resilience_on`` the fault engine (``core.faults``) runs first
+in the tick: due fault clocks fire, outage windows take racks down and
+force ladder levels, nodes are repaired, and jobs on newly-downed nodes
+are killed (rewound to their last checkpoint, requeued or failed for
+good); the ladder gates new dispatch from ``LVL_GATE`` up and scales the
+power chain and progress in the tail, and the checkpoint write drags
+progress.
+
 The step never reads a tensor on the host (no ``.item()``, no Python
 branch on a tensor value), so on the card the ticks queue work without a
-single sync. The fault and serving models are off; their flags raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+single sync. The serving model is off; its flag raises
+``NotImplementedError`` naming the ROADMAP slice that brings it.
 
 Macro-stepping (``make_macro_step``, ``run_episode(macro=True)``) runs
 one full event tick, then fast-forwards the quiet ticks after it: ticks
@@ -56,6 +64,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.sim import SimConfig
+from repro_torch.core import faults as flt
 from repro_torch.core import placement as plc
 from repro_torch.core import schedulers as sched
 from repro_torch.core import thermal as thm
@@ -99,6 +108,7 @@ class StepOut(NamedTuple):
     cop: torch.Tensor
     thermal_throttle_s_step: torch.Tensor
     # resilience telemetry: zeros while the fault engine is off
+    # (degrade_level: the ladder level in force, as f32)
     killed_now: torch.Tensor
     lost_node_s_step: torch.Tensor
     degrade_level: torch.Tensor
@@ -115,21 +125,22 @@ class StepOut(NamedTuple):
     srv_lat_hist_step: torch.Tensor | None = None
 
 
-def _parse_weights(reward_weights) -> Tuple[float, float, float, float, float]:
-    """(w_thr, w_en, w_co2, w_q, w_cost). The lost-work and SLO weights
-    (6th and 7th) belong to the faults and serving slices."""
-    if len(reward_weights) not in (4, 5):
-        if len(reward_weights) in (6, 7):
+def _parse_weights(reward_weights) -> Tuple[float, ...]:
+    """(w_thr, w_en, w_co2, w_q, w_cost, w_lost). The SLO weight (7th)
+    belongs to the serving slice."""
+    if len(reward_weights) not in (4, 5, 6):
+        if len(reward_weights) == 7:
             raise NotImplementedError(
-                "reward weights w_lost / w_slo arrive with the resilience "
-                "and serving slices (ROADMAP queue 1, items 7-8)")
+                "reward weight w_slo arrives with the serving slice "
+                "(ROADMAP queue 1, item 8)")
         raise ConfigError(
             "reward_weights must have 4 to 7 entries "
             "(w_thr, w_en, w_co2, w_q[, w_cost[, w_lost[, w_slo]]]); got "
             f"{len(reward_weights)}")
     w_thr, w_en, w_co2, w_q = reward_weights[:4]
-    w_cost = reward_weights[4] if len(reward_weights) == 5 else 0.0
-    return w_thr, w_en, w_co2, w_q, w_cost
+    w_cost = reward_weights[4] if len(reward_weights) >= 5 else 0.0
+    w_lost = reward_weights[5] if len(reward_weights) == 6 else 0.0
+    return w_thr, w_en, w_co2, w_q, w_cost, w_lost
 
 
 def _grid_signals(statics: Statics, t: torch.Tensor):
@@ -144,11 +155,15 @@ def _grid_signals(statics: Statics, t: torch.Tensor):
 def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
     """The per-tick accounting tail after the power chain (which, with
     ``cfg.thermal_enabled``, already carries the thermal derate): the
-    jobs' thermal clock, the DVFS throttle to the power cap, job progress,
-    energy/carbon/cost accumulation, the rack RC update (``rack_tick``),
-    reward and ``StepOut``. The fault and serving branches arrive with
-    their slices."""
-    w_thr, w_en, w_co2, w_q, w_cost = _parse_weights(reward_weights)
+    jobs' thermal clock, the degradation ladder and the checkpoint drag
+    (``cfg.resilience_on``), the DVFS throttle to the power cap, job
+    progress, energy/carbon/cost accumulation, the rack RC update
+    (``rack_tick``), reward and ``StepOut``. ``killed_now``/``lost_now``
+    are the fault engine's per-tick kills and lost node-seconds: the full
+    step passes them, fast ticks pass nothing (faults fire only on event
+    ticks, so zeros are exact). The serving branch arrives with its
+    slice."""
+    w_thr, w_en, w_co2, w_q, w_cost, w_lost = _parse_weights(reward_weights)
     dev = statics.capacity.device
     zeros = {}     # the off models' telemetry, one tensor per replica shape
     racks = (thm.rack_tick_statics(cfg, statics) if cfg.thermal_enabled
@@ -157,6 +172,9 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
     en_scale = max(cfg.n_nodes * 0.4 * dt_h, 1e-9)
     co2_scale = max(cfg.n_nodes * 0.15 * dt_h, 1e-9)
     cost_scale = max(cfg.n_nodes * 0.4 * dt_h * cfg.price_mean_usd_kwh, 1e-9)
+    # the lost-work penalty's node-second budget of a tick: a true
+    # division on every device (a device tensor divisor)
+    lost_scale = full(max(cfg.n_nodes * cfg.dt, 1e-9), torch.float32, dev)
 
     def tail(
         state: SimState,
@@ -171,15 +189,43 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         queued: torch.Tensor,
         running: torch.Tensor,
         util: torch.Tensor,
+        killed_now: torch.Tensor | None = None,
+        lost_now: torch.Tensor | None = None,
     ) -> Tuple[SimState, StepOut]:
         carbon_g, price, cap_w, wb = signals
         lead = tuple(state.t.shape)
         if lead not in zeros:
             zeros[lead] = torch.zeros(lead, dtype=torch.float32, device=dev)
         zero = zeros[lead]
+        killed_now = zero if killed_now is None else killed_now
+        lost_now = zero if lost_now is None else lost_now
         if cfg.thermal_enabled:
             # synchronous ranks run at the slowest clock over a job's nodes
             rate = rate * job_th
+
+        if cfg.resilience_on:
+            # --- the degradation ladder: from THROTTLE up it throttles
+            # dynamic power and progress as the DVFS cap does (idle power
+            # burns at any clock); the checkpoint write drags progress.
+            # Constant across a quiet macro segment, so fast ticks re-run
+            # it exactly
+            dg_lvl = flt.effective_level(cfg, state, statics)
+            dg = flt.degrade_clock(cfg, dg_lvl)
+            dg_on = dg_lvl >= flt.LVL_THROTTLE
+            dyn_dg = torch.clamp(p.it_w - idle_total, min=0.0)
+            r_dg = (idle_total + dg * dyn_dg) / torch.clamp(p.it_w, min=1.0)
+            r_dg = torch.where(dg_on, r_dg, 1.0)
+            dg = torch.where(dg_on, dg, 1.0)
+            p = p._replace(
+                it_w=p.it_w * r_dg, input_w=p.input_w * r_dg,
+                cooling_w=p.cooling_w * r_dg,
+                facility_w=p.facility_w * r_dg, gflops=p.gflops * dg)
+            rate = rate * dg[..., None]
+            if cfg.ckpt_overhead_s > 0:
+                rate = rate * flt.ckpt_drag(cfg, state)
+            dg_level = dg_lvl.to(torch.float32)
+        else:
+            dg_level = zero
 
         # --- demand response: DVFS-throttle to the facility power cap;
         # `capped` gates the rescale exactly off when uncapped
@@ -231,7 +277,9 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             th_step = zero
 
         # reward: throughput-positive, energy/carbon/queue-negative,
-        # normalized to O(1) per step
+        # normalized to O(1) per step; with the fault engine on, the
+        # lost-work penalty charges the node-seconds a kill destroyed
+        # against the tick's node-second budget
         reward = (
             w_thr * n_done
             - w_en * e_step / en_scale * 0.1
@@ -239,6 +287,8 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             - w_q * queued * 0.01
             - w_cost * cost_step / cost_scale * 0.1
         )
+        if cfg.resilience_on:
+            reward = reward - w_lost * lost_now / lost_scale
 
         out = StepOut(
             facility_w=p.facility_w, it_w=p.it_w, pue=p.pue, util=util,
@@ -248,7 +298,8 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             carbon_gkwh=carbon_g, price_usd_kwh=price, power_cap_w=cap_w,
             cost_usd_step=cost_step, throttle=throttle,
             rack_max_c=rack_max, cop=cop, thermal_throttle_s_step=th_step,
-            killed_now=zero, lost_node_s_step=zero, degrade_level=zero,
+            killed_now=killed_now, lost_node_s_step=lost_now,
+            degrade_level=dg_level,
         )
         return state, out
 
@@ -386,17 +437,32 @@ def make_step(
 
     def step(state: SimState, action) -> Tuple[SimState, StepOut]:
         state = state._replace(t=state.t + cfg.dt)
+        killed_now = lost_now = None
+        if cfg.resilience_on:
+            state, killed_now, lost_now = flt.apply_faults(cfg, state,
+                                                           statics)
         state, n_done = _complete_jobs(cfg, state)
 
         # --- dispatch. Selection and placement see tripped racks' nodes
-        # as down (no NEW jobs there); candidates, eligibility masks, power
-        # and progress read the raw state. Dispatch moves no rack
-        # temperature, so the trip is read once per tick.
-        if cfg.thermal_enabled and dispatch:
-            trip_ok = thm.node_trip_ok(cfg, state, statics)
+        # as down, and every node as down while the ladder is at GATE or
+        # above (no NEW jobs there); candidates, eligibility masks, power
+        # and progress read the raw state. Dispatch moves neither the
+        # racks' temperatures nor the ladder, so both are read once per
+        # tick.
+        if (cfg.thermal_enabled or cfg.resilience_on) and dispatch:
+            trip_ok = (thm.node_trip_ok(cfg, state, statics)
+                       if cfg.thermal_enabled else None)
+            gated = ((flt.effective_level(cfg, state, statics)
+                      >= flt.LVL_GATE)[..., None]
+                     if cfg.resilience_on else None)
 
             def view(s: SimState) -> SimState:
-                return s._replace(node_up=torch.where(trip_ok, s.node_up, 0.0))
+                nu = s.node_up
+                if trip_ok is not None:
+                    nu = torch.where(trip_ok, nu, 0.0)
+                if gated is not None:
+                    nu = torch.where(gated, 0.0, nu)
+                return s._replace(node_up=nu)
         else:
             def view(s: SimState) -> SimState:
                 return s
@@ -432,7 +498,8 @@ def make_step(
         rate, net_load = congestion_slowdown(cfg, state, statics)
         queued, running, util = _counts_and_util(state, statics)
         return tail(state, signals, p, cop, idle_total, job_th, rate,
-                    net_load, n_done, queued, running, util)
+                    net_load, n_done, queued, running, util, killed_now,
+                    lost_now)
 
     return step
 
@@ -480,23 +547,30 @@ class TelemetrySummary(NamedTuple):
 
 _SRV_TELEM = ("srv_arrived", "srv_completed", "srv_shed", "srv_dropped",
               "srv_retried", "srv_slo_viol", "srv_lat_sum", "srv_lat_hist")
-# accumulated while the fault engine and the serving twin are off
-_OFF = ("killed", "lost_node_s") + _SRV_TELEM
+_FAULT_TELEM = ("killed", "lost_node_s")
 
 
-def _telem_zero(device: torch.device, lead=()) -> TelemetrySummary:
+def _telem_zero(device: torch.device, lead=(),
+                resilience_on: bool = False) -> TelemetrySummary:
     """Zero accumulator, one per replica (``lead``: the state's replica
-    shape); the fault and serving fields ride as ``None`` (restored to
-    zeros by ``_telem_finalize``) while those models are off."""
+    shape); the serving fields, and the fault fields while the fault
+    engine is off, ride as ``None`` (restored to zeros by
+    ``_telem_finalize``)."""
     z = torch.zeros(lead, dtype=torch.float32, device=device)
     acc = TelemetrySummary(*([z] * len(TelemetrySummary._fields)))
-    return acc._replace(**{f: None for f in _OFF})
+    off = _SRV_TELEM + (() if resilience_on else _FAULT_TELEM)
+    return acc._replace(**{f: None for f in off})
 
 
 def _telem_update(acc: TelemetrySummary, out: StepOut,
                   macro_inc: float = 1.0) -> TelemetrySummary:
     # mean_* fields hold running sums until _telem_finalize divides by n;
-    # ``macro_inc`` is 1 for a full (event) tick and 0 for a fast tick
+    # ``macro_inc`` is 1 for a full (event) tick and 0 for a fast tick;
+    # the kills and lost work accumulate where the fault engine runs
+    if acc.killed is not None:
+        acc = acc._replace(
+            killed=acc.killed + out.killed_now,
+            lost_node_s=acc.lost_node_s + out.lost_node_s_step)
     return acc._replace(
         completed=acc.completed + out.completed_now,
         energy_kwh=acc.energy_kwh + out.energy_kwh_step,
@@ -531,8 +605,10 @@ def _telem_finalize(acc: TelemetrySummary) -> TelemetrySummary:
         for f in TelemetrySummary._fields if f.startswith("mean_")
     })
     z = torch.zeros_like(acc.n_steps)
+    off = [f for f in _FAULT_TELEM + _SRV_TELEM[:-1]
+           if getattr(acc, f) is None]
     return acc._replace(
-        **{f: z for f in _OFF[:-1]},
+        **{f: z for f in off},
         srv_lat_hist=torch.zeros(z.shape + (8,), dtype=torch.float32,
                                  device=z.device))
 
@@ -602,8 +678,10 @@ def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
     replica: the earliest deterministic breakpoint strictly after
     ``state.t``, whether a dispatch-visible queued job exists now, and the
     conservative quiet-tick counts from time events and from completions
-    (``None`` without ``rate``). The fault and serving breakpoints join
-    with their slices, which ``check_slice`` refuses."""
+    (``None`` without ``rate``). With the fault engine on, the next fault
+    clock crossing or outage-window edge (``faults.next_fault_event``)
+    joins the time events. The serving breakpoints join with their slice,
+    which ``check_slice`` refuses."""
     t = state.t
     tt = t[..., None]
     dev = t.device
@@ -631,6 +709,11 @@ def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
     # demand-response cap windows open and close at schedule breakpoints
     next_t = torch.minimum(next_t,
                            next_cap_event(statics.scenario.power_cap, t))
+    if cfg.resilience_on:
+        # event-sampled fault clocks and outage-window edges are exact
+        # breakpoints (core.faults keeps every clock strictly future)
+        next_t = torch.minimum(
+            next_t, flt.next_fault_event(cfg, state, statics, t))
 
     kf = float(max_ticks)
     # true divisions by the tick length (a device tensor divisor)
@@ -670,8 +753,9 @@ def quiet_horizon(
     """Ticks after ``state.t`` guaranteed quiet (int32 >= 0, one per
     replica): the min over the next arrival, the next replay-eligibility
     crossing, the next completion (conservative: full-rate progress less
-    one tick of float margin), the next node repair and the next
-    cap-schedule breakpoint, clamped to ``max_ticks``.
+    one tick of float margin), the next node repair, the next
+    cap-schedule breakpoint and, with the fault engine on, the next fault
+    clock crossing or outage-window edge, clamped to ``max_ticks``.
 
     A visible queued job forces 0 (selection might start one any tick)
     unless ``assume_undispatchable``: the caller has just run a dispatch
@@ -780,7 +864,6 @@ def make_macro_step(
     def event(state, acc, left, active):
         """The event tick and the segment's constants: (state, acc, left
         after the tick, budget, frozen inputs of the fast ticks)."""
-        was_queued = state.jstate == QUEUED
         new, out = step(state, action)
         new_acc = update(acc, out, 1.0)
         MACRO_TICKS["event"] += 1
@@ -790,7 +873,12 @@ def make_macro_step(
             state = _where_tree(~active, state, new)
             acc = _where_tree(~active, acc, new_acc)
             left = left - active.to(torch.int32)
-        started = torch.any(was_queued & (state.jstate == RUNNING), -1)
+        # a start is a running job whose start time is this tick's: with
+        # the fault engine on, a job killed (and requeued) by this tick's
+        # faults can restart in its dispatch, which a "queued before the
+        # tick" test would miss
+        started = torch.any((state.jstate == RUNNING)
+                            & (state.start_t == state.t[..., None]), -1)
         # the segment's frozen inputs: the event tick's own telemetry
         # counts and network load (its tail moved none of their inputs)
         # and the pre-throttle progress rate
@@ -955,21 +1043,25 @@ def run_episode(
             f"telemetry_every={telemetry_every}")
     dev = state.t.device
     lead = tuple(state.t.shape)
+
+    def zero():
+        return _telem_zero(dev, lead, cfg.resilience_on)
+
     if macro:
         run = make_macro_step(cfg, statics, scheduler, **kw).run
         if telemetry_every <= 1:
-            state, acc = run(state, _telem_zero(dev, lead), n_steps)
+            state, acc = run(state, zero(), n_steps)
             return state, _telem_finalize(acc)
         windows = []
         for _ in range(n_steps // telemetry_every):
-            state, acc = run(state, _telem_zero(dev, lead), telemetry_every)
+            state, acc = run(state, zero(), telemetry_every)
             windows.append(_telem_finalize(acc))
         return state, _stack(windows, len(lead))
     step = make_step(cfg, statics, scheduler, **kw)
     action = full(-1, torch.int64, dev)
 
     if summary_only:
-        acc = _telem_zero(dev, lead)
+        acc = zero()
         for _ in range(n_steps):
             state, out = step(state, action)
             acc = _telem_update(acc, out)
@@ -977,7 +1069,7 @@ def run_episode(
     if telemetry_every > 1:
         windows = []
         for _ in range(n_steps // telemetry_every):
-            acc = _telem_zero(dev, lead)
+            acc = zero()
             for _ in range(telemetry_every):
                 state, out = step(state, action)
                 acc = _telem_update(acc, out)

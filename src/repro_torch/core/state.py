@@ -7,10 +7,10 @@ NamedTuple with a leading replica axis E on every field
 (``broadcast_state`` makes one from a single state); the step runs on
 either form. ``SimState`` keeps every field, the thermal, fault and
 serving carries included; with a model off its carry is written once
-here and never again (faults and serving are always off in this slice).
+here and never again (serving is always off in this slice).
 
 Job lifecycle: EMPTY -> QUEUED -> RUNNING -> DONE (slot then reusable),
-plus the terminal FAILED state of the faults slice.
+plus the terminal FAILED state of the fault engine (``core.faults``).
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ import torch
 
 from repro_torch.configs.sim import SimConfig
 from repro_torch.scenarios.scenario import Scenario, default_scenario
-from repro_torch.utils.device import resolve_device, tree_to
-from repro_torch.utils.prng import key_words
+from repro_torch.utils.device import full, resolve_device, tree_to
+from repro_torch.utils.prng import exponential, key_words, split
 
 EMPTY, QUEUED, RUNNING, DONE, FAILED = 0, 1, 2, 3, 4
 NRES = 3  # cpu cores, gpus, mem_gb
@@ -32,11 +32,6 @@ NRES = 3  # cpu cores, gpus, mem_gb
 def check_slice(cfg: SimConfig) -> None:
     """Raise for a model flag this slice of the port does not run, naming
     the ROADMAP slice that brings it: no flag runs a partial model."""
-    if cfg.resilience_on:
-        raise NotImplementedError(
-            "faults / outages / degradation (cfg.resilience_on): the fault "
-            "engine arrives with the resilience slice (ROADMAP queue 1, "
-            "item 7)")
     if cfg.serving_on:
         raise NotImplementedError(
             "cfg.serving_on: the serving twin arrives with the serving "
@@ -109,7 +104,7 @@ class SimState(NamedTuple):
     rack_outlet_c: torch.Tensor   # (R,)
     thermal_throttle_s: torch.Tensor
     peak_rack_c: torch.Tensor
-    # resilience carry (written only by the faults slice)
+    # resilience carry (written by the fault engine, core.faults)
     next_fail_t: torch.Tensor     # (N,)
     rack_fail_t: torch.Tensor     # (R,)
     ckpt_interval: torch.Tensor   # (J,)
@@ -228,8 +223,14 @@ def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
     int (the words of ``jax.random.key(seed)``, ``prng.key_words``) or
     key words, numpy or int64 torch: (2,) for one state, (E, 2) for E
     replicas, which gives every field a leading replica axis E (the JAX
-    package's ``vmap`` of ``init_state`` over keys). Nothing on this path
-    draws random numbers: the key only fills the ``key`` words."""
+    package's ``vmap`` of ``init_state`` over keys).
+
+    With node (rack) failures on, the fault clocks are drawn here as the
+    JAX package draws them: the key splits into (key, k) and
+    ``next_fail_t`` (``rack_fail_t``) is an exponential draw from k times
+    the MTBF in seconds, each replica from its own key. The stored key
+    words are the split's first half, as there; with both MTBFs 0 nothing
+    is drawn and the key is stored as given."""
     from repro_torch.core.thermal import supply_temp
     from repro_torch.scenarios.signals import eval_signal
 
@@ -260,6 +261,23 @@ def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
 
     # racks start at the cooling supply temperature
     supply0 = supply_temp(cfg, eval_signal(statics.scenario.wetbulb, zf()))
+    # event-sampled fault clocks: absolute exponential first-failure
+    # times, drawn only with the MTBF knobs on (so fault-free configs keep
+    # the key they were given)
+    lead = tuple(key.shape[:-1])
+    clocks = {}
+    for name, mtbf_h, n in (("node", cfg.node_mtbf_hours, N),
+                            ("rack", cfg.rack_mtbf_hours, R)):
+        if mtbf_h > 0:
+            pair = split(key, 2)
+            key, k = pair[..., 0, :], pair[..., 1, :]
+            # the scale is an f32 value on the device, as in the JAX
+            # package: the product of two f32 values, whatever the device
+            scale = full(float(np.float32(mtbf_h * 3600.0)), f, dev)
+            clocks[name] = exponential(k, (n,)) * scale
+        else:
+            clocks[name] = cf(inf, *lead, n)
+    next_fail, rack_fail = clocks["node"], clocks["rack"]
     state = SimState(
         t=zf(),
         key=key if key.dim() == 1 else key[0],
@@ -294,8 +312,8 @@ def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
         rack_outlet_c=supply0 * torch.ones((R,), dtype=f, device=dev),
         thermal_throttle_s=zf(),
         peak_rack_c=supply0,
-        next_fail_t=cf(inf, N),
-        rack_fail_t=cf(inf, R),
+        next_fail_t=next_fail if key.dim() == 1 else next_fail[0],
+        rack_fail_t=rack_fail if key.dim() == 1 else rack_fail[0],
         ckpt_interval=cf(cfg.ckpt_interval_s, J),
         degrade_level=torch.zeros((), dtype=torch.int32, device=dev),
         lost_node_s=zf(),
@@ -320,7 +338,8 @@ def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
         workload=torch.zeros((), dtype=torch.int32, device=dev),
     )
     if key.dim() == 2:
-        state = broadcast_state(state, key.shape[0])._replace(key=key)
+        state = broadcast_state(state, key.shape[0])._replace(
+            key=key, next_fail_t=next_fail, rack_fail_t=rack_fail)
     return state
 
 
@@ -329,7 +348,8 @@ def load_jobs(state: SimState, jobs: Dict[str, np.ndarray],
     """Install a workload (from the trace loader or synthesizer) into the
     job table. ``jobs`` fields: submit_t, dur, n_nodes, req (NRES, J'),
     priority, optionally ``part`` (int32 node-type index per job; -1 = any)
-    and ``ckpt_interval``; J' <= max_jobs.
+    and ``ckpt_interval``; J' <= max_jobs. A batched state (a leading
+    replica axis) gets the same jobs in every replica.
 
     The jobs dict is validated (``data.validate.validate_jobs``) before
     touching the table. ``validate`` is ``"strict"`` (default; raises
@@ -340,7 +360,7 @@ def load_jobs(state: SimState, jobs: Dict[str, np.ndarray],
         from repro_torch.data.validate import validate_jobs
 
         jobs, _ = validate_jobs(jobs, mode=validate)
-    J = state.jstate.shape[0]
+    J = state.jstate.shape[-1]
     n = len(jobs["submit_t"])
     if n > J:
         raise ValueError(f"workload has {n} jobs > max_jobs {J}")

@@ -1,9 +1,12 @@
 """Gym-style (functional) scheduling environment over the twin.
 
 Action space: Discrete(k+1) — dispatch queue-candidate i in [0, k), or
-k = no-op. Observations: a fixed-size f32 vector of global datacenter
-features + per-candidate job features. Reward: the sim's energy / carbon /
-throughput mix.
+k = no-op; with ``cfg.degrade_enabled`` five more, k + 1 + r setting the
+degradation ladder's rung r (held until changed; the decision dispatches
+nothing). Observations: a fixed-size f32 vector of global datacenter
+features (with the thermal and resilience blocks when those models are
+on) + per-candidate job features. Reward: the sim's energy / carbon /
+throughput mix, and with the fault engine the lost-work penalty.
 
 ``reset(key)`` and ``step(state, action)`` work on one environment or on
 E at once: key words (2,) give one, (E, 2) give E, and every field of
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.sim import SimConfig
+from repro_torch.core import faults as flt
 from repro_torch.core import placement as plc
 from repro_torch.core import schedulers as sched
 from repro_torch.core import thermal
@@ -71,11 +75,13 @@ GLOBAL_FEATURES = (
 # appended to the globals only when ``cfg.thermal_enabled``
 THERMAL_FEATURES = ("rack_hot_frac", "rack_mean_frac",
                     "throttle_min", "tripped_frac")
-# appended only when ``cfg.resilience_on`` / ``cfg.serving_on``: both
-# models are refused by this slice (``core.state.check_slice``), so they
-# count zero
+# appended only when ``cfg.resilience_on``: the ladder rung in force, the
+# fault kills and terminal failures as fractions of the job table, and the
+# lost node-seconds over a node-day of the cluster
 RESILIENCE_FEATURES = ("degrade_frac", "killed_frac",
                        "failed_frac", "lost_frac")
+# appended only when ``cfg.serving_on``, which this slice refuses
+# (``core.state.check_slice``), so they count zero
 SERVING_FEATURES = ("srv_util", "srv_queue_frac", "srv_latency_slo",
                     "srv_active_frac", "srv_waking_frac",
                     "srv_admit_thresh")
@@ -136,8 +142,9 @@ class SchedEnv:
         self._place_onehot[plc.PLACE_IDS[placement]] = 1.0
         self.episode_steps = episode_steps
         self.k = cfg.sched_max_candidates
-        # the ladder's 5 and serving's 4 extra actions belong to the
-        # resilience and serving slices, which check_slice refuses
+        # k dispatches, k = no-op, then with the ladder schedulable k+1+r
+        # = "set rung r"; serving's 4 actions belong to the serving slice,
+        # which check_slice refuses
         self.n_actions = (self.k + 1 + (5 if cfg.degrade_enabled else 0)
                           + (4 if cfg.serving_on else 0))
         self.sim_steps_per_action = sim_steps_per_action
@@ -244,8 +251,19 @@ class SchedEnv:
         (an int, or an integer tensor of the env shape), then
         ``sim_steps_per_action - 1`` idle sub-steps advance the twin (one
         macro advance with ``macro``). Returns (state, obs, reward, done,
-        info)."""
-        sim, out = self._step_rl(st.sim, action)
+        info). With the ladder schedulable, an action above k sets the
+        rung ``action - k - 1`` (held until changed) and dispatches
+        nothing."""
+        sim0 = st.sim
+        if self.cfg.degrade_enabled:
+            if not isinstance(action, torch.Tensor):
+                action = full(int(action), torch.int64, self.device)
+            is_lvl = action > self.k
+            rung = torch.clamp(action - self.k - 1, 0, flt.LVL_EVICT)
+            sim0 = sim0._replace(degrade_level=torch.where(
+                is_lvl, rung, sim0.degrade_level).to(torch.int32))
+            action = torch.where(is_lvl, self.k, action)
+        sim, out = self._step_rl(sim0, action)
         lead = tuple(st.step_count.shape)
         z = torch.zeros(lead, dtype=torch.float32, device=self.device)
         acc = self._acc_of({"reward": z, "completed": z, "energy_kwh": z,
@@ -320,6 +338,21 @@ class SchedEnv:
             assert tuple(therm) == THERMAL_FEATURES
             parts.append(torch.stack([therm[n] for n in THERMAL_FEATURES],
                                      -1))
+
+        if cfg.resilience_on:
+            # fault and lost-work state, so the policy can learn
+            # resilience-aware control (drain ahead of maintenance, hold a
+            # rung through a brownout, requeue-aware dispatch)
+            resil = dict(
+                degrade_frac=(flt.effective_level(cfg, sim, statics)
+                              .to(torch.float32) / float(flt.LVL_EVICT)),
+                killed_frac=sim.n_killed / cfg.max_jobs,
+                failed_frac=sim.n_failed / cfg.max_jobs,
+                lost_frac=sim.lost_node_s / (cfg.n_nodes * cfg.day_seconds),
+            )
+            assert tuple(resil) == RESILIENCE_FEATURES
+            parts.append(torch.stack(
+                [resil[n] for n in RESILIENCE_FEATURES], -1))
         parts.append(self._place_onehot.expand(
             lead + tuple(self._place_onehot.shape)))
 

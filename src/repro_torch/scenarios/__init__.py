@@ -1,11 +1,18 @@
 """Grid-signal scenarios for the twin: time-varying carbon / price /
-weather signals and demand-response power-cap events, as tensors."""
+weather signals, demand-response power-cap events and outage windows, as
+tensors."""
 
 from repro_torch.scenarios.events import (
     CapSchedule,
+    OutageSchedule,
     cap_events,
     next_cap_event,
+    next_outage_event,
     no_cap,
+    no_outages,
+    outage_down,
+    outage_events,
+    outage_level_at,
     power_cap_at,
 )
 from repro_torch.scenarios.scenario import (
@@ -15,6 +22,7 @@ from repro_torch.scenarios.scenario import (
     demand_response,
     heatwave,
     n_replicas,
+    resilience_drill,
     sample_scenarios,
     solar_heavy,
     stack_scenarios,

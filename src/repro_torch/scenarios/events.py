@@ -1,4 +1,4 @@
-"""Scheduled demand-response events: time-windowed facility power caps.
+"""Scheduled grid events: demand-response power caps and outage windows.
 
 A ``CapSchedule`` holds up to n events, each ``[start_t, end_t)`` with a
 facility-power cap in watts, plus a standing base cap. ``power_cap_at``
@@ -6,9 +6,14 @@ returns the effective cap at time t (the tightest of base + active events),
 with 0.0 meaning "uncapped" — the ``cfg.power_cap_w`` convention consumed
 by the DVFS throttle in ``core/sim.py``.
 
-Fixed shape (n is padded, inactive slots have cap 0); a batched schedule
-carries a leading replica axis on every leaf. The outage and
-traffic-burst schedules arrive with the faults and serving slices.
+An ``OutageSchedule`` holds up to n grid brownout / maintenance windows
+for the fault engine (``core.faults``): each forces a degradation-ladder
+level and/or takes one rack down while it is active.
+
+Fixed shape (n is padded, inactive slots have cap 0, or level 0 and rack
+-1); a batched schedule carries a leading replica axis on every leaf and
+takes ``t`` with the same leading axis. The traffic-burst schedule
+arrives with the serving slice.
 """
 
 from __future__ import annotations
@@ -86,3 +91,106 @@ def power_cap_at(sched: CapSchedule, t: torch.Tensor) -> torch.Tensor:
     base = torch.where(sched.base_cap_w > 0.0, sched.base_cap_w, _INF)
     cap = torch.minimum(event_cap, base)
     return torch.where(torch.isfinite(cap), cap, 0.0)
+
+
+class OutageSchedule(NamedTuple):
+    """Grid brownout / outage and maintenance windows ``[start_t, end_t)``.
+
+    Each carries a forced degradation-ladder level (``core.faults``: 0
+    none, 1 throttle, 2 dispatch-gate, 3 drain, 4 checkpoint-evict) and
+    optionally a rack to take down outright (-1 = no rack). A slot with
+    ``force_level == 0`` and ``down_rack == -1`` is padding. Window edges
+    are exact macro breakpoints (``next_outage_event``)."""
+
+    start_t: torch.Tensor      # (n,) window start [s]
+    end_t: torch.Tensor        # (n,) window end [s] (exclusive)
+    force_level: torch.Tensor  # (n,) int32 forced ladder level; 0 = none
+    down_rack: torch.Tensor    # (n,) int32 rack taken down; -1 = none
+
+
+def no_outages(n_events: int = 1) -> OutageSchedule:
+    """Schedule with no outage or maintenance windows (all padding)."""
+    n = max(n_events, 1)
+    z = torch.zeros((n,), dtype=torch.float32)
+    return OutageSchedule(start_t=z, end_t=z.clone(),
+                          force_level=torch.zeros((n,), dtype=torch.int32),
+                          down_rack=torch.full((n,), -1, dtype=torch.int32))
+
+
+def outage_events(
+    starts: Sequence[float],
+    ends: Sequence[float],
+    *,
+    levels: Sequence[int] | None = None,
+    down_racks: Sequence[int] | None = None,
+    n_events: int | None = None,
+) -> OutageSchedule:
+    """Build an outage schedule from parallel window lists, padded to
+    ``n_events``. ``levels`` defaults to 0 (no forced ladder level) and
+    ``down_racks`` to -1 (no rack outage): a window with neither is
+    padding."""
+    s = np.asarray(starts, np.float32).reshape(-1)
+    e = np.asarray(ends, np.float32).reshape(-1)
+    lv = (np.zeros_like(s, np.int32) if levels is None
+          else np.asarray(levels, np.int32).reshape(-1))
+    dr = (np.full_like(lv, -1) if down_racks is None
+          else np.asarray(down_racks, np.int32).reshape(-1))
+    if not (s.shape == e.shape == lv.shape == dr.shape):
+        raise ValueError("starts/ends/levels/down_racks lengths differ")
+    if np.any(e < s):
+        raise ValueError("outage end_t before start_t")
+    if np.any((lv < 0) | (lv > 4)):
+        raise ValueError("force_level must be in [0, 4]")
+    n = max(n_events or s.size, s.size, 1)
+    pad = n - s.size
+    if pad:
+        s = np.concatenate([s, np.zeros(pad, np.float32)])
+        e = np.concatenate([e, np.zeros(pad, np.float32)])
+        lv = np.concatenate([lv, np.zeros(pad, np.int32)])
+        dr = np.concatenate([dr, np.full(pad, -1, np.int32)])
+    return OutageSchedule(start_t=torch.from_numpy(s),
+                          end_t=torch.from_numpy(e),
+                          force_level=torch.from_numpy(lv),
+                          down_rack=torch.from_numpy(dr))
+
+
+def _outage_live(sched: OutageSchedule) -> torch.Tensor:
+    return (sched.force_level > 0) | (sched.down_rack >= 0)
+
+
+def next_outage_event(sched: OutageSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Earliest outage-window edge strictly after ``t`` (``inf`` when
+    none): the same breakpoint contract as ``next_cap_event``."""
+    live = _outage_live(sched)
+    edges = torch.cat([sched.start_t, sched.end_t], -1)
+    live2 = torch.cat([live, live], -1)
+    edges = torch.where(live2 & (edges > t[..., None]), edges, _INF)
+    return torch.amin(edges, -1)
+
+
+def _outage_active(sched: OutageSchedule, t: torch.Tensor) -> torch.Tensor:
+    tt = t[..., None]
+    return (tt >= sched.start_t) & (tt < sched.end_t)
+
+
+def outage_level_at(sched: OutageSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Highest forced degradation-ladder level among the windows active
+    at ``t`` (int32, one per replica; 0 when none)."""
+    active = _outage_active(sched, t) & _outage_live(sched)
+    return torch.amax(torch.where(active, sched.force_level, 0),
+                      -1).to(torch.int32)
+
+
+def outage_down(sched: OutageSchedule, t: torch.Tensor,
+                node_rack: torch.Tensor):
+    """Per-node maintenance outage at ``t``: ``(forced, until)``, (..., N)
+    each: the nodes whose rack an active window takes down, and the latest
+    ``end_t`` among the windows downing each node (0 where not forced),
+    the deterministic repair time of maintenance faults."""
+    active = _outage_active(sched, t) & (sched.down_rack >= 0)   # (..., n)
+    # (..., N, n): window e downs node i
+    hit = active[..., None, :] & (node_rack[:, None].to(sched.down_rack.dtype)
+                                  == sched.down_rack[..., None, :])
+    forced = torch.any(hit, -1)
+    until = torch.amax(torch.where(hit, sched.end_t[..., None, :], 0.0), -1)
+    return forced, until

@@ -2,16 +2,18 @@
 
 Bundles the three environmental signals (carbon intensity [gCO2/kWh],
 electricity price [$/kWh], wetbulb temperature [degC]) with a
-demand-response power-cap schedule. ``Statics`` carries it into the step.
+demand-response power-cap schedule and the outage / maintenance windows
+of the fault engine. ``Statics`` carries it into the step.
 
 ``default_scenario(cfg)`` is the legacy diurnal grid; ``solar_heavy``,
-``demand_response``, ``heatwave``, ``thermal_stress`` and
-``carbon_trace`` are the single-replica presets (``heatwave`` and
-``thermal_stress`` are the weather the thermal twin is studied under).
+``demand_response``, ``heatwave``, ``thermal_stress``,
+``resilience_drill`` and ``carbon_trace`` are the single-replica presets
+(``heatwave`` and ``thermal_stress`` are the weather the thermal twin is
+studied under, ``resilience_drill`` the outages the fault engine is).
 ``stack_scenarios`` batches scenarios for a fleet (a leading replica axis
 on every leaf) and ``sample_scenarios`` draws a randomized batch. The
-outage, traffic and burst fields, their presets and their padding arrive
-with the faults and serving slices.
+traffic and burst fields, their preset and their padding arrive with the
+serving slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.sim import SimConfig
-from repro_torch.scenarios.events import CapSchedule, cap_events, no_cap
+from repro_torch.scenarios.events import (
+    CapSchedule,
+    OutageSchedule,
+    cap_events,
+    no_cap,
+    no_outages,
+    outage_events,
+)
 from repro_torch.scenarios.signals import Signal, from_trace, sinusoid
 
 
@@ -32,6 +41,7 @@ class Scenario(NamedTuple):
     price: Signal         # electricity price [$/kWh]
     wetbulb: Signal       # outdoor wetbulb [degC] (drives cooling COP)
     power_cap: CapSchedule
+    outages: OutageSchedule = no_outages()   # read with cfg.outages_enabled
 
 
 def default_scenario(cfg: SimConfig) -> Scenario:
@@ -121,6 +131,31 @@ def carbon_trace(cfg: SimConfig, values, dt: float,
     return default_scenario(cfg)._replace(carbon=from_trace(values, dt, t0))
 
 
+def resilience_drill(
+    cfg: SimConfig,
+    *,
+    maint_rack: int = 0,
+    maint_start_s: float = 2.0 * 3600.0,
+    maint_len_s: float = 1.0 * 3600.0,
+    brownout_start_s: float = 17.0 * 3600.0,
+    brownout_len_s: float = 2.0 * 3600.0,
+    brownout_level: int = 2,
+) -> Scenario:
+    """The fault-engine drill: a maintenance window taking one rack down
+    (a correlated PDU / cooling-loop outage) plus a grid brownout forcing
+    the degradation ladder to ``brownout_level`` (default 2 = dispatch
+    gate). Pair with ``cfg.outages_enabled=True`` (and nonzero MTBFs for
+    random faults on top)."""
+    return default_scenario(cfg)._replace(
+        outages=outage_events(
+            [maint_start_s, brownout_start_s],
+            [maint_start_s + maint_len_s, brownout_start_s + brownout_len_s],
+            levels=[0, brownout_level],
+            down_racks=[maint_rack, -1],
+        ),
+    )
+
+
 def _nonneg_price(mean: float, amp: float, period_s: float,
                   phase: float) -> Signal:
     """Price sinusoid with the trough clamped non-negative (no paying the
@@ -151,6 +186,22 @@ def _pad_events(sched: CapSchedule, n: int) -> CapSchedule:
     )
 
 
+def _pad_outages(sched: OutageSchedule, n: int) -> OutageSchedule:
+    e = sched.start_t.shape[0]
+    if e == n:
+        return sched
+    dev = sched.start_t.device
+    z = torch.zeros((n - e,), dtype=torch.float32, device=dev)
+    return OutageSchedule(
+        start_t=torch.cat([sched.start_t, z]),
+        end_t=torch.cat([sched.end_t, z]),
+        force_level=torch.cat([sched.force_level, torch.zeros(
+            (n - e,), dtype=torch.int32, device=dev)]),
+        down_rack=torch.cat([sched.down_rack, torch.full(
+            (n - e,), -1, dtype=torch.int32, device=dev)]),
+    )
+
+
 def _stack(items):
     """Stack NamedTuples of tensors leaf-wise along a new leading axis."""
     first = items[0]
@@ -163,20 +214,23 @@ def _stack(items):
 def stack_scenarios(scenarios: Sequence[Scenario]) -> Scenario:
     """Stack scenarios into one batched Scenario (leading replica axis).
 
-    Trace arrays are edge-hold padded to a common length and cap schedules
-    to a common event count, so heterogeneous scenarios share one shape.
+    Trace arrays are edge-hold padded to a common length and cap and
+    outage schedules to a common event count, so heterogeneous scenarios
+    share one shape.
     """
     if not scenarios:
         raise ValueError("need at least one scenario")
     T = max(s.values.shape[0] for sc in scenarios
             for s in (sc.carbon, sc.price, sc.wetbulb))
     n = max(sc.power_cap.start_t.shape[0] for sc in scenarios)
+    no = max(sc.outages.start_t.shape[0] for sc in scenarios)
     norm = [
         Scenario(
             carbon=_pad_trace(sc.carbon, T),
             price=_pad_trace(sc.price, T),
             wetbulb=_pad_trace(sc.wetbulb, T),
             power_cap=_pad_events(sc.power_cap, n),
+            outages=_pad_outages(sc.outages, no),
         )
         for sc in scenarios
     ]

@@ -6,6 +6,8 @@
         --case rl_tx_gaia [--replicas 8] [--decisions 4]
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tick --macro \
         [--case replay_tx_gaia_1h] [--ticks 600] [--replicas 72]
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
+        --case replay_tx_gaia_1h_faults [--macro]
 
 Runs an acceptance case (``configs/acceptance.py``; default
 ``replay_tx_gaia_1h``) on the card up to tick ``--start`` (so jobs are
@@ -17,7 +19,10 @@ and CUDA activities. Prints one JSON line: ms per tick, CUDA kernels per
 tick (and launches of the port's own kernels per tick), the device's
 busy share (sum of kernel times over the profiled wall time; the rest is
 idle, waiting on the host), and the top CUDA kernels and host ops by
-time. Needs a CUDA device.
+time. A fault hour (``acceptance.FAULT_CASES``, the drill under its
+scenario) also reports the CUDA launch calls of the fault engine
+(``core.faults.apply_faults``, run inside a profiler range) per tick and
+their share of the tick's. Needs a CUDA device.
 
 With an RL case (``acceptance.RL_CASES``) it profiles one PPO iteration
 of ``--replicas`` environments instead (``setup_rl``: a rollout of one
@@ -129,7 +134,8 @@ def setup_case(case: str, start: int, device=None, replicas: int = 1,
 
     cfg = acceptance.config(case)
     jobs, bank = acceptance.workload(cfg)
-    statics = build_statics(cfg, bank, device=device)
+    statics = build_statics(cfg, bank, acceptance.fault_scenario(case, cfg),
+                            device=device)
     state = load_jobs(init_state(cfg, statics, acceptance.SEED), jobs)
     who = acceptance.SCHEDULER
     if replicas > 1:
@@ -178,6 +184,46 @@ def setup_rl(case: str, replicas: int, device=None,
 
 
 RANGE_PREFIX = "rl_stage::"
+FAULTS_RANGE = RANGE_PREFIX + "apply_faults"
+
+
+def faults_range():
+    """Context manager: while it is open, ``core.faults.apply_faults``
+    runs inside the profiler range ``FAULTS_RANGE``."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from repro_torch.core import faults
+
+    @contextlib.contextmanager
+    def patched():
+        real = faults.apply_faults
+
+        def ranged(*a, **kw):
+            with record_function(FAULTS_RANGE):
+                return real(*a, **kw)
+
+        faults.apply_faults = ranged
+        try:
+            yield
+        finally:
+            faults.apply_faults = real
+    return patched()
+
+
+def launch_calls_in(events, name: str) -> tuple:
+    """(CUDA launch calls in all, those inside the host ranges ``name``)
+    of a profiler's events."""
+    import torch
+
+    host = [e for e in events
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in host
+             if e.name == name]
+    launches = [e.time_range.start for e in host if "LaunchKernel" in e.name]
+    inside = sum(any(a <= t <= b for a, b in spans) for t in launches)
+    return len(launches), inside
 RL_STAGES = ("sampling", "keys", "rl tick", "idle ticks", "observe",
              "reset", "update")
 
@@ -254,11 +300,14 @@ def profile_macro(case: str, start: int, ticks: int, replicas: int = 1,
     from repro_torch.core import sim
     from repro_torch.utils import device as D
 
+    from repro_torch.configs import acceptance
+
     ms, state, _ = setup_case(case, start, replicas=replicas, macro=True)
     lead = tuple(state.t.shape)
+    resilience = acceptance.config(case).resilience_on
 
     def run():
-        acc = sim._telem_zero(state.t.device, lead)
+        acc = sim._telem_zero(state.t.device, lead, resilience)
         return ms.run(state, acc, ticks)
 
     run()                                                  # warm-up
@@ -397,16 +446,61 @@ def profile_rl(case: str, replicas: int, top: int = 8,
                for k, v in summary.items()}}
 
 
-def main(argv=None) -> int:
+def profile_replay(case: str, start: int, ticks: int, replicas: int = 1,
+                   top: int = 12) -> dict:
+    """``ticks`` ticks of a replay case after tick ``start`` on the card
+    (``setup_case``): host ms per tick on a synchronised loop, then under
+    ``torch.profiler`` CUDA kernels, device time and busy share per tick,
+    the launches of the port's kernels, and the CUDA launch calls of the
+    fault engine (``faults_range``) and their share of the tick's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels as port_kernels
+
+    step, state, action = setup_case(case, start, replicas=replicas)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _advance(step, state, action, ticks)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / ticks
+
+    port_kernels.reset_launches()
+    with faults_range(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _advance(step, state, action, ticks)
+        torch.cuda.synchronize()
+        prof_wall_us = 1e6 * (time.perf_counter() - t0)
+
+    summary = device_summary(prof, prof_wall_us, ticks, top)
+    calls, fault_calls = launch_calls_in(prof.events(), FAULTS_RANGE)
+    return {
+        "case": case, "replicas": replicas, "start_tick": start,
+        "ticks": ticks, "device": torch.cuda.get_device_name(0),
+        "ms_per_tick": host_ms,
+        "us_per_replica_tick": 1e3 * host_ms / replicas,
+        "ms_per_tick_profiled": prof_wall_us / 1e3 / ticks,
+        "port_kernel_launches_per_tick": {
+            k: v / ticks for k, v in port_kernels.LAUNCHES.items()},
+        "launch_calls_per_tick": calls / ticks,
+        "apply_faults_launch_calls_per_tick": fault_calls / ticks,
+        "apply_faults_launch_share": fault_calls / max(calls, 1),
+        **{k if k == "device_busy_share" else f"{k}_per_tick": v
+           for k, v in summary.items()},
+    }
+
+
+def main(argv=None) -> int:
+    import torch
+
     from repro_torch.configs import acceptance
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
                     choices=sorted(acceptance.CASES)
+                    + sorted(acceptance.FAULT_CASES)
                     + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=100)
@@ -435,36 +529,8 @@ def main(argv=None) -> int:
         print(json.dumps(out), flush=True)
         return 0
 
-    step, state, action = setup_case(args.case, args.start,
-                                     replicas=args.replicas)
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    _advance(step, state, action, args.ticks)
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / args.ticks
-
-    port_kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _advance(step, state, action, args.ticks)
-        torch.cuda.synchronize()
-        prof_wall_us = 1e6 * (time.perf_counter() - t0)
-
-    summary = device_summary(prof, prof_wall_us, args.ticks, args.top)
-    out = {
-        "case": args.case, "replicas": args.replicas,
-        "start_tick": args.start,
-        "ticks": args.ticks, "device": torch.cuda.get_device_name(0),
-        "ms_per_tick": host_ms,
-        "us_per_replica_tick": 1e3 * host_ms / args.replicas,
-        "ms_per_tick_profiled": prof_wall_us / 1e3 / args.ticks,
-        "port_kernel_launches_per_tick": {
-            k: v / args.ticks for k, v in port_kernels.LAUNCHES.items()},
-        **{k if k == "device_busy_share" else f"{k}_per_tick": v
-           for k, v in summary.items()},
-    }
+    out = profile_replay(args.case, args.start, args.ticks, args.replicas,
+                         args.top)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -14,9 +14,9 @@ Runs an acceptance case on the card (or on ``--device``), as a fleet of
 ``--start`` (``profile_tick.setup_case``), then counts the non-view
 aten operations of ``--ticks`` more ticks under a ``TorchDispatchMode``
 and prints one JSON line of operations per tick: in total and by stage
-(completions, dispatch, grid signals, power chain, thermal derate, rack
-update, congestion, telemetry counts, and the rest of the accounting
-tail). Almost every such operation is one CUDA kernel on the card, so the
+(the fault engine ``apply_faults`` on a fault hour, completions,
+dispatch, grid signals, power chain, thermal derate, rack update,
+congestion, telemetry counts, and the rest of the accounting tail). Almost every such operation is one CUDA kernel on the card, so the
 split shows where a tick's launches go; ``profile_tick`` counts the
 kernels themselves. A stage is a function of ``core`` that the step calls
 through a module attribute: the tool wraps whichever of them the tree
@@ -52,6 +52,7 @@ from collections import Counter
 
 # (stage, module, attribute): what each stage runs, old and new names
 STAGES = (
+    ("apply_faults", "faults", "apply_faults"),
     ("completions", "sim", "_complete_jobs"),
     ("dispatch", "sim", "_try_start"),
     ("dispatch", "thermal", "node_trip_ok"),
@@ -80,12 +81,13 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import acceptance
     from repro_torch.core import schedulers as sched
-    from repro_torch.core import sim, thermal
+    from repro_torch.core import faults, sim, thermal
     from repro_torch.tools.profile_tick import setup_case
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
                     choices=sorted(acceptance.CASES)
+                    + sorted(acceptance.FAULT_CASES)
                     + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=5)
@@ -121,7 +123,7 @@ def main(argv=None) -> int:
     if args.case in acceptance.RL_CASES:
         return rl_ops(args, Count, stack, counts)
 
-    modules = {"sim": sim, "thermal": thermal}
+    modules = {"sim": sim, "thermal": thermal, "faults": faults}
     saved = []
     for stage, mod, name in STAGES:
         if hasattr(modules[mod], name):
@@ -160,6 +162,7 @@ def macro_ops(args, ms, state, stack, counts) -> int:
     the kind of tick running and the innermost stage ("kind: stage")."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from repro_torch.configs import acceptance
     from repro_torch.core import sim
     from repro_torch.utils import device as D
 
@@ -181,7 +184,8 @@ def macro_ops(args, ms, state, stack, counts) -> int:
                 counts[f"{now}: {stack[-1]}"] += 1
             return func(*fargs, **(kwargs or {}))
 
-    acc = sim._telem_zero(state.t.device, tuple(state.t.shape))
+    acc = sim._telem_zero(state.t.device, tuple(state.t.shape),
+                          acceptance.config(args.case).resilience_on)
     sim.reset_macro_ticks()
     D.reset_host_reads()
     counts.clear()

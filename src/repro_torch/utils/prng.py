@@ -16,8 +16,10 @@ two output words xored), ``uniform`` (the top 23 bits as a mantissa in
 [1, 2), minus 1, scaled), ``randint`` (two bit draws from a split key,
 combined modulo the span), ``gumbel`` (mode "low"), ``categorical`` (the
 first argmax of gumbel noise plus the logits), ``permutation`` (rounds
-of a stable sort by fresh bits) and ``normal`` (``sqrt(2) erfinv(u)``
-with XLA's f32 ``erfinv`` polynomial). Each takes int64 torch key words
+of a stable sort by fresh bits), ``normal`` (``sqrt(2) erfinv(u)``
+with XLA's f32 ``erfinv`` polynomial) and ``exponential``
+(``-log1p(-u)`` with XLA's CPU ``log1p``, ``log1p_f32``, bit for bit).
+Each takes int64 torch key words
 of shape (..., 2): a leading batch of keys draws ``shape`` once per key,
 as ``vmap`` over the keys would. They run on the key's device with no
 host sync; one call is one threefry pass, ~170 elementwise operations of
@@ -25,6 +27,8 @@ host sync; one call is one threefry pass, ~170 elementwise operations of
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -205,3 +209,110 @@ def normal(key, shape=()) -> torch.Tensor:
     uniform in (-1, 1)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     return _SQRT2 * erfinv(uniform(key, shape, lo, 1.0))
+
+
+# XLA's CPU f32 log1p (jax 0.9.0, x86-64): the Cephes rational form below
+# |x| < sqrt(2) - 1, else Eigen's logf of 1 + x, with the compiled code's
+# fused multiply-adds. Constants are the f32 values of the compiled code,
+# given as the bits of the doubles that hold them.
+def _c(hexbits: str) -> float:
+    return struct.unpack(">d", bytes.fromhex(hexbits))[0]
+
+
+_LOG_SQRTHF = _c("3FE6A09E60000000")
+_LOG_P = tuple(_c(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000"))
+_LOG_Q1, _LOG_Q2 = _c("BF2BD01060000000"), _c("3FE6300000000000")
+_LOG1P_SMALL = _c("3FDA8279A0000000")
+_LOG1P_DEN = tuple(_c(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000"))
+_LOG1P_NUM = tuple(_c(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000"))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` as a fused multiply-add: the product of two f32
+    values is exact in f64, the sum is rounded in f64 and then to f32.
+    ``a`` may already be f64; ``b`` and ``c`` are f64/f32 tensors or
+    Python floats holding f32 values. (Rounding twice can differ from a
+    true fused multiply-add on an f32 midpoint; ``log1p_f32`` is proven
+    against XLA on every input ``exponential`` can give it.)"""
+    a = a if a.dtype == torch.float64 else a.double()
+    if isinstance(b, torch.Tensor):
+        b = b.double()
+    if isinstance(c, torch.Tensor):
+        c = c.double()
+    return (a * b + c).float()
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add gives it
+    (XLA's CPU code fuses a product into the sum that reads it), from
+    IEEE operations in f64: the product is exact, the sum's rounding error
+    is recovered exactly (TwoSum), and where the f64 sum is an f32 tie
+    that error decides the side. For results in the f32 normal range."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    wrong = tie & ((r.double() - s) * err < 0.0)
+    return torch.where(wrong, torch.nextafter(
+        r, torch.where(err > 0.0, float("inf"), float("-inf"))), r)
+
+
+def _logf(y: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log (Eigen's ``plog``): the exponent split off, the
+    mantissa reduced to [sqrt(1/2), sqrt(2)), a degree-9 polynomial."""
+    bits = torch.clamp(y, min=_TINY).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _LOG_SQRTHF
+    x = (m + -1.0) + torch.where(small, m, 0.0)
+    e = e - torch.where(small, 1.0, 0.0)
+    x2 = x * x
+    x3 = (x2 * x).double()
+    x64 = x.double()
+    p = _LOG_P
+    ya = _fma(x64, _fma(x64, p[0], p[1]), p[2])
+    yb = _fma(x64, _fma(x64, p[3], p[4]), p[5])
+    yc = _fma(x64, _fma(x64, p[6], p[7]), p[8])
+    ya = _fma(x3, _fma(x3, ya, yb), yc)
+    ya = _fma(x3, ya, e * _LOG_Q1)
+    r = _fma(e, _LOG_Q2, _fma(x2, -0.5, x64) + ya)
+    r = torch.where(y > 0.0, r, float("nan"))
+    r = torch.where(y == 0.0, float("-inf"), r)
+    return torch.where(y == float("inf"), y, r)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log1p`` with the bits of XLA's CPU ``log1p`` (jax 0.9.0):
+    the same operations in the same order, each fused multiply-add
+    rounded once (``_fma``). Unlike ``torch.log1p`` it gives the same bits
+    on the CPU and the card."""
+    x64 = x.double()
+    den = torch.ones_like(x)
+    for c in _LOG1P_DEN:
+        den = _fma(x64, den, c)
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(x64, num, c)
+    x2 = x * x
+    small = x + _fma(x2, -0.5, (x2 * x) * (num / den))
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small,
+                       _logf(x + 1.0))
+
+
+def exponential(key, shape=()) -> torch.Tensor:
+    """f32 ``jax.random.exponential(key, shape)``: ``-log1p(-u)``, u
+    uniform in [0, 1), bit for bit (u takes the 2**23 values k * 2**-23,
+    each of which ``log1p_f32`` is proven on)."""
+    return -log1p_f32(-uniform(key, shape))

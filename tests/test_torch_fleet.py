@@ -205,7 +205,7 @@ def test_fleet_builders_match_reference():
     ]
     pairs += list(zip(*_grids()))
     for i, (ref, got) in enumerate(pairs):
-        # the port's Scenario has no outage, traffic or burst fields yet
+        # the port's Scenario has no traffic or burst fields yet
         assert_tree_close(ref, got, f"builder {i}")
     assert RPL.policy_grid(SELECTS, PLACES)[0] == PPL.policy_grid(
         SELECTS, PLACES)[0]

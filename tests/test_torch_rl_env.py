@@ -89,7 +89,7 @@ def test_layout_and_spaces_match_reference(envs):
     for name in ("GLOBAL_FEATURES", "THERMAL_FEATURES", "CANDIDATE_FEATURES",
                  "RESILIENCE_FEATURES", "SERVING_FEATURES", "TYPE_FEATURES"):
         assert getattr(pse, name) == getattr(rse, name), name
-    # the resilience and serving blocks count zero in this slice
+    # the resilience and serving blocks count zero with those models off
     thermal = len(THERMAL_FEATURES) if port.cfg.thermal_enabled else 0
     assert port.obs_dim == (len(GLOBAL_FEATURES) + thermal + 5
                             + 3 * port.cfg.n_types

@@ -112,7 +112,8 @@ def test_interop_round_trips_and_continues_in_lockstep():
 
 
 @pytest.mark.parametrize("flag", [
-    # thermals run now; with a fault flag beside them the step still raises
+    # the fault engine runs now (``tests/test_torch_faults.py`` holds it
+    # to the reference), beside thermals too; serving still raises
     dict(thermal_enabled=True, rack_mtbf_hours=10.0),
     dict(node_mtbf_hours=10.0),
     dict(rack_mtbf_hours=10.0),
@@ -123,9 +124,14 @@ def test_interop_round_trips_and_continues_in_lockstep():
 def test_flags_of_later_slices_raise(flag):
     cfg = pcfg.tiny_cluster(**flag)
     st = C.build_statics(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
+    if not cfg.serving_on:
+        s = C.init_state(cfg, st, 0)
+        s, out = C.make_step(cfg, st, "fcfs")(s, -1)
+        assert float(s.t) == cfg.dt and torch.isfinite(out.reward)
+        return
+    with pytest.raises(NotImplementedError, match="serving slice"):
         C.init_state(cfg, st, 0)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="serving slice"):
         C.make_step(cfg, st, "fcfs")
 
 
