@@ -47,7 +47,8 @@ and no result line:
              within 1e-5); the thermal hour's config for 600 ticks at E =
              72 (one rack_thermal launch a tick), two replicas rerun
              alone; ms per tick, us per replica-tick, CUDA kernels per
-             tick and the device's busy share at E = 1, 72 and 1152.
+             tick and the device's busy share at E = 1, 72 and 1152 (300
+             ticks each).
 7. rl        the paper's experiment at full width (``acceptance.RL_CASES``:
              TX-GAIA, 672 nodes, the 256 x 16 job table, four 40-job
              workloads, 15 ticks a decision, ``macro=False``): 8
@@ -97,7 +98,7 @@ and no result line:
              reward) per tick and macro at ``PINNED_RL_FAULTS``; CUDA
              kernels a tick of the faults hour with the fault engine's
              share (``profile_tick.profile_replay``); the phase's seconds.
-10. determinism  the first 600 ticks of the main path and the first 900 of
+10. determinism  the first 300 ticks of the main path and the first 450 of
              the thermal stress hour, each twice: every field bitwise equal.
 11. serve    gemma3-1b at full width and depth (``serve_gemma3_1b``,
              weights from ``seeded_numpy_params``): the f32 and the bf16
@@ -116,11 +117,27 @@ and no result line:
              fused ``mamba_scan``) and 1 flash_attn launches per prefill
              and none per decode step; then ``generate`` in bf16 as in
              ``serve``.
+13. serving  the serving twin (run after ``faults``): the replay hour with
+             a pool of 32 inference nodes under diurnal traffic and a
+             flash crowd (``replay_tx_gaia_1h_serving``) per tick under
+             sync-debug "error" at ``PINNED_SERVING`` (the JAX package's
+             per-tick values), one power_scatter launch a tick, ms a tick
+             beside phase 4's; macro-stepped: bitwise equal to per tick,
+             its event and fast ticks, within the read gate, one launch a
+             tick issued; the serving fleet (``FLEET_SERVING_E`` replicas
+             at rising peak traffic, ``FLEET_SERVING_TICKS`` ticks) at
+             ``PINNED_FLEET_SERVING``, two replicas rerun alone (in
+             workers, while the parent runs the fleet and
+             ``rl_tx_gaia_serving`` per tick and macro at
+             ``PINNED_RL_SERVING``); CUDA kernels a
+             serving tick and the plain hour's in the same run; the
+             phase's seconds.
 
-Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``) each run in
-a worker process of their own on the card (``run_alone``: this script
-with ``--alone``, ALONE_WORKERS at once), so the checks of a phase run
-together; the parent waits for all of them and stops any that fails.
+Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
+``serving``) each run in a worker process of their own on the card
+(``run_alone``: this script with ``--alone``, ALONE_WORKERS at once), so
+the checks of a phase run together; the parent waits for all of them and
+stops any that fails.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -147,8 +164,8 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 KERNEL_RTOL = 1e-5
 TIMING_REPS = 50               # timed batches (median over these)
 TIMING_BATCH = 20              # back-to-back calls per timed batch
-DETERMINISM = (("replay_tx_gaia_1h", 600),
-               ("replay_tx_gaia_1h_thermal_stress", 900))
+DETERMINISM = (("replay_tx_gaia_1h", 300),
+               ("replay_tx_gaia_1h_thermal_stress", 450))
 THERMAL_CASES = ("replay_tx_gaia_1h_thermal",
                  "replay_tx_gaia_1h_thermal_stress")
 INF_CLOCKS = {"next_fail_t", "rack_fail_t", "srv_retry_t", "srv_wake_t"}
@@ -199,12 +216,12 @@ BF16_DECODE_FACTOR = 2.0
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
 # timed at each, and (start tick, ticks) of each profile
 FLEET_SIZES = (1, 72, 1152)
-FLEET_TIMING = 600
-FLEET_PROFILE = (300, 10)
+FLEET_TIMING = 300
+FLEET_PROFILE = (100, 10)
 # the rl phase: environments timed, decisions per timed rollout
 RL_SCALE_ENVS = (8, 64, 512)
 RL_SCALE_STEPS = 8
-RL_PROFILE_STEPS = 4   # decisions of the rollout under the profiler
+RL_PROFILE_STEPS = 2   # decisions of the rollout under the profiler
 # the macro phase: the engine's chunk of fast ticks a host read (its
 # default), the fleet replicas rerun alone, and the environments timed
 MACRO_CHUNK = 16
@@ -212,10 +229,13 @@ MACRO_FLEET_ALONE = (8, 71)
 MACRO_RL_ENVS = (8, 512)
 # phase faults: the faults hour profiled from this tick, for this many
 # ticks (the profiler's processing of a tick of ~1,250 kernels is slow)
-FAULTS_PROFILE = (600, 10)
+FAULTS_PROFILE = (100, 10)
+# the serving phase's profiles of the serving tick and the plain tick:
+# (start tick, ticks)
+SERVING_PROFILE = (100, 10)
 # replicas rerun alone run in worker processes on the card, this many at
 # once (the machine has 8 cores; each run is host-bound)
-ALONE_WORKERS = 6
+ALONE_WORKERS = 7
 ALONE_TIMEOUT_S = 600
 
 
@@ -1000,14 +1020,16 @@ def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
     return {"replica": e, "max_rel_err": worst, "bitwise": bitwise}
 
 
-def run_alone(torch, runs: list) -> list:
+def run_alone(torch, runs: list, during=None):
     """Each of ``runs`` (``run_episode``'s arguments: a dict of ``cfg``,
     ``statics``, ``state``, ``n_steps``, ``scheduler`` and ``kw``) in a
     worker process of its own on the card (``chip_smoke.py --alone``),
     ALONE_WORKERS at a time: a replica rerun alone shares nothing with the
     fleet it is compared with, not even the process. Returns each run's
     (final state, telemetry) on the card; a worker that fails or outlives
-    ALONE_TIMEOUT_S fails the phase, and every worker is stopped first."""
+    ALONE_TIMEOUT_S fails the phase, and every worker is stopped first.
+    With ``during``, the parent calls it once the first workers have
+    started and returns (the runs' results, what it returned)."""
     import subprocess
 
     work = ROOT / "build" / "alone"
@@ -1021,6 +1043,7 @@ def run_alone(torch, runs: list) -> list:
         paths.append((src, out, log))
     pending = list(range(len(runs)))
     live = {}
+    given, meanwhile = during is not None, None
     try:
         while pending or live:
             while pending and len(live) < ALONE_WORKERS:
@@ -1032,6 +1055,8 @@ def run_alone(torch, runs: list) -> list:
                          "--alone", str(src), str(out)],
                         stdout=f, stderr=subprocess.STDOUT),
                         time.perf_counter())
+            if during is not None:
+                meanwhile, during = during(), None
             for i, (proc, t0) in list(live.items()):
                 if proc.poll() is None:
                     if time.perf_counter() - t0 > ALONE_TIMEOUT_S:
@@ -1047,8 +1072,9 @@ def run_alone(torch, runs: list) -> list:
         for proc, _ in live.values():
             proc.kill()
             proc.wait()
-    return [torch.load(out, map_location="cuda", weights_only=False)
-            for _, out, _ in paths]
+    results = [torch.load(out, map_location="cuda", weights_only=False)
+               for _, out, _ in paths]
+    return (results, meanwhile) if given else results
 
 
 def alone_main(src: str, out: str) -> int:
@@ -1604,39 +1630,45 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
         scheduler=names[e].split("+")[0],
         kw=dict(placement=names[e].split("+")[1], macro=True))
         for e in MACRO_FLEET_ALONE]
-    for e, (f1, t1) in zip(MACRO_FLEET_ALONE, run_alone(torch, alone)):
+
+    # (c) the RL env at macro=True: the script and one PPO iteration at
+    # the pins (while the replicas above rerun alone), then timings
+    def rl_pins():
+        cfg = A.rl_config("rl_tx_gaia")
+        env = SchedEnv(cfg, A.rl_workloads(cfg),
+                       **A.rl_env_kwargs(macro=True))
+        guard = no_sync(torch)
+        steps = A.RL_SCRIPT_STEPS["rl_tx_gaia"]
+        got, wall, launches, (events, fast), reads = _macro_counts(
+            torch, lambda: A.run_rl_script(env, "rl_tx_gaia", guard=guard),
+            guard=False)
+        report = A.check_rl("rl_tx_gaia", got, pins=A.PINNED_RL_MACRO[
+            "rl_tx_gaia"])
+        emit("macro", step="rl_script", envs=A.RL_ENVS, env_steps=steps,
+             event_ticks=events, fast_ticks_issued=fast, wall_s=wall,
+             launches=launches, host_reads_per_env_step=len(reads) / steps,
+             **_read_gate(reads, "rl_tx_gaia macro"), **report,
+             at_s=time.perf_counter() - start)
+        if launches != no_launches(power_scatter=steps + events + fast):
+            raise AssertionError(f"rl_tx_gaia macro: launches {launches}")
+        drains = []
+        with counted_drains(torch, drains):
+            (got, _), wall, launches, (events, fast), reads = _macro_counts(
+                torch, lambda: A.run_ppo(env, guard=guard, n_iterations=1),
+                guard=False)
+        report = A.check_ppo(got, pins=A.PINNED_RL_MACRO["ppo"])
+        emit("macro", step="ppo", iterations=1, wall_s=wall,
+             launches=launches, drains=drains, history=got["history"],
+             **_read_gate(reads, "ppo macro"), **report,
+             at_s=time.perf_counter() - start)
+        if drains != [1]:
+            raise AssertionError(f"ppo macro: host drains {drains}")
+        return env
+
+    runs, env = run_alone(torch, alone, during=rl_pins)
+    for e, (f1, t1) in zip(MACRO_FLEET_ALONE, runs):
         emit("macro", step="alone", policy=names[e], **_alone_vs_fleet(
             torch, "macro fleet", f1, final, e, t1, telem))
-
-    # (c) the RL env at macro=True: the script, one PPO iteration, timings
-    cfg = A.rl_config("rl_tx_gaia")
-    env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(macro=True))
-    guard = no_sync(torch)
-    steps = A.RL_SCRIPT_STEPS["rl_tx_gaia"]
-    got, wall, launches, (events, fast), reads = _macro_counts(
-        torch, lambda: A.run_rl_script(env, "rl_tx_gaia", guard=guard),
-        guard=False)
-    report = A.check_rl("rl_tx_gaia", got, pins=A.PINNED_RL_MACRO[
-        "rl_tx_gaia"])
-    emit("macro", step="rl_script", envs=A.RL_ENVS, env_steps=steps,
-         event_ticks=events, fast_ticks_issued=fast, wall_s=wall,
-         launches=launches, host_reads_per_env_step=len(reads) / steps,
-         **_read_gate(reads, "rl_tx_gaia macro"), **report,
-         at_s=time.perf_counter() - start)
-    if launches != no_launches(power_scatter=steps + events + fast):
-        raise AssertionError(f"rl_tx_gaia macro: launches {launches}")
-    drains = []
-    with counted_drains(torch, drains):
-        (got, _), wall, launches, (events, fast), reads = _macro_counts(
-            torch, lambda: A.run_ppo(env, guard=guard, n_iterations=1),
-            guard=False)
-    report = A.check_ppo(got, pins=A.PINNED_RL_MACRO["ppo"])
-    emit("macro", step="ppo", iterations=1, wall_s=wall, launches=launches,
-         drains=drains, history=got["history"],
-         **_read_gate(reads, "ppo macro"), **report,
-         at_s=time.perf_counter() - start)
-    if drains != [1]:
-        raise AssertionError(f"ppo macro: host drains {drains}")
     for n_envs in MACRO_RL_ENVS:
         emit("macro", step="rl_scale", at_s=time.perf_counter() - start,
              **_rl_rollout_timed(torch, env, n_envs, RL_SCALE_STEPS))
@@ -1757,63 +1789,231 @@ def faults(torch, np, jobs, bank, per_tick: dict) -> None:
     scns = A.fleet_faults_scenarios(cfg)
     fstatics, fstate, who = prepare_fleet(
         cfg, statics, state, A.FLEET_FAULTS_SCHEDULER, scenarios=scns)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    final, telem = run_episode(cfg, fstatics, fstate, A.FLEET_FAULTS_TICKS,
-                               who, summary_only=True)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    cols = summary_columns(final, telem)
-    report = A.check_fleet_faults(cols)
-    emit("faults", step="fleet", ticks=A.FLEET_FAULTS_TICKS, wall_s=wall,
-         ms_per_tick=1e3 * wall / A.FLEET_FAULTS_TICKS, launches=launches,
-         killed=cols["killed_by_failures"].tolist(), **report,
-         at_s=time.perf_counter() - start)
-    if launches != no_launches(power_scatter=A.FLEET_FAULTS_TICKS):
-        raise AssertionError(f"fault fleet: launches {launches}")
     alone = [dict(cfg=cfg, statics=statics._replace(scenario=tree_to(
         scns[e], statics.idle_w.device)), state=type(fstate)(*(
             v[e] for v in fstate)), n_steps=A.FLEET_FAULTS_TICKS,
         scheduler=A.FLEET_FAULTS_SCHEDULER, kw=dict(summary_only=True))
         for e in A.FLEET_FAULTS_ALONE]
-    for e, (f1, t1) in zip(A.FLEET_FAULTS_ALONE, run_alone(torch, alone)):
+
+    # the fleet and then (d), while its replicas rerun alone in workers
+    def fleet_and_rl():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        final, telem = run_episode(cfg, fstatics, fstate,
+                                   A.FLEET_FAULTS_TICKS, who,
+                                   summary_only=True)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        cols = summary_columns(final, telem)
+        report = A.check_fleet_faults(cols)
+        emit("faults", step="fleet", ticks=A.FLEET_FAULTS_TICKS,
+             wall_s=wall, ms_per_tick=1e3 * wall / A.FLEET_FAULTS_TICKS,
+             launches=launches, alone_workers_meanwhile=len(alone),
+             killed=cols["killed_by_failures"].tolist(), **report,
+             at_s=time.perf_counter() - start)
+        if launches != no_launches(power_scatter=A.FLEET_FAULTS_TICKS):
+            raise AssertionError(f"fault fleet: launches {launches}")
+        rl_checks()
+        return final, telem
+
+    # (d) the RL env with the ladder's actions, per tick and macro
+    def rl_checks():
+        cfg = A.rl_config(A.RL_FAULTS_CASE)
+        guard = no_sync(torch)
+        steps = A.RL_FAULTS_STEPS
+        for macro in (False, True):
+            env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(
+                macro=macro, case=A.RL_FAULTS_CASE))
+            got, wall, launches, (events, fast), reads = _macro_counts(
+                torch, lambda: A.run_rl_script(env, A.RL_FAULTS_CASE,
+                                               guard=guard), guard=False)
+            report = A.check_rl(A.RL_FAULTS_CASE, got,
+                                pins=A.PINNED_RL_FAULTS[
+                                    "macro" if macro else "per_tick"])
+            ticks = (steps + events + fast if macro
+                     else steps * A.RL_SIM_STEPS)
+            emit("faults", step="rl_script", macro=macro, envs=A.RL_ENVS,
+                 env_steps=steps, n_actions=env.n_actions,
+                 obs_dim=env.obs_dim, ticks_issued=ticks, wall_s=wall,
+                 launches=launches,
+                 **(_read_gate(reads, "rl faults macro") if macro
+                    else {}),
+                 **report, at_s=time.perf_counter() - start)
+            if launches != no_launches(power_scatter=ticks):
+                raise AssertionError(f"rl faults (macro={macro}): "
+                                     f"launches {launches}")
+
+    runs, (final, telem) = run_alone(torch, alone, during=fleet_and_rl)
+    for e, (f1, t1) in zip(A.FLEET_FAULTS_ALONE, runs):
         emit("faults", step="alone", **_alone_vs_fleet(
             torch, "fault fleet", f1, final, e, t1, telem),
             at_s=time.perf_counter() - start)
-
-    # (d) the RL env with the ladder's actions, per tick and macro
-    cfg = A.rl_config(A.RL_FAULTS_CASE)
-    guard = no_sync(torch)
-    steps = A.RL_FAULTS_STEPS
-    for macro in (False, True):
-        env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(
-            macro=macro, case=A.RL_FAULTS_CASE))
-        got, wall, launches, (events, fast), reads = _macro_counts(
-            torch, lambda: A.run_rl_script(env, A.RL_FAULTS_CASE,
-                                           guard=guard), guard=False)
-        report = A.check_rl(A.RL_FAULTS_CASE, got,
-                            pins=A.PINNED_RL_FAULTS[
-                                "macro" if macro else "per_tick"])
-        ticks = (steps + events + fast if macro
-                 else steps * A.RL_SIM_STEPS)
-        emit("faults", step="rl_script", macro=macro, envs=A.RL_ENVS,
-             env_steps=steps, n_actions=env.n_actions, obs_dim=env.obs_dim,
-             ticks_issued=ticks, wall_s=wall, launches=launches,
-             **(_read_gate(reads, "rl faults macro") if macro else {}),
-             **report, at_s=time.perf_counter() - start)
-        if launches != no_launches(power_scatter=ticks):
-            raise AssertionError(f"rl faults (macro={macro}): launches "
-                                 f"{launches}")
 
     # (e) where the faults hour's tick goes: CUDA kernels, the fault
     # engine's share
     emit("faults", step="profile", **profile_replay(
         "replay_tx_gaia_1h_faults", *FAULTS_PROFILE, top=6),
         at_s=time.perf_counter() - start)
+
+
+def serving(torch, np, jobs, bank, per_tick: dict) -> None:
+    """The serving phase (see the module docstring, phase 13)."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import (
+        build_statics,
+        init_state,
+        load_jobs,
+        run_episode,
+        summary_columns,
+    )
+    from repro_torch.core.fleet import prepare_fleet
+    from repro_torch.envs import SchedEnv
+    from repro_torch.tools.profile_tick import profile_replay
+    from repro_torch.utils.device import tree_to
+
+    start = time.perf_counter()
+    main_ms = 1e3 * per_tick["replay_tx_gaia_1h"][3] / A.N_STEPS
+    cfg = A.config(A.SERVING_CASE)
+    statics = build_statics(cfg, bank, A.serving_scenario(cfg))
+    state = A.half_asleep(load_jobs(init_state(cfg, statics, seed=A.SEED),
+                                    jobs))
+
+    # (a) the hour per tick, at the JAX package's per-tick values
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    final, telem = run_episode(cfg, statics, state, A.N_STEPS, A.SCHEDULER,
+                               summary_only=True)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    got = A.serving_summary(final, telem)
+    emit("serving", step="hour", case=A.SERVING_CASE, ticks=A.N_STEPS,
+         wall_s=wall, ms_per_tick=1e3 * wall / A.N_STEPS,
+         replay_tx_gaia_1h_ms_per_tick=main_ms, launches=launches,
+         **{k: got[k] for k in A.SERVING_KEYS},
+         **A.check_serving(A.SERVING_CASE, got),
+         at_s=time.perf_counter() - start)
+    if launches != no_launches(power_scatter=A.N_STEPS):
+        raise AssertionError(f"{A.SERVING_CASE}: launches {launches}")
+    for name, v in final._asdict().items():
+        ok = (~torch.isnan(v) if name in INF_CLOCKS else torch.isfinite(v))
+        if v.is_floating_point() and not bool(ok.all()):
+            raise AssertionError(f"{A.SERVING_CASE}: final state field "
+                                 f"{name}: bad values")
+
+    # (b) macro-stepped: bitwise equal to per tick, the read gate, one
+    # power_tick launch a tick issued
+    case = A.SERVING_MACRO_CASE
+    (mf, mt), mwall, launches, (events, fast), reads = _macro_counts(
+        torch, lambda: run_episode(cfg, statics, state, A.N_STEPS,
+                                   A.SCHEDULER, macro=True))
+    gm = A.serving_summary(mf, mt)
+    diffs = _against_per_tick(torch, case, (mf, mt), (final, telem))
+    pins = A.PINNED_SERVING[case]
+    emit("serving", step="macro hour", case=case, event_ticks=events,
+         fast_ticks_issued=fast,
+         fast_ticks_masked=fast - int(gm["ticks_simulated"]
+                                      - gm["macro_steps_taken"]),
+         macro_skip_ratio=gm["macro_skip_ratio"],
+         ms_per_simulated_tick=1e3 * mwall / A.N_STEPS,
+         per_tick_ms_per_tick=1e3 * wall / A.N_STEPS,
+         replay_tx_gaia_1h_ms_per_tick=main_ms, wall_s=mwall,
+         launches=launches, **_read_gate(reads, case),
+         reference_macro_steps_taken=pins["reference_macro_steps_taken"],
+         **A.check_serving(case, gm), **diffs,
+         at_s=time.perf_counter() - start)
+    if any(diffs.values()):
+        raise AssertionError(f"{case}: not bitwise with per tick: {diffs}")
+    if events != gm["macro_steps_taken"]:
+        raise AssertionError(f"{case}: {events} event ticks issued, "
+                             f"{gm['macro_steps_taken']} counted")
+    if launches != no_launches(power_scatter=events + fast):
+        raise AssertionError(f"{case}: launches {launches}, expected one "
+                             "a tick issued")
+
+    # (c) the fleet: replica i at a peak of 12 (i + 1) req/s, at the
+    # vmapped reference's values; replicas rerun alone in workers while
+    # the parent runs the fleet and (d)
+    scns = [A.serving_scenario(cfg, A.fleet_serving_traffic(e))
+            for e in range(A.FLEET_SERVING_E)]
+    fstatics, fstate, who = prepare_fleet(cfg, statics, state, A.SCHEDULER,
+                                          scenarios=scns)
+    alone = [dict(cfg=cfg, statics=statics._replace(scenario=tree_to(
+        scns[e], statics.idle_w.device)), state=type(fstate)(*(
+            v[e] for v in fstate)), n_steps=A.FLEET_SERVING_TICKS,
+        scheduler=A.SCHEDULER, kw=dict(summary_only=True))
+        for e in A.FLEET_SERVING_ALONE]
+
+    def fleet_and_rl():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        ffinal, ftelem = run_episode(cfg, fstatics, fstate,
+                                     A.FLEET_SERVING_TICKS, who,
+                                     summary_only=True)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        cols = summary_columns(ffinal, ftelem)
+        emit("serving", step="fleet", ticks=A.FLEET_SERVING_TICKS,
+             wall_s=fwall, ms_per_tick=1e3 * fwall / A.FLEET_SERVING_TICKS,
+             launches=launches, alone_workers_meanwhile=len(alone),
+             srv_shed=cols["srv_shed"].tolist(),
+             **A.check_fleet_serving(cols), at_s=time.perf_counter() - start)
+        if launches != no_launches(power_scatter=A.FLEET_SERVING_TICKS):
+            raise AssertionError(f"serving fleet: launches {launches}")
+        rl_checks()
+        return ffinal, ftelem
+
+    # (d) rl_tx_gaia_serving per tick and macro, at the pins
+    def rl_checks():
+        rcfg = A.rl_config(A.RL_SERVING_CASE)
+        guard = no_sync(torch)
+        steps = A.RL_SERVING_STEPS
+        for macro in (False, True):
+            env = SchedEnv(rcfg, A.rl_workloads(rcfg),
+                           scenario=A.rl_scenario(A.RL_SERVING_CASE, rcfg),
+                           **A.rl_env_kwargs(macro, A.RL_SERVING_CASE))
+            got, rwall, launches, (events, fast), reads = _macro_counts(
+                torch, lambda: A.run_rl_script(env, A.RL_SERVING_CASE,
+                                               guard=guard), guard=False)
+            report = A.check_rl(A.RL_SERVING_CASE, got,
+                                pins=A.PINNED_RL_SERVING[
+                                    "macro" if macro else "per_tick"])
+            ticks = (steps + events + fast if macro
+                     else steps * A.RL_SIM_STEPS)
+            emit("serving", step="rl_script", macro=macro, envs=A.RL_ENVS,
+                 env_steps=steps, n_actions=env.n_actions,
+                 obs_dim=env.obs_dim, ticks_issued=ticks, wall_s=rwall,
+                 launches=launches,
+                 **(_read_gate(reads, "rl serving macro") if macro
+                    else {}),
+                 **report, at_s=time.perf_counter() - start)
+            if launches != no_launches(power_scatter=ticks):
+                raise AssertionError(f"rl serving (macro={macro}): "
+                                     f"launches {launches}")
+
+    runs, (ffinal, ftelem) = run_alone(torch, alone, during=fleet_and_rl)
+    for e, (f1, t1) in zip(A.FLEET_SERVING_ALONE, runs):
+        emit("serving", step="alone", **_alone_vs_fleet(
+            torch, "serving fleet", f1, ffinal, e, t1, ftelem),
+            at_s=time.perf_counter() - start)
+
+    # (e) where the serving tick goes, beside the plain hour's in the same
+    # run: CUDA kernels a tick
+    for name in (A.SERVING_CASE, "replay_tx_gaia_1h"):
+        emit("serving", step="profile", **profile_replay(
+            name, *SERVING_PROFILE, top=6), at_s=time.perf_counter() - start)
 
 
 def main() -> int:
@@ -2013,6 +2213,12 @@ def main() -> int:
     t0 = time.perf_counter()
     faults(torch, np, jobs, bank, per_tick)
     emit("faults", step="done", seconds=time.perf_counter() - t0)
+
+    # 13. serving: the serving twin's hour per tick and macro, its fleet
+    # and env (run here, before the LM phases, beside the replay phases)
+    t0 = time.perf_counter()
+    serving(torch, np, jobs, bank, per_tick)
+    emit("serving", step="done", seconds=time.perf_counter() - t0)
 
     # 10. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:

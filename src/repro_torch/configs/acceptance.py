@@ -25,6 +25,12 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
   their fleet (``fleet_tx_gaia_faults``) and the RL env with the ladder's
   actions (``rl_tx_gaia_faults``), pinned in ``PINNED_FAULTS``,
   ``PINNED_FLEET_FAULTS`` and ``PINNED_RL_FAULTS``.
+- The serving twin on the same hour (``replay_tx_gaia_1h_serving``: a
+  pool of 32 inference nodes under diurnal traffic and a flash crowd, per
+  tick and macro-stepped), its fleet (``fleet_tx_gaia_serving``) and the
+  RL env with the serving actions (``rl_tx_gaia_serving``), pinned in
+  ``PINNED_SERVING``, ``PINNED_FLEET_SERVING`` and ``PINNED_RL_SERVING``
+  (at the end).
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -51,6 +57,10 @@ SEED = 0
 # racks ride the throttle ramp and cross the trip within the hour
 THERMAL_STRESS = dict(rack_tau_s=120.0, thermal_trip_c=26.0,
                       throttle_start_c=24.0, throttle_full_c=34.0)
+
+# the serving pool of the serving cases (``replay_tx_gaia_1h_serving``,
+# ``rl_tx_gaia_serving``, at the end)
+SERVING = dict(serving_enabled=True, serving_nodes=32)
 
 CASES = {
     "replay_tx_gaia_1h": {},
@@ -143,8 +153,8 @@ def base_case(case: str) -> str:
 
 def config(case: str = "replay_tx_gaia_1h") -> SimConfig:
     base = base_case(case)
-    return tx_gaia(max_jobs=256, max_nodes_per_job=16,
-                   **(CASES[base] if base in CASES else FAULT_CASES[base]))
+    flags = {**CASES, **FAULT_CASES, SERVING_CASE: SERVING}[base]
+    return tx_gaia(max_jobs=256, max_nodes_per_job=16, **flags)
 
 
 def workload(cfg: SimConfig):
@@ -999,6 +1009,7 @@ RL_CASES = {
     "rl_tx_gaia_thermal_stress": dict(thermal_enabled=True,
                                       **THERMAL_STRESS),
     "rl_tx_gaia_faults": dict(degrade_enabled=True, **FAULTS),
+    "rl_tx_gaia_serving": SERVING,
 }
 RL_SCRIPT_STEPS = {"rl_tx_gaia": 32, "rl_tx_gaia_thermal_stress": 8}
 RL_WORKLOADS, RL_JOBS, RL_HORIZON_S = 4, 40, 1800.0
@@ -1023,12 +1034,22 @@ def rl_workloads(cfg: SimConfig) -> list:
 def rl_env_kwargs(macro: bool = False, case: str = "rl_tx_gaia") -> dict:
     """``SchedEnv`` keywords of the RL cases, the same in both packages
     (``PINNED_RL``: per-tick; ``PINNED_RL_MACRO``: ``macro=True``; the
-    fault case adds its reward weights)."""
+    fault and serving cases add their reward weights, and the serving
+    case its scenario, ``rl_scenario``)."""
     kw = dict(episode_steps=RL_EPISODE_STEPS,
               sim_steps_per_action=RL_SIM_STEPS, macro=macro)
     if case == RL_FAULTS_CASE:
         kw["reward_weights"] = RL_FAULTS_WEIGHTS
+    if case == RL_SERVING_CASE:
+        kw["reward_weights"] = RL_SERVING_WEIGHTS
     return kw
+
+
+def rl_scenario(case: str, cfg: SimConfig):
+    """The port's scenario of an RL case (``None``: the default grid)."""
+    if case != RL_SERVING_CASE:
+        return None
+    return serving_scenario(cfg, RL_SERVING_TRAFFIC)
 
 
 # ``rl_tx_gaia_faults``: ``rl_tx_gaia`` with the faults hour's MTBFs,
@@ -1095,7 +1116,8 @@ def run_rl_script(env, case: str, steps: int | None = None,
     RL_ENVS environments reset from ``split(key(RL_SEED), RL_ENVS)``, then
     ``steps`` decisions of ``rl_script`` (default ``RL_SCRIPT_STEPS``; the
     fault case: ``rl_fault_script``, RL_FAULTS_STEPS, its integer fields
-    with the ladder level), inside the context manager ``guard()`` when
+    with the ladder level; the serving case: ``rl_serving_script``,
+    RL_SERVING_STEPS), inside the context manager ``guard()`` when
     one is given (the reset and the steps; the results reach the host
     after it). Returns ``rl_record``'s form."""
     import contextlib
@@ -1106,10 +1128,13 @@ def run_rl_script(env, case: str, steps: int | None = None,
     from repro_torch.utils.device import to_device
 
     faults = case == RL_FAULTS_CASE
+    serving = case == RL_SERVING_CASE
     if steps is None:
-        steps = RL_FAULTS_STEPS if faults else RL_SCRIPT_STEPS[case]
+        steps = (RL_FAULTS_STEPS if faults else RL_SERVING_STEPS if serving
+                 else RL_SCRIPT_STEPS[case])
     dev = env.device
-    script = (rl_fault_script if faults else rl_script)(env.k, RL_ENVS, steps)
+    script = (rl_fault_script if faults else rl_serving_script if serving
+              else rl_script)(env.k, RL_ENVS, steps)
     int_fields = RL_FAULTS_INT_FIELDS if faults else RL_INT_FIELDS
     rec = {"reward": [], "done": [], "n_valid": [],
            **{f: [] for f in RL_INFO}}
@@ -2686,5 +2711,670 @@ PINNED_RL_FAULTS = {
         "digest_n_failures": [0, 0, 0, 0, 0, 0, 0, 0],
         "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
         "past_queued": 50,
+    },
+}
+
+
+# ---------------------------------------------------------------------------
+# The serving twin (``core.serving``) on the replay hour: TX-GAIA's batch
+# fleet plus a pool of SERVING["serving_nodes"] inference nodes (every
+# other serving field at its default), under ``diurnal_serving`` squeezed
+# into the hour (SERVING_TRAFFIC: a 48 req/s peak at half past, a trough
+# of a tenth of it, and a 5-minute flash crowd doubling the rate from
+# 30 min), the pool starting half asleep (SERVING_ACTIVE0 nodes awake, the
+# target the whole pool, so the first tick opens a wake batch). Every rung
+# of the overload ladder fires, only around the peak and the burst.
+# - ``replay_tx_gaia_1h_serving``: 3600 ticks of "replay" per tick;
+# - ``replay_tx_gaia_1h_serving_macro``: the same macro-stepped, held to
+#   the same pins and bitwise to the port's per-tick run; the JAX
+#   package's own event ticks are reported (its macro path parts from its
+#   per tick in the last bits of ``srv_dropped`` and ``srv_retried``);
+# - ``fleet_tx_gaia_serving``: FLEET_SERVING_E replicas of the hour's
+#   config for FLEET_SERVING_TICKS ticks, replica i under
+#   ``diurnal_serving`` at a peak of 12 (i + 1) req/s (burst from 600 s),
+#   each starting half asleep; replicas 0-4 never overload;
+# - ``rl_tx_gaia_serving``: ``rl_tx_gaia`` with the pool, a 960 s traffic
+#   cycle and the SLO reward weight, RL_SERVING_STEPS decisions of
+#   ``rl_serving_script`` (every dispatch index, the no-op and the four
+#   serving actions), per tick and macro.
+# ``PINNED_SERVING``, ``PINNED_FLEET_SERVING`` and ``PINNED_RL_SERVING``
+# hold what the JAX package gives on the CPU (jax 0.9.0), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_serving_pins.py
+SERVING_TRAFFIC = dict(peak_rps=48.0, base_frac=0.1, period_s=3600.0,
+                       burst_start_s=1800.0, burst_len_s=300.0,
+                       burst_mult=2.0)
+SERVING_ACTIVE0 = 16.0
+SERVING_CASE = "replay_tx_gaia_1h_serving"
+SERVING_MACRO_CASE = f"{SERVING_CASE}_macro"
+SERVING_KEYS = ("completed", "energy_kwh", "avg_pue", "carbon_kg",
+                "srv_arrived", "srv_completed", "srv_shed", "srv_dropped",
+                "srv_retried", "srv_mean_latency_s",
+                "srv_slo_violation_frac", "srv_p50_latency_x_slo",
+                "srv_p99_latency_x_slo", "srv_active", "srv_lat_hist")
+FLEET_SERVING_CASE = "fleet_tx_gaia_serving"
+FLEET_SERVING_E = 8
+FLEET_SERVING_TICKS = 1200
+FLEET_SERVING_ALONE = (0, 7)
+FLEET_SERVING_KEYS = ("completed", "energy_kwh", "avg_pue", "srv_arrived",
+                      "srv_completed", "srv_shed", "srv_dropped",
+                      "srv_retried", "srv_slo_violation_frac")
+RL_SERVING_CASE = "rl_tx_gaia_serving"
+RL_SERVING_TRAFFIC = dict(peak_rps=48.0, base_frac=0.1, period_s=960.0,
+                          burst_start_s=240.0, burst_len_s=120.0,
+                          burst_mult=2.0)
+RL_SERVING_WEIGHTS = (1.0, 1.0, 1.0, 0.05, 0.0, 0.0, 5.0)
+RL_SERVING_STEPS = 16
+
+
+def serving_scenario(cfg: SimConfig, traffic: dict | None = None):
+    """The port's ``diurnal_serving`` at ``traffic`` (default
+    ``SERVING_TRAFFIC``), on the CPU."""
+    from repro_torch.scenarios.scenario import diurnal_serving
+
+    return diurnal_serving(cfg, **(SERVING_TRAFFIC if traffic is None
+                                   else traffic))
+
+
+def fleet_serving_traffic(e: int) -> dict:
+    """Replica ``e``'s traffic in the serving fleet."""
+    return dict(SERVING_TRAFFIC, peak_rps=12.0 * (e + 1), burst_start_s=600.0)
+
+
+def half_asleep(state):
+    """``state`` with SERVING_ACTIVE0 pool nodes awake (of each replica)."""
+    return state._replace(srv_active=state.srv_active.new_full(
+        state.srv_active.shape, SERVING_ACTIVE0))
+
+
+def serving_summary(final, telem) -> dict:
+    """``summary`` of a serving hour with the final pool size and the
+    latency histogram (one state)."""
+    from repro_torch.core import summary
+
+    got = summary(final, telem)
+    got["srv_active"] = float(final.srv_active)
+    got["srv_lat_hist"] = final.srv_lat_hist.cpu().double().tolist()
+    return got
+
+
+def check_serving(case: str, got: dict, pins: dict | None = None) -> dict:
+    """Hold a serving hour's ``serving_summary`` to ``PINNED_SERVING[case]``
+    (or ``pins``): ``completed`` exactly, every other value, the
+    histogram's eight too, within ``RTOL`` (a pinned 0 exactly). The
+    reference's event ticks are only reported. Returns the largest
+    relative error."""
+    pins = PINNED_SERVING[case] if pins is None else pins
+    if got["completed"] != pins["completed"]:
+        raise AssertionError(f"{case}: completed {got['completed']} != "
+                             f"pinned {pins['completed']}")
+    worst = 0.0
+    for k in SERVING_KEYS:
+        g, w = np.asarray(got[k], np.float64), np.asarray(pins[k])
+        rel = np.where(g == w, 0.0, np.abs(g - w)
+                       / np.maximum(np.abs(w), 1e-30))
+        worst = max(worst, float(np.max(rel)))
+        if not np.all(rel <= RTOL):
+            raise AssertionError(f"{case}: {k} {g.tolist()} vs pinned "
+                                 f"{w.tolist()} (rtol {RTOL})")
+    return {"max_rel_err": worst}
+
+
+def check_fleet_serving(cols: dict, replicas=None) -> dict:
+    """Hold ``summary_columns`` of the serving fleet (all replicas, or the
+    ``replicas`` they are) to ``PINNED_FLEET_SERVING``: ``completed``
+    exactly, the rest within ``RTOL`` (a pinned 0 exactly). Returns the
+    largest relative error."""
+    idx = (np.arange(FLEET_SERVING_E) if replicas is None
+           else np.asarray(replicas))
+    worst = 0.0
+    for k in FLEET_SERVING_KEYS:
+        want = np.asarray(PINNED_FLEET_SERVING[k])[idx]
+        got = np.asarray(cols[k])
+        if k == "completed":
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{FLEET_SERVING_CASE}: completed {got.tolist()} vs "
+                    f"pinned {want.tolist()}")
+            continue
+        rel = np.where(got == want, 0.0, np.abs(got - want)
+                       / np.maximum(np.abs(want), 1e-30))
+        worst = max(worst, float(rel.max()))
+        if not np.all(rel <= RTOL):
+            raise AssertionError(
+                f"{FLEET_SERVING_CASE}: {k} off the pins by rel "
+                f"{rel.max():.3g} at replicas {idx[rel > RTOL].tolist()}")
+    return {"max_rel_err": worst, "replicas": len(idx)}
+
+
+def rl_serving_script(k: int, n_envs: int, steps: int) -> np.ndarray:
+    """(steps, n_envs) int32 actions over the serving action space: env e
+    at step t takes (t + 3 e) mod (k + 5), so every dispatch index, the
+    no-op k and the four serving actions k + 1 + c recur."""
+    t = np.arange(steps)[:, None]
+    e = np.arange(n_envs)[None, :]
+    return ((t + 3 * e) % (k + 5)).astype(np.int32)
+
+
+# ``PINNED_SERVING``, ``PINNED_FLEET_SERVING``, ``PINNED_RL_SERVING``: what
+# the JAX package gives for the serving cases on the CPU (jax 0.9.0), made
+# by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_serving_pins.py
+# (~35 s on 8 cores)
+PINNED_SERVING = {
+    "replay_tx_gaia_1h_serving": {
+        "completed": 103.0,
+        "energy_kwh": 283.05084,
+        "avg_pue": 1.2519201,
+        "carbon_kg": 141.12384,
+        "srv_arrived": 109149.37,
+        "srv_completed": 100665.06,
+        "srv_shed": 8323.908,
+        "srv_dropped": 141.18619,
+        "srv_retried": 9883.44,
+        "srv_mean_latency_s": 5.4830723,
+        "srv_slo_violation_frac": 0.18564534,
+        "srv_p50_latency_x_slo": 0.5,
+        "srv_p99_latency_x_slo": 2.0,
+        "srv_active": 32.0,
+        "srv_lat_hist": [0.0, 0.0, 80185.13, 1792.0, 18688.0, 0.0, 0.0, 0.0],
+    },
+    "replay_tx_gaia_1h_serving_macro": {
+        "completed": 103.0,
+        "energy_kwh": 283.05084,
+        "avg_pue": 1.2519201,
+        "carbon_kg": 141.12384,
+        "srv_arrived": 109149.37,
+        "srv_completed": 100665.06,
+        "srv_shed": 8323.908,
+        "srv_dropped": 141.18619,
+        "srv_retried": 9883.44,
+        "srv_mean_latency_s": 5.4830723,
+        "srv_slo_violation_frac": 0.18564534,
+        "srv_p50_latency_x_slo": 0.5,
+        "srv_p99_latency_x_slo": 2.0,
+        "srv_active": 32.0,
+        "srv_lat_hist": [0.0, 0.0, 80185.13, 1792.0, 18688.0, 0.0, 0.0, 0.0],
+        "reference_macro_steps_taken": 807.0,
+    },
+}
+PINNED_FLEET_SERVING = {
+    "completed": [
+        17.0, 17.0, 17.0, 17.0, 17.0, 17.0, 17.0, 17.0,
+    ],
+    "energy_kwh": [
+        87.95734405517578, 88.3814468383789, 88.80561065673828,
+        89.22975158691406, 89.65374755859375, 90.0461196899414,
+        90.34526824951172, 90.54520416259766,
+    ],
+    "avg_pue": [
+        1.2522319690194716, 1.252196658836699, 1.2521607973602051,
+        1.252126700359273, 1.2520895692233336, 1.2520596217806674,
+        1.2520361108743916, 1.2520192973128081,
+    ],
+    "srv_arrived": [
+        6808.7294921875, 13617.458984375, 20426.177734375, 27234.91796875,
+        34043.6640625, 40852.35546875, 47661.09765625, 54469.8359375,
+    ],
+    "srv_completed": [
+        6771.63134765625, 13543.2626953125, 20314.869140625, 27086.525390625,
+        33858.14453125, 40122.25, 44896.7421875, 48090.4140625,
+    ],
+    "srv_shed": [
+        0.0, 0.0, 0.0, 0.0, 0.0, 503.2955322265625, 2456.54931640625,
+        5464.19287109375,
+    ],
+    "srv_dropped": [
+        0.0, 0.0, 0.0, 0.0, 0.0, 4.216803073883057, 41.080787658691406,
+        86.38230895996094,
+    ],
+    "srv_retried": [
+        0.0, 0.0, 0.0, 0.0, 0.0, 965.6715087890625, 3667.97119140625,
+        7193.833984375,
+    ],
+    "srv_slo_violation_frac": [
+        0.0, 0.0, 0.0, 0.0, 0.0, 0.08773186947392034, 0.21810045724712418,
+        0.3593231694271191,
+    ],
+}
+PINNED_RL_SERVING = {
+    "per_tick": {
+        "reward": [[-3.3103008, -3.3177314, -3.3177314, -3.3123548, -3.3167312,
+            -3.3197312, -3.3167312, -3.3177314], [-3.3212006, -3.3283641,
+            -3.3283641, -3.3273642, -3.3150244, -3.3283641, -3.3273642,
+            -3.323988], [-3.322684, -3.3294854, -3.3294854, -3.3294854,
+            -3.323363, -3.335985, -3.3294854, -3.3294854], [-3.324614,
+            -3.331153, -3.3267767, -3.331153, -3.3560677, -3.338653, -3.331153,
+            -3.331153], [-3.3272119, -3.333399, -3.333399, -3.3266177,
+            -3.369168, -3.3463988, -3.3290224, -3.333399], [-3.3299875,
+            -3.3362014, -3.3362014, -3.337348, -3.3839014, -3.3512015,
+            -3.341201, -3.3287709], [-3.333393, -3.3351576, -3.339534, -3.3471,
+            -3.3861387, -3.354534, -3.3470337, -3.3323708], [-3.3372276,
+            -3.343365, -3.3359342, -3.3543444, -3.388659, -3.3544888,
+            -3.350865, -3.3365636], [-3.341525, -3.3476567, -3.3404932,
+            -3.3613462, -3.3917856, -3.3701565, -3.3483756, -3.3411179],
+            [-3.3417451, -3.3523679, -3.3455665, -3.3663201, -3.3977363,
+            -3.374868, -3.3485203, -3.3461807], [-3.3513181, -3.3500226,
+            -3.3509152, -3.3723977, -3.403159, -3.3799531, -3.3575525,
+            -3.3512397], [-3.3566937, -3.3557003, -3.3566763, -3.377591,
+            -3.4168594, -3.378701, -3.366911, -3.3567228], [-3.36239,
+            -3.3617463, -3.3623333, -3.3916807, -3.4255574, -3.3877938,
+            -3.3828323, -3.3624098], [-3.361395, -3.3679106, -3.3683083,
+            -3.4019804, -3.4357085, -3.399699, -3.3980231, -3.3683171],
+            [-3.3696141, -3.3743248, -3.3743749, -3.4176533, -3.442921,
+            -3.4051435, -3.4106016, -3.3698893], [-3.3786988, -3.380464,
+            -3.380546, -3.4355664, -3.4442308, -3.414162, -3.4280405,
+            -3.380543]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False]],
+        "facility_w": [[254439.97, 254423.97, 254423.97, 254087.86, 254423.97,
+            254423.97, 254423.97, 254423.97], [254531.55, 254500.77, 254500.77,
+            254500.77, 254883.31, 254500.77, 254500.77, 254164.67], [254666.25,
+            254604.94, 254604.94, 254604.94, 255436.38, 254604.94, 254604.94,
+            254604.94], [254834.23, 254754.11, 254418.0, 254754.11, 256437.47,
+            254754.11, 254754.11, 254754.11], [255055.1, 254947.05, 254947.05,
+            255112.67, 257131.58, 254947.05, 254610.94, 254947.05], [255276.03,
+            255181.89, 255181.89, 255519.17, 257873.06, 255181.89, 255181.89,
+            255197.89], [255562.23, 255120.31, 255456.42, 256196.02, 257751.7,
+            255456.42, 255456.42, 255487.2], [255872.02, 255767.92, 255783.92,
+            256662.94, 257914.88, 255431.84, 255767.92, 255829.23], [256212.97,
+            256113.48, 256144.27, 257148.45, 258395.7, 256113.48, 256279.11,
+            256193.61], [256248.28, 256489.72, 256551.03, 257579.6, 258609.38,
+            256489.72, 256828.47, 256597.77], [256992.69, 256909.02, 256973.14,
+            258016.67, 258674.62, 256893.02, 257635.81, 256987.17], [257422.9,
+            257350.28, 257427.55, 258396.64, 259501.27, 257397.2, 258220.84,
+            257425.31], [257874.27, 257826.39, 257859.22, 258925.36, 259785.78,
+            257939.45, 258807.84, 257869.17], [258456.12, 258305.53, 258331.23,
+            259026.52, 260700.5, 258663.03, 259325.66, 258324.9], [259059.81,
+            258804.16, 258800.2, 259824.6, 261201.56, 259359.61, 259831.3,
+            258454.66], [259781.19, 259266.78, 259272.12, 260266.0, 261901.66,
+            260269.14, 260259.62, 259272.31]],
+        "queue_len": [[1.0, 2.0, 2.0, 1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0,
+            2.0, 0.0, 2.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 0.0, 3.0, 2.0, 2.0],
+            [1.0, 2.0, 2.0, 2.0, 3.0, 3.0, 2.0, 2.0], [1.0, 2.0, 2.0, 1.0, 4.0,
+            4.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 4.0, 4.0, 3.0, 1.0], [1.0,
+            2.0, 2.0, 2.0, 4.0, 4.0, 3.0, 1.0], [1.0, 2.0, 1.0, 2.0, 4.0, 5.0,
+            3.0, 1.0], [1.0, 2.0, 1.0, 2.0, 4.0, 5.0, 2.0, 1.0], [1.0, 2.0,
+            1.0, 2.0, 5.0, 5.0, 1.0, 1.0], [1.0, 1.0, 1.0, 2.0, 5.0, 5.0, 1.0,
+            1.0], [1.0, 1.0, 1.0, 3.0, 6.0, 5.0, 2.0, 1.0], [1.0, 1.0, 1.0,
+            4.0, 6.0, 5.0, 3.0, 1.0], [0.0, 1.0, 1.0, 5.0, 7.0, 5.0, 4.0, 1.0],
+            [0.0, 1.0, 1.0, 5.0, 6.0, 5.0, 4.0, 1.0], [0.0, 1.0, 1.0, 7.0, 5.0,
+            4.0, 6.0, 1.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0589763, 1.058954, 1.058954, 1.0575536, 1.058954,
+            1.058954, 1.058954, 1.058954], [1.0603845, 1.0602767, 1.0602767,
+            1.0602767, 1.0608081, 1.0602767, 1.0602767, 1.0588764], [1.0608594,
+            1.0606358, 1.0606358, 1.0606358, 1.0634767, 1.0606358, 1.0606358,
+            1.0606358], [1.0614778, 1.0611702, 1.0597695, 1.0611702, 1.0670629,
+            1.0611702, 1.0611702, 1.0611702], [1.0623096, 1.0618894, 1.0618894,
+            1.0621195, 1.0702956, 1.0618894, 1.0604889, 1.0618894], [1.0631988,
+            1.062787, 1.062787, 1.0639541, 1.0732511, 1.062787, 1.062787,
+            1.0628093], [1.0642896, 1.0624542, 1.0638547, 1.0662757, 1.0739682,
+            1.0638547, 1.0638547, 1.0639623], [1.0655179, 1.0650817, 1.0651039,
+            1.068595, 1.0747758, 1.0636812, 1.0650817, 1.0653055], [1.0668944,
+            1.0664564, 1.0665642, 1.0708371, 1.0757779, 1.0664564, 1.0666865,
+            1.0667641], [1.0669663, 1.0679655, 1.0681894, 1.0724305, 1.0767237,
+            1.0679655, 1.0691346, 1.0683858], [1.0700315, 1.069617, 1.0699024,
+            1.074377, 1.0770209, 1.0695947, 1.0720266, 1.0700063], [1.0717537,
+            1.0714359, 1.0717483, 1.0758808, 1.0806068, 1.071436, 1.0748632,
+            1.0717629], [1.0735786, 1.0733727, 1.0735606, 1.0779917, 1.0817922,
+            1.0737079, 1.0775603, 1.0735852], [1.0756624, 1.0753477, 1.0754746,
+            1.0784099, 1.084883, 1.0763999, 1.0795437, 1.0754777], [1.078295,
+            1.0774026, 1.0774186, 1.0816679, 1.0873537, 1.0794246, 1.0818112,
+            1.0759832], [1.0812049, 1.0793698, 1.0793961, 1.0835626, 1.0901754,
+            1.0829532, 1.0835543, 1.079395]],
+        "carbon_kg": [[0.5294882, 0.52947706, 0.52947706, 0.5287768,
+            0.52947706, 0.52947706, 0.52947706, 0.52947706], [0.5301921,
+            0.53013825, 0.53013825, 0.53013825, 0.53040385, 0.53013825,
+            0.53013825, 0.529438], [0.5304293, 0.53031754, 0.53031754,
+            0.53031754, 0.5317379, 0.53031754, 0.53031754, 0.53031754],
+            [0.5307379, 0.5305841, 0.5298839, 0.5305841, 0.5335304, 0.5305841,
+            0.5305841, 0.5305841], [0.53115326, 0.53094316, 0.53094316,
+            0.5310582, 0.53514624, 0.53094316, 0.5302429, 0.53094316],
+            [0.5315971, 0.53139126, 0.53139126, 0.53197473, 0.53662324,
+            0.53139126, 0.53139126, 0.5314024], [0.53214157, 0.5312239,
+            0.53192407, 0.53313464, 0.5369808, 0.53192407, 0.53192407,
+            0.531978], [0.53275466, 0.53253657, 0.5325477, 0.53429323,
+            0.5373837, 0.53183633, 0.53253657, 0.5326483], [0.53344166,
+            0.53322273, 0.53327656, 0.535413, 0.53788334, 0.53322273,
+            0.5333378, 0.5333765], [0.5334763, 0.5339759, 0.5340878,
+            0.53620833, 0.5383548, 0.5339759, 0.5345604, 0.53418607],
+            [0.53500736, 0.53480005, 0.53494275, 0.53718, 0.53850186,
+            0.5347889, 0.53600484, 0.5349947], [0.53586674, 0.5357078,
+            0.53586394, 0.53793013, 0.5402931, 0.53570783, 0.5374214,
+            0.5358713], [0.53677726, 0.5366743, 0.5367682, 0.53898376,
+            0.54088396, 0.53684187, 0.53876793, 0.5367805], [0.5378172,
+            0.53765976, 0.53772336, 0.5391908, 0.54242736, 0.53818583,
+            0.5397577, 0.5377248], [0.5391313, 0.5386851, 0.5386931, 0.5408177,
+            0.5436604, 0.539696, 0.54088926, 0.5379754], [0.54058385,
+            0.53966635, 0.53967947, 0.5417627, 0.54506886, 0.541458, 0.5417585,
+            0.53967893]],
+        "final_obs": [[0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.0,
+            0.0078125, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.9959263, 0.99553573,
+            0.997115, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414, 0.9936537,
+            1.0, 0.00390625, 0.00390625, 1.0, 0.0027777778, 0.5, 0.16966723,
+            0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0,
+            0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406,
+            0.9998477, 1.3157414, 0.9936537, 1.0, 0.00390625, 0.00390625, 1.0,
+            0.0027777778, 0.5, 0.16966723, 0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.99905133, 1.0, 0.99996334, 1.0, 0.0, 1.0, 1.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.062811, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.2916667, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0781015,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6666667, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.02734375, 0.00390625, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0,
+            0.4, 0.96875, 0.03125, 0.84999996, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.9991071, 0.99553573, 0.99951744, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 0.0, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.0,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.0, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625, 0.0,
+            0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334, 0.083333336,
+            0.25, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.026718479,
+            0.03125, 0.013960943, 0.031629283, 0.08531592, 0.01986743, 0.03125,
+            0.0, 1.0, 1.0, 1.0, 0.66071427, 0.66071427, 1.0, 0.6666667, 0.0],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.01953125,
+            0.01171875, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.95, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99547994, 0.99107146,
+            0.9968352, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.053674124, 0.046766467, 0.026392212, 0.017972425, 0.00853116,
+            0.0, 0.0, 0.0, 0.42290732, 0.5, 0.5, 0.5, 0.5, 0.0, 0.0, 0.0,
+            0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.39583334,
+            0.39583334, 0.20833334, 0.4375, 0.4375, 0.0, 0.0, 0.0, 0.0, 1.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.026431708, 0.03125, 0.03125,
+            0.03125, 0.03125, 0.0, 0.0, 0.0, 0.9985119, 0.66071427, 0.9985119,
+            0.9985119, 0.9985119, 0.0, 0.0, 0.0], [0.017452406, 0.9998477,
+            1.3157414, 0.9936537, 1.0, 0.015625, 0.01953125, 1.0, 0.0027777778,
+            0.5, 0.1714532, 0.0, 0.4, 0.96875, 0.03125, 0.9, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.99637276, 0.9933036, 0.99807686, 1.0, 0.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.06393188, 0.0486698,
+            0.016758198, 0.01148193, 0.0, 0.0, 0.0, 0.0, 0.5, 0.12621523, 0.5,
+            0.5, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.125, 0.125, 0.125, 0.0, 0.0,
+            0.0, 0.0, 0.4375, 0.125, 0.20833334, 0.27083334, 0.0, 0.0, 0.0,
+            0.0, 0.0, 1.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.015776904,
+            0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.9985119, 0.66071427,
+            0.66071427, 0.6636905, 0.0, 0.0, 0.0, 0.0], [0.017452406,
+            0.9998477, 1.3157414, 0.9936537, 1.0, 0.0234375, 0.0078125, 1.0,
+            0.0027777778, 0.5, 0.16966723, 0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.99893975, 0.99553573, 0.99930847, 1.0, 0.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.061795957, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.0, 0.0,
+            0.42749566, 0.22337508, 0.12651713, 0.34126368, 0.31787887, 0.5,
+            0.0, 0.0, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625, 0.0, 0.0,
+            0.22916667, 0.4375, 0.3541667, 0.39583334, 0.083333336, 0.25, 0.0,
+            0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.026718479,
+            0.013960943, 0.031629283, 0.08531592, 0.01986743, 0.03125, 0.0,
+            0.0, 1.0, 1.0, 0.66071427, 0.66071427, 1.0, 0.6666667, 0.0, 0.0],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.00390625,
+            0.00390625, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0, 0.99996334,
+            1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.062811,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.2916667,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6666667,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+        "digest_jstate": [823, 821, 821, 821, 827, 845, 824, 821],
+        "digest_placement": [-8390465, -8390655, -8390655, -8390626, -8390560,
+            -8389488, -8390593, -8390655],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "past_queued": 64,
+    },
+    "macro": {
+        "reward": [[-3.3103008, -3.3177314, -3.3177314, -3.3123548, -3.3167312,
+            -3.3197312, -3.3167312, -3.3177314], [-3.3212006, -3.3283641,
+            -3.3283641, -3.3273642, -3.3150244, -3.3283641, -3.3273642,
+            -3.323988], [-3.322684, -3.3294854, -3.3294854, -3.3294854,
+            -3.323363, -3.335985, -3.3294854, -3.3294854], [-3.324614,
+            -3.331153, -3.3267767, -3.331153, -3.3560677, -3.338653, -3.331153,
+            -3.331153], [-3.3272119, -3.333399, -3.333399, -3.3266177,
+            -3.369168, -3.3463988, -3.3290224, -3.333399], [-3.3299875,
+            -3.3362014, -3.3362014, -3.337348, -3.3839014, -3.3512015,
+            -3.341201, -3.3287709], [-3.333393, -3.3351576, -3.339534, -3.3471,
+            -3.3861387, -3.354534, -3.3470337, -3.3323708], [-3.3372276,
+            -3.343365, -3.3359342, -3.3543444, -3.388659, -3.3544888,
+            -3.350865, -3.3365636], [-3.341525, -3.3476567, -3.3404932,
+            -3.3613462, -3.3917856, -3.3701565, -3.3483756, -3.3411179],
+            [-3.3417451, -3.3523679, -3.3455665, -3.3663201, -3.3977363,
+            -3.374868, -3.3485203, -3.3461807], [-3.3513181, -3.3500226,
+            -3.3509152, -3.3723977, -3.403159, -3.3799531, -3.3575525,
+            -3.3512397], [-3.3566937, -3.3557003, -3.3566763, -3.377591,
+            -3.4168594, -3.378701, -3.366911, -3.3567228], [-3.36239,
+            -3.3617463, -3.3623333, -3.3916807, -3.4255574, -3.3877938,
+            -3.3828323, -3.3624098], [-3.361395, -3.3679106, -3.3683083,
+            -3.4019804, -3.4357085, -3.399699, -3.3980231, -3.3683171],
+            [-3.3696141, -3.3743248, -3.3743749, -3.4176533, -3.442921,
+            -3.4051435, -3.4106016, -3.3698893], [-3.3786988, -3.380464,
+            -3.380546, -3.4355664, -3.4442308, -3.414162, -3.4280405,
+            -3.380543]],
+        "done": [[False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False], [False, False, False, False, False, False,
+            False, False], [False, False, False, False, False, False, False,
+            False], [False, False, False, False, False, False, False, False],
+            [False, False, False, False, False, False, False, False], [False,
+            False, False, False, False, False, False, False], [False, False,
+            False, False, False, False, False, False], [False, False, False,
+            False, False, False, False, False], [False, False, False, False,
+            False, False, False, False], [False, False, False, False, False,
+            False, False, False]],
+        "facility_w": [[254439.97, 254423.97, 254423.97, 254087.86, 254423.97,
+            254423.97, 254423.97, 254423.97], [254531.55, 254500.77, 254500.77,
+            254500.77, 254883.31, 254500.77, 254500.77, 254164.67], [254666.25,
+            254604.94, 254604.94, 254604.94, 255436.38, 254604.94, 254604.94,
+            254604.94], [254834.23, 254754.11, 254418.0, 254754.11, 256437.47,
+            254754.11, 254754.11, 254754.11], [255055.1, 254947.05, 254947.05,
+            255112.67, 257131.58, 254947.05, 254610.94, 254947.05], [255276.03,
+            255181.89, 255181.89, 255519.17, 257873.06, 255181.89, 255181.89,
+            255197.89], [255562.23, 255120.31, 255456.42, 256196.02, 257751.7,
+            255456.42, 255456.42, 255487.2], [255872.02, 255767.92, 255783.92,
+            256662.94, 257914.88, 255431.84, 255767.92, 255829.23], [256212.97,
+            256113.48, 256144.27, 257148.45, 258395.7, 256113.48, 256279.11,
+            256193.61], [256248.28, 256489.72, 256551.03, 257579.6, 258609.38,
+            256489.72, 256828.47, 256597.77], [256992.69, 256909.02, 256973.14,
+            258016.67, 258674.62, 256893.02, 257635.81, 256987.17], [257422.9,
+            257350.28, 257427.55, 258396.64, 259501.27, 257397.2, 258220.84,
+            257425.31], [257874.27, 257826.39, 257859.22, 258925.36, 259785.78,
+            257939.45, 258807.84, 257869.17], [258456.12, 258305.53, 258331.23,
+            259026.52, 260700.5, 258663.03, 259325.66, 258324.9], [259059.81,
+            258804.16, 258800.2, 259824.6, 261201.56, 259359.61, 259831.3,
+            258454.66], [259781.19, 259266.78, 259272.12, 260266.0, 261901.66,
+            260269.14, 260259.62, 259272.31]],
+        "queue_len": [[1.0, 2.0, 2.0, 1.0, 1.0, 2.0, 1.0, 2.0], [1.0, 2.0, 2.0,
+            2.0, 0.0, 2.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 0.0, 3.0, 2.0, 2.0],
+            [1.0, 2.0, 2.0, 2.0, 3.0, 3.0, 2.0, 2.0], [1.0, 2.0, 2.0, 1.0, 4.0,
+            4.0, 2.0, 2.0], [1.0, 2.0, 2.0, 2.0, 4.0, 4.0, 3.0, 1.0], [1.0,
+            2.0, 2.0, 2.0, 4.0, 4.0, 3.0, 1.0], [1.0, 2.0, 1.0, 2.0, 4.0, 5.0,
+            3.0, 1.0], [1.0, 2.0, 1.0, 2.0, 4.0, 5.0, 2.0, 1.0], [1.0, 2.0,
+            1.0, 2.0, 5.0, 5.0, 1.0, 1.0], [1.0, 1.0, 1.0, 2.0, 5.0, 5.0, 1.0,
+            1.0], [1.0, 1.0, 1.0, 3.0, 6.0, 5.0, 2.0, 1.0], [1.0, 1.0, 1.0,
+            4.0, 6.0, 5.0, 3.0, 1.0], [0.0, 1.0, 1.0, 5.0, 7.0, 5.0, 4.0, 1.0],
+            [0.0, 1.0, 1.0, 5.0, 6.0, 5.0, 4.0, 1.0], [0.0, 1.0, 1.0, 7.0, 5.0,
+            4.0, 6.0, 1.0]],
+        "completed": [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0]],
+        "energy_kwh": [[1.0589763, 1.058954, 1.058954, 1.0575536, 1.058954,
+            1.058954, 1.058954, 1.058954], [1.0603845, 1.0602767, 1.0602767,
+            1.0602767, 1.0608081, 1.0602767, 1.0602767, 1.0588764], [1.0608594,
+            1.0606358, 1.0606358, 1.0606358, 1.0634767, 1.0606358, 1.0606358,
+            1.0606358], [1.0614778, 1.0611702, 1.0597695, 1.0611702, 1.0670629,
+            1.0611702, 1.0611702, 1.0611702], [1.0623096, 1.0618894, 1.0618894,
+            1.0621195, 1.0702956, 1.0618894, 1.0604889, 1.0618894], [1.0631988,
+            1.062787, 1.062787, 1.0639541, 1.0732511, 1.062787, 1.062787,
+            1.0628093], [1.0642896, 1.0624542, 1.0638547, 1.0662757, 1.0739682,
+            1.0638547, 1.0638547, 1.0639623], [1.0655179, 1.0650817, 1.0651039,
+            1.068595, 1.0747758, 1.0636812, 1.0650817, 1.0653055], [1.0668944,
+            1.0664564, 1.0665642, 1.0708371, 1.0757779, 1.0664564, 1.0666865,
+            1.0667641], [1.0669663, 1.0679655, 1.0681894, 1.0724305, 1.0767237,
+            1.0679655, 1.0691346, 1.0683858], [1.0700315, 1.069617, 1.0699024,
+            1.074377, 1.0770209, 1.0695947, 1.0720266, 1.0700063], [1.0717537,
+            1.0714359, 1.0717483, 1.0758808, 1.0806068, 1.071436, 1.0748632,
+            1.0717629], [1.0735786, 1.0733727, 1.0735606, 1.0779917, 1.0817922,
+            1.0737079, 1.0775603, 1.0735852], [1.0756624, 1.0753477, 1.0754746,
+            1.0784099, 1.084883, 1.0763999, 1.0795437, 1.0754777], [1.078295,
+            1.0774026, 1.0774186, 1.0816679, 1.0873537, 1.0794246, 1.0818112,
+            1.0759832], [1.0812049, 1.0793698, 1.0793961, 1.0835626, 1.0901754,
+            1.0829532, 1.0835543, 1.079395]],
+        "carbon_kg": [[0.5294882, 0.52947706, 0.52947706, 0.5287768,
+            0.52947706, 0.52947706, 0.52947706, 0.52947706], [0.5301921,
+            0.53013825, 0.53013825, 0.53013825, 0.53040385, 0.53013825,
+            0.53013825, 0.529438], [0.5304293, 0.53031754, 0.53031754,
+            0.53031754, 0.5317379, 0.53031754, 0.53031754, 0.53031754],
+            [0.5307379, 0.5305841, 0.5298839, 0.5305841, 0.5335304, 0.5305841,
+            0.5305841, 0.5305841], [0.53115326, 0.53094316, 0.53094316,
+            0.5310582, 0.53514624, 0.53094316, 0.5302429, 0.53094316],
+            [0.5315971, 0.53139126, 0.53139126, 0.53197473, 0.53662324,
+            0.53139126, 0.53139126, 0.5314024], [0.53214157, 0.5312239,
+            0.53192407, 0.53313464, 0.5369808, 0.53192407, 0.53192407,
+            0.531978], [0.53275466, 0.53253657, 0.5325477, 0.53429323,
+            0.5373837, 0.53183633, 0.53253657, 0.5326483], [0.53344166,
+            0.53322273, 0.53327656, 0.535413, 0.53788334, 0.53322273,
+            0.5333378, 0.5333765], [0.5334763, 0.5339759, 0.5340878,
+            0.53620833, 0.5383548, 0.5339759, 0.5345604, 0.53418607],
+            [0.53500736, 0.53480005, 0.53494275, 0.53718, 0.53850186,
+            0.5347889, 0.53600484, 0.5349947], [0.53586674, 0.5357078,
+            0.53586394, 0.53793013, 0.5402931, 0.53570783, 0.5374214,
+            0.5358713], [0.53677726, 0.5366743, 0.5367682, 0.53898376,
+            0.54088396, 0.53684187, 0.53876793, 0.5367805], [0.5378172,
+            0.53765976, 0.53772336, 0.5391908, 0.54242736, 0.53818583,
+            0.5397577, 0.5377248], [0.5391313, 0.5386851, 0.5386931, 0.5408177,
+            0.5436604, 0.539696, 0.54088926, 0.5379754], [0.54058385,
+            0.53966635, 0.53967947, 0.5417627, 0.54506886, 0.541458, 0.5417585,
+            0.53967893]],
+        "final_obs": [[0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.0,
+            0.0078125, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.9959263, 0.99553573,
+            0.997115, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414, 0.9936537,
+            1.0, 0.00390625, 0.00390625, 1.0, 0.0027777778, 0.5, 0.16966723,
+            0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0,
+            0.99996334, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.062811, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.2916667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.6666667, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], [0.017452406,
+            0.9998477, 1.3157414, 0.9936537, 1.0, 0.00390625, 0.00390625, 1.0,
+            0.0027777778, 0.5, 0.16966723, 0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.99905133, 1.0, 0.99996334, 1.0, 0.0, 1.0, 1.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.062811, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.312406, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.25,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.2916667, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0781015,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6666667, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0], [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0,
+            0.02734375, 0.00390625, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0,
+            0.4, 0.96875, 0.03125, 0.84999996, 1.0, 0.0, 0.0, 0.0, 0.0,
+            0.9991071, 0.99553573, 0.99951744, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 0.0, 0.061795957, 0.044301696, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.0,
+            0.42749566, 0.5, 0.22337508, 0.12651713, 0.34126368, 0.31787887,
+            0.5, 0.0, 0.0625, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625, 0.0,
+            0.22916667, 0.0625, 0.4375, 0.3541667, 0.39583334, 0.083333336,
+            0.25, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.026718479,
+            0.03125, 0.013960943, 0.031629283, 0.08531592, 0.01986743, 0.03125,
+            0.0, 1.0, 1.0, 1.0, 0.66071427, 0.66071427, 1.0, 0.6666667, 0.0],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.01953125,
+            0.01171875, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.95, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99547994, 0.99107146,
+            0.9968352, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+            0.053674124, 0.046766467, 0.026392212, 0.017972425, 0.00853116,
+            0.0, 0.0, 0.0, 0.42290732, 0.5, 0.5, 0.5, 0.5, 0.0, 0.0, 0.0,
+            0.0625, 0.0625, 0.0625, 0.0625, 0.0625, 0.0, 0.0, 0.0, 0.39583334,
+            0.39583334, 0.20833334, 0.4375, 0.4375, 0.0, 0.0, 0.0, 0.0, 1.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.026431708, 0.03125, 0.03125,
+            0.03125, 0.03125, 0.0, 0.0, 0.0, 0.9985119, 0.66071427, 0.9985119,
+            0.9985119, 0.9985119, 0.0, 0.0, 0.0], [0.017452406, 0.9998477,
+            1.3157414, 0.9936537, 1.0, 0.015625, 0.01953125, 1.0, 0.0027777778,
+            0.5, 0.1714532, 0.0, 0.4, 0.96875, 0.03125, 0.9, 1.0, 0.0, 0.0,
+            0.0, 0.0, 0.99637276, 0.9933036, 0.99807686, 1.0, 0.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.06393188, 0.0486698,
+            0.016758198, 0.01148193, 0.0, 0.0, 0.0, 0.0, 0.5, 0.12621523, 0.5,
+            0.5, 0.0, 0.0, 0.0, 0.0, 0.0625, 0.125, 0.125, 0.125, 0.0, 0.0,
+            0.0, 0.0, 0.4375, 0.125, 0.20833334, 0.27083334, 0.0, 0.0, 0.0,
+            0.0, 0.0, 1.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.03125, 0.015776904,
+            0.0625, 0.0625, 0.0, 0.0, 0.0, 0.0, 0.9985119, 0.66071427,
+            0.66071427, 0.6636905, 0.0, 0.0, 0.0, 0.0], [0.017452406,
+            0.9998477, 1.3157414, 0.9936537, 1.0, 0.0234375, 0.0078125, 1.0,
+            0.0027777778, 0.5, 0.16966723, 0.0, 0.4, 1.0, 0.0, 0.9, 1.0, 0.0,
+            0.0, 0.0, 0.0, 0.99893975, 0.99553573, 0.99930847, 1.0, 0.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.061795957, 0.016799843,
+            0.012506172, 0.009283227, 0.0038513946, 0.0025689784, 0.0, 0.0,
+            0.42749566, 0.22337508, 0.12651713, 0.34126368, 0.31787887, 0.5,
+            0.0, 0.0, 0.0625, 0.0625, 0.25, 0.25, 0.0625, 0.0625, 0.0, 0.0,
+            0.22916667, 0.4375, 0.3541667, 0.39583334, 0.083333336, 0.25, 0.0,
+            0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.0, 0.0, 0.026718479,
+            0.013960943, 0.031629283, 0.08531592, 0.01986743, 0.03125, 0.0,
+            0.0, 1.0, 1.0, 0.66071427, 0.66071427, 1.0, 0.6666667, 0.0, 0.0],
+            [0.017452406, 0.9998477, 1.3157414, 0.9936537, 1.0, 0.00390625,
+            0.00390625, 1.0, 0.0027777778, 0.5, 0.1714532, 0.0, 0.4, 0.96875,
+            0.03125, 0.9, 1.0, 0.0, 0.0, 0.0, 0.0, 0.99905133, 1.0, 0.99996334,
+            1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.062811,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.312406, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.2916667,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0781015, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6666667,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+        "digest_jstate": [823, 821, 821, 821, 827, 845, 824, 821],
+        "digest_placement": [-8390465, -8390655, -8390655, -8390626, -8390560,
+            -8389488, -8390593, -8390655],
+        "digest_n_nodes": [1490, 1490, 1490, 1381, 1370, 1395, 1381, 1490],
+        "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
+        "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "past_queued": 64,
     },
 }

@@ -1,8 +1,9 @@
 """The datacenter digital twin on tensors: trace replay, rescheduling,
 the power/cooling/carbon chain, the rack thermal twin and the resilience
-twin (faults, outages, checkpoint-restart, the degradation ladder), tick
-by tick or macro-stepped, for one datacenter or a fleet of replicas
-(serving arrives with its slice)."""
+twin (faults, outages, checkpoint-restart, the degradation ladder) and
+the serving twin (request-mass flow, overload ladder, autoscale, SLO
+ledger), tick by tick or macro-stepped, for one datacenter or a fleet of
+replicas."""
 
 from repro_torch.core.faults import (
     LVL_DRAIN,
@@ -30,6 +31,15 @@ from repro_torch.core.placement import (
     stack_policies,
 )
 from repro_torch.core.schedulers import SCHEDULERS, SELECT_IDS
+from repro_torch.core.serving import (
+    apply_serving,
+    next_serving_event,
+    retry_backoff,
+    serving_crossing_horizon,
+    serving_flow,
+    serving_power,
+    serving_trigger,
+)
 from repro_torch.core.sim import (
     StepOut,
     TelemetrySummary,

@@ -39,10 +39,15 @@ good); the ladder gates new dispatch from ``LVL_GATE`` up and scales the
 power chain and progress in the tail, and the checkpoint write drags
 progress.
 
+With ``cfg.serving_on`` the serving twin (``core.serving``) runs its
+overload ladder right after the fault engine (autoscale, retries,
+shedding, admission); in the tail the pool's power joins the plant
+before the DVFS cap, and its request mass flows after the energy
+accumulators, with the SLO term in the reward.
+
 The step never reads a tensor on the host (no ``.item()``, no Python
 branch on a tensor value), so on the card the ticks queue work without a
-single sync. The serving model is off; its flag raises
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+single sync.
 
 Macro-stepping (``make_macro_step``, ``run_episode(macro=True)``) runs
 one full event tick, then fast-forwards the quiet ticks after it: ticks
@@ -67,6 +72,7 @@ from repro_torch.configs.sim import SimConfig
 from repro_torch.core import faults as flt
 from repro_torch.core import placement as plc
 from repro_torch.core import schedulers as sched
+from repro_torch.core import serving as srv
 from repro_torch.core import thermal as thm
 from repro_torch.core.faults import release_jobs as _release
 from repro_torch.core.network import congestion_slowdown
@@ -78,7 +84,6 @@ from repro_torch.core.state import (
     RUNNING,
     SimState,
     Statics,
-    check_slice,
 )
 from repro_torch.scenarios.events import next_cap_event, power_cap_at
 from repro_torch.scenarios.signals import eval_signal
@@ -126,21 +131,14 @@ class StepOut(NamedTuple):
 
 
 def _parse_weights(reward_weights) -> Tuple[float, ...]:
-    """(w_thr, w_en, w_co2, w_q, w_cost, w_lost). The SLO weight (7th)
-    belongs to the serving slice."""
-    if len(reward_weights) not in (4, 5, 6):
-        if len(reward_weights) == 7:
-            raise NotImplementedError(
-                "reward weight w_slo arrives with the serving slice "
-                "(ROADMAP queue 1, item 8)")
+    """(w_thr, w_en, w_co2, w_q, w_cost, w_lost, w_slo); the trailing
+    three default to 0."""
+    if len(reward_weights) not in (4, 5, 6, 7):
         raise ConfigError(
             "reward_weights must have 4 to 7 entries "
             "(w_thr, w_en, w_co2, w_q[, w_cost[, w_lost[, w_slo]]]); got "
             f"{len(reward_weights)}")
-    w_thr, w_en, w_co2, w_q = reward_weights[:4]
-    w_cost = reward_weights[4] if len(reward_weights) >= 5 else 0.0
-    w_lost = reward_weights[5] if len(reward_weights) == 6 else 0.0
-    return w_thr, w_en, w_co2, w_q, w_cost, w_lost
+    return tuple(reward_weights) + (0.0,) * (7 - len(reward_weights))
 
 
 def _grid_signals(statics: Statics, t: torch.Tensor):
@@ -156,14 +154,16 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
     """The per-tick accounting tail after the power chain (which, with
     ``cfg.thermal_enabled``, already carries the thermal derate): the
     jobs' thermal clock, the degradation ladder and the checkpoint drag
-    (``cfg.resilience_on``), the DVFS throttle to the power cap, job
-    progress, energy/carbon/cost accumulation, the rack RC update
-    (``rack_tick``), reward and ``StepOut``. ``killed_now``/``lost_now``
-    are the fault engine's per-tick kills and lost node-seconds: the full
-    step passes them, fast ticks pass nothing (faults fire only on event
-    ticks, so zeros are exact). The serving branch arrives with its
-    slice."""
-    w_thr, w_en, w_co2, w_q, w_cost, w_lost = _parse_weights(reward_weights)
+    (``cfg.resilience_on``), the serving pool's power
+    (``cfg.serving_on``), the DVFS throttle to the power cap, job
+    progress, energy/carbon/cost accumulation, the serving request flow,
+    the rack RC update (``rack_tick``), reward and ``StepOut``.
+    ``killed_now``/``lost_now`` are the fault engine's per-tick kills and
+    lost node-seconds, ``shed_now``/``dropped_now``/``retried_now`` the
+    serving ladder's mass: the full step passes them, fast ticks pass
+    nothing (both fire only on event ticks, so zeros are exact)."""
+    (w_thr, w_en, w_co2, w_q, w_cost, w_lost,
+     w_slo) = _parse_weights(reward_weights)
     dev = statics.capacity.device
     zeros = {}     # the off models' telemetry, one tensor per replica shape
     racks = (thm.rack_tick_statics(cfg, statics) if cfg.thermal_enabled
@@ -175,6 +175,10 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
     # the lost-work penalty's node-second budget of a tick: a true
     # division on every device (a device tensor divisor)
     lost_scale = full(max(cfg.n_nodes * cfg.dt, 1e-9), torch.float32, dev)
+    # the SLO penalty's scale: the pool's full-rate request budget a tick
+    srv_scale = full(max(cfg.serving_nodes * cfg.serving_concurrency
+                         / max(cfg.serving_service_s, 1e-9) * cfg.dt, 1e-9),
+                     torch.float32, dev)
 
     def tail(
         state: SimState,
@@ -191,6 +195,9 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         util: torch.Tensor,
         killed_now: torch.Tensor | None = None,
         lost_now: torch.Tensor | None = None,
+        shed_now: torch.Tensor | None = None,
+        dropped_now: torch.Tensor | None = None,
+        retried_now: torch.Tensor | None = None,
     ) -> Tuple[SimState, StepOut]:
         carbon_g, price, cap_w, wb = signals
         lead = tuple(state.t.shape)
@@ -199,6 +206,8 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         zero = zeros[lead]
         killed_now = zero if killed_now is None else killed_now
         lost_now = zero if lost_now is None else lost_now
+        if shed_now is None:
+            shed_now = dropped_now = retried_now = zero
         if cfg.thermal_enabled:
             # synchronous ranks run at the slowest clock over a job's nodes
             rate = rate * job_th
@@ -226,6 +235,22 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             dg_level = dg_lvl.to(torch.float32)
         else:
             dg_level = zero
+
+        if cfg.serving_on:
+            # --- the serving pool's power joins the plant before the cap,
+            # so the cap throttles batch and serving dynamic power
+            # together, and its idle floor joins the unthrottleable base;
+            # it rides the plant's COP but heats no batch rack
+            srv_it, srv_in, srv_cool, srv_idle = srv.serving_power(
+                cfg, state, cop)
+            it2 = p.it_w + srv_it
+            fac2 = p.facility_w + srv_in + srv_cool
+            p = p._replace(
+                it_w=it2, input_w=p.input_w + srv_in,
+                cooling_w=p.cooling_w + srv_cool, facility_w=fac2,
+                pue=torch.where(it2 > 1.0, fac2 / torch.clamp(it2, min=1.0),
+                                1.0))
+            idle_total = idle_total + srv_idle
 
         # --- demand response: DVFS-throttle to the facility power cap;
         # `capped` gates the rescale exactly off when uncapped
@@ -267,6 +292,20 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             n_steps=state.n_steps + 1.0,
         )
 
+        srv_out = {}
+        if cfg.serving_on:
+            # --- the continuous request-mass flow, every tick (shared by
+            # fast ticks): arrivals, admission, completions, SLO ledger
+            (state, srv_arr, srv_comp, srv_viol, srv_w, srv_q,
+             srv_hist) = srv.serving_flow(cfg, state, statics, throttle)
+            srv_out = dict(
+                srv_arrived_step=srv_arr, srv_completed_step=srv_comp,
+                srv_shed_step=shed_now, srv_dropped_step=dropped_now,
+                srv_retried_step=retried_now, srv_slo_viol_step=srv_viol,
+                srv_latency_s=srv_w, srv_queue_len=srv_q,
+                srv_active_nodes=state.srv_active,
+                srv_lat_hist_step=srv_hist)
+
         if cfg.thermal_enabled:
             # --- rack RC update on the post-cap per-node input power,
             # committed LAST so this tick's derate used the pre-update temps
@@ -289,6 +328,12 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
         )
         if cfg.resilience_on:
             reward = reward - w_lost * lost_now / lost_scale
+        if cfg.serving_on:
+            # the SLO penalty: shed and dropped mass counts as violated,
+            # so shedding out of latency trouble still pays
+            reward = reward - w_slo * (
+                srv_out["srv_slo_viol_step"] + shed_now + dropped_now
+            ) / srv_scale
 
         out = StepOut(
             facility_w=p.facility_w, it_w=p.it_w, pue=p.pue, util=util,
@@ -299,7 +344,7 @@ def _make_tail(cfg: SimConfig, statics: Statics, reward_weights):
             cost_usd_step=cost_step, throttle=throttle,
             rack_max_c=rack_max, cop=cop, thermal_throttle_s_step=th_step,
             killed_now=killed_now, lost_node_s_step=lost_now,
-            degrade_level=dg_level,
+            degrade_level=dg_level, **srv_out,
         )
         return state, out
 
@@ -404,7 +449,6 @@ def make_step(
     a Python int or an integer tensor of the state's replica shape (0-d
     or (E,)); ignored otherwise.
     """
-    check_slice(cfg)
     dev = statics.capacity.device
     policy_mode = isinstance(scheduler, Policy)
     if policy_mode:
@@ -437,10 +481,15 @@ def make_step(
 
     def step(state: SimState, action) -> Tuple[SimState, StepOut]:
         state = state._replace(t=state.t + cfg.dt)
-        killed_now = lost_now = None
+        killed_now = lost_now = shed_now = dropped_now = retried_now = None
         if cfg.resilience_on:
             state, killed_now, lost_now = flt.apply_faults(cfg, state,
                                                            statics)
+        if cfg.serving_on:
+            # the serving overload ladder (a bitwise fixpoint on a quiet
+            # tick)
+            state, shed_now, dropped_now, retried_now = srv.apply_serving(
+                cfg, state, statics)
         state, n_done = _complete_jobs(cfg, state)
 
         # --- dispatch. Selection and placement see tripped racks' nodes
@@ -499,7 +548,7 @@ def make_step(
         queued, running, util = _counts_and_util(state, statics)
         return tail(state, signals, p, cop, idle_total, job_th, rate,
                     net_load, n_done, queued, running, util, killed_now,
-                    lost_now)
+                    lost_now, shed_now, dropped_now, retried_now)
 
     return step
 
@@ -550,15 +599,18 @@ _SRV_TELEM = ("srv_arrived", "srv_completed", "srv_shed", "srv_dropped",
 _FAULT_TELEM = ("killed", "lost_node_s")
 
 
-def _telem_zero(device: torch.device, lead=(),
-                resilience_on: bool = False) -> TelemetrySummary:
+def _telem_zero(device: torch.device, lead=(), resilience_on: bool = False,
+                serving_on: bool = False) -> TelemetrySummary:
     """Zero accumulator, one per replica (``lead``: the state's replica
-    shape); the serving fields, and the fault fields while the fault
-    engine is off, ride as ``None`` (restored to zeros by
-    ``_telem_finalize``)."""
+    shape); the fault and serving fields, while their models are off,
+    ride as ``None`` (restored to zeros by ``_telem_finalize``)."""
     z = torch.zeros(lead, dtype=torch.float32, device=device)
     acc = TelemetrySummary(*([z] * len(TelemetrySummary._fields)))
-    off = _SRV_TELEM + (() if resilience_on else _FAULT_TELEM)
+    off = ((() if serving_on else _SRV_TELEM)
+           + (() if resilience_on else _FAULT_TELEM))
+    if serving_on:
+        acc = acc._replace(srv_lat_hist=torch.zeros(
+            lead + (8,), dtype=torch.float32, device=device))
     return acc._replace(**{f: None for f in off})
 
 
@@ -566,11 +618,23 @@ def _telem_update(acc: TelemetrySummary, out: StepOut,
                   macro_inc: float = 1.0) -> TelemetrySummary:
     # mean_* fields hold running sums until _telem_finalize divides by n;
     # ``macro_inc`` is 1 for a full (event) tick and 0 for a fast tick;
-    # the kills and lost work accumulate where the fault engine runs
+    # the kills and lost work accumulate where the fault engine runs, the
+    # request mass where the serving twin does
     if acc.killed is not None:
         acc = acc._replace(
             killed=acc.killed + out.killed_now,
             lost_node_s=acc.lost_node_s + out.lost_node_s_step)
+    if acc.srv_arrived is not None:
+        acc = acc._replace(
+            srv_arrived=acc.srv_arrived + out.srv_arrived_step,
+            srv_completed=acc.srv_completed + out.srv_completed_step,
+            srv_shed=acc.srv_shed + out.srv_shed_step,
+            srv_dropped=acc.srv_dropped + out.srv_dropped_step,
+            srv_retried=acc.srv_retried + out.srv_retried_step,
+            srv_slo_viol=acc.srv_slo_viol + out.srv_slo_viol_step,
+            srv_lat_sum=acc.srv_lat_sum
+            + out.srv_completed_step * out.srv_latency_s,
+            srv_lat_hist=acc.srv_lat_hist + out.srv_lat_hist_step)
     return acc._replace(
         completed=acc.completed + out.completed_now,
         energy_kwh=acc.energy_kwh + out.energy_kwh_step,
@@ -605,12 +669,13 @@ def _telem_finalize(acc: TelemetrySummary) -> TelemetrySummary:
         for f in TelemetrySummary._fields if f.startswith("mean_")
     })
     z = torch.zeros_like(acc.n_steps)
-    off = [f for f in _FAULT_TELEM + _SRV_TELEM[:-1]
-           if getattr(acc, f) is None]
-    return acc._replace(
-        **{f: z for f in off},
-        srv_lat_hist=torch.zeros(z.shape + (8,), dtype=torch.float32,
-                                 device=z.device))
+    off = {f: z for f in _FAULT_TELEM + _SRV_TELEM[:-1]
+           if getattr(acc, f) is None}
+    if acc.srv_lat_hist is None:
+        off["srv_lat_hist"] = torch.zeros(z.shape + (8,),
+                                          dtype=torch.float32,
+                                          device=z.device)
+    return acc._replace(**off)
 
 
 def _stack(items: List[NamedTuple], dim: int = 0):
@@ -662,12 +727,16 @@ def reset_macro_ticks() -> None:
 
 def _fast_fields(cfg: SimConfig) -> tuple:
     """Fast-tick-mutable SimState fields for this config: the thermal
-    carry joins when the cooling loop is on. (The serving fields join
-    with the serving slice, which ``check_slice`` refuses.)"""
+    carry joins when the cooling loop is on, the serving flow's when the
+    serving twin is."""
+    ff = _FAST_FIELDS
     if cfg.thermal_enabled:
-        return _FAST_FIELDS + ("rack_outlet_c", "thermal_throttle_s",
-                               "peak_rack_c")
-    return _FAST_FIELDS
+        ff = ff + ("rack_outlet_c", "thermal_throttle_s", "peak_rack_c")
+    if cfg.serving_on:
+        ff = ff + ("srv_queue", "srv_inflight", "srv_arrived",
+                   "srv_completed", "srv_slo_viol", "srv_lat_sum",
+                   "srv_lat_hist")
+    return ff
 
 
 def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
@@ -680,8 +749,9 @@ def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
     conservative quiet-tick counts from time events and from completions
     (``None`` without ``rate``). With the fault engine on, the next fault
     clock crossing or outage-window edge (``faults.next_fault_event``)
-    joins the time events. The serving breakpoints join with their slice,
-    which ``check_slice`` refuses."""
+    joins the time events, and with the serving twin on the wake
+    completion, the retry re-injections and the burst edges
+    (``serving.next_serving_event``)."""
     t = state.t
     tt = t[..., None]
     dev = t.device
@@ -714,6 +784,10 @@ def _horizon_parts(cfg: SimConfig, state: SimState, statics: Statics,
         # breakpoints (core.faults keeps every clock strictly future)
         next_t = torch.minimum(
             next_t, flt.next_fault_event(cfg, state, statics, t))
+    if cfg.serving_on:
+        # the serving clocks: the ladder runs on full ticks only
+        next_t = torch.minimum(
+            next_t, srv.next_serving_event(cfg, state, statics, t))
 
     kf = float(max_ticks)
     # true divisions by the tick length (a device tensor divisor)
@@ -762,8 +836,9 @@ def quiet_horizon(
     tick that started nothing, which proves the visible queue unservable
     for a frozen machine state. With ``cfg.thermal_enabled`` and dispatch
     on, ``thermal.thermal_crossing_horizon`` joins the min (the trip gate
-    makes dispatch depend on rack temperatures)."""
-    check_slice(cfg)
+    makes dispatch depend on rack temperatures). With ``cfg.serving_on``
+    so does ``serving.serving_crossing_horizon``, and a queue already over
+    an overload threshold (``serving.serving_trigger``) forces 0."""
     dispatch_on, replay_gated, eligibility_vis = _modes(scheduler)
     rate, _ = congestion_slowdown(cfg, state, statics)
     _, visible_now, k_time, k_complete = _horizon_parts(
@@ -775,6 +850,10 @@ def quiet_horizon(
     if cfg.thermal_enabled and dispatch_on:
         horizon = torch.minimum(horizon, thm.thermal_crossing_horizon(
             cfg, statics, state, max_ticks))
+    if cfg.serving_on:
+        horizon = torch.minimum(horizon, srv.serving_crossing_horizon(
+            cfg, state, statics, max_ticks))
+        horizon = torch.where(srv.serving_trigger(cfg, state), 0, horizon)
     return horizon.to(torch.int32)
 
 
@@ -833,9 +912,14 @@ def make_macro_step(
     its replica goes on. It stops (uncommitted) where a running job has
     finished or the next event time is reached; with thermals and
     dispatch on, the segment also ends on the tick a rack crosses the
-    trip, and its budget is capped by ``thermal_crossing_horizon``. Job
-    and queue state equal the per-tick path's, and so do the
-    accumulators: a fast tick runs the same ``power_tick`` and tail.
+    trip, and its budget is capped by ``thermal_crossing_horizon``. With
+    the serving twin on, a segment ends on the tick its committed queue
+    crosses an overload threshold (``serving_trigger``; the next full
+    tick's ladder moves mass), its budget is capped by
+    ``serving_crossing_horizon``, and an event tick that leaves the queue
+    over a threshold allows no fast tick. Job and queue state equal the
+    per-tick path's, and so do the accumulators: a fast tick runs the
+    same ``power_tick`` and tail.
 
     ``update(acc, out, macro_inc)`` folds each tick's ``StepOut`` into the
     caller's accumulator (default: the ``TelemetrySummary`` update;
@@ -896,7 +980,15 @@ def make_macro_step(
         if thermal_gate:
             k_quiet = torch.minimum(k_quiet, thm.thermal_crossing_horizon(
                 cfg, statics, state, horizon_cap))
-        budget = torch.where(started & visible_now, 0, k_quiet)
+        blocked = started & visible_now
+        if cfg.serving_on:
+            # the arrival envelope's bound on a queue crossing, and per
+            # tick while the queue sits over a threshold (the next tick's
+            # ladder moves mass): overload is the event
+            k_quiet = torch.minimum(k_quiet, srv.serving_crossing_horizon(
+                cfg, state, statics, horizon_cap))
+            blocked = blocked | srv.serving_trigger(cfg, state)
+        budget = torch.where(blocked, 0, k_quiet)
         if active is not None:
             budget = torch.where(active, budget, 0)
         budget = torch.clamp(budget, min=0)
@@ -931,6 +1023,8 @@ def make_macro_step(
         if thermal_gate:       # authoritative trip-crossing breakpoint
             go = go & ~torch.any((state.rack_outlet_c >= trip_c) != was_hot,
                                  -1)
+        if cfg.serving_on:     # authoritative overload breakpoint
+            go = go & ~srv.serving_trigger(cfg, state)
         return state, acc, go, took
 
     def advance(state, acc, left, active):
@@ -1045,7 +1139,7 @@ def run_episode(
     lead = tuple(state.t.shape)
 
     def zero():
-        return _telem_zero(dev, lead, cfg.resilience_on)
+        return _telem_zero(dev, lead, cfg.resilience_on, cfg.serving_on)
 
     if macro:
         run = make_macro_step(cfg, statics, scheduler, **kw).run

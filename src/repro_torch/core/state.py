@@ -7,7 +7,7 @@ NamedTuple with a leading replica axis E on every field
 (``broadcast_state`` makes one from a single state); the step runs on
 either form. ``SimState`` keeps every field, the thermal, fault and
 serving carries included; with a model off its carry is written once
-here and never again (serving is always off in this slice).
+here and never again.
 
 Job lifecycle: EMPTY -> QUEUED -> RUNNING -> DONE (slot then reusable),
 plus the terminal FAILED state of the fault engine (``core.faults``).
@@ -27,15 +27,6 @@ from repro_torch.utils.prng import exponential, key_words, split
 
 EMPTY, QUEUED, RUNNING, DONE, FAILED = 0, 1, 2, 3, 4
 NRES = 3  # cpu cores, gpus, mem_gb
-
-
-def check_slice(cfg: SimConfig) -> None:
-    """Raise for a model flag this slice of the port does not run, naming
-    the ROADMAP slice that brings it: no flag runs a partial model."""
-    if cfg.serving_on:
-        raise NotImplementedError(
-            "cfg.serving_on: the serving twin arrives with the serving "
-            "slice (ROADMAP queue 1, item 8)")
 
 
 class Statics(NamedTuple):
@@ -111,7 +102,7 @@ class SimState(NamedTuple):
     degrade_level: torch.Tensor   # 0-d int32
     lost_node_s: torch.Tensor
     n_failed: torch.Tensor
-    # serving carry (written only by the serving slice)
+    # serving carry (written by the serving twin, core.serving)
     srv_queue: torch.Tensor       # (B+1,)
     srv_inflight: torch.Tensor
     srv_retry_q: torch.Tensor     # (B+1,)
@@ -234,7 +225,6 @@ def init_state(cfg: SimConfig, statics: Statics, seed=0) -> SimState:
     from repro_torch.core.thermal import supply_temp
     from repro_torch.scenarios.signals import eval_signal
 
-    check_slice(cfg)
     dev = statics.capacity.device
     if isinstance(seed, (int, np.integer)):
         key = torch.tensor(key_words(seed), device=dev)

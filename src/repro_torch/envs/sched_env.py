@@ -3,10 +3,14 @@
 Action space: Discrete(k+1) — dispatch queue-candidate i in [0, k), or
 k = no-op; with ``cfg.degrade_enabled`` five more, k + 1 + r setting the
 degradation ladder's rung r (held until changed; the decision dispatches
-nothing). Observations: a fixed-size f32 vector of global datacenter
-features (with the thermal and resilience blocks when those models are
-on) + per-candidate job features. Reward: the sim's energy / carbon /
-throughput mix, and with the fault engine the lost-work penalty.
+nothing); with ``cfg.serving_on`` four more after those, scaling the
+serving pool's autoscale target down / up by ``serving_scale_step`` and
+nudging its admission threshold down / up by 0.05 (held until changed;
+the decision dispatches nothing). Observations: a fixed-size f32 vector
+of global datacenter features (with the thermal, resilience and serving
+blocks when those models are on) + per-candidate job features. Reward:
+the sim's energy / carbon / throughput mix, with the fault engine the
+lost-work penalty, and with the serving twin the SLO penalty.
 
 ``reset(key)`` and ``step(state, action)`` work on one environment or on
 E at once: key words (2,) give one, (E, 2) give E, and every field of
@@ -80,8 +84,9 @@ THERMAL_FEATURES = ("rack_hot_frac", "rack_mean_frac",
 # lost node-seconds over a node-day of the cluster
 RESILIENCE_FEATURES = ("degrade_frac", "killed_frac",
                        "failed_frac", "lost_frac")
-# appended only when ``cfg.serving_on``, which this slice refuses
-# (``core.state.check_slice``), so they count zero
+# appended only when ``cfg.serving_on``: the pool's load, queue and
+# latency estimate against its bounds, the awake and waking shares, and
+# the admission threshold in force
 SERVING_FEATURES = ("srv_util", "srv_queue_frac", "srv_latency_slo",
                     "srv_active_frac", "srv_waking_frac",
                     "srv_admit_thresh")
@@ -143,8 +148,7 @@ class SchedEnv:
         self.episode_steps = episode_steps
         self.k = cfg.sched_max_candidates
         # k dispatches, k = no-op, then with the ladder schedulable k+1+r
-        # = "set rung r"; serving's 4 actions belong to the serving slice,
-        # which check_slice refuses
+        # = "set rung r", then with serving on its 4 actions
         self.n_actions = (self.k + 1 + (5 if cfg.degrade_enabled else 0)
                           + (4 if cfg.serving_on else 0))
         self.sim_steps_per_action = sim_steps_per_action
@@ -251,18 +255,44 @@ class SchedEnv:
         (an int, or an integer tensor of the env shape), then
         ``sim_steps_per_action - 1`` idle sub-steps advance the twin (one
         macro advance with ``macro``). Returns (state, obs, reward, done,
-        info). With the ladder schedulable, an action above k sets the
-        rung ``action - k - 1`` (held until changed) and dispatches
-        nothing."""
+        info). With the ladder schedulable, an action in (k, k + 5] sets
+        the rung ``action - k - 1`` (held until changed) and dispatches
+        nothing; with serving on, the 4 actions after those (code 0..3)
+        scale the pool target down / up and nudge the admission threshold
+        down / up, and dispatch nothing."""
+        cfg = self.cfg
         sim0 = st.sim
-        if self.cfg.degrade_enabled:
-            if not isinstance(action, torch.Tensor):
-                action = full(int(action), torch.int64, self.device)
+        if (cfg.degrade_enabled or cfg.serving_on) \
+                and not isinstance(action, torch.Tensor):
+            action = full(int(action), torch.int64, self.device)
+        if cfg.degrade_enabled:
             is_lvl = action > self.k
+            if cfg.serving_on:
+                is_lvl = is_lvl & (action <= self.k + 5)
             rung = torch.clamp(action - self.k - 1, 0, flt.LVL_EVICT)
             sim0 = sim0._replace(degrade_level=torch.where(
                 is_lvl, rung, sim0.degrade_level).to(torch.int32))
             action = torch.where(is_lvl, self.k, action)
+        if cfg.serving_on:
+            # held until changed; a non-serving action leaves both fields
+            # as they are
+            base = self.k + (5 if cfg.degrade_enabled else 0)
+            is_srv = action > base
+            code = action - base - 1
+            stepn = float(np.float32(cfg.serving_scale_step))
+            tgt = torch.clamp(
+                sim0.srv_target + torch.where(code == 1, stepn, 0.0)
+                - torch.where(code == 0, stepn, 0.0),
+                0.0, float(cfg.serving_nodes))
+            thresh = torch.clamp(
+                sim0.srv_admit_thresh
+                + 0.05 * (torch.where(code == 3, 1.0, 0.0)
+                          - torch.where(code == 2, 1.0, 0.0)), 0.05, 1.0)
+            sim0 = sim0._replace(
+                srv_target=torch.where(is_srv, tgt, sim0.srv_target),
+                srv_admit_thresh=torch.where(is_srv, thresh,
+                                             sim0.srv_admit_thresh))
+            action = torch.where(is_srv, self.k, action)
         sim, out = self._step_rl(sim0, action)
         lead = tuple(st.step_count.shape)
         z = torch.zeros(lead, dtype=torch.float32, device=self.device)
@@ -353,6 +383,28 @@ class SchedEnv:
             assert tuple(resil) == RESILIENCE_FEATURES
             parts.append(torch.stack(
                 [resil[n] for n in RESILIENCE_FEATURES], -1))
+
+        if cfg.serving_on:
+            # serving-pool state, so the policy can learn overload control
+            # (wake capacity ahead of the peak, tighten admission under
+            # backlog, sleep the pool through the trough)
+            conc_cap = sim.srv_active * cfg.serving_concurrency
+            q_tot = torch.sum(sim.srv_queue, -1)
+            svc = max(cfg.serving_service_s, 1e-9)
+            w_est = q_tot / torch.clamp(conc_cap / svc, min=1e-9) + svc
+            srv = dict(
+                srv_util=(sim.srv_inflight + q_tot) / torch.clamp(
+                    conc_cap + cfg.serving_queue_cap, min=1e-9),
+                srv_queue_frac=q_tot / max(cfg.serving_queue_cap, 1e-9),
+                srv_latency_slo=torch.clamp(
+                    w_est / max(cfg.serving_slo_s, 1e-9), max=10.0),
+                srv_active_frac=sim.srv_active / max(cfg.serving_nodes, 1),
+                srv_waking_frac=sim.srv_wake_n / max(cfg.serving_nodes, 1),
+                srv_admit_thresh=sim.srv_admit_thresh,
+            )
+            assert tuple(srv) == SERVING_FEATURES
+            parts.append(torch.stack([srv[n] for n in SERVING_FEATURES],
+                                     -1))
         parts.append(self._place_onehot.expand(
             lead + tuple(self._place_onehot.shape)))
 

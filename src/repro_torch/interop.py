@@ -5,10 +5,9 @@ Each function takes the reference's structure as a name -> numpy array
 mapping (or a NamedTuple of numpy arrays, such as ``jax.device_get`` of
 one) and builds the port's tensors on ``device``. Nothing here imports
 JAX: the caller turns the reference's typed PRNG key into its raw words
-(``jax.random.key_data``) first. Fields the port's slice does not carry
-(the scenario's traffic and burst schedules) are dropped. Every
-array may carry a fleet's leading replica axis, and the trace bank its
-workload axis (W, J, Q), as the reference's do.
+(``jax.random.key_data``) first. Every array may carry a fleet's leading
+replica axis, and the trace bank its workload axis (W, J, Q), as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -20,7 +19,11 @@ import torch
 
 from repro_torch.core.placement import Policy
 from repro_torch.core.state import SimState, Statics, rack_csr
-from repro_torch.scenarios.events import CapSchedule, OutageSchedule
+from repro_torch.scenarios.events import (
+    BurstSchedule,
+    CapSchedule,
+    OutageSchedule,
+)
 from repro_torch.scenarios.scenario import Scenario
 from repro_torch.scenarios.signals import Signal
 from repro_torch.utils.device import resolve_device
@@ -53,6 +56,8 @@ def scenario_from_numpy(arrays: Any, device=None) -> Scenario:
         wetbulb=_build(Signal, m["wetbulb"], dev),
         power_cap=_build(CapSchedule, m["power_cap"], dev),
         outages=_build(OutageSchedule, m["outages"], dev),
+        traffic=_build(Signal, m["traffic"], dev),
+        bursts=_build(BurstSchedule, m["bursts"], dev),
     )
 
 

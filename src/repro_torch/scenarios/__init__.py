@@ -1,13 +1,18 @@
 """Grid-signal scenarios for the twin: time-varying carbon / price /
-weather signals, demand-response power-cap events and outage windows, as
-tensors."""
+weather signals, demand-response power-cap events, outage windows and the
+serving twin's traffic and flash-crowd windows, as tensors."""
 
 from repro_torch.scenarios.events import (
+    BurstSchedule,
     CapSchedule,
     OutageSchedule,
+    burst_events,
+    burst_mult_at,
     cap_events,
+    next_burst_event,
     next_cap_event,
     next_outage_event,
+    no_bursts,
     no_cap,
     no_outages,
     outage_down,
@@ -16,10 +21,12 @@ from repro_torch.scenarios.events import (
     power_cap_at,
 )
 from repro_torch.scenarios.scenario import (
+    SCENARIOS,
     Scenario,
     carbon_trace,
     default_scenario,
     demand_response,
+    diurnal_serving,
     heatwave,
     n_replicas,
     resilience_drill,

@@ -12,8 +12,11 @@ level and/or takes one rack down while it is active.
 
 Fixed shape (n is padded, inactive slots have cap 0, or level 0 and rack
 -1); a batched schedule carries a leading replica axis on every leaf and
-takes ``t`` with the same leading axis. The traffic-burst schedule
-arrives with the serving slice.
+takes ``t`` with the same leading axis.
+
+A ``BurstSchedule`` holds up to n flash-crowd windows for the serving
+twin (``core.serving``): each multiplies the scenario's request-rate
+signal while it is active.
 """
 
 from __future__ import annotations
@@ -194,3 +197,72 @@ def outage_down(sched: OutageSchedule, t: torch.Tensor,
     forced = torch.any(hit, -1)
     until = torch.amax(torch.where(hit, sched.end_t[..., None, :], 0.0), -1)
     return forced, until
+
+
+class BurstSchedule(NamedTuple):
+    """Traffic-burst (flash-crowd) windows ``[start_t, end_t)`` of the
+    serving twin: each scales the ``Scenario.traffic`` request rate by
+    ``mult`` while active (the largest multiplier wins where windows
+    overlap; 1.0 outside every window). A slot with ``mult <= 0`` is
+    padding. Window edges are exact macro breakpoints
+    (``next_burst_event``)."""
+
+    start_t: torch.Tensor  # (n,) window start [s]
+    end_t: torch.Tensor    # (n,) window end [s] (exclusive)
+    mult: torch.Tensor     # (n,) traffic multiplier; <= 0 = padding
+
+
+def no_bursts(n_events: int = 1) -> BurstSchedule:
+    """Schedule with no burst windows (all padding)."""
+    n = max(n_events, 1)
+    z = torch.zeros((n,), dtype=torch.float32)
+    return BurstSchedule(start_t=z, end_t=z.clone(), mult=z.clone())
+
+
+def burst_events(
+    starts: Sequence[float],
+    ends: Sequence[float],
+    mults: Sequence[float],
+    *,
+    n_events: int | None = None,
+) -> BurstSchedule:
+    """Build a burst schedule from parallel window lists, padded to
+    ``n_events``. Multipliers must be positive (below 1 for planned
+    traffic dips, above 1 for flash crowds)."""
+    s = np.asarray(starts, np.float32).reshape(-1)
+    e = np.asarray(ends, np.float32).reshape(-1)
+    m = np.asarray(mults, np.float32).reshape(-1)
+    if not (s.shape == e.shape == m.shape):
+        raise ValueError("starts/ends/mults must have equal lengths")
+    if np.any(e < s):
+        raise ValueError("burst end_t before start_t")
+    if np.any(m <= 0.0):
+        raise ValueError("burst mult must be positive")
+    n = max(n_events or s.size, s.size, 1)
+    pad = n - s.size
+    if pad:
+        s = np.concatenate([s, np.zeros(pad, np.float32)])
+        e = np.concatenate([e, np.zeros(pad, np.float32)])
+        m = np.concatenate([m, np.zeros(pad, np.float32)])
+    return BurstSchedule(start_t=torch.from_numpy(s),
+                         end_t=torch.from_numpy(e), mult=torch.from_numpy(m))
+
+
+def next_burst_event(sched: BurstSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Earliest burst-window edge strictly after ``t`` (``inf`` when
+    none), one per replica: the same breakpoint contract as
+    ``next_cap_event``."""
+    live = sched.mult > 0.0
+    edges = torch.cat([sched.start_t, sched.end_t], -1)
+    live2 = torch.cat([live, live], -1)
+    edges = torch.where(live2 & (edges > t[..., None]), edges, _INF)
+    return torch.amin(edges, -1)
+
+
+def burst_mult_at(sched: BurstSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Traffic multiplier at ``t``, one per replica: the largest among the
+    active windows, 1.0 when none is active."""
+    tt = t[..., None]
+    active = (tt >= sched.start_t) & (tt < sched.end_t) & (sched.mult > 0.0)
+    peak = torch.amax(torch.where(active, sched.mult, 0.0), -1)
+    return torch.where(torch.any(active, -1), peak, 1.0)

@@ -2,38 +2,42 @@
 
 Bundles the three environmental signals (carbon intensity [gCO2/kWh],
 electricity price [$/kWh], wetbulb temperature [degC]) with a
-demand-response power-cap schedule and the outage / maintenance windows
-of the fault engine. ``Statics`` carries it into the step.
+demand-response power-cap schedule, the outage / maintenance windows of
+the fault engine, and the serving twin's request-rate signal and
+flash-crowd windows. ``Statics`` carries it into the step.
 
 ``default_scenario(cfg)`` is the legacy diurnal grid; ``solar_heavy``,
 ``demand_response``, ``heatwave``, ``thermal_stress``,
 ``resilience_drill`` and ``carbon_trace`` are the single-replica presets
 (``heatwave`` and ``thermal_stress`` are the weather the thermal twin is
-studied under, ``resilience_drill`` the outages the fault engine is).
-``stack_scenarios`` batches scenarios for a fleet (a leading replica axis
-on every leaf) and ``sample_scenarios`` draws a randomized batch. The
-traffic and burst fields, their preset and their padding arrive with the
-serving slice.
+studied under, ``resilience_drill`` the outages the fault engine is, and
+``diurnal_serving`` the traffic the serving twin is); ``SCENARIOS``
+names them. ``stack_scenarios`` batches scenarios for a fleet (a leading
+replica axis on every leaf) and ``sample_scenarios`` draws a randomized
+batch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import Callable, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.sim import SimConfig
 from repro_torch.scenarios.events import (
+    BurstSchedule,
     CapSchedule,
     OutageSchedule,
+    burst_events,
     cap_events,
+    no_bursts,
     no_cap,
     no_outages,
     outage_events,
 )
-from repro_torch.scenarios.signals import Signal, from_trace, sinusoid
+from repro_torch.scenarios.signals import Signal, constant, from_trace, sinusoid
 
 
 class Scenario(NamedTuple):
@@ -42,6 +46,9 @@ class Scenario(NamedTuple):
     wetbulb: Signal       # outdoor wetbulb [degC] (drives cooling COP)
     power_cap: CapSchedule
     outages: OutageSchedule = no_outages()   # read with cfg.outages_enabled
+    # read with cfg.serving_on: request rate [req/s] and its flash crowds
+    traffic: Signal = constant(0.0)
+    bursts: BurstSchedule = no_bursts()
 
 
 def default_scenario(cfg: SimConfig) -> Scenario:
@@ -156,6 +163,44 @@ def resilience_drill(
     )
 
 
+def diurnal_serving(
+    cfg: SimConfig,
+    *,
+    peak_rps: float = 40.0,
+    base_frac: float = 0.25,
+    burst_mult: float = 2.5,
+    burst_start_s: float = 13.0 * 3600.0,
+    burst_len_s: float = 1.0 * 3600.0,
+    period_s: float | None = None,
+) -> Scenario:
+    """Online-inference traffic for the serving twin: a diurnal
+    request-rate sinusoid (night trough at ``base_frac * peak_rps``, peak
+    mid-cycle, on the wetbulb peak) plus one flash-crowd window
+    multiplying the rate by ``burst_mult``. Pair with
+    ``cfg.serving_enabled=True`` and a nonzero ``serving_nodes`` pool;
+    ``period_s`` shrinks the cycle for short episodes."""
+    period = cfg.day_seconds if period_s is None else period_s
+    mean = 0.5 * (1.0 + base_frac) * peak_rps
+    amp = 0.5 * (1.0 - base_frac) * peak_rps
+    return default_scenario(cfg)._replace(
+        # mean - amp*cos(2*pi*t/period): trough at t=0, peak mid-cycle
+        traffic=sinusoid(mean, amp, period, phase=-math.pi / 2),
+        bursts=burst_events([burst_start_s],
+                            [burst_start_s + burst_len_s], [burst_mult]),
+    )
+
+
+SCENARIOS: Dict[str, Callable[..., Scenario]] = {
+    "default": default_scenario,
+    "solar_heavy": solar_heavy,
+    "demand_response": demand_response,
+    "heatwave": heatwave,
+    "thermal_stress": thermal_stress,
+    "resilience_drill": resilience_drill,
+    "diurnal_serving": diurnal_serving,
+}
+
+
 def _nonneg_price(mean: float, amp: float, period_s: float,
                   phase: float) -> Signal:
     """Price sinusoid with the trough clamped non-negative (no paying the
@@ -202,6 +247,19 @@ def _pad_outages(sched: OutageSchedule, n: int) -> OutageSchedule:
     )
 
 
+def _pad_bursts(sched: BurstSchedule, n: int) -> BurstSchedule:
+    e = sched.start_t.shape[0]
+    if e == n:
+        return sched
+    z = torch.zeros((n - e,), dtype=torch.float32,
+                    device=sched.start_t.device)
+    return BurstSchedule(
+        start_t=torch.cat([sched.start_t, z]),
+        end_t=torch.cat([sched.end_t, z]),
+        mult=torch.cat([sched.mult, z]),
+    )
+
+
 def _stack(items):
     """Stack NamedTuples of tensors leaf-wise along a new leading axis."""
     first = items[0]
@@ -214,16 +272,17 @@ def _stack(items):
 def stack_scenarios(scenarios: Sequence[Scenario]) -> Scenario:
     """Stack scenarios into one batched Scenario (leading replica axis).
 
-    Trace arrays are edge-hold padded to a common length and cap and
-    outage schedules to a common event count, so heterogeneous scenarios
-    share one shape.
+    Trace arrays are edge-hold padded to a common length and cap, outage
+    and burst schedules to a common event count, so heterogeneous
+    scenarios share one shape.
     """
     if not scenarios:
         raise ValueError("need at least one scenario")
     T = max(s.values.shape[0] for sc in scenarios
-            for s in (sc.carbon, sc.price, sc.wetbulb))
+            for s in (sc.carbon, sc.price, sc.wetbulb, sc.traffic))
     n = max(sc.power_cap.start_t.shape[0] for sc in scenarios)
     no = max(sc.outages.start_t.shape[0] for sc in scenarios)
+    nb = max(sc.bursts.start_t.shape[0] for sc in scenarios)
     norm = [
         Scenario(
             carbon=_pad_trace(sc.carbon, T),
@@ -231,6 +290,8 @@ def stack_scenarios(scenarios: Sequence[Scenario]) -> Scenario:
             wetbulb=_pad_trace(sc.wetbulb, T),
             power_cap=_pad_events(sc.power_cap, n),
             outages=_pad_outages(sc.outages, no),
+            traffic=_pad_trace(sc.traffic, T),
+            bursts=_pad_bursts(sc.bursts, nb),
         )
         for sc in scenarios
     ]

@@ -8,6 +8,8 @@
         [--case replay_tx_gaia_1h] [--ticks 600] [--replicas 72]
     PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
         --case replay_tx_gaia_1h_faults [--macro]
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_tick \
+        --case replay_tx_gaia_1h_serving [--macro]
 
 Runs an acceptance case (``configs/acceptance.py``; default
 ``replay_tx_gaia_1h``) on the card up to tick ``--start`` (so jobs are
@@ -19,10 +21,14 @@ and CUDA activities. Prints one JSON line: ms per tick, CUDA kernels per
 tick (and launches of the port's own kernels per tick), the device's
 busy share (sum of kernel times over the profiled wall time; the rest is
 idle, waiting on the host), and the top CUDA kernels and host ops by
-time. A fault hour (``acceptance.FAULT_CASES``, the drill under its
-scenario) also reports the CUDA launch calls of the fault engine
-(``core.faults.apply_faults``, run inside a profiler range) per tick and
-their share of the tick's. Needs a CUDA device.
+time. It also reports the CUDA launch calls per tick, and their share of
+the tick's, of the fault engine (``core.faults.apply_faults``) and of the
+serving twin's ladder, flow and power (``core.serving.apply_serving``,
+``serving_flow``, ``serving_power``), each run inside a profiler range
+(``ENGINE_RANGES``): zeros where the case runs none of them. A fault hour
+(``acceptance.FAULT_CASES``) runs with the drill under its scenario, the
+serving hour (``replay_tx_gaia_1h_serving``) under its traffic, its pool
+half asleep. Needs a CUDA device.
 
 With an RL case (``acceptance.RL_CASES``) it profiles one PPO iteration
 of ``--replicas`` environments instead (``setup_rl``: a rollout of one
@@ -134,9 +140,12 @@ def setup_case(case: str, start: int, device=None, replicas: int = 1,
 
     cfg = acceptance.config(case)
     jobs, bank = acceptance.workload(cfg)
-    statics = build_statics(cfg, bank, acceptance.fault_scenario(case, cfg),
-                            device=device)
+    scn = (acceptance.serving_scenario(cfg) if cfg.serving_on
+           else acceptance.fault_scenario(case, cfg))
+    statics = build_statics(cfg, bank, scn, device=device)
     state = load_jobs(init_state(cfg, statics, acceptance.SEED), jobs)
+    if cfg.serving_on:
+        state = acceptance.half_asleep(state)
     who = acceptance.SCHEDULER
     if replicas > 1:
         from repro_torch.core.fleet import prepare_fleet
@@ -169,8 +178,10 @@ def setup_rl(case: str, replicas: int, device=None,
     from repro_torch.utils.device import to_device
 
     cfg = A.rl_config(case)
-    env = SchedEnv(cfg, A.rl_workloads(cfg), device=device,
-                   **A.rl_env_kwargs(macro))
+    kw = A.rl_env_kwargs(macro, case)
+    if cfg.serving_on:
+        kw["scenario"] = A.rl_scenario(case, cfg)
+    env = SchedEnv(cfg, A.rl_workloads(cfg), device=device, **kw)
     ppo_cfg = PPOConfig(n_envs=replicas,
                         rollout_len=rollout_len or A.RL_EPISODE_STEPS)
     policy = ActorCritic(env.obs_dim, env.n_actions, device=env.device)
@@ -184,31 +195,42 @@ def setup_rl(case: str, replicas: int, device=None,
 
 
 RANGE_PREFIX = "rl_stage::"
-FAULTS_RANGE = RANGE_PREFIX + "apply_faults"
+# (module of ``core``, function): the engines whose launch calls a replay
+# profile counts apart, each inside the profiler range RANGE_PREFIX + name
+ENGINE_RANGES = (("faults", "apply_faults"), ("serving", "apply_serving"),
+                 ("serving", "serving_flow"), ("serving", "serving_power"))
 
 
-def faults_range():
-    """Context manager: while it is open, ``core.faults.apply_faults``
-    runs inside the profiler range ``FAULTS_RANGE``."""
+def engine_ranges():
+    """Context manager: while it is open, each function of
+    ``ENGINE_RANGES`` that the tree has runs inside the profiler range
+    RANGE_PREFIX + its name."""
     import contextlib
+    import importlib
 
     from torch.profiler import record_function
 
-    from repro_torch.core import faults
+    def ranged(name, real):
+        def run(*a, **kw):
+            with record_function(RANGE_PREFIX + name):
+                return real(*a, **kw)
+        return run
 
     @contextlib.contextmanager
     def patched():
-        real = faults.apply_faults
-
-        def ranged(*a, **kw):
-            with record_function(FAULTS_RANGE):
-                return real(*a, **kw)
-
-        faults.apply_faults = ranged
+        saved = []
+        for mod_name, name in ENGINE_RANGES:
+            try:
+                mod = importlib.import_module(f"repro_torch.core.{mod_name}")
+            except ImportError:
+                continue
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, ranged(name, saved[-1][2]))
         try:
             yield
         finally:
-            faults.apply_faults = real
+            for mod, name, real in saved:
+                setattr(mod, name, real)
     return patched()
 
 
@@ -286,6 +308,17 @@ def rl_stages(env, policy, hook):
     return patched()
 
 
+def telem_zero(cfg, state):
+    """``sim._telem_zero`` for ``cfg``'s models, one per replica of
+    ``state`` (a tree from before the serving twin takes no serving
+    flag, and runs no serving case)."""
+    from repro_torch.core import sim
+
+    kw = dict(serving_on=True) if cfg.serving_on else {}
+    return sim._telem_zero(state.t.device, tuple(state.t.shape),
+                           cfg.resilience_on, **kw)
+
+
 def profile_macro(case: str, start: int, ticks: int, replicas: int = 1,
                   top: int = 8) -> dict:
     """``ticks`` simulated ticks of a replay case after tick ``start``
@@ -304,11 +337,10 @@ def profile_macro(case: str, start: int, ticks: int, replicas: int = 1,
 
     ms, state, _ = setup_case(case, start, replicas=replicas, macro=True)
     lead = tuple(state.t.shape)
-    resilience = acceptance.config(case).resilience_on
+    acc0 = telem_zero(acceptance.config(case), state)
 
     def run():
-        acc = sim._telem_zero(state.t.device, lead, resilience)
-        return ms.run(state, acc, ticks)
+        return ms.run(state, acc0, ticks)
 
     run()                                                  # warm-up
     torch.cuda.synchronize()
@@ -451,8 +483,8 @@ def profile_replay(case: str, start: int, ticks: int, replicas: int = 1,
     """``ticks`` ticks of a replay case after tick ``start`` on the card
     (``setup_case``): host ms per tick on a synchronised loop, then under
     ``torch.profiler`` CUDA kernels, device time and busy share per tick,
-    the launches of the port's kernels, and the CUDA launch calls of the
-    fault engine (``faults_range``) and their share of the tick's."""
+    the launches of the port's kernels, and the CUDA launch calls of each
+    engine of ``ENGINE_RANGES`` and their share of the tick's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -467,15 +499,20 @@ def profile_replay(case: str, start: int, ticks: int, replicas: int = 1,
     host_ms = 1e3 * (time.perf_counter() - t0) / ticks
 
     port_kernels.reset_launches()
-    with faults_range(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+    with engine_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _advance(step, state, action, ticks)
         torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
 
     summary = device_summary(prof, prof_wall_us, ticks, top)
-    calls, fault_calls = launch_calls_in(prof.events(), FAULTS_RANGE)
+    events = list(prof.events())
+    engines = {}
+    for _, name in ENGINE_RANGES:
+        calls, inside = launch_calls_in(events, RANGE_PREFIX + name)
+        engines[f"{name}_launch_calls_per_tick"] = inside / ticks
+        engines[f"{name}_launch_share"] = inside / max(calls, 1)
     return {
         "case": case, "replicas": replicas, "start_tick": start,
         "ticks": ticks, "device": torch.cuda.get_device_name(0),
@@ -484,9 +521,7 @@ def profile_replay(case: str, start: int, ticks: int, replicas: int = 1,
         "ms_per_tick_profiled": prof_wall_us / 1e3 / ticks,
         "port_kernel_launches_per_tick": {
             k: v / ticks for k, v in port_kernels.LAUNCHES.items()},
-        "launch_calls_per_tick": calls / ticks,
-        "apply_faults_launch_calls_per_tick": fault_calls / ticks,
-        "apply_faults_launch_share": fault_calls / max(calls, 1),
+        "launch_calls_per_tick": calls / ticks, **engines,
         **{k if k == "device_busy_share" else f"{k}_per_tick": v
            for k, v in summary.items()},
     }
@@ -501,6 +536,7 @@ def main(argv=None) -> int:
     ap.add_argument("--case", default="replay_tx_gaia_1h",
                     choices=sorted(acceptance.CASES)
                     + sorted(acceptance.FAULT_CASES)
+                    + [acceptance.SERVING_CASE]
                     + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=100)

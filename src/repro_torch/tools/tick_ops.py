@@ -14,9 +14,12 @@ Runs an acceptance case on the card (or on ``--device``), as a fleet of
 ``--start`` (``profile_tick.setup_case``), then counts the non-view
 aten operations of ``--ticks`` more ticks under a ``TorchDispatchMode``
 and prints one JSON line of operations per tick: in total and by stage
-(the fault engine ``apply_faults`` on a fault hour, completions,
-dispatch, grid signals, power chain, thermal derate, rack update,
-congestion, telemetry counts, and the rest of the accounting tail). Almost every such operation is one CUDA kernel on the card, so the
+(the fault engine ``apply_faults`` on a fault hour, the serving ladder
+``apply_serving``, the serving flow and the serving power on the serving
+hour, completions, dispatch, grid signals, power chain, thermal derate,
+rack update, congestion, telemetry counts, and the rest of the
+accounting tail). Almost every such operation is one CUDA kernel on the
+card, so the
 split shows where a tick's launches go; ``profile_tick`` counts the
 kernels themselves. A stage is a function of ``core`` that the step calls
 through a module attribute: the tool wraps whichever of them the tree
@@ -53,6 +56,11 @@ from collections import Counter
 # (stage, module, attribute): what each stage runs, old and new names
 STAGES = (
     ("apply_faults", "faults", "apply_faults"),
+    ("apply_serving", "serving", "apply_serving"),
+    ("serving flow", "serving", "serving_flow"),
+    ("serving power", "serving", "serving_power"),
+    ("serving trigger", "serving", "serving_trigger"),
+    ("horizon", "serving", "serving_crossing_horizon"),
     ("completions", "sim", "_complete_jobs"),
     ("dispatch", "sim", "_try_start"),
     ("dispatch", "thermal", "node_trip_ok"),
@@ -79,15 +87,17 @@ STAGES = (
 def main(argv=None) -> int:
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    import importlib
+
     from repro_torch.configs import acceptance
     from repro_torch.core import schedulers as sched
-    from repro_torch.core import faults, sim, thermal
     from repro_torch.tools.profile_tick import setup_case
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="replay_tx_gaia_1h",
                     choices=sorted(acceptance.CASES)
                     + sorted(acceptance.FAULT_CASES)
+                    + [acceptance.SERVING_CASE]
                     + sorted(acceptance.RL_CASES))
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--ticks", type=int, default=5)
@@ -123,7 +133,12 @@ def main(argv=None) -> int:
     if args.case in acceptance.RL_CASES:
         return rl_ops(args, Count, stack, counts)
 
-    modules = {"sim": sim, "thermal": thermal, "faults": faults}
+    modules = {}
+    for mod in {m for _, m, _ in STAGES}:
+        try:
+            modules[mod] = importlib.import_module(f"repro_torch.core.{mod}")
+        except ImportError:      # a tree from before that module
+            modules[mod] = None
     saved = []
     for stage, mod, name in STAGES:
         if hasattr(modules[mod], name):
@@ -164,6 +179,7 @@ def macro_ops(args, ms, state, stack, counts) -> int:
 
     from repro_torch.configs import acceptance
     from repro_torch.core import sim
+    from repro_torch.tools.profile_tick import telem_zero
     from repro_torch.utils import device as D
 
     # the kind of tick running: the engine runs each tick inside its
@@ -184,8 +200,7 @@ def macro_ops(args, ms, state, stack, counts) -> int:
                 counts[f"{now}: {stack[-1]}"] += 1
             return func(*fargs, **(kwargs or {}))
 
-    acc = sim._telem_zero(state.t.device, tuple(state.t.shape),
-                          acceptance.config(args.case).resilience_on)
+    acc = telem_zero(acceptance.config(args.case), state)
     sim.reset_macro_ticks()
     D.reset_host_reads()
     counts.clear()

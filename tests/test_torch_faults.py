@@ -55,6 +55,7 @@ from repro_torch.envs import SchedEnv
 from repro_torch.envs.sched_env import RESILIENCE_FEATURES
 from repro_torch.scenarios import scenario as PSC
 from repro_torch.utils import prng
+from repro_torch.utils.errors import ConfigError
 
 CLOCKS = ("next_fail_t", "rack_fail_t", "repair_t", "submit_t", "start_t",
           "end_t")
@@ -462,14 +463,26 @@ def pse_globals(env):
 
 
 def test_weights_and_refusals():
-    """``w_lost`` joins the reward weights; ``w_slo`` and serving still
-    raise, naming their slice."""
-    pc = pcfg.tiny_cluster(node_mtbf_hours=1.0)
-    st = C.build_statics(pc, device="cpu")
-    C.make_step(pc, st, "fcfs", reward_weights=(1, 1, 1, 0.05, 0, 0.5))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        C.make_step(pc, st, "fcfs",
-                    reward_weights=(1, 1, 1, 0.05, 0, 0.5, 1.0))
-    srv = pcfg.tiny_cluster(serving_enabled=True, serving_nodes=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        C.init_state(srv, C.build_statics(srv, device="cpu"), 0)
+    """``w_lost`` and ``w_slo`` join the reward weights: with faults and
+    serving on, both terms' rewards against the JAX package's, tick by
+    tick; an eighth weight raises."""
+    kw = dict(node_mtbf_hours=0.2, node_repair_hours=0.02,
+              ckpt_interval_s=30.0, serving_enabled=True, serving_nodes=2,
+              serving_queue_cap=20.0)
+    rc, pc = rcfg.tiny_cluster(**kw), pcfg.tiny_cluster(**kw)
+    scn = RSC.diurnal_serving(rc, peak_rps=6.0, period_s=600.0,
+                              burst_start_s=60.0, burst_len_s=60.0)
+    jobs, bank = synth_workload(rc, 24, 300.0, seed=2)
+    rst = R.build_statics(rc, bank, scenario=scn)
+    rs = R.load_jobs(R.init_state(rc, rst, jax.random.key(2)), jobs)
+    pst = interop.statics_from_numpy(jax.device_get(rst), device="cpu")
+    ps = interop.state_from_numpy(ref_numpy(rs), device="cpu")
+    w = (1, 1, 1, 0.05, 0, 0.5, 2.0)
+    _, rout = jax.jit(lambda s: R.run_episode(rc, rst, s, 200, "fcfs",
+                                              reward_weights=w))(rs)
+    pf, pout = C.run_episode(pc, pst, ps, 200, "fcfs", reward_weights=w)
+    np.testing.assert_allclose(to_numpy(pout.reward),
+                               np.asarray(rout.reward), rtol=RTOL)
+    assert float(pf.n_killed) > 0 and float(pf.srv_shed) > 0
+    with pytest.raises(ConfigError, match="4 to 7"):
+        C.make_step(pc, pst, "fcfs", reward_weights=w + (1.0,))

@@ -149,8 +149,8 @@ def test_macro_episode_runs_and_matches_reference(pair):
     (dict(resume_from="x"), NotImplementedError, "durable"),
     (dict(summary_only=True, telemetry_every=5), ConfigError, "summary_only"),
     (dict(telemetry_every=7), ConfigError, "divisible"),
-    (dict(reward_weights=(1, 1, 1, 0.05, 0, 0.5, 1.0)), NotImplementedError,
-     "serving slice"),
+    (dict(reward_weights=(1, 1, 1, 0.05, 0, 0.5, 1.0, 1.0)), ConfigError,
+     "4 to 7"),
 ])
 def test_run_episode_refuses_what_the_slice_lacks(pair, kw, err, match):
     _, _, pst, ps, _, _ = pair

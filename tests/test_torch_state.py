@@ -1,7 +1,7 @@
 """Set-up parity: build_statics -> init_state -> load_jobs of the port
 against the JAX package, every field of ``Statics`` and ``SimState``; the
 copied numpy input layer; ``interop`` carrying the reference's state
-across; and the flags this slice refuses."""
+across; and the model flags of the later slices, which now run."""
 
 import jax
 import numpy as np
@@ -112,8 +112,10 @@ def test_interop_round_trips_and_continues_in_lockstep():
 
 
 @pytest.mark.parametrize("flag", [
-    # the fault engine runs now (``tests/test_torch_faults.py`` holds it
-    # to the reference), beside thermals too; serving still raises
+    # the fault engine and the serving twin run now
+    # (``tests/test_torch_faults.py`` and ``tests/test_torch_serving.py``
+    # hold them to the reference), beside thermals too: set-up and the
+    # first ticks of each against the JAX package's
     dict(thermal_enabled=True, rack_mtbf_hours=10.0),
     dict(node_mtbf_hours=10.0),
     dict(rack_mtbf_hours=10.0),
@@ -122,17 +124,15 @@ def test_interop_round_trips_and_continues_in_lockstep():
     dict(serving_enabled=True, serving_nodes=4),
 ])
 def test_flags_of_later_slices_raise(flag):
-    cfg = pcfg.tiny_cluster(**flag)
-    st = C.build_statics(cfg, device="cpu")
-    if not cfg.serving_on:
-        s = C.init_state(cfg, st, 0)
-        s, out = C.make_step(cfg, st, "fcfs")(s, -1)
-        assert float(s.t) == cfg.dt and torch.isfinite(out.reward)
-        return
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        C.init_state(cfg, st, 0)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        C.make_step(cfg, st, "fcfs")
+    rc, pc = rcfg.tiny_cluster(**flag), pcfg.tiny_cluster(**flag)
+    rst, rs, pst, ps, _, _ = make_pair(rc, pc, 16, 300.0, seed=3)
+    assert_tree_close(rs, ps, "state")
+    rf, rt = jax.jit(lambda s: R.run_episode(rc, rst, s, 20, "fcfs",
+                                             summary_only=True))(rs)
+    pf, pt = C.run_episode(pc, pst, ps, 20, "fcfs", summary_only=True)
+    assert float(pf.t) == 20 * pc.dt
+    assert_tree_close(rf, pf, "state after 20 ticks")
+    assert_tree_close(rt, pt, "telemetry")
 
 
 def test_banked_trace_raises():
