@@ -47,8 +47,8 @@ and no result line:
              within 1e-5); the thermal hour's config for 600 ticks at E =
              72 (one rack_thermal launch a tick), two replicas rerun
              alone; ms per tick, us per replica-tick, CUDA kernels per
-             tick and the device's busy share at E = 1, 72 and 1152 (300
-             ticks each).
+             tick and the device's busy share at E = 1, 72 and 1152
+             (FLEET_TIMING ticks each, FLEET_PROFILE under the profiler).
 7. rl        the paper's experiment at full width (``acceptance.RL_CASES``:
              TX-GAIA, 672 nodes, the 256 x 16 job table, four 40-job
              workloads, 15 ticks a decision, ``macro=False``): 8
@@ -63,8 +63,8 @@ and no result line:
              1e-3, one host sync per chunk and none inside it, a rerun
              bitwise equal; then env decisions and replica-ticks per
              second at 8, 64 and 512 environments (twice each), ms per
-             PPO iteration (rollout and update), and over 4 decisions of
-             the rollout CUDA kernels per env step by stage and the
+             PPO iteration (rollout and update), and over RL_PROFILE_STEPS
+             decisions of the rollout CUDA kernels per env step and the
              device's busy share (``profile_tick.profile_rl``).
 8. macro     macro-stepping (quiet ticks fast-forwarded): the three replay
              hours through ``run_episode(macro=True)`` at ``PINNED_MACRO``
@@ -106,7 +106,7 @@ and no result line:
              flash_attn launches per prefill and none per decode step, the
              bf16 prefill/decode invariant, and ``generate`` at B = 4,
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
-             ms, decode ms per token, tokens/s: median of 5 runs).
+             ms, decode ms per token, tokens/s: median of SERVE_RUNS).
 12. serve_hybrid  the jamba hybrid without experts at full width:
              ``serve_jamba_1l`` (one Mamba layer, f32) held to
              ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
@@ -133,8 +133,43 @@ and no result line:
              serving tick and the plain hour's in the same run; the
              phase's seconds.
 
+14. durable  the durable layer (run after ``serving``) under sync-debug
+             "error", each snapshot and fingerprint one counted read
+             (``utils.device.drain``): ``replay_tx_gaia_1h`` snapshotted
+             every 600 s, bitwise equal to phase 4's hour with 1 + 6
+             reads, ms and bytes a snapshot, its ms a tick beside phase
+             4's and a plain 300-tick window's timed just after it, in the
+             same conditions; its snapshots after tick
+             1,800 deleted and the run resumed: bitwise, 1 + 3 reads;
+             ``replay_tx_gaia_1h_faults`` macro-stepped for 1,200 ticks
+             with a snapshot every 120 s, uninterrupted and killed after
+             its 4th snapshot, bitwise (key words included), within the
+             read gate plus one read a snapshot; ``chaos_smoke`` of the
+             same on the card (2 SIGKILLs, each after the launch's first
+             snapshot, ``REPRO_CHAOS_SLOW_SAVE=0.2``), the killed
+             workers' digests equal to the uninterrupted worker's and the
+             final launch resumed from a snapshot (in worker processes
+             beside the rest, after the snapshotted hour, which runs
+             alone so its ms a tick compares with phase 4's); the
+             fault fleet (``FLEET_FAULTS_E`` replicas, 600 ticks, a
+             snapshot every 150 s) snapshotted in a worker, killed after
+             its 2nd snapshot and resumed in the parent, bitwise;
+             ``ppo_train`` on ``rl_tx_gaia`` with a checkpoint every
+             iteration bitwise equal to phase ``rl``'s run, iteration 1's
+             checkpoint deleted and resumed to 2, bitwise; with
+             ``REPRO_CHECKIFY=1`` 300 ticks of the faults hour pass with
+             one extra read and a state with ``free + 100`` raises
+             ``InvariantError`` naming resource conservation at tick 0;
+             with the gate off the plain and serving ticks keep their 463
+             and 674 launch calls (phase ``serving``'s profiles), and
+             inside ``run_episode`` a tick launches what a bare
+             ``make_step`` + telemetry loop does, its step 463 / 674
+             (``profile_tick.episode_launch_calls``); the phase's
+             seconds.
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
-``serving``) each run in a worker process of their own on the card
+``serving``, and the fleet of ``durable``) each run in a worker process of
+their own on the card
 (``run_alone``: this script with ``--alone``, ALONE_WORKERS at once), so
 the checks of a phase run together; the parent waits for all of them and
 stops any that fails.
@@ -149,6 +184,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -181,7 +217,7 @@ ATTN_CASES = (
 )
 ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
 ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 5
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 3
 SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
 # selective_scan at jamba's 8-layer prefill (Ba 4, S 1024, di 16384, ds 16)
 # and at a length no 256-step chunk divides: (name, ba, s, di, ds)
@@ -216,12 +252,12 @@ BF16_DECODE_FACTOR = 2.0
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
 # timed at each, and (start tick, ticks) of each profile
 FLEET_SIZES = (1, 72, 1152)
-FLEET_TIMING = 300
-FLEET_PROFILE = (100, 10)
+FLEET_TIMING = 150
+FLEET_PROFILE = (100, 5)
 # the rl phase: environments timed, decisions per timed rollout
 RL_SCALE_ENVS = (8, 64, 512)
-RL_SCALE_STEPS = 8
-RL_PROFILE_STEPS = 2   # decisions of the rollout under the profiler
+RL_SCALE_STEPS = 4
+RL_PROFILE_STEPS = 1   # decisions of the rollout under the profiler
 # the macro phase: the engine's chunk of fast ticks a host read (its
 # default), the fleet replicas rerun alone, and the environments timed
 MACRO_CHUNK = 16
@@ -229,14 +265,42 @@ MACRO_FLEET_ALONE = (8, 71)
 MACRO_RL_ENVS = (8, 512)
 # phase faults: the faults hour profiled from this tick, for this many
 # ticks (the profiler's processing of a tick of ~1,250 kernels is slow)
-FAULTS_PROFILE = (100, 10)
+FAULTS_PROFILE = (100, 5)
 # the serving phase's profiles of the serving tick and the plain tick:
 # (start tick, ticks)
-SERVING_PROFILE = (100, 10)
+SERVING_PROFILE = (100, 5)
 # replicas rerun alone run in worker processes on the card, this many at
 # once (the machine has 8 cores; each run is host-bound)
 ALONE_WORKERS = 7
 ALONE_TIMEOUT_S = 600
+# the durable phase: the main hour snapshotted every 600 s and killed
+# after tick 1,800; the faults hour macro-stepped for 1,200 ticks with a
+# snapshot every 120 s, killed after its 4th; the chaos kill loop on the
+# same; the fault fleet for 600 ticks, a snapshot every 150 s, killed
+# after its 2nd; the invariant harness over 300 ticks; the launch calls of
+# a plain and a serving tick with the gate off (phase serving's
+# profile_tick), also inside ``run_episode`` (DURABLE_EPISODE_CALLS: start
+# tick, ticks)
+DURABLE_HOUR_SNAP_S = 600.0
+# a plain window of the hour's first ticks, timed right after the
+# snapshotted hour in the same conditions (phase 4 ran before any profile)
+DURABLE_PLAIN_TICKS = 300
+DURABLE_KILL_TICK = 1800
+DURABLE_FAULTS = "replay_tx_gaia_1h_faults"
+DURABLE_FAULTS_TICKS = 1200
+DURABLE_FAULTS_SNAP_S = 120.0
+DURABLE_FAULTS_KILL_AFTER = 4
+# the chaos loop: each kill comes a seeded delay after the launch's first
+# snapshot (``chaos.KILL_DELAY_S``), so the final launch resumes from one
+DURABLE_CHAOS = dict(kills=2, slow_save_s=0.2)
+DURABLE_CHAOS_TIMEOUT_S = 600
+DURABLE_FLEET_TICKS = 600
+DURABLE_FLEET_SNAP_S = 150.0
+DURABLE_FLEET_KILL_AFTER = 2
+DURABLE_CHECK_TICKS = 300
+DURABLE_GATE_OFF_CALLS = {"replay_tx_gaia_1h_serving": 674.0,
+                          "replay_tx_gaia_1h": 463.0}
+DURABLE_EPISODE_CALLS = (100, 2)
 
 
 def emit(phase: str, **kw) -> None:
@@ -1022,7 +1086,8 @@ def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
 
 def run_alone(torch, runs: list, during=None):
     """Each of ``runs`` (``run_episode``'s arguments: a dict of ``cfg``,
-    ``statics``, ``state``, ``n_steps``, ``scheduler`` and ``kw``) in a
+    ``statics``, ``state``, ``n_steps``, ``scheduler`` and ``kw``, and
+    optionally ``entry="run_fleet"`` to call that instead) in a
     worker process of its own on the card (``chip_smoke.py --alone``),
     ALONE_WORKERS at a time: a replica rerun alone shares nothing with the
     fleet it is compared with, not even the process. Returns each run's
@@ -1078,17 +1143,19 @@ def run_alone(torch, runs: list, during=None):
 
 
 def alone_main(src: str, out: str) -> int:
-    """Worker of ``run_alone``: one ``run_episode`` on the card."""
+    """Worker of ``run_alone``: one ``run_episode`` on the card (or the
+    run's ``entry``: ``run_fleet``)."""
     import torch
 
-    from repro_torch.core import run_episode
+    from repro_torch.core import run_episode, run_fleet
     from repro_torch.utils.device import exact_matmul
 
     exact_matmul()
     run = torch.load(src, map_location="cuda", weights_only=False)
-    final, telem = run_episode(run["cfg"], run["statics"], run["state"],
-                               run["n_steps"], run["scheduler"],
-                               **run["kw"])
+    entry = {"run_episode": run_episode,
+             "run_fleet": run_fleet}[run.get("entry", "run_episode")]
+    final, telem = entry(run["cfg"], run["statics"], run["state"],
+                         run["n_steps"], run["scheduler"], **run["kw"])
     torch.cuda.synchronize()
     torch.save((final, telem), out)
     return 0
@@ -1342,8 +1409,9 @@ def counted_drains(torch, drains: list):
     return patched()
 
 
-def rl(torch, np) -> None:
-    """The RL phase (see the module docstring, phase 7)."""
+def rl(torch, np):
+    """The RL phase (see the module docstring, phase 7). Returns the
+    ``rl_tx_gaia`` env and its PPO run (``run_ppo``'s record and params)."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance as A
     from repro_torch.envs import SchedEnv
@@ -1440,6 +1508,7 @@ def rl(torch, np) -> None:
          at_s=time.perf_counter() - start)
     emit("rl", step="profile", at_s=time.perf_counter() - start,
          **profile_rl("rl_tx_gaia", A.RL_ENVS, decisions=RL_PROFILE_STEPS))
+    return env, runs[0][0], runs[0][1]
 
 def _recorded_reads(torch, reads: list):
     """Context manager: every host read of the macro engine
@@ -1487,11 +1556,12 @@ def _read_gate(reads: list, name: str) -> dict:
             "reads_over_bound": worst}
 
 
-def _macro_counts(torch, fn, guard: bool = True):
+def _macro_counts(torch, fn, guard: bool = True, extra_reads: int = 0):
     """``fn()`` with the launches, the macro ticks and the host reads
     counted from 0, under sync-debug "error" (the engine's own reads
-    excepted; ``guard=False``: ``fn`` guards itself) and timed on the host
-    clock around a synchronised run. Returns (fn's result, wall seconds,
+    excepted, and ``extra_reads`` more: a snapshotted run's drains;
+    ``guard=False``: ``fn`` guards itself) and timed on the host clock
+    around a synchronised run. Returns (fn's result, wall seconds,
     launches, (event, fast) ticks issued, the recorded reads)."""
     import contextlib
 
@@ -1509,9 +1579,10 @@ def _macro_counts(torch, fn, guard: bool = True):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if D.HOST_READS["count"] != len(reads):
+    if D.HOST_READS["count"] != len(reads) + extra_reads:
         raise AssertionError(f"{D.HOST_READS['count']} counted host reads, "
-                             f"{len(reads)} of them the macro engine's")
+                             f"{len(reads)} of them the macro engine's, "
+                             f"{extra_reads} more expected")
     return (out, wall, dict(kernels.LAUNCHES),
             (sim.MACRO_TICKS["event"], sim.MACRO_TICKS["fast"]), reads)
 
@@ -1860,8 +1931,9 @@ def faults(torch, np, jobs, bank, per_tick: dict) -> None:
         at_s=time.perf_counter() - start)
 
 
-def serving(torch, np, jobs, bank, per_tick: dict) -> None:
-    """The serving phase (see the module docstring, phase 13)."""
+def serving(torch, np, jobs, bank, per_tick: dict) -> dict:
+    """The serving phase (see the module docstring, phase 13). Returns
+    the profiles of the serving tick and the plain tick, by case."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
@@ -2011,9 +2083,418 @@ def serving(torch, np, jobs, bank, per_tick: dict) -> None:
 
     # (e) where the serving tick goes, beside the plain hour's in the same
     # run: CUDA kernels a tick
+    profiles = {}
     for name in (A.SERVING_CASE, "replay_tx_gaia_1h"):
-        emit("serving", step="profile", **profile_replay(
-            name, *SERVING_PROFILE, top=6), at_s=time.perf_counter() - start)
+        profiles[name] = profile_replay(name, *SERVING_PROFILE, top=6)
+        emit("serving", step="profile", **profiles[name],
+             at_s=time.perf_counter() - start)
+    return profiles
+
+
+def _bitwise(torch, a, b) -> list:
+    """The fields in which two (state, telemetry) pairs differ at all
+    (``None`` fields of a switched-off block on both sides are equal)."""
+    from repro_torch.utils.tree import tree_leaves_with_names
+
+    la, lb = tree_leaves_with_names(a), tree_leaves_with_names(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        return ["<structure>"]
+    return [n for (n, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
+
+
+def _timed_saves(saves: list):
+    """Context manager: every ``checkpoint.ckpt.save`` (a snapshot: the
+    drain, then the writes) appends (host seconds, of which the drain's,
+    bytes written)."""
+    import contextlib
+
+    from repro_torch.checkpoint import ckpt
+
+    @contextlib.contextmanager
+    def patched():
+        real, real_drain = ckpt.save, ckpt.drain
+        drained = []
+
+        def timed_drain(tree):
+            t0 = time.perf_counter()
+            out = real_drain(tree)
+            drained.append(time.perf_counter() - t0)
+            return out
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            path = real(*a, **kw)
+            saves.append((time.perf_counter() - t0, drained.pop(), sum(
+                f.stat().st_size for f in Path(path).iterdir())))
+            return path
+
+        ckpt.save, ckpt.drain = timed, timed_drain
+        try:
+            yield
+        finally:
+            ckpt.save, ckpt.drain = real, real_drain
+    return patched()
+
+
+def _drop_after(directory: Path, tick: int) -> list:
+    """Delete the snapshots after ``tick`` (a run killed there); returns
+    the snapshots left."""
+    import shutil
+
+    for d in directory.iterdir():
+        if int(d.name.split("_")[1].split(".")[0]) > tick:
+            shutil.rmtree(d)
+    return sorted(d.name for d in directory.iterdir())
+
+
+def durable(torch, np, jobs, bank, per_tick: dict, ppo_run,
+            profiles: dict) -> None:
+    """The durable phase (see the module docstring, phase 14)."""
+    import shutil
+    import threading
+
+    from repro_torch.utils.chaos import chaos_smoke
+
+    start = time.perf_counter()
+    work = ROOT / "build" / "durable"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # (4) the chaos kill loop on the card, in worker processes beside the
+    # parent's checks after (1): the reference worker, then the killed ones
+    chaos = {}
+
+    def chaos_loop():
+        try:
+            chaos["out"] = chaos_smoke(
+                "replay", str(work / "chaos"), seed=0, case=DURABLE_FAULTS,
+                n_steps=DURABLE_FAULTS_TICKS,
+                snapshot_every_s=DURABLE_FAULTS_SNAP_S, **DURABLE_CHAOS)
+        except Exception as e:      # re-raised in the parent below
+            chaos["error"] = e
+    chaos_thread = threading.Thread(target=chaos_loop, daemon=True)
+    try:
+        _durable_checks(torch, np, jobs, bank, per_tick, ppo_run, profiles,
+                        work, start, after_hour=chaos_thread.start)
+    finally:
+        # the kill loop's processes end before the phase does, also when a
+        # check above failed (its final launch has its own time limit)
+        if chaos_thread.ident is not None:
+            chaos_thread.join(timeout=DURABLE_CHAOS_TIMEOUT_S)
+    # (4) the chaos loop's verdict
+    if chaos_thread.is_alive():
+        raise AssertionError("chaos loop: over "
+                             f"{DURABLE_CHAOS_TIMEOUT_S} s")
+    if "error" in chaos:
+        raise chaos["error"]
+    out = chaos["out"]
+    emit("durable", step="chaos", case=DURABLE_FAULTS,
+         ticks=DURABLE_FAULTS_TICKS, **out,
+         at_s=time.perf_counter() - start)
+    if out["n_kills"] != DURABLE_CHAOS["kills"] or not out["resumed_from"]:
+        raise AssertionError(f"chaos loop: {out['n_kills']} kills, the "
+                             f"final launch resumed from "
+                             f"{out['resumed_from']}")
+
+
+def _durable_checks(torch, np, jobs, bank, per_tick: dict, ppo_run,
+                    profiles: dict, work: Path, start: float,
+                    after_hour) -> None:
+    """Steps (1)-(3) and (5)-(7) of the durable phase: (1) alone on the
+    card, then ``after_hour()`` starts the chaos loop beside the rest."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import (
+        build_statics,
+        init_state,
+        load_jobs,
+        run_episode,
+        run_fleet,
+        summary,
+    )
+    from repro_torch.rl import PPOConfig, ppo_train
+    from repro_torch.tools.profile_tick import episode_launch_calls
+    from repro_torch.utils import device as D
+    from repro_torch.utils import prng
+    from repro_torch.utils.errors import InvariantError
+
+    guard = no_sync(torch)
+
+    # (1) the main hour snapshotted every 600 s, alone on the card (its ms
+    # a tick beside phase 4's and a plain window's timed just after it):
+    # bitwise phase 4's hour
+    cfg = A.config()
+    statics = build_statics(cfg, bank)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    _, p_final, p_telem, p_wall = per_tick["replay_tx_gaia_1h"]
+    hour_dir = work / "hour"
+    n_snaps = A.N_STEPS // round(DURABLE_HOUR_SNAP_S / cfg.dt)
+
+    saves = []
+    kernels.reset_launches()
+    D.reset_host_reads()
+    with _timed_saves(saves), guard():
+        t0 = time.perf_counter()
+        final, telem = run_episode(
+            cfg, statics, state, A.N_STEPS, A.SCHEDULER, summary_only=True,
+            snapshot_every_s=DURABLE_HOUR_SNAP_S, snapshot_dir=str(hour_dir),
+            snapshot_keep=n_snaps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, reads = dict(kernels.LAUNCHES), D.HOST_READS["count"]
+    differ = _bitwise(torch, (final, telem), (p_final, p_telem))
+    same_summary = summary(final, telem) == summary(p_final, p_telem)
+    with guard():
+        t0 = time.perf_counter()
+        run_episode(cfg, statics, state, DURABLE_PLAIN_TICKS, A.SCHEDULER,
+                    summary_only=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / DURABLE_PLAIN_TICKS
+    emit("durable", step="snapshotted hour", case="replay_tx_gaia_1h",
+         ticks=A.N_STEPS, snapshot_every_s=DURABLE_HOUR_SNAP_S,
+         snapshots=len(saves), host_reads=reads,
+         ms_per_snapshot=1e3 * sum(t for t, _, _ in saves) / len(saves),
+         snapshot_ms=[1e3 * t for t, _, _ in saves],
+         drain_ms=[1e3 * d for _, d, _ in saves],
+         bytes_per_snapshot=saves[0][2],
+         files_per_snapshot=len(list((hour_dir / sorted(
+             os.listdir(hour_dir))[0]).iterdir())),
+         wall_s=wall, ms_per_tick=1e3 * wall / A.N_STEPS,
+         main_ms_per_tick=1e3 * p_wall / A.N_STEPS,
+         ms_per_tick_over_main=wall / p_wall,
+         plain_window_ticks=DURABLE_PLAIN_TICKS,
+         plain_window_ms_per_tick=plain_ms,
+         ms_per_tick_over_plain_window=1e3 * wall / A.N_STEPS / plain_ms,
+         snapshot_share=sum(t for t, _, _ in saves) / wall,
+         launches=launches,
+         fields_differing_from_main=differ, summary_equal=same_summary,
+         at_s=time.perf_counter() - start)
+    if differ or not same_summary:
+        raise AssertionError(f"snapshotted hour differs from phase 4's in "
+                             f"{differ}")
+    if launches != no_launches(power_scatter=A.N_STEPS):
+        raise AssertionError(f"snapshotted hour: launches {launches}")
+    if reads != 1 + n_snaps or len(saves) != n_snaps:
+        raise AssertionError(f"snapshotted hour: {reads} host reads, "
+                             f"{len(saves)} snapshots; expected 1 + "
+                             f"{n_snaps}")
+    after_hour()
+
+    # (5) the fault fleet's uninterrupted snapshotted run in a worker,
+    # while the parent runs (2), (3), (6) and (7)
+    fcfg = A.fleet_faults_config()
+    fstatics = build_statics(fcfg, bank)
+    keys = torch.from_numpy(np.stack([prng.key_words(e)
+                                      for e in range(A.FLEET_FAULTS_E)]))
+    fstate = load_jobs(init_state(fcfg, fstatics, keys), jobs)
+    scns = A.fleet_faults_scenarios(fcfg)
+    fleet_dir = work / "fleet"
+    fleet_kw = dict(scenarios=scns, summary_only=True,
+                    snapshot_every_s=DURABLE_FLEET_SNAP_S)
+    fleet_run = dict(entry="run_fleet", cfg=fcfg, statics=fstatics,
+                     state=fstate, n_steps=DURABLE_FLEET_TICKS,
+                     scheduler=A.FLEET_FAULTS_SCHEDULER,
+                     kw=dict(fleet_kw, snapshot_dir=str(fleet_dir),
+                             snapshot_keep=99))
+
+    def meanwhile():
+        # (2) killed after tick 1,800, resumed: bitwise (1), 1 + 3 reads
+        left = _drop_after(hour_dir, DURABLE_KILL_TICK)
+        kernels.reset_launches()
+        D.reset_host_reads()
+        with guard():
+            t0 = time.perf_counter()
+            rf, rt = run_episode(
+                cfg, statics, state, A.N_STEPS, A.SCHEDULER,
+                summary_only=True, snapshot_every_s=DURABLE_HOUR_SNAP_S,
+                resume_from=str(hour_dir))
+            torch.cuda.synchronize()
+            rwall = time.perf_counter() - t0
+        rdiff = _bitwise(torch, (rf, rt), (final, telem))
+        rlaunches, rreads = dict(kernels.LAUNCHES), D.HOST_READS["count"]
+        emit("durable", step="killed and resumed hour", resumed_from=left,
+             ticks_run=A.N_STEPS - DURABLE_KILL_TICK, host_reads=rreads,
+             wall_s=rwall, launches=rlaunches, fields_differing=rdiff,
+             at_s=time.perf_counter() - start)
+        want = 1 + (A.N_STEPS - DURABLE_KILL_TICK) // round(
+            DURABLE_HOUR_SNAP_S / cfg.dt)
+        if rdiff or rreads != want:
+            raise AssertionError(f"resumed hour: differs in {rdiff}, "
+                                 f"{rreads} reads (expected {want})")
+        if rlaunches != no_launches(
+                power_scatter=A.N_STEPS - DURABLE_KILL_TICK):
+            raise AssertionError(f"resumed hour: launches {rlaunches}")
+
+        # (3) faults, macro-stepped, keys and clocks: uninterrupted, then
+        # killed after its 4th snapshot and resumed
+        qcfg = A.config(DURABLE_FAULTS)
+        qstatics = build_statics(qcfg, bank,
+                                 A.fault_scenario(DURABLE_FAULTS, qcfg))
+        qstate = load_jobs(init_state(qcfg, qstatics, seed=A.SEED), jobs)
+        qdir = work / "faults"
+        per = round(DURABLE_FAULTS_SNAP_S / qcfg.dt)
+        runs = []
+        for resume in (False, True):
+            snaps = (DURABLE_FAULTS_TICKS // per
+                     - (DURABLE_FAULTS_KILL_AFTER if resume else 0))
+            kw = (dict(resume_from=str(qdir)) if resume
+                  else dict(snapshot_dir=str(qdir), snapshot_keep=99))
+            if resume:
+                qleft = _drop_after(qdir, DURABLE_FAULTS_KILL_AFTER * per)
+            out, qwall, qlaunches, (events, fast), qreads = _macro_counts(
+                torch, lambda: run_episode(
+                    qcfg, qstatics, qstate, DURABLE_FAULTS_TICKS,
+                    A.SCHEDULER, macro=True,
+                    snapshot_every_s=DURABLE_FAULTS_SNAP_S, **kw),
+                extra_reads=1 + snaps)
+            runs.append(out)
+            emit("durable", step="faults macro", case=DURABLE_FAULTS,
+                 resumed=resume, resumed_from=qleft if resume else None,
+                 ticks=DURABLE_FAULTS_TICKS, snapshots=snaps,
+                 event_ticks=events, fast_ticks_issued=fast, wall_s=qwall,
+                 launches=qlaunches, drains=1 + snaps,
+                 **_read_gate(qreads, DURABLE_FAULTS),
+                 at_s=time.perf_counter() - start)
+            if qlaunches != no_launches(power_scatter=events + fast):
+                raise AssertionError(f"faults macro: launches {qlaunches}")
+        qdiff = _bitwise(torch, runs[0], runs[1])
+        emit("durable", step="faults macro resumed", fields_differing=qdiff,
+             key_equal=torch.equal(runs[0][0].key, runs[1][0].key),
+             killed=float(runs[1][0].n_killed),
+             at_s=time.perf_counter() - start)
+        if qdiff:
+            raise AssertionError(f"faults macro: resumed run differs in "
+                                 f"{qdiff}")
+
+        # (6) PPO with a checkpoint every iteration: bitwise phase rl's
+        # run; iteration 1's checkpoint deleted, resumed to 2
+        env, ppo_got, ppo_params = ppo_run
+        pcfg = PPOConfig(n_envs=A.RL_ENVS, rollout_len=A.RL_ROLLOUT)
+        ppo_dir = work / "ppo"
+        outs = []
+        for resume in (False, True):
+            drains = []
+            D.reset_host_reads()
+            with counted_drains(torch, drains), guard():
+                t0 = time.perf_counter()
+                outs.append(ppo_train(
+                    env, cfg=pcfg, n_iterations=A.RL_ITERATIONS,
+                    seed=A.RL_SEED, checkpoint_dir=str(ppo_dir),
+                    checkpoint_every=1, resume=resume))
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t0
+            emit("durable", step="ppo", resumed=resume,
+                 iterations=len(outs[-1][1]), wall_s=pwall, drains=drains,
+                 checkpoint_reads=D.HOST_READS["count"],
+                 checkpoints=sorted(os.listdir(ppo_dir)),
+                 at_s=time.perf_counter() - start)
+            if D.HOST_READS["count"] != len(drains):
+                raise AssertionError(f"ppo: {D.HOST_READS['count']} "
+                                     "checkpoint reads, one a chunk "
+                                     f"expected ({drains})")
+            if not resume:
+                _drop_after(ppo_dir, A.RL_ITERATIONS - 2)
+        (p_full, h_full), (p_res, h_res) = outs
+        same = (h_full == ppo_got["history"]
+                and all(torch.equal(p_full[k], ppo_params[k])
+                        for k in ppo_params))
+        resumed = (h_res == h_full[1:]
+                   and all(torch.equal(p_res[k], p_full[k])
+                           for k in p_full))
+        emit("durable", step="ppo resumed", bitwise_with_rl_phase=same,
+             resumed_bitwise=resumed, at_s=time.perf_counter() - start)
+        if not (same and resumed):
+            raise AssertionError(f"ppo checkpoints: bitwise with phase rl "
+                                 f"{same}, resumed {resumed}")
+
+        # (7) the invariant harness on the faults hour's state
+        os.environ["REPRO_CHECKIFY"] = "1"
+        try:
+            kernels.reset_launches()
+            D.reset_host_reads()
+            with guard():
+                t0 = time.perf_counter()
+                run_episode(qcfg, qstatics, qstate, DURABLE_CHECK_TICKS,
+                            A.SCHEDULER, summary_only=True)
+                torch.cuda.synchronize()
+                cwall = time.perf_counter() - t0
+            creads, claunches = D.HOST_READS["count"], dict(kernels.LAUNCHES)
+            bad = qstate._replace(free=qstate.free + 100.0)
+            caught = None
+            try:
+                with guard():
+                    run_episode(qcfg, qstatics, bad, 10, A.SCHEDULER,
+                                summary_only=True)
+            except InvariantError as e:
+                caught = e
+        finally:
+            del os.environ["REPRO_CHECKIFY"]
+        gate_off = {name: profiles[name]["launch_calls_per_tick"]
+                    for name in DURABLE_GATE_OFF_CALLS}
+        # with the gate off, a tick inside run_episode launches what a
+        # bare make_step + telemetry loop does, its step 463 / 674 calls
+        in_episode = {name: episode_launch_calls(name,
+                                                 *DURABLE_EPISODE_CALLS)
+                      for name in DURABLE_GATE_OFF_CALLS}
+        emit("durable", step="invariants", case=DURABLE_FAULTS,
+             ticks=DURABLE_CHECK_TICKS, wall_s=cwall,
+             ms_per_tick=1e3 * cwall / DURABLE_CHECK_TICKS,
+             host_reads=creads, launches=claunches,
+             corrupt_state_error=str(caught) if caught else None,
+             corrupt_state_tick=caught.tick if caught else None,
+             gate_off_launch_calls_per_tick=gate_off,
+             gate_off_in_episode=in_episode,
+             at_s=time.perf_counter() - start)
+        if creads != 1 or claunches != no_launches(
+                power_scatter=DURABLE_CHECK_TICKS):
+            raise AssertionError(f"invariants: {creads} reads, launches "
+                                 f"{claunches}")
+        if caught is None or caught.tick != 0 \
+                or "resource conservation" not in caught.check:
+            raise AssertionError(f"invariants: the corrupt state gave "
+                                 f"{caught!r}")
+        if gate_off != DURABLE_GATE_OFF_CALLS:
+            raise AssertionError(f"gate off: launch calls a tick "
+                                 f"{gate_off}, expected "
+                                 f"{DURABLE_GATE_OFF_CALLS}")
+        for name, got in in_episode.items():
+            if not (got["episode_launch_calls_per_tick"]
+                    == got["bare_launch_calls_per_tick"]
+                    and got["step_launch_calls_per_tick"]
+                    == DURABLE_GATE_OFF_CALLS[name]):
+                raise AssertionError(f"gate off: run_episode's tick "
+                                     f"{got}, expected a bare loop's with "
+                                     f"{DURABLE_GATE_OFF_CALLS[name]} in "
+                                     "its step")
+
+    [(ff, ft)], _ = run_alone(torch, [fleet_run], during=meanwhile)
+
+    # (5) the fleet killed after its 2nd snapshot, resumed in the parent
+    fper = round(DURABLE_FLEET_SNAP_S / fcfg.dt)
+    left = _drop_after(fleet_dir, DURABLE_FLEET_KILL_AFTER * fper)
+    D.reset_host_reads()
+    kernels.reset_launches()
+    with guard():
+        t0 = time.perf_counter()
+        rf, rt = run_fleet(fcfg, fstatics, fstate, DURABLE_FLEET_TICKS,
+                           A.FLEET_FAULTS_SCHEDULER, resume_from=str(
+                               fleet_dir), **fleet_kw)
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+    fdiff = _bitwise(torch, (rf, rt), (ff, ft))
+    ticks = DURABLE_FLEET_TICKS - DURABLE_FLEET_KILL_AFTER * fper
+    emit("durable", step="fleet resumed", replicas=A.FLEET_FAULTS_E,
+         resumed_from=left, ticks_run=ticks, wall_s=fwall,
+         host_reads=D.HOST_READS["count"], launches=dict(kernels.LAUNCHES),
+         killed=rf.n_killed.tolist(), fields_differing=fdiff,
+         at_s=time.perf_counter() - start)
+    if fdiff:
+        raise AssertionError(f"fault fleet: resumed run differs in {fdiff}")
+    if D.HOST_READS["count"] != 1 + ticks // fper:
+        raise AssertionError(f"fault fleet: {D.HOST_READS['count']} reads")
+    if dict(kernels.LAUNCHES) != no_launches(power_scatter=ticks):
+        raise AssertionError(f"fault fleet: launches {kernels.LAUNCHES}")
+
 
 
 def main() -> int:
@@ -2200,7 +2681,7 @@ def main() -> int:
 
     # 7. rl: SchedEnv batched over the replica axis, PPO end to end
     t0 = time.perf_counter()
-    rl(torch, np)
+    ppo_run = rl(torch, np)
     emit("rl", step="done", seconds=time.perf_counter() - t0)
 
     # 8. macro: the replay hours, the fleet hour and the RL env with quiet
@@ -2217,8 +2698,14 @@ def main() -> int:
     # 13. serving: the serving twin's hour per tick and macro, its fleet
     # and env (run here, before the LM phases, beside the replay phases)
     t0 = time.perf_counter()
-    serving(torch, np, jobs, bank, per_tick)
+    profiles = serving(torch, np, jobs, bank, per_tick)
     emit("serving", step="done", seconds=time.perf_counter() - t0)
+
+    # 14. durable: snapshots, kill and resume, the chaos loop, PPO
+    # checkpoints and the invariant harness, against the runs above
+    t0 = time.perf_counter()
+    durable(torch, np, jobs, bank, per_tick, ppo_run, profiles)
+    emit("durable", step="done", seconds=time.perf_counter() - t0)
 
     # 10. determinism: the same ticks twice, bitwise
     for case, ticks in DETERMINISM:

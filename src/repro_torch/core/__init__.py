@@ -47,6 +47,7 @@ from repro_torch.core.sim import (
     make_step,
     quiet_horizon,
     run_episode,
+    run_segment,
     summary,
     summary_columns,
 )

@@ -11,12 +11,14 @@ and runs ``run_episode`` on the batched state: every field carries a
 leading replica axis E, the step's reductions run per replica, and each
 of the tick's kernels takes E as its grid, so the host issues one tick's
 launches for all R replicas. This is the JAX package's vmapped
-``run_fleet``; its device-sharded path (``mesh=``) and snapshots arrive
-with later slices. With ``macro=True`` the replicas macro-step in
-lockstep (``sim.make_macro_step``): each macro step runs an event tick
-on every replica with ticks left, then fast ticks under a per-replica
-mask, so replicas sit at different times and each keeps its own
-segments, as under the JAX package's ``vmap``.
+``run_fleet``; its device-sharded path (``mesh=``) arrives with the
+multi-GPU slice. With the snapshot arguments one crash-atomic snapshot
+holds the whole batch (``checkpoint.episode.run_fleet_snapshotted``).
+With ``macro=True`` the replicas macro-step in lockstep
+(``sim.make_macro_step``): each macro step runs an event tick on every
+replica with ticks left, then fast ticks under a per-replica mask, so
+replicas sit at different times and each keeps its own segments, as
+under the JAX package's ``vmap``.
 
 Nothing here reads a tensor on the host once the inputs are on the card:
 the keys are derived on the state's device, and the host data (policy
@@ -127,6 +129,7 @@ def run_fleet(
     snapshot_every_s: float | None = None,
     snapshot_dir: str | None = None,
     resume_from: str | None = None,
+    snapshot_keep: int = 3,
     **kw,
 ) -> Tuple[SimState, StepOut | TelemetrySummary]:
     """Simulate R replicas of the twin for ``n_steps`` in one batched run.
@@ -169,17 +172,39 @@ def run_fleet(
     steps after the replica axis, and ``macro=True`` macro-steps every
     replica (its summary is episode-wide or windowed).
 
-    ``mesh`` and the snapshot arguments arrive with the multi-GPU and
-    durable slices and raise here.
+    Durability: ``snapshot_every_s`` / ``snapshot_dir`` / ``resume_from``
+    / ``snapshot_keep`` are ``run_episode``'s, for the whole batch: one
+    crash-atomic snapshot of the replica-batched state (its keys
+    installed, so resumed streams go on exactly) and the raw telemetry
+    accumulators; a resumed sweep equals the uninterrupted one bit for
+    bit. Needs ``summary_only=True`` or ``macro=True``.
+
+    With ``REPRO_CHECKIFY=1`` every replica's final state is audited
+    (``utils.invariants.check_state``), besides the per-tick checks of
+    ``run_episode``.
+
+    ``mesh`` arrives with the multi-GPU slice and raises here.
 
     Returns (final_states, outs) with a leading replica axis on every leaf.
     """
+    from repro_torch.utils import invariants
+
     fleet_statics, state, who = prepare_fleet(
         cfg, statics, state, scheduler, scenarios=scenarios,
-        policies=policies, workloads=workloads, mesh=mesh,
-        snapshot_every_s=snapshot_every_s, snapshot_dir=snapshot_dir,
-        resume_from=resume_from)
-    return run_episode(cfg, fleet_statics, state, n_steps, who, **kw)
+        policies=policies, workloads=workloads, mesh=mesh)
+    if snapshot_every_s is not None or resume_from is not None \
+            or snapshot_dir is not None:
+        from repro_torch.checkpoint.episode import run_fleet_snapshotted
+
+        out = run_fleet_snapshotted(
+            cfg, statics, fleet_statics, state, n_steps, who, kw,
+            snapshot_every_s=snapshot_every_s, snapshot_dir=snapshot_dir,
+            resume_from=resume_from, snapshot_keep=snapshot_keep)
+    else:
+        out = run_episode(cfg, fleet_statics, state, n_steps, who, **kw)
+    if invariants.enabled():
+        invariants.check_state(cfg, fleet_statics, out[0])
+    return out
 
 
 def prepare_fleet(
@@ -192,9 +217,6 @@ def prepare_fleet(
     policies=None,
     workloads=None,
     mesh=None,
-    snapshot_every_s: float | None = None,
-    snapshot_dir: str | None = None,
-    resume_from: str | None = None,
 ) -> Tuple[Statics, SimState, str | Policy]:
     """``run_fleet``'s checks and set-up without the ticks: (the statics
     with the batched scenario on the state's device, the batched state
@@ -205,11 +227,6 @@ def prepare_fleet(
         raise NotImplementedError(
             "mesh=: the device-sharded fleet arrives with the multi-GPU "
             "slice (ROADMAP queue 1, item 10)")
-    if snapshot_every_s is not None or resume_from is not None \
-            or snapshot_dir is not None:
-        raise NotImplementedError(
-            "snapshot/resume of a fleet arrives with the durable slice "
-            "(ROADMAP queue 1, item 9)")
     if policies is not None and scheduler is not None:
         raise ConfigError(
             f"both scheduler={scheduler!r} and policies= given — policies "

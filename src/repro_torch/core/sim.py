@@ -58,6 +58,12 @@ gives the per-tick path's numbers. How far to go depends on the data:
 the host reads it through ``utils.device.host_read``, once after the
 event tick and once per chunk of ``chunk_ticks`` fast ticks; no other
 read is made.
+
+``run_segment`` runs ticks with the telemetry accumulator left raw, so a
+long run can be cut into segments with a snapshot between them
+(``checkpoint.episode``); with ``REPRO_CHECKIFY=1`` the invariant harness
+(``utils.invariants``) checks every committed tick of an episode or
+segment on the device and reads its record once at the end.
 """
 
 from __future__ import annotations
@@ -924,7 +930,8 @@ def make_macro_step(
     ``update(acc, out, macro_inc)`` folds each tick's ``StepOut`` into the
     caller's accumulator (default: the ``TelemetrySummary`` update;
     ``SchedEnv`` passes its info reducer); ``macro_inc`` is 1.0 for the
-    event tick and 0.0 for fast ticks."""
+    event tick and 0.0 for fast ticks. ``run(state, acc, n, after)`` calls
+    ``after(state)`` after each macro step (the invariant harness)."""
     step = make_step(cfg, statics, scheduler, placement=placement,
                      starts_per_step=starts_per_step,
                      reward_weights=reward_weights)
@@ -1068,7 +1075,7 @@ def make_macro_step(
         state, acc, ticks, _, _, _ = advance(state, acc, left, None)
         return state, acc, ticks
 
-    def run(state, acc, n: int):
+    def run(state, acc, n: int, after=None):
         left = torch.full(tuple(state.t.shape), n, dtype=torch.int32,
                           device=dev)
         lo = hi = n
@@ -1076,10 +1083,31 @@ def make_macro_step(
             # replicas with no ticks left sit out the event tick
             active = None if lo > 0 else left > 0
             state, acc, _, left, lo, hi = advance(state, acc, left, active)
+            if after is not None:
+                after(state)
         return state, acc
 
     macro_step.run = run
     return macro_step
+
+
+def _monitor(cfg: SimConfig, statics: Statics, state: SimState):
+    """The invariant harness's per-tick record for one run, or ``None``
+    with ``REPRO_CHECKIFY`` unset (then a run adds nothing to a tick)."""
+    from repro_torch.utils import invariants
+
+    if not invariants.enabled():
+        return None
+    return invariants.EpisodeMonitor(cfg, statics, state)
+
+
+def _checked(step, monitor):
+    """``step`` followed by the monitor's checks of the committed state."""
+    def checked(state, action):
+        state, out = step(state, action)
+        monitor(state)
+        return state, out
+    return checked
 
 
 def run_episode(
@@ -1119,14 +1147,24 @@ def run_episode(
     windows stay tick-aligned with the per-tick path.
 
     The per-tick ticks never synchronise with the host; the macro engine
-    reads how far to go through ``utils.device.host_read`` alone. The
-    snapshot arguments arrive with the durable slice and raise here.
+    reads how far to go through ``utils.device.host_read`` alone.
+
+    Durability (``checkpoint.episode``): ``snapshot_every_s=T`` writes a
+    crash-atomic snapshot (the state, the raw telemetry accumulator and a
+    fingerprint of the run's arguments) every ~T simulated seconds to
+    ``snapshot_dir``, keeping ``snapshot_keep``; ``resume_from=dir``
+    resumes from the newest snapshot there, bit for bit the uninterrupted
+    run (a snapshot of another run raises ``CheckpointError``). Needs an
+    episode-wide summary (``summary_only=True`` or ``macro=True``, with
+    ``telemetry_every<=1``). Each snapshot, and the fingerprint, is one
+    counted read (``utils.device.drain``).
+
+    With ``REPRO_CHECKIFY=1`` (``utils.invariants``) every committed tick
+    (each macro step, macro-stepped) runs the machine-invariant suite into
+    a record on the device, read once at the end: ``InvariantError``
+    names the check and the first tick it failed. Unset, nothing is added
+    to a tick.
     """
-    if snapshot_every_s is not None or resume_from is not None \
-            or snapshot_dir is not None:
-        raise NotImplementedError(
-            "snapshot/resume arrives with the durable slice (ROADMAP queue "
-            "1, item 9)")
     if summary_only and telemetry_every > 1:
         raise ConfigError(
             "summary_only=True is episode-wide; it conflicts with "
@@ -1135,6 +1173,28 @@ def run_episode(
         raise ConfigError(
             f"n_steps={n_steps} not divisible by "
             f"telemetry_every={telemetry_every}")
+    if snapshot_every_s is not None or resume_from is not None \
+            or snapshot_dir is not None:
+        from repro_torch.checkpoint.episode import run_episode_snapshotted
+
+        return run_episode_snapshotted(
+            cfg, statics, state, n_steps, scheduler,
+            telemetry_every=telemetry_every, summary_only=summary_only,
+            macro=macro, snapshot_every_s=snapshot_every_s,
+            snapshot_dir=snapshot_dir, resume_from=resume_from,
+            snapshot_keep=snapshot_keep, kw=kw)
+    monitor = _monitor(cfg, statics, state)
+    out = _episode(cfg, statics, state, n_steps, scheduler, telemetry_every,
+                   summary_only, macro, monitor, kw)
+    if monitor is not None:
+        monitor.throw()
+    return out
+
+
+def _episode(cfg, statics, state, n_steps, scheduler, telemetry_every,
+             summary_only, macro, monitor, kw):
+    """``run_episode``'s ticks, in its telemetry mode, with ``monitor``
+    (or none) checking each committed state."""
     dev = state.t.device
     lead = tuple(state.t.shape)
 
@@ -1144,14 +1204,16 @@ def run_episode(
     if macro:
         run = make_macro_step(cfg, statics, scheduler, **kw).run
         if telemetry_every <= 1:
-            state, acc = run(state, zero(), n_steps)
+            state, acc = run(state, zero(), n_steps, monitor)
             return state, _telem_finalize(acc)
         windows = []
         for _ in range(n_steps // telemetry_every):
-            state, acc = run(state, zero(), telemetry_every)
+            state, acc = run(state, zero(), telemetry_every, monitor)
             windows.append(_telem_finalize(acc))
         return state, _stack(windows, len(lead))
     step = make_step(cfg, statics, scheduler, **kw)
+    if monitor is not None:
+        step = _checked(step, monitor)
     action = full(-1, torch.int64, dev)
 
     if summary_only:
@@ -1174,6 +1236,48 @@ def run_episode(
         state, out = step(state, action)
         outs.append(out)
     return state, _stack(outs, len(lead))
+
+
+def run_segment(
+    cfg: SimConfig,
+    statics: Statics,
+    state: SimState,
+    acc: TelemetrySummary,
+    n_ticks: int,
+    scheduler: str = "fcfs",
+    *,
+    macro: bool = False,
+    **kw,
+):
+    """Advance ``n_ticks`` carrying a RAW ``TelemetrySummary`` accumulator:
+    ``run_episode(summary_only=True)`` (or ``macro=True``) cut at a tick
+    boundary. The ticks are the same (``make_step`` and the telemetry
+    update per tick; ``make_macro_step(...).run`` macro-stepped), but the
+    accumulator enters as given and leaves un-finalised, so segments
+    threaded through ``(state, acc)`` equal the single call bit for bit —
+    the primitive snapshot/resume (``checkpoint.episode``) is built on.
+    Seed ``acc`` with ``_telem_zero`` and apply ``_telem_finalize`` once
+    after the last segment. A segment's edge clamps the macro
+    fast-forward as a ``telemetry_every`` window edge does: the state and
+    the key stream stay the uninterrupted run's; the telemetry's
+    ``macro_steps`` counts the edges' event ticks. With
+    ``REPRO_CHECKIFY=1`` the invariant suite runs as in ``run_episode``,
+    read at the segment's end. Returns (state, acc)."""
+    monitor = _monitor(cfg, statics, state)
+    if macro:
+        state, acc = make_macro_step(cfg, statics, scheduler, **kw).run(
+            state, acc, n_ticks, monitor)
+    else:
+        step = make_step(cfg, statics, scheduler, **kw)
+        if monitor is not None:
+            step = _checked(step, monitor)
+        action = full(-1, torch.int64, state.t.device)
+        for _ in range(n_ticks):
+            state, out = step(state, action)
+            acc = _telem_update(acc, out)
+    if monitor is not None:
+        monitor.throw()
+    return state, acc
 
 
 def _host(x) -> np.ndarray:

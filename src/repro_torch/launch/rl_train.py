@@ -13,10 +13,13 @@ environments ran 7,532 CUDA kernels against 6,225, and 512 environments
 took 4,524-4,949 decisions/s against 5,171-6,643 (``PERF.md`` §6).
 
   PYTHONPATH=src python -m repro_torch.launch.rl_train --cluster tx-gaia \\
-      --iterations 3 [--device cpu] [--out experiments/rl]
+      --iterations 3 [--device cpu] [--out experiments/rl] \\
+      [--ckpt experiments/rl/ckpt [--resume]]
 
-``--ckpt`` / ``--resume`` and ``--mesh`` refuse: checkpointing and sharded
-training arrive with ROADMAP queue 1, items 9 and 10.
+``--ckpt DIR`` checkpoints the whole training state every 10 iterations
+(``ppo_train``'s ``checkpoint_every``); with ``--resume`` training goes on
+from the newest checkpoint there, bit for bit. ``--mesh`` refuses:
+sharded training arrives with ROADMAP queue 1, item 10.
 """
 
 from __future__ import annotations

@@ -19,14 +19,19 @@ done; with the counters unknown it builds them at every step and keeps
 them where ``done``, as the JAX package does. The key stream is the same
 either way.
 
-Checkpoint and resume arrive with the durable slice (ROADMAP queue 1,
-item 9) and raise here.
+With ``checkpoint_dir`` a checkpoint of the whole training state (the
+parameters, the optimizer's moments, the batched environment states with
+their host step counters, the episode accumulators and the key words)
+is written every ``checkpoint_every`` iterations (``checkpoint.ckpt``:
+crash-atomic, one counted read for the save); ``resume=True`` goes on
+from the newest one bit for bit, as the JAX package's ``ppo_train`` does.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -247,14 +252,18 @@ def ppo_train(
     device. Returns (params, history): the final parameter dict and one
     stats dict per iteration.
 
-    Iterations run in chunks of ``sync_every`` (default min(n_iterations,
-    8)); each chunk's stats reach the host in one transfer, after which
-    ``log`` fires once per iteration. ``checkpoint_dir`` / ``resume``
-    arrive with the durable slice and raise."""
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError(
-            "checkpoint/resume of PPO training arrives with the durable "
-            "slice (ROADMAP queue 1, item 9)")
+    Iterations run in chunks of ``sync_every`` (default: min(
+    ``checkpoint_every`` when checkpointing, else ``n_iterations``, 8));
+    each chunk's stats reach the host in one transfer, after which ``log``
+    fires once per iteration. With ``checkpoint_dir``, chunks are cut at
+    the checkpoint boundaries, and after every ``checkpoint_every``-th
+    iteration the FULL training state — params, optimizer, the batched
+    environment states, the episode accumulators and the key words — is
+    saved with a run fingerprint (``_train_fingerprint``); each save's
+    drain is one counted read beside the chunk's stats sync. ``resume=
+    True`` continues from the newest checkpoint bit for bit (a
+    fingerprint of another run raises ``CheckpointError``; a params-only
+    checkpoint resumes warm, with fresh environments and key)."""
     dev = env.device
     policy = ActorCritic(env.obs_dim, env.n_actions, hidden, device=dev)
     iteration, opt = make_train_iteration(env, policy, cfg)
@@ -266,14 +275,26 @@ def ppo_train(
     env_states, obs = env.reset(prng.split(ke, cfg.n_envs))
     # episode accumulators persist across iterations (and chunks)
     ep = _zero_ep(obs[:, 0])
+    start = 0
+    fingerprint = _train_fingerprint(env, cfg, seed, hidden)
+    if checkpoint_dir and resume:
+        params, opt_state, env_states, ep, key, start = _resume(
+            checkpoint_dir, fingerprint, params, opt_state, env_states, ep,
+            key)
 
     if sync_every is None:
-        sync_every = min(n_iterations, 8)
+        # capped: a chunk's stats wait on the device until its drain
+        sync_every = min(checkpoint_every if checkpoint_dir else n_iterations,
+                         8)
     sync_every = max(1, sync_every)
     history = []
-    it = 0
+    it = start
     while it < n_iterations:
         n = min(sync_every, n_iterations - it)
+        if checkpoint_dir:
+            # cut the chunk at the next checkpoint boundary
+            n = min(n, ((it // checkpoint_every) + 1) * checkpoint_every
+                    - it)
         chunk = []
         for i in range(n):
             params, opt_state, env_states, ep, key, stats = iteration(
@@ -287,4 +308,55 @@ def ppo_train(
             if log:
                 log(it + i, s)
         it += n
+        if checkpoint_dir and it % checkpoint_every == 0:
+            from repro_torch.checkpoint import save
+
+            save(checkpoint_dir, it - 1,
+                 {"params": params, "opt": opt_state,
+                  "env_states": env_states, "ep": ep, "key": key},
+                 extra_meta={"iteration": it - 1,
+                             "fingerprint": fingerprint})
     return params, history
+
+
+def _resume(directory, fingerprint, params, opt_state, env_states, ep, key):
+    """The training state from the newest checkpoint in ``directory`` (or
+    the fresh one given, if there is none) and the iteration to start
+    from."""
+    from repro_torch.checkpoint import latest_step, read_meta, restore
+    from repro_torch.checkpoint.episode import check_fingerprint
+
+    step = latest_step(directory)
+    if step is None:
+        return params, opt_state, env_states, ep, key, 0
+    meta = read_meta(directory, step)
+    saved = meta.get("extra", {}).get("fingerprint")
+    if saved is not None:
+        check_fingerprint(saved, fingerprint, directory)
+    if any(k.startswith("env_states") for k in meta.get("leaves", {})):
+        p = restore(directory, step,
+                    {"params": params, "opt": opt_state,
+                     "env_states": env_states, "ep": ep, "key": key})
+        return (p["params"], p["opt"], p["env_states"], p["ep"], p["key"],
+                step + 1)
+    # a params-only checkpoint: a warm resume (fresh envs and key: learning
+    # goes on, but not bit for bit)
+    p = restore(directory, step, {"params": params, "opt": opt_state})
+    return p["params"], p["opt"], env_states, ep, key, step + 1
+
+
+def _train_fingerprint(env, cfg: PPOConfig, seed, hidden) -> Dict[str, Any]:
+    """The run fingerprint in PPO checkpoint manifests. ``n_iterations``
+    is left out: training on from a finished run's newest checkpoint is a
+    legitimate resume; another env, config or seed is not."""
+    def dig(s: str) -> str:
+        return hashlib.sha256(s.encode()).hexdigest()[:16]
+
+    return {
+        "kind": "ppo",
+        "ppo_cfg": dig(repr(cfg)),
+        "seed": int(seed),
+        "hidden": list(hidden),
+        "env": dig(f"{type(env).__name__}/{env.obs_dim}/{env.n_actions}/"
+                   f"{repr(getattr(env, 'cfg', None))}"),
+    }

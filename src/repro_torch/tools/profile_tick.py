@@ -49,6 +49,10 @@ and fast ticks issued, the host reads per macro step, and the CUDA
 launch calls per event tick and per fast tick (inside each kind's
 ``record_function`` range; the rest, per macro step, is the loop's own:
 the reads' reductions).
+
+``episode_launch_calls`` (a function, no flag) counts the CUDA launch
+calls of a tick inside ``run_episode(summary_only=True)`` against a bare
+``make_step`` + telemetry loop of the same ticks.
 """
 
 from __future__ import annotations
@@ -121,22 +125,14 @@ def _advance(step, state, action, n):
     return state
 
 
-def setup_case(case: str, start: int, device=None, replicas: int = 1,
-               macro: bool = False):
-    """An acceptance case (``configs/acceptance.py``) built on ``device``
-    (the card when ``None``) and run to tick ``start``: returns (step,
-    state, action). With ``replicas`` > 1, a fleet of that many replicas
-    of the case under the fleet grid (``acceptance.fleet_grid`` tiled,
-    set up as ``run_fleet`` does). With ``macro``, ``step`` is the case's
-    macro step (``make_macro_step``; the state still reaches ``start``
-    tick by tick). Shared by the tick tools, so each reads the same
-    tick."""
-    import torch
-
+def case_inputs(case: str, device=None, replicas: int = 1):
+    """(cfg, statics, state, policy) of an acceptance case
+    (``configs/acceptance.py``) built on ``device`` (the card when
+    ``None``) at tick 0; with ``replicas`` > 1, a fleet of that many
+    replicas of the case under the fleet grid (``acceptance.fleet_grid``
+    tiled, set up as ``run_fleet`` does)."""
     from repro_torch.configs import acceptance
     from repro_torch.core import build_statics, init_state, load_jobs
-    from repro_torch.core.sim import make_macro_step, make_step
-    from repro_torch.utils.device import full
 
     cfg = acceptance.config(case)
     jobs, bank = acceptance.workload(cfg)
@@ -153,6 +149,21 @@ def setup_case(case: str, start: int, device=None, replicas: int = 1,
         _, pol, scn = acceptance.fleet_grid(cfg, replicas)
         statics, state, who = prepare_fleet(cfg, statics, state,
                                             policies=pol, scenarios=scn)
+    return cfg, statics, state, who
+
+
+def setup_case(case: str, start: int, device=None, replicas: int = 1,
+               macro: bool = False):
+    """An acceptance case (``case_inputs``) run to tick ``start``: returns
+    (step, state, action). With ``macro``, ``step`` is the case's macro
+    step (``make_macro_step``; the state still reaches ``start`` tick by
+    tick). Shared by the tick tools, so each reads the same tick."""
+    import torch
+
+    from repro_torch.core.sim import make_macro_step, make_step
+    from repro_torch.utils.device import full
+
+    cfg, statics, state, who = case_inputs(case, device, replicas)
     step = make_step(cfg, statics, who)
     action = full(-1, torch.int64, statics.capacity.device)
     state = _advance(step, state, action, start)
@@ -524,6 +535,65 @@ def profile_replay(case: str, start: int, ticks: int, replicas: int = 1,
         "launch_calls_per_tick": calls / ticks, **engines,
         **{k if k == "device_busy_share" else f"{k}_per_tick": v
            for k, v in summary.items()},
+    }
+
+
+def episode_launch_calls(case: str, start: int, ticks: int) -> dict:
+    """CUDA launch calls a tick of ``run_episode(summary_only=True)`` from
+    tick ``start`` of a replay case on the card, against a bare loop of
+    the same ticks (``make_step`` and the telemetry update: the episode's
+    tick with nothing around it), and the bare loop's calls inside its
+    ``make_step`` step (what ``profile_replay`` counts a tick). Each is the
+    difference between windows of 2 x ``ticks`` and ``ticks`` ticks, over
+    ``ticks``, so set-up and finalisation cancel. With ``REPRO_CHECKIFY``
+    unset the first two are equal: the episode adds nothing to a tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import sim
+    from repro_torch.utils.device import full
+
+    cfg, statics, state, who = case_inputs(case)
+    step = sim.make_step(cfg, statics, who)
+    action = full(-1, torch.int64, statics.capacity.device)
+    state = _advance(step, state, action, start)
+    dev, lead = state.t.device, tuple(state.t.shape)
+
+    def bare(n):
+        acc = sim._telem_zero(dev, lead, cfg.resilience_on, cfg.serving_on)
+        s = state
+        for _ in range(n):
+            with record_function(RANGE_PREFIX + "step"):
+                s, out = step(s, action)
+            acc = sim._telem_update(acc, out)
+        return s, sim._telem_finalize(acc)
+
+    def episode(n):
+        return sim.run_episode(cfg, statics, state, n, who,
+                               summary_only=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in (("episode", episode), ("bare", bare)):
+            for n in (ticks, 2 * ticks):
+                with record_function(f"{RANGE_PREFIX}{name}_{n}"):
+                    fn(n)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+
+    def inside(name):
+        return launch_calls_in(events, RANGE_PREFIX + name)[1]
+
+    def per_tick(name):
+        return (inside(f"{name}_{2 * ticks}")
+                - inside(f"{name}_{ticks}")) / ticks
+
+    return {
+        "case": case, "start_tick": start, "ticks": ticks,
+        "episode_launch_calls_per_tick": per_tick("episode"),
+        "bare_launch_calls_per_tick": per_tick("bare"),
+        "step_launch_calls_per_tick": inside("step") / (3 * ticks),
     }
 
 

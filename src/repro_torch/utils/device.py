@@ -14,7 +14,8 @@ A loop whose trip count depends on the data (the macro-stepping
 engine's fast-forward) must read how far to go: it reads through
 ``host_read``, the port's one counted read. On the card it lifts
 sync-debug "error" for its own copy only, so any other sync still
-raises; ``HOST_READS`` counts the reads.
+raises; ``HOST_READS`` counts the reads. ``drain`` reads a whole tree
+(a snapshot, a digest) the same way: one counted wait for all of it.
 """
 
 from __future__ import annotations
@@ -41,6 +42,42 @@ def host_read(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def drain(tree):
+    """Every tensor leaf of ``tree`` (nested NamedTuples, dicts, lists) on
+    the host, as a CPU tensor of its dtype; other leaves and ``None`` pass
+    through. The card's leaves are copied into pinned memory without
+    blocking, then the host waits once: one counted read, allowed under
+    sync-debug "error" for that wait alone, as ``host_read``. On the CPU
+    each leaf is cloned, so the result shares no memory with ``tree``.
+    A snapshot or a digest of device state reads through here."""
+    from repro_torch.utils.tree import tree_map
+
+    HOST_READS["count"] += 1
+    waits = []
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if x.device.type != "cuda":
+            return x.clone()
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        waits.append(x.device)
+        return out
+
+    host = tree_map(copy, tree)
+    if waits:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            for dev in dict.fromkeys(waits):
+                torch.cuda.current_stream(dev).synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return host
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -10,7 +10,9 @@ callers (chaos harness, launch scripts, CI gates) can discriminate
     │                               entry points (user-facing API misuse)
     ├── TraceValidationError        corrupt SuperCloud trace / jobs dict
     ├── SignalValidationError       corrupt grid-signal CSV feed
-    └── CheckpointError             missing/corrupt/mismatched checkpoint
+    ├── CheckpointError             missing/corrupt/mismatched checkpoint
+    └── InvariantError              a machine invariant broken in a state
+                                    (``utils.invariants``, REPRO_CHECKIFY)
 
 Each concrete class ALSO inherits ``ValueError`` so the long tail of
 existing ``pytest.raises(ValueError)`` pins and user ``except
@@ -62,10 +64,25 @@ class CheckpointError(ReproError, ValueError):
         self.field = field
 
 
+class InvariantError(ReproError, RuntimeError):
+    """A state breaks a machine invariant (``utils.invariants``).
+
+    ``check`` is the broken check's message; ``tick`` the first tick of
+    the episode or segment after which it failed (0 is the first tick
+    run), or ``None`` for a state checked on its own.
+    """
+
+    def __init__(self, message: str, *, check: str, tick: int | None = None):
+        super().__init__(message)
+        self.check = check
+        self.tick = tick
+
+
 __all__ = [
     "ReproError",
     "ConfigError",
     "TraceValidationError",
     "SignalValidationError",
     "CheckpointError",
+    "InvariantError",
 ]

@@ -291,12 +291,16 @@ def test_macro_fleet_runs_and_matches_per_tick(pair, grid_run):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 10"),
-    (dict(snapshot_every_s=60.0, snapshot_dir="x"), "item 9"),
-    (dict(resume_from="x"), "item 9"),
+    (dict(snapshot_every_s=60.0, snapshot_dir="x"), "summary_only"),
+    (dict(resume_from="x"), "summary_only"),
 ])
 def test_run_fleet_refuses_what_later_slices_bring(pair, kw, item):
+    """``mesh=`` waits for the multi-GPU slice (item 10); snapshots came
+    with the durable slice and refuse only without an episode-wide
+    summary (``ConfigError``)."""
     _, _, pst, ps, _, _ = pair
-    with pytest.raises(NotImplementedError, match=item):
+    err = NotImplementedError if item.startswith("item") else ConfigError
+    with pytest.raises(err, match=item):
         PF.run_fleet(pcfg.tiny_cluster(), pst, ps, 5, **kw)
 
 

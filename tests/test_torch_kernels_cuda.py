@@ -669,3 +669,45 @@ def test_macro_on_the_card_equals_per_tick(cuda_device, case):
         for f in a._fields:
             if f not in skip and getattr(a, f) is not None:
                 assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("macro", [False, True])
+def test_snapshotted_run_on_the_card_equals_the_plain_run(cuda_device,
+                                                         tmp_path, macro):
+    """200 ticks of ``tiny_cluster`` with faults and serving on the card,
+    snapshotted every 50 s under sync-debug "error": the state and the
+    telemetry (``macro_steps`` aside, macro-stepped) bitwise equal to the
+    run without snapshots; one counted read for the fingerprint and one a
+    snapshot on top of the macro engine's."""
+    import repro_torch.core as C
+    from repro_torch.configs.sim import tiny_cluster
+    from repro_torch.data import synth_workload
+    from repro_torch.utils import device as D
+
+    cfg = tiny_cluster(node_mtbf_hours=0.3, serving_enabled=True,
+                       serving_nodes=4)
+    jobs, bank = synth_workload(cfg, 32, 1200.0, seed=0)
+    st = C.build_statics(cfg, bank, device=cuda_device)
+    s = C.load_jobs(C.init_state(cfg, st, 0), jobs)
+    mode = dict(macro=True) if macro else dict(summary_only=True)
+    D.reset_host_reads()
+    f1, t1 = C.run_episode(cfg, st, s, 200, "fcfs", **mode)
+    plain_reads = D.HOST_READS["count"]
+    D.reset_host_reads()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f2, t2 = C.run_episode(cfg, st, s, 200, "fcfs",
+                               snapshot_every_s=50.0,
+                               snapshot_dir=str(tmp_path), **mode)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not macro:
+        assert D.HOST_READS["count"] == plain_reads + 1 + 4
+    assert sorted(p.name for p in tmp_path.iterdir())[-1] == \
+        "step_0000000200"
+    for a, b, skip in ((f1, f2, ()), (t1, t2, ("macro_steps",))):
+        for f in a._fields:
+            if f not in skip and getattr(a, f) is not None:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -15,8 +15,13 @@ decisions of 5 ticks, ``SchedEnv(macro=False)``):
   1e-3;
 - three iterations finite and bitwise repeatable, the host-known
   auto-reset equal to the always-built one, the checkpoint refusal, and
-  ``launch/rl_train.py`` on the CPU with its refusals.
+  ``launch/rl_train.py`` on the CPU with its refusals;
+- a run checkpointed every 2 iterations, stopped after 4 and resumed to
+  6, against the JAX package's uninterrupted 6: params within rtol 1e-5
+  (atol 1e-6), the resumed iterations' stats as iteration 0's.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -268,19 +273,64 @@ def test_host_known_auto_reset_equals_the_always_built_one(envs):
     assert torch.equal(a[2], b[2])
 
 
-def test_checkpointing_is_refused(envs):
+def test_checkpointing_is_refused(envs, tmp_path):
+    """Checkpointing came with the durable slice: a resume that finds a
+    checkpoint of another run (another seed, another config) is refused
+    with ``CheckpointError`` naming what differs; ``resume=True`` without
+    a directory starts afresh."""
+    from repro_torch.utils.errors import CheckpointError
+
     _, env = envs
-    for kw in (dict(checkpoint_dir="ckpt"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            PP.ppo_train(env, n_iterations=1, **kw)
+    cfg = PP.PPOConfig(n_envs=2, rollout_len=4, n_epochs=1, n_minibatches=1)
+    d = str(tmp_path)
+    PP.ppo_train(env, cfg=cfg, n_iterations=1, checkpoint_dir=d,
+                 checkpoint_every=1)
+    with pytest.raises(CheckpointError, match="seed"):
+        PP.ppo_train(env, cfg=cfg, n_iterations=2, seed=1,
+                     checkpoint_dir=d, checkpoint_every=1, resume=True)
+    with pytest.raises(CheckpointError, match="ppo_cfg"):
+        PP.ppo_train(env, cfg=PP.PPOConfig(n_envs=2, rollout_len=4,
+                                           n_epochs=2, n_minibatches=1),
+                     n_iterations=2, checkpoint_dir=d, checkpoint_every=1,
+                     resume=True)
+    _, history = PP.ppo_train(env, cfg=cfg, n_iterations=1, resume=True)
+    assert len(history) == 1
+
+
+def test_resumed_training_matches_the_reference(envs, tmp_path):
+    """``ppo_train`` stopped after iteration 4 (a checkpoint every 2) and
+    resumed to 6 against the JAX package's uninterrupted 6 iterations from
+    the same seed: params to rtol 1e-5 (atol 1e-6, as the loss gradients
+    are held), the two resumed iterations' stats as iteration 0's."""
+    ref_env, env = envs
+    cfg = PP.PPOConfig(**PPO)
+    d = str(tmp_path)
+    PP.ppo_train(env, cfg=cfg, n_iterations=4, seed=0, checkpoint_dir=d,
+                 checkpoint_every=2)
+    pp, ph = PP.ppo_train(env, cfg=cfg, n_iterations=6, seed=0,
+                          checkpoint_dir=d, checkpoint_every=2, resume=True)
+    rp, rh = RP.ppo_train(ref_env, cfg=RP.PPOConfig(**PPO), n_iterations=6,
+                          seed=0)
+    rp = jax.device_get(rp)
+    assert sorted(pp) == sorted(rp)
+    for k, v in rp.items():
+        np.testing.assert_allclose(pp[k].numpy(), np.asarray(v), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert len(ph) == len(rh[4:]) == 2
+    for i, (got, want) in enumerate(zip(ph, rh[4:])):
+        for k, v in want.items():
+            tol = 1e-5 if k in ROLLOUT_STATS else STATS_RTOL
+            np.testing.assert_allclose(got[k], v, rtol=tol,
+                                       err_msg=f"iteration {4 + i}: {k}")
 
 
 def test_rl_train_runs_on_the_cpu_and_refuses_later_slices(tmp_path):
     """The launcher trains on the tiny cluster with ``--device cpu``,
     building the env as the JAX package does (``macro=True``, the
     default: its idle ticks are fast-forwarded), and writes its history
-    and the greedy policy's power trace; ``--ckpt`` and ``--mesh`` refuse,
-    naming ROADMAP queue 1, items 9 and 10."""
+    and the greedy policy's power trace; ``--ckpt`` checkpoints and
+    ``--resume`` goes on from it, and ``--mesh`` refuses, naming ROADMAP
+    queue 1, item 10."""
     from repro_torch.core import sim as PSIM
     from repro_torch.launch import rl_train
 
@@ -294,7 +344,14 @@ def test_rl_train_runs_on_the_cpu_and_refuses_later_slices(tmp_path):
     trace = np.load(tmp_path / "power_trace_rl.npy")
     assert trace.shape == (4,) and np.all(trace > 0)
     assert (tmp_path / "ppo_history.json").exists()
-    for flags, item in ((["--ckpt", "c"], "item 9"),
-                        (["--mesh", "4"], "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            rl_train.main(base + flags)
+    # --ckpt checkpoints every 10 iterations; --resume goes on from there
+    ckpt = str(tmp_path / "ckpt")
+    ten, eleven = list(base), list(base)
+    ten[ten.index("--iterations") + 1] = "10"
+    eleven[eleven.index("--iterations") + 1] = "11"
+    rl_train.main(ten + ["--ckpt", ckpt])
+    assert os.listdir(ckpt) == ["step_0000000009"]
+    _, resumed = rl_train.main(eleven + ["--ckpt", ckpt, "--resume"])
+    assert [h["iteration"] for h in resumed] == [10]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        rl_train.main(base + ["--mesh", "4"])

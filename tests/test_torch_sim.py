@@ -144,9 +144,9 @@ def test_macro_episode_runs_and_matches_reference(pair):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(snapshot_every_s=60.0, snapshot_dir="x"), NotImplementedError,
-     "durable"),
-    (dict(resume_from="x"), NotImplementedError, "durable"),
+    (dict(snapshot_every_s=60.0, snapshot_dir="x"), ConfigError,
+     "summary_only"),
+    (dict(resume_from="x"), ConfigError, "summary_only"),
     (dict(summary_only=True, telemetry_every=5), ConfigError, "summary_only"),
     (dict(telemetry_every=7), ConfigError, "divisible"),
     (dict(reward_weights=(1, 1, 1, 0.05, 0, 0.5, 1.0, 1.0)), ConfigError,
