@@ -167,6 +167,28 @@ and no result line:
              (``profile_tick.episode_launch_calls``); the phase's
              seconds.
 
+15. mesh     the device-sharded twin, correctness only, in worker
+             processes started beside phase ``fleet``'s replicas rerun
+             alone (``launch.mesh.spawn_world``; every world's ranks share
+             cuda:0; three chains of worlds at once) and joined before its
+             timings: (a) the fleet hour (72 replicas, 36 a rank) through
+             ``run_fleet(mesh=)`` on a gloo world of 2 with a snapshot
+             (``checkpoint.ckpt.save_sharded``) every 1,800 s, (b) an
+             nccl world of 1 resuming the 1,800 s snapshot to the end, (c)
+             the thermal fleet (600 ticks) on a gloo world of 2: every
+             state and telemetry field bitwise equal to phase ``fleet``'s
+             runs on every rank, one power_scatter (and rack_thermal)
+             launch a tick per rank, the ticks under sync-debug "error",
+             the counted host reads a rank at MESH_READS; (d)
+             ``distributed_ppo_train`` on ``rl_tx_gaia`` (8
+             environments, ``compress=True``, 2 iterations) on an nccl
+             world of 1 and a gloo world of 2: each rank's iteration-0
+             actions (kept from the training run) at ``PINNED_RL_DIST``,
+             its rollout stats within 1e-5, loss stats and the second
+             iteration's stats within 1e-3, a rerun bitwise, one host sync
+             a chunk, and on gloo one counted read a collective (none on
+             nccl); the phase's seconds, and at the end the script's.
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) each run in a worker process of
 their own on the card
@@ -301,6 +323,18 @@ DURABLE_CHECK_TICKS = 300
 DURABLE_GATE_OFF_CALLS = {"replay_tx_gaia_1h_serving": 674.0,
                           "replay_tx_gaia_1h": 463.0}
 DURABLE_EPISODE_CALLS = (100, 2)
+# the mesh phase (correctness only; its worlds run beside phase fleet's
+# alone workers): the fleet hour sharded over a gloo world of 2 on the
+# card with a snapshot every MESH_SNAP_S, resumed from the 1,800 s one on
+# an nccl world of 1; the thermal fleet at 2; distributed PPO at 1 (nccl)
+# and 2 (gloo)
+MESH_SNAP_S = 1800.0
+# counted host reads a rank of phase mesh's fleet worlds: the fingerprint
+# and a snapshot are one each, gloo's gather after the ticks one (its
+# leaves drained together), nccl's none
+MESH_READS = {"hour": 1 + 2 + 1, "thermal": 1, "resume": 1 + 1}
+MESH_TIMEOUT_S = 900
+MESH_DIR = ROOT / "build" / "mesh" / "smoke"
 
 
 def emit(phase: str, **kw) -> None:
@@ -1230,7 +1264,7 @@ def fleet(torch, np, jobs, bank) -> dict:
     from repro_torch.core.fleet import _scenario_list, run_fleet
     from repro_torch.utils.device import tree_to
 
-    runs = {}
+    runs, finals = {}, {}
     alone, checks = [], []
     for case, ticks, alone_ids in (
             ("replay_tx_gaia_1h", A.N_STEPS, A.FLEET_ALONE),
@@ -1278,14 +1312,20 @@ def fleet(torch, np, jobs, bank) -> dict:
                 kw=dict(placement=place, summary_only=True)))
             checks.append((case, names[e], e % n_scn, e, final, telem))
         runs[case] = launches, wall
+        finals[case] = final, telem
+    # the replicas rerun alone, and phase mesh's worlds beside them
     t0 = time.perf_counter()
+    alone_runs, mesh_run = run_alone(torch, alone,
+                                     during=lambda: mesh_start(torch))
     for (f1, t1), (case, name, scn_id, e, final, telem) in zip(
-            run_alone(torch, alone), checks):
+            alone_runs, checks):
         emit("fleet", step="alone", case=case, policy=name,
              scenario=scn_id, **_alone_vs_fleet(
                  torch, f"fleet {case}", f1, final, e, t1, telem))
     emit("fleet", step="alone runs", runs=len(alone),
          workers=ALONE_WORKERS, wall_s=time.perf_counter() - t0)
+    mesh(torch, mesh_run, finals)
+    emit("fleet", step="alone runs and mesh", wall_s=time.perf_counter() - t0)
 
     # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
     # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
@@ -1305,6 +1345,244 @@ def fleet(torch, np, jobs, bank) -> dict:
         if launches != no_launches(power_scatter=FLEET_TIMING):
             raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
     return runs["replay_tx_gaia_1h"]
+
+
+def _mesh_fleet_run(torch, mesh, case: str, ticks: int, **kw) -> dict:
+    """One rank's ``run_fleet(mesh=)`` of phase ``fleet``'s grid on
+    ``case`` for ``ticks`` (the ticks under sync-debug "error"), with this
+    rank's launches and counted host reads from 0."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import build_statics, init_state, load_jobs
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.utils import device as udev
+
+    jobs, bank = A.workload(A.config())
+    cfg = A.config(case)
+    statics = build_statics(cfg, bank, device=mesh.device)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    _, pol, scn = A.fleet_grid(cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    udev.reset_host_reads()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, telem = run_fleet(cfg, statics, state, ticks, policies=pol,
+                                 scenarios=scn, summary_only=True, mesh=mesh,
+                                 **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(final=final, telem=telem, wall_s=time.perf_counter() - t0,
+                launches=dict(kernels.LAUNCHES),
+                reads=udev.HOST_READS["count"])
+
+
+def mesh_fleet_rank(mesh, case: str, snap_dir: str | None) -> dict:
+    """A rank of phase ``mesh``'s (a) (the fleet hour with a snapshot
+    every MESH_SNAP_S into ``snap_dir``) or (c) (the thermal fleet)."""
+    import torch
+
+    from repro_torch.configs import acceptance as A
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()
+    if snap_dir is None:
+        return _mesh_fleet_run(torch, mesh, case, A.FLEET_THERMAL_TICKS)
+    return _mesh_fleet_run(torch, mesh, case, A.N_STEPS,
+                           snapshot_every_s=MESH_SNAP_S, snapshot_dir=snap_dir)
+
+
+def mesh_resume_rank(mesh, snap_dir: str) -> dict:
+    """A rank of phase ``mesh``'s (b): the fleet hour resumed from the
+    newest snapshot in ``snap_dir``."""
+    import torch
+
+    from repro_torch.configs import acceptance as A
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()
+    return _mesh_fleet_run(torch, mesh, "replay_tx_gaia_1h", A.N_STEPS,
+                           snapshot_every_s=MESH_SNAP_S, resume_from=snap_dir)
+
+
+def mesh_ppo_rank(mesh) -> dict:
+    """A rank of phase ``mesh``'s (d): ``acceptance.run_ppo_dist`` on
+    ``rl_tx_gaia`` twice, the launches and counted host reads of each run
+    from 0, one host sync a chunk and none inside it but gloo's."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.envs import SchedEnv
+    from repro_torch.utils import device as udev
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()
+    cfg = A.rl_config("rl_tx_gaia")
+    env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(),
+                   device=mesh.device)
+    runs, drains = [], []
+    with counted_drains(torch, drains):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            udev.reset_host_reads()
+            t0 = time.perf_counter()
+            got, params = A.run_ppo_dist(env, mesh, guard=no_sync(torch))
+            torch.cuda.synchronize()
+            runs.append(dict(got=got, params=params,
+                             wall_s=time.perf_counter() - t0,
+                             launches=dict(kernels.LAUNCHES),
+                             reads=udev.HOST_READS["count"]))
+    return {"runs": runs, "drains": drains}
+
+
+def mesh_start(torch) -> dict:
+    """Start phase ``mesh``'s worlds (``launch.mesh.spawn_world``; every
+    rank on cuda:0) in three threads: (a) the fleet hour on a gloo world
+    of 2, then (b) an nccl world of 1 resuming (a)'s snapshot at 1,800 s
+    as soon as (a) has written it; (d) distributed PPO on a gloo world of
+    2, then (c) the thermal fleet on a gloo world of 2; (d) on an nccl
+    world of 1. Returns the handle ``mesh`` joins."""
+    import shutil
+    import threading
+    import traceback
+
+    from repro_torch.launch.mesh import spawn_world
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    hour, resume = MESH_DIR / "hour", MESH_DIR / "resume"
+    run = {"t0": time.perf_counter(), "results": {}, "errors": {},
+           "seconds": {}}
+
+    def world(name, fn, size, backend, args=()):
+        t0 = time.perf_counter()
+        try:
+            run["results"][name] = spawn_world(
+                fn, size, backend=backend, devices=["cuda:0"] * size,
+                args=args, timeout=MESH_TIMEOUT_S)
+        except Exception:    # reported by ``mesh``, which fails the phase
+            run["errors"][name] = traceback.format_exc()
+        run["seconds"][name] = time.perf_counter() - t0
+
+    def hour_then_resume():
+        first = threading.Thread(target=world, args=(
+            "hour", mesh_fleet_rank, 2, "gloo",
+            ("replay_tx_gaia_1h", str(hour))))
+        first.start()
+        snap = hour / f"step_{int(MESH_SNAP_S):010d}"
+        while not (snap / "manifest.json").exists() and first.is_alive():
+            time.sleep(0.2)
+        if (snap / "manifest.json").exists():
+            shutil.copytree(snap, resume / snap.name)
+            world("resume", mesh_resume_rank, 1, "nccl", (str(resume),))
+        else:
+            run["errors"]["resume"] = "no snapshot at 1,800 s to resume"
+        first.join()
+
+    def ppo_then_thermal():
+        world("ppo_w2", mesh_ppo_rank, 2, "gloo")
+        world("thermal", mesh_fleet_rank, 2, "gloo",
+              ("replay_tx_gaia_1h_thermal", None))
+
+    run["threads"] = [threading.Thread(target=fn, args=a, daemon=True)
+                      for fn, a in ((hour_then_resume, ()),
+                                    (ppo_then_thermal, ()),
+                                    (world, ("ppo_w1", mesh_ppo_rank, 1,
+                                             "nccl")))]
+    for t in run["threads"]:
+        t.start()
+    return run
+
+
+def mesh(torch, run: dict, fleet_runs: dict) -> None:
+    """Phase ``mesh`` (see the module docstring, phase 15): wait for the
+    worlds ``mesh_start`` started and hold them to phase ``fleet``'s runs
+    (``fleet_runs``: case -> (final, telemetry), on the card) and to
+    ``PINNED_RL_DIST``. Raises on any miss."""
+    from repro_torch.configs import acceptance as A
+
+    for t in run["threads"]:
+        t.join(timeout=max(1.0, MESH_TIMEOUT_S
+                           - (time.perf_counter() - run["t0"])))
+    if any(t.is_alive() for t in run["threads"]):
+        raise AssertionError("mesh: a world outlived its time limit")
+    if run["errors"]:
+        raise AssertionError(f"mesh: worlds failed: {run['errors']}")
+    res = run["results"]
+    want = {case: tuple(type(x)(*(None if v is None else v.cpu()
+                                  for v in x)) for x in pair)
+            for case, pair in fleet_runs.items()}
+    hour_ticks, thermal_ticks = A.N_STEPS, A.FLEET_THERMAL_TICKS
+    checks = (  # the launches and reads (MESH_READS) a rank
+        ("hour", "replay_tx_gaia_1h", "gloo", no_launches(
+            power_scatter=hour_ticks)),
+        ("thermal", "replay_tx_gaia_1h_thermal", "gloo",
+         no_launches(power_scatter=thermal_ticks,
+                     rack_thermal=thermal_ticks)),
+        ("resume", "replay_tx_gaia_1h", "nccl", no_launches(
+            power_scatter=hour_ticks - int(MESH_SNAP_S))))
+    for name, case, backend, launches in checks:
+        ranks = res[name]
+        for r, got in enumerate(ranks):
+            differ = _bitwise(torch, want[case],
+                              (got["final"], got["telem"]))
+            emit("mesh", step=name, case=case, backend=backend,
+                 world=len(ranks), rank=r,
+                 replicas=int(got["final"].t.shape[0]),
+                 wall_s=got["wall_s"], launches=got["launches"],
+                 host_reads=got["reads"], fields_differing=differ,
+                 world_s=run["seconds"][name])
+            if differ:
+                raise AssertionError(f"mesh {name} rank {r}: differs from "
+                                     f"phase fleet's run in {differ}")
+            if got["launches"] != launches:
+                raise AssertionError(f"mesh {name} rank {r}: launches "
+                                     f"{got['launches']}, expected "
+                                     f"{launches}")
+            if got["reads"] != MESH_READS[name]:
+                raise AssertionError(f"mesh {name} rank {r}: {got['reads']} "
+                                     f"counted host reads, expected "
+                                     f"{MESH_READS[name]}")
+    ticks = A.RL_ITERATIONS * A.RL_ROLLOUT * A.RL_SIM_STEPS
+    for name, backend in (("ppo_w1", "nccl"), ("ppo_w2", "gloo")):
+        ranks = res[name]
+        for r, got in enumerate(ranks):
+            (a, b) = got["runs"]
+            report = A.check_ppo_dist(a["got"], len(ranks), r)
+            # gloo: two all-reduces a parameter tensor and one of the
+            # stats a iteration, each a counted host round trip
+            reads = (A.RL_ITERATIONS * (2 * len(a["params"]) + 1)
+                     if backend == "gloo" else 0)
+            same = a["got"] == b["got"] and all(
+                torch.equal(a["params"][k], b["params"][k])
+                for k in a["params"])
+            emit("mesh", step="ppo", backend=backend, world=len(ranks),
+                 rank=r, wall_s=[a["wall_s"], b["wall_s"]],
+                 launches=a["launches"], drains=got["drains"],
+                 host_reads=[a["reads"], b["reads"]],
+                 rerun_bitwise=same, history=a["got"]["history"],
+                 world_s=run["seconds"][name], **report)
+            if not same:
+                raise AssertionError(f"mesh ppo W={len(ranks)} rank {r}: "
+                                     "the rerun differs")
+            if got["drains"] != [A.RL_ITERATIONS] * 2:
+                raise AssertionError(f"mesh ppo: host drains "
+                                     f"{got['drains']}, expected one a "
+                                     "chunk")
+            for x in (a, b):
+                if x["launches"] != no_launches(power_scatter=ticks):
+                    raise AssertionError(f"mesh ppo W={len(ranks)} rank "
+                                         f"{r}: launches {x['launches']}")
+                if x["reads"] != reads:
+                    raise AssertionError(f"mesh ppo W={len(ranks)} rank "
+                                         f"{r}: {x['reads']} counted host "
+                                         f"reads, expected {reads}")
+    emit("mesh", step="done", seconds=time.perf_counter() - run["t0"],
+         worlds_s=run["seconds"])
 
 
 def no_launches(**kw) -> dict:
@@ -1393,10 +1671,10 @@ def counted_drains(torch, drains: list):
     def patched():
         drain = P._drain
 
-        def counted_drain(stats):
+        def counted_drain(stats, *keys):
             torch.cuda.set_sync_debug_mode(0)
             try:
-                return drain(stats)
+                return drain(stats, *keys)
             finally:
                 drains.append(len(stats))
                 torch.cuda.set_sync_debug_mode("error")
@@ -2501,6 +2779,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -2752,6 +3031,7 @@ def main() -> int:
                            ("mamba_scan", "bfloat16", SCAN_CASES[0][0]),
                            ("selective_scan", SCAN_CASES[0][0])),
     }
+    emit("script", seconds=time.perf_counter() - t_script)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -3,7 +3,9 @@ from repro_torch.checkpoint.ckpt import (
     latest_step,
     read_meta,
     restore,
+    restore_sharded,
     save,
+    save_sharded,
 )
 from repro_torch.checkpoint.episode import (
     check_fingerprint,

@@ -25,9 +25,17 @@ other writes.
   is; a JAX key's uint32 words restore into it losslessly.
 
 Missing or corrupt manifests, missing leaf files, and shape or dtype
-mismatches raise ``CheckpointError`` naming the artifact. The sharded
-save and restore (``save_sharded`` / ``restore_sharded``) arrive with the
-multi-GPU slice (ROADMAP queue 1, item 10).
+mismatches raise ``CheckpointError`` naming the artifact.
+
+On a fleet mesh (``launch.mesh.FleetMesh``) ``save_sharded`` is a
+gather-to-host save, as the JAX package's is: the ranks all-gather their
+blocks of a replica-batched tree (``sharding.specs.gather_fleet``), rank
+0 writes the whole tree and the others wait at a barrier, so the
+checkpoint is the single-process one and any world size reads it. Under
+gloo each rank drains its block and the blocks are gathered on the host;
+under nccl they are gathered on the card and rank 0 drains the whole:
+one counted read a snapshot on each rank that drains. ``restore_sharded``
+reads it on the host and gives each rank its block.
 """
 
 from __future__ import annotations
@@ -204,6 +212,45 @@ def restore(directory: str, step: int, like: Any) -> Any:
         return to_device(out, leaf.device)
 
     return tree_map_with_path_names(load, like)
+
+
+def save_sharded(directory: str, step: int, tree: Any, mesh, *,
+                 extra_meta: Optional[Dict[str, Any]] = None,
+                 keep: int = 3, whole=None) -> str:
+    """Write this rank's block ``tree`` of a replica-batched tree, with
+    every other rank's, as one checkpoint of the whole tree (see the
+    module docstring); call it on every rank. ``whole``: leaves already
+    whole on every rank (a dict merged into the gathered one). Returns
+    the checkpoint's path on every rank."""
+    from repro_torch.sharding.specs import gather_fleet
+
+    host = None
+    if mesh.backend == "gloo":
+        # gloo gathers host memory: each rank's block off the card first
+        host = drain({"block": tree, "whole": whole or {}})
+        host["block"] = gather_fleet(host["block"], mesh)
+    else:
+        full = gather_fleet(tree, mesh)     # on the card, no wait
+        if mesh.rank == 0:
+            host = drain({"block": full, "whole": whole or {}})
+    path = _step_dir(directory, step)
+    if mesh.rank == 0:
+        full = host["block"]
+        if host["whole"]:
+            full = {**full, **host["whole"]}
+        path = _write(directory, step, full, extra_meta, keep)
+    mesh.barrier()
+    return path
+
+
+def restore_sharded(directory: str, step: int, like: Any, mesh) -> Any:
+    """Checkpoint ``step`` of ``directory`` as this rank's block: ``like``
+    is the WHOLE tree's template (every leaf with the leading replica axis
+    of all ranks), read on the host and cut to this rank's block
+    (``sharding.specs.fleet_block``)."""
+    from repro_torch.sharding.specs import fleet_block
+
+    return fleet_block(restore(directory, step, like), mesh)
 
 
 class AsyncCheckpointer:

@@ -30,6 +30,9 @@ then carried through the snapshots.
 
 On the card the fingerprint and each snapshot are one counted read each
 (``utils.device.drain``); nothing else of this module reads the device.
+On a fleet mesh every rank takes the fingerprint of the whole batch (one
+read each); a snapshot is one read on every rank under gloo and on rank
+0 under nccl (``ckpt.save_sharded``).
 """
 
 from __future__ import annotations
@@ -166,10 +169,13 @@ def _snapshot_plan(cfg, n_steps: int, snapshot_every_s, telemetry_every: int,
 
 
 def _segments(cfg, statics, state, n_steps, scheduler, macro, kw, fp,
-              seg_ticks, snapshot_dir, resume_from, snapshot_keep):
+              seg_ticks, snapshot_dir, resume_from, snapshot_keep,
+              mesh=None):
     """The segmented drive shared by episodes and fleets: resume, then
     segments with a snapshot after each. Returns (state, finalised
-    telemetry)."""
+    telemetry). With a fleet ``mesh`` the whole batch is restored, each
+    rank runs its block, every snapshot is ``ckpt.save_sharded``'s whole
+    batch, and the result is gathered on every rank."""
     from repro_torch.core import sim
 
     acc = sim._telem_zero(state.t.device, tuple(state.t.shape),
@@ -180,6 +186,12 @@ def _segments(cfg, statics, state, n_steps, scheduler, macro, kw, fp,
             resume_from, {"state": state, "acc": acc}, fp)
         if tree is not None:
             state, acc = tree["state"], tree["acc"]
+    if mesh is not None:
+        from repro_torch.core.fleet import _block
+        from repro_torch.sharding.specs import fleet_block
+
+        statics, state, scheduler = _block((statics, state, scheduler), mesh)
+        acc = fleet_block(acc, mesh)
     if snapshot_dir is None:
         snapshot_dir = resume_from
     while ticks < n_steps:
@@ -188,10 +200,20 @@ def _segments(cfg, statics, state, n_steps, scheduler, macro, kw, fp,
                                      macro=macro, **kw)
         ticks += n
         if snapshot_dir is not None:
-            ckpt.save(snapshot_dir, ticks, {"state": state, "acc": acc},
-                      extra_meta={"ticks": ticks, "fingerprint": fp},
-                      keep=snapshot_keep)
-    return state, sim._telem_finalize(acc)
+            meta = {"ticks": ticks, "fingerprint": fp}
+            if mesh is None:
+                ckpt.save(snapshot_dir, ticks, {"state": state, "acc": acc},
+                          extra_meta=meta, keep=snapshot_keep)
+            else:
+                ckpt.save_sharded(snapshot_dir, ticks,
+                                  {"state": state, "acc": acc}, mesh,
+                                  extra_meta=meta, keep=snapshot_keep)
+    out = state, sim._telem_finalize(acc)
+    if mesh is not None:
+        from repro_torch.sharding.specs import gather_fleet
+
+        out = gather_fleet(out, mesh)
+    return out
 
 
 def run_episode_snapshotted(
@@ -231,6 +253,7 @@ def run_fleet_snapshotted(
     scheduler,
     kw: Dict[str, Any],
     *,
+    mesh=None,
     snapshot_every_s,
     snapshot_dir: Optional[str],
     resume_from: Optional[str],
@@ -244,7 +267,11 @@ def run_fleet_snapshotted(
     replica's key stream is the single call's. ``statics`` is the
     caller's, ``fleet_statics`` it with the batched scenario, and
     ``scheduler`` the name or batched ``placement.Policy`` the ticks
-    run."""
+    run, all of the whole batch. With a fleet ``mesh`` each rank runs its
+    block between snapshots of the whole batch; the fingerprint is the
+    whole batch's and leaves the mesh out, so a sweep snapshotted on one
+    world size resumes on another, bit for bit (the sharded run equals
+    the single-process one)."""
     seg_ticks = _snapshot_plan(
         cfg, n_steps, snapshot_every_s, kw.get("telemetry_every", 1),
         kw.get("summary_only", False), kw.get("macro", False))
@@ -258,7 +285,7 @@ def run_fleet_snapshotted(
     seg_kw = {k: v for k, v in kw.items() if k not in _EPISODE_MODES}
     return _segments(cfg, fleet_statics, state, n_steps, scheduler,
                      kw.get("macro", False), seg_kw, fp, seg_ticks,
-                     snapshot_dir, resume_from, snapshot_keep)
+                     snapshot_dir, resume_from, snapshot_keep, mesh=mesh)
 
 
 __all__ = [

@@ -31,6 +31,9 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
   RL env with the serving actions (``rl_tx_gaia_serving``), pinned in
   ``PINNED_SERVING``, ``PINNED_FLEET_SERVING`` and ``PINNED_RL_SERVING``
   (at the end).
+- Distributed PPO on ``rl_tx_gaia`` over a fleet mesh of 1 or 2 ranks
+  (``rl.distributed.distributed_ppo_train``, ``compress=True``), pinned
+  per world size in ``PINNED_RL_DIST`` (at the end).
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -3376,5 +3379,158 @@ PINNED_RL_SERVING = {
         "digest_workload": [1, 1, 1, 3, 0, 2, 3, 1],
         "n_completed": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
         "past_queued": 64,
+    },
+}
+
+
+# Distributed PPO (``rl.distributed``): ``rl_tx_gaia``'s env (per tick),
+# 8 environments in W contiguous blocks of a fleet mesh, ``compress=True``,
+# RL_ITERATIONS iterations. ``run_ppo_dist`` keeps a rank's iteration-0
+# rollout from the training run itself (``on_rollout``);
+# ``check_ppo_dist`` holds it and every iteration's stats to
+# ``PINNED_RL_DIST[W]``.
+# a single gradient step a iteration evaluates the loss at ratio 1, where
+# pg_loss (the mean of normalised advantages) and approx_kl (the mean of
+# old minus new log-probabilities) are zero but for rounding: held to an
+# absolute tolerance
+RATIO_ONE_STATS, RATIO_ONE_ATOL = ("pg_loss", "approx_kl"), 1e-6
+RL_ROLLOUT_STATS = ("mean_reward", "mean_episode_return", "mean_episode_len",
+                    "mean_value")
+
+
+def run_ppo_dist(env, mesh, guard=None,
+                 n_iterations: int = RL_ITERATIONS) -> dict:
+    """The distributed ``ppo`` case on one rank of ``mesh`` (call it on
+    every rank, ``env`` on the rank's device):
+    ``distributed_ppo_train(seed=RL_SEED, compress=True)`` inside
+    ``guard()`` when one is given, its iteration-0 rollout kept. Returns
+    ``check_ppo_dist``'s form and the trained parameters."""
+    import contextlib
+
+    from repro_torch.rl import PPOConfig
+    from repro_torch.rl.distributed import distributed_ppo_train
+
+    guard = guard or contextlib.nullcontext
+    first = {}
+
+    def keep(iteration, batch):
+        if iteration == 0:
+            first["batch"] = batch
+
+    with guard():
+        params, history = distributed_ppo_train(
+            env, mesh, cfg=PPOConfig(n_envs=RL_ENVS, rollout_len=RL_ROLLOUT),
+            n_iterations=n_iterations, seed=RL_SEED, compress=True,
+            on_rollout=keep)
+    batch = first["batch"]
+    return {"actions0": batch.action.cpu().numpy().tolist(),
+            "mean_reward0": float(batch.reward.mean()),
+            "mean_value0": float(batch.value.mean()),
+            "history": history}, params
+
+
+def check_ppo_dist(got: dict, world: int, rank: int,
+                   pins: dict | None = None) -> dict:
+    """Hold rank ``rank`` of a distributed PPO run of ``world`` ranks to
+    ``PINNED_RL_DIST[world]``: its iteration-0 actions exactly, its
+    rollout's mean reward and value within ``RTOL``; iteration 0's rollout
+    stats within ``RTOL``, its loss stats and every later iteration's
+    stats (after the compressed updates) within ``RL_STATS_RTOL``
+    (``RATIO_ONE_STATS``, zero but for rounding, within
+    ``RATIO_ONE_ATOL``). Raises on a miss; returns the largest errors."""
+    pins = PINNED_RL_DIST[world] if pins is None else pins
+    a, w = np.asarray(got["actions0"]), np.asarray(pins["actions0"][rank])
+    if not np.array_equal(a, w):
+        raise AssertionError(f"ppo_dist W={world} rank {rank}: iteration "
+                             f"0's actions differ at "
+                             f"{np.argwhere(a != w).tolist()[:8]}")
+    out = {}
+    for f in ("mean_reward0", "mean_value0"):
+        rel = abs(got[f] - pins[f][rank]) / abs(pins[f][rank])
+        out[f"rel_err_{f}"] = rel
+        if rel > RTOL:
+            raise AssertionError(f"ppo_dist W={world} rank {rank}: {f} "
+                                 f"{got[f]!r} vs {pins[f][rank]!r}")
+    if len(got["history"]) != len(pins["history"]):
+        raise AssertionError("ppo_dist: iteration counts differ")
+    for i, (gs, ws) in enumerate(zip(got["history"], pins["history"])):
+        if set(gs) != set(ws):
+            raise AssertionError(f"ppo_dist: stat keys {sorted(gs)}")
+        worst = zero = 0.0
+        for k, v in ws.items():
+            if k in RATIO_ONE_STATS:
+                zero = max(zero, abs(gs[k] - v))
+                bad = abs(gs[k] - v) > RATIO_ONE_ATOL
+            else:
+                rel = abs(gs[k] - v) / max(abs(v), 1e-30)
+                worst = max(worst, rel)
+                bad = rel > (RTOL if i == 0 and k in RL_ROLLOUT_STATS
+                             else RL_STATS_RTOL)
+            if bad:
+                raise AssertionError(
+                    f"ppo_dist W={world} rank {rank}: iteration {i} {k} "
+                    f"{gs[k]!r} vs pinned {v!r}")
+        out[f"max_rel_err_stats_{i}"] = worst
+        out[f"abs_err_ratio_one_{i}"] = zero
+    return out
+
+
+# ``PINNED_RL_DIST``: the JAX package's ``distributed_ppo_train`` on
+# ``rl_tx_gaia`` (``SchedEnv(macro=False)``, 8 environments,
+# ``compress=True``) at 1 and 2 fake host devices of the CPU (jax 0.9.0):
+# each rank's iteration-0 actions, mean reward and mean value, and the
+# stats of RL_ITERATIONS iterations; made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_mesh_pins.py
+# (44 s on 8 cores).
+PINNED_RL_DIST = {
+    1: {
+        "actions0": [[[5, 2, 2, 4, 2, 6, 2, 8], [7, 4, 4, 4, 5, 7, 5, 7], [2,
+            2, 8, 2, 3, 3, 6, 3], [3, 4, 2, 0, 1, 8, 0, 2], [2, 1, 1, 1, 2, 3,
+            8, 7], [1, 2, 0, 6, 2, 3, 6, 0], [1, 6, 1, 3, 5, 0, 1, 4], [2, 0,
+            8, 8, 4, 8, 7, 6], [8, 1, 8, 8, 4, 6, 2, 3], [0, 1, 7, 8, 6, 3, 3,
+            5], [8, 1, 2, 8, 0, 1, 1, 5], [2, 3, 1, 3, 7, 4, 8, 3], [5, 6, 0,
+            2, 0, 7, 1, 6], [7, 4, 5, 2, 3, 7, 5, 4], [4, 4, 1, 0, 4, 5, 1, 7],
+            [4, 8, 8, 2, 7, 8, 8, 7], [7, 4, 0, 7, 6, 7, 0, 1], [5, 5, 2, 1, 8,
+            0, 4, 0], [5, 7, 6, 1, 6, 7, 3, 5], [1, 2, 1, 2, 4, 2, 6, 8], [0,
+            4, 0, 7, 6, 4, 4, 2], [4, 0, 0, 3, 5, 1, 1, 5], [0, 8, 7, 7, 2, 3,
+            0, 5], [5, 8, 7, 8, 6, 2, 1, 5], [2, 0, 0, 0, 2, 2, 6, 3], [4, 7,
+            6, 0, 7, 8, 0, 7], [0, 4, 6, 6, 1, 7, 5, 7], [1, 1, 3, 1, 3, 2, 2,
+            7], [5, 0, 7, 0, 2, 0, 5, 5], [7, 7, 6, 0, 8, 5, 4, 5], [6, 3, 7,
+            8, 0, 8, 1, 5], [8, 8, 3, 3, 5, 1, 3, 0]]],
+        "mean_reward0": [-3.1805367],
+        "mean_value0": [-0.1159697],
+        "history": [{"approx_kl": 0.0, "entropy": 2.1963828, "loss": 274.6612,
+            "mean_episode_len": 32.0, "mean_episode_return": -101.77716,
+            "mean_reward": -3.1805367, "mean_value": -0.1159697, "pg_loss":
+            1.0430813e-07, "v_loss": 549.36633}, {"approx_kl": 0.0, "entropy":
+            2.196068, "loss": 271.37958, "mean_episode_len": 32.0,
+            "mean_episode_return": -101.45528, "mean_reward": -3.1704774,
+            "mean_value": -0.30983797, "pg_loss": 1.7881393e-07, "v_loss":
+            542.8031}],
+    },
+    2: {
+        "actions0": [[[5, 2, 2, 4], [7, 4, 4, 4], [2, 2, 8, 2], [3, 4, 2, 0],
+            [2, 1, 1, 1], [1, 2, 0, 6], [1, 6, 1, 3], [2, 0, 8, 8], [8, 1, 8,
+            8], [0, 1, 7, 8], [8, 1, 2, 8], [2, 3, 1, 3], [5, 6, 0, 2], [7, 4,
+            5, 2], [4, 4, 1, 0], [4, 8, 8, 2], [7, 4, 0, 7], [5, 5, 2, 1], [5,
+            7, 6, 1], [1, 2, 1, 2], [0, 4, 0, 7], [4, 0, 0, 3], [0, 8, 7, 7],
+            [5, 8, 7, 8], [2, 0, 0, 0], [4, 7, 6, 0], [0, 4, 6, 6], [1, 1, 3,
+            1], [5, 0, 7, 0], [7, 7, 6, 0], [6, 3, 7, 8], [8, 8, 3, 3]], [[4,
+            1, 3, 0], [2, 2, 0, 4], [5, 0, 2, 0], [1, 4, 5, 3], [7, 6, 5, 4],
+            [0, 7, 0, 7], [6, 2, 2, 7], [7, 3, 2, 2], [5, 3, 3, 0], [3, 5, 3,
+            6], [6, 1, 1, 6], [4, 3, 6, 5], [5, 4, 2, 0], [7, 2, 6, 0], [4, 1,
+            1, 4], [8, 1, 5, 3], [6, 5, 1, 3], [4, 8, 1, 6], [8, 5, 3, 7], [5,
+            1, 5, 2], [0, 6, 7, 6], [7, 2, 7, 2], [1, 2, 7, 0], [3, 1, 3, 6],
+            [5, 5, 8, 6], [1, 0, 8, 3], [6, 3, 1, 2], [6, 2, 7, 7], [1, 6, 7,
+            4], [7, 2, 5, 6], [1, 6, 7, 8], [2, 8, 8, 2]]],
+        "mean_reward0": [-3.1779506, -3.175841],
+        "mean_value0": [-0.12042669, -0.12277031],
+        "history": [{"approx_kl": 0.0, "entropy": 2.1963997, "loss": 273.91754,
+            "mean_episode_len": 32.0, "mean_episode_return": -101.66066,
+            "mean_reward": -3.1768959, "mean_value": -0.1215985, "pg_loss":
+            4.4703484e-08, "v_loss": 547.879}, {"approx_kl": 0.0, "entropy":
+            2.1960034, "loss": 271.8974, "mean_episode_len": 32.0,
+            "mean_episode_return": -101.56404, "mean_reward": -3.1738758,
+            "mean_value": -0.32165837, "pg_loss": 0.0, "v_loss": 543.83875}],
     },
 }

@@ -20,6 +20,7 @@ from repro_torch.core.fleet import (
     policy_scenario_grid,
     prepare_fleet,
     run_fleet,
+    shard_fleet,
 )
 from repro_torch.core.placement import (
     PLACE_IDS,

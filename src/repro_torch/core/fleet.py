@@ -11,9 +11,20 @@ and runs ``run_episode`` on the batched state: every field carries a
 leading replica axis E, the step's reductions run per replica, and each
 of the tick's kernels takes E as its grid, so the host issues one tick's
 launches for all R replicas. This is the JAX package's vmapped
-``run_fleet``; its device-sharded path (``mesh=``) arrives with the
-multi-GPU slice. With the snapshot arguments one crash-atomic snapshot
+``run_fleet``. With the snapshot arguments one crash-atomic snapshot
 holds the whole batch (``checkpoint.episode.run_fleet_snapshotted``).
+
+With ``mesh=`` (a ``launch.mesh.FleetMesh``) the replica axis splits
+across the mesh's ranks in contiguous blocks, as the JAX package's
+``shard_map`` path splits it across devices: every rank sets up the
+whole batch (keys, scenarios, policies, workload ids), runs
+``run_episode`` on its own block, and all-gathers the final states and
+telemetry (``sharding.specs.gather_fleet``), so every rank returns the
+whole result. No collective runs inside the ticks: each rank's macro
+lockstep spans only its own replicas. A replica's run does not depend on
+which rank holds it, so the result equals the single-process run bit for
+bit.
+
 With ``macro=True`` the replicas macro-step in lockstep
 (``sim.make_macro_step``): each macro step runs an event tick on every
 replica with ticks left, then fast ticks under a per-replica mask, so
@@ -43,6 +54,7 @@ from repro_torch.core.sim import (
 )
 from repro_torch.core.state import SimState, Statics, broadcast_state
 from repro_torch.scenarios.scenario import Scenario, n_replicas, stack_scenarios
+from repro_torch.sharding.specs import FLEET_AXIS, fleet_block, gather_fleet
 from repro_torch.utils import prng
 from repro_torch.utils.device import to_device, tree_to
 from repro_torch.utils.errors import ConfigError
@@ -126,6 +138,7 @@ def run_fleet(
     policies: Policy | Sequence[Policy | Tuple[str, str]] | None = None,
     workloads: Sequence[int] | np.ndarray | None = None,
     mesh=None,
+    mesh_axis: str = FLEET_AXIS,
     snapshot_every_s: float | None = None,
     snapshot_dir: str | None = None,
     resume_from: str | None = None,
@@ -183,23 +196,37 @@ def run_fleet(
     (``utils.invariants.check_state``), besides the per-tick checks of
     ``run_episode``.
 
-    ``mesh`` arrives with the multi-GPU slice and raises here.
+    ``mesh``: a fleet mesh (``launch.mesh.make_fleet_mesh``, called on
+    every rank of the world) splits the replica axis in contiguous blocks
+    across its ``mesh_axis`` ranks; each rank runs its block and every
+    rank returns the whole result (see the module docstring), equal to
+    ``mesh=None`` bit for bit. R must divide evenly by the mesh size (a
+    loud ``ConfigError`` otherwise, before any tick: a silent pad would
+    fabricate replicas whose summaries leak into sweep statistics). With
+    snapshots, one snapshot still holds the whole batch and leaves the
+    mesh out of its fingerprint, so a sweep resumes on another world size.
 
     Returns (final_states, outs) with a leading replica axis on every leaf.
     """
     from repro_torch.utils import invariants
 
-    fleet_statics, state, who = prepare_fleet(
+    fleet_statics, state, who = _prepare(
         cfg, statics, state, scheduler, scenarios=scenarios,
-        policies=policies, workloads=workloads, mesh=mesh)
+        policies=policies, workloads=workloads, mesh=mesh,
+        mesh_axis=mesh_axis)
     if snapshot_every_s is not None or resume_from is not None \
             or snapshot_dir is not None:
         from repro_torch.checkpoint.episode import run_fleet_snapshotted
 
         out = run_fleet_snapshotted(
             cfg, statics, fleet_statics, state, n_steps, who, kw,
-            snapshot_every_s=snapshot_every_s, snapshot_dir=snapshot_dir,
-            resume_from=resume_from, snapshot_keep=snapshot_keep)
+            mesh=mesh, snapshot_every_s=snapshot_every_s,
+            snapshot_dir=snapshot_dir, resume_from=resume_from,
+            snapshot_keep=snapshot_keep)
+    elif mesh is not None:
+        b_statics, b_state, b_who = _block((fleet_statics, state, who), mesh)
+        out = gather_fleet(run_episode(cfg, b_statics, b_state, n_steps,
+                                       b_who, **kw), mesh)
     else:
         out = run_episode(cfg, fleet_statics, state, n_steps, who, **kw)
     if invariants.enabled():
@@ -217,16 +244,70 @@ def prepare_fleet(
     policies=None,
     workloads=None,
     mesh=None,
+    mesh_axis: str = FLEET_AXIS,
 ) -> Tuple[Statics, SimState, str | Policy]:
     """``run_fleet``'s checks and set-up without the ticks: (the statics
     with the batched scenario on the state's device, the batched state
     with its keys and workload ids, the scheduler name or batched Policy),
     ready for ``run_episode``, ``make_step`` or ``make_macro_step`` (the
-    set-up is the same for both engines)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the device-sharded fleet arrives with the multi-GPU "
-            "slice (ROADMAP queue 1, item 10)")
+    set-up is the same for both engines). With ``mesh``, the whole batch
+    is set up and this rank's block of each is returned
+    (``shard_fleet``; the statics stay whole but their scenario)."""
+    out = _prepare(cfg, statics, state, scheduler, scenarios=scenarios,
+                   policies=policies, workloads=workloads, mesh=mesh,
+                   mesh_axis=mesh_axis)
+    return out if mesh is None else _block(out, mesh)
+
+
+# the JAX package's name for a rank's block of a replica-batched tree (its
+# ``device_put`` onto the mesh)
+shard_fleet = fleet_block
+
+
+def _block(prepared, mesh):
+    """A ``_prepare`` triple's block for this rank: the statics whole but
+    their batched scenario, the state's and the policies' blocks."""
+    statics, state, who = prepared
+    return (statics._replace(scenario=fleet_block(statics.scenario, mesh)),
+            fleet_block(state, mesh),
+            who if isinstance(who, str) else fleet_block(who, mesh))
+
+
+def _check_mesh(mesh, mesh_axis: str, R: int) -> None:
+    """The reference's refusals of a mesh, before any tick."""
+    from repro_torch.launch.mesh import FleetMesh
+
+    if not isinstance(mesh, FleetMesh):
+        raise ConfigError(
+            f"mesh= takes a launch.mesh.FleetMesh, got "
+            f"{type(mesh).__name__} — build one on every rank with "
+            "launch.mesh.make_fleet_mesh()")
+    if mesh_axis not in mesh.shape:
+        raise ConfigError(
+            f"mesh has axes {tuple(mesh.shape)}, no {mesh_axis!r} — "
+            "build a fleet mesh with launch.mesh.make_fleet_mesh()")
+    n_shards = int(mesh.shape[mesh_axis])
+    if R % n_shards:
+        raise ConfigError(
+            f"{R} replicas do not divide across {n_shards} "
+            f"{mesh_axis!r}-axis devices — a silent pad would "
+            "fabricate replicas; pick R as a multiple of the mesh "
+            "size or shrink the mesh (a world of fewer ranks)")
+
+
+def _prepare(
+    cfg: SimConfig,
+    statics: Statics,
+    state: SimState,
+    scheduler: str | None = None,
+    *,
+    scenarios=None,
+    policies=None,
+    workloads=None,
+    mesh=None,
+    mesh_axis: str = FLEET_AXIS,
+) -> Tuple[Statics, SimState, str | Policy]:
+    """``prepare_fleet`` for the whole batch (the mesh only checked)."""
     if policies is not None and scheduler is not None:
         raise ConfigError(
             f"both scheduler={scheduler!r} and policies= given — policies "
@@ -251,6 +332,8 @@ def prepare_fleet(
     else:
         scenarios = _ensure_batched(scenarios)
     R = n_replicas(scenarios)
+    if mesh is not None:
+        _check_mesh(mesh, mesh_axis, R)
     dev = state.t.device
     if state.t.dim() == 0:
         keys = prng.split(state.key, R)

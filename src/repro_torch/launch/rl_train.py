@@ -18,8 +18,10 @@ took 4,524-4,949 decisions/s against 5,171-6,643 (``PERF.md`` §6).
 
 ``--ckpt DIR`` checkpoints the whole training state every 10 iterations
 (``ppo_train``'s ``checkpoint_every``); with ``--resume`` training goes on
-from the newest checkpoint there, bit for bit. ``--mesh`` refuses:
-sharded training arrives with ROADMAP queue 1, item 10.
+from the newest checkpoint there, bit for bit. Distributed training has
+no flag here, as in the JAX package's launcher: call
+``rl.distributed.distributed_ppo_train(env, launch.mesh.make_fleet_mesh())``
+on every rank (``launch.mesh.spawn_world`` starts the ranks).
 """
 
 from __future__ import annotations
@@ -53,15 +55,9 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--mesh", type=int, default=0,
-                    help="devices to shard the environments over")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: distributed PPO arrives with the multi-GPU slice "
-            "(ROADMAP queue 1, item 10)")
 
     if args.cluster == "tiny":
         cfg = tiny_cluster(sched_max_candidates=4)

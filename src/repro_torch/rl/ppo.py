@@ -227,11 +227,10 @@ def make_train_iteration(env, policy: ActorCritic, cfg: PPOConfig):
     return iteration, opt
 
 
-def _drain(stats: list) -> np.ndarray:
+def _drain(stats: list, keys=STAT_KEYS) -> np.ndarray:
     """A chunk's stats to the host: the one host sync per chunk.
-    (n iterations, len(STAT_KEYS)) float64."""
-    rows = torch.stack([torch.stack([s[k] for k in STAT_KEYS])
-                        for s in stats])
+    (n iterations, len(keys)) float64."""
+    rows = torch.stack([torch.stack([s[k] for k in keys]) for s in stats])
     return rows.cpu().numpy().astype(np.float64)
 
 

@@ -290,17 +290,17 @@ def test_macro_fleet_runs_and_matches_per_tick(pair, grid_run):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 10"),
+    (dict(mesh=object()), "make_fleet_mesh"),
     (dict(snapshot_every_s=60.0, snapshot_dir="x"), "summary_only"),
     (dict(resume_from="x"), "summary_only"),
 ])
 def test_run_fleet_refuses_what_later_slices_bring(pair, kw, item):
-    """``mesh=`` waits for the multi-GPU slice (item 10); snapshots came
-    with the durable slice and refuse only without an episode-wide
-    summary (``ConfigError``)."""
+    """``mesh=`` takes a ``launch.mesh.FleetMesh`` and refuses anything
+    else, naming ``make_fleet_mesh`` (the sharded fleet itself is
+    ``tests/test_torch_mesh.py``'s); snapshots refuse only without an
+    episode-wide summary. Both are ``ConfigError``s."""
     _, _, pst, ps, _, _ = pair
-    err = NotImplementedError if item.startswith("item") else ConfigError
-    with pytest.raises(err, match=item):
+    with pytest.raises(ConfigError, match=item):
         PF.run_fleet(pcfg.tiny_cluster(), pst, ps, 5, **kw)
 
 
