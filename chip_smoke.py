@@ -189,9 +189,25 @@ and no result line:
              a chunk, and on gloo one counted read a collective (none on
              nccl); the phase's seconds, and at the end the script's.
 
+16. virtual_cloud  the perf model's LM jobs through the twin (the
+             example ``repro_torch.examples.virtual_cloud``): the workload
+             (``acceptance.virtual_cloud_workload``: 32 LM jobs of four
+             archs from ``perfmodel.lm_jobs_workload``, built on this host's
+             numpy) at its pinned digest, then its ``baseline`` and
+             ``demand response 300kW`` what-ifs (``tx_gaia(max_jobs=64,
+             max_nodes_per_job=16)``) through build_statics -> init_state
+             -> load_jobs -> run_episode(5400 ticks of "easy",
+             summary_only) -> summary, each in a worker process started
+             with phase ``fleet``'s replicas rerun alone (joined before its
+             timings), the ticks under sync-debug "error": ``completed``
+             exactly and the rest within 1e-5 of ``PINNED_VIRTUAL_CLOUD``,
+             one power_scatter launch a tick; the ms a tick beside phase
+             4's (the workers share the card and the host with phase
+             ``fleet``'s, so theirs is not an alone time).
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
-``serving``, and the fleet of ``durable``) each run in a worker process of
-their own on the card
+``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
+what-ifs each run in a worker process of their own on the card
 (``run_alone``: this script with ``--alone``, ALONE_WORKERS at once), so
 the checks of a phase run together; the parent waits for all of them and
 stops any that fails.
@@ -220,7 +236,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 KERNEL_RTOL = 1e-5
-TIMING_REPS = 50               # timed batches (median over these)
+TIMING_REPS = 25               # timed batches (median over these)
 TIMING_BATCH = 20              # back-to-back calls per timed batch
 DETERMINISM = (("replay_tx_gaia_1h", 300),
                ("replay_tx_gaia_1h_thermal_stress", 450))
@@ -274,7 +290,7 @@ BF16_DECODE_FACTOR = 2.0
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
 # timed at each, and (start tick, ticks) of each profile
 FLEET_SIZES = (1, 72, 1152)
-FLEET_TIMING = 150
+FLEET_TIMING = 100
 FLEET_PROFILE = (100, 5)
 # the rl phase: environments timed, decisions per timed rollout
 RL_SCALE_ENVS = (8, 64, 512)
@@ -1178,9 +1194,14 @@ def run_alone(torch, runs: list, during=None):
 
 def alone_main(src: str, out: str) -> int:
     """Worker of ``run_alone``: one ``run_episode`` on the card (or the
-    run's ``entry``: ``run_fleet``)."""
+    run's ``entry``: ``run_fleet``). A run with ``measure`` is timed under
+    sync-debug "error" with its launches counted, and its result carries
+    them as a third element."""
+    import contextlib
+
     import torch
 
+    from repro_torch import kernels
     from repro_torch.core import run_episode, run_fleet
     from repro_torch.utils.device import exact_matmul
 
@@ -1188,10 +1209,19 @@ def alone_main(src: str, out: str) -> int:
     run = torch.load(src, map_location="cuda", weights_only=False)
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
-    final, telem = entry(run["cfg"], run["statics"], run["state"],
-                         run["n_steps"], run["scheduler"], **run["kw"])
+    measure = run.get("measure", False)
     torch.cuda.synchronize()
-    torch.save((final, telem), out)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with (no_sync(torch)() if measure else contextlib.nullcontext()):
+        final, telem = entry(run["cfg"], run["statics"], run["state"],
+                             run["n_steps"], run["scheduler"], **run["kw"])
+    torch.cuda.synchronize()
+    result = (final, telem)
+    if measure:
+        result += ({"wall_s": time.perf_counter() - t0,
+                    "launches": dict(kernels.LAUNCHES)},)
+    torch.save(result, out)
     return 0
 
 
@@ -1241,7 +1271,7 @@ def _profile_fleet(torch, replicas: int) -> dict:
                                  "top_kernels_us")}
 
 
-def fleet(torch, np, jobs, bank) -> dict:
+def fleet(torch, np, jobs, bank, beside=()) -> tuple:
     """The fleet case (``acceptance.fleet_grid``: 8 policies x 9 scenarios,
     72 replicas of ``replay_tx_gaia_1h``) for the hour in one batched run
     under sync-debug "error": every replica at ``PINNED_FLEET``, replica 0
@@ -1251,8 +1281,9 @@ def fleet(torch, np, jobs, bank) -> dict:
     config for FLEET_THERMAL_TICKS at E = 72 (one rack_thermal launch a
     tick) with FLEET_THERMAL_ALONE rerun alone; then ms per tick, us per
     replica-tick, CUDA kernels per tick and the device's busy share at
-    E = 1, 72 and 1152 (the grid tiled 16x). Returns the hour's launches
-    and wall seconds."""
+    E = 1, 72 and 1152 (the grid tiled 16x). ``beside``: more runs for
+    ``run_alone``, started first with the replicas rerun alone. Returns
+    (the hour's launches and wall seconds, the results of ``beside``)."""
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
         build_statics,
@@ -1315,14 +1346,16 @@ def fleet(torch, np, jobs, bank) -> dict:
         finals[case] = final, telem
     # the replicas rerun alone, and phase mesh's worlds beside them
     t0 = time.perf_counter()
-    alone_runs, mesh_run = run_alone(torch, alone,
+    alone_runs, mesh_run = run_alone(torch, list(beside) + alone,
                                      during=lambda: mesh_start(torch))
+    beside_runs, alone_runs = (alone_runs[:len(beside)],
+                               alone_runs[len(beside):])
     for (f1, t1), (case, name, scn_id, e, final, telem) in zip(
             alone_runs, checks):
         emit("fleet", step="alone", case=case, policy=name,
              scenario=scn_id, **_alone_vs_fleet(
                  torch, f"fleet {case}", f1, final, e, t1, telem))
-    emit("fleet", step="alone runs", runs=len(alone),
+    emit("fleet", step="alone runs", runs=len(alone), beside=len(beside),
          workers=ALONE_WORKERS, wall_s=time.perf_counter() - t0)
     mesh(torch, mesh_run, finals)
     emit("fleet", step="alone runs and mesh", wall_s=time.perf_counter() - t0)
@@ -1344,7 +1377,70 @@ def fleet(torch, np, jobs, bank) -> dict:
              profile_ticks=FLEET_PROFILE)
         if launches != no_launches(power_scatter=FLEET_TIMING):
             raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
-    return runs["replay_tx_gaia_1h"]
+    return runs["replay_tx_gaia_1h"], beside_runs
+
+
+def virtual_cloud_runs(torch, np) -> list:
+    """Phase ``virtual_cloud``'s set-up: the LM workload built on this
+    host (numpy and float64, as in the JAX package) and checked against
+    its pinned digest, then each pinned what-if's config, statics and
+    state on the card, as measured runs for ``run_alone``."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import build_statics, init_state, load_jobs
+
+    t0 = time.perf_counter()
+    jobs, bank = A.virtual_cloud_workload()
+    digest = A.workload_digest(jobs, bank)
+    pinned = A.PINNED_VIRTUAL_CLOUD["digest"]
+    emit("virtual_cloud", step="workload", numpy=np.__version__,
+         jobs=int(len(jobs["dur"])), digest=digest, pinned=pinned,
+         seconds=time.perf_counter() - t0)
+    if digest != pinned:
+        raise AssertionError(f"virtual cloud workload digest {digest} != "
+                             f"pinned {pinned}")
+    runs = []
+    for name in A.VIRTUAL_CLOUD_PINNED:
+        cfg = A.virtual_cloud_config(name)
+        statics = build_statics(cfg, bank)
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        runs.append(dict(cfg=cfg, statics=statics, state=state,
+                         n_steps=A.VIRTUAL_CLOUD_TICKS,
+                         scheduler=A.VIRTUAL_CLOUD_SCHEDULER,
+                         kw=dict(summary_only=True), measure=True))
+    torch.cuda.synchronize()
+    emit("virtual_cloud", step="setup", runs=len(runs),
+         seconds=time.perf_counter() - t0)
+    return runs
+
+
+def virtual_cloud(torch, results: list, main_ms: float) -> None:
+    """Phase ``virtual_cloud``'s checks (see the module docstring, phase
+    16) of the what-ifs' worker results. Raises on any miss."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import summary
+
+    t0 = time.perf_counter()
+    for name, (final, telem, run) in zip(A.VIRTUAL_CLOUD_PINNED, results):
+        got = summary(final, telem)
+        ticks = A.VIRTUAL_CLOUD_TICKS
+        emit("virtual_cloud", scenario=name, ticks=ticks,
+             scheduler=A.VIRTUAL_CLOUD_SCHEDULER, wall_s=run["wall_s"],
+             ms_per_tick=1e3 * run["wall_s"] / ticks,
+             replay_tx_gaia_1h_ms_per_tick=main_ms,
+             launches=run["launches"], completed=got["completed"],
+             energy_kwh=got["energy_kwh"], carbon_kg=got["carbon_kg"],
+             avg_pue=got["avg_pue"],
+             pins=A.check_virtual_cloud(name, got))
+        if run["launches"] != no_launches(power_scatter=ticks):
+            raise AssertionError(f"virtual cloud {name}: launches "
+                                 f"{run['launches']}")
+        for field, v in final._asdict().items():
+            ok = (~torch.isnan(v) if field in INF_CLOCKS
+                  else torch.isfinite(v))
+            if v.is_floating_point() and not bool(ok.all()):
+                raise AssertionError(f"virtual cloud {name}: final state "
+                                     f"field {field}: bad values")
+    emit("virtual_cloud", step="checks", seconds=time.perf_counter() - t0)
 
 
 def _mesh_fleet_run(torch, mesh, case: str, ticks: int, **kw) -> dict:
@@ -2953,10 +3049,16 @@ def main() -> int:
                                jobs, "thermal")
     launches["rack_thermal"] = per_tick[THERMAL_CASES[0]][0]["rack_thermal"]
 
-    # 6. fleet: the replay tick batched over a replica axis
+    # 6. fleet: the replay tick batched over a replica axis; phase 16's
+    # what-ifs run in workers beside its replicas rerun alone
     t0 = time.perf_counter()
-    fleet_hour = fleet(torch, np, jobs, bank)
+    vc_runs = virtual_cloud_runs(torch, np)
+    fleet_hour, vc_results = fleet(torch, np, jobs, bank, beside=vc_runs)
     emit("fleet", step="done", seconds=time.perf_counter() - t0)
+
+    # 16. virtual_cloud: the perf model's LM jobs through the twin
+    virtual_cloud(torch, vc_results, 1e3 * per_tick["replay_tx_gaia_1h"][3]
+                  / acceptance.N_STEPS)
 
     # 7. rl: SchedEnv batched over the replica axis, PPO end to end
     t0 = time.perf_counter()

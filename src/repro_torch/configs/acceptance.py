@@ -33,7 +33,12 @@ serving cases at full width (``serve_gemma3_1b``, then the jamba hybrid's
   (at the end).
 - Distributed PPO on ``rl_tx_gaia`` over a fleet mesh of 1 or 2 ranks
   (``rl.distributed.distributed_ppo_train``, ``compress=True``), pinned
-  per world size in ``PINNED_RL_DIST`` (at the end).
+  per world size in ``PINNED_RL_DIST``.
+- The virtual cloud (``repro_torch.examples.virtual_cloud``): LM jobs of
+  four archs from the perf model run through a smaller TX-GAIA job table
+  under five what-ifs (``virtual_cloud_config``,
+  ``virtual_cloud_workload``), two of them pinned in
+  ``PINNED_VIRTUAL_CLOUD`` with the workload's digest (at the end).
 
 ``PINNED[case]`` holds what the JAX package's ``run_episode(...,
 "replay", summary_only=True)`` + ``summary(state, telemetry)`` give for
@@ -46,6 +51,7 @@ reference run.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -3532,5 +3538,155 @@ PINNED_RL_DIST = {
             2.1960034, "loss": 271.8974, "mean_episode_len": 32.0,
             "mean_episode_return": -101.56404, "mean_reward": -3.1738758,
             "mean_value": -0.32165837, "pg_loss": 0.0, "v_loss": 543.83875}],
+    },
+}
+
+
+# ---------------------------------------------------------------------------
+# The virtual cloud: the JAX package's ``examples/virtual_cloud.py``. The
+# perf model turns LM jobs of VIRTUAL_CLOUD_ARCHS into a twin workload
+# (``perfmodel.lm_jobs_workload``: 32 jobs over an hour, seed 7) on
+# ``tx_gaia(max_jobs=64, max_nodes_per_job=16)``; the twin answers five
+# what-ifs (config overrides), VIRTUAL_CLOUD_TICKS ticks of "easy" each,
+# all on the one workload. ``PINNED_VIRTUAL_CLOUD`` holds what the JAX
+# package's ``run_episode(..., summary_only=True)`` + ``summary(state,
+# telemetry)`` give for two of them on the CPU (jax 0.9.0), and the
+# sha256 of the workload's arrays (``workload_digest``), made by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_perfmodel_pins.py
+VIRTUAL_CLOUD_ARCHS = ("qwen3-4b", "mixtral-8x22b", "gemma3-1b",
+                       "granite-3-8b")
+VIRTUAL_CLOUD_JOBS = dict(n_jobs=32, horizon_s=3600.0, seed=7)
+VIRTUAL_CLOUD_TICKS = 5400
+VIRTUAL_CLOUD_SCHEDULER = "easy"
+VIRTUAL_CLOUD_WHAT_IFS = {
+    "baseline": {},
+    "hot day (+8C wetbulb)": {"wetbulb_mean_c": 24.0},
+    "smart rectifiers": {"rect_eff_peak": 0.985, "rect_eff_curv": 0.04},
+    "degraded network": {"bisection_gbps": 200.0, "congestion_knee": 0.2},
+    "demand response 300kW": {"power_cap_w": 300_000.0},
+}
+VIRTUAL_CLOUD_PINNED = ("baseline", "demand response 300kW")
+
+
+def virtual_cloud_config(scenario: str = "baseline") -> SimConfig:
+    return tx_gaia(max_jobs=64, max_nodes_per_job=16,
+                   **VIRTUAL_CLOUD_WHAT_IFS[scenario])
+
+
+def virtual_cloud_workload(cfg: SimConfig | None = None):
+    """(jobs, trace bank) of the virtual cloud on ``cfg`` (default: the
+    baseline config; the what-ifs change nothing the workload reads)."""
+    from repro_torch.perfmodel import lm_jobs_workload
+
+    return lm_jobs_workload(cfg or virtual_cloud_config(),
+                            list(VIRTUAL_CLOUD_ARCHS), **VIRTUAL_CLOUD_JOBS)
+
+
+def workload_digest(jobs: dict, bank: dict) -> str:
+    """sha256 over the jobs' and then the bank's arrays, each key's name,
+    dtype, shape and bytes in sorted key order."""
+    h = hashlib.sha256()
+    for part in (jobs, bank):
+        for k in sorted(part):
+            a = np.ascontiguousarray(part[k])
+            h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def check_virtual_cloud(scenario: str, got: dict,
+                        pins: dict | None = None) -> dict:
+    """Raise unless the summary ``got`` meets the scenario's pins:
+    ``completed`` exactly, every other value within ``RTOL``. Returns the
+    largest relative error."""
+    pins = (PINNED_VIRTUAL_CLOUD if pins is None else pins)[scenario]
+    if got["completed"] != pins["completed"]:
+        raise AssertionError(f"virtual cloud {scenario}: completed "
+                             f"{got['completed']} != pinned "
+                             f"{pins['completed']}")
+    worst = 0.0
+    for k, v in pins.items():
+        err = abs(got[k] - v)
+        if err > RTOL * abs(v):
+            raise AssertionError(f"virtual cloud {scenario}: {k} "
+                                 f"{got[k]!r} vs pinned {v!r} (rtol {RTOL})")
+        if v:
+            worst = max(worst, err / abs(v))
+    return {"max_rel_err": worst, "keys": len(pins)}
+PINNED_VIRTUAL_CLOUD = {
+    "digest": "224fd4db4b796f9b9a6d025d2445e2044e601050607d9d3f9196c9bbaa3c1bf1",
+    "baseline": {
+        "t_end_s": 5400.0,
+        "completed": 4.0,
+        "killed_by_failures": 0.0,
+        "energy_kwh": 429.7662353515625,
+        "it_energy_kwh": 342.8932189941406,
+        "loss_energy_kwh": 23.924007415771484,
+        "cooling_energy_kwh": 62.94816207885742,
+        "carbon_kg": 213.5205535888672,
+        "elec_cost_usd": 43.85024642944336,
+        "mean_power_w": 286510.08,
+        "mean_wait_s": 0.5325202941894531,
+        "mean_slowdown": 1.0008876323699951,
+        "gflops_per_watt": 4.276538597383907,
+        "avg_pue": 1.253352972719202,
+        "peak_rack_outlet_c": 14.0,
+        "thermal_throttle_s": 0.0,
+        "lost_node_seconds": 0.0,
+        "jobs_failed_terminal": 0.0,
+        "goodput_node_s": 18295.223388671875,
+        "goodput_frac": 1.0,
+        "srv_arrived": 0.0,
+        "srv_completed": 0.0,
+        "srv_shed": 0.0,
+        "srv_dropped": 0.0,
+        "srv_retried": 0.0,
+        "srv_mean_latency_s": 0.0,
+        "srv_slo_violation_frac": 0.0,
+        "srv_goodput_requests": 0.0,
+        "srv_p50_latency_x_slo": 0.0,
+        "srv_p99_latency_x_slo": 0.0,
+        "ticks_simulated": 5400.0,
+        "macro_steps_taken": 5400.0,
+        "macro_skip_ratio": 1.0,
+        "mean_cop": 5.827758312225342,
+        "max_rack_outlet_c": 14.0,
+    },
+    "demand response 300kW": {
+        "t_end_s": 5400.0,
+        "completed": 4.0,
+        "killed_by_failures": 0.0,
+        "energy_kwh": 429.7487487792969,
+        "it_energy_kwh": 342.8797607421875,
+        "loss_energy_kwh": 23.92306900024414,
+        "cooling_energy_kwh": 62.945709228515625,
+        "carbon_kg": 213.51223754882812,
+        "elec_cost_usd": 43.848541259765625,
+        "mean_power_w": 286498.82074074075,
+        "mean_wait_s": 0.5325202941894531,
+        "mean_slowdown": 1.0008876323699951,
+        "gflops_per_watt": 4.275668155449717,
+        "avg_pue": 1.2533511684943879,
+        "peak_rack_outlet_c": 14.0,
+        "thermal_throttle_s": 0.0,
+        "lost_node_seconds": 0.0,
+        "jobs_failed_terminal": 0.0,
+        "goodput_node_s": 18295.223388671875,
+        "goodput_frac": 1.0,
+        "srv_arrived": 0.0,
+        "srv_completed": 0.0,
+        "srv_shed": 0.0,
+        "srv_dropped": 0.0,
+        "srv_retried": 0.0,
+        "srv_mean_latency_s": 0.0,
+        "srv_slo_violation_frac": 0.0,
+        "srv_goodput_requests": 0.0,
+        "srv_p50_latency_x_slo": 0.0,
+        "srv_p99_latency_x_slo": 0.0,
+        "ticks_simulated": 5400.0,
+        "macro_steps_taken": 5400.0,
+        "macro_skip_ratio": 1.0,
+        "mean_cop": 5.827758312225342,
+        "max_rack_outlet_c": 14.0,
     },
 }

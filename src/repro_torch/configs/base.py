@@ -5,14 +5,16 @@ config in both packages.
 Every architecture file of the port (``src/repro_torch/configs/<id>.py``)
 builds a :class:`ModelConfig`; the four input shapes are :data:`SHAPES`.
 ``reduced()`` derives the CPU-smoke-test variant of any config (same block
-structure, tiny widths). The port registers the dense archs and the jamba
-hybrid (whose experts the MoE slice brings: ``models.spec.check_ported``
-refuses its MoE layers); the others raise ``NotImplementedError`` from
-``get_arch`` naming their slice.
+structure, tiny widths). The port registers all ten archs, so the perf
+model (``repro_torch.perfmodel``) counts every one of them; building a
+model whose layers the port does not run yet (MoE, cross-attention, the
+xLSTM cells, the encoder-decoder) raises ``NotImplementedError`` naming
+the slice that brings them (``models.spec.check_ported``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
@@ -149,6 +151,13 @@ SHAPES = {
 }
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable?, reason-if-skipped) for an (arch, shape) cell."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k decode skipped (see DESIGN.md)"
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Reduced (smoke-test) variants: same structure, tiny widths.
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -187,6 +196,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return replace(cfg, **kw)
 
 
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")
+SMOKE_DECODE_SHAPE = ShapeConfig("smoke_decode", 64, 2, "decode")
+
+
 # ---------------------------------------------------------------------------
 # Arch registry: populated by the per-arch modules in repro_torch/configs/.
 ARCHS: Registry[ModelConfig] = Registry("arch")
@@ -194,6 +207,8 @@ ARCHS: Registry[ModelConfig] = Registry("arch")
 
 # Archs of the JAX package whose layers the port does not run yet, with the
 # slice of the port that brings each (ROADMAP.md, "Modules still to port").
+# Their configs and parameter shapes are ported; building their models is
+# refused (``models.spec.check_ported``).
 NOT_YET_PORTED = {
     "mixtral-8x22b": "the MoE slice",
     "grok-1-314b": "the MoE slice",
@@ -204,13 +219,18 @@ NOT_YET_PORTED = {
 
 
 def get_arch(name: str) -> ModelConfig:
-    """The registered config ``name``; an arch of a later slice raises
-    ``NotImplementedError`` naming that slice."""
     import repro_torch.configs  # noqa: F401  (ensures registrations ran)
 
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it comes with "
-            f"{NOT_YET_PORTED[name]}; the port serves the archs "
-            f"{', '.join(ARCHS.names())}")
     return ARCHS.get(name)()
+
+
+def arch_names():
+    import repro_torch.configs  # noqa: F401
+
+    return ARCHS.names()
+
+
+def to_dict(cfg) -> dict:
+    if dataclasses.is_dataclass(cfg):
+        return dataclasses.asdict(cfg)
+    return dict(cfg)

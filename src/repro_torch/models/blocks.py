@@ -9,7 +9,9 @@ compute dtype and norm scales in f32 (``model.DecoderLayer.weights``).
 positions in flight, computed once per forward and shared by the
 attention layers.
 Other mixer kinds raise ``NotImplementedError`` naming the slice of the
-port that brings them (as do MoE configs, in ``spec.check_ported``).
+port that brings them, as ``spec.check_ported`` does for a whole config
+(other mixers, MoE FFNs, the encoder-decoder) wherever a model or its
+weights are built.
 """
 
 from __future__ import annotations

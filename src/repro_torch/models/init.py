@@ -9,6 +9,9 @@ norms and ``D_skip`` ones, ``conv_b`` zeros, ``A_log`` the log of
 draw in [1e-3, 1e-1]; every other leaf a normal scaled by
 ``1/sqrt(fan_in)``.
 
+Both refuse a config whose layers the port does not run yet
+(``spec.check_ported``).
+
 - ``init_params(cfg, generator)``: the port's own random init with an
   explicit ``torch.Generator``, for the CLI and the full-width hybrid. Its
   normals are truncated to +-2 std, as the JAX package's are, but it is not
@@ -70,6 +73,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random f32 parameters on ``device`` (the generator's device when
     None), leaf by leaf in the JAX package's flatten order."""
+    S.check_ported(cfg)
     device = torch.device(device or generator.device)
     specs = S.model_param_specs(cfg)
     leaves = {}
@@ -111,6 +115,7 @@ def seeded_numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     A dense config draws exactly what it drew before the Mamba leaves
     existed.
     """
+    S.check_ported(cfg)
     rng = np.random.default_rng(seed)
     specs = S.model_param_specs(cfg)
     leaves = {}

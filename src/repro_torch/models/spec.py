@@ -1,21 +1,30 @@
 """Single source of truth for parameter shapes (the JAX package's
-``models/spec.py``, for the kinds the port runs).
+``models/spec.py``, every layer kind).
 
 ``model_param_specs(cfg)`` returns the JAX package's parameter tree with a
 shape tuple at each leaf; the port's random init, its numpy weights for the
-tests, and the analytic parameter count all read it.
+tests, the analytic parameter count and the perf model's roofline all read
+it.
 
 Layer layout
 ------------
 Layers are grouped into *superblocks* of ``period`` layers (the LCM of the
-block pattern length and the MoE period). Params of position ``p`` inside
-the superblock are stacked over the ``n_repeats`` superblocks (leading axis
-R); any remainder layers live unstacked under ``tail``. Layer ``r * period
-+ p`` is ``body[p][name][r]``; layer ``R * period + j`` is ``tail[j]``.
+block pattern length, the MoE period and the cross-attention period).
+Params of position ``p`` inside the superblock are stacked over the
+``n_repeats`` superblocks (leading axis R); any remainder layers live
+unstacked under ``tail``. Layer ``r * period + p`` is
+``body[p][name][r]``; layer ``R * period + j`` is ``tail[j]``.
 
-Every layer = mixer (``attn`` / ``attn_local`` / ``mamba``) + a dense
-gated MLP. The other mixers (cross, mlstm, slstm) and MoE FFNs raise
-``NotImplementedError`` naming the slice of the port that brings them.
+Every layer = mixer (attn / attn_local / cross / mamba / mlstm / slstm)
++ optional FFN (dense or MoE). ``d_ff == 0`` (xlstm) means no FFN: the
+cells carry their own up/down projections. An encoder-decoder config
+(whisper) adds the ``encoder`` stack and a cross-attention onto its memory
+in every decoder layer (``xattn_body`` / ``xattn_tail``).
+
+The port runs the attention and Mamba mixers with dense FFNs; building a
+model with any other layer (``check_ported``, called wherever a model or
+its weights are built) raises ``NotImplementedError`` naming the slice of
+the port that brings it.
 """
 
 from __future__ import annotations
@@ -89,7 +98,10 @@ def layer_kind_at(cfg: ModelConfig, layer_idx: int) -> str:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    """Raise ``NotImplementedError`` for a config whose model the port
+    cannot build yet, naming the slice that brings its layers. Called by
+    ``DecoderLM`` and by ``init.init_params`` / ``seeded_numpy_params``;
+    the shapes and counts below cover every config."""
     if cfg.enc_dec:
         raise not_ported("enc_dec")
     if cfg.moe.n_experts > 0:
@@ -100,14 +112,21 @@ def check_ported(cfg: ModelConfig) -> None:
             raise not_ported(kind)
 
 
+def slstm_ff(cfg: ModelConfig) -> int:
+    return int(round(cfg.d_model * 4 / 3 / 64)) * 64 or 64
+
+
 def mixer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Shape]:
     D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s: Dict[str, Shape] = {"ln1": (D,)}
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in (ATTN, ATTN_LOCAL, CROSS):
         s.update(wq=(D, H * hd), wk=(D, Kv * hd), wv=(D, Kv * hd),
                  wo=(H * hd, D))
         if cfg.qk_norm:
             s.update(qn=(hd,), kn=(hd,))
+        if kind == CROSS:
+            s.update(lnx=(D,), xq=(D, H * hd), xk=(D, Kv * hd),
+                     xv=(D, Kv * hd), xo=(H * hd, D), xgate=(1,))
     elif kind == MAMBA:
         di, ds, dc, dr = (d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv,
                           dt_rank(cfg))
@@ -122,8 +141,19 @@ def mixer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Shape]:
             D_skip=(di,),
             out_proj=(di, D),
         )
+    elif kind == MLSTM:
+        di, nh = d_inner(cfg), cfg.n_heads
+        s.update(up=(D, 2 * di), conv_w=(4, di), conv_b=(di,),
+                 wq=(di, di), wk=(di, di), wv=(di, di), gi=(di, nh),
+                 gf=(di, nh), ln_inner=(di,), down=(di, D))
+    elif kind == SLSTM:
+        nh = cfg.n_heads
+        dh = D // nh
+        ff = slstm_ff(cfg)
+        s.update(w=(D, 4 * D), r=(nh, dh, 4 * dh), b=(4 * D,),
+                 ln_inner=(D,), up=(D, 2 * ff), down=(ff, D))
     else:
-        raise not_ported(kind)
+        raise ValueError(f"unknown mixer kind {kind}")
     return s
 
 
@@ -135,11 +165,15 @@ def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Shape]:
     D, F = cfg.d_model, cfg.d_ff
     if F == 0:
         return {}
+    s: Dict[str, Shape] = {"ln2": (D,)}
     if is_moe:
-        raise not_ported("moe")
-    s: Dict[str, Shape] = {"ln2": (D,), "wi": (D, F), "wo2": (F, D)}
-    if mlp_gated(cfg):
-        s["wg"] = (D, F)
+        E = cfg.moe.n_experts
+        s.update(router=(D, E), e_wg=(E, D, F), e_wi=(E, D, F),
+                 e_wo=(E, F, D))
+    else:
+        s.update(wi=(D, F), wo2=(F, D))
+        if mlp_gated(cfg):
+            s["wg"] = (D, F)
     return s
 
 
@@ -149,23 +183,35 @@ def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Shape]:
     return s
 
 
+def _stack(specs: Dict[str, Shape], n: int) -> Dict[str, Shape]:
+    return {k: (n,) + v for k, v in specs.items()}
+
+
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX package's parameter tree, with shape tuples as leaves."""
-    check_ported(cfg)
     period, n_repeats, n_tail = layout(cfg)
-    specs: Dict[str, Any] = {
-        "emb": (cfg.vocab, cfg.d_model),
-        "final_ln": (cfg.d_model,),
-    }
+    D = cfg.d_model
+    specs: Dict[str, Any] = {"emb": (cfg.vocab, D), "final_ln": (D,)}
     if not cfg.tie_embeddings:
-        specs["head"] = (cfg.d_model, cfg.vocab)
-    specs["body"] = [
-        {k: (n_repeats,) + v for k, v in layer_specs(cfg, p).items()}
-        for p in range(period)
-    ] if n_repeats > 0 else []
+        specs["head"] = (D, cfg.vocab)
+    specs["body"] = [_stack(layer_specs(cfg, p), n_repeats)
+                     for p in range(period)] if n_repeats > 0 else []
     specs["tail"] = [
         layer_specs(cfg, n_repeats * period + j) for j in range(n_tail)
     ]
+    if cfg.enc_dec:
+        enc_layer = dict(mixer_specs(cfg, ATTN))
+        enc_layer.update(ffn_specs(cfg, False))
+        specs["encoder"] = {"layers": _stack(enc_layer, cfg.n_enc_layers),
+                            "final_ln": (D,)}
+        # decoder layers gain cross-attention onto encoder memory
+        H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        xa = {"lnx": (D,), "xq": (D, H * hd), "xk": (D, Kv * hd),
+              "xv": (D, Kv * hd), "xo": (H * hd, D)}
+        if n_repeats > 0:
+            specs["xattn_body"] = [_stack(xa, n_repeats)
+                                   for _ in range(period)]
+        specs["xattn_tail"] = [dict(xa) for _ in range(n_tail)]
     return specs
 
 
@@ -190,7 +236,13 @@ def leaves_with_names(specs: Dict[str, Any]):
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Exact element count of ``model_param_specs`` (no MoE layers here, so
-    ``active_only`` changes nothing)."""
-    return sum(math.prod(shape)
-               for _, shape in leaves_with_names(model_param_specs(cfg)))
+    """Exact element count of ``model_param_specs``; MoE experts scaled by
+    top_k/n_experts when ``active_only`` (for MODEL_FLOPS = 6*N_active*D)."""
+    total = 0
+    for name, shape in leaves_with_names(model_param_specs(cfg)):
+        n = math.prod(shape)
+        if active_only and ("/e_w" in name
+                            or name.endswith(("e_wg", "e_wi", "e_wo"))):
+            n = n * cfg.moe.top_k // max(cfg.moe.n_experts, 1)
+        total += n
+    return total

@@ -25,7 +25,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+covered = all(any(m.startswith(pkg) for m in names) for pkg in
+              ("repro_torch.examples.", "repro_torch.perfmodel."))
+print(len(names), covered, bad)
 """
 
 
@@ -35,8 +37,9 @@ def test_no_module_of_the_port_loads_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, covered, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20, out.stdout
+    assert covered == "True", out.stdout
     assert bad == "[]", f"loaded: {bad}"
 
 

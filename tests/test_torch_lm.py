@@ -42,7 +42,7 @@ from repro_torch.models import (
     seeded_numpy_params,
 )
 from repro_torch.models.model import decode_step, init_cache, prefill
-from repro_torch.models.spec import layout
+from repro_torch.models.spec import layout, leaves_with_names
 from repro_torch.train.serve_step import generate
 
 CTX = ShardCtx(enabled=False, attention_impl="pallas")
@@ -386,22 +386,32 @@ def test_serve_cli_refuses_the_experts_of_jamba():
         serve.main(["--arch", JAMBA, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m",
-                                  "mixtral-8x22b", "whisper-small",
-                                  "llama-3.2-vision-11b", "grok-1-314b"])
+LATER_SLICES = {JAMBA: "the MoE slice", "xlstm-125m": "the xLSTM slice",
+                "mixtral-8x22b": "the MoE slice",
+                "whisper-small": "the encoder-decoder slice",
+                "llama-3.2-vision-11b": "the VLM cross-attention slice",
+                "grok-1-314b": "the MoE slice"}
+
+
+@pytest.mark.parametrize("arch", list(LATER_SLICES))
 def test_archs_of_later_slices_raise(arch):
-    """Archs of later slices raise from ``get_arch``. jamba's config is the
-    JAX package's (its Mamba layers are ported), but its experts come with
-    the MoE slice: building its model, or its parameter tree, raises."""
+    """Every arch's config is the JAX package's, and so is its parameter
+    tree (the perf model counts it). Building a model whose layers come
+    with a later slice of the port raises, naming that slice: the model
+    itself, the port's random init and the numpy weights both packages
+    load (on the reduced config, which keeps the layer kinds)."""
+    cfg = get_arch(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_get_arch(arch))
+    assert [tuple(x.shape) for x in jax.tree.leaves(jax_param_specs(
+        jax_get_arch(arch)))] == [
+            shape for _, shape in leaves_with_names(model_param_specs(cfg))]
     if arch == JAMBA:
-        cfg = get_arch(arch)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(
-            jax_get_arch(arch))
         assert cfg.moe.n_experts == 16
-        with pytest.raises(NotImplementedError, match="the MoE slice"):
-            model_param_specs(cfg)
-        with pytest.raises(NotImplementedError, match="the MoE slice"):
-            DecoderLM(cfg, {})
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_arch(arch)
+    match = LATER_SLICES[arch]
+    with pytest.raises(NotImplementedError, match=match):
+        DecoderLM(cfg, {})
+    small = reduced(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        init_params(small, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        seeded_numpy_params(small, 0)
