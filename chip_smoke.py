@@ -14,9 +14,11 @@ and no result line:
 3. kernel    each kernel against its plain PyTorch version on the card, at
              the paths' shapes (E=1 and E=64 replicas of the TX-GAIA job
              table, nodes and racks; the fleet's tick over a banked trace
-             of three workloads at E=72 and 1152; gemma3-1b's, qwen3-4b's and jamba's
-             prefill attention; jamba's selective scan at its 8-layer
-             prefill and at a ragged length, the signature entry in f32
+             of three workloads at E=72 and 1152; gemma3-1b's, qwen3-4b's,
+             jamba's and mixtral-8x22b's prefill attention (mixtral's
+             window of 4096 wider than the sequence); jamba's selective
+             scan at its 8-layer prefill and at a ragged length, the
+             signature entry in f32
              and the Mamba mixer's fused entry ``mamba_scan`` in bf16 and
              f32), and timed (CUDA events, median) beside its bound and,
              for attention, ``scaled_dot_product_attention``. The replay
@@ -85,7 +87,8 @@ and no result line:
              sync-debug "error": ``replay_tx_gaia_1h_faults`` (random node
              and rack faults, checkpoints, retries) and
              ``replay_tx_gaia_1h_drill`` (a rack's maintenance window and
-             an evicting brownout, thermals on) for the hour at
+             an evicting brownout, thermals on) for the hour (each in a
+             worker started beside phases rl and macro, ``early_runs``) at
              ``PINNED_FAULTS`` (the JAX package's per-tick values), one
              power_scatter (and on the drill one rack_thermal) launch per
              tick, ms per tick beside phase 4's; both macro-stepped:
@@ -119,7 +122,8 @@ and no result line:
              ``serve``.
 13. serving  the serving twin (run after ``faults``): the replay hour with
              a pool of 32 inference nodes under diurnal traffic and a
-             flash crowd (``replay_tx_gaia_1h_serving``) per tick under
+             flash crowd (``replay_tx_gaia_1h_serving``) per tick (in a
+             worker beside phases rl and macro) under
              sync-debug "error" at ``PINNED_SERVING`` (the JAX package's
              per-tick values), one power_scatter launch a tick, ms a tick
              beside phase 4's; macro-stepped: bitwise equal to per tick,
@@ -205,12 +209,35 @@ and no result line:
              4's (the workers share the card and the host with phase
              ``fleet``'s, so theirs is not an alone time).
 
+17. serve_moe  mixtral-8x22b's experts at full width (8 of d_ff 16384,
+             top-2): (a) ``serve_mixtral_1l`` (one layer, f32, its 11.6 GB
+             of ``seeded_numpy_params`` drawn in a worker started beside
+             phases rl and macro) held to ``PINNED_MIXTRAL`` with the
+             slots it dropped, 1 flash_attn launch per prefill and none per
+             decode step; (b) a zero router on (4, 1024) tokens: every
+             slot picks experts (0, 1), ranks in token order, exactly the
+             slots past rank 1,279 drop, the routing bitwise with the
+             CPU's, the dropped rows exactly 0; (c) ``serve_mixtral_4l``
+             (``init_params`` on the card) at capacity factor E / K
+             (nothing drops) in f32 and bf16: decode against the longer
+             prefill (f32 within 1e-4; bf16 reported with the routing
+             choices that differ at the decoded token and their
+             top-2/top-3 gaps and against SERVE_TOL, and, where none
+             differ, held as ``serve_hybrid`` holds its bf16 decode: within
+             twice the bf16 prefill's distance from the f32 answer), 4
+             flash_attn launches per prefill and none per decode step; (d)
+             ``generate`` in bf16 at the published capacity factor 1.25 as
+             in ``serve``, with the slots each layer drops.
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
 what-ifs each run in a worker process of their own on the card
 (``run_alone``: this script with ``--alone``, ALONE_WORKERS at once), so
 the checks of a phase run together; the parent waits for all of them and
-stops any that fails.
+stops any that fails. The per-tick hours of phases ``faults`` and
+``serving`` and phase ``serve_moe``'s pins run in workers started after
+phase ``virtual_cloud`` (``early_runs``, ``start_alone``), beside phases
+``rl`` and ``macro``, and are joined before phase ``faults``.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -243,17 +270,21 @@ DETERMINISM = (("replay_tx_gaia_1h", 300),
 THERMAL_CASES = ("replay_tx_gaia_1h_thermal",
                  "replay_tx_gaia_1h_thermal_stress")
 INF_CLOCKS = {"next_fail_t", "rack_fail_t", "srv_retry_t", "srv_wake_t"}
-# flash_attn at gemma3-1b's prefill (B 4, S 1024, H 4, Kv 1, hd 256) and
-# qwen3-4b's GQA (H 32, Kv 8, hd 128): (name, dtype, b, s, h, kv, hd,
-# causal, window, tolerance (atol = rtol))
+# flash_attn at gemma3-1b's prefill (B 4, S 1024, H 4, Kv 1, hd 256),
+# qwen3-4b's GQA (H 32, Kv 8, hd 128), jamba's (H 64) and mixtral's (H 48,
+# its window of 4096 wider than the sequence): (name, dtype, b, s, h, kv,
+# hd, causal, window, tolerance (atol = rtol))
 ATTN_CASES = (
     ("gemma3-1b causal", "bfloat16", 4, 1024, 4, 1, 256, True, 0, 2e-2),
     ("gemma3-1b window 512", "bfloat16", 4, 1024, 4, 1, 256, True, 512, 2e-2),
     ("gemma3-1b causal f32", "float32", 4, 1024, 4, 1, 256, True, 0, 2e-5),
     ("qwen3-4b causal", "bfloat16", 4, 1024, 32, 8, 128, True, 0, 2e-2),
     ("jamba causal", "bfloat16", 4, 1024, 64, 8, 128, True, 0, 2e-2),
+    ("mixtral window 4096", "bfloat16", 4, 1024, 48, 8, 128, True, 4096,
+     2e-2),
 )
 ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
+MIXTRAL_ATTN = "mixtral window 4096"     # every serve_mixtral_4l layer
 ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 3
 SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
@@ -284,7 +315,13 @@ MAMBA_SFU_PER_ELEM = 3
 # longer prefill: within BF16_DECODE_FACTOR times the bf16 prefill's own
 # distance from it. At the reduced widths on the CPU, zeroing one layer's
 # conv cache moves the decode step 37x that distance off, its ssm state
-# 3.5x; subtler faults are the f32 invariant's to find.
+# 3.5x; subtler faults are the f32 invariant's to find. serve_mixtral_4l's
+# bf16 decode step is held the same way where its routing agrees with the
+# longer prefill's (on the card its logits, of order 1-4, parted from the
+# longer bf16 prefill by 0.039 with no routing choice differing); at the
+# reduced widths on the CPU a zeroed k or v cache in its first layer moves
+# it 88x and 75x the bf16 prefill's distance off (``tests/
+# test_torch_moe.py``).
 HYBRID_TOL = 1e-4
 BF16_DECODE_FACTOR = 2.0
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
@@ -311,6 +348,9 @@ SERVING_PROFILE = (100, 5)
 # once (the machine has 8 cores; each run is host-bound)
 ALONE_WORKERS = 7
 ALONE_TIMEOUT_S = 600
+# the per-tick hours of phases faults and serving and phase serve_moe's
+# pins run in workers started after phase virtual_cloud, beside these
+EARLY_BESIDE = "phases rl and macro"
 # the durable phase: the main hour snapshotted every 600 s and killed
 # after tick 1,800; the faults hour macro-stepped for 1,200 ticks with a
 # snapshot every 120 s, killed after its 4th; the chaos kill loop on the
@@ -351,6 +391,25 @@ MESH_SNAP_S = 1800.0
 MESH_READS = {"hour": 1 + 2 + 1, "thermal": 1, "resume": 1 + 1}
 MESH_TIMEOUT_S = 900
 MESH_DIR = ROOT / "build" / "mesh" / "smoke"
+
+
+def card_memory(torch) -> dict:
+    """GB the caching allocator holds for live tensors now and reserves,
+    after a garbage collection (a cycle may hold tensors until one), and
+    the largest live tensors on the card where over 1 GB is held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    if out["allocated_gb"] > 1.0:
+        live = [o for o in gc.get_objects()
+                if isinstance(o, torch.Tensor) and o.is_cuda]
+        out["largest"] = sorted(
+            ([t.numel() * t.element_size() / 1e9, list(t.shape),
+              str(t.dtype)] for t in live), reverse=True)[:8]
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -622,7 +681,7 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
     # port), on (B, H, S, hd) views of the same tensors
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
-    if window > 0:
+    if 0 < window < s:   # a window as wide as the sequence is causal
         pos = torch.arange(s, device="cuda")
         dist = pos[:, None] - pos[None, :]
         mask = (dist >= 0) & (dist < window)
@@ -907,6 +966,277 @@ def serve_hybrid(torch, np) -> int:
     return per_prefill["selective_scan"]
 
 
+def serve_moe_pins(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="serve_moe_pins"``) of phase
+    ``serve_moe``'s pins: ``serve_mixtral_1l`` in f32 on the card, its
+    11.6 GB of numpy weights drawn here (``seeded_numpy_params``), the
+    prefill and each decode step with their launches and dropped slots
+    counted. Returns ``lm_summary`` (with ``dropped``), the launches, the
+    seconds and whether every logit is finite."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import seeded_numpy_params
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.moe import record_routing
+
+    t0 = time.perf_counter()
+    cfg = A.mixtral_config(1, "float32")
+    tree = seeded_numpy_params(cfg, A.MIXTRAL_SEED)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = lm_params_from_numpy(tree, cfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del tree
+    S, N = A.MIXTRAL_PROMPT, A.MIXTRAL_DECODE
+    toks = torch.tensor(A.lm_tokens(cfg, A.MIXTRAL_BATCH, S, N),
+                        device="cuda")
+    t0 = time.perf_counter()
+    with record_routing() as rec:
+        (logits, cache), per_prefill = _counted(
+            torch, lambda: prefill(model, toks[:, :S], cache_seq_len=S + N))
+    out, dropped = [logits], [[(~r.keep).sum() for r in rec]]
+
+    def decode_all(cache):
+        for i in range(N):
+            with record_routing() as rec:
+                logits, cache = decode_step(model, cache,
+                                            toks[:, S + i:S + i + 1], S + i)
+            out.append(logits)
+            dropped.append([(~r.keep).sum() for r in rec])
+
+    _, per_decode = _counted(torch, lambda: decode_all(cache))
+    return {"summary": A.lm_summary(
+                [x.cpu().numpy() for x in out],
+                [[int(c) for c in step] for step in dropped]),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out),
+            "params": cfg.param_count(), "weights_s": weights_s,
+            "load_s": load_s, "run_s": time.perf_counter() - t0,
+            "launches_per_prefill": per_prefill,
+            "launches_in_decode": per_decode,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _last_token_routing(long_rec, dec_rec, prompt: int) -> dict:
+    """The experts each MoE layer picks for the decoded token in a
+    decode step (``dec_rec``) and for the same token at the end of the
+    longer prefill (``long_rec``): how many (layer, prompt) pairs pick
+    another set, and their top-2/top-3 gaps (the second chosen prob
+    less the best unchosen one) on both sides."""
+    differ, gaps = 0, []
+    for layer, (lr, dr) in enumerate(zip(long_rec, dec_rec)):
+        batch = dr.expert_idx.shape[1]
+        k = dr.expert_idx.shape[2]
+        long_idx = lr.expert_idx[0].view(batch, prompt + 1, k)[:, -1]
+        long_p = lr.probs[0].view(batch, prompt + 1, -1)[:, -1]
+        for b in range(batch):
+            a = sorted(long_idx[b].tolist())
+            d = sorted(dr.expert_idx[0, b].tolist())
+            if a == d:
+                continue
+            differ += 1
+            pl = torch.sort(long_p[b], descending=True).values
+            pd = torch.sort(dr.probs[0, b], descending=True).values
+            gaps.append({"layer": layer, "prompt": b, "prefill": a,
+                         "decode": d,
+                         "prefill_top2_top3_gap": float(pl[k - 1] - pl[k]),
+                         "decode_top2_top3_gap": float(pd[k - 1] - pd[k])})
+    return {"routing_differs": differ, "differing": gaps}
+
+
+def serve_moe(torch, np, pins: dict) -> int:
+    """Phase ``serve_moe`` (see the module docstring, phase 17): the pins
+    of ``serve_mixtral_1l`` (run in a worker: ``pins``), the tie check,
+    ``serve_mixtral_4l``'s prefill/decode invariant in f32 and bf16 and
+    timed ``generate``. Returns the flash_attn launches of one 4-layer
+    prefill."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.train.serve_step import generate
+
+    before_gc = torch.cuda.memory_allocated() / 1e9
+    emit("serve_moe", step="start", allocated_before_gc_gb=before_gc,
+         **card_memory(torch))
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) serve_mixtral_1l in f32 against the JAX package's pins
+    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_MIXTRAL,
+                        case=A.MIXTRAL_CASE)
+    per_prefill, per_decode = (pins["launches_per_prefill"],
+                               pins["launches_in_decode"])
+    emit("serve_moe", step="pins", case=A.MIXTRAL_CASE,
+         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s",
+                                 "max_memory_gb")},
+         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
+         **report)
+    if not pins["finite"]:
+        raise AssertionError(f"{A.MIXTRAL_CASE}: non-finite logits")
+    if per_prefill != no_launches(flash_attn=1) or per_decode != \
+            no_launches():
+        raise AssertionError(f"{A.MIXTRAL_CASE}: launches {per_prefill} per "
+                             f"prefill, {per_decode} in {A.MIXTRAL_DECODE} "
+                             "decode steps (expected 1 flash_attn and none)")
+
+    # serve_mixtral_4l: f32 masters made on the card, at capacity E / K
+    # (nothing drops) for the invariant
+    n_layers = A.MIXTRAL_PATH_LAYERS
+    full = A.mixtral_config(n_layers, "float32")
+    E, K = full.moe.n_experts, full.moe.top_k
+    t0 = time.perf_counter()
+    tree = init_params(full, torch.Generator("cuda").manual_seed(
+        A.MIXTRAL_SEED))
+    torch.cuda.synchronize()
+    emit("serve_moe", step="weights", case=A.MIXTRAL_PATH_CASE,
+         params=full.param_count(), seconds=time.perf_counter() - t0)
+    prompt = torch.tensor(
+        np.random.default_rng(2).integers(0, full.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT + 1),
+                                          dtype=np.int32), device="cuda")
+    S = SERVE_PROMPT
+    per_prefill = None
+    truth = None     # the f32 model's logits of the longer prefill
+    for dtype in ("float32", "bfloat16"):
+        cfg = A.mixtral_config(n_layers, dtype, capacity_factor=E / K)
+        model = DecoderLM.from_tree(cfg, tree)
+        t0 = time.perf_counter()
+        with moe.record_routing() as long_rec:
+            want, _ = prefill(model, prompt, cache_seq_len=S + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        (_, cache), per_prefill = _counted(
+            torch, lambda: prefill(model, prompt[:, :S], cache_seq_len=S + 1))
+        with moe.record_routing() as dec_rec:
+            (got, _), per_decode = _counted(
+                torch, lambda: decode_step(model, cache,
+                                           prompt[:, S:S + 1], S))
+        err = float((got - want).abs().max())
+        routing = _last_token_routing(long_rec, dec_rec, S)
+        dropped = [int((~r.keep).sum()) for r in long_rec + dec_rec]
+        if dtype == "float32":
+            truth = want
+            limit = dict(tol=HYBRID_TOL)
+        else:
+            # as serve_hybrid's: the bf16 decode step against the f32
+            # answer, beside the bf16 prefill's own distance from it
+            prefill_off = float((want - truth).abs().max())
+            limit = dict(
+                decode_vs_f32_max_abs=float((got - truth).abs().max()),
+                prefill_vs_f32_max_abs=prefill_off,
+                limit=BF16_DECODE_FACTOR * prefill_off,
+                below_serve_tol=bool(torch.allclose(
+                    got, want, atol=SERVE_TOL, rtol=SERVE_TOL)),
+                serve_tol=SERVE_TOL)
+        emit("serve_moe", step="prefill_decode_invariant",
+             case=A.MIXTRAL_PATH_CASE, dtype=dtype, batch=SERVE_BATCH,
+             prompt=S, capacity_factor=E / K, max_abs_err=err, **limit,
+             argmax_agree_share=float(
+                 (got.argmax(-1) == want.argmax(-1)).float().mean()),
+             dropped=dropped, **routing, prefill_s=prefill_s,
+             launches_per_prefill=per_prefill,
+             launches_per_decode_step=per_decode)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{A.MIXTRAL_PATH_CASE} ({dtype}): "
+                                 "non-finite logits")
+        if any(dropped):
+            raise AssertionError(f"{A.MIXTRAL_PATH_CASE} ({dtype}): slots "
+                                 f"dropped at capacity E / K: {dropped}")
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
+                                       rtol=HYBRID_TOL)
+        elif not routing["routing_differs"] and not \
+                limit["decode_vs_f32_max_abs"] <= limit["limit"]:
+            raise AssertionError(
+                f"{A.MIXTRAL_PATH_CASE} (bf16): the decode step is "
+                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
+                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
+        if per_prefill != no_launches(flash_attn=n_layers) or \
+                per_decode != no_launches():
+            raise AssertionError(
+                f"{A.MIXTRAL_PATH_CASE} ({dtype}): launches {per_prefill} "
+                f"per prefill and {per_decode} per decode step (expected "
+                f"{n_layers} flash_attn and none)")
+        if dtype == "float32":
+            # (b) exact ties on the card: a zero router at full width
+            serve_moe_ties(torch, np, model.layers[0].weights(), cfg)
+            del model, cache, got, long_rec, dec_rec
+            torch.cuda.empty_cache()
+    del tree
+
+    # (d) generate in bf16 at the published capacity factor 1.25, B = 4,
+    # prompt 1024, 32 new tokens, no host sync; the slots each layer drops
+    model.cfg = A.mixtral_config(n_layers, "bfloat16")
+    prompt = prompt[:, :S].contiguous()
+    time_generate(torch, np, model, prompt, "serve_moe",
+                  case=A.MIXTRAL_PATH_CASE,
+                  capacity_factor=model.cfg.moe.capacity_factor)
+    with moe.record_routing() as rec:
+        generate(model, prompt, SERVE_GEN)
+    per_call = [int((~r.keep).sum()) for r in rec]
+    emit("serve_moe", step="dropped", case=A.MIXTRAL_PATH_CASE,
+         capacity_factor=model.cfg.moe.capacity_factor,
+         capacity_prefill=rec[0].capacity,
+         slots_prefill=int(rec[0].keep.numel()),
+         dropped_prefill_per_layer=per_call[:n_layers],
+         dropped_decode_total=sum(per_call[n_layers:]),
+         decode_steps=len(rec) // n_layers - 1)
+    del model, rec
+    torch.cuda.empty_cache()
+    return per_prefill["flash_attn"]
+
+
+def serve_moe_ties(torch, np, w: dict, cfg) -> None:
+    """Phase ``serve_moe`` (b): a zero router at mixtral's width on (4,
+    1024) tokens gives every prob 1/8, so every slot picks experts (0, 1)
+    in that order, ranks follow the tokens and exactly the slots past rank
+    C - 1 = 1,279 drop. The routing on the card equals the CPU's bit for
+    bit (probabilities, experts, gates, ranks, kept slots, capacity, aux);
+    through the layer's experts (``w``, f32) the dropped tokens' rows are
+    exactly 0 and the kept ones not."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+
+    D, E, K = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    T = B * S
+    x = torch.tensor(np.random.default_rng(3).standard_normal(
+        (B, S, D), dtype=np.float32))
+    zero = torch.zeros(D, E)
+    h = rms_norm(x, torch.ones(D), cfg.norm_eps).reshape(1, T, D)
+    published = 1.25
+    cpu = moe.route(zero, h, cfg, published)
+    card = moe.route(zero.cuda(), h.cuda(), cfg, published)
+    differ = [f for f in moe.Routing._fields if f != "capacity"
+              and not torch.equal(getattr(cpu, f),
+                                  getattr(card, f).cpu())]
+    C = moe.capacity(published, T, K, E)
+    tokens = torch.arange(T)
+    want_keep = (tokens < C).repeat_interleave(K)[None]
+    expected = (torch.equal(cpu.expert_idx[0], torch.arange(K).repeat(T, 1))
+                and torch.equal(cpu.rank[0], tokens.repeat_interleave(K))
+                and torch.equal(cpu.keep, want_keep)
+                and bool((cpu.gates == 0.5).all()) and float(cpu.aux) == 2.0)
+    with moe.record_routing() as rec:
+        y, aux = moe.moe_apply({**w, "router": zero.cuda()}, x.cuda(), cfg,
+                               capacity_factor=published)
+    rows = y.reshape(T, D)
+    layer_bitwise = all(torch.equal(getattr(rec[0], f), getattr(card, f))
+                        for f in moe.Routing._fields if f != "capacity")
+    dropped_zero = not bool(rows[C:].any())
+    kept_live = bool((rows[:C].abs().amax(-1) > 0).all()) and bool(
+        torch.isfinite(rows).all())
+    emit("serve_moe", step="ties", batch=B, prompt=S, d_model=D,
+         capacity=card.capacity, dropped_slots=int((~card.keep).sum()),
+         fields_differing_card_vs_cpu=differ, as_expected=expected,
+         layer_routing_bitwise=layer_bitwise, dropped_rows_zero=dropped_zero,
+         kept_rows_nonzero=kept_live, aux=float(aux))
+    if (card.capacity != cpu.capacity or C != 1280 or differ or not expected
+            or not layer_bitwise or not dropped_zero or not kept_live):
+        raise AssertionError("serve_moe ties: the card's routing of a zero "
+                             "router is not the CPU's, or not as expected")
+
+
 def serve(torch, np) -> int:
     """gemma3-1b at full width and depth on the card: the f32 and bf16
     models held to the pins, the launch counts, the bf16 prefill/decode
@@ -1049,12 +1379,11 @@ def flash_attn_bf16_build(build) -> dict:
 
 def drive(torch, case: str, cfg, statics, jobs, phase: str):
     """One hour of ``case`` on the card, the ticks under sync-debug
-    "error": held to the pinned values, one power_scatter launch per tick
-    and, with the thermal twin on, one rack_thermal launch per tick.
-    Returns (launches, final state, telemetry, wall seconds)."""
+    "error", then ``check_hour``. Returns (launches, final state,
+    telemetry, wall seconds)."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance
-    from repro_torch.core import init_state, load_jobs, run_episode, summary
+    from repro_torch.core import init_state, load_jobs, run_episode
 
     t0 = time.perf_counter()
     state = load_jobs(init_state(cfg, statics, seed=acceptance.SEED), jobs)
@@ -1068,11 +1397,33 @@ def drive(torch, case: str, cfg, statics, jobs, phase: str):
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    return check_hour(torch, case, cfg, final, telem, dict(kernels.LAUNCHES),
+                      wall_s, phase, setup_s=setup_s)
+
+
+def hour_run(case: str, cfg, statics, state) -> dict:
+    """``drive``'s hour as a measured run for a worker (``start_alone``):
+    sync-debug "error", its launches counted; ``check_hour`` its result."""
+    from repro_torch.configs import acceptance
+
+    return dict(cfg=cfg, statics=statics, state=state,
+                n_steps=acceptance.N_STEPS, scheduler=acceptance.SCHEDULER,
+                kw=dict(summary_only=True), measure=True, case=case)
+
+
+def check_hour(torch, case: str, cfg, final, telem, launches: dict,
+               wall_s: float, phase: str, **labels):
+    """An hour of ``case`` held to its pinned values, one power_scatter
+    launch per tick and, with the thermal twin on, one rack_thermal launch
+    per tick, every final float finite. Returns (launches, final state,
+    telemetry, wall seconds)."""
+    from repro_torch.configs import acceptance
+    from repro_torch.core import summary
+
     got = summary(final, telem)
     pins = (acceptance.PINNED_FAULTS if case in acceptance.PINNED_FAULTS
             else acceptance.PINNED)[case]
-    emit(phase, case=case, ticks=acceptance.N_STEPS, setup_s=setup_s,
+    emit(phase, case=case, ticks=acceptance.N_STEPS, **labels,
          wall_s=wall_s, ms_per_tick=1e3 * wall_s / acceptance.N_STEPS,
          launches=launches, **{k: got[k] for k in pins}, pinned=pins)
     acceptance.check(case, got)
@@ -1134,6 +1485,84 @@ def _alone_vs_fleet(torch, name, alone, fleet_state, e, telem=None,
     return {"replica": e, "max_rel_err": worst, "bitwise": bitwise}
 
 
+_ALONE_BATCHES = [0]     # batches of worker files made so far
+
+
+def start_alone(torch, runs: list, limit: int | None = None) -> dict:
+    """Write each of ``runs`` (see ``run_alone``) to a file of its own
+    under ``build/alone/`` (a fresh batch prefix, so batches may overlap)
+    and start up to ``limit`` workers (all by default). Returns the batch's
+    handle for ``poll_alone`` / ``join_alone`` / ``stop_alone``."""
+    work = ROOT / "build" / "alone"
+    work.mkdir(parents=True, exist_ok=True)
+    batch = _ALONE_BATCHES[0]
+    _ALONE_BATCHES[0] += 1
+    paths = []
+    for i, run in enumerate(runs):
+        src, out, log = (work / f"b{batch}_run{i}.pt",
+                         work / f"b{batch}_out{i}.pt",
+                         work / f"b{batch}_log{i}.txt")
+        out.unlink(missing_ok=True)
+        torch.save(run, src)
+        paths.append((src, out, log))
+    handle = {"paths": paths, "pending": list(range(len(runs))),
+              "live": {}, "limit": limit or len(runs), "wall_s": {}}
+    poll_alone(handle)
+    return handle
+
+
+def poll_alone(handle: dict) -> bool:
+    """Start pending workers as slots free, check the live ones (a worker
+    that failed or outlives ALONE_TIMEOUT_S raises). True when all are
+    done."""
+    paths, live = handle["paths"], handle["live"]
+    while handle["pending"] and len(live) < handle["limit"]:
+        i = handle["pending"].pop(0)
+        src, out, log = paths[i]
+        with open(log, "w") as f:
+            live[i] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--alone",
+                 str(src), str(out)], stdout=f, stderr=subprocess.STDOUT),
+                time.perf_counter(), time.time())
+    for i, (proc, t0, started) in list(live.items()):
+        if proc.poll() is None:
+            if time.perf_counter() - t0 > ALONE_TIMEOUT_S:
+                raise AssertionError(f"alone run {i}: over "
+                                     f"{ALONE_TIMEOUT_S} s")
+            continue
+        del live[i]
+        # from its start to its result file's last write, however late
+        # the parent polls
+        out = paths[i][1]
+        handle["wall_s"][i] = (out.stat().st_mtime - started
+                               if out.exists() else None)
+        if proc.returncode != 0:
+            raise AssertionError(f"alone run {i} failed:\n"
+                                 f"{paths[i][2].read_text()}")
+    return not handle["pending"] and not live
+
+
+def stop_alone(handle: dict) -> None:
+    """Kill any live worker of the batch and wait for it."""
+    for proc, _, _ in handle["live"].values():
+        proc.kill()
+        proc.wait()
+    handle["live"].clear()
+    handle["pending"].clear()
+
+
+def join_alone(torch, handle: dict) -> list:
+    """Wait for every worker of the batch (stopping them all if one
+    fails) and return each run's result on the card, in run order."""
+    try:
+        while not poll_alone(handle):
+            time.sleep(0.2)
+    finally:
+        stop_alone(handle)
+    return [torch.load(out, map_location="cuda", weights_only=False)
+            for _, out, _ in handle["paths"]]
+
+
 def run_alone(torch, runs: list, during=None):
     """Each of ``runs`` (``run_episode``'s arguments: a dict of ``cfg``,
     ``statics``, ``state``, ``n_steps``, ``scheduler`` and ``kw``, and
@@ -1145,58 +1574,21 @@ def run_alone(torch, runs: list, during=None):
     ALONE_TIMEOUT_S fails the phase, and every worker is stopped first.
     With ``during``, the parent calls it once the first workers have
     started and returns (the runs' results, what it returned)."""
-    import subprocess
-
-    work = ROOT / "build" / "alone"
-    work.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for i, run in enumerate(runs):
-        src, out, log = (work / f"run{i}.pt", work / f"out{i}.pt",
-                         work / f"log{i}.txt")
-        out.unlink(missing_ok=True)
-        torch.save(run, src)
-        paths.append((src, out, log))
-    pending = list(range(len(runs)))
-    live = {}
-    given, meanwhile = during is not None, None
+    handle = start_alone(torch, runs, ALONE_WORKERS)
     try:
-        while pending or live:
-            while pending and len(live) < ALONE_WORKERS:
-                i = pending.pop(0)
-                src, out, log = paths[i]
-                with open(log, "w") as f:
-                    live[i] = (subprocess.Popen(
-                        [sys.executable, str(ROOT / "chip_smoke.py"),
-                         "--alone", str(src), str(out)],
-                        stdout=f, stderr=subprocess.STDOUT),
-                        time.perf_counter())
-            if during is not None:
-                meanwhile, during = during(), None
-            for i, (proc, t0) in list(live.items()):
-                if proc.poll() is None:
-                    if time.perf_counter() - t0 > ALONE_TIMEOUT_S:
-                        raise AssertionError(f"alone run {i}: over "
-                                             f"{ALONE_TIMEOUT_S} s")
-                    continue
-                del live[i]
-                if proc.returncode != 0:
-                    raise AssertionError(f"alone run {i} failed:\n"
-                                         f"{paths[i][2].read_text()}")
-            time.sleep(0.2)
-    finally:
-        for proc, _ in live.values():
-            proc.kill()
-            proc.wait()
-    results = [torch.load(out, map_location="cuda", weights_only=False)
-               for _, out, _ in paths]
-    return (results, meanwhile) if given else results
+        meanwhile = during() if during is not None else None
+    except BaseException:
+        stop_alone(handle)
+        raise
+    results = join_alone(torch, handle)
+    return (results, meanwhile) if during is not None else results
 
 
 def alone_main(src: str, out: str) -> int:
-    """Worker of ``run_alone``: one ``run_episode`` on the card (or the
-    run's ``entry``: ``run_fleet``). A run with ``measure`` is timed under
-    sync-debug "error" with its launches counted, and its result carries
-    them as a third element."""
+    """Worker of ``run_alone`` / ``start_alone``: one ``run_episode`` on the
+    card (or the run's ``entry``: ``run_fleet``, or ``serve_moe_pins``). A
+    run with ``measure`` is timed under sync-debug "error" with its
+    launches counted, and its result carries them as a third element."""
     import contextlib
 
     import torch
@@ -1207,6 +1599,9 @@ def alone_main(src: str, out: str) -> int:
 
     exact_matmul()
     run = torch.load(src, map_location="cuda", weights_only=False)
+    if run.get("entry") == "serve_moe_pins":
+        torch.save(serve_moe_pins(torch), out)
+        return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
     measure = run.get("measure", False)
@@ -2157,8 +2552,9 @@ def exponential_on_card(torch, np) -> dict:
     return rec
 
 
-def faults(torch, np, jobs, bank, per_tick: dict) -> None:
-    """The faults phase (see the module docstring, phase 9)."""
+def faults(torch, np, jobs, bank, per_tick: dict, early: dict) -> None:
+    """The faults phase (see the module docstring, phase 9). ``early``:
+    ``early_runs``' results by case, the two per-tick hours among them."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
@@ -2178,11 +2574,13 @@ def faults(torch, np, jobs, bank, per_tick: dict) -> None:
     start = time.perf_counter()
     main_ms = 1e3 * per_tick["replay_tx_gaia_1h"][3] / A.N_STEPS
     hours = {}
-    # (a) both hours per tick, at the JAX package's per-tick values
+    # (a) both hours per tick (run in workers beside phases rl and macro),
+    # at the JAX package's per-tick values
     for case in A.FAULT_CASES:
-        cfg = A.config(case)
-        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
-        hours[case] = drive(torch, case, cfg, statics, jobs, "faults")
+        final, telem, run = early[case]
+        hours[case] = check_hour(torch, case, A.config(case), final, telem,
+                                 run["launches"], run["wall_s"], "faults",
+                                 in_worker_beside=EARLY_BESIDE)
         emit("faults", step="hour", case=case,
              ms_per_tick=1e3 * hours[case][3] / A.N_STEPS,
              replay_tx_gaia_1h_ms_per_tick=main_ms,
@@ -2305,18 +2703,26 @@ def faults(torch, np, jobs, bank, per_tick: dict) -> None:
         at_s=time.perf_counter() - start)
 
 
-def serving(torch, np, jobs, bank, per_tick: dict) -> dict:
-    """The serving phase (see the module docstring, phase 13). Returns
+def serving_setup(jobs, bank):
+    """(config, statics, state) of ``replay_tx_gaia_1h_serving`` on the
+    card: the serving scenario, half the pool asleep."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import build_statics, init_state, load_jobs
+
+    cfg = A.config(A.SERVING_CASE)
+    statics = build_statics(cfg, bank, A.serving_scenario(cfg))
+    state = A.half_asleep(load_jobs(init_state(cfg, statics, seed=A.SEED),
+                                    jobs))
+    return cfg, statics, state
+
+
+def serving(torch, np, jobs, bank, per_tick: dict, early: dict) -> dict:
+    """The serving phase (see the module docstring, phase 13). ``early``:
+    ``early_runs``' results by case, the per-tick hour among them. Returns
     the profiles of the serving tick and the plain tick, by case."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance as A
-    from repro_torch.core import (
-        build_statics,
-        init_state,
-        load_jobs,
-        run_episode,
-        summary_columns,
-    )
+    from repro_torch.core import run_episode, summary_columns
     from repro_torch.core.fleet import prepare_fleet
     from repro_torch.envs import SchedEnv
     from repro_torch.tools.profile_tick import profile_replay
@@ -2324,24 +2730,15 @@ def serving(torch, np, jobs, bank, per_tick: dict) -> dict:
 
     start = time.perf_counter()
     main_ms = 1e3 * per_tick["replay_tx_gaia_1h"][3] / A.N_STEPS
-    cfg = A.config(A.SERVING_CASE)
-    statics = build_statics(cfg, bank, A.serving_scenario(cfg))
-    state = A.half_asleep(load_jobs(init_state(cfg, statics, seed=A.SEED),
-                                    jobs))
+    cfg, statics, state = serving_setup(jobs, bank)
 
-    # (a) the hour per tick, at the JAX package's per-tick values
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    final, telem = run_episode(cfg, statics, state, A.N_STEPS, A.SCHEDULER,
-                               summary_only=True)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    # (a) the hour per tick (run in a worker beside phases rl and macro),
+    # at the JAX package's per-tick values
+    final, telem, run = early[A.SERVING_CASE]
+    wall, launches = run["wall_s"], run["launches"]
     got = A.serving_summary(final, telem)
     emit("serving", step="hour", case=A.SERVING_CASE, ticks=A.N_STEPS,
+         in_worker_beside=EARLY_BESIDE,
          wall_s=wall, ms_per_tick=1e3 * wall / A.N_STEPS,
          replay_tx_gaia_1h_ms_per_tick=main_ms, launches=launches,
          **{k: got[k] for k in A.SERVING_KEYS},
@@ -2871,6 +3268,28 @@ def _durable_checks(torch, np, jobs, bank, per_tick: dict, ppo_run,
 
 
 
+def early_runs(jobs, bank) -> tuple:
+    """The runs started beside phases rl and macro (``start_alone``):
+    both per-tick hours of phase faults and the one of phase serving
+    (``hour_run``), and phase serve_moe's ``serve_mixtral_1l``
+    (``serve_moe_pins``). Returns (their cases, the runs)."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import build_statics, init_state, load_jobs
+
+    cases, runs = [], []
+    for case in A.FAULT_CASES:
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        cases.append(case)
+        runs.append(hour_run(case, cfg, statics, state))
+    cases.append(A.SERVING_CASE)
+    runs.append(hour_run(A.SERVING_CASE, *serving_setup(jobs, bank)))
+    cases.append(A.MIXTRAL_CASE)
+    runs.append({"entry": "serve_moe_pins"})
+    return cases, runs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3060,26 +3479,43 @@ def main() -> int:
     virtual_cloud(torch, vc_results, 1e3 * per_tick["replay_tx_gaia_1h"][3]
                   / acceptance.N_STEPS)
 
-    # 7. rl: SchedEnv batched over the replica axis, PPO end to end
+    # the per-tick hours of phases faults and serving and phase serve_moe's
+    # pinned one-layer mixtral (its weights drawn in the worker) run in
+    # workers beside phases rl and macro, and are checked in their phases
     t0 = time.perf_counter()
-    ppo_run = rl(torch, np)
-    emit("rl", step="done", seconds=time.perf_counter() - t0)
+    early_cases, early = early_runs(jobs, bank)
+    handle = start_alone(torch, early)
+    try:
+        # 7. rl: SchedEnv batched over the replica axis, PPO end to end
+        t1 = time.perf_counter()
+        ppo_run = rl(torch, np)
+        emit("rl", step="done", seconds=time.perf_counter() - t1)
 
-    # 8. macro: the replay hours, the fleet hour and the RL env with quiet
-    # ticks fast-forwarded, against the pins and the per-tick runs above
-    t0 = time.perf_counter()
-    macro(torch, np, jobs, bank, per_tick, fleet_hour)
-    emit("macro", step="done", seconds=time.perf_counter() - t0)
+        # 8. macro: the replay hours, the fleet hour and the RL env with
+        # quiet ticks fast-forwarded, against the pins and the per-tick
+        # runs above
+        t1 = time.perf_counter()
+        macro(torch, np, jobs, bank, per_tick, fleet_hour)
+        emit("macro", step="done", seconds=time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        early = dict(zip(early_cases, join_alone(torch, handle)))
+    finally:
+        stop_alone(handle)
+    emit("early", runs=early_cases, beside=EARLY_BESIDE,
+         worker_wall_s=[handle["wall_s"][i]
+                        for i in range(len(early_cases))],
+         waited_after_macro_s=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
 
     # 9. faults: the resilience twin's hours, fleet and env
     t0 = time.perf_counter()
-    faults(torch, np, jobs, bank, per_tick)
+    faults(torch, np, jobs, bank, per_tick, early)
     emit("faults", step="done", seconds=time.perf_counter() - t0)
 
     # 13. serving: the serving twin's hour per tick and macro, its fleet
     # and env (run here, before the LM phases, beside the replay phases)
     t0 = time.perf_counter()
-    profiles = serving(torch, np, jobs, bank, per_tick)
+    profiles = serving(torch, np, jobs, bank, per_tick, early)
     emit("serving", step="done", seconds=time.perf_counter() - t0)
 
     # 14. durable: snapshots, kill and resume, the chaos loop, PPO
@@ -3115,6 +3551,12 @@ def main() -> int:
     launches["selective_scan"] = serve_hybrid(torch, np)
     emit("serve_hybrid", step="done", seconds=time.perf_counter() - t0)
 
+    # 17. serve_moe: mixtral-8x22b's experts at full width; its pins ran in
+    # a worker (above)
+    t0 = time.perf_counter()
+    moe_prefill = serve_moe(torch, np, early[acceptance.MIXTRAL_CASE])
+    emit("serve_moe", step="done", seconds=time.perf_counter() - t0)
+
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
     # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
@@ -3143,6 +3585,10 @@ def main() -> int:
         "library_ms": record[main].get("library_ms"),
         **({"signature_entry": {k: record[sig][k] for k in keys}}
            if sig else {}),
+        **({"mixtral": {"launches_per_serve_mixtral_4l_prefill": moe_prefill,
+                        **{k: record["flash_attn", MIXTRAL_ATTN][k]
+                           for k in keys + ("library_ms",)}}}
+           if name == "flash_attn" else {}),
     } for name, (replaces, main, sig) in sources.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

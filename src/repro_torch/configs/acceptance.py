@@ -807,49 +807,68 @@ def lm_tokens(cfg: ModelConfig, batch: int = LM_BATCH,
                         dtype=np.int32)
 
 
-def run_lm(model, tokens, prompt: int = LM_PROMPT, decode: int = LM_DECODE):
+def run_lm(model, tokens, prompt: int = LM_PROMPT, decode: int = LM_DECODE,
+           dropped: list | None = None):
     """The case on the port: prefill ``tokens[:, :prompt]`` into a cache
     of prompt + decode, then one decode step per fed id. Returns the
-    1 + decode (B, V) f32 logits."""
+    1 + decode (B, V) f32 logits. ``dropped``, if given, receives for the
+    prefill and each decode step the slots each MoE layer dropped (ints,
+    read after the run)."""
     from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.moe import record_routing
 
-    logits, cache = prefill(model, tokens[:, :prompt],
-                            cache_seq_len=prompt + decode)
+    counts = []
+    with record_routing() as rec:
+        logits, cache = prefill(model, tokens[:, :prompt],
+                                cache_seq_len=prompt + decode)
+    counts.append([(~r.keep).sum() for r in rec])
     out = [logits]
     for i in range(decode):
         pos = prompt + i
-        logits, cache = decode_step(model, cache, tokens[:, pos:pos + 1], pos)
+        with record_routing() as rec:
+            logits, cache = decode_step(model, cache,
+                                        tokens[:, pos:pos + 1], pos)
+        counts.append([(~r.keep).sum() for r in rec])
         out.append(logits)
+    if dropped is not None:
+        dropped.extend([int(c) for c in step] for step in counts)
     return out
 
 
-def lm_summary(logits) -> dict:
+def lm_summary(logits, dropped: list | None = None) -> dict:
     """The pinned quantities of a list of (B, V) f32 logits (numpy arrays
     or tensors), as nested lists: one row per logits, one entry per
-    prompt."""
+    prompt; with ``dropped`` (an MoE model's slots dropped per layer, one
+    row per logits) that too."""
     a = np.stack([np.asarray(x, dtype=np.float32) for x in logits])
     top2 = -np.sort(-a, axis=-1)[..., :2].astype(np.float64)
     a64 = a.astype(np.float64)
     mx = a64.max(-1, keepdims=True)
     lse = (mx[..., 0] + np.log(np.exp(a64 - mx).sum(-1)))
-    return {
+    out = {
         "argmax": a.argmax(-1).tolist(),
         "top1": top2[..., 0].tolist(),
         "margin": (top2[..., 0] - top2[..., 1]).tolist(),
         "logsumexp": lse.tolist(),
         "head": a[..., :LM_HEAD].astype(np.float64).tolist(),
     }
+    if dropped is not None:
+        out["dropped"] = [list(step) for step in dropped]
+    return out
 
 
 def check_lm(got: dict, dtype: str, pins: dict | None = None,
              case: str = LM_CASE) -> dict:
     """Hold ``lm_summary`` of a run in ``dtype`` to the pins of ``case``
     (``PINNED_LM`` by default): the top-1 value, the logsumexp and the
-    leading logits within ``tol + tol * |pin|``; in f32 also the margins,
-    and every argmax id equal. Raises on a miss; returns the largest
-    errors and how many argmax ids agree."""
+    leading logits within ``tol + tol * |pin|`` (``tol`` the case's in
+    ``F32_TOLS`` in f32, else LM_F32_TOL / LM_BF16_TOL); in f32 also the
+    margins, and every argmax id equal; where the pins hold ``dropped``,
+    in f32 those too. Raises on a miss; returns the largest errors and
+    how many argmax ids agree."""
     pins = pins or PINNED_LM
-    tol = {"float32": LM_F32_TOL, "bfloat16": LM_BF16_TOL}[dtype]
+    tol = {"float32": F32_TOLS.get(case, LM_F32_TOL),
+           "bfloat16": LM_BF16_TOL}[dtype]
     keys = ["top1", "logsumexp", "head"]
     if dtype == "float32":
         keys.append("margin")
@@ -868,6 +887,12 @@ def check_lm(got: dict, dtype: str, pins: dict | None = None,
     if dtype == "float32" and not same.all():
         raise AssertionError(f"{case} (f32): argmax ids differ from the "
                              f"pins at {np.argwhere(~same).tolist()}")
+    if "dropped" in pins:
+        report["dropped"] = got["dropped"]
+        if dtype == "float32" and got["dropped"] != pins["dropped"]:
+            raise AssertionError(f"{case} (f32): dropped slots "
+                                 f"{got['dropped']}, pinned "
+                                 f"{pins['dropped']}")
     return report
 
 
@@ -900,12 +925,17 @@ JAMBA_PATH_LAYERS = 8
 
 
 def jamba_config(n_layers: int, dtype: str = "float32") -> ModelConfig:
-    """jamba-1.5-large-398b as the port serves it. Cut from the JAX
-    package's config: the experts (16, top-2, on every second layer) become
-    the dense gated MLP of d_ff 24576 on every layer (``MoEConfig()``; the
-    experts come with the MoE slice), and 72 layers become ``n_layers`` (1
-    or 8 here: 16 layers of f32 masters and bf16 copies would not fit on an
-    80 GB card). Every width is kept."""
+    """jamba-1.5-large-398b as the port serves it on the card. Cut from
+    the JAX package's config: the experts (16, top-2, on every second
+    layer) become the dense gated MLP of d_ff 24576 on every layer
+    (``MoEConfig()``), and 72 layers become ``n_layers`` (1 or 8 here: 16
+    layers of f32 masters and bf16 copies would not fit on an 80 GB card).
+    Every width is kept. The port runs the experts (``models/moe.py``;
+    jamba with them is held to the JAX package on the CPU, at reduced
+    widths), but one MoE layer of jamba holds 9.66e9 expert parameters,
+    38.7 GB of f32 masters and 19.3 GB of bf16 copies: with the rest of a
+    cut it does not fit on one 80 GB card, so the card's cases keep the
+    dense MLP."""
     return dataclasses.replace(get_arch(JAMBA_ARCH), moe=MoEConfig(),
                                n_layers=n_layers, dtype=dtype)
 
@@ -994,6 +1024,155 @@ PINNED_JAMBA = {
           0.19363382, 0.59195757, 0.9863852, 0.19702941]],
     ],
 }
+
+
+# ---------------------------------------------------------------------------
+# LM serving: mixtral-8x22b (arXiv:2401.04088) at full width: d_model
+# 6144, 48 query heads over 8 KV heads of 128, a sliding window of 4096 on
+# every layer, 8 experts of d_ff 16384 on every layer, top-2, capacity
+# factor 1.25, vocab 32768. Only depth is cut (56 layers).
+#
+# - ``serve_mixtral_1l`` (correctness, f32): one layer (2,906,720,256
+#   parameters, 11.6 GB), weights from ``models.seeded_numpy_params(cfg,
+#   MIXTRAL_SEED)``; B = 2 prompts of 640 ids, then MIXTRAL_DECODE
+#   teacher-forced decode steps. The prefill routes 2,560 (token, k) slots
+#   into C = 400 slots an expert, so slots may drop. ``PINNED_MIXTRAL``
+#   holds what the JAX package gives for it on the CPU (jax 0.9.0,
+#   ``ShardCtx(enabled=False, attention_impl="pallas", block_q=640,
+#   block_k=640)``: its kernel's blocks must divide the prompt), in
+#   ``lm_summary``'s form with the slots each layer dropped at the prefill
+#   and at each decode step (``dropped``; the JAX package's recounted from
+#   its own routing); ``check_lm(..., pins=PINNED_MIXTRAL,
+#   case=MIXTRAL_CASE)`` holds a run to them. ``tests/test_torch_lm_
+#   pins.py`` re-derives them.
+# - ``serve_mixtral_4l`` (the path): four layers (10,418,903,040
+#   parameters: 41.7 GB of f32 masters, 20.8 GB more for the bf16 copies;
+#   eight layers would not fit on an 80 GB card), weights from the port's
+#   ``init_params`` on the card.
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_CASE = "serve_mixtral_1l"
+MIXTRAL_PATH_CASE = "serve_mixtral_4l"
+MIXTRAL_SEED = 0
+MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_DECODE = 2, 640, 8
+MIXTRAL_PATH_LAYERS = 4
+MIXTRAL_BLOCK = 640       # the JAX reference's flash-attention blocks
+# f32: mixtral's pinned logits are of order 4 (gemma3-1b's of order 0.3),
+# and the port differs from these pins by up to 2.29e-5 on the CPU and
+# 2.55e-5 on the card (the margin, a difference of two such logits);
+# 1e-4 is ~4x that. A routing choice or a dropped slot that differed
+# would move them by tenths, and ``dropped`` is held exactly.
+MIXTRAL_F32_TOL = 1e-4
+
+
+def mixtral_config(n_layers: int, dtype: str = "float32",
+                   capacity_factor: float | None = None) -> ModelConfig:
+    """mixtral-8x22b with ``n_layers`` of its 56 layers, every width kept;
+    ``capacity_factor`` replaces the published 1.25 where given."""
+    cfg = get_arch(MIXTRAL_ARCH)
+    moe = cfg.moe if capacity_factor is None else dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor)
+    return dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype, moe=moe)
+
+
+PINNED_MIXTRAL = {
+    "argmax": [
+        [26042, 4261],
+        [2508, 7968],
+        [9523, 22243],
+        [18733, 28382],
+        [30307, 32586],
+        [23114, 1779],
+        [24124, 1329],
+        [7652, 23224],
+        [2179, 454],
+    ],
+    "top1": [
+        [3.7937326, 3.707828],
+        [4.1494126, 3.8454192],
+        [3.7076044, 4.0624475],
+        [3.9756098, 3.89833],
+        [4.6929326, 4.102417],
+        [4.073421, 3.7483647],
+        [4.4685965, 3.9094596],
+        [4.397553, 4.1536236],
+        [4.194524, 3.8534365],
+    ],
+    "margin": [
+        [0.05596447, 0.16181278],
+        [0.022021294, 0.07357621],
+        [0.09567523, 0.2518263],
+        [0.08243775, 0.07125926],
+        [0.72054625, 0.09617329],
+        [0.108938456, 0.07504177],
+        [0.37159252, 0.058166027],
+        [0.5556822, 0.21893811],
+        [0.48670387, 0.06456494],
+    ],
+    "logsumexp": [
+        [10.896030865351289, 10.88031190591435],
+        [10.913311938288306, 10.89772612446503],
+        [10.892588684444277, 10.888083994237167],
+        [10.902209142271595, 10.899299928198182],
+        [10.904813442552733, 10.898046696896376],
+        [10.891474249791056, 10.897871857178597],
+        [10.901791941652228, 10.901320983726176],
+        [10.901416172453171, 10.89876522054847],
+        [10.90237521697028, 10.893889186106447],
+    ],
+    "head": [
+        [[-0.65867156, -0.26245365, 0.36293688, 0.4145167,
+          0.025125667, -1.2179765, 0.14853129, -1.0656054],
+         [-1.1124192, 0.87470967, 0.74432623, 2.4048598,
+          0.485763, 0.6653832, 1.4187073, 0.43990046]],
+        [[-0.8884985, 1.9894534, 0.8392769, -1.5285091,
+          0.6669834, 1.1767055, -0.013709933, -2.5715039],
+         [-0.8660205, 1.504355, 0.10908024, 0.2580544,
+          -0.31495163, -0.5644036, -1.7720062, 0.92123187]],
+        [[0.7488822, -1.6876845, -0.20871043, 1.6100273,
+          0.07494682, 0.932979, 2.322104, -0.86643684],
+         [0.19885457, 2.0118036, -1.1585503, -1.0109825,
+          0.5364771, -1.4585638, -2.08268, 0.13527903]],
+        [[-0.9624099, 0.70020556, 0.4187667, -1.8486693,
+          -0.27031362, -0.9754453, 0.3547714, 0.31341076],
+         [-0.34192774, 0.5711461, 0.51979315, -0.34817207,
+          1.6215872, -0.14565511, -0.023616172, 1.6350102]],
+        [[0.5265645, 1.9162886, -0.0661217, -2.3110704,
+          -0.07162775, -0.9965198, -1.9012207, 0.6499871],
+         [0.11585899, 0.9297696, 0.4897261, 0.11697516,
+          2.662236, 0.7803153, -0.41138577, 0.8525015]],
+        [[0.32038957, 0.4018912, 0.59089696, -0.6975758,
+          -0.100836724, -1.8325675, 0.5574705, 0.6649428],
+         [-0.65748847, 0.8824292, 2.6235964, -1.4080769,
+          -0.35941288, 0.3494804, 0.42015174, 0.29904523]],
+        [[-0.16088176, 0.6983708, 0.8626495, -2.2134416,
+          -0.3106822, 0.26657027, 2.3374834, -3.4911668],
+         [-1.0183893, 1.4541664, 0.7148731, 0.13992119,
+          0.27906942, 0.037602603, 1.029594, 0.18081072]],
+        [[-0.044290677, -1.6459041, 0.30894506, -0.46781835,
+          0.86734325, 0.5297034, 1.1672, 0.006995648],
+         [-0.3652611, 1.7723432, 0.27253848, -0.29813203,
+          -0.028906375, -0.34538615, 0.6176441, -0.6660107]],
+        [[-0.3969093, 0.859247, 0.864967, 1.8416158,
+          -1.053157, 0.0076794624, 1.3929716, 1.0759542],
+         [-1.7683054, 1.6065661, -0.68122894, -0.7384005,
+          -0.41204098, -1.4943402, -1.6902305, -0.32226604]],
+    ],
+    "dropped": [
+        [129],
+        [0],
+        [0],
+        [0],
+        [0],
+        [0],
+        [0],
+        [0],
+        [0],
+    ],
+}
+
+
+# f32 tolerances of the LM cases whose logits are not of gemma3-1b's order
+F32_TOLS = {MIXTRAL_CASE: MIXTRAL_F32_TOL}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ builds a :class:`ModelConfig`; the four input shapes are :data:`SHAPES`.
 ``reduced()`` derives the CPU-smoke-test variant of any config (same block
 structure, tiny widths). The port registers all ten archs, so the perf
 model (``repro_torch.perfmodel``) counts every one of them; building a
-model whose layers the port does not run yet (MoE, cross-attention, the
+model whose layers the port does not run yet (cross-attention, the
 xLSTM cells, the encoder-decoder) raises ``NotImplementedError`` naming
 the slice that brings them (``models.spec.check_ported``).
 """
@@ -210,8 +210,6 @@ ARCHS: Registry[ModelConfig] = Registry("arch")
 # Their configs and parameter shapes are ported; building their models is
 # refused (``models.spec.check_ported``).
 NOT_YET_PORTED = {
-    "mixtral-8x22b": "the MoE slice",
-    "grok-1-314b": "the MoE slice",
     "xlstm-125m": "the xLSTM slice",
     "llama-3.2-vision-11b": "the VLM cross-attention slice",
     "whisper-small": "the encoder-decoder slice",

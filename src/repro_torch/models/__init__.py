@@ -1,5 +1,6 @@
 """The LMs of the port (the JAX package's ``repro.models``, for the
-``attn`` / ``attn_local`` and ``mamba`` layers with a dense gated MLP)."""
+``attn`` / ``attn_local`` and ``mamba`` layers with a dense gated MLP or
+the top-k experts)."""
 
 from repro_torch.models.init import init_params, seeded_numpy_params
 from repro_torch.models.model import (

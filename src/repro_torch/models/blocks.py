@@ -1,17 +1,18 @@
 """Per-layer block application of the LMs (the JAX package's
 ``models/blocks.py``): a mixer (self-attention, global or sliding-window,
-or the Mamba mixer) + the dense gated MLP, for the parallel (prefill) and
-the one-token (decode) paths.
+or the Mamba mixer) + the FFN (the dense gated MLP, or on an MoE layer the
+top-k experts of ``moe.moe_apply``), for the parallel (prefill) and the
+one-token (decode) paths.
 
 ``w`` is a layer's weights by the JAX package's leaf names, matrices in the
-compute dtype and norm scales in f32 (``model.DecoderLayer.weights``).
-``rope`` is the ``(cos, sin)`` pair of ``layers.rope_cos_sin`` for the
-positions in flight, computed once per forward and shared by the
-attention layers.
+compute dtype and norm scales and the router in f32
+(``model.DecoderLayer.weights``). ``rope`` is the ``(cos, sin)`` pair of
+``layers.rope_cos_sin`` for the positions in flight, computed once per
+forward and shared by the attention layers.
 Other mixer kinds raise ``NotImplementedError`` naming the slice of the
 port that brings them, as ``spec.check_ported`` does for a whole config
-(other mixers, MoE FFNs, the encoder-decoder) wherever a model or its
-weights are built.
+(other mixers, the encoder-decoder) wherever a model or its weights are
+built.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.mamba import mamba_apply, mamba_decode
+from repro_torch.models.moe import moe_apply
 
 Weights = Mapping[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -74,13 +76,17 @@ def self_attention_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
     return o @ w["wo"], {"k": k, "v": v}
 
 
-def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
+                 is_moe: bool) -> torch.Tensor:
+    """The residual FFN; an MoE layer's aux loss is dropped, as serving
+    drops it in the JAX package."""
+    if is_moe:
+        return x + moe_apply(w, x, cfg)[0]
     return x + mlp_apply(w, x, eps=cfg.norm_eps)
 
 
-def block_parallel(w: Weights, x: torch.Tensor, kind: str, cfg: ModelConfig,
-                   *, rope: Rope, return_kv: bool = False
+def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
+                   cfg: ModelConfig, *, rope: Rope, return_kv: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One layer. Returns (x, its cache state or None): ``{"k", "v"}``
     (B, S, Kv, hd) of an attention layer, ``{"conv", "ssm"}`` of a Mamba
@@ -92,7 +98,7 @@ def block_parallel(w: Weights, x: torch.Tensor, kind: str, cfg: ModelConfig,
         o, kv = mamba_apply(w, x, cfg, return_state=True)
     else:
         raise S.not_ported(kind)
-    x = ffn_parallel(w, x + o, cfg)
+    x = ffn_parallel(w, x + o, cfg, is_moe)
     return x, (kv if return_kv else None)
 
 
@@ -123,8 +129,11 @@ def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 
 def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 cache_len: int, kind: str, cfg: ModelConfig, *,
-                 rope: Rope) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 cache_len: int, kind: str, is_moe: bool, cfg: ModelConfig,
+                 *, rope: Rope
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token (B, 1, D) through a layer; an MoE layer routes the B
+    tokens as one group, as the JAX package's decode does."""
     if kind in (ATTN, ATTN_LOCAL):
         o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
                                window=layer_window(cfg, kind))
@@ -132,4 +141,4 @@ def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         o, cache = mamba_decode(w, x, cache, cfg)
     else:
         raise S.not_ported(kind)
-    return ffn_parallel(w, x + o, cfg), cache
+    return ffn_parallel(w, x + o, cfg, is_moe), cache

@@ -56,17 +56,19 @@ def _fan_in(shape) -> int:
     return max(shape[-2] if len(shape) >= 2 else shape[-1], 1)
 
 
-def _unflatten(specs: Dict[str, Any], leaves: Dict[str, Any]) -> Dict[str, Any]:
-    """``specs`` with each leaf replaced by ``leaves[name]``."""
-    def build(path: str, node):
-        if isinstance(node, dict):
-            return {k: build(f"{path}/{k}" if path else k, v)
-                    for k, v in node.items()}
-        if isinstance(node, list):
-            return [build(f"{path}/{i}", v) for i, v in enumerate(node)]
-        return leaves[path]
-
-    return build("", specs)
+def _unflatten(specs: Dict[str, Any], leaves: Dict[str, Any],
+               path: str = "") -> Dict[str, Any]:
+    """``specs`` with each leaf replaced by ``leaves[name]``. A plain
+    recursion: a nested function that called itself would hold ``leaves``
+    in a reference cycle, so the weights would outlive the tree until a
+    garbage collection."""
+    if isinstance(specs, dict):
+        return {k: _unflatten(v, leaves, f"{path}/{k}" if path else k)
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_unflatten(v, leaves, f"{path}/{i}")
+                for i, v in enumerate(specs)]
+    return leaves[path]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -102,8 +104,12 @@ def seeded_numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     order): ``body`` (position 0's leaves in sorted key order, ``kn, ln1,
     ln2, qn, wg, wi, wk, wo, wo2, wq, wv`` for an attention layer and
     ``A_log, D_skip, conv_b, conv_w, dt_b, dt_w, in_proj, ln1, ln2,
-    out_proj, wg, wi, wo2, x_proj`` for a Mamba layer, then position 1's,
-    ...), ``emb``, ``final_ln``, ``head`` (untied embeddings only), then
+    out_proj, wg, wi, wo2, x_proj`` for a Mamba layer; on an MoE layer
+    the experts and the router take the dense MLP's place: ``e_wg, e_wi,
+    e_wo, kn, ln1, ln2, qn, router, wk, wo, wq, wv`` for attention and
+    ``A_log, D_skip, conv_b, conv_w, dt_b, dt_w, e_wg, e_wi, e_wo,
+    in_proj, ln1, ln2, out_proj, router, x_proj`` for Mamba; then position
+    1's, ...), ``emb``, ``final_ln``, ``head`` (untied embeddings only), then
     ``tail`` (layer by layer, the same key order). The norms (``ln1``,
     ``ln2``, ``final_ln``, ``qn``, ``kn``), ``D_skip``, ``conv_b`` and
     ``A_log`` take their fixed values and draw nothing. ``dt_b`` is one
@@ -111,7 +117,9 @@ def seeded_numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     the inverse softplus ``u + log(-expm1(-u))`` in f32. Every other leaf,
     in that order, is ``rng.standard_normal(shape, float32) /
     sqrt(fan_in)`` with ``fan_in`` the second-to-last dimension (the last
-    for a vector), as the JAX package's ``init_params`` scales its draws.
+    for a vector), as the JAX package's ``init_params`` scales its draws:
+    D for ``router`` (D, E), ``e_wg`` and ``e_wi`` (E, D, F), F for
+    ``e_wo`` (E, F, D).
     A dense config draws exactly what it drew before the Mamba leaves
     existed.
     """

@@ -6,7 +6,8 @@ one-token decode over explicit caches.
 the untied head if any, and a ``ModuleList`` of ``DecoderLayer`` in layer
 order. The JAX package casts each master to ``cfg.dtype`` at every use; the
 port makes those copies once, at load, which gives the same values (norm
-scales and ``A_log`` stay f32, as the JAX package reads them in f32).
+scales, ``A_log`` and the MoE router stay f32, as the JAX package reads
+them in f32).
 
 The cache is a list with one entry per layer. An attention layer's is
 ``{"k", "v"}``, each (B, S_c, Kv, hd) in the compute dtype; a
@@ -30,7 +31,8 @@ from repro_torch.models.init import NORMS
 from repro_torch.models.layers import rms_norm, rope_cos_sin
 from repro_torch.models.mamba import mamba_cache_spec
 
-F32_LEAVES = NORMS + ("A_log",)   # read in f32 by the JAX package
+# read in f32 from the masters by the JAX package
+F32_LEAVES = NORMS + ("A_log", "router")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -41,21 +43,23 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class DecoderLayer(nn.Module):
     """One layer's f32 master weights, by the JAX package's leaf names,
-    and their compute-dtype copies (``weights()``)."""
+    and their compute-dtype copies (``weights()``); ``kind`` is its mixer,
+    ``is_moe`` whether its FFN is the experts (``cfg.is_moe_layer``)."""
 
     def __init__(self, leaves: Mapping[str, torch.Tensor], kind: str,
-                 dtype: torch.dtype):
+                 is_moe: bool, dtype: torch.dtype):
         super().__init__()
         for name, t in leaves.items():
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         self.kind = kind
+        self.is_moe = is_moe
         self.dtype = dtype
         self._weights: Optional[Dict[str, torch.Tensor]] = None
 
     def weights(self) -> Dict[str, torch.Tensor]:
-        """Norm scales and ``A_log`` as the f32 masters; every other leaf
-        in the compute dtype (the masters themselves when that is f32),
-        made at first call."""
+        """Norm scales, ``A_log`` and ``router`` as the f32 masters; every
+        other leaf in the compute dtype (the masters themselves when that
+        is f32), made at first call."""
         if self._weights is None:
             self._weights = {
                 name: p if name in F32_LEAVES else p.to(self.dtype)
@@ -89,7 +93,7 @@ class DecoderLM(nn.Module):
             else:
                 leaves = tree["tail"][i - R * period]
             layers.append(DecoderLayer(leaves, S.layer_kind_at(cfg, i),
-                                       self.dtype))
+                                       cfg.is_moe_layer(i), self.dtype))
         self.layers = nn.ModuleList(layers)
         self._head: Optional[torch.Tensor] = None
 
@@ -203,8 +207,8 @@ def prefill(model: DecoderLM, tokens: torch.Tensor, *,
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     cache = []
     for i, layer in enumerate(model.layers):
-        x, kv = block_parallel(layer.weights(), x, layer.kind, cfg,
-                               rope=rope, return_kv=True)
+        x, kv = block_parallel(layer.weights(), x, layer.kind, layer.is_moe,
+                               cfg, rope=rope, return_kv=True)
         cache.append(_kv_cache_entry(kv, i, cfg, B, cache_seq_len,
                                      model.dtype))
     return _logits(model, x[:, -1]), cache
@@ -222,5 +226,5 @@ def decode_step(model: DecoderLM, cache: Cache, tokens: torch.Tensor,
     rope = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
     for i, layer in enumerate(model.layers):
         x, cache[i] = block_decode(layer.weights(), x, cache[i], cache_len,
-                                   layer.kind, cfg, rope=rope)
+                                   layer.kind, layer.is_moe, cfg, rope=rope)
     return _logits(model, x[:, 0]), cache

@@ -21,10 +21,10 @@ cells carry their own up/down projections. An encoder-decoder config
 (whisper) adds the ``encoder`` stack and a cross-attention onto its memory
 in every decoder layer (``xattn_body`` / ``xattn_tail``).
 
-The port runs the attention and Mamba mixers with dense FFNs; building a
-model with any other layer (``check_ported``, called wherever a model or
-its weights are built) raises ``NotImplementedError`` naming the slice of
-the port that brings it.
+The port runs the attention and Mamba mixers with dense or MoE FFNs;
+building a model with any other layer (``check_ported``, called wherever a
+model or its weights are built) raises ``NotImplementedError`` naming the
+slice of the port that brings it.
 """
 
 from __future__ import annotations
@@ -49,7 +49,6 @@ LATER_SLICE = {
     CROSS: "the VLM cross-attention slice",
     MLSTM: "the xLSTM slice",
     SLSTM: "the xLSTM slice",
-    "moe": "the MoE slice",
     "enc_dec": "the encoder-decoder slice",
 }
 
@@ -104,8 +103,6 @@ def check_ported(cfg: ModelConfig) -> None:
     the shapes and counts below cover every config."""
     if cfg.enc_dec:
         raise not_ported("enc_dec")
-    if cfg.moe.n_experts > 0:
-        raise not_ported("moe")
     for i in range(cfg.n_layers):
         kind = layer_kind_at(cfg, i)
         if kind not in (ATTN, ATTN_LOCAL, MAMBA):

@@ -2,13 +2,14 @@
 torch.profiler.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_serve \
-        [--arch gemma3-1b | --case serve_jamba_8l] [--batch 4] \
-        [--prompt-len 1024] [--steps 8]
+        [--arch gemma3-1b | --case serve_jamba_8l | --case serve_mixtral_4l] \
+        [--batch 4] [--prompt-len 1024] [--steps 8]
 
-Builds the arch at full width in its own dtype (or the jamba hybrid of an
-acceptance case, ``configs.acceptance.jamba_config``: no experts, 1 or 8
-layers, bf16) with random weights (``models.init_params`` on the card),
-then, for one prefill of
+Builds the arch at full width in its own dtype (or the model of an
+acceptance case in bf16: the jamba hybrid of ``acceptance.jamba_config``,
+no experts, 1 or 8 layers; mixtral-8x22b of ``acceptance.mixtral_config``,
+1 or 4 layers, its experts at the published capacity factor) with random
+weights (``models.init_params`` on the card), then, for one prefill of
 ``--batch`` prompts of ``--prompt-len`` tokens and for ``--steps``
 decode steps after it, times the work on the host clock around a
 synchronised run and once more under ``torch.profiler`` with CPU and CUDA
@@ -16,7 +17,10 @@ activities. Prints one JSON line per phase: host ms, CUDA kernels, device
 time, the device's busy share, the launches of each hand-written kernel
 (flash_attn, selective_scan) as its wrapper counts them and, from the
 trace, by entry (``selective_scan_fused_kernel`` is the Mamba mixer's
-fused scan), and the top CUDA kernels and host ops. Needs a CUDA device.
+fused scan), the device time of the MoE experts' products (the kernels
+inside the profiler range ``moe.EXPERTS_RANGE`` on the card's timeline)
+and its share of the device time,
+and the top CUDA kernels and host ops. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,26 @@ import argparse
 import json
 import sys
 import time
+
+
+def experts_device_us(prof, per: int):
+    """Device us per repetition of the kernels that ran inside the
+    profiler range ``moe.EXPERTS_RANGE``: those inside its spans on the
+    card's timeline (the range's own total in ``key_averages`` counts its
+    kernels twice, once through that span). None without such a span."""
+    import torch
+
+    from repro_torch.models.moe import EXPERTS_RANGE
+
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range for e in cuda if e.name == EXPERTS_RANGE]
+    if not spans:
+        return None
+    return sum(e.time_range.elapsed_us() for e in cuda
+               if e.name != EXPERTS_RANGE and any(
+                   s.start <= e.time_range.start and e.time_range.end <= s.end
+                   for s in spans)) / per
 
 
 def main(argv=None) -> int:
@@ -41,8 +65,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--case", choices=(acceptance.JAMBA_CASE,
-                                       acceptance.JAMBA_PATH_CASE),
-                    help="the jamba hybrid of this serving case, in bf16 "
+                                       acceptance.JAMBA_PATH_CASE,
+                                       acceptance.MIXTRAL_CASE,
+                                       acceptance.MIXTRAL_PATH_CASE),
+                    help="the model of this serving case, in bf16 "
                          "(instead of --arch)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
@@ -55,7 +81,11 @@ def main(argv=None) -> int:
 
     exact_matmul()
     dev = torch.device("cuda")
-    if args.case:
+    if args.case in (acceptance.MIXTRAL_CASE, acceptance.MIXTRAL_PATH_CASE):
+        n_layers = (1 if args.case == acceptance.MIXTRAL_CASE
+                    else acceptance.MIXTRAL_PATH_LAYERS)
+        cfg = acceptance.mixtral_config(n_layers, "bfloat16")
+    elif args.case:
         n_layers = (1 if args.case == acceptance.JAMBA_CASE
                     else acceptance.JAMBA_PATH_LAYERS)
         cfg = acceptance.jamba_config(n_layers, "bfloat16")
@@ -98,6 +128,8 @@ def main(argv=None) -> int:
             fn(state)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
+        summary = device_summary(prof, wall_us, per, args.top)
+        experts_us = experts_device_us(prof, per)
         print(json.dumps({
             "arch": cfg.name, "case": args.case, "layers": cfg.n_layers,
             "dtype": cfg.dtype, "phase": name,
@@ -107,7 +139,12 @@ def main(argv=None) -> int:
             "flash_attn_launches": kernels.LAUNCHES["flash_attn"] / per,
             "selective_scan_launches":
                 kernels.LAUNCHES["selective_scan"] / per,
-            **device_summary(prof, wall_us, per, args.top)}), flush=True)
+            "moe_experts_device_us": experts_us,
+            "moe_experts_device_share": (
+                experts_us / summary["device_us"]
+                if experts_us is not None and summary["device_us"]
+                else None),
+            **summary}), flush=True)
     return 0
 
 

@@ -77,9 +77,15 @@ def device_summary(prof, wall_us: float, per: int, top: int) -> dict:
     from repro_torch.core import sim
 
     # the CUDA-side events, less the ranges ``record_function`` marks on
-    # the device's timeline (the tools' stages, the macro engine's ticks;
-    # a tree from before the macro engine has none of the latter)
+    # the device's timeline (the tools' stages, the macro engine's ticks,
+    # the MoE experts; a tree from before the macro engine or the experts
+    # has none of those)
     marks = tuple(getattr(sim, "TICK_RANGES", {}).values())
+    try:
+        from repro_torch.models.moe import EXPERTS_RANGE
+        marks += (EXPERTS_RANGE,)
+    except ImportError:
+        pass
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(RANGE_PREFIX)

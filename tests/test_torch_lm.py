@@ -2,7 +2,9 @@
 
 Reduced configs (same block structure, narrow widths) of the dense archs
 and of the jamba hybrid without its experts (7 Mamba layers and one
-attention layer; the experts come with the MoE slice); the weights are the JAX package's ``init_params``, carried across with
+attention layer; the MoE archs and jamba with its experts are
+``tests/test_torch_moe.py``'s); the weights are the JAX package's
+``init_params``, carried across with
 ``interop.lm_params_from_numpy``. The JAX side runs its serving path with
 ``attention_impl="pallas"`` (the flash-attention kernel in interpret
 mode; the Mamba layers run its jnp scan, ``kernels/ref.py::
@@ -344,6 +346,27 @@ def test_init_params_follow_the_reference_rules():
     assert bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("make", ["init_params", "seeded_numpy_params"])
+def test_weights_die_with_their_tree(make):
+    """No reference cycle holds the weights: a tree dropped with the
+    garbage collector off frees its leaves (a cycle kept a card's 36 GB
+    of jamba masters alive into the next phase until a collection)."""
+    import gc
+    import weakref
+
+    cfg = reduced(get_arch("gemma3-1b"))
+    gc.collect()
+    gc.disable()
+    try:
+        tree = (init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+                if make == "init_params" else seeded_numpy_params(cfg, 0))
+        refs = [weakref.ref(tree["emb"]), weakref.ref(tree["body"][0]["wq"])]
+        del tree
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
 def test_init_params_follow_the_mamba_rules():
     """The port's torch init of the hybrid's Mamba leaves, by the JAX
     package's rules: ``A_log`` = log(1..d_state), ``D_skip`` ones,
@@ -377,20 +400,61 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
-def test_serve_cli_refuses_the_experts_of_jamba():
-    """The CLI takes jamba's config, whose MoE layers the port does not
-    run yet; the expert-free hybrid is ``acceptance.jamba_config``."""
+MOE_ARCHS = [JAMBA, "mixtral-8x22b", "grok-1-314b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_serves_the_moe_archs_on_the_cpu(arch, capsys):
+    """The CLI builds the reduced MoE archs (jamba with its experts) and
+    generates on the CPU."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="the MoE slice"):
-        serve.main(["--arch", JAMBA, "--reduced", "--device", "cpu"])
+    out = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                      "--prompt-len", "12", "--gen", "4", "--iters", "1",
+                      "--device", "cpu"])
+    assert out.shape == (2, 4) and out.dtype == torch.int32
+    assert bool(((out >= 0) & (out < reduced(get_arch(arch)).vocab)).all())
+    assert f"arch={arch}" in capsys.readouterr().out
 
 
-LATER_SLICES = {JAMBA: "the MoE slice", "xlstm-125m": "the xLSTM slice",
-                "mixtral-8x22b": "the MoE slice",
+def _same_config_and_shapes(arch):
+    """The port's config of ``arch`` is the JAX package's, and so is its
+    parameter tree (the perf model counts it)."""
+    cfg = get_arch(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_get_arch(arch))
+    assert [tuple(x.shape) for x in jax.tree.leaves(jax_param_specs(
+        jax_get_arch(arch)))] == [
+            shape for _, shape in leaves_with_names(model_param_specs(cfg))]
+    return cfg
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_archs_build_with_the_reference_config_and_shapes(arch):
+    """The MoE archs' configs and parameter trees are the JAX package's,
+    full and reduced; the model, the port's random init and the numpy
+    weights both packages load build them (on the reduced config, which
+    keeps the layer kinds and the MoE period), with the tree's shapes."""
+    cfg = _same_config_and_shapes(arch)
+    assert cfg.moe.n_experts == (16 if arch == JAMBA else 8)
+    small = reduced(cfg)
+    assert dataclasses.asdict(small) == dataclasses.asdict(
+        jax_reduced(jax_get_arch(arch)))
+    specs = jax.tree.map(lambda s: tuple(s.shape),
+                         jax_param_specs(jax_reduced(jax_get_arch(arch))))
+    tree = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), tree) == specs
+    assert jax.tree.map(lambda a: a.shape,
+                        seeded_numpy_params(small, 0)) == specs
+    model = DecoderLM.from_tree(small, tree)
+    assert [layer.is_moe for layer in model.layers] == [
+        small.is_moe_layer(i) for i in range(small.n_layers)]
+    assert small.param_count() == jax_reduced(
+        jax_get_arch(arch)).param_count()
+
+
+LATER_SLICES = {"xlstm-125m": "the xLSTM slice",
                 "whisper-small": "the encoder-decoder slice",
-                "llama-3.2-vision-11b": "the VLM cross-attention slice",
-                "grok-1-314b": "the MoE slice"}
+                "llama-3.2-vision-11b": "the VLM cross-attention slice"}
 
 
 @pytest.mark.parametrize("arch", list(LATER_SLICES))
@@ -400,13 +464,7 @@ def test_archs_of_later_slices_raise(arch):
     with a later slice of the port raises, naming that slice: the model
     itself, the port's random init and the numpy weights both packages
     load (on the reduced config, which keeps the layer kinds)."""
-    cfg = get_arch(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_get_arch(arch))
-    assert [tuple(x.shape) for x in jax.tree.leaves(jax_param_specs(
-        jax_get_arch(arch)))] == [
-            shape for _, shape in leaves_with_names(model_param_specs(cfg))]
-    if arch == JAMBA:
-        assert cfg.moe.n_experts == 16
+    cfg = _same_config_and_shapes(arch)
     match = LATER_SLICES[arch]
     with pytest.raises(NotImplementedError, match=match):
         DecoderLM(cfg, {})

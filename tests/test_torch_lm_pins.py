@@ -14,13 +14,22 @@ them with ``check_lm(..., "float32")``.
   teacher-forced decode steps. About 8.4 GB of weights (42 s to draw); the
   JAX package's run peaks near 20 GB of RSS and takes about 20 s here.
 
+- ``serve_mixtral_1l``: one full-width layer of mixtral-8x22b (8
+  experts of d_ff 16384, top-2; 2,906,720,256 parameters) at
+  ``dtype="float32"``, weights from ``seeded_numpy_params(cfg, 0)``; B = 2
+  prompts of 640 ids (C = 400 of the prefill's 2,560 slots an expert),
+  then 8 teacher-forced decode steps; the slots each step dropped are
+  pinned too. About 11.6 GB of weights; the JAX package's arrays are
+  freed before the port runs.
+
 The weights are held for one case at a time (``_weights``: drawing a
 case's drops the other's), and the port's model shares them without a
 copy. The cases stay in this one file, so that a run split by file never
-holds both at once.
+holds two at once.
 """
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +42,8 @@ from repro.configs.base import MoEConfig as JaxMoEConfig
 from repro.models import prefill as jax_prefill
 from repro.models.model import decode_step as jax_decode_step
 from repro.sharding.ctx import ShardCtx
+
+from _torch_moe_ref import jax_dropped_slots
 
 from repro_torch import kernels
 from repro_torch.configs import acceptance as A
@@ -54,6 +65,11 @@ def _weights(case: str):
             cfg = A.lm_config("float32")
             toks = A.lm_tokens(cfg)
             seed = A.LM_SEED
+        elif case == A.MIXTRAL_CASE:
+            cfg = A.mixtral_config(1, "float32")
+            toks = A.lm_tokens(cfg, A.MIXTRAL_BATCH, A.MIXTRAL_PROMPT,
+                               A.MIXTRAL_DECODE)
+            seed = A.MIXTRAL_SEED
         else:
             cfg = A.jamba_config(1, "float32")
             toks = A.lm_tokens(cfg, A.JAMBA_BATCH, A.JAMBA_PROMPT,
@@ -71,6 +87,11 @@ def weights():
 @pytest.fixture
 def jamba_weights():
     return _weights(A.JAMBA_CASE)
+
+
+@pytest.fixture
+def mixtral_weights():
+    return _weights(A.MIXTRAL_CASE)
 
 
 def _jax_logits(jcfg, tree, toks, prompt, decode, ctx):
@@ -142,4 +163,48 @@ def test_port_on_the_cpu_meets_the_jamba_pins(jamba_weights):
                and bool(torch.isfinite(x).all()) for x in logits)
     report = A.check_lm(A.lm_summary([x.numpy() for x in logits]),
                         "float32", pins=A.PINNED_JAMBA, case=A.JAMBA_CASE)
+    assert report["argmax_agree"] == report["argmax_total"]
+
+
+def mixtral_jax_summary(tree, toks) -> dict:
+    """``serve_mixtral_1l`` on the JAX package: ``lm_summary`` of its
+    logits with the slots its one MoE layer dropped at each step. Its
+    arrays are freed on return."""
+    jcfg = dataclasses.replace(jax_get_arch(A.MIXTRAL_ARCH), n_layers=1,
+                               dtype="float32")
+    ctx = ShardCtx(enabled=False, attention_impl="pallas",
+                   block_q=A.MIXTRAL_BLOCK, block_k=A.MIXTRAL_BLOCK)
+    with jax_dropped_slots() as drops:
+        out = _jax_logits(jcfg, tree, toks, A.MIXTRAL_PROMPT,
+                          A.MIXTRAL_DECODE, ctx)
+        jax.effects_barrier()
+    jax.clear_caches()
+    gc.collect()
+    return A.lm_summary(out, [[d] for d in drops])
+
+
+def test_jax_package_gives_the_mixtral_pins(mixtral_weights):
+    _, tree, toks = mixtral_weights
+    got = mixtral_jax_summary(tree, toks)
+    assert got["argmax"] == A.PINNED_MIXTRAL["argmax"]
+    assert got["dropped"] == A.PINNED_MIXTRAL["dropped"]
+    A.check_lm(got, "float32", pins=A.PINNED_MIXTRAL, case=A.MIXTRAL_CASE)
+
+
+def test_port_on_the_cpu_meets_the_mixtral_pins(mixtral_weights):
+    cfg, tree, toks = mixtral_weights
+    model = lm_params_from_numpy(tree, cfg, "cpu")
+    assert model.emb.data_ptr() == tree["emb"].ctypes.data   # no copy
+    assert model.layers[0].is_moe
+    kernels.reset_launches()
+    dropped = []
+    logits = A.run_lm(model, torch.tensor(toks), A.MIXTRAL_PROMPT,
+                      A.MIXTRAL_DECODE, dropped=dropped)
+    assert kernels.LAUNCHES["flash_attn"] == 0     # the CPU path
+    assert len(logits) == 1 + A.MIXTRAL_DECODE
+    assert all(x.shape == (A.MIXTRAL_BATCH, cfg.vocab)
+               and x.dtype == torch.float32
+               and bool(torch.isfinite(x).all()) for x in logits)
+    report = A.check_lm(A.lm_summary([x.numpy() for x in logits], dropped),
+                        "float32", pins=A.PINNED_MIXTRAL, case=A.MIXTRAL_CASE)
     assert report["argmax_agree"] == report["argmax_total"]
