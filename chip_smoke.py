@@ -48,9 +48,11 @@ and no result line:
              rerun alone through ``run_episode`` (integers equal, floats
              within 1e-5); the thermal hour's config for 600 ticks at E =
              72 (one rack_thermal launch a tick), two replicas rerun
-             alone; ms per tick, us per replica-tick, CUDA kernels per
-             tick and the device's busy share at E = 1, 72 and 1152
-             (FLEET_TIMING ticks each, FLEET_PROFILE under the profiler).
+             alone (both hours beside phase ``mesh``'s worlds and phase
+             ``virtual_cloud``'s what-ifs, which start first); ms per
+             tick, us per replica-tick, CUDA kernels per tick and the
+             device's busy share at E = 1, 72 and 1152 (FLEET_TIMING ticks
+             each, FLEET_PROFILE under the profiler), alone.
 7. rl        the paper's experiment at full width (``acceptance.RL_CASES``:
              TX-GAIA, 672 nodes, the 256 x 16 job table, four 40-job
              workloads, 15 ticks a decision, ``macro=False``): 8
@@ -69,7 +71,9 @@ and no result line:
              decisions of the rollout CUDA kernels per env step and the
              device's busy share (``profile_tick.profile_rl``).
 8. macro     macro-stepping (quiet ticks fast-forwarded): the three replay
-             hours through ``run_episode(macro=True)`` at ``PINNED_MACRO``
+             hours through ``run_episode(macro=True)`` (each in a worker
+             started beside phase ``rl`` and this phase's RL env,
+             ``early_runs``) at ``PINNED_MACRO``
              (the JAX package's macro path; the event-tick count exactly
              with thermals off), integers equal to the per-tick hours of
              phases 4-5 and the largest float difference reported; one
@@ -78,10 +82,11 @@ and no result line:
              1 + ceil(segment / 16) a macro step, and no other sync; ms
              per simulated tick beside the per-tick hour's (kernels per
              event and per fast tick: ``profile_tick --macro``). The
-             fleet hour at ``macro=True`` (72 replicas in
-             lockstep) at ``PINNED_FLEET_MACRO``, two replicas rerun
-             alone; ``SchedEnv(macro=True)``: ``rl_tx_gaia``'s script and
-             one PPO iteration at ``PINNED_RL_MACRO``, decisions/s at 8 and
+             fleet hour at ``macro=True`` (72 replicas in lockstep, in a
+             worker as the hours) at ``PINNED_FLEET_MACRO``, two replicas
+             rerun alone (beside phases ``faults`` and ``serving``);
+             ``SchedEnv(macro=True)``: ``rl_tx_gaia``'s script and one PPO
+             iteration at ``PINNED_RL_MACRO``, decisions/s at 8 and
              512 environments, host reads and kernels per env step.
 9. faults    the resilience twin (``acceptance.FAULT_CASES``) under
              sync-debug "error": ``replay_tx_gaia_1h_faults`` (random node
@@ -91,9 +96,10 @@ and no result line:
              worker started beside phases rl and macro, ``early_runs``) at
              ``PINNED_FAULTS`` (the JAX package's per-tick values), one
              power_scatter (and on the drill one rack_thermal) launch per
-             tick, ms per tick beside phase 4's; both macro-stepped:
-             bitwise equal to per tick, at the pinned event ticks, within
-             the read gate, one launch per tick issued; the fault fleet
+             tick, ms per tick beside phase 4's; both macro-stepped (in
+             workers, as the hours): bitwise equal to per tick, at the
+             pinned event ticks, within the read gate, one launch per tick
+             issued; the fault fleet
              (``FLEET_FAULTS_E`` replicas with their own keys and clocks,
              default grid and drill, ``FLEET_FAULTS_TICKS`` ticks of fcfs)
              at ``PINNED_FLEET_FAULTS``, two replicas rerun alone;
@@ -111,12 +117,14 @@ and no result line:
              prompt 1024, 32 new tokens under sync-debug "error" (prefill
              ms, decode ms per token, tokens/s: median of SERVE_RUNS).
 12. serve_hybrid  the jamba hybrid without experts at full width:
-             ``serve_jamba_1l`` (one Mamba layer, f32) held to
-             ``PINNED_JAMBA``; ``serve_jamba_8l`` (one whole 7:1 period,
-             random weights from ``init_params`` on the card) in f32 and in
-             bf16: the prefill/decode invariant (f32 within 1e-4; in bf16
-             the decode step within twice the bf16 prefill's distance from
-             the f32 model's answer), 7 selective_scan (the Mamba mixer's
+             ``serve_jamba_1l`` (one Mamba layer, f32, its numpy weights
+             drawn in a worker started beside phases ``durable`` and
+             ``determinism``, ``lm_pins_runs``) held to ``PINNED_JAMBA``;
+             ``serve_jamba_8l`` (one whole 7:1 period, random weights from
+             ``init_params`` on the card) in f32 and in bf16: the
+             prefill/decode invariant (f32 within 1e-4; in bf16 the decode
+             step within twice the bf16 prefill's distance from the f32
+             model's answer), 7 selective_scan (the Mamba mixer's
              fused ``mamba_scan``) and 1 flash_attn launches per prefill
              and none per decode step; then ``generate`` in bf16 as in
              ``serve``.
@@ -126,10 +134,11 @@ and no result line:
              worker beside phases rl and macro) under
              sync-debug "error" at ``PINNED_SERVING`` (the JAX package's
              per-tick values), one power_scatter launch a tick, ms a tick
-             beside phase 4's; macro-stepped: bitwise equal to per tick,
-             its event and fast ticks, within the read gate, one launch a
-             tick issued; the serving fleet (``FLEET_SERVING_E`` replicas
-             at rising peak traffic, ``FLEET_SERVING_TICKS`` ticks) at
+             beside phase 4's; macro-stepped (in a worker, as the hour):
+             bitwise equal to per tick, its event and fast ticks, within
+             the read gate, one launch a tick issued; the serving fleet
+             (``FLEET_SERVING_E`` replicas at rising peak traffic,
+             ``FLEET_SERVING_TICKS`` ticks) at
              ``PINNED_FLEET_SERVING``, two replicas rerun alone (in
              workers, while the parent runs the fleet and
              ``rl_tx_gaia_serving`` per tick and macro at
@@ -212,9 +221,9 @@ and no result line:
 17. serve_moe  mixtral-8x22b's experts at full width (8 of d_ff 16384,
              top-2): (a) ``serve_mixtral_1l`` (one layer, f32, its 11.6 GB
              of ``seeded_numpy_params`` drawn in a worker started beside
-             phases rl and macro) held to ``PINNED_MIXTRAL`` with the
-             slots it dropped, 1 flash_attn launch per prefill and none per
-             decode step; (b) a zero router on (4, 1024) tokens: every
+             phases durable and determinism) held to ``PINNED_MIXTRAL``
+             with the slots it dropped, 1 flash_attn launch per prefill and
+             none per decode step; (b) a zero router on (4, 1024) tokens: every
              slot picks experts (0, 1), ranks in token order, exactly the
              slots past rank 1,279 drop, the routing bitwise with the
              CPU's, the dropped rows exactly 0; (c) ``serve_mixtral_4l``
@@ -235,9 +244,14 @@ what-ifs each run in a worker process of their own on the card
 (``run_alone``: this script with ``--alone``, ALONE_WORKERS at once), so
 the checks of a phase run together; the parent waits for all of them and
 stops any that fails. The per-tick hours of phases ``faults`` and
-``serving`` and phase ``serve_moe``'s pins run in workers started after
-phase ``virtual_cloud`` (``early_runs``, ``start_alone``), beside phases
-``rl`` and ``macro``, and are joined before phase ``faults``.
+``serving`` and the macro-stepped hours of phases ``macro``, ``faults`` and
+``serving`` run in workers started after phase ``virtual_cloud``
+(``early_runs``, ``start_alone``), beside phase ``rl`` and phase
+``macro``'s RL env, and are joined before the macro phase's hours are
+checked. The pins of phases ``serve_hybrid`` and ``serve_moe`` run in
+workers started after phase ``durable``'s alone hour (``lm_pins_runs``) and
+are joined before phase ``serve``. Each line carries ``script_s``, the
+seconds since the script started.
 
 The launch counts are set to 0 just before each path and read just after.
 Then the ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
@@ -324,6 +338,8 @@ MAMBA_SFU_PER_ELEM = 3
 # test_torch_moe.py``).
 HYBRID_TOL = 1e-4
 BF16_DECODE_FACTOR = 2.0
+# the fleet phase's hours run beside these workers
+BESIDE_GRID = "phase mesh's worlds and phase virtual_cloud's what-ifs"
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
 # timed at each, and (start tick, ticks) of each profile
 FLEET_SIZES = (1, 72, 1152)
@@ -337,6 +353,7 @@ RL_PROFILE_STEPS = 1   # decisions of the rollout under the profiler
 # default), the fleet replicas rerun alone, and the environments timed
 MACRO_CHUNK = 16
 MACRO_FLEET_ALONE = (8, 71)
+MACRO_FLEET = "replay_tx_gaia_1h_fleet_macro"   # its worker run's name
 MACRO_RL_ENVS = (8, 512)
 # phase faults: the faults hour profiled from this tick, for this many
 # ticks (the profiler's processing of a tick of ~1,250 kernels is slow)
@@ -348,9 +365,14 @@ SERVING_PROFILE = (100, 5)
 # once (the machine has 8 cores; each run is host-bound)
 ALONE_WORKERS = 7
 ALONE_TIMEOUT_S = 600
-# the per-tick hours of phases faults and serving and phase serve_moe's
-# pins run in workers started after phase virtual_cloud, beside these
+# the per-tick hours of phases faults and serving and the macro-stepped
+# hours of phases macro, faults and serving run in workers started after
+# phase virtual_cloud, beside these
 EARLY_BESIDE = "phases rl and macro"
+# the pins of phases serve_hybrid and serve_moe (their numpy weights drawn
+# in the worker) run in workers started after phase durable's alone hour,
+# beside these
+LM_PINS_BESIDE = "phases durable and determinism"
 # the durable phase: the main hour snapshotted every 600 s and killed
 # after tick 1,800; the faults hour macro-stepped for 1,200 ticks with a
 # snapshot every 120 s, killed after its 4th; the chaos kill loop on the
@@ -412,8 +434,12 @@ def card_memory(torch) -> dict:
     return out
 
 
+T_START = time.perf_counter()   # the script's clock: each line's ``script_s``
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "script_s": time.perf_counter() - T_START}), flush=True)
 
 
 def card_line() -> str:
@@ -837,21 +863,18 @@ def _counted(torch, fn):
     return out, dict(kernels.LAUNCHES)
 
 
-def serve_hybrid(torch, np) -> int:
-    """The jamba hybrid without experts at full width on the card:
-    ``serve_jamba_1l`` in f32 against ``PINNED_JAMBA``; ``serve_jamba_8l``
-    in f32 and bf16 (the prefill/decode invariant and the launch counts),
-    then timed ``generate`` runs in bf16 under sync-debug "error". Returns
-    the selective_scan launches of one 8-layer prefill."""
+def serve_hybrid_pins(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="serve_hybrid_pins"``) of
+    phase ``serve_hybrid``'s pins: ``serve_jamba_1l`` (one Mamba layer) in
+    f32 on the card, its numpy weights drawn here (``seeded_numpy_params``),
+    the prefill and the decode steps with their launches counted. Returns
+    ``lm_summary``, the launches, the seconds and whether every logit is
+    finite."""
     from repro_torch.configs import acceptance as A
     from repro_torch.interop import lm_params_from_numpy
-    from repro_torch.models import DecoderLM, init_params, seeded_numpy_params
+    from repro_torch.models import seeded_numpy_params
     from repro_torch.models.model import decode_step, prefill
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-
-    # 1. serve_jamba_1l: one Mamba layer in f32 against the JAX package
     t0 = time.perf_counter()
     cfg = A.jamba_config(1, "float32")
     tree = seeded_numpy_params(cfg, A.JAMBA_SEED)
@@ -863,6 +886,7 @@ def serve_hybrid(torch, np) -> int:
     del tree
     S, N = A.JAMBA_PROMPT, A.JAMBA_DECODE
     toks = torch.tensor(A.lm_tokens(cfg, A.JAMBA_BATCH, S, N), device="cuda")
+    t0 = time.perf_counter()
     (logits, cache), per_prefill = _counted(
         torch, lambda: prefill(model, toks[:, :S], cache_seq_len=S + N))
     out = [logits]
@@ -874,20 +898,45 @@ def serve_hybrid(torch, np) -> int:
             out.append(logits)
 
     _, per_decode = _counted(torch, lambda: decode_all(cache))
-    report = A.check_lm(A.lm_summary([x.cpu().numpy() for x in out]),
-                        "float32", pins=A.PINNED_JAMBA, case=A.JAMBA_CASE)
+    return {"summary": A.lm_summary([x.cpu().numpy() for x in out]),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out),
+            "params": cfg.param_count(), "weights_s": weights_s,
+            "load_s": load_s, "run_s": time.perf_counter() - t0,
+            "launches_per_prefill": per_prefill,
+            "launches_in_decode": per_decode}
+
+
+def serve_hybrid(torch, np, pins: dict) -> int:
+    """The jamba hybrid without experts at full width on the card:
+    ``serve_jamba_1l`` in f32 against ``PINNED_JAMBA`` (run in a worker:
+    ``pins``); ``serve_jamba_8l`` in f32 and bf16 (the prefill/decode
+    invariant and the launch counts), then timed ``generate`` runs in bf16
+    under sync-debug "error". Returns the selective_scan launches of one
+    8-layer prefill."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.model import decode_step, prefill
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. serve_jamba_1l: one Mamba layer in f32 against the JAX package
+    N = A.JAMBA_DECODE
+    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_JAMBA,
+                        case=A.JAMBA_CASE)
+    per_prefill, per_decode = (pins["launches_per_prefill"],
+                               pins["launches_in_decode"])
     emit("serve_hybrid", step="pins", case=A.JAMBA_CASE,
-         params=cfg.param_count(), weights_s=weights_s, load_s=load_s,
+         in_worker_beside=LM_PINS_BESIDE,
+         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s")},
          launches_per_prefill=per_prefill, launches_in_decode=per_decode,
          **report)
-    if not all(bool(torch.isfinite(x).all()) for x in out):
+    if not pins["finite"]:
         raise AssertionError(f"{A.JAMBA_CASE}: non-finite logits")
     if (per_prefill["selective_scan"], per_prefill["flash_attn"]) != (1, 0) \
             or per_decode["selective_scan"] or per_decode["flash_attn"]:
         raise AssertionError(f"{A.JAMBA_CASE}: launches {per_prefill} per "
                              f"prefill, {per_decode} in {N} decode steps")
-    del model, cache, out, logits
-    torch.cuda.empty_cache()
 
     # 2. serve_jamba_8l: one whole 7:1 period, f32 masters made on the card
     n_layers = A.JAMBA_PATH_LAYERS
@@ -1023,6 +1072,8 @@ def _last_token_routing(long_rec, dec_rec, prompt: int) -> dict:
     longer prefill (``long_rec``): how many (layer, prompt) pairs pick
     another set, and their top-2/top-3 gaps (the second chosen prob
     less the best unchosen one) on both sides."""
+    import torch
+
     differ, gaps = 0, []
     for layer, (lr, dr) in enumerate(zip(long_rec, dec_rec)):
         batch = dr.expert_idx.shape[1]
@@ -1067,6 +1118,7 @@ def serve_moe(torch, np, pins: dict) -> int:
     per_prefill, per_decode = (pins["launches_per_prefill"],
                                pins["launches_in_decode"])
     emit("serve_moe", step="pins", case=A.MIXTRAL_CASE,
+         in_worker_beside=LM_PINS_BESIDE,
          **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s",
                                  "max_memory_gb")},
          launches_per_prefill=per_prefill, launches_in_decode=per_decode,
@@ -1411,6 +1463,22 @@ def hour_run(case: str, cfg, statics, state) -> dict:
                 kw=dict(summary_only=True), measure=True, case=case)
 
 
+def macro_hour_run(cfg, statics, state, entry: str = "run_episode",
+                   **kw) -> dict:
+    """An hour at ``macro=True`` as a run for a worker (``start_alone``):
+    ``run_episode`` of ``acceptance.SCHEDULER`` (or ``run_fleet`` of the
+    policies in ``kw``) under ``_macro_counts`` (sync-debug "error", the
+    launches, the macro ticks and the host reads counted), whose tuple it
+    returns."""
+    from repro_torch.configs import acceptance
+
+    return dict(entry=entry, cfg=cfg, statics=statics, state=state,
+                n_steps=acceptance.N_STEPS,
+                scheduler=(acceptance.SCHEDULER if entry == "run_episode"
+                           else None),
+                kw=dict(kw, macro=True), macro_counts=True)
+
+
 def check_hour(torch, case: str, cfg, final, telem, launches: dict,
                wall_s: float, phase: str, **labels):
     """An hour of ``case`` held to its pinned values, one power_scatter
@@ -1586,9 +1654,11 @@ def run_alone(torch, runs: list, during=None):
 
 def alone_main(src: str, out: str) -> int:
     """Worker of ``run_alone`` / ``start_alone``: one ``run_episode`` on the
-    card (or the run's ``entry``: ``run_fleet``, or ``serve_moe_pins``). A
-    run with ``measure`` is timed under sync-debug "error" with its
-    launches counted, and its result carries them as a third element."""
+    card (or the run's ``entry``: ``run_fleet``, ``serve_hybrid_pins`` or
+    ``serve_moe_pins``). A run with ``measure`` is timed under sync-debug
+    "error" with its launches counted, and its result carries them as a
+    third element; a run with ``macro_counts`` returns ``_macro_counts``'
+    tuple instead."""
     import contextlib
 
     import torch
@@ -1599,11 +1669,22 @@ def alone_main(src: str, out: str) -> int:
 
     exact_matmul()
     run = torch.load(src, map_location="cuda", weights_only=False)
-    if run.get("entry") == "serve_moe_pins":
-        torch.save(serve_moe_pins(torch), out)
+    lm_pins = {"serve_hybrid_pins": serve_hybrid_pins,
+               "serve_moe_pins": serve_moe_pins}.get(run.get("entry"))
+    if lm_pins is not None:
+        torch.save(lm_pins(torch), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
+    if run["kw"].get("policies") is not None:
+        # a Policy's ids are host data, which the load put on the card
+        run["kw"]["policies"] = type(run["kw"]["policies"])(
+            *(v.cpu() for v in run["kw"]["policies"]))
+    if run.get("macro_counts"):
+        torch.save(_macro_counts(torch, lambda: entry(
+            run["cfg"], run["statics"], run["state"], run["n_steps"],
+            run["scheduler"], **run["kw"])), out)
+        return 0
     measure = run.get("measure", False)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1676,9 +1757,47 @@ def fleet(torch, np, jobs, bank, beside=()) -> tuple:
     config for FLEET_THERMAL_TICKS at E = 72 (one rack_thermal launch a
     tick) with FLEET_THERMAL_ALONE rerun alone; then ms per tick, us per
     replica-tick, CUDA kernels per tick and the device's busy share at
-    E = 1, 72 and 1152 (the grid tiled 16x). ``beside``: more runs for
-    ``run_alone``, started first with the replicas rerun alone. Returns
-    (the hour's launches and wall seconds, the results of ``beside``)."""
+    E = 1, 72 and 1152 (the grid tiled 16x), alone. ``beside``: runs for
+    ``start_alone`` (phase virtual_cloud's what-ifs), started first with
+    phase mesh's worlds, beside the grid's hours and the replicas rerun
+    alone. Returns (the hour's launches and wall seconds, the results of
+    ``beside``)."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.core import build_statics, init_state, load_jobs
+    from repro_torch.core.fleet import run_fleet
+
+    t0 = time.perf_counter()
+    beside_handle = start_alone(torch, list(beside))
+    try:
+        runs = _fleet_checks(torch, jobs, bank, mesh_start(torch), t0)
+        beside_runs = join_alone(torch, beside_handle)
+    finally:
+        stop_alone(beside_handle)
+
+    # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
+    # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
+    cfg = A.config()
+    statics = build_statics(cfg, bank)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    for n_rep in FLEET_SIZES:
+        _, pol, scn = A.fleet_grid(cfg, n_rep)
+        _, _, wall, launches = _run_fleet_timed(
+            torch, run_fleet, cfg, statics, state, FLEET_TIMING, pol, scn)
+        emit("fleet", step="scale", replicas=n_rep, ticks=FLEET_TIMING,
+             ms_per_tick=1e3 * wall / FLEET_TIMING,
+             us_per_replica_tick=1e6 * wall / FLEET_TIMING / n_rep,
+             replica_ticks_per_s=n_rep * FLEET_TIMING / wall,
+             launches=launches, profile=_profile_fleet(torch, n_rep),
+             profile_ticks=FLEET_PROFILE)
+        if launches != no_launches(power_scatter=FLEET_TIMING):
+            raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
+    return runs["replay_tx_gaia_1h"], beside_runs
+
+
+def _fleet_checks(torch, jobs, bank, mesh_run, t0) -> dict:
+    """Phase ``fleet``'s hours and their replicas rerun alone, then phase
+    ``mesh`` (its worlds started at ``t0``). Returns the hours' launches
+    and wall seconds by case."""
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
         build_statics,
@@ -1724,7 +1843,7 @@ def fleet(torch, np, jobs, bank, beside=()) -> tuple:
             rec["replica0_pinned"] = True
             rec["demand_response_mean_throttle"] = telem.mean_throttle[
                 8::9].tolist()
-        emit("fleet", step="grid", **rec)
+        emit("fleet", step="grid", **rec, beside=BESIDE_GRID)
         if launches != want:
             raise AssertionError(f"fleet {case}: launches {launches}, "
                                  f"expected {want}")
@@ -1739,40 +1858,20 @@ def fleet(torch, np, jobs, bank, beside=()) -> tuple:
             checks.append((case, names[e], e % n_scn, e, final, telem))
         runs[case] = launches, wall
         finals[case] = final, telem
-    # the replicas rerun alone, and phase mesh's worlds beside them
-    t0 = time.perf_counter()
-    alone_runs, mesh_run = run_alone(torch, list(beside) + alone,
-                                     during=lambda: mesh_start(torch))
-    beside_runs, alone_runs = (alone_runs[:len(beside)],
-                               alone_runs[len(beside):])
+    # the replicas rerun alone, beside phase mesh's worlds and phase
+    # virtual_cloud's what-ifs
+    started = time.perf_counter()
+    alone_runs = run_alone(torch, alone)
     for (f1, t1), (case, name, scn_id, e, final, telem) in zip(
             alone_runs, checks):
         emit("fleet", step="alone", case=case, policy=name,
              scenario=scn_id, **_alone_vs_fleet(
                  torch, f"fleet {case}", f1, final, e, t1, telem))
-    emit("fleet", step="alone runs", runs=len(alone), beside=len(beside),
-         workers=ALONE_WORKERS, wall_s=time.perf_counter() - t0)
+    emit("fleet", step="alone runs", runs=len(alone),
+         workers=ALONE_WORKERS, wall_s=time.perf_counter() - started)
     mesh(torch, mesh_run, finals)
     emit("fleet", step="alone runs and mesh", wall_s=time.perf_counter() - t0)
-
-    # ms per tick and us per replica-tick at E = 1, 72 and 1152, each
-    # FLEET_TIMING ticks of the hour's grid (tiled), then the profile
-    cfg = A.config()
-    statics = build_statics(cfg, bank)
-    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
-    for n_rep in FLEET_SIZES:
-        _, pol, scn = A.fleet_grid(cfg, n_rep)
-        _, _, wall, launches = _run_fleet_timed(
-            torch, run_fleet, cfg, statics, state, FLEET_TIMING, pol, scn)
-        emit("fleet", step="scale", replicas=n_rep, ticks=FLEET_TIMING,
-             ms_per_tick=1e3 * wall / FLEET_TIMING,
-             us_per_replica_tick=1e6 * wall / FLEET_TIMING / n_rep,
-             replica_ticks_per_s=n_rep * FLEET_TIMING / wall,
-             launches=launches, profile=_profile_fleet(torch, n_rep),
-             profile_ticks=FLEET_PROFILE)
-        if launches != no_launches(power_scatter=FLEET_TIMING):
-            raise AssertionError(f"fleet at E = {n_rep}: launches {launches}")
-    return runs["replay_tx_gaia_1h"], beside_runs
+    return runs
 
 
 def virtual_cloud_runs(torch, np) -> list:
@@ -2385,20 +2484,21 @@ def _against_per_tick(torch, name, macro_run, per_tick_run) -> dict:
             "max_abs_diff_vs_per_tick_telemetry": worst["telemetry"]}
 
 
-def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
-    """The macro phase (see the module docstring, phase 8)."""
+def macro(torch, jobs, bank, per_tick: dict, fleet_hour, early: dict):
+    """The macro phase's hours (see the module docstring, phase 8): the
+    three replay hours and the fleet hour, each run in a worker beside
+    phases rl and macro (``early``: ``early_runs``' results by case),
+    checked here; the fleet's replicas rerun alone are started in workers.
+    Returns a function that waits for them and holds them to the fleet."""
     from repro_torch.configs import acceptance as A
     from repro_torch.core import (
         build_statics,
         init_state,
         load_jobs,
-        run_episode,
         summary,
         summary_columns,
     )
-    from repro_torch.core.fleet import _scenario_list, run_fleet
-    from repro_torch.envs import SchedEnv
-    from repro_torch.tools.profile_tick import profile_rl
+    from repro_torch.core.fleet import _scenario_list
     from repro_torch.utils.device import tree_to
 
     start = time.perf_counter()
@@ -2406,17 +2506,14 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
     for case in A.MACRO_CASES:
         base = A.base_case(case)
         cfg = A.config(case)
-        statics = build_statics(cfg, bank)
-        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
-        (final, telem), wall, launches, (events, fast), reads = \
-            _macro_counts(torch, lambda: run_episode(
-                cfg, statics, state, A.N_STEPS, A.SCHEDULER, macro=True))
+        (final, telem), wall, launches, (events, fast), reads = early[case]
         got = summary(final, telem)
         _, pt_final, pt_telem, pt_wall = per_tick[base]
         committed = int(got["ticks_simulated"] - got["macro_steps_taken"])
         pins = A.PINNED_MACRO[case]
         rec = dict(
-            case=case, ticks_simulated=got["ticks_simulated"],
+            case=case, in_worker_beside=EARLY_BESIDE,
+            ticks_simulated=got["ticks_simulated"],
             event_ticks=events, fast_ticks_issued=fast,
             fast_ticks_masked=fast - committed,
             ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
@@ -2444,14 +2541,12 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
     statics = build_statics(cfg, bank)
     state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
     names, pol, scn = A.fleet_grid(cfg)
-    (final, telem), wall, launches, (events, fast), reads = _macro_counts(
-        torch, lambda: run_fleet(cfg, statics, state, A.N_STEPS,
-                                 policies=pol, scenarios=scn,
-                                 summary_only=True, macro=True))
+    (final, telem), wall, launches, (events, fast), reads = early[MACRO_FLEET]
     cols = summary_columns(final, telem)
     committed = int((cols["ticks_simulated"]
                      - cols["macro_steps_taken"]).sum())
-    rec = dict(replicas=len(names), ticks=A.N_STEPS, wall_s=wall,
+    rec = dict(replicas=len(names), ticks=A.N_STEPS,
+               in_worker_beside=EARLY_BESIDE, wall_s=wall,
                ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
                per_tick_ms_per_tick=1e3 * fleet_hour[1] / A.N_STEPS,
                outer_iterations=events, fast_ticks_issued=fast,
@@ -2470,45 +2565,52 @@ def macro(torch, np, jobs, bank, per_tick: dict, fleet_hour) -> None:
         scheduler=names[e].split("+")[0],
         kw=dict(placement=names[e].split("+")[1], macro=True))
         for e in MACRO_FLEET_ALONE]
+    handle = start_alone(torch, alone)
 
-    # (c) the RL env at macro=True: the script and one PPO iteration at
-    # the pins (while the replicas above rerun alone), then timings
-    def rl_pins():
-        cfg = A.rl_config("rl_tx_gaia")
-        env = SchedEnv(cfg, A.rl_workloads(cfg),
-                       **A.rl_env_kwargs(macro=True))
-        guard = no_sync(torch)
-        steps = A.RL_SCRIPT_STEPS["rl_tx_gaia"]
-        got, wall, launches, (events, fast), reads = _macro_counts(
-            torch, lambda: A.run_rl_script(env, "rl_tx_gaia", guard=guard),
+    def finish():
+        for e, (f1, t1) in zip(MACRO_FLEET_ALONE, join_alone(torch, handle)):
+            emit("macro", step="alone", policy=names[e], **_alone_vs_fleet(
+                torch, "macro fleet", f1, final, e, t1, telem))
+    return handle, finish
+
+
+def macro_rl(torch) -> None:
+    """The macro phase's RL env (see the module docstring, phase 8):
+    ``SchedEnv(macro=True)``'s script and one PPO iteration at the pins,
+    then its timings and profile."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.envs import SchedEnv
+    from repro_torch.tools.profile_tick import profile_rl
+
+    start = time.perf_counter()
+    cfg = A.rl_config("rl_tx_gaia")
+    env = SchedEnv(cfg, A.rl_workloads(cfg), **A.rl_env_kwargs(macro=True))
+    guard = no_sync(torch)
+    steps = A.RL_SCRIPT_STEPS["rl_tx_gaia"]
+    got, wall, launches, (events, fast), reads = _macro_counts(
+        torch, lambda: A.run_rl_script(env, "rl_tx_gaia", guard=guard),
+        guard=False)
+    report = A.check_rl("rl_tx_gaia", got, pins=A.PINNED_RL_MACRO[
+        "rl_tx_gaia"])
+    emit("macro", step="rl_script", envs=A.RL_ENVS, env_steps=steps,
+         event_ticks=events, fast_ticks_issued=fast, wall_s=wall,
+         launches=launches, host_reads_per_env_step=len(reads) / steps,
+         **_read_gate(reads, "rl_tx_gaia macro"), **report,
+         at_s=time.perf_counter() - start)
+    if launches != no_launches(power_scatter=steps + events + fast):
+        raise AssertionError(f"rl_tx_gaia macro: launches {launches}")
+    drains = []
+    with counted_drains(torch, drains):
+        (got, _), wall, launches, (events, fast), reads = _macro_counts(
+            torch, lambda: A.run_ppo(env, guard=guard, n_iterations=1),
             guard=False)
-        report = A.check_rl("rl_tx_gaia", got, pins=A.PINNED_RL_MACRO[
-            "rl_tx_gaia"])
-        emit("macro", step="rl_script", envs=A.RL_ENVS, env_steps=steps,
-             event_ticks=events, fast_ticks_issued=fast, wall_s=wall,
-             launches=launches, host_reads_per_env_step=len(reads) / steps,
-             **_read_gate(reads, "rl_tx_gaia macro"), **report,
-             at_s=time.perf_counter() - start)
-        if launches != no_launches(power_scatter=steps + events + fast):
-            raise AssertionError(f"rl_tx_gaia macro: launches {launches}")
-        drains = []
-        with counted_drains(torch, drains):
-            (got, _), wall, launches, (events, fast), reads = _macro_counts(
-                torch, lambda: A.run_ppo(env, guard=guard, n_iterations=1),
-                guard=False)
-        report = A.check_ppo(got, pins=A.PINNED_RL_MACRO["ppo"])
-        emit("macro", step="ppo", iterations=1, wall_s=wall,
-             launches=launches, drains=drains, history=got["history"],
-             **_read_gate(reads, "ppo macro"), **report,
-             at_s=time.perf_counter() - start)
-        if drains != [1]:
-            raise AssertionError(f"ppo macro: host drains {drains}")
-        return env
-
-    runs, env = run_alone(torch, alone, during=rl_pins)
-    for e, (f1, t1) in zip(MACRO_FLEET_ALONE, runs):
-        emit("macro", step="alone", policy=names[e], **_alone_vs_fleet(
-            torch, "macro fleet", f1, final, e, t1, telem))
+    report = A.check_ppo(got, pins=A.PINNED_RL_MACRO["ppo"])
+    emit("macro", step="ppo", iterations=1, wall_s=wall,
+         launches=launches, drains=drains, history=got["history"],
+         **_read_gate(reads, "ppo macro"), **report,
+         at_s=time.perf_counter() - start)
+    if drains != [1]:
+        raise AssertionError(f"ppo macro: host drains {drains}")
     for n_envs in MACRO_RL_ENVS:
         emit("macro", step="rl_scale", at_s=time.perf_counter() - start,
              **_rl_rollout_timed(torch, env, n_envs, RL_SCALE_STEPS))
@@ -2586,22 +2688,20 @@ def faults(torch, np, jobs, bank, per_tick: dict, early: dict) -> None:
              replay_tx_gaia_1h_ms_per_tick=main_ms,
              at_s=time.perf_counter() - start)
 
-    # (b) both hours macro-stepped: bitwise equal to per tick, the pinned
-    # event ticks, the read gate, one power_tick launch a tick issued
+    # (b) both hours macro-stepped (in workers beside phases rl and macro):
+    # bitwise equal to per tick, the pinned event ticks, the read gate, one
+    # power_tick launch a tick issued
     for case in A.FAULT_MACRO_CASES:
         base = A.base_case(case)
         cfg = A.config(case)
-        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
-        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
-        (final, telem), wall, launches, (events, fast), reads = \
-            _macro_counts(torch, lambda: run_episode(
-                cfg, statics, state, A.N_STEPS, A.SCHEDULER, macro=True))
+        (final, telem), wall, launches, (events, fast), reads = early[case]
         got = summary(final, telem)
         _, pt_final, pt_telem, pt_wall = hours[base]
         pins = A.PINNED_FAULTS[case]
         diffs = _against_per_tick(torch, case, (final, telem),
                                   (pt_final, pt_telem))
-        emit("faults", step="macro hour", case=case, event_ticks=events,
+        emit("faults", step="macro hour", case=case,
+             in_worker_beside=EARLY_BESIDE, event_ticks=events,
              fast_ticks_issued=fast,
              ms_per_simulated_tick=1e3 * wall / A.N_STEPS,
              per_tick_ms_per_tick=1e3 * pt_wall / A.N_STEPS,
@@ -2752,16 +2852,15 @@ def serving(torch, np, jobs, bank, per_tick: dict, early: dict) -> dict:
             raise AssertionError(f"{A.SERVING_CASE}: final state field "
                                  f"{name}: bad values")
 
-    # (b) macro-stepped: bitwise equal to per tick, the read gate, one
-    # power_tick launch a tick issued
+    # (b) macro-stepped (in a worker beside phases rl and macro): bitwise
+    # equal to per tick, the read gate, one power_tick launch a tick issued
     case = A.SERVING_MACRO_CASE
-    (mf, mt), mwall, launches, (events, fast), reads = _macro_counts(
-        torch, lambda: run_episode(cfg, statics, state, A.N_STEPS,
-                                   A.SCHEDULER, macro=True))
+    (mf, mt), mwall, launches, (events, fast), reads = early[case]
     gm = A.serving_summary(mf, mt)
     diffs = _against_per_tick(torch, case, (mf, mt), (final, telem))
     pins = A.PINNED_SERVING[case]
-    emit("serving", step="macro hour", case=case, event_ticks=events,
+    emit("serving", step="macro hour", case=case,
+         in_worker_beside=EARLY_BESIDE, event_ticks=events,
          fast_ticks_issued=fast,
          fast_ticks_masked=fast - int(gm["ticks_simulated"]
                                       - gm["macro_steps_taken"]),
@@ -2919,8 +3018,10 @@ def _drop_after(directory: Path, tick: int) -> list:
 
 
 def durable(torch, np, jobs, bank, per_tick: dict, ppo_run,
-            profiles: dict) -> None:
-    """The durable phase (see the module docstring, phase 14)."""
+            profiles: dict, after_hour=None) -> None:
+    """The durable phase (see the module docstring, phase 14).
+    ``after_hour``: called once the snapshotted hour, which runs alone on
+    the card, is done."""
     import shutil
     import threading
 
@@ -2944,9 +3045,14 @@ def durable(torch, np, jobs, bank, per_tick: dict, ppo_run,
         except Exception as e:      # re-raised in the parent below
             chaos["error"] = e
     chaos_thread = threading.Thread(target=chaos_loop, daemon=True)
+
+    def hour_done():
+        chaos_thread.start()
+        if after_hour is not None:
+            after_hour()
     try:
         _durable_checks(torch, np, jobs, bank, per_tick, ppo_run, profiles,
-                        work, start, after_hour=chaos_thread.start)
+                        work, start, after_hour=hour_done)
     finally:
         # the kill loop's processes end before the phase does, also when a
         # check above failed (its final launch has its own time limit)
@@ -3271,8 +3377,9 @@ def _durable_checks(torch, np, jobs, bank, per_tick: dict, ppo_run,
 def early_runs(jobs, bank) -> tuple:
     """The runs started beside phases rl and macro (``start_alone``):
     both per-tick hours of phase faults and the one of phase serving
-    (``hour_run``), and phase serve_moe's ``serve_mixtral_1l``
-    (``serve_moe_pins``). Returns (their cases, the runs)."""
+    (``hour_run``), and the macro-stepped hours of phases macro (the three
+    replay hours and the fleet hour), faults and serving
+    (``macro_hour_run``). Returns (their cases, the runs)."""
     from repro_torch.configs import acceptance as A
     from repro_torch.core import build_statics, init_state, load_jobs
 
@@ -3283,11 +3390,65 @@ def early_runs(jobs, bank) -> tuple:
         state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
         cases.append(case)
         runs.append(hour_run(case, cfg, statics, state))
+    serving = serving_setup(jobs, bank)
     cases.append(A.SERVING_CASE)
-    runs.append(hour_run(A.SERVING_CASE, *serving_setup(jobs, bank)))
-    cases.append(A.MIXTRAL_CASE)
-    runs.append({"entry": "serve_moe_pins"})
+    runs.append(hour_run(A.SERVING_CASE, *serving))
+    for case in A.FAULT_MACRO_CASES:
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank, A.fault_scenario(case, cfg))
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        cases.append(case)
+        runs.append(macro_hour_run(cfg, statics, state))
+    cases.append(A.SERVING_MACRO_CASE)
+    runs.append(macro_hour_run(*serving))
+    for case in A.MACRO_CASES:
+        cfg = A.config(case)
+        statics = build_statics(cfg, bank)
+        state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+        cases.append(case)
+        runs.append(macro_hour_run(cfg, statics, state))
+    cfg = A.config()
+    statics = build_statics(cfg, bank)
+    state = load_jobs(init_state(cfg, statics, seed=A.SEED), jobs)
+    _, pol, scn = A.fleet_grid(cfg)
+    cases.append(MACRO_FLEET)
+    runs.append(macro_hour_run(cfg, statics, state, entry="run_fleet",
+                               policies=pol, scenarios=scn,
+                               summary_only=True))
     return cases, runs
+
+
+def lm_pins_runs() -> tuple:
+    """The runs started beside phase durable (``start_alone``): the pins
+    of phases serve_hybrid and serve_moe, each model's numpy weights drawn
+    in its worker. Returns (their cases, the runs)."""
+    from repro_torch.configs import acceptance as A
+
+    return ([A.MIXTRAL_CASE, A.JAMBA_CASE],
+            [{"entry": "serve_moe_pins"}, {"entry": "serve_hybrid_pins"}])
+
+
+def determinism(torch, jobs, bank) -> None:
+    """Phase 10: the same ticks twice, bitwise."""
+    from repro_torch.configs import acceptance
+    from repro_torch.core import build_statics, init_state, load_jobs
+    from repro_torch.core import run_episode
+
+    for case, ticks in DETERMINISM:
+        dcfg = acceptance.config(case)
+        dstatics = build_statics(dcfg, bank)
+        state = load_jobs(init_state(dcfg, dstatics, seed=acceptance.SEED),
+                          jobs)
+        (sa, ta), (sb, tb) = [
+            run_episode(dcfg, dstatics, state, ticks, acceptance.SCHEDULER,
+                        summary_only=True) for _ in range(2)]
+        differ = [f for f in sa._fields
+                  if not torch.equal(getattr(sa, f), getattr(sb, f))]
+        differ += [f"telemetry.{f}" for f in ta._fields
+                   if not torch.equal(getattr(ta, f), getattr(tb, f))]
+        emit("determinism", case=case, ticks=ticks, fields_differing=differ)
+        if differ:
+            raise AssertionError(f"{case}: runs differ in {differ}")
 
 
 def main() -> int:
@@ -3300,8 +3461,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.configs import acceptance
-    from repro_torch.core import build_statics, init_state, load_jobs
-    from repro_torch.core import run_episode
+    from repro_torch.core import build_statics
     from repro_torch.core.thermal import thermal_alpha
     from repro_torch.kernels import build
     from repro_torch.kernels import node_power as npw
@@ -3469,7 +3629,7 @@ def main() -> int:
     launches["rack_thermal"] = per_tick[THERMAL_CASES[0]][0]["rack_thermal"]
 
     # 6. fleet: the replay tick batched over a replica axis; phase 16's
-    # what-ifs run in workers beside its replicas rerun alone
+    # what-ifs and phase 15's worlds run in workers beside its hours
     t0 = time.perf_counter()
     vc_runs = virtual_cloud_runs(torch, np)
     fleet_hour, vc_results = fleet(torch, np, jobs, bank, beside=vc_runs)
@@ -3479,9 +3639,9 @@ def main() -> int:
     virtual_cloud(torch, vc_results, 1e3 * per_tick["replay_tx_gaia_1h"][3]
                   / acceptance.N_STEPS)
 
-    # the per-tick hours of phases faults and serving and phase serve_moe's
-    # pinned one-layer mixtral (its weights drawn in the worker) run in
-    # workers beside phases rl and macro, and are checked in their phases
+    # the per-tick hours of phases faults and serving and the macro-stepped
+    # hours of phases macro, faults and serving run in workers beside phase
+    # rl and phase macro's RL env, and are checked in their phases
     t0 = time.perf_counter()
     early_cases, early = early_runs(jobs, bank)
     handle = start_alone(torch, early)
@@ -3491,12 +3651,10 @@ def main() -> int:
         ppo_run = rl(torch, np)
         emit("rl", step="done", seconds=time.perf_counter() - t1)
 
-        # 8. macro: the replay hours, the fleet hour and the RL env with
-        # quiet ticks fast-forwarded, against the pins and the per-tick
-        # runs above
+        # 8. macro: the RL env with quiet ticks fast-forwarded
         t1 = time.perf_counter()
-        macro(torch, np, jobs, bank, per_tick, fleet_hour)
-        emit("macro", step="done", seconds=time.perf_counter() - t1)
+        macro_rl(torch)
+        emit("macro", step="env done", seconds=time.perf_counter() - t1)
         t1 = time.perf_counter()
         early = dict(zip(early_cases, join_alone(torch, handle)))
     finally:
@@ -3507,54 +3665,71 @@ def main() -> int:
          waited_after_macro_s=time.perf_counter() - t1,
          seconds=time.perf_counter() - t0)
 
-    # 9. faults: the resilience twin's hours, fleet and env
+    # 8. macro (continued): the replay hours and the fleet hour against the
+    # pins and the per-tick runs above; the fleet's replicas rerun alone in
+    # workers beside phases faults and serving
     t0 = time.perf_counter()
-    faults(torch, np, jobs, bank, per_tick, early)
-    emit("faults", step="done", seconds=time.perf_counter() - t0)
+    macro_handle, macro_alone = macro(torch, jobs, bank, per_tick,
+                                      fleet_hour, early)
+    try:
+        emit("macro", step="hours done", seconds=time.perf_counter() - t0)
 
-    # 13. serving: the serving twin's hour per tick and macro, its fleet
-    # and env (run here, before the LM phases, beside the replay phases)
-    t0 = time.perf_counter()
-    profiles = serving(torch, np, jobs, bank, per_tick, early)
-    emit("serving", step="done", seconds=time.perf_counter() - t0)
+        # 9. faults: the resilience twin's hours, fleet and env
+        t0 = time.perf_counter()
+        faults(torch, np, jobs, bank, per_tick, early)
+        emit("faults", step="done", seconds=time.perf_counter() - t0)
 
-    # 14. durable: snapshots, kill and resume, the chaos loop, PPO
-    # checkpoints and the invariant harness, against the runs above
-    t0 = time.perf_counter()
-    durable(torch, np, jobs, bank, per_tick, ppo_run, profiles)
-    emit("durable", step="done", seconds=time.perf_counter() - t0)
+        # 13. serving: the serving twin's hour per tick and macro, its fleet
+        # and env (run here, before the LM phases, beside the replay phases)
+        t0 = time.perf_counter()
+        profiles = serving(torch, np, jobs, bank, per_tick, early)
+        emit("serving", step="done", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        macro_alone()
+        emit("macro", step="done", waited_after_serving_s=(
+            time.perf_counter() - t0))
+    finally:
+        stop_alone(macro_handle)
 
-    # 10. determinism: the same ticks twice, bitwise
-    for case, ticks in DETERMINISM:
-        dcfg = acceptance.config(case)
-        dstatics = build_statics(dcfg, bank)
-        state = load_jobs(init_state(dcfg, dstatics, seed=acceptance.SEED),
-                          jobs)
-        (sa, ta), (sb, tb) = [
-            run_episode(dcfg, dstatics, state, ticks, acceptance.SCHEDULER,
-                        summary_only=True) for _ in range(2)]
-        differ = [f for f in sa._fields
-                  if not torch.equal(getattr(sa, f), getattr(sb, f))]
-        differ += [f"telemetry.{f}" for f in ta._fields
-                   if not torch.equal(getattr(ta, f), getattr(tb, f))]
-        emit("determinism", case=case, ticks=ticks, fields_differing=differ)
-        if differ:
-            raise AssertionError(f"{case}: runs differ in {differ}")
+    # the pins of phases serve_hybrid and serve_moe (their numpy weights
+    # drawn in the workers) run beside phases durable and determinism
+    lm_cases, lm_runs = lm_pins_runs()
+    lm = {}
+    try:
+        # 14. durable: snapshots, kill and resume, the chaos loop, PPO
+        # checkpoints and the invariant harness, against the runs above
+        t0 = time.perf_counter()
+        durable(torch, np, jobs, bank, per_tick, ppo_run, profiles,
+                after_hour=lambda: lm.update(handle=start_alone(torch,
+                                                                lm_runs)))
+        emit("durable", step="done", seconds=time.perf_counter() - t0)
+        determinism(torch, jobs, bank)
+        t0 = time.perf_counter()
+        pins = dict(zip(lm_cases, join_alone(torch, lm["handle"])))
+        emit("lm_pins", runs=lm_cases, beside=LM_PINS_BESIDE,
+             worker_wall_s=[lm["handle"]["wall_s"][i]
+                            for i in range(len(lm_cases))],
+             waited_s=time.perf_counter() - t0)
+    finally:
+        if "handle" in lm:
+            stop_alone(lm["handle"])
 
     # 11. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
     launches["flash_attn"] = serve(torch, np)
 
     # 12. serve_hybrid: the jamba hybrid at full width; the kernels line
-    # reports the selective_scan launches of one 8-layer prefill
+    # reports the selective_scan launches of one 8-layer prefill; its pins
+    # ran in a worker (above)
     t0 = time.perf_counter()
-    launches["selective_scan"] = serve_hybrid(torch, np)
+    launches["selective_scan"] = serve_hybrid(torch, np,
+                                              pins[acceptance.JAMBA_CASE])
     emit("serve_hybrid", step="done", seconds=time.perf_counter() - t0)
 
     # 17. serve_moe: mixtral-8x22b's experts at full width; its pins ran in
     # a worker (above)
     t0 = time.perf_counter()
-    moe_prefill = serve_moe(torch, np, early[acceptance.MIXTRAL_CASE])
+    moe_prefill = serve_moe(torch, np, pins[acceptance.MIXTRAL_CASE])
     emit("serve_moe", step="done", seconds=time.perf_counter() - t0)
 
     # each TPU kernel's row reports the entry its path launches: the fused
