@@ -16,8 +16,11 @@ and no result line:
              table, nodes and racks; the fleet's tick over a banked trace
              of three workloads at E=72 and 1152; gemma3-1b's, qwen3-4b's,
              jamba's and mixtral-8x22b's prefill attention (mixtral's
-             window of 4096 wider than the sequence); jamba's selective
-             scan at its 8-layer prefill and at a ragged length, the
+             window of 4096 wider than the sequence), and unmasked: the
+             VLM's cross-attention of 2048 queries onto 1601 vision tokens
+             (Sq > Sk; bf16 and f32), whisper's encoder over 1500 frames
+             and its cross-attention of 448 queries onto them; jamba's
+             selective scan at its 8-layer prefill and at a ragged length, the
              signature entry in f32
              and the Mamba mixer's fused entry ``mamba_scan`` in bf16 and
              f32), and timed (CUDA events, median) beside its bound and,
@@ -238,6 +241,23 @@ and no result line:
              ``generate`` in bf16 at the published capacity factor 1.25 as
              in ``serve``, with the slots each layer drops.
 
+18-20. serve_xlstm, serve_whisper, serve_vlm  the last three LM families
+             (``acceptance.LAST_CASES``), each: its pins in f32 (drawn and
+             run in a worker beside phases durable and determinism:
+             xlstm-125m whole, B 2, prompt 600; whisper-small whole, B 2,
+             1500 audio frames, prompt 64; llama-3.2-vision-11b cut to 5
+             layers with ``xgate`` opened, B 1, prompt 1632 over 1601
+             vision tokens) held to ``PINNED_LAST``, argmax equal, the
+             flash_attn launches per prefill (0, 36, 6) and none per decode
+             step; the path model (the VLM cut to 10 layers;
+             ``init_params`` on the card) in f32 and bf16: the
+             prefill/decode invariant (f32 within 1e-4; bf16 within
+             SERVE_TOL, or else as ``serve_hybrid`` holds it), the
+             launches per prefill and decode step; CUDA kernels, device ms
+             and busy share of a profiled bf16 prefill and decode step;
+             ``generate`` in bf16 at B 4, prompt 1024 (the VLM's 2048), 32
+             tokens, with the memory, as in ``serve``.
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
 what-ifs each run in a worker process of their own on the card
@@ -248,9 +268,10 @@ stops any that fails. The per-tick hours of phases ``faults`` and
 ``serving`` run in workers started after phase ``virtual_cloud``
 (``early_runs``, ``start_alone``), beside phase ``rl`` and phase
 ``macro``'s RL env, and are joined before the macro phase's hours are
-checked. The pins of phases ``serve_hybrid`` and ``serve_moe`` run in
-workers started after phase ``durable``'s alone hour (``lm_pins_runs``) and
-are joined before phase ``serve``. Each line carries ``script_s``, the
+checked. The pins of phases ``serve_hybrid``, ``serve_moe``, ``serve_xlstm``,
+``serve_whisper`` and ``serve_vlm`` run in workers started after phase
+``durable``'s alone hour (``lm_pins_runs``) and are joined before phase
+``serve``. Each line carries ``script_s``, the
 seconds since the script started.
 
 The launch counts are set to 0 just before each path and read just after.
@@ -261,6 +282,7 @@ without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -286,22 +308,44 @@ THERMAL_CASES = ("replay_tx_gaia_1h_thermal",
 INF_CLOCKS = {"next_fail_t", "rack_fail_t", "srv_retry_t", "srv_wake_t"}
 # flash_attn at gemma3-1b's prefill (B 4, S 1024, H 4, Kv 1, hd 256),
 # qwen3-4b's GQA (H 32, Kv 8, hd 128), jamba's (H 64) and mixtral's (H 48,
-# its window of 4096 wider than the sequence): (name, dtype, b, s, h, kv,
-# hd, causal, window, tolerance (atol = rtol))
+# its window of 4096 wider than the sequence); then without a mask: the
+# VLM's cross-attention of a 2048-token prompt onto its 1601 vision tokens
+# (Sq > Sk, in bf16 and f32), whisper's encoder over its 1500 frames and
+# its decoder's cross-attention of a 448-token prompt onto them: (name,
+# dtype, b, sq, sk, h, kv, hd, causal, window, tolerance (atol = rtol))
 ATTN_CASES = (
-    ("gemma3-1b causal", "bfloat16", 4, 1024, 4, 1, 256, True, 0, 2e-2),
-    ("gemma3-1b window 512", "bfloat16", 4, 1024, 4, 1, 256, True, 512, 2e-2),
-    ("gemma3-1b causal f32", "float32", 4, 1024, 4, 1, 256, True, 0, 2e-5),
-    ("qwen3-4b causal", "bfloat16", 4, 1024, 32, 8, 128, True, 0, 2e-2),
-    ("jamba causal", "bfloat16", 4, 1024, 64, 8, 128, True, 0, 2e-2),
-    ("mixtral window 4096", "bfloat16", 4, 1024, 48, 8, 128, True, 4096,
+    ("gemma3-1b causal", "bfloat16", 4, 1024, 1024, 4, 1, 256, True, 0,
      2e-2),
+    ("gemma3-1b window 512", "bfloat16", 4, 1024, 1024, 4, 1, 256, True, 512,
+     2e-2),
+    ("gemma3-1b causal f32", "float32", 4, 1024, 1024, 4, 1, 256, True, 0,
+     2e-5),
+    ("qwen3-4b causal", "bfloat16", 4, 1024, 1024, 32, 8, 128, True, 0, 2e-2),
+    ("jamba causal", "bfloat16", 4, 1024, 1024, 64, 8, 128, True, 0, 2e-2),
+    ("mixtral window 4096", "bfloat16", 4, 1024, 1024, 48, 8, 128, True,
+     4096, 2e-2),
+    ("VLM cross", "bfloat16", 4, 2048, 1601, 32, 8, 128, False, 0, 2e-2),
+    ("VLM cross f32", "float32", 4, 2048, 1601, 32, 8, 128, False, 0, 2e-5),
+    ("whisper encoder", "bfloat16", 4, 1500, 1500, 12, 12, 64, False, 0,
+     2e-2),
+    ("whisper cross", "bfloat16", 4, 448, 1500, 12, 12, 64, False, 0, 2e-2),
 )
 ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
 MIXTRAL_ATTN = "mixtral window 4096"     # every serve_mixtral_4l layer
+# the unmasked cases on the last three families' paths
+NEW_ATTN = ("VLM cross", "VLM cross f32", "whisper encoder", "whisper cross")
 ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 3
 SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
+# phases serve_xlstm, serve_whisper, serve_vlm: the prompt of the path
+# model's invariant and of ``generate`` (the VLM's longer than its 1601
+# vision tokens), the prompt of the profiled prefill where shorter (the
+# xLSTM prefill's sLSTM loop launches ~20 kernels a step and layer, and the
+# profiler's processing grows with the kernels) and the decode steps
+# profiled
+LAST_PROMPT = {"serve_xlstm": 1024, "serve_whisper": 1024, "serve_vlm": 2048}
+LAST_PROFILE_PROMPT = {"serve_xlstm": 256}
+LAST_PROFILE_STEPS = 4
 # selective_scan at jamba's 8-layer prefill (Ba 4, S 1024, di 16384, ds 16)
 # and at a length no 256-step chunk divides: (name, ba, s, di, ds)
 SCAN_CASES = (("jamba prefill", 4, 1024, 16384, 16),
@@ -369,9 +413,9 @@ ALONE_TIMEOUT_S = 600
 # hours of phases macro, faults and serving run in workers started after
 # phase virtual_cloud, beside these
 EARLY_BESIDE = "phases rl and macro"
-# the pins of phases serve_hybrid and serve_moe (their numpy weights drawn
-# in the worker) run in workers started after phase durable's alone hour,
-# beside these
+# the pins of the LM phases serve_hybrid to serve_vlm (their numpy weights
+# drawn in the worker) run in workers started after phase durable's alone
+# hour, beside these
 LM_PINS_BESIDE = "phases durable and determinism"
 # the durable phase: the main hour snapshotted every 600 s and killed
 # after tick 1,800; the faults hour macro-stepped for 1,200 ticks with a
@@ -681,8 +725,8 @@ def attention_pairs(np, sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
-                    tol) -> dict:
+def check_attention(torch, np, name, dtype, b, sq, sk, h, kv, hd, causal,
+                    window, tol) -> dict:
     """flash_attn against ``attention_torch`` on the card at one shape:
     within ``tol`` (atol = rtol), two calls bitwise equal; timed beside
     the plain version, the bound and ``scaled_dot_product_attention``."""
@@ -692,7 +736,8 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
     dt = getattr(torch, dtype)
     q, k, v = (torch.tensor(rng.normal(size=shape).astype(np.float32),
                             device="cuda").to(dt)
-               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+               for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                             (b, sk, kv, hd)))
     got = pfa.flash_attention(q, k, v, causal=causal, window=window)
     again = pfa.flash_attention(q, k, v, causal=causal, window=window)
     want = pfa.attention_torch(q, k, v, causal=causal, window=window)
@@ -707,8 +752,8 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
     # port), on (B, H, S, hd) views of the same tensors
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
-    if 0 < window < s:   # a window as wide as the sequence is causal
-        pos = torch.arange(s, device="cuda")
+    if 0 < window < sq:   # a window as wide as the sequence is causal
+        pos = torch.arange(sq, device="cuda")
         dist = pos[:, None] - pos[None, :]
         mask = (dist >= 0) & (dist < window)
 
@@ -725,8 +770,8 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
         lib_err, library_ms = repr(exc), None
 
     elem = q.element_size()
-    in_out = elem * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    flops = 4 * b * h * hd * attention_pairs(np, s, s, causal, window)
+    in_out = elem * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+    flops = 4 * b * h * hd * attention_pairs(np, sq, sk, causal, window)
     peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = in_out / HBM_BYTES_PER_S, flops / peak
     rec = dict(max_abs_err=abs_err,
@@ -737,9 +782,10 @@ def check_attention(torch, np, name, dtype, b, s, h, kv, hd, causal, window,
                bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                library_ms=library_ms)
-    emit("kernel", name="flash_attn", case=name, dtype=dtype, batch=b, seq=s,
-         heads=h, kv_heads=kv, head_dim=hd, causal=causal, window=window,
-         tol=tol, gflop=flops / 1e9, library_max_abs_err=lib_err, **rec)
+    emit("kernel", name="flash_attn", case=name, dtype=dtype, batch=b,
+         seq=sq, keys=sk, heads=h, kv_heads=kv, head_dim=hd, causal=causal,
+         window=window, tol=tol, gflop=flops / 1e9,
+         library_max_abs_err=lib_err, **rec)
     return rec
 
 
@@ -1289,6 +1335,201 @@ def serve_moe_ties(torch, np, w: dict, cfg) -> None:
                              "router is not the CPU's, or not as expected")
 
 
+def flash_per_prefill(cfg) -> int:
+    """flash_attn launches of one prefill: one per self-attention layer,
+    one per cross-attention (a ``CROSS`` layer's, or every decoder layer's
+    in an encoder-decoder) and one per encoder layer."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_cross = (cfg.n_layers if cfg.enc_dec else
+               sum(1 for i in range(cfg.n_layers) if cfg.cross_attn_period
+                   and i % cfg.cross_attn_period == cfg.cross_attn_period - 1))
+    n_self = sum(k in ("attn", "attn_local") for k in kinds)
+    return n_self + n_cross + (cfg.n_enc_layers if cfg.enc_dec else 0)
+
+
+def _on_card(torch, memory: dict) -> dict:
+    return {k: torch.tensor(v, device="cuda") for k, v in memory.items()}
+
+
+def lm_case_pins(torch, case: str) -> dict:
+    """Worker entry (``start_alone``, ``entry="lm_case_pins"``) of the pins
+    of phases ``serve_xlstm``, ``serve_whisper`` and ``serve_vlm``: the
+    case (``acceptance.last_case``) in f32 on the card, its numpy weights
+    drawn here (``seeded_numpy_params``; the VLM's ``xgate`` opened) with
+    its memory (``lm_memory``), the prefill and the decode steps with their
+    launches counted. Returns ``lm_summary``, the launches, the seconds
+    and whether every logit is finite."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import seeded_numpy_params
+    from repro_torch.models.model import decode_step, prefill
+
+    t0 = time.perf_counter()
+    cfg, batch, S, N = A.last_case(case)
+    tree = seeded_numpy_params(cfg, A.LAST_SEED)
+    if case == A.VLM_CASE:
+        A.open_xgate(tree)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = lm_params_from_numpy(tree, cfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del tree
+    toks = torch.tensor(A.lm_tokens(cfg, batch, S, N), device="cuda")
+    extras = _on_card(torch, A.lm_memory(cfg, batch))
+    t0 = time.perf_counter()
+    (logits, cache), per_prefill = _counted(torch, lambda: prefill(
+        model, toks[:, :S], cache_seq_len=S + N, extras=extras))
+    out = [logits]
+
+    def decode_all(cache):
+        for i in range(N):
+            logits, cache = decode_step(model, cache,
+                                        toks[:, S + i:S + i + 1], S + i)
+            out.append(logits)
+
+    _, per_decode = _counted(torch, lambda: decode_all(cache))
+    return {"summary": A.lm_summary([x.cpu().numpy() for x in out]),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out),
+            "params": cfg.param_count(), "weights_s": weights_s,
+            "load_s": load_s, "run_s": time.perf_counter() - t0,
+            "launches_per_prefill": per_prefill,
+            "launches_in_decode": per_decode}
+
+
+def serve_last(torch, np, case: str, pins: dict) -> dict:
+    """Phase ``serve_xlstm``, ``serve_whisper`` or ``serve_vlm`` (its name
+    is the case's): the pins (run in a worker: ``pins``) in f32; the path
+    model (xlstm-125m and whisper-small whole, the VLM cut to
+    VLM_PATH_LAYERS; ``init_params`` on the card, the VLM's gate opened)
+    in f32 and bf16: the prefill/decode invariant and the launches per
+    prefill and decode step; a profile of the bf16 prefill and decode
+    steps (busy share); timed ``generate`` in bf16 under sync-debug
+    "error" at B = 4, LAST_PROMPT[case] tokens, with the memory. Returns
+    the flash_attn launches per prefill of the pinned and the path
+    model."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.model import decode_step, prefill
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, _, N = A.last_case(case)
+
+    # 1. the pins: the case in f32 against the JAX package
+    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_LAST[case],
+                        case=case)
+    per_prefill, per_decode = (pins["launches_per_prefill"],
+                               pins["launches_in_decode"])
+    want_flash = flash_per_prefill(cfg)
+    emit(case, step="pins", case=case, in_worker_beside=LM_PINS_BESIDE,
+         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s")},
+         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
+         **report)
+    if not pins["finite"]:
+        raise AssertionError(f"{case}: non-finite logits")
+    if per_prefill["flash_attn"] != want_flash or any(
+            per_decode.values()) or per_prefill["selective_scan"]:
+        raise AssertionError(f"{case}: launches {per_prefill} per prefill, "
+                             f"{per_decode} in {N} decode steps (expected "
+                             f"{want_flash} flash_attn, then none)")
+
+    # 2. the path model in f32 and bf16: prefill S then decode token S
+    # against a prefill of S + 1
+    path = (A.vlm_config(A.VLM_PATH_LAYERS) if case == A.VLM_CASE else cfg)
+    path_case = A.VLM_PATH_CASE if case == A.VLM_CASE else case
+    t0 = time.perf_counter()
+    tree = init_params(path, torch.Generator("cuda").manual_seed(
+        A.LAST_SEED))
+    if case == A.VLM_CASE:
+        A.open_xgate(tree)
+    torch.cuda.synchronize()
+    emit(case, step="weights", case=path_case, params=path.param_count(),
+         seconds=time.perf_counter() - t0)
+    S = LAST_PROMPT[case]
+    prompt = torch.tensor(
+        np.random.default_rng(2).integers(0, path.vocab, (SERVE_BATCH, S + 1),
+                                          dtype=np.int32), device="cuda")
+    extras = _on_card(torch, A.lm_memory(path, SERVE_BATCH))
+    want_flash_path = flash_per_prefill(path)
+    truth = None
+    for dtype in ("float32", "bfloat16"):
+        model = DecoderLM.from_tree(dataclasses.replace(path, dtype=dtype),
+                                    tree)
+        t0 = time.perf_counter()
+        want, _ = prefill(model, prompt, cache_seq_len=S + 1, extras=extras)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        (_, cache), per_prefill = _counted(torch, lambda: prefill(
+            model, prompt[:, :S], cache_seq_len=S + 1, extras=extras))
+        (got, _), per_decode = _counted(
+            torch, lambda: decode_step(model, cache, prompt[:, S:S + 1], S))
+        err = float((got - want).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if dtype == "float32":
+            truth = want
+            limit = dict(tol=HYBRID_TOL)
+        else:
+            # within SERVE_TOL of the bf16 prefill, or else (as
+            # serve_hybrid) within BF16_DECODE_FACTOR x the bf16 prefill's
+            # own distance from the f32 answer
+            prefill_off = float((want - truth).abs().max())
+            limit = dict(
+                serve_tol=SERVE_TOL, below_serve_tol=err <= SERVE_TOL,
+                decode_vs_f32_max_abs=float((got - truth).abs().max()),
+                prefill_vs_f32_max_abs=prefill_off,
+                limit=BF16_DECODE_FACTOR * prefill_off)
+        emit(case, step="prefill_decode_invariant", case=path_case,
+             dtype=dtype, batch=SERVE_BATCH, prompt=S, max_abs_err=err,
+             **limit, argmax_agree_share=agree, prefill_s=prefill_s,
+             launches_per_prefill=per_prefill,
+             launches_per_decode_step=per_decode)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{path_case} ({dtype}): non-finite logits")
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
+                                       rtol=HYBRID_TOL)
+        elif not (limit["below_serve_tol"] or limit["decode_vs_f32_max_abs"]
+                  <= limit["limit"]):
+            raise AssertionError(
+                f"{path_case} (bf16): the decode step is {err} off the "
+                f"longer prefill (over {SERVE_TOL}) and "
+                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
+                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
+        if per_prefill["flash_attn"] != want_flash_path or any(
+                per_decode.values()) or per_prefill["selective_scan"]:
+            raise AssertionError(
+                f"{path_case} ({dtype}): launches {per_prefill} per prefill "
+                f"and {per_decode} per decode step (expected "
+                f"{want_flash_path} flash_attn and none)")
+        if dtype == "float32":
+            del model, cache, got, want
+            torch.cuda.empty_cache()
+    del tree
+
+    # 3. where the bf16 time goes: the device's busy share
+    from repro_torch.tools.profile_serve import profile
+
+    P = LAST_PROFILE_PROMPT.get(case, S)
+    for name, rec in profile(model, prompt[:, :P].contiguous(),
+                             LAST_PROFILE_STEPS, extras, top=3).items():
+        emit(case, step="profile", case=path_case, part=name,
+             dtype="bfloat16", batch=SERVE_BATCH, prompt=P,
+             **{k: rec[k] for k in (
+                 "per", "host_ms", "host_ms_profiled", "cuda_kernels",
+                 "device_us", "device_busy_share", "flash_attn_launches",
+                 "port_kernel_us", "top_kernels_us")})
+
+    # 4. generate in bf16 at B = 4, 32 new tokens, no host sync
+    time_generate(torch, np, model, prompt[:, :S].contiguous(), case,
+                  extras=extras, case=path_case)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches_per_pinned_prefill": want_flash,
+            "launches_per_path_prefill": per_prefill["flash_attn"],
+            "path_case": path_case}
+
+
 def serve(torch, np) -> int:
     """gemma3-1b at full width and depth on the card: the f32 and bf16
     models held to the pins, the launch counts, the bf16 prefill/decode
@@ -1362,11 +1603,13 @@ def serve(torch, np) -> int:
     return per_prefill
 
 
-def time_generate(torch, np, model, prompt, phase: str, **labels) -> None:
-    """``generate`` of SERVE_GEN tokens after ``prompt`` (bf16), SERVE_RUNS
-    timed runs after a warm-up, each under sync-debug "error": prefill ms
-    and decode ms per token (CUDA events inside ``generate``), tokens/s
-    (host clock around a synchronised run), median and p10-p90."""
+def time_generate(torch, np, model, prompt, phase: str, extras=None,
+                  **labels) -> None:
+    """``generate`` of SERVE_GEN tokens after ``prompt`` (bf16; with the
+    memory ``extras`` where the model attends to one), SERVE_RUNS timed
+    runs after a warm-up, each under sync-debug "error": prefill ms and
+    decode ms per token (CUDA events inside ``generate``), tokens/s (host
+    clock around a synchronised run), median and p10-p90."""
     from repro_torch.train.serve_step import generate
 
     walls, prefill_ms, decode_ms = [], [], []
@@ -1375,7 +1618,8 @@ def time_generate(torch, np, model, prompt, phase: str, **labels) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
-        toks_out = generate(model, prompt, SERVE_GEN, events=events)
+        toks_out = generate(model, prompt, SERVE_GEN, events=events,
+                            extras=extras)
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         if run == 0:
@@ -1654,11 +1898,11 @@ def run_alone(torch, runs: list, during=None):
 
 def alone_main(src: str, out: str) -> int:
     """Worker of ``run_alone`` / ``start_alone``: one ``run_episode`` on the
-    card (or the run's ``entry``: ``run_fleet``, ``serve_hybrid_pins`` or
-    ``serve_moe_pins``). A run with ``measure`` is timed under sync-debug
-    "error" with its launches counted, and its result carries them as a
-    third element; a run with ``macro_counts`` returns ``_macro_counts``'
-    tuple instead."""
+    card (or the run's ``entry``: ``run_fleet``, ``serve_hybrid_pins``,
+    ``serve_moe_pins`` or ``lm_case_pins`` of the run's ``case``). A run
+    with ``measure`` is timed under sync-debug "error" with its launches
+    counted, and its result carries them as a third element; a run with
+    ``macro_counts`` returns ``_macro_counts``' tuple instead."""
     import contextlib
 
     import torch
@@ -1673,6 +1917,9 @@ def alone_main(src: str, out: str) -> int:
                "serve_moe_pins": serve_moe_pins}.get(run.get("entry"))
     if lm_pins is not None:
         torch.save(lm_pins(torch), out)
+        return 0
+    if run.get("entry") == "lm_case_pins":
+        torch.save(lm_case_pins(torch, run["case"]), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
@@ -3420,12 +3667,14 @@ def early_runs(jobs, bank) -> tuple:
 
 def lm_pins_runs() -> tuple:
     """The runs started beside phase durable (``start_alone``): the pins
-    of phases serve_hybrid and serve_moe, each model's numpy weights drawn
-    in its worker. Returns (their cases, the runs)."""
+    of phases serve_hybrid, serve_moe, serve_xlstm, serve_whisper and
+    serve_vlm, each model's numpy weights drawn in its worker. Returns
+    (their cases, the runs)."""
     from repro_torch.configs import acceptance as A
 
-    return ([A.MIXTRAL_CASE, A.JAMBA_CASE],
-            [{"entry": "serve_moe_pins"}, {"entry": "serve_hybrid_pins"}])
+    return ([A.MIXTRAL_CASE, A.JAMBA_CASE, *A.LAST_CASES],
+            [{"entry": "serve_moe_pins"}, {"entry": "serve_hybrid_pins"}]
+            + [{"entry": "lm_case_pins", "case": c} for c in A.LAST_CASES])
 
 
 def determinism(torch, jobs, bank) -> None:
@@ -3691,8 +3940,9 @@ def main() -> int:
     finally:
         stop_alone(macro_handle)
 
-    # the pins of phases serve_hybrid and serve_moe (their numpy weights
-    # drawn in the workers) run beside phases durable and determinism
+    # the pins of phases serve_hybrid, serve_moe, serve_xlstm,
+    # serve_whisper and serve_vlm (their numpy weights drawn in the
+    # workers) run beside phases durable and determinism
     lm_cases, lm_runs = lm_pins_runs()
     lm = {}
     try:
@@ -3732,6 +3982,14 @@ def main() -> int:
     moe_prefill = serve_moe(torch, np, pins[acceptance.MIXTRAL_CASE])
     emit("serve_moe", step="done", seconds=time.perf_counter() - t0)
 
+    # 18-20. serve_xlstm, serve_whisper, serve_vlm: the last three LM
+    # families at full width (the VLM cut); their pins ran in workers
+    last = {}
+    for case in acceptance.LAST_CASES:
+        t0 = time.perf_counter()
+        last[case] = serve_last(torch, np, case, pins[case])
+        emit(case, step="done", seconds=time.perf_counter() - t0)
+
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
     # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
@@ -3762,7 +4020,15 @@ def main() -> int:
            if sig else {}),
         **({"mixtral": {"launches_per_serve_mixtral_4l_prefill": moe_prefill,
                         **{k: record["flash_attn", MIXTRAL_ATTN][k]
-                           for k in keys + ("library_ms",)}}}
+                           for k in keys + ("library_ms",)}},
+            "launches_per_prefill": {
+                **{c: r["launches_per_pinned_prefill"]
+                   for c, r in last.items()},
+                **{r["path_case"]: r["launches_per_path_prefill"]
+                   for r in last.values()}},
+            "unmasked": {c: {k: record["flash_attn", c][k]
+                             for k in keys + ("library_ms",)}
+                         for c in NEW_ATTN}}
            if name == "flash_attn" else {}),
     } for name, (replaces, main, sig) in sources.items()]}), flush=True)
     print(card, flush=True)

@@ -2,9 +2,8 @@
 
 Importing this package registers every architecture of the JAX package
 into ``repro_torch.configs.base.ARCHS``; select one with ``--arch <id>``.
-The perf model counts all of them; the port builds and serves the dense
-archs and the jamba hybrid without its experts (``models.spec.check_ported``
-names the slice that brings the rest).
+The perf model counts all of them, and the port builds and serves every
+one.
 """
 
 from repro_torch.configs.base import (

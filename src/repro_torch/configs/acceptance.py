@@ -808,9 +808,10 @@ def lm_tokens(cfg: ModelConfig, batch: int = LM_BATCH,
 
 
 def run_lm(model, tokens, prompt: int = LM_PROMPT, decode: int = LM_DECODE,
-           dropped: list | None = None):
-    """The case on the port: prefill ``tokens[:, :prompt]`` into a cache
-    of prompt + decode, then one decode step per fed id. Returns the
+           dropped: list | None = None, extras: dict | None = None):
+    """The case on the port: prefill ``tokens[:, :prompt]`` (with the
+    memory of ``extras``, tensors, where the model attends to one) into a
+    cache of prompt + decode, then one decode step per fed id. Returns the
     1 + decode (B, V) f32 logits. ``dropped``, if given, receives for the
     prefill and each decode step the slots each MoE layer dropped (ints,
     read after the run)."""
@@ -820,7 +821,7 @@ def run_lm(model, tokens, prompt: int = LM_PROMPT, decode: int = LM_DECODE,
     counts = []
     with record_routing() as rec:
         logits, cache = prefill(model, tokens[:, :prompt],
-                                cache_seq_len=prompt + decode)
+                                cache_seq_len=prompt + decode, extras=extras)
     counts.append([(~r.keep).sum() for r in rec])
     out = [logits]
     for i in range(decode):
@@ -1171,8 +1172,276 @@ PINNED_MIXTRAL = {
 }
 
 
+# ---------------------------------------------------------------------------
+# LM serving: the last three families, at full width, each with weights
+# from ``models.seeded_numpy_params(cfg, LAST_SEED)`` and, where the model
+# attends to a memory, the memory of ``lm_memory`` (the same numpy arrays
+# in both packages). Each pin holds what the JAX package gives on the CPU
+# (jax 0.9.0, ``dtype="float32"``, ``ShardCtx(enabled=False)``: its
+# ``attention`` picks ``attention_full`` at these lengths, since its Pallas
+# kernel needs block multiples that 1,601 and 1,500 are not), in
+# ``lm_summary``'s form; ``tests/test_torch_lm_pins.py`` re-derives them.
+#
+# - ``serve_xlstm``: the whole xlstm-125m (arXiv:2405.04517; 12 layers, M
+#   M M S x 3, d_model 768, 4 heads, d_inner 1536, vocab 50304;
+#   188,958,720 parameters); B = 2 prompts of 600 ids (not a multiple of
+#   the mLSTM's 256-step chunk: the padded last chunk), then 4
+#   teacher-forced decode steps.
+# - ``serve_whisper``: the whole whisper-small (arXiv:2212.04356; 12
+#   encoder and 12 decoder layers, d_model 768, 12 heads of 64, d_ff 3072,
+#   vocab 51865, tied embeddings; 238,060,800 parameters); B = 2, 1,500
+#   audio frames, prompts of 64 ids, 4 decode steps.
+# - ``serve_vlm``: llama-3.2-vision-11b (hf:meta-llama/Llama-3.2-11B-Vision)
+#   at full width (d_model 4096, 32 heads over 8 KV heads of 128, d_ff
+#   14336, vocab 128256, 1,601 vision tokens) cut to one period of its
+#   cross-attention, 5 of 40 layers (4 self-attention layers and the
+#   ``CROSS`` layer; 2,183,184,385 parameters: the whole model's 10.11e9
+#   would be 40.4 GB of f32 masters and 20.2 GB of bf16 copies); B = 1, a
+#   prompt of 1,632 ids (longer than the memory: the cross-attention's Sq >
+#   Sk), 4 decode steps. ``xgate`` is zero at init, and ``tanh(0)`` would
+#   remove the whole cross path from the logits, so the pinned tree sets
+#   every ``xgate`` to VLM_XGATE (``open_xgate``), in both packages.
+#   ``serve_vlm_10l`` (two periods, 3,315,691,522 parameters, ``init_params``
+#   on the card with the gate opened the same way) is the card's path case.
+XLSTM_ARCH, XLSTM_CASE = "xlstm-125m", "serve_xlstm"
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_DECODE = 2, 600, 4
+WHISPER_ARCH, WHISPER_CASE = "whisper-small", "serve_whisper"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = 2, 64, 4
+VLM_ARCH, VLM_CASE, VLM_PATH_CASE = ("llama-3.2-vision-11b", "serve_vlm",
+                                     "serve_vlm_10l")
+VLM_BATCH, VLM_PROMPT, VLM_DECODE = 1, 1632, 4
+VLM_LAYERS, VLM_PATH_LAYERS = 5, 10
+VLM_XGATE = 1.0
+LAST_SEED = 0
+MEMORY_SEED, MEMORY_SCALE = 2, 0.02
+LAST_CASES = (XLSTM_CASE, WHISPER_CASE, VLM_CASE)
+
+
+def xlstm_config(dtype: str = "float32") -> ModelConfig:
+    return dataclasses.replace(get_arch(XLSTM_ARCH), dtype=dtype)
+
+
+def whisper_config(dtype: str = "float32") -> ModelConfig:
+    return dataclasses.replace(get_arch(WHISPER_ARCH), dtype=dtype)
+
+
+def vlm_config(n_layers: int = VLM_LAYERS,
+               dtype: str = "float32") -> ModelConfig:
+    """llama-3.2-vision-11b with ``n_layers`` of its 40 layers (a multiple
+    of its cross-attention period, 5), every width kept."""
+    return dataclasses.replace(get_arch(VLM_ARCH), n_layers=n_layers,
+                               dtype=dtype)
+
+
+def last_case(case: str, dtype: str = "float32"):
+    """(config, batch, prompt, decode) of one of LAST_CASES."""
+    if case == XLSTM_CASE:
+        return xlstm_config(dtype), XLSTM_BATCH, XLSTM_PROMPT, XLSTM_DECODE
+    if case == WHISPER_CASE:
+        return (whisper_config(dtype), WHISPER_BATCH, WHISPER_PROMPT,
+                WHISPER_DECODE)
+    return vlm_config(VLM_LAYERS, dtype), VLM_BATCH, VLM_PROMPT, VLM_DECODE
+
+
+def lm_memory(cfg: ModelConfig, batch: int) -> dict:
+    """The memory a VLM's or an encoder-decoder's prompt comes with, as
+    the JAX package's serving draws it (``launch/serve.py``): MEMORY_SCALE
+    times a standard normal (B, M, D), f32, from
+    ``default_rng(MEMORY_SEED)``; {} for the other archs."""
+    rng = np.random.default_rng(MEMORY_SEED)
+    for name, m in (("vision", cfg.n_vision_tokens),
+                    ("audio", cfg.n_audio_frames if cfg.enc_dec else 0)):
+        if m:
+            a = rng.standard_normal((batch, m, cfg.d_model), np.float32)
+            return {name: a * np.float32(MEMORY_SCALE)}
+    return {}
+
+
+def open_xgate(tree, value: float = VLM_XGATE):
+    """Set every ``xgate`` leaf of a parameter tree (numpy arrays or
+    tensors, in place) to ``value``; returns the tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "xgate":
+                v[...] = value
+            else:
+                open_xgate(v, value)
+    elif isinstance(tree, list):
+        for v in tree:
+            open_xgate(v, value)
+    return tree
+
+
+PINNED_XLSTM = {
+    "argmax": [
+        [23836, 46546],
+        [38098, 3104],
+        [38391, 25994],
+        [26022, 38161],
+        [38438, 16410],
+    ],
+    "top1": [
+        [4.15868521, 3.93113518],
+        [4.45877838, 4.40006924],
+        [4.50870705, 4.15893745],
+        [4.53417158, 4.19663],
+        [5.21120644, 4.27302504],
+    ],
+    "margin": [
+        [0.0997958183, 0.0864546299],
+        [0.0129714012, 0.331684589],
+        [0.450586796, 0.309036255],
+        [0.541198015, 0.15679121],
+        [1.21585369, 0.165992737],
+    ],
+    "logsumexp": [
+        [11.325187544831715, 11.32831100318852],
+        [11.327026495481011, 11.320503744693404],
+        [11.330976399201543, 11.332762737821163],
+        [11.32411606544023, 11.321666636958195],
+        [11.322943801634155, 11.334701002184843],
+    ],
+    "head": [
+        [[1.5802927, -0.304225236, 2.04692674, 0.00496554375, -0.556787014,
+          -1.21501422, 0.242002666, 1.57793033], [-2.36709809, 0.289568156,
+          0.190543413, -0.311622441, 0.177727342, -0.0486944914,
+          -0.796516836, 0.580599904]],
+        [[1.11399412, -0.0396358073, -1.29893053, -0.217176855, -0.278685689,
+          0.445117265, -0.451355517, 1.55224466], [-1.3588711, 1.75689054,
+          -1.28927445, -1.34452415, 0.5155527, -0.664540529, 1.61497056,
+          -0.408022642]],
+        [[0.50411278, -0.461446524, 0.981180191, -0.538312078, -1.02048874,
+          0.963154256, 0.674229383, -0.681719601], [0.983144224,
+          -0.635597587, -1.39665926, 0.968921959, -0.143891454, 0.549624383,
+          0.389286876, -1.9952755]],
+        [[-1.54481077, 0.446720451, 0.873437405, 0.0728735328, -0.520178497,
+          0.304886043, 0.296065301, 0.110007674], [1.80247164, -0.578864038,
+          0.357109964, -0.835020542, 1.38360906, -0.857804418, 0.158535287,
+          -0.972902]],
+        [[1.38626599, -1.85918808, 0.722677946, -0.532862008, -0.106413305,
+          0.520178854, 1.16028011, -0.0824943632], [0.950438619,
+          -0.180637926, -2.13997126, 0.60846895, 0.333827138, 0.533452272,
+          0.0934384763, -0.518165231]],
+    ],
+}
+
+
+PINNED_WHISPER = {
+    "argmax": [
+        [27352, 2435],
+        [27352, 2435],
+        [27352, 44418],
+        [27352, 2435],
+        [27352, 44418],
+    ],
+    "top1": [
+        [0.510371804, 0.487759233],
+        [0.511341155, 0.481378108],
+        [0.513819039, 0.484488904],
+        [0.51158309, 0.484754592],
+        [0.511737108, 0.486282617],
+    ],
+    "margin": [
+        [0.0195930898, 0.00422090292],
+        [0.0235434771, 0.000742465258],
+        [0.0253822505, 0.00149795413],
+        [0.0216970444, 0.00236168504],
+        [0.0192981362, 0.00478622317],
+    ],
+    "logsumexp": [
+        [10.864993299263705, 10.864658276907738],
+        [10.865004910865839, 10.864660360392962],
+        [10.8649870279845, 10.864662676720608],
+        [10.864975026278671, 10.864641540854867],
+        [10.864975821765716, 10.864641586848588],
+    ],
+    "head": [
+        [[-0.193964764, 0.135921225, 0.0760403425, -0.0570444874,
+          -0.0714765266, 0.0848876834, 0.0309173688, 0.169812709],
+          [-0.22766009, 0.238689244, 0.118619159, -0.137488782, -0.079578355,
+          0.0432742834, -0.136264801, -0.0763971284]],
+        [[-0.197268695, 0.139194295, 0.0768708289, -0.0544060022,
+          -0.0818191692, 0.0822541937, 0.0364039093, 0.169316486],
+          [-0.225792557, 0.240161777, 0.116802432, -0.141409308,
+          -0.0801755041, 0.0401028357, -0.137502193, -0.0705175996]],
+        [[-0.205810443, 0.134702474, 0.0722618699, -0.0491714738,
+          -0.0742077455, 0.0856844932, 0.0339599699, 0.172619477],
+          [-0.228418872, 0.238942564, 0.120996788, -0.140186742,
+          -0.0814413875, 0.0425134264, -0.145967409, -0.0723709688]],
+        [[-0.203162566, 0.136728242, 0.0774272382, -0.0553093925,
+          -0.0772240758, 0.0890664682, 0.0302268863, 0.175579101],
+          [-0.23130995, 0.238747776, 0.115582854, -0.138332859,
+          -0.0822934434, 0.0415644497, -0.143607885, -0.0747193992]],
+        [[-0.201948851, 0.13865082, 0.0835562646, -0.0551957786,
+          -0.0775201693, 0.0802007839, 0.0377547368, 0.17072463],
+          [-0.228545517, 0.236103624, 0.116604075, -0.138311014,
+          -0.0818924755, 0.0424611345, -0.146905482, -0.0701826662]],
+    ],
+}
+
+
+PINNED_VLM = {
+    "argmax": [
+        [39175],
+        [110111],
+        [92934],
+        [92934],
+        [89972],
+    ],
+    "top1": [
+        [4.41994858],
+        [4.07832384],
+        [4.34104109],
+        [4.54370117],
+        [4.35321569],
+    ],
+    "margin": [
+        [0.393536568],
+        [0.0252285004],
+        [0.0454831123],
+        [0.126139164],
+        [0.167137623],
+    ],
+    "logsumexp": [
+        [12.25836060163615],
+        [12.257891086752288],
+        [12.2583676518622],
+        [12.26000558172079],
+        [12.25920278332941],
+    ],
+    "head": [
+        [[0.498911232, -1.29114497, 0.379309803, -0.201326251, -0.575151503,
+          0.573218226, -0.433087677, -0.134677708]],
+        [[1.03295696, -0.591406345, -0.367100149, 0.996119142, -0.820320189,
+          0.570675194, -0.339324981, -0.246831611]],
+        [[0.108062334, -0.624996483, 0.0349525809, 0.671384454, -1.6370374,
+          0.679733217, -0.320067316, -0.116578206]],
+        [[0.793995976, -0.770176709, 0.575751126, 0.227776334, -0.745958447,
+          1.06234491, -0.163732678, -0.105194174]],
+        [[0.899786353, -0.877779543, 0.496444553, 0.433481306, -1.09384227,
+          0.292800277, -0.645039856, -0.501761019]],
+    ],
+}
+
+
+PINNED_LAST = {XLSTM_CASE: PINNED_XLSTM, WHISPER_CASE: PINNED_WHISPER,
+               VLM_CASE: PINNED_VLM}
+# f32: xlstm-125m's logits are of order 5, and 12 layers of exp-stabilised
+# recurrences (600 sLSTM steps, 256-step mLSTM chunks summed in another
+# order) carry the port's one-layer differences of ~1e-5 to up to 1.08e-4
+# on the pinned values on the CPU (2.65e-4 on any logit; every argmax
+# agrees); 5e-4 is ~4.6x that. A wrong gate, state or padded step moves
+# them by tenths. The VLM's logits are also of order 4: the port differs
+# by up to 1.64e-5 on the CPU, within LM_F32_TOL only by 1.2x, so it takes
+# mixtral's 1e-4 (~6x). whisper-small's (order 0.5, 5.7e-7 off) keep
+# LM_F32_TOL.
+XLSTM_F32_TOL = 5e-4
+VLM_F32_TOL = 1e-4
+
+
 # f32 tolerances of the LM cases whose logits are not of gemma3-1b's order
-F32_TOLS = {MIXTRAL_CASE: MIXTRAL_F32_TOL}
+F32_TOLS = {MIXTRAL_CASE: MIXTRAL_F32_TOL, XLSTM_CASE: XLSTM_F32_TOL,
+            VLM_CASE: VLM_F32_TOL}
 
 
 # ---------------------------------------------------------------------------

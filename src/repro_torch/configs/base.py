@@ -5,11 +5,9 @@ config in both packages.
 Every architecture file of the port (``src/repro_torch/configs/<id>.py``)
 builds a :class:`ModelConfig`; the four input shapes are :data:`SHAPES`.
 ``reduced()`` derives the CPU-smoke-test variant of any config (same block
-structure, tiny widths). The port registers all ten archs, so the perf
-model (``repro_torch.perfmodel``) counts every one of them; building a
-model whose layers the port does not run yet (cross-attention, the
-xLSTM cells, the encoder-decoder) raises ``NotImplementedError`` naming
-the slice that brings them (``models.spec.check_ported``).
+structure, tiny widths). The port registers all ten archs: the perf
+model (``repro_torch.perfmodel``) counts every one of them, and the port
+builds and serves every one.
 """
 
 from __future__ import annotations
@@ -203,17 +201,6 @@ SMOKE_DECODE_SHAPE = ShapeConfig("smoke_decode", 64, 2, "decode")
 # ---------------------------------------------------------------------------
 # Arch registry: populated by the per-arch modules in repro_torch/configs/.
 ARCHS: Registry[ModelConfig] = Registry("arch")
-
-
-# Archs of the JAX package whose layers the port does not run yet, with the
-# slice of the port that brings each (ROADMAP.md, "Modules still to port").
-# Their configs and parameter shapes are ported; building their models is
-# refused (``models.spec.check_ported``).
-NOT_YET_PORTED = {
-    "xlstm-125m": "the xLSTM slice",
-    "llama-3.2-vision-11b": "the VLM cross-attention slice",
-    "whisper-small": "the encoder-decoder slice",
-}
 
 
 def get_arch(name: str) -> ModelConfig:

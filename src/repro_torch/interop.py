@@ -90,7 +90,8 @@ def policy_from_numpy(arrays: Any) -> Policy:
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):
     """An LM's parameter tree in the JAX package's layout (``jax.device_get``
-    of its ``init_params``, or ``models.seeded_numpy_params``) as the port's
+    of its ``init_params``, or ``models.seeded_numpy_params``; an
+    encoder-decoder's ``encoder`` and ``xattn_*`` trees too) as the port's
     ``DecoderLM`` on ``device``, in ``cfg.dtype``. On the CPU the model
     shares the memory of writable f32 arrays (no copy of the weights)."""
     from repro_torch.models.model import DecoderLM

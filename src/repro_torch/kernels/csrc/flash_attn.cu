@@ -15,7 +15,11 @@
 // visited; masked scores get p = 0 exactly (the Pallas kernel's -1e30 fill
 // would put exp(0) = 1 into the sum of a row whose first live tile holds
 // none of its keys), and a row with no live key yet keeps m = -inf. Any
-// Sq <= Sk. No atomics: two runs give the same bits.
+// Sq <= Sk; Sq > Sk without causal or window (a cross-attention onto a
+// shorter memory), where q_off < 0 is never read: only the causal and
+// window terms use it, and keys past Sk (zeros from TMA, or from the f32
+// tile loads) are masked by `key < sk` in every tile that holds one. No
+// atomics: two runs give the same bits.
 //
 // What bounds it. At gemma3-1b's prefill (B 4, S 1024, H 4, Kv 1, hd 256,
 // causal) the live pairs need ~8.6 GFLOP against ~12.6 MB of inputs and

@@ -13,8 +13,11 @@ prefill attention.
 Layout is the JAX package's: q (B, Sq, H, hd), k and v (B, Sk, Kv, hd),
 output (B, Sq, H, hd) in q's dtype, f32 or bf16. Queries end where the keys
 end (``q_pos = i + Sk - Sq``); ``causal`` keeps ``q_pos - k_pos >= 0`` and
-``window > 0`` keeps ``q_pos - k_pos < window``. Scores, the softmax and
-P.V are f32, as in the Pallas kernel and ``kernels/ref.py::attention_ref``.
+``window > 0`` keeps ``q_pos - k_pos < window``. Any Sq <= Sk; Sq > Sk only
+without either mask (a cross-attention onto a shorter memory: every key is
+live for every query, as in the JAX package's ``attention``). Scores, the
+softmax and P.V are f32, as in the Pallas kernel and
+``kernels/ref.py::attention_ref``.
 The bf16 kernel alone rounds the probabilities to bf16 before P.V (its
 tensor-core product takes bf16 operands), as
 ``models/layers.py::attention_full`` casts them to v's dtype; it is held
@@ -63,7 +66,7 @@ def attention_torch(q, k, v, *, causal: bool = True,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _check(q, k, v, window: int) -> None:
+def _check(q, k, v, causal: bool, window: int) -> None:
     """Raise on anything the kernel does not take."""
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -80,9 +83,9 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(
             "flash_attention: batch and head_dim must match and H must be a "
             f"multiple of Kv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if sq > sk:
+    if sq > sk and (causal or window):
         raise ValueError(f"flash_attention: Sq ({sq}) must not exceed Sk "
-                         f"({sk})")
+                         f"({sk}) for a causal or windowed call")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not isinstance(window, int) or window < 0:
@@ -115,7 +118,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Attention of q over k, v. CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream."""
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_torch(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

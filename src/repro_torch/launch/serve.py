@@ -5,7 +5,10 @@ same flags).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
 
-It runs on the CUDA card unless ``--device`` names another device.
+It runs on the CUDA card unless ``--device`` names another device. A VLM's
+vision tokens and an encoder-decoder's audio frames are 0.02 times a
+standard normal, drawn after the prompt from the same seeded generator,
+as the JAX package draws them from its prompt's key.
 """
 
 from __future__ import annotations
@@ -48,11 +51,18 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen_prompt, device=dev,
                            dtype=torch.int32)
+    extras = {}
+    for name, n in (("vision", cfg.n_vision_tokens),
+                    ("audio", cfg.n_audio_frames if cfg.enc_dec else 0)):
+        if n:
+            extras[name] = 0.02 * torch.randn(
+                args.batch, n, cfg.d_model, generator=gen_prompt, device=dev)
     sample = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     def run():
         out = generate(model, prompt, args.gen,
-                       temperature=args.temperature, generator=sample)
+                       temperature=args.temperature, generator=sample,
+                       extras=extras or None)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return out

@@ -1,18 +1,18 @@
 """Per-layer block application of the LMs (the JAX package's
-``models/blocks.py``): a mixer (self-attention, global or sliding-window,
-or the Mamba mixer) + the FFN (the dense gated MLP, or on an MoE layer the
-top-k experts of ``moe.moe_apply``), for the parallel (prefill) and the
-one-token (decode) paths.
+``models/blocks.py``): a mixer (self-attention, global or sliding-window;
+a self-attention followed by the gated cross-attention onto the vision
+tokens; the Mamba mixer; the mLSTM or sLSTM cell) + the FFN (the dense MLP,
+or on an MoE layer the top-k experts of ``moe.moe_apply``; none where the
+layer has no ``ln2``, as xLSTM's cells carry their own projections), for
+the parallel (prefill) and the one-token (decode) paths. An
+encoder-decoder's layers add a cross-attention onto the encoder's memory
+after the mixer (``xa``: that layer's ``xattn`` weights).
 
 ``w`` is a layer's weights by the JAX package's leaf names, matrices in the
-compute dtype and norm scales and the router in f32
-(``model.DecoderLayer.weights``). ``rope`` is the ``(cos, sin)`` pair of
-``layers.rope_cos_sin`` for the positions in flight, computed once per
-forward and shared by the attention layers.
-Other mixer kinds raise ``NotImplementedError`` naming the slice of the
-port that brings them, as ``spec.check_ported`` does for a whole config
-(other mixers, the encoder-decoder) wherever a model or its weights are
-built.
+compute dtype and norm scales, the router and the sLSTM's ``r`` and ``b``
+in f32 (``model.DecoderLayer.weights``). ``rope`` is the ``(cos, sin)``
+pair of ``layers.rope_cos_sin`` for the positions in flight, computed once
+per forward and shared by the attention layers.
 """
 
 from __future__ import annotations
@@ -21,7 +21,15 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, ModelConfig
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_LOCAL,
+    CROSS,
+    MAMBA,
+    MLSTM,
+    SLSTM,
+    ModelConfig,
+)
 from repro_torch.models import spec as S
 from repro_torch.models.layers import (
     apply_rope,
@@ -32,6 +40,12 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mamba import mamba_apply, mamba_decode
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.xlstm import (
+    mlstm_apply,
+    mlstm_decode,
+    slstm_apply,
+    slstm_decode,
+)
 
 Weights = Mapping[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -61,47 +75,89 @@ def _maybe_qk_norm(w: Weights, q, k, cfg: ModelConfig):
 
 
 def self_attention_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
-                            rope: Rope, window: int
+                            rope: Rope, window: int, causal: bool = True
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal self-attention. Returns (attention output, kv dict for cache
-    construction)."""
+    """Self-attention (causal in the decoders, not in the encoder).
+    Returns (attention output, kv dict for cache construction)."""
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     q, k, v = _qkv(w, h, cfg)
     q, k = _maybe_qk_norm(w, q, k, cfg)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = attention(q, k, v, causal=True, window=window)
+    o = attention(q, k, v, causal=causal, window=window)
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.hd)
     return o @ w["wo"], {"k": k, "v": v}
 
 
+def _gated(out: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The VLM's cross-attention output times ``tanh(xgate)`` (in the
+    compute dtype, as the JAX package casts the gate)."""
+    return out if gate is None else out * torch.tanh(gate)
+
+
+def cross_attention_parallel(w: Weights, x: torch.Tensor,
+                             memory: torch.Tensor, cfg: ModelConfig, *,
+                             gate: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Attention of x's tokens onto ``memory`` (B, M, D), the vision tokens
+    or the encoder's states, with no mask (M may be shorter than the
+    prompt). Returns (output, its ``{"k", "v"}`` (B, M, Kv, hd))."""
+    B, M, _ = memory.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, w["lnx"], cfg.norm_eps)
+    q = (h @ w["xq"]).reshape(*h.shape[:2], H, hd)
+    k = (memory @ w["xk"]).reshape(B, M, Kv, hd)
+    v = (memory @ w["xv"]).reshape(B, M, Kv, hd)
+    o = attention(q, k, v, causal=False, window=0)
+    o = o.reshape(*o.shape[:2], H * hd)
+    return _gated(o @ w["xo"], gate), {"k": k, "v": v}
+
+
 def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
                  is_moe: bool) -> torch.Tensor:
-    """The residual FFN; an MoE layer's aux loss is dropped, as serving
-    drops it in the JAX package."""
+    """The residual FFN (none on a layer without ``ln2``); an MoE layer's
+    aux loss is dropped, as serving drops it in the JAX package."""
+    if "ln2" not in w:
+        return x
     if is_moe:
         return x + moe_apply(w, x, cfg)[0]
-    return x + mlp_apply(w, x, eps=cfg.norm_eps)
+    return x + mlp_apply(w, x, gated=S.mlp_gated(cfg), eps=cfg.norm_eps)
 
 
 def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
-                   cfg: ModelConfig, *, rope: Rope, return_kv: bool = False
+                   cfg: ModelConfig, *, rope: Rope,
+                   memory: Optional[torch.Tensor] = None,
+                   xa: Optional[Weights] = None, causal: bool = True,
+                   return_kv: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One layer. Returns (x, its cache state or None): ``{"k", "v"}``
-    (B, S, Kv, hd) of an attention layer, ``{"conv", "ssm"}`` of a Mamba
-    layer."""
-    if kind in (ATTN, ATTN_LOCAL):
+    (B, S, Kv, hd) of an attention layer, with ``{"xk", "xv"}`` (B, M, Kv,
+    hd) of its cross-attention onto ``memory`` (a ``CROSS`` layer, or any
+    layer given ``xa``); ``{"conv", "ssm"}`` of a Mamba layer; the mLSTM's
+    or the sLSTM's final state."""
+    if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, kv = self_attention_parallel(w, x, cfg, rope=rope,
-                                        window=layer_window(cfg, kind))
-    elif kind == MAMBA:
-        o, kv = mamba_apply(w, x, cfg, return_state=True)
+                                        window=layer_window(cfg, kind),
+                                        causal=causal)
+        x = x + o
+        if kind == CROSS:
+            xo, kvx = cross_attention_parallel(w, x, memory, cfg,
+                                               gate=w["xgate"])
+            x = x + xo
+            kv.update(xk=kvx["k"], xv=kvx["v"])
     else:
-        raise S.not_ported(kind)
-    x = ffn_parallel(w, x + o, cfg, is_moe)
+        apply = {MAMBA: mamba_apply, MLSTM: mlstm_apply,
+                 SLSTM: slstm_apply}[kind]
+        o, kv = apply(w, x, cfg, return_state=True)
+        x = x + o
+    if xa is not None and kind != CROSS:
+        # the encoder-decoder's cross-attention, in every decoder layer
+        xo, kvx = cross_attention_parallel(xa, x, memory, cfg)
+        x = x + xo
+        kv.update(xk=kvx["k"], xv=kvx["v"])
+    x = ffn_parallel(w, x, cfg, is_moe)
     return x, (kv if return_kv else None)
-
-
 # ---------------------------------------------------------------------------
 # decode path
 def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -128,17 +184,36 @@ def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     return o @ w["wo"], cache
 
 
+def cross_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, *, gate: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """One token (B, 1, D) onto the whole memory cached at prefill
+    (``cache["xk"]``, ``cache["xv"]``, never written here)."""
+    B = x.shape[0]
+    h = rms_norm(x, w["lnx"], cfg.norm_eps)
+    q = (h @ w["xq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    o = decode_attention(q, cache["xk"], cache["xv"], cache["xk"].shape[1])
+    o = o.reshape(B, 1, cfg.n_heads * cfg.hd)
+    return _gated(o @ w["xo"], gate)
+
+
 def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cache_len: int, kind: str, is_moe: bool, cfg: ModelConfig,
-                 *, rope: Rope
+                 *, rope: Rope, xa: Optional[Weights] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token (B, 1, D) through a layer; an MoE layer routes the B
     tokens as one group, as the JAX package's decode does."""
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
                                window=layer_window(cfg, kind))
-    elif kind == MAMBA:
-        o, cache = mamba_decode(w, x, cache, cfg)
+        x = x + o
+        if kind == CROSS:
+            x = x + cross_decode(w, x, cache, cfg, gate=w["xgate"])
     else:
-        raise S.not_ported(kind)
-    return ffn_parallel(w, x + o, cfg, is_moe), cache
+        step = {MAMBA: mamba_decode, MLSTM: mlstm_decode,
+                SLSTM: slstm_decode}[kind]
+        o, cache = step(w, x, cache, cfg)
+        x = x + o
+    if xa is not None and kind != CROSS:
+        x = x + cross_decode(xa, x, cache, cfg)
+    return ffn_parallel(w, x, cfg, is_moe), cache

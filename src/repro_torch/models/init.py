@@ -1,16 +1,16 @@
 """Parameters of the LMs, in the JAX package's tree layout
 (``spec.model_param_specs``): ``emb``, ``final_ln``, ``head`` when the
 embeddings are untied, ``body[p][name]`` stacked over the R superblocks and
-``tail[j]``. ``model.DecoderLM.from_tree`` builds the model from either.
+``tail[j]``, and for an encoder-decoder ``encoder`` and ``xattn_body`` /
+``xattn_tail``. ``model.DecoderLM.from_tree`` builds the model from either.
 
 Both follow the JAX package's init rules (``models/init.py`` there):
-norms and ``D_skip`` ones, ``conv_b`` zeros, ``A_log`` the log of
-1..d_state along its last axis, ``dt_b`` the inverse softplus of a uniform
-draw in [1e-3, 1e-1]; every other leaf a normal scaled by
-``1/sqrt(fan_in)``.
-
-Both refuse a config whose layers the port does not run yet
-(``spec.check_ported``).
+norms (``ln1``, ``ln2``, ``lnx``, ``ln_inner``, ``final_ln``, ``qn``,
+``kn``) and ``D_skip`` ones, ``conv_b``, the sLSTM's ``b`` and the VLM's
+``xgate`` zeros (its cross-attention starts disabled: ``tanh(0)``),
+``A_log`` the log of 1..d_state along its last axis, ``dt_b`` the inverse
+softplus of a uniform draw in [1e-3, 1e-1]; every other leaf a normal
+scaled by ``1/sqrt(fan_in)``.
 
 - ``init_params(cfg, generator)``: the port's own random init with an
   explicit ``torch.Generator``, for the CLI and the full-width hybrid. Its
@@ -32,7 +32,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import spec as S
 
-NORMS = ("ln1", "ln2", "final_ln", "qn", "kn")
+NORMS = ("ln1", "ln2", "lnx", "ln_inner", "final_ln", "qn", "kn")
+ZEROS = ("conv_b", "b", "xgate")
 DT_MIN, DT_MAX = 1e-3, 1e-1     # the range of softplus(dt_b) at init
 
 
@@ -44,7 +45,7 @@ def _fixed(base: str, shape):
     """The value of a leaf that draws nothing (numpy f32), else None."""
     if base in NORMS or base == "D_skip":
         return np.ones(shape, np.float32)
-    if base == "conv_b":
+    if base in ZEROS:
         return np.zeros(shape, np.float32)
     if base == "A_log":
         a = np.arange(1, shape[-1] + 1, dtype=np.float32)
@@ -75,7 +76,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random f32 parameters on ``device`` (the generator's device when
     None), leaf by leaf in the JAX package's flatten order."""
-    S.check_ported(cfg)
     device = torch.device(device or generator.device)
     specs = S.model_param_specs(cfg)
     leaves = {}
@@ -109,10 +109,13 @@ def seeded_numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     e_wo, kn, ln1, ln2, qn, router, wk, wo, wq, wv`` for attention and
     ``A_log, D_skip, conv_b, conv_w, dt_b, dt_w, e_wg, e_wi, e_wo,
     in_proj, ln1, ln2, out_proj, router, x_proj`` for Mamba; then position
-    1's, ...), ``emb``, ``final_ln``, ``head`` (untied embeddings only), then
-    ``tail`` (layer by layer, the same key order). The norms (``ln1``,
-    ``ln2``, ``final_ln``, ``qn``, ``kn``), ``D_skip``, ``conv_b`` and
-    ``A_log`` take their fixed values and draw nothing. ``dt_b`` is one
+    1's, ...), ``emb``, then an encoder-decoder's ``encoder`` (its stacked
+    ``layers``, then its ``final_ln``), ``final_ln``, ``head`` (untied
+    embeddings only), ``tail`` (layer by layer, the same key order), and
+    last an encoder-decoder's ``xattn_body`` and ``xattn_tail`` (``lnx, xk,
+    xo, xq, xv``). The norms (``ln1``, ``ln2``, ``lnx``, ``ln_inner``,
+    ``final_ln``, ``qn``, ``kn``), ``D_skip``, ``conv_b``, ``b``, ``xgate``
+    and ``A_log`` take their fixed values and draw nothing. ``dt_b`` is one
     ``rng.uniform(1e-3, 1e-1, shape)`` draw, cast to f32 and passed through
     the inverse softplus ``u + log(-expm1(-u))`` in f32. Every other leaf,
     in that order, is ``rng.standard_normal(shape, float32) /
@@ -121,9 +124,9 @@ def seeded_numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     D for ``router`` (D, E), ``e_wg`` and ``e_wi`` (E, D, F), F for
     ``e_wo`` (E, F, D).
     A dense config draws exactly what it drew before the Mamba leaves
-    existed.
+    existed, and the dense, MoE and hybrid configs what they drew before
+    the xLSTM, cross-attention and encoder-decoder leaves existed.
     """
-    S.check_ported(cfg)
     rng = np.random.default_rng(seed)
     specs = S.model_param_specs(cfg)
     leaves = {}

@@ -1,12 +1,14 @@
-"""Core neural layers of the dense LMs (the JAX package's
+"""Core neural layers of the LMs (the JAX package's
 ``models/layers.py``): RMSNorm, RoPE, GQA attention for prefill (through
 the ``flash_attn`` kernel wrapper) and for one decode token over a cache,
-and the gated MLP.
+and the MLPs (gated, or plain GELU).
 
 Each function casts where the JAX package casts: ``rms_norm`` and
 ``apply_rope`` compute in f32 and return the input's dtype,
 ``decode_attention`` is all f32 over a cache in the compute dtype, and the
-MLP's products run in the compute dtype.
+MLP's products run in the compute dtype. Attention is causal and may be
+windowed in the decoders; the encoder's and the cross-attentions onto a
+memory (vision tokens, audio frames) have no mask.
 """
 
 from __future__ import annotations
@@ -98,9 +100,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLPs
 def mlp_apply(w: Mapping[str, torch.Tensor], x: torch.Tensor, *,
-              eps: float) -> torch.Tensor:
-    """The gated MLP ``silu(h wg) * (h wi) wo2`` of every dense arch (the
-    plain GELU MLP is the encoder-decoder slice's). ``w``: the layer's
-    weights, matrices already in x's dtype."""
+              gated: bool, eps: float) -> torch.Tensor:
+    """The gated MLP ``silu(h wg) * (h wi) wo2`` of every arch but the
+    encoder-decoder, whose MLP is ``gelu(h wi) wo2`` with the tanh
+    approximation (``jax.nn.gelu``'s default). ``w``: the layer's weights,
+    matrices already in x's dtype."""
     h = rms_norm(x, w["ln2"], eps)
-    return (F.silu(h @ w["wg"]) * (h @ w["wi"])) @ w["wo2"]
+    if gated:
+        a = F.silu(h @ w["wg"]) * (h @ w["wi"])
+    else:
+        a = F.gelu(h @ w["wi"], approximate="tanh")
+    return a @ w["wo2"]

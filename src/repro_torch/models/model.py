@@ -1,20 +1,32 @@
 """Model assembly of the LMs (the JAX package's ``models/model.py``):
 embedding -> decoder layers -> final norm -> head, with prefill and
-one-token decode over explicit caches.
+one-token decode over explicit caches; an encoder-decoder (whisper) runs
+its encoder over the audio frames first, and its decoder layers attend to
+the encoder's output.
 
 ``DecoderLM`` holds the f32 master weights: the embedding, the final norm,
 the untied head if any, and a ``ModuleList`` of ``DecoderLayer`` in layer
-order. The JAX package casts each master to ``cfg.dtype`` at every use; the
-port makes those copies once, at load, which gives the same values (norm
-scales, ``A_log`` and the MoE router stay f32, as the JAX package reads
-them in f32).
+order (each with its ``xattn`` weights in an encoder-decoder), and the
+``Encoder`` of an encoder-decoder. The JAX package casts each master to
+``cfg.dtype`` at every use; the port makes those copies once, at load,
+which gives the same values (norm scales, ``A_log``, the MoE router and
+the sLSTM's ``r`` and ``b`` stay f32, as the JAX package reads them in
+f32).
+
+The memory a model attends to comes with the prompt (``extras``, as in the
+JAX package's batch): ``"vision"`` (B, n_vision_tokens, D), taken as it is
+in the compute dtype by a VLM's ``CROSS`` layers, or ``"audio"`` (B,
+n_audio_frames, D), the frames an encoder-decoder's encoder reads.
 
 The cache is a list with one entry per layer. An attention layer's is
 ``{"k", "v"}``, each (B, S_c, Kv, hd) in the compute dtype; a
 sliding-window layer keeps ``min(cache_seq_len, window)`` slots as a ring
-(absolute position P in slot P % S_c). A Mamba layer's is ``{"conv"
-(B, d_conv - 1, di), "ssm" (B, di, d_state)}`` in f32. ``cache_len`` is a
-Python int everywhere, so prefill and decode never read the device.
+(absolute position P in slot P % S_c). A layer that attends to a memory
+adds ``{"xk", "xv"}`` (B, M, Kv, hd), written at prefill and only read by
+decode. A Mamba layer's is ``{"conv" (B, d_conv - 1, di), "ssm" (B, di,
+d_state)}``, an mLSTM's ``{"C", "n", "m", "conv"}`` and an sLSTM's ``{"c",
+"n", "h", "m"}`` (``xlstm``), all f32. ``cache_len`` is a Python int
+everywhere, so prefill and decode never read the device.
 """
 
 from __future__ import annotations
@@ -24,15 +36,23 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MAMBA, ModelConfig
+from repro_torch.configs.base import (
+    ATTN,
+    CROSS,
+    MAMBA,
+    MLSTM,
+    SLSTM,
+    ModelConfig,
+)
 from repro_torch.models import spec as S
 from repro_torch.models.blocks import block_decode, block_parallel, layer_window
 from repro_torch.models.init import NORMS
 from repro_torch.models.layers import rms_norm, rope_cos_sin
 from repro_torch.models.mamba import mamba_cache_spec
+from repro_torch.models.xlstm import mlstm_cache_spec, slstm_cache_spec
 
 # read in f32 from the masters by the JAX package
-F32_LEAVES = NORMS + ("A_log", "router")
+F32_LEAVES = NORMS + ("A_log", "router", "r", "b")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -41,29 +61,25 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-class DecoderLayer(nn.Module):
-    """One layer's f32 master weights, by the JAX package's leaf names,
-    and their compute-dtype copies (``weights()``); ``kind`` is its mixer,
-    ``is_moe`` whether its FFN is the experts (``cfg.is_moe_layer``)."""
+class Weights(nn.Module):
+    """Leaves' f32 master weights, by the JAX package's names, and their
+    compute-dtype copies (``weights()``)."""
 
-    def __init__(self, leaves: Mapping[str, torch.Tensor], kind: str,
-                 is_moe: bool, dtype: torch.dtype):
+    def __init__(self, leaves: Mapping[str, torch.Tensor], dtype: torch.dtype):
         super().__init__()
         for name, t in leaves.items():
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
-        self.kind = kind
-        self.is_moe = is_moe
         self.dtype = dtype
         self._weights: Optional[Dict[str, torch.Tensor]] = None
 
     def weights(self) -> Dict[str, torch.Tensor]:
-        """Norm scales, ``A_log`` and ``router`` as the f32 masters; every
-        other leaf in the compute dtype (the masters themselves when that
-        is f32), made at first call."""
+        """The ``F32_LEAVES`` as the f32 masters; every other leaf in the
+        compute dtype (the masters themselves when that is f32), made at
+        first call."""
         if self._weights is None:
             self._weights = {
                 name: p if name in F32_LEAVES else p.to(self.dtype)
-                for name, p in self.named_parameters()}
+                for name, p in self.named_parameters(recurse=False)}
         return self._weights
 
     def _apply(self, fn, recurse=True):
@@ -71,13 +87,55 @@ class DecoderLayer(nn.Module):
         return super()._apply(fn, recurse)
 
 
+class DecoderLayer(Weights):
+    """One layer's weights; ``kind`` is its mixer, ``is_moe`` whether its
+    FFN is the experts (``cfg.is_moe_layer``), ``xattn`` an
+    encoder-decoder's cross-attention weights onto the encoder's output
+    (None elsewhere)."""
+
+    def __init__(self, leaves: Mapping[str, torch.Tensor], kind: str,
+                 is_moe: bool, dtype: torch.dtype,
+                 xattn: Optional[Mapping[str, torch.Tensor]] = None):
+        super().__init__(leaves, dtype)
+        self.kind = kind
+        self.is_moe = is_moe
+        self.xattn = None if xattn is None else Weights(xattn, dtype)
+
+    def xattn_weights(self) -> Optional[Dict[str, torch.Tensor]]:
+        return None if self.xattn is None else self.xattn.weights()
+
+
+def _stacked(tree: Mapping[str, Any], i: int,
+             period: int, R: int, body: str, tail: str) -> Dict[str, Any]:
+    """Layer ``i``'s leaves of a stacked tree: ``tree[body][i % period]
+    [name][i // period]`` for the R superblocks, ``tree[tail][i - R *
+    period]`` after them."""
+    if i < R * period:
+        return {k: t[i // period] for k, t in tree[body][i % period].items()}
+    return tree[tail][i - R * period]
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``n_enc_layers`` non-causal attention
+    layers with the plain MLP (the JAX package's ``encoder["layers"]``,
+    stacked over layers) and their final norm."""
+
+    def __init__(self, cfg: ModelConfig, tree: Mapping[str, Any],
+                 dtype: torch.dtype):
+        super().__init__()
+        self.final_ln = nn.Parameter(tree["final_ln"], requires_grad=False)
+        self.layers = nn.ModuleList(
+            DecoderLayer({k: t[i] for k, t in tree["layers"].items()}, ATTN,
+                         False, dtype)
+            for i in range(cfg.n_enc_layers))
+
+
 class DecoderLM(nn.Module):
-    """A decoder-only LM, built from the JAX package's parameter tree
-    (``from_tree``)."""
+    """An LM built from the JAX package's parameter tree (``from_tree``):
+    decoder-only, or with an encoder (``cfg.enc_dec``)."""
 
     def __init__(self, cfg: ModelConfig, tree: Mapping[str, Any]):
         super().__init__()
-        S.check_ported(cfg)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.emb = nn.Parameter(tree["emb"], requires_grad=False)
@@ -85,27 +143,29 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(tree["head"], requires_grad=False)
         period, R, _ = S.layout(cfg)
-        layers = []
-        for i in range(cfg.n_layers):
-            if i < R * period:
-                leaves = {k: t[i // period]
-                          for k, t in tree["body"][i % period].items()}
-            else:
-                leaves = tree["tail"][i - R * period]
-            layers.append(DecoderLayer(leaves, S.layer_kind_at(cfg, i),
-                                       cfg.is_moe_layer(i), self.dtype))
-        self.layers = nn.ModuleList(layers)
+        self.encoder = (Encoder(cfg, tree["encoder"], self.dtype)
+                        if cfg.enc_dec else None)
+        self.layers = nn.ModuleList(
+            DecoderLayer(_stacked(tree, i, period, R, "body", "tail"),
+                         S.layer_kind_at(cfg, i), cfg.is_moe_layer(i),
+                         self.dtype,
+                         _stacked(tree, i, period, R, "xattn_body",
+                                  "xattn_tail") if cfg.enc_dec else None)
+            for i in range(cfg.n_layers))
         self._head: Optional[torch.Tensor] = None
 
     @classmethod
     def from_tree(cls, cfg: ModelConfig, tree: Mapping[str, Any]) -> "DecoderLM":
         """Build from f32 tensors in the JAX package's layout (``body[p]
         [name][r]`` is layer ``r * period + p``, ``tail[j]`` layer ``R *
-        period + j``), and make the compute-dtype copies now."""
+        period + j``; ``xattn_body`` / ``xattn_tail`` likewise, and
+        ``encoder["layers"][name][i]``), and make the compute-dtype copies
+        now."""
         model = cls(cfg, tree)
         model.head_weights()
-        for layer in model.layers:
-            layer.weights()
+        for layer in model.modules():
+            if isinstance(layer, Weights):
+                layer.weights()
         return model
 
     def head_weights(self) -> torch.Tensor:
@@ -151,13 +211,26 @@ def layer_cache_spec(cfg: ModelConfig, layer_idx: int, batch: int,
                      seq_len: int, dtype: torch.dtype
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Name -> (shape, dtype) of one layer's decode cache: ``{"k", "v"}``
-    of an attention layer, ``{"conv", "ssm"}`` of a Mamba layer."""
+    of an attention layer (with ``{"xk", "xv"}`` onto the memory on a
+    ``CROSS`` layer and on every layer of an encoder-decoder), or the
+    Mamba, mLSTM or sLSTM layer's states."""
     kind = S.layer_kind_at(cfg, layer_idx)
+    Kv, hd = cfg.n_kv_heads, cfg.hd
     if kind == MAMBA:
-        return mamba_cache_spec(cfg, batch)
-    sc = _attn_cache_len(cfg, kind, seq_len)
-    shape = (batch, sc, cfg.n_kv_heads, cfg.hd)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+        spec = mamba_cache_spec(cfg, batch)
+    elif kind == MLSTM:
+        spec = mlstm_cache_spec(cfg, batch)
+    elif kind == SLSTM:
+        spec = slstm_cache_spec(cfg, batch)
+    else:
+        shape = (batch, _attn_cache_len(cfg, kind, seq_len), Kv, hd)
+        spec = {"k": (shape, dtype), "v": (shape, dtype)}
+    memory = (cfg.n_audio_frames if cfg.enc_dec
+              else cfg.n_vision_tokens if kind == CROSS else 0)
+    if memory:
+        shape = (batch, memory, Kv, hd)
+        spec.update(xk=(shape, dtype), xv=(shape, dtype))
+    return spec
 
 
 def init_cache(model: DecoderLM, batch: int, seq_len: int) -> Cache:
@@ -171,8 +244,8 @@ def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
                     cfg: ModelConfig, batch: int, cache_seq_len: int,
                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """A layer's decode-cache entry from its prefill state: k, v
-    (B, S, Kv, hd) into their slots, or the Mamba layer's final conv and
-    ssm states as they are."""
+    (B, S, Kv, hd) into their slots; the cross-attention's xk, xv and the
+    recurrent layers' final states as they are."""
     out = {}
     for name, (shape, dt) in layer_cache_spec(cfg, layer_idx, batch,
                                               cache_seq_len, dtype).items():
@@ -193,22 +266,60 @@ def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
 
 # ---------------------------------------------------------------------------
 # prefill and decode
+def encoder_forward(model: DecoderLM, frames: torch.Tensor) -> torch.Tensor:
+    """An encoder-decoder's encoder over the audio frames (B, F, D) (the
+    frontend is a stub: the frames are embeddings already): non-causal
+    attention layers with RoPE over positions 0..F-1, then the encoder's
+    final norm. Returns (B, F, D) in the compute dtype."""
+    cfg, enc = model.cfg, model.encoder
+    x = frames.to(model.dtype)
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    for layer in enc.layers:
+        x, _ = block_parallel(layer.weights(), x, ATTN, False, cfg,
+                              rope=rope, causal=False)
+    return rms_norm(x, enc.final_ln, cfg.norm_eps)
+
+
+def memory_of(model: DecoderLM, extras: Optional[Mapping[str, torch.Tensor]]
+              ) -> Optional[torch.Tensor]:
+    """The memory the model's layers attend to: the encoder's output over
+    ``extras["audio"]`` for an encoder-decoder, ``extras["vision"]`` in
+    the compute dtype for a VLM, None for the others."""
+    cfg = model.cfg
+    need = ("audio" if cfg.enc_dec else
+            "vision" if cfg.n_vision_tokens else None)
+    if need is None:
+        return None
+    if not extras or need not in extras:
+        raise ValueError(f"{cfg.name} attends to a memory: pass "
+                         f'extras={{"{need}": (B, M, {cfg.d_model}) tensor}}')
+    if cfg.enc_dec:
+        return encoder_forward(model, extras["audio"])
+    return extras["vision"].to(model.dtype)
+
+
 @torch.no_grad()
 def prefill(model: DecoderLM, tokens: torch.Tensor, *,
-            cache_seq_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    """Run the prompt ``tokens`` (B, S) through every layer. Returns the
-    last token's f32 logits (B, V) and the cache, sized for
+            cache_seq_len: Optional[int] = None,
+            extras: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Run the prompt ``tokens`` (B, S) through every layer, with the
+    memory of ``extras`` (``memory_of``) where the model has one. Returns
+    the last token's f32 logits (B, V) and the cache, sized for
     ``cache_seq_len`` tokens (default S)."""
     cfg = model.cfg
     B, Sq = tokens.shape
     cache_seq_len = cache_seq_len or Sq
+    memory = memory_of(model, extras)
     x = embed(model, tokens)
     positions = torch.arange(Sq, device=tokens.device)
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     cache = []
     for i, layer in enumerate(model.layers):
         x, kv = block_parallel(layer.weights(), x, layer.kind, layer.is_moe,
-                               cfg, rope=rope, return_kv=True)
+                               cfg, rope=rope, memory=memory,
+                               xa=layer.xattn_weights(), return_kv=True)
         cache.append(_kv_cache_entry(kv, i, cfg, B, cache_seq_len,
                                      model.dtype))
     return _logits(model, x[:, -1]), cache
@@ -226,5 +337,6 @@ def decode_step(model: DecoderLM, cache: Cache, tokens: torch.Tensor,
     rope = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
     for i, layer in enumerate(model.layers):
         x, cache[i] = block_decode(layer.weights(), x, cache[i], cache_len,
-                                   layer.kind, layer.is_moe, cfg, rope=rope)
+                                   layer.kind, layer.is_moe, cfg, rope=rope,
+                                   xa=layer.xattn_weights())
     return _logits(model, x[:, 0]), cache

@@ -21,10 +21,7 @@ cells carry their own up/down projections. An encoder-decoder config
 (whisper) adds the ``encoder`` stack and a cross-attention onto its memory
 in every decoder layer (``xattn_body`` / ``xattn_tail``).
 
-The port runs the attention and Mamba mixers with dense or MoE FFNs;
-building a model with any other layer (``check_ported``, called wherever a
-model or its weights are built) raises ``NotImplementedError`` naming the
-slice of the port that brings it.
+The port builds and serves every kind of layer above.
 """
 
 from __future__ import annotations
@@ -43,20 +40,6 @@ from repro_torch.configs.base import (
 )
 
 Shape = Tuple[int, ...]
-
-# mixer kinds and features of the JAX package the port does not run yet
-LATER_SLICE = {
-    CROSS: "the VLM cross-attention slice",
-    MLSTM: "the xLSTM slice",
-    SLSTM: "the xLSTM slice",
-    "enc_dec": "the encoder-decoder slice",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {LATER_SLICE[what]}")
-
 
 def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
@@ -94,19 +77,6 @@ def layer_kind_at(cfg: ModelConfig, layer_idx: int) -> str:
     ):
         kind = CROSS
     return kind
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose model the port
-    cannot build yet, naming the slice that brings its layers. Called by
-    ``DecoderLM`` and by ``init.init_params`` / ``seeded_numpy_params``;
-    the shapes and counts below cover every config."""
-    if cfg.enc_dec:
-        raise not_ported("enc_dec")
-    for i in range(cfg.n_layers):
-        kind = layer_kind_at(cfg, i)
-        if kind not in (ATTN, ATTN_LOCAL, MAMBA):
-            raise not_ported(kind)
 
 
 def slstm_ff(cfg: ModelConfig) -> int:

@@ -13,8 +13,9 @@ weights (``models.init_params`` on the card), then, for one prefill of
 ``--batch`` prompts of ``--prompt-len`` tokens and for ``--steps``
 decode steps after it, times the work on the host clock around a
 synchronised run and once more under ``torch.profiler`` with CPU and CUDA
-activities. Prints one JSON line per phase: host ms, CUDA kernels, device
-time, the device's busy share, the launches of each hand-written kernel
+activities (``profile``; a VLM's or an encoder-decoder's prompt comes with
+the memory of ``acceptance.lm_memory``). Prints one JSON line per phase:
+host ms, CUDA kernels, device time, the device's busy share, the launches of each hand-written kernel
 (flash_attn, selective_scan) as its wrapper counts them and, from the
 trace, by entry (``selective_scan_fused_kernel`` is the Mamba mixer's
 fused scan), the device time of the MoE experts' products (the kernels
@@ -51,15 +52,75 @@ def experts_device_us(prof, per: int):
                    for s in spans)) / per
 
 
-def main(argv=None) -> int:
+def profile(model, prompt, steps: int, extras=None, top: int = 10) -> dict:
+    """For one prefill of ``prompt`` (with the memory ``extras``, if the
+    model attends to one) and for ``steps`` decode steps after it: host ms
+    around a synchronised run, then under ``torch.profiler`` (after a
+    warm-up) the profiled host ms, ``profile_tick.device_summary`` and the
+    hand-written kernels' launches, each per prefill or per decode step.
+    Returns ``{"prefill": {...}, "decode": {...}}``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from repro_torch import kernels
-    from repro_torch.configs import acceptance, get_arch
-    from repro_torch.models import DecoderLM, init_params
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.tools.profile_tick import device_summary
+
+    S, n = prompt.shape[1], steps
+
+    def run_prefill():
+        return prefill(model, prompt, cache_seq_len=S + n, extras=extras)
+
+    def run_decode(state):
+        logits, cache = state
+        for i in range(n):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, cache = decode_step(model, cache, tok, S + i)
+        return logits, cache
+
+    out = {}
+    for name, per, fn in (("prefill", 1, lambda _: run_prefill()),
+                          ("decode", n, run_decode)):
+        state = run_prefill()
+        fn(state)                          # warm-up
+        torch.cuda.synchronize()
+        state = run_prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / per
+        state = run_prefill()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(state)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        summary = device_summary(prof, wall_us, per, top)
+        experts_us = experts_device_us(prof, per)
+        out[name] = {
+            "per": per, "host_ms": host_ms,
+            "host_ms_profiled": wall_us / 1e3 / per,
+            "flash_attn_launches": kernels.LAUNCHES["flash_attn"] / per,
+            "selective_scan_launches":
+                kernels.LAUNCHES["selective_scan"] / per,
+            "moe_experts_device_us": experts_us,
+            "moe_experts_device_share": (
+                experts_us / summary["device_us"]
+                if experts_us is not None and summary["device_us"]
+                else None),
+            **summary}
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from repro_torch.configs import acceptance, get_arch
+    from repro_torch.models import DecoderLM, init_params
     from repro_torch.utils.device import exact_matmul
 
     ap = argparse.ArgumentParser()
@@ -95,56 +156,15 @@ def main(argv=None) -> int:
     model = DecoderLM.from_tree(cfg, init_params(cfg, gen))
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
-    S, n = args.prompt_len, args.steps
-
-    def run_prefill():
-        return prefill(model, prompt, cache_seq_len=S + n)
-
-    def run_decode(state):
-        logits, cache = state
-        for i in range(n):
-            tok = logits.argmax(-1).to(torch.int32)[:, None]
-            logits, cache = decode_step(model, cache, tok, S + i)
-        return logits, cache
-
-    phases = (("prefill", 1, lambda _: run_prefill()),
-              ("decode", n, run_decode))
-    for name, per, fn in phases:
-        state = run_prefill()
-        fn(state)                          # warm-up
-        torch.cuda.synchronize()
-        state = run_prefill()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(state)
-        torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / per
-        state = run_prefill()
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(state)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        summary = device_summary(prof, wall_us, per, args.top)
-        experts_us = experts_device_us(prof, per)
+    extras = {k: torch.tensor(v, device=dev) for k, v in
+              acceptance.lm_memory(cfg, args.batch).items()}
+    for name, rec in profile(model, prompt, args.steps, extras or None,
+                             args.top).items():
         print(json.dumps({
             "arch": cfg.name, "case": args.case, "layers": cfg.n_layers,
-            "dtype": cfg.dtype, "phase": name,
-            "batch": args.batch, "prompt_len": S, "per": per,
-            "device": torch.cuda.get_device_name(0), "host_ms": host_ms,
-            "host_ms_profiled": wall_us / 1e3 / per,
-            "flash_attn_launches": kernels.LAUNCHES["flash_attn"] / per,
-            "selective_scan_launches":
-                kernels.LAUNCHES["selective_scan"] / per,
-            "moe_experts_device_us": experts_us,
-            "moe_experts_device_share": (
-                experts_us / summary["device_us"]
-                if experts_us is not None and summary["device_us"]
-                else None),
-            **summary}), flush=True)
+            "dtype": cfg.dtype, "phase": name, "batch": args.batch,
+            "prompt_len": args.prompt_len,
+            "device": torch.cuda.get_device_name(0), **rec}), flush=True)
     return 0
 
 

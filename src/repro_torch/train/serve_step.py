@@ -8,7 +8,7 @@ device (it runs under ``torch.cuda.set_sync_debug_mode("error")``).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Mapping, Optional
 
 import torch
 
@@ -42,10 +42,14 @@ def make_decode_step(model: DecoderLM, *, temperature: float = 0.0
 def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, *,
              cache_seq_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             events: Optional[List] = None) -> torch.Tensor:
+             events: Optional[List] = None,
+             extras: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
     """Prefill ``prompt`` (B, S), then ``n_tokens - 1`` decode steps.
     Returns the (B, n_tokens) int32 tokens on the prompt's device; the
-    first is the prefill's argmax, as in the JAX package.
+    first is the prefill's argmax, as in the JAX package. ``extras`` holds
+    the memory a VLM or an encoder-decoder attends to (``"vision"`` or
+    ``"audio"``, as in the JAX package's ``generate``), read at prefill.
 
     ``temperature > 0`` with a ``torch.Generator`` samples the decode steps
     with ``torch.multinomial``; its draws are not comparable with the JAX
@@ -58,7 +62,8 @@ def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, *,
     if events is not None:
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
-    logits, cache = prefill(model, prompt, cache_seq_len=cache_seq_len)
+    logits, cache = prefill(model, prompt, cache_seq_len=cache_seq_len,
+                            extras=extras)
     tok = _sample(logits, 0.0, None)
     if events is not None:
         events.append(torch.cuda.Event(enable_timing=True))

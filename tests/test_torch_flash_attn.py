@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro.models.layers import attention_full
 
 from repro_torch import kernels
 from repro_torch.kernels import flash_attn as pfa
@@ -199,3 +200,36 @@ def test_cpu_path_takes_unaligned_bf16():
     got = pfa.flash_attention(q, k, v, causal=True, window=0)
     assert torch.equal(got, pfa.attention_torch(q, k, v, causal=True,
                                                 window=0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd", [(2, 21, 16, 4, 2, 16),
+                                            (1, 40, 24, 4, 4, 16),
+                                            (1, 9, 24, 8, 2, 64)])
+def test_plain_attention_takes_sq_over_sk_without_a_mask(b, sq, sk, h, kv,
+                                                         hd, dtype):
+    """``flash_attention``'s CPU path (the plain version) against the JAX
+    package's ``attention_full`` without a mask, Sq > Sk and Sq < Sk."""
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                             (b, sk, kv, hd)))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = attention_full(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), causal=False, window=0)
+    got = pfa.flash_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)),
+                              causal=False, window=0)
+    assert got.dtype == tdt and got.shape == (b, sq, h, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 4),
+                                           (True, 4)])
+def test_wrapper_still_refuses_masked_sq_over_sk(causal, window):
+    q = torch.zeros(1, 9, 4, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="causal or windowed"):
+        pfa.flash_attention(q, kv, kv, causal=causal, window=window)

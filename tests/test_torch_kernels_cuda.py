@@ -305,7 +305,10 @@ def test_node_power_kernel_matches_plain_version(cuda_device, E):
 # MQA; causal and causal + window 512; a ragged 1025-token prompt),
 # qwen3-4b's GQA, and the bf16 kernel's tile edges: hd 128 (two TMA boxes
 # a row, 128-key stages) with Sq < Sk and a window, and hd 256 (four
-# boxes, 64-key stages) without the causal mask at B > 1
+# boxes, 64-key stages) without the causal mask at B > 1; then the
+# cross-attentions without a mask onto a memory shorter than the queries
+# (Sq > Sk; the VLM's 1601 vision tokens at hd 128, whisper's 1500 audio
+# frames at hd 64) and whisper's encoder (Sq = Sk = 1500)
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 16, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -319,6 +322,10 @@ FLASH_CASES = [
     (2, 1024, 1024, 32, 8, 128, True, 0),
     (1, 100, 230, 8, 2, 128, True, 37),
     (2, 300, 300, 4, 2, 256, False, 0),
+    (1, 1632, 1601, 32, 8, 128, False, 0),
+    (2, 130, 67, 4, 2, 64, False, 0),
+    (2, 1500, 1500, 12, 12, 64, False, 0),
+    (2, 64, 1500, 12, 12, 64, False, 0),
 ]
 
 

@@ -34,7 +34,7 @@ from repro.sharding.ctx import ShardCtx
 from repro.train.serve_step import generate as jax_generate
 
 from repro_torch import kernels
-from repro_torch.configs import MoEConfig, get_arch, reduced
+from repro_torch.configs import MoEConfig, acceptance, get_arch, reduced
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.models import (
     DecoderLM,
@@ -284,13 +284,17 @@ def test_bf16_decode_bound_catches_a_wrong_cache():
     assert off(lambda c: c[0]["ssm"].zero_()) > bound
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-20b", JAMBA])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-20b", JAMBA]
+                         + ["xlstm-125m", "whisper-small",
+                            "llama-3.2-vision-11b"])
 def test_seeded_numpy_params_follow_the_documented_leaf_order(arch):
     """The JAX package's tree, drawn leaf by leaf in ``jax.tree.leaves``
     order from one generator: norms ones, the rest normal / sqrt(fan_in);
     in the hybrid's Mamba layers ``A_log``, ``D_skip`` and ``conv_b`` draw
-    nothing and ``dt_b`` is the inverse softplus of one uniform draw. Those
-    four follow the JAX package's ``init_params`` rules."""
+    nothing and ``dt_b`` is the inverse softplus of one uniform draw; the
+    sLSTM's ``b`` and the VLM's ``xgate`` draw nothing (zeros). Those
+    follow the JAX package's ``init_params`` rules; an encoder-decoder's
+    ``encoder`` and ``xattn_*`` trees draw in their flatten places."""
     jcfg, tcfg = _configs(arch, NO_EXPERTS if arch == JAMBA else {})
     tree = seeded_numpy_params(tcfg, 3)
     specs = jax_param_specs(jcfg)
@@ -305,8 +309,12 @@ def test_seeded_numpy_params_follow_the_documented_leaf_order(arch):
         name = jax.tree_util.keystr(path)
         base = name.split("'")[-2]
         assert leaf.dtype == np.float32
-        if base in ("ln1", "ln2", "final_ln", "qn", "kn"):
+        if base in ("ln1", "ln2", "lnx", "ln_inner", "final_ln", "qn", "kn"):
             np.testing.assert_array_equal(leaf, 1.0)
+            continue
+        if base in ("b", "xgate"):
+            np.testing.assert_array_equal(leaf, jax_leaves[name], name)
+            np.testing.assert_array_equal(leaf, 0.0)
             continue
         if base in ("A_log", "D_skip", "conv_b"):
             n_mamba += 1
@@ -325,7 +333,8 @@ def test_seeded_numpy_params_follow_the_documented_leaf_order(arch):
         want = rng.standard_normal(leaf.shape, dtype=np.float32)
         want /= np.float32(np.sqrt(fan_in))
         np.testing.assert_array_equal(leaf, want, err_msg=name)
-    assert n_mamba == (4 * 7 if arch == JAMBA else 0)
+    # the hybrid's 7 Mamba layers; the reduced xLSTM's 3 mLSTM conv biases
+    assert n_mamba == {JAMBA: 4 * 7, "xlstm-125m": 3}.get(arch, 0)
 
 
 def test_init_params_follow_the_reference_rules():
@@ -452,24 +461,46 @@ def test_moe_archs_build_with_the_reference_config_and_shapes(arch):
         jax_get_arch(arch)).param_count()
 
 
-LATER_SLICES = {"xlstm-125m": "the xLSTM slice",
-                "whisper-small": "the encoder-decoder slice",
-                "llama-3.2-vision-11b": "the VLM cross-attention slice"}
+LAST_ARCHS = ["xlstm-125m", "whisper-small", "llama-3.2-vision-11b"]
 
 
-@pytest.mark.parametrize("arch", list(LATER_SLICES))
-def test_archs_of_later_slices_raise(arch):
+@pytest.mark.parametrize("arch", LAST_ARCHS)
+def test_the_last_archs_build_with_the_reference_tree(arch):
     """Every arch's config is the JAX package's, and so is its parameter
-    tree (the perf model counts it). Building a model whose layers come
-    with a later slice of the port raises, naming that slice: the model
-    itself, the port's random init and the numpy weights both packages
-    load (on the reduced config, which keeps the layer kinds)."""
+    tree (the perf model counts it). The xLSTM, VLM and encoder-decoder
+    archs build (on the reduced config, which keeps the layer kinds) from
+    the port's random init and from the numpy weights both packages load,
+    with the JAX package's tree: the same leaves, the same shapes, and
+    the fixed leaves by its rules (``ln_inner`` and ``lnx`` ones, ``b`` and
+    ``xgate`` zeros); a prefill with the arch's memory is finite."""
     cfg = _same_config_and_shapes(arch)
-    match = LATER_SLICES[arch]
-    with pytest.raises(NotImplementedError, match=match):
-        DecoderLM(cfg, {})
     small = reduced(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        init_params(small, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        seeded_numpy_params(small, 0)
+    jsmall = jax_reduced(jax_get_arch(arch))
+    assert dataclasses.asdict(small) == dataclasses.asdict(jsmall)
+    jax_tree = jax.device_get(jax_init_params(jsmall, jax.random.key(0)))
+    jax_leaves = dict((jax.tree_util.keystr(p), v) for p, v in
+                      jax.tree_util.tree_leaves_with_path(jax_tree))
+    fixed = ("ln_inner", "lnx", "b", "xgate", "final_ln", "ln1", "ln2")
+    for tree in (init_params(small, torch.Generator().manual_seed(0), "cpu"),
+                 seeded_numpy_params(small, 0)):
+        leaves = jax.tree_util.tree_leaves_with_path(tree)
+        assert [jax.tree_util.keystr(p) for p, _ in leaves] == list(jax_leaves)
+        for path, leaf in leaves:
+            name = jax.tree_util.keystr(path)
+            assert tuple(leaf.shape) == jax_leaves[name].shape, name
+            if name.split("'")[-2] in fixed:
+                np.testing.assert_array_equal(np.asarray(leaf),
+                                              jax_leaves[name], name)
+        model = DecoderLM.from_tree(small, jax.tree.map(torch.as_tensor,
+                                                        tree))
+        assert [m.kind for m in model.layers] == [
+            small.layer_kind(i) if not small.cross_attn_period
+            or i % small.cross_attn_period != small.cross_attn_period - 1
+            else "cross" for i in range(small.n_layers)]
+        assert (model.encoder is not None) == small.enc_dec
+        memory = {k: torch.tensor(v)
+                  for k, v in acceptance.lm_memory(small, 1).items()}
+        logits, _ = prefill(model, torch.zeros(1, 5, dtype=torch.int32),
+                            extras=memory)
+        assert bool(torch.isfinite(logits).all())
+    assert small.param_count() == jsmall.param_count()

@@ -22,6 +22,18 @@ them with ``check_lm(..., "float32")``.
   pinned too. About 11.6 GB of weights; the JAX package's arrays are
   freed before the port runs.
 
+- ``serve_xlstm``, ``serve_whisper``, ``serve_vlm``
+  (``acceptance.LAST_CASES``): the whole xlstm-125m (B = 2 prompts of 600
+  ids, the mLSTM's padded last chunk), the whole whisper-small (B = 2, its
+  1,500 audio frames, prompts of 64 ids) and llama-3.2-vision-11b cut to
+  its first 5 layers (4 self-attention layers and the ``CROSS`` layer with
+  ``xgate`` opened to ``acceptance.VLM_XGATE``; B = 1, 1,601 vision tokens,
+  a prompt of 1,632 ids), each with 4 decode steps, the memory from
+  ``acceptance.lm_memory``. The JAX package's attention is its
+  ``attention_full`` here (``ShardCtx(enabled=False)``): its Pallas
+  kernel refuses memories of 1,601 and 1,500 keys. The VLM's 8.7 GB of
+  weights take about 50 s to draw.
+
 The weights are held for one case at a time (``_weights``: drawing a
 case's drops the other's), and the port's model shares them without a
 copy. The cases stay in this one file, so that a run split by file never
@@ -61,7 +73,11 @@ def _weights(case: str):
     case's frees the other's."""
     if case not in _HELD:
         _HELD.clear()
-        if case == A.LM_CASE:
+        if case in A.LAST_CASES:
+            cfg, batch, prompt, decode = A.last_case(case)
+            toks = A.lm_tokens(cfg, batch, prompt, decode)
+            seed = A.LAST_SEED
+        elif case == A.LM_CASE:
             cfg = A.lm_config("float32")
             toks = A.lm_tokens(cfg)
             seed = A.LM_SEED
@@ -75,7 +91,10 @@ def _weights(case: str):
             toks = A.lm_tokens(cfg, A.JAMBA_BATCH, A.JAMBA_PROMPT,
                                A.JAMBA_DECODE)
             seed = A.JAMBA_SEED
-        _HELD[case] = cfg, seeded_numpy_params(cfg, seed), toks
+        tree = seeded_numpy_params(cfg, seed)
+        if case == A.VLM_CASE:
+            A.open_xgate(tree)
+        _HELD[case] = cfg, tree, toks
     return _HELD[case]
 
 
@@ -94,14 +113,17 @@ def mixtral_weights():
     return _weights(A.MIXTRAL_CASE)
 
 
-def _jax_logits(jcfg, tree, toks, prompt, decode, ctx):
-    """The JAX package's prefill + teacher-forced decode steps."""
+def _jax_logits(jcfg, tree, toks, prompt, decode, ctx, memory=None):
+    """The JAX package's prefill (with the numpy ``memory``, if any) +
+    teacher-forced decode steps."""
     params = jax.tree.map(jnp.asarray, tree)
-    run_prefill = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, jcfg, ctx, cache_seq_len=prompt + decode))
+    extras = {k: jnp.asarray(v) for k, v in (memory or {}).items()}
+    run_prefill = jax.jit(lambda p, t, e: jax_prefill(
+        p, {"tokens": t, **e}, jcfg, ctx, cache_seq_len=prompt + decode))
     run_decode = jax.jit(lambda p, c, t, n: jax_decode_step(
         p, c, t, n, jcfg, ctx))
-    logits, cache = run_prefill(params, jnp.asarray(toks[:, :prompt]))
+    logits, cache = run_prefill(params, jnp.asarray(toks[:, :prompt]),
+                                extras)
     out = [np.asarray(logits)]
     for i in range(decode):
         pos = prompt + i
@@ -207,4 +229,44 @@ def test_port_on_the_cpu_meets_the_mixtral_pins(mixtral_weights):
                and bool(torch.isfinite(x).all()) for x in logits)
     report = A.check_lm(A.lm_summary([x.numpy() for x in logits], dropped),
                         "float32", pins=A.PINNED_MIXTRAL, case=A.MIXTRAL_CASE)
+    assert report["argmax_agree"] == report["argmax_total"]
+
+
+# (case, package): each case's two tests run one after the other, so its
+# weights are drawn once
+LAST = [(case, side) for case in A.LAST_CASES for side in ("jax", "port")]
+
+
+@pytest.mark.parametrize("case,side", LAST, ids=[f"{c}-{s}" for c, s in LAST])
+def test_the_last_families_meet_their_pins(case, side):
+    """The JAX package gives ``acceptance.PINNED_LAST[case]``, and the port
+    on the CPU meets them: every argmax id, the pinned values within the
+    case's tolerance (``check_lm``), the flash_attn wrapper on its plain
+    version."""
+    cfg, tree, toks = _weights(case)
+    _, batch, prompt, decode = A.last_case(case)
+    memory = A.lm_memory(cfg, batch)
+    pins = A.PINNED_LAST[case]
+    if side == "jax":
+        jcfg = dataclasses.replace(jax_get_arch(cfg.name),
+                                   n_layers=cfg.n_layers, dtype="float32")
+        out = _jax_logits(jcfg, tree, toks, prompt, decode,
+                          ShardCtx(enabled=False), memory)
+        jax.clear_caches()
+        gc.collect()
+        got = A.lm_summary(out)
+    else:
+        model = lm_params_from_numpy(tree, cfg, "cpu")
+        assert model.emb.data_ptr() == tree["emb"].ctypes.data   # no copy
+        kernels.reset_launches()
+        logits = A.run_lm(model, torch.tensor(toks), prompt, decode,
+                          extras={k: torch.tensor(v)
+                                  for k, v in memory.items()})
+        assert sum(kernels.LAUNCHES.values()) == 0     # the CPU path
+        assert len(logits) == 1 + decode
+        assert all(x.shape == (batch, cfg.vocab) and x.dtype == torch.float32
+                   and bool(torch.isfinite(x).all()) for x in logits)
+        got = A.lm_summary([x.numpy() for x in logits])
+    assert got["argmax"] == pins["argmax"]
+    report = A.check_lm(got, "float32", pins=pins, case=case)
     assert report["argmax_agree"] == report["argmax_total"]

@@ -71,7 +71,7 @@ def _keystr(name: str) -> str:
 def test_the_registries_hold_the_same_archs():
     assert TB.arch_names() == ARCHS
     assert len(ARCHS) == 10
-    assert set(TB.NOT_YET_PORTED) < set(ARCHS)
+    assert not hasattr(TB, "NOT_YET_PORTED")    # the port builds all ten
 
 
 @pytest.mark.parametrize("arch", ARCHS)
