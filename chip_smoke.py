@@ -229,7 +229,8 @@ and no result line:
              none per decode step; (b) a zero router on (4, 1024) tokens: every
              slot picks experts (0, 1), ranks in token order, exactly the
              slots past rank 1,279 drop, the routing bitwise with the
-             CPU's, the dropped rows exactly 0; (c) ``serve_mixtral_4l``
+             CPU's, the dropped rows exactly 0 (after (c), through the
+             first layer's f32 experts); (c) ``serve_mixtral_4l``
              (``init_params`` on the card) at capacity factor E / K
              (nothing drops) in f32 and bf16: decode against the longer
              prefill (f32 within 1e-4; bf16 reported with the routing
@@ -247,9 +248,10 @@ and no result line:
              xlstm-125m whole, B 2, prompt 600; whisper-small whole, B 2,
              1500 audio frames, prompt 64; llama-3.2-vision-11b cut to 5
              layers with ``xgate`` opened, B 1, prompt 1632 over 1601
-             vision tokens) held to ``PINNED_LAST``, argmax equal, the
+             vision tokens) held to ``PINNED_CASES``, argmax equal, the
              flash_attn launches per prefill (0, 36, 6) and none per decode
-             step; the path model (the VLM cut to 10 layers;
+             step; xlstm-125m's bf16 prefill on the pinned weights, its
+             distance from the f32 one reported; the path model (the VLM cut to 10 layers;
              ``init_params`` on the card) in f32 and bf16: the
              prefill/decode invariant (f32 within 1e-4; bf16 within
              SERVE_TOL, or else as ``serve_hybrid`` holds it), the
@@ -329,11 +331,23 @@ ATTN_CASES = (
     ("whisper encoder", "bfloat16", 4, 1500, 1500, 12, 12, 64, False, 0,
      2e-2),
     ("whisper cross", "bfloat16", 4, 448, 1500, 12, 12, 64, False, 0, 2e-2),
+    ("ragged 67", "bfloat16", 4, 2048, 67, 32, 8, 128, False, 0, 2e-2),
 )
+# The unmasked bf16 rows are also held to the norm-relative error
+# ||got - want|| / ||want|| (over the whole output) within ATTN_NORM_TOL.
+# Their outputs average hundreds of N(0, 1) values (std ~0.04 at Sk 1601),
+# so atol 2e-2 alone would pass a kernel that let the zero keys TMA puts
+# past Sk into the softmax: at Sk 1601 (63 such keys in the last 128-key
+# stage) they shrink every output by ~2.3%, a max error near 5e-3.
+# "ragged 67" (61 of the stage's 128 keys past Sk) would shrink it by a
+# third.
+ATTN_NORM_TOL = 5e-3
 ATTN_REPORTED = "gemma3-1b window 512"   # 22 of gemma3-1b's 26 layers
 MIXTRAL_ATTN = "mixtral window 4096"     # every serve_mixtral_4l layer
-# the unmasked cases on the last three families' paths
-NEW_ATTN = ("VLM cross", "VLM cross f32", "whisper encoder", "whisper cross")
+# the unmasked cases: the last three families' paths, and a last tile
+# mostly past Sk
+NEW_ATTN = ("VLM cross", "VLM cross f32", "whisper encoder", "whisper cross",
+            "ragged 67")
 ATTN_TIMING = (10, 5)                    # timed batches, calls per batch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RUNS = 4, 1024, 32, 3
 SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.py)
@@ -346,6 +360,10 @@ SERVE_TOL = 2e-2     # bf16 prefill/decode invariant (tests/test_prefill_decode.
 LAST_PROMPT = {"serve_xlstm": 1024, "serve_whisper": 1024, "serve_vlm": 2048}
 LAST_PROFILE_PROMPT = {"serve_xlstm": 256}
 LAST_PROFILE_STEPS = 4
+# the pinned cases whose worker also runs a bf16 prefill on the pinned
+# weights: its distance from the f32 one stands beside the JAX package's
+# on the same weights (``tests/torch_bf16_distance.py``, on the CPU)
+BF16_PIN_CASES = ("serve_xlstm",)
 # selective_scan at jamba's 8-layer prefill (Ba 4, S 1024, di 16384, ds 16)
 # and at a length no 256-step chunk divides: (name, ba, s, di, ds)
 SCAN_CASES = (("jamba prefill", 4, 1024, 16384, 16),
@@ -728,8 +746,9 @@ def attention_pairs(np, sq: int, sk: int, causal: bool, window: int) -> int:
 def check_attention(torch, np, name, dtype, b, sq, sk, h, kv, hd, causal,
                     window, tol) -> dict:
     """flash_attn against ``attention_torch`` on the card at one shape:
-    within ``tol`` (atol = rtol), two calls bitwise equal; timed beside
-    the plain version, the bound and ``scaled_dot_product_attention``."""
+    within ``tol`` (atol = rtol), unmasked bf16 also within ATTN_NORM_TOL
+    of it in norm, two calls bitwise equal; timed beside the plain
+    version, the bound and ``scaled_dot_product_attention``."""
     from repro_torch.kernels import flash_attn as pfa
 
     rng = np.random.default_rng(hd + h)
@@ -744,9 +763,18 @@ def check_attention(torch, np, name, dtype, b, sq, sk, h, kv, hd, causal,
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"flash_attn {name}: two calls differ")
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
-                               msg=lambda m: f"flash_attn {name}: {m}")
-    abs_err = float((got.float() - want.float()).abs().max())
+    diff = got.float() - want.float()
+    abs_err = float(diff.abs().max())
+    norm_err = float(diff.norm() / want.float().norm())
+    norm_tol = (ATTN_NORM_TOL if dt == torch.bfloat16 and not causal
+                and not window else None)
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=tol, rtol=tol,
+        msg=lambda m: f"flash_attn {name} (norm error {norm_err}): {m}")
+    if norm_tol is not None and not norm_err <= norm_tol:
+        raise AssertionError(f"flash_attn {name}: norm-relative error "
+                             f"{norm_err} over {norm_tol} (max abs error "
+                             f"{abs_err})")
 
     # yardstick: one PyTorch call of the same function (never used by the
     # port), on (B, H, S, hd) views of the same tensors
@@ -784,7 +812,8 @@ def check_attention(torch, np, name, dtype, b, sq, sk, h, kv, hd, causal,
                library_ms=library_ms)
     emit("kernel", name="flash_attn", case=name, dtype=dtype, batch=b,
          seq=sq, keys=sk, heads=h, kv_heads=kv, head_dim=hd, causal=causal,
-         window=window, tol=tol, gflop=flops / 1e9,
+         window=window, tol=tol, norm_rel_err=norm_err, norm_tol=norm_tol,
+         gflop=flops / 1e9,
          library_max_abs_err=lib_err, **rec)
     return rec
 
@@ -909,85 +938,220 @@ def _counted(torch, fn):
     return out, dict(kernels.LAUNCHES)
 
 
-def serve_hybrid_pins(torch) -> dict:
-    """Worker entry (``start_alone``, ``entry="serve_hybrid_pins"``) of
-    phase ``serve_hybrid``'s pins: ``serve_jamba_1l`` (one Mamba layer) in
-    f32 on the card, its numpy weights drawn here (``seeded_numpy_params``),
-    the prefill and the decode steps with their launches counted. Returns
-    ``lm_summary``, the launches, the seconds and whether every logit is
-    finite."""
+def _on_card(torch, memory: dict) -> dict:
+    return {k: torch.tensor(v, device="cuda") for k, v in memory.items()}
+
+
+def path_launches(cfg) -> dict:
+    """The kernel launches of one prefill of ``cfg``: one flash_attn per
+    attention call (``spec.attention_calls``), one selective_scan per
+    Mamba layer."""
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.models import spec as S
+
+    n_mamba = sum(S.layer_kind_at(cfg, i) == MAMBA
+                  for i in range(cfg.n_layers))
+    return no_launches(flash_attn=S.attention_calls(cfg),
+                       selective_scan=n_mamba)
+
+
+def lm_case_pins(torch, case: str) -> dict:
+    """Worker entry (``start_alone``, ``entry="lm_case_pins"``) of a serve
+    phase's pins: the pinned case (``acceptance.lm_case``) in f32 on the
+    card, its numpy weights and memory drawn here
+    (``acceptance.lm_case_inputs``), the prefill and the decode steps with
+    their launches counted and an MoE model's dropped slots recorded. For
+    the cases of BF16_PIN_CASES, also the bf16 prefill's distance from the
+    f32 one on the same weights. Returns ``lm_summary``, the launches, the
+    seconds, the peak memory and whether every logit is finite."""
     from repro_torch.configs import acceptance as A
     from repro_torch.interop import lm_params_from_numpy
-    from repro_torch.models import seeded_numpy_params
     from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.moe import record_routing
 
     t0 = time.perf_counter()
-    cfg = A.jamba_config(1, "float32")
-    tree = seeded_numpy_params(cfg, A.JAMBA_SEED)
+    cfg, tree, toks, memory = A.lm_case_inputs(case)
+    _, _, S, N, _ = A.lm_case(case)
     weights_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     model = lm_params_from_numpy(tree, cfg, "cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    del tree
-    S, N = A.JAMBA_PROMPT, A.JAMBA_DECODE
-    toks = torch.tensor(A.lm_tokens(cfg, A.JAMBA_BATCH, S, N), device="cuda")
+    if case not in BF16_PIN_CASES:
+        del tree
+    toks = torch.tensor(toks, device="cuda")
+    extras = _on_card(torch, memory)
+    out, dropped = [], []
+
+    def run(fn):
+        with record_routing() as rec:
+            logits, cache = fn()
+        out.append(logits)
+        dropped.append([(~r.keep).sum() for r in rec])
+        return cache
+
     t0 = time.perf_counter()
-    (logits, cache), per_prefill = _counted(
-        torch, lambda: prefill(model, toks[:, :S], cache_seq_len=S + N))
-    out = [logits]
+    cache, per_prefill = _counted(torch, lambda: run(lambda: prefill(
+        model, toks[:, :S], cache_seq_len=S + N, extras=extras)))
 
     def decode_all(cache):
         for i in range(N):
-            logits, cache = decode_step(model, cache,
-                                        toks[:, S + i:S + i + 1], S + i)
-            out.append(logits)
+            cache = run(lambda: decode_step(model, cache,
+                                            toks[:, S + i:S + i + 1], S + i))
 
     _, per_decode = _counted(torch, lambda: decode_all(cache))
-    return {"summary": A.lm_summary([x.cpu().numpy() for x in out]),
-            "finite": all(bool(torch.isfinite(x).all()) for x in out),
-            "params": cfg.param_count(), "weights_s": weights_s,
-            "load_s": load_s, "run_s": time.perf_counter() - t0,
-            "launches_per_prefill": per_prefill,
-            "launches_in_decode": per_decode}
+    run_s = time.perf_counter() - t0
+    res = {"summary": A.lm_summary(
+               [x.cpu().numpy() for x in out],
+               [[int(c) for c in step] for step in dropped]
+               if cfg.moe.n_experts else None),
+           "finite": all(bool(torch.isfinite(x).all()) for x in out),
+           "params": cfg.param_count(), "weights_s": weights_s,
+           "load_s": load_s, "run_s": run_s,
+           "launches_per_prefill": per_prefill,
+           "launches_in_decode": per_decode,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if case in BF16_PIN_CASES:
+        del model, cache
+        m16 = lm_params_from_numpy(
+            tree, dataclasses.replace(cfg, dtype="bfloat16"), "cuda")
+        del tree
+        got, _ = prefill(m16, toks[:, :S], cache_seq_len=S, extras=extras)
+        res["bf16_prefill_vs_f32_max_abs"] = float(
+            (got - out[0]).abs().max())
+    return res
+
+
+def check_lm_pins(phase: str, case: str, pins: dict) -> None:
+    """A serve phase's pins (run in a worker: ``pins``) against
+    ``acceptance.PINNED_CASES[case]`` in f32, every logit finite, and the
+    launches: ``path_launches`` per prefill, none in the decode steps."""
+    from repro_torch.configs import acceptance as A
+
+    report = A.check_lm(pins["summary"], "float32",
+                        pins=A.PINNED_CASES[case], case=case)
+    per_prefill, per_decode = (pins["launches_per_prefill"],
+                               pins["launches_in_decode"])
+    emit(phase, step="pins", case=case, in_worker_beside=LM_PINS_BESIDE,
+         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s",
+                                 "max_memory_gb",
+                                 "bf16_prefill_vs_f32_max_abs") if k in pins},
+         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
+         **report)
+    if not pins["finite"]:
+        raise AssertionError(f"{case}: non-finite logits")
+    want = path_launches(A.lm_case(case)[0])
+    if per_prefill != want or per_decode != no_launches():
+        raise AssertionError(f"{case}: launches {per_prefill} per prefill, "
+                             f"{per_decode} in the decode steps (expected "
+                             f"{want}, then none)")
+
+
+def serve_invariant(torch, phase: str, case: str, cfg_of, tree, prompt,
+                    extras=None, routing: bool = False,
+                    serve_tol_suffices: bool = False, **labels):
+    """A serve phase's prefill/decode invariant on its path model, in f32
+    and then bf16 (``DecoderLM.from_tree(cfg_of(dtype), tree)``; the f32
+    model is freed before the bf16 one is made): prefill S (``prompt``
+    less its last token) then decode token S, against a prefill of S + 1;
+    launches counted, ``path_launches`` per prefill and none per decode
+    step. f32 within HYBRID_TOL. The bf16 decode step within
+    BF16_DECODE_FACTOR x the bf16 prefill's own distance from the f32
+    answer; or, with ``serve_tol_suffices``, within SERVE_TOL of the bf16
+    prefill. With ``routing`` (an MoE model): no slot dropped, and the bf16
+    gate excused where an MoE layer picks other experts for the decoded
+    token than the longer prefill did. Returns the bf16 model and its
+    launches per prefill."""
+    import contextlib
+
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.moe import record_routing
+
+    S = prompt.shape[1] - 1
+    record = record_routing if routing else contextlib.nullcontext
+    truth = None     # the f32 model's logits of the longer prefill
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_of(dtype)
+        model = DecoderLM.from_tree(cfg, tree)
+        t0 = time.perf_counter()
+        with record() as long_rec:
+            want, _ = prefill(model, prompt, cache_seq_len=S + 1,
+                              extras=extras)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        (_, cache), per_prefill = _counted(torch, lambda: prefill(
+            model, prompt[:, :S], cache_seq_len=S + 1, extras=extras))
+        with record() as dec_rec:
+            (got, _), per_decode = _counted(
+                torch, lambda: decode_step(model, cache, prompt[:, S:], S))
+        err = float((got - want).abs().max())
+        fields = {}
+        if routing:
+            fields = dict(_last_token_routing(long_rec, dec_rec, S),
+                          dropped=[int((~r.keep).sum())
+                                   for r in long_rec + dec_rec])
+        if dtype == "float32":
+            truth = want
+            limit = dict(tol=HYBRID_TOL)
+        else:
+            prefill_off = float((want - truth).abs().max())
+            limit = dict(
+                serve_tol=SERVE_TOL, below_serve_tol=err <= SERVE_TOL,
+                decode_vs_f32_max_abs=float((got - truth).abs().max()),
+                prefill_vs_f32_max_abs=prefill_off,
+                limit=BF16_DECODE_FACTOR * prefill_off)
+        emit(phase, step="prefill_decode_invariant", case=case, dtype=dtype,
+             batch=prompt.shape[0], prompt=S, **labels, max_abs_err=err,
+             **limit, argmax_agree_share=float(
+                 (got.argmax(-1) == want.argmax(-1)).float().mean()),
+             **fields, prefill_s=prefill_s, launches_per_prefill=per_prefill,
+             launches_per_decode_step=per_decode)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{case} ({dtype}): non-finite logits")
+        if routing and any(fields["dropped"]):
+            raise AssertionError(f"{case} ({dtype}): slots dropped: "
+                                 f"{fields['dropped']}")
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
+                                       rtol=HYBRID_TOL)
+        elif not (limit["decode_vs_f32_max_abs"] <= limit["limit"]
+                  or (serve_tol_suffices and limit["below_serve_tol"])
+                  or (routing and fields["routing_differs"])):
+            raise AssertionError(
+                f"{case} (bf16): the decode step is {err} off the longer "
+                f"prefill and {limit['decode_vs_f32_max_abs']} off the f32 "
+                f"answer, over {BF16_DECODE_FACTOR} x the bf16 prefill's "
+                f"{prefill_off}")
+        want_launches = path_launches(cfg)
+        if per_prefill != want_launches or per_decode != no_launches():
+            raise AssertionError(
+                f"{case} ({dtype}): launches {per_prefill} per prefill and "
+                f"{per_decode} per decode step (expected {want_launches} "
+                "and none)")
+        if dtype == "float32":
+            del model, cache, got, want, long_rec, dec_rec
+            torch.cuda.empty_cache()
+    return model, per_prefill
 
 
 def serve_hybrid(torch, np, pins: dict) -> int:
     """The jamba hybrid without experts at full width on the card:
     ``serve_jamba_1l`` in f32 against ``PINNED_JAMBA`` (run in a worker:
-    ``pins``); ``serve_jamba_8l`` in f32 and bf16 (the prefill/decode
-    invariant and the launch counts), then timed ``generate`` runs in bf16
-    under sync-debug "error". Returns the selective_scan launches of one
-    8-layer prefill."""
+    ``pins``); ``serve_jamba_8l``'s prefill/decode invariant in f32 and
+    bf16 (``serve_invariant``), then timed ``generate`` runs in bf16 under
+    sync-debug "error". Returns the selective_scan launches of one 8-layer
+    prefill."""
     from repro_torch.configs import acceptance as A
-    from repro_torch.models import DecoderLM, init_params
-    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models import init_params
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    check_lm_pins("serve_hybrid", A.JAMBA_CASE, pins)
 
-    # 1. serve_jamba_1l: one Mamba layer in f32 against the JAX package
-    N = A.JAMBA_DECODE
-    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_JAMBA,
-                        case=A.JAMBA_CASE)
-    per_prefill, per_decode = (pins["launches_per_prefill"],
-                               pins["launches_in_decode"])
-    emit("serve_hybrid", step="pins", case=A.JAMBA_CASE,
-         in_worker_beside=LM_PINS_BESIDE,
-         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s")},
-         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
-         **report)
-    if not pins["finite"]:
-        raise AssertionError(f"{A.JAMBA_CASE}: non-finite logits")
-    if (per_prefill["selective_scan"], per_prefill["flash_attn"]) != (1, 0) \
-            or per_decode["selective_scan"] or per_decode["flash_attn"]:
-        raise AssertionError(f"{A.JAMBA_CASE}: launches {per_prefill} per "
-                             f"prefill, {per_decode} in {N} decode steps")
-
-    # 2. serve_jamba_8l: one whole 7:1 period, f32 masters made on the card
+    # serve_jamba_8l: one whole 7:1 period, f32 masters made on the card
     n_layers = A.JAMBA_PATH_LAYERS
     cfg = A.jamba_config(n_layers, "float32")
-    n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
     t0 = time.perf_counter()
     tree = init_params(cfg, torch.Generator("cuda").manual_seed(A.JAMBA_SEED))
     torch.cuda.synchronize()
@@ -997,60 +1161,9 @@ def serve_hybrid(torch, np, pins: dict) -> int:
         np.random.default_rng(2).integers(0, cfg.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT + 1),
                                           dtype=np.int32), device="cuda")
-    per_prefill = None
-    truth = None     # the f32 model's logits of the longer prefill
-    for dtype in ("float32", "bfloat16"):
-        model = DecoderLM.from_tree(A.jamba_config(n_layers, dtype), tree)
-        S = SERVE_PROMPT
-        t0 = time.perf_counter()
-        want, _ = prefill(model, prompt, cache_seq_len=S + 1)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        (_, cache), per_prefill = _counted(
-            torch, lambda: prefill(model, prompt[:, :S], cache_seq_len=S + 1))
-        (got, _), per_decode = _counted(
-            torch, lambda: decode_step(model, cache, prompt[:, S:S + 1], S))
-        err = float((got - want).abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        if dtype == "float32":
-            truth = want
-            limit = dict(tol=HYBRID_TOL)
-        else:
-            # the bf16 decode step against the f32 answer, beside the bf16
-            # prefill's own distance from it
-            prefill_off = float((want - truth).abs().max())
-            limit = dict(
-                decode_vs_f32_max_abs=float((got - truth).abs().max()),
-                prefill_vs_f32_max_abs=prefill_off,
-                limit=BF16_DECODE_FACTOR * prefill_off,
-                below_serve_tol=err <= SERVE_TOL, serve_tol=SERVE_TOL)
-        emit("serve_hybrid", step="prefill_decode_invariant",
-             case=A.JAMBA_PATH_CASE, dtype=dtype, batch=SERVE_BATCH,
-             prompt=S, max_abs_err=err, **limit, argmax_agree_share=agree,
-             prefill_s=prefill_s, launches_per_prefill=per_prefill,
-             launches_per_decode_step=per_decode)
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{A.JAMBA_PATH_CASE} ({dtype}): "
-                                 "non-finite logits")
-        if dtype == "float32":
-            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
-                                       rtol=HYBRID_TOL)
-        elif not limit["decode_vs_f32_max_abs"] <= limit["limit"]:
-            raise AssertionError(
-                f"{A.JAMBA_PATH_CASE} (bf16): the decode step is "
-                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
-                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
-        if (per_prefill["selective_scan"], per_prefill["flash_attn"]) != (
-                n_mamba, n_layers - n_mamba) \
-                or per_decode["selective_scan"] or per_decode["flash_attn"]:
-            raise AssertionError(
-                f"{A.JAMBA_PATH_CASE} ({dtype}): launches {per_prefill} per "
-                f"prefill and {per_decode} per decode step (expected "
-                f"{n_mamba} selective_scan, {n_layers - n_mamba} flash_attn "
-                "and none)")
-        if dtype == "float32":
-            del model, cache, got
-            torch.cuda.empty_cache()
+    model, per_prefill = serve_invariant(
+        torch, "serve_hybrid", A.JAMBA_PATH_CASE,
+        lambda dt: A.jamba_config(n_layers, dt), tree, prompt)
     del tree
 
     # generate in bf16 at B = 4, prompt 1024, 32 new tokens, no host sync
@@ -1060,56 +1173,6 @@ def serve_hybrid(torch, np, pins: dict) -> int:
     torch.cuda.empty_cache()
     return per_prefill["selective_scan"]
 
-
-def serve_moe_pins(torch) -> dict:
-    """Worker entry (``start_alone``, ``entry="serve_moe_pins"``) of phase
-    ``serve_moe``'s pins: ``serve_mixtral_1l`` in f32 on the card, its
-    11.6 GB of numpy weights drawn here (``seeded_numpy_params``), the
-    prefill and each decode step with their launches and dropped slots
-    counted. Returns ``lm_summary`` (with ``dropped``), the launches, the
-    seconds and whether every logit is finite."""
-    from repro_torch.configs import acceptance as A
-    from repro_torch.interop import lm_params_from_numpy
-    from repro_torch.models import seeded_numpy_params
-    from repro_torch.models.model import decode_step, prefill
-    from repro_torch.models.moe import record_routing
-
-    t0 = time.perf_counter()
-    cfg = A.mixtral_config(1, "float32")
-    tree = seeded_numpy_params(cfg, A.MIXTRAL_SEED)
-    weights_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model = lm_params_from_numpy(tree, cfg, "cuda")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    del tree
-    S, N = A.MIXTRAL_PROMPT, A.MIXTRAL_DECODE
-    toks = torch.tensor(A.lm_tokens(cfg, A.MIXTRAL_BATCH, S, N),
-                        device="cuda")
-    t0 = time.perf_counter()
-    with record_routing() as rec:
-        (logits, cache), per_prefill = _counted(
-            torch, lambda: prefill(model, toks[:, :S], cache_seq_len=S + N))
-    out, dropped = [logits], [[(~r.keep).sum() for r in rec]]
-
-    def decode_all(cache):
-        for i in range(N):
-            with record_routing() as rec:
-                logits, cache = decode_step(model, cache,
-                                            toks[:, S + i:S + i + 1], S + i)
-            out.append(logits)
-            dropped.append([(~r.keep).sum() for r in rec])
-
-    _, per_decode = _counted(torch, lambda: decode_all(cache))
-    return {"summary": A.lm_summary(
-                [x.cpu().numpy() for x in out],
-                [[int(c) for c in step] for step in dropped]),
-            "finite": all(bool(torch.isfinite(x).all()) for x in out),
-            "params": cfg.param_count(), "weights_s": weights_s,
-            "load_s": load_s, "run_s": time.perf_counter() - t0,
-            "launches_per_prefill": per_prefill,
-            "launches_in_decode": per_decode,
-            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def _last_token_routing(long_rec, dec_rec, prompt: int) -> dict:
@@ -1143,14 +1206,14 @@ def _last_token_routing(long_rec, dec_rec, prompt: int) -> dict:
 
 def serve_moe(torch, np, pins: dict) -> int:
     """Phase ``serve_moe`` (see the module docstring, phase 17): the pins
-    of ``serve_mixtral_1l`` (run in a worker: ``pins``), the tie check,
-    ``serve_mixtral_4l``'s prefill/decode invariant in f32 and bf16 and
-    timed ``generate``. Returns the flash_attn launches of one 4-layer
+    of ``serve_mixtral_1l`` (run in a worker: ``pins``),
+    ``serve_mixtral_4l``'s prefill/decode invariant in f32 and bf16 at
+    capacity E / K (``serve_invariant``), the tie check and timed
+    ``generate``. Returns the flash_attn launches of one 4-layer
     prefill."""
     from repro_torch.configs import acceptance as A
-    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models import init_params
     from repro_torch.models import moe
-    from repro_torch.models.model import decode_step, prefill
     from repro_torch.train.serve_step import generate
 
     before_gc = torch.cuda.memory_allocated() / 1e9
@@ -1159,23 +1222,7 @@ def serve_moe(torch, np, pins: dict) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # (a) serve_mixtral_1l in f32 against the JAX package's pins
-    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_MIXTRAL,
-                        case=A.MIXTRAL_CASE)
-    per_prefill, per_decode = (pins["launches_per_prefill"],
-                               pins["launches_in_decode"])
-    emit("serve_moe", step="pins", case=A.MIXTRAL_CASE,
-         in_worker_beside=LM_PINS_BESIDE,
-         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s",
-                                 "max_memory_gb")},
-         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
-         **report)
-    if not pins["finite"]:
-        raise AssertionError(f"{A.MIXTRAL_CASE}: non-finite logits")
-    if per_prefill != no_launches(flash_attn=1) or per_decode != \
-            no_launches():
-        raise AssertionError(f"{A.MIXTRAL_CASE}: launches {per_prefill} per "
-                             f"prefill, {per_decode} in {A.MIXTRAL_DECODE} "
-                             "decode steps (expected 1 flash_attn and none)")
+    check_lm_pins("serve_moe", A.MIXTRAL_CASE, pins)
 
     # serve_mixtral_4l: f32 masters made on the card, at capacity E / K
     # (nothing drops) for the invariant
@@ -1192,80 +1239,21 @@ def serve_moe(torch, np, pins: dict) -> int:
         np.random.default_rng(2).integers(0, full.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT + 1),
                                           dtype=np.int32), device="cuda")
-    S = SERVE_PROMPT
-    per_prefill = None
-    truth = None     # the f32 model's logits of the longer prefill
-    for dtype in ("float32", "bfloat16"):
-        cfg = A.mixtral_config(n_layers, dtype, capacity_factor=E / K)
-        model = DecoderLM.from_tree(cfg, tree)
-        t0 = time.perf_counter()
-        with moe.record_routing() as long_rec:
-            want, _ = prefill(model, prompt, cache_seq_len=S + 1)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        (_, cache), per_prefill = _counted(
-            torch, lambda: prefill(model, prompt[:, :S], cache_seq_len=S + 1))
-        with moe.record_routing() as dec_rec:
-            (got, _), per_decode = _counted(
-                torch, lambda: decode_step(model, cache,
-                                           prompt[:, S:S + 1], S))
-        err = float((got - want).abs().max())
-        routing = _last_token_routing(long_rec, dec_rec, S)
-        dropped = [int((~r.keep).sum()) for r in long_rec + dec_rec]
-        if dtype == "float32":
-            truth = want
-            limit = dict(tol=HYBRID_TOL)
-        else:
-            # as serve_hybrid's: the bf16 decode step against the f32
-            # answer, beside the bf16 prefill's own distance from it
-            prefill_off = float((want - truth).abs().max())
-            limit = dict(
-                decode_vs_f32_max_abs=float((got - truth).abs().max()),
-                prefill_vs_f32_max_abs=prefill_off,
-                limit=BF16_DECODE_FACTOR * prefill_off,
-                below_serve_tol=bool(torch.allclose(
-                    got, want, atol=SERVE_TOL, rtol=SERVE_TOL)),
-                serve_tol=SERVE_TOL)
-        emit("serve_moe", step="prefill_decode_invariant",
-             case=A.MIXTRAL_PATH_CASE, dtype=dtype, batch=SERVE_BATCH,
-             prompt=S, capacity_factor=E / K, max_abs_err=err, **limit,
-             argmax_agree_share=float(
-                 (got.argmax(-1) == want.argmax(-1)).float().mean()),
-             dropped=dropped, **routing, prefill_s=prefill_s,
-             launches_per_prefill=per_prefill,
-             launches_per_decode_step=per_decode)
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{A.MIXTRAL_PATH_CASE} ({dtype}): "
-                                 "non-finite logits")
-        if any(dropped):
-            raise AssertionError(f"{A.MIXTRAL_PATH_CASE} ({dtype}): slots "
-                                 f"dropped at capacity E / K: {dropped}")
-        if dtype == "float32":
-            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
-                                       rtol=HYBRID_TOL)
-        elif not routing["routing_differs"] and not \
-                limit["decode_vs_f32_max_abs"] <= limit["limit"]:
-            raise AssertionError(
-                f"{A.MIXTRAL_PATH_CASE} (bf16): the decode step is "
-                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
-                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
-        if per_prefill != no_launches(flash_attn=n_layers) or \
-                per_decode != no_launches():
-            raise AssertionError(
-                f"{A.MIXTRAL_PATH_CASE} ({dtype}): launches {per_prefill} "
-                f"per prefill and {per_decode} per decode step (expected "
-                f"{n_layers} flash_attn and none)")
-        if dtype == "float32":
-            # (b) exact ties on the card: a zero router at full width
-            serve_moe_ties(torch, np, model.layers[0].weights(), cfg)
-            del model, cache, got, long_rec, dec_rec
-            torch.cuda.empty_cache()
+    model, per_prefill = serve_invariant(
+        torch, "serve_moe", A.MIXTRAL_PATH_CASE,
+        lambda dt: A.mixtral_config(n_layers, dt, capacity_factor=E / K),
+        tree, prompt, routing=True, capacity_factor=E / K)
     del tree
+
+    # (b) exact ties on the card: a zero router at full width, through
+    # the first layer's f32 experts
+    serve_moe_ties(torch, np, dict(model.layers[0].named_parameters(
+        recurse=False)), A.mixtral_config(n_layers, "float32"))
 
     # (d) generate in bf16 at the published capacity factor 1.25, B = 4,
     # prompt 1024, 32 new tokens, no host sync; the slots each layer drops
     model.cfg = A.mixtral_config(n_layers, "bfloat16")
-    prompt = prompt[:, :S].contiguous()
+    prompt = prompt[:, :SERVE_PROMPT].contiguous()
     time_generate(torch, np, model, prompt, "serve_moe",
                   case=A.MIXTRAL_PATH_CASE,
                   capacity_factor=model.cfg.moe.capacity_factor)
@@ -1335,107 +1323,25 @@ def serve_moe_ties(torch, np, w: dict, cfg) -> None:
                              "router is not the CPU's, or not as expected")
 
 
-def flash_per_prefill(cfg) -> int:
-    """flash_attn launches of one prefill: one per self-attention layer,
-    one per cross-attention (a ``CROSS`` layer's, or every decoder layer's
-    in an encoder-decoder) and one per encoder layer."""
-    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    n_cross = (cfg.n_layers if cfg.enc_dec else
-               sum(1 for i in range(cfg.n_layers) if cfg.cross_attn_period
-                   and i % cfg.cross_attn_period == cfg.cross_attn_period - 1))
-    n_self = sum(k in ("attn", "attn_local") for k in kinds)
-    return n_self + n_cross + (cfg.n_enc_layers if cfg.enc_dec else 0)
-
-
-def _on_card(torch, memory: dict) -> dict:
-    return {k: torch.tensor(v, device="cuda") for k, v in memory.items()}
-
-
-def lm_case_pins(torch, case: str) -> dict:
-    """Worker entry (``start_alone``, ``entry="lm_case_pins"``) of the pins
-    of phases ``serve_xlstm``, ``serve_whisper`` and ``serve_vlm``: the
-    case (``acceptance.last_case``) in f32 on the card, its numpy weights
-    drawn here (``seeded_numpy_params``; the VLM's ``xgate`` opened) with
-    its memory (``lm_memory``), the prefill and the decode steps with their
-    launches counted. Returns ``lm_summary``, the launches, the seconds
-    and whether every logit is finite."""
-    from repro_torch.configs import acceptance as A
-    from repro_torch.interop import lm_params_from_numpy
-    from repro_torch.models import seeded_numpy_params
-    from repro_torch.models.model import decode_step, prefill
-
-    t0 = time.perf_counter()
-    cfg, batch, S, N = A.last_case(case)
-    tree = seeded_numpy_params(cfg, A.LAST_SEED)
-    if case == A.VLM_CASE:
-        A.open_xgate(tree)
-    weights_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model = lm_params_from_numpy(tree, cfg, "cuda")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    del tree
-    toks = torch.tensor(A.lm_tokens(cfg, batch, S, N), device="cuda")
-    extras = _on_card(torch, A.lm_memory(cfg, batch))
-    t0 = time.perf_counter()
-    (logits, cache), per_prefill = _counted(torch, lambda: prefill(
-        model, toks[:, :S], cache_seq_len=S + N, extras=extras))
-    out = [logits]
-
-    def decode_all(cache):
-        for i in range(N):
-            logits, cache = decode_step(model, cache,
-                                        toks[:, S + i:S + i + 1], S + i)
-            out.append(logits)
-
-    _, per_decode = _counted(torch, lambda: decode_all(cache))
-    return {"summary": A.lm_summary([x.cpu().numpy() for x in out]),
-            "finite": all(bool(torch.isfinite(x).all()) for x in out),
-            "params": cfg.param_count(), "weights_s": weights_s,
-            "load_s": load_s, "run_s": time.perf_counter() - t0,
-            "launches_per_prefill": per_prefill,
-            "launches_in_decode": per_decode}
-
-
 def serve_last(torch, np, case: str, pins: dict) -> dict:
     """Phase ``serve_xlstm``, ``serve_whisper`` or ``serve_vlm`` (its name
     is the case's): the pins (run in a worker: ``pins``) in f32; the path
-    model (xlstm-125m and whisper-small whole, the VLM cut to
-    VLM_PATH_LAYERS; ``init_params`` on the card, the VLM's gate opened)
-    in f32 and bf16: the prefill/decode invariant and the launches per
-    prefill and decode step; a profile of the bf16 prefill and decode
-    steps (busy share); timed ``generate`` in bf16 under sync-debug
-    "error" at B = 4, LAST_PROMPT[case] tokens, with the memory. Returns
-    the flash_attn launches per prefill of the pinned and the path
-    model."""
+    model's prefill/decode invariant in f32 and bf16 (``serve_invariant``;
+    xlstm-125m and whisper-small whole, the VLM cut to VLM_PATH_LAYERS;
+    ``init_params`` on the card, the VLM's gate opened); a profile of the
+    bf16 prefill and decode steps (busy share); timed ``generate`` in bf16
+    under sync-debug "error" at B = 4, LAST_PROMPT[case] tokens, with the
+    memory. Returns the flash_attn launches per prefill of the pinned and
+    the path model, as measured."""
     from repro_torch.configs import acceptance as A
-    from repro_torch.models import DecoderLM, init_params
-    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models import init_params
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg, _, _, N = A.last_case(case)
+    check_lm_pins(case, case, pins)
 
-    # 1. the pins: the case in f32 against the JAX package
-    report = A.check_lm(pins["summary"], "float32", pins=A.PINNED_LAST[case],
-                        case=case)
-    per_prefill, per_decode = (pins["launches_per_prefill"],
-                               pins["launches_in_decode"])
-    want_flash = flash_per_prefill(cfg)
-    emit(case, step="pins", case=case, in_worker_beside=LM_PINS_BESIDE,
-         **{k: pins[k] for k in ("params", "weights_s", "load_s", "run_s")},
-         launches_per_prefill=per_prefill, launches_in_decode=per_decode,
-         **report)
-    if not pins["finite"]:
-        raise AssertionError(f"{case}: non-finite logits")
-    if per_prefill["flash_attn"] != want_flash or any(
-            per_decode.values()) or per_prefill["selective_scan"]:
-        raise AssertionError(f"{case}: launches {per_prefill} per prefill, "
-                             f"{per_decode} in {N} decode steps (expected "
-                             f"{want_flash} flash_attn, then none)")
-
-    # 2. the path model in f32 and bf16: prefill S then decode token S
-    # against a prefill of S + 1
+    # the path model in f32 and bf16
+    cfg = A.lm_case(case)[0]
     path = (A.vlm_config(A.VLM_PATH_LAYERS) if case == A.VLM_CASE else cfg)
     path_case = A.VLM_PATH_CASE if case == A.VLM_CASE else case
     t0 = time.perf_counter()
@@ -1451,63 +1357,13 @@ def serve_last(torch, np, case: str, pins: dict) -> dict:
         np.random.default_rng(2).integers(0, path.vocab, (SERVE_BATCH, S + 1),
                                           dtype=np.int32), device="cuda")
     extras = _on_card(torch, A.lm_memory(path, SERVE_BATCH))
-    want_flash_path = flash_per_prefill(path)
-    truth = None
-    for dtype in ("float32", "bfloat16"):
-        model = DecoderLM.from_tree(dataclasses.replace(path, dtype=dtype),
-                                    tree)
-        t0 = time.perf_counter()
-        want, _ = prefill(model, prompt, cache_seq_len=S + 1, extras=extras)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        (_, cache), per_prefill = _counted(torch, lambda: prefill(
-            model, prompt[:, :S], cache_seq_len=S + 1, extras=extras))
-        (got, _), per_decode = _counted(
-            torch, lambda: decode_step(model, cache, prompt[:, S:S + 1], S))
-        err = float((got - want).abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        if dtype == "float32":
-            truth = want
-            limit = dict(tol=HYBRID_TOL)
-        else:
-            # within SERVE_TOL of the bf16 prefill, or else (as
-            # serve_hybrid) within BF16_DECODE_FACTOR x the bf16 prefill's
-            # own distance from the f32 answer
-            prefill_off = float((want - truth).abs().max())
-            limit = dict(
-                serve_tol=SERVE_TOL, below_serve_tol=err <= SERVE_TOL,
-                decode_vs_f32_max_abs=float((got - truth).abs().max()),
-                prefill_vs_f32_max_abs=prefill_off,
-                limit=BF16_DECODE_FACTOR * prefill_off)
-        emit(case, step="prefill_decode_invariant", case=path_case,
-             dtype=dtype, batch=SERVE_BATCH, prompt=S, max_abs_err=err,
-             **limit, argmax_agree_share=agree, prefill_s=prefill_s,
-             launches_per_prefill=per_prefill,
-             launches_per_decode_step=per_decode)
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{path_case} ({dtype}): non-finite logits")
-        if dtype == "float32":
-            torch.testing.assert_close(got, want, atol=HYBRID_TOL,
-                                       rtol=HYBRID_TOL)
-        elif not (limit["below_serve_tol"] or limit["decode_vs_f32_max_abs"]
-                  <= limit["limit"]):
-            raise AssertionError(
-                f"{path_case} (bf16): the decode step is {err} off the "
-                f"longer prefill (over {SERVE_TOL}) and "
-                f"{limit['decode_vs_f32_max_abs']} off the f32 answer, over "
-                f"{BF16_DECODE_FACTOR} x the bf16 prefill's {prefill_off}")
-        if per_prefill["flash_attn"] != want_flash_path or any(
-                per_decode.values()) or per_prefill["selective_scan"]:
-            raise AssertionError(
-                f"{path_case} ({dtype}): launches {per_prefill} per prefill "
-                f"and {per_decode} per decode step (expected "
-                f"{want_flash_path} flash_attn and none)")
-        if dtype == "float32":
-            del model, cache, got, want
-            torch.cuda.empty_cache()
+    model, per_prefill = serve_invariant(
+        torch, case, path_case,
+        lambda dt: dataclasses.replace(path, dtype=dt), tree, prompt,
+        extras=extras, serve_tol_suffices=True)
     del tree
 
-    # 3. where the bf16 time goes: the device's busy share
+    # where the bf16 time goes: the device's busy share
     from repro_torch.tools.profile_serve import profile
 
     P = LAST_PROFILE_PROMPT.get(case, S)
@@ -1520,12 +1376,13 @@ def serve_last(torch, np, case: str, pins: dict) -> dict:
                  "device_us", "device_busy_share", "flash_attn_launches",
                  "port_kernel_us", "top_kernels_us")})
 
-    # 4. generate in bf16 at B = 4, 32 new tokens, no host sync
+    # generate in bf16 at B = 4, 32 new tokens, no host sync
     time_generate(torch, np, model, prompt[:, :S].contiguous(), case,
                   extras=extras, case=path_case)
     del model
     torch.cuda.empty_cache()
-    return {"launches_per_pinned_prefill": want_flash,
+    return {"launches_per_pinned_prefill":
+                pins["launches_per_prefill"]["flash_attn"],
             "launches_per_path_prefill": per_prefill["flash_attn"],
             "path_case": path_case}
 
@@ -1898,8 +1755,8 @@ def run_alone(torch, runs: list, during=None):
 
 def alone_main(src: str, out: str) -> int:
     """Worker of ``run_alone`` / ``start_alone``: one ``run_episode`` on the
-    card (or the run's ``entry``: ``run_fleet``, ``serve_hybrid_pins``,
-    ``serve_moe_pins`` or ``lm_case_pins`` of the run's ``case``). A run
+    card (or the run's ``entry``: ``run_fleet``, or ``lm_case_pins`` of
+    the run's ``case``). A run
     with ``measure`` is timed under sync-debug "error" with its launches
     counted, and its result carries them as a third element; a run with
     ``macro_counts`` returns ``_macro_counts``' tuple instead."""
@@ -1913,11 +1770,6 @@ def alone_main(src: str, out: str) -> int:
 
     exact_matmul()
     run = torch.load(src, map_location="cuda", weights_only=False)
-    lm_pins = {"serve_hybrid_pins": serve_hybrid_pins,
-               "serve_moe_pins": serve_moe_pins}.get(run.get("entry"))
-    if lm_pins is not None:
-        torch.save(lm_pins(torch), out)
-        return 0
     if run.get("entry") == "lm_case_pins":
         torch.save(lm_case_pins(torch, run["case"]), out)
         return 0
@@ -3672,9 +3524,8 @@ def lm_pins_runs() -> tuple:
     (their cases, the runs)."""
     from repro_torch.configs import acceptance as A
 
-    return ([A.MIXTRAL_CASE, A.JAMBA_CASE, *A.LAST_CASES],
-            [{"entry": "serve_moe_pins"}, {"entry": "serve_hybrid_pins"}]
-            + [{"entry": "lm_case_pins", "case": c} for c in A.LAST_CASES])
+    cases = [A.MIXTRAL_CASE, A.JAMBA_CASE, *A.LAST_CASES]
+    return cases, [{"entry": "lm_case_pins", "case": c} for c in cases]
 
 
 def determinism(torch, jobs, bank) -> None:

@@ -1233,14 +1233,42 @@ def vlm_config(n_layers: int = VLM_LAYERS,
                                dtype=dtype)
 
 
-def last_case(case: str, dtype: str = "float32"):
-    """(config, batch, prompt, decode) of one of LAST_CASES."""
+def lm_case(case: str, dtype: str = "float32"):
+    """(config, batch, prompt, decode steps, weight seed) of a pinned LM
+    case: LM_CASE, JAMBA_CASE, MIXTRAL_CASE or one of LAST_CASES."""
+    if case == LM_CASE:
+        return lm_config(dtype), LM_BATCH, LM_PROMPT, LM_DECODE, LM_SEED
+    if case == JAMBA_CASE:
+        return (jamba_config(1, dtype), JAMBA_BATCH, JAMBA_PROMPT,
+                JAMBA_DECODE, JAMBA_SEED)
+    if case == MIXTRAL_CASE:
+        return (mixtral_config(1, dtype), MIXTRAL_BATCH, MIXTRAL_PROMPT,
+                MIXTRAL_DECODE, MIXTRAL_SEED)
     if case == XLSTM_CASE:
-        return xlstm_config(dtype), XLSTM_BATCH, XLSTM_PROMPT, XLSTM_DECODE
+        return (xlstm_config(dtype), XLSTM_BATCH, XLSTM_PROMPT, XLSTM_DECODE,
+                LAST_SEED)
     if case == WHISPER_CASE:
         return (whisper_config(dtype), WHISPER_BATCH, WHISPER_PROMPT,
-                WHISPER_DECODE)
-    return vlm_config(VLM_LAYERS, dtype), VLM_BATCH, VLM_PROMPT, VLM_DECODE
+                WHISPER_DECODE, LAST_SEED)
+    if case == VLM_CASE:
+        return (vlm_config(VLM_LAYERS, dtype), VLM_BATCH, VLM_PROMPT,
+                VLM_DECODE, LAST_SEED)
+    raise KeyError(f"no pinned LM case {case!r}")
+
+
+def lm_case_inputs(case: str):
+    """(config, f32 numpy weights, tokens (B, prompt + decode), numpy
+    memory) of a pinned LM case: ``seeded_numpy_params`` (the VLM's
+    ``xgate`` opened), ``lm_tokens`` and ``lm_memory``, as both packages
+    take them."""
+    from repro_torch.models import seeded_numpy_params
+
+    cfg, batch, prompt, decode, seed = lm_case(case)
+    tree = seeded_numpy_params(cfg, seed)
+    if case == VLM_CASE:
+        open_xgate(tree)
+    return (cfg, tree, lm_tokens(cfg, batch, prompt, decode),
+            lm_memory(cfg, batch))
 
 
 def lm_memory(cfg: ModelConfig, batch: int) -> dict:
@@ -1248,13 +1276,14 @@ def lm_memory(cfg: ModelConfig, batch: int) -> dict:
     the JAX package's serving draws it (``launch/serve.py``): MEMORY_SCALE
     times a standard normal (B, M, D), f32, from
     ``default_rng(MEMORY_SEED)``; {} for the other archs."""
-    rng = np.random.default_rng(MEMORY_SEED)
-    for name, m in (("vision", cfg.n_vision_tokens),
-                    ("audio", cfg.n_audio_frames if cfg.enc_dec else 0)):
-        if m:
-            a = rng.standard_normal((batch, m, cfg.d_model), np.float32)
-            return {name: a * np.float32(MEMORY_SCALE)}
-    return {}
+    from repro_torch.models.spec import memory_input
+
+    name, m = memory_input(cfg)
+    if name is None:
+        return {}
+    a = np.random.default_rng(MEMORY_SEED).standard_normal(
+        (batch, m, cfg.d_model), np.float32)
+    return {name: a * np.float32(MEMORY_SCALE)}
 
 
 def open_xgate(tree, value: float = VLM_XGATE):
@@ -1424,8 +1453,6 @@ PINNED_VLM = {
 }
 
 
-PINNED_LAST = {XLSTM_CASE: PINNED_XLSTM, WHISPER_CASE: PINNED_WHISPER,
-               VLM_CASE: PINNED_VLM}
 # f32: xlstm-125m's logits are of order 5, and 12 layers of exp-stabilised
 # recurrences (600 sLSTM steps, 256-step mLSTM chunks summed in another
 # order) carry the port's one-layer differences of ~1e-5 to up to 1.08e-4
@@ -1442,6 +1469,11 @@ VLM_F32_TOL = 1e-4
 # f32 tolerances of the LM cases whose logits are not of gemma3-1b's order
 F32_TOLS = {MIXTRAL_CASE: MIXTRAL_F32_TOL, XLSTM_CASE: XLSTM_F32_TOL,
             VLM_CASE: VLM_F32_TOL}
+
+# every pinned LM case's pins
+PINNED_CASES = {LM_CASE: PINNED_LM, JAMBA_CASE: PINNED_JAMBA,
+                MIXTRAL_CASE: PINNED_MIXTRAL, XLSTM_CASE: PINNED_XLSTM,
+                WHISPER_CASE: PINNED_WHISPER, VLM_CASE: PINNED_VLM}
 
 
 # ---------------------------------------------------------------------------

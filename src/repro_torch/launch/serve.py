@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import DecoderLM, init_params
+from repro_torch.models.spec import memory_input
 from repro_torch.train.serve_step import generate
 from repro_torch.utils.device import exact_matmul, resolve_device
 
@@ -52,11 +53,10 @@ def main(argv=None):
                            generator=gen_prompt, device=dev,
                            dtype=torch.int32)
     extras = {}
-    for name, n in (("vision", cfg.n_vision_tokens),
-                    ("audio", cfg.n_audio_frames if cfg.enc_dec else 0)):
-        if n:
-            extras[name] = 0.02 * torch.randn(
-                args.batch, n, cfg.d_model, generator=gen_prompt, device=dev)
+    name, n = memory_input(cfg)
+    if name:
+        extras[name] = 0.02 * torch.randn(
+            args.batch, n, cfg.d_model, generator=gen_prompt, device=dev)
     sample = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     def run():

@@ -52,10 +52,16 @@ Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
 def layer_window(cfg: ModelConfig, kind: str) -> int:
-    """The sliding window of an attention layer (0 = global)."""
+    """The sliding window of an attention layer's cache (0 = global)."""
     if kind == ATTN_LOCAL or (cfg.block_pattern is None and cfg.swa_window):
         return cfg.swa_window
     return 0
+
+
+def self_window(cfg: ModelConfig, kind: str) -> int:
+    """The window of a layer's self-attention: a ``CROSS`` layer's is
+    global, as in the JAX package, whatever its cache holds."""
+    return 0 if kind == CROSS else layer_window(cfg, kind)
 
 
 def _qkv(w: Weights, h: torch.Tensor, cfg: ModelConfig):
@@ -138,7 +144,7 @@ def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
     or the sLSTM's final state."""
     if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, kv = self_attention_parallel(w, x, cfg, rope=rope,
-                                        window=layer_window(cfg, kind),
+                                        window=self_window(cfg, kind),
                                         causal=causal)
         x = x + o
         if kind == CROSS:
@@ -205,7 +211,7 @@ def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     tokens as one group, as the JAX package's decode does."""
     if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
-                               window=layer_window(cfg, kind))
+                               window=self_window(cfg, kind))
         x = x + o
         if kind == CROSS:
             x = x + cross_decode(w, x, cache, cfg, gate=w["xgate"])

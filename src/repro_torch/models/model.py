@@ -225,9 +225,8 @@ def layer_cache_spec(cfg: ModelConfig, layer_idx: int, batch: int,
     else:
         shape = (batch, _attn_cache_len(cfg, kind, seq_len), Kv, hd)
         spec = {"k": (shape, dtype), "v": (shape, dtype)}
-    memory = (cfg.n_audio_frames if cfg.enc_dec
-              else cfg.n_vision_tokens if kind == CROSS else 0)
-    if memory:
+    _, memory = S.memory_input(cfg)
+    if memory and S.attends_memory(cfg, kind):
         shape = (batch, memory, Kv, hd)
         spec.update(xk=(shape, dtype), xv=(shape, dtype))
     return spec
@@ -287,16 +286,15 @@ def memory_of(model: DecoderLM, extras: Optional[Mapping[str, torch.Tensor]]
     ``extras["audio"]`` for an encoder-decoder, ``extras["vision"]`` in
     the compute dtype for a VLM, None for the others."""
     cfg = model.cfg
-    need = ("audio" if cfg.enc_dec else
-            "vision" if cfg.n_vision_tokens else None)
+    need, _ = S.memory_input(cfg)
     if need is None:
         return None
     if not extras or need not in extras:
         raise ValueError(f"{cfg.name} attends to a memory: pass "
                          f'extras={{"{need}": (B, M, {cfg.d_model}) tensor}}')
     if cfg.enc_dec:
-        return encoder_forward(model, extras["audio"])
-    return extras["vision"].to(model.dtype)
+        return encoder_forward(model, extras[need])
+    return extras[need].to(model.dtype)
 
 
 @torch.no_grad()

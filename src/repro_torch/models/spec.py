@@ -27,7 +27,7 @@ The port builds and serves every kind of layer above.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.configs.base import (
     ATTN,
@@ -77,6 +77,33 @@ def layer_kind_at(cfg: ModelConfig, layer_idx: int) -> str:
     ):
         kind = CROSS
     return kind
+
+
+def memory_input(cfg: ModelConfig) -> Tuple[Optional[str], int]:
+    """The memory a prompt comes with: ``("audio", n_audio_frames)`` for
+    an encoder-decoder (its encoder reads the frames), ``("vision",
+    n_vision_tokens)`` for a VLM, ``(None, 0)`` for the others."""
+    if cfg.enc_dec:
+        return "audio", cfg.n_audio_frames
+    if cfg.n_vision_tokens:
+        return "vision", cfg.n_vision_tokens
+    return None, 0
+
+
+def attends_memory(cfg: ModelConfig, kind: str) -> bool:
+    """Whether a decoder layer of ``kind`` attends to the memory: every
+    layer of an encoder-decoder, a VLM's ``CROSS`` layers."""
+    return cfg.enc_dec or kind == CROSS
+
+
+def attention_calls(cfg: ModelConfig) -> int:
+    """The attention calls of one prefill: one per self-attention layer
+    (``CROSS`` layers included), one per layer that attends to the memory
+    and one per encoder layer."""
+    kinds = [layer_kind_at(cfg, i) for i in range(cfg.n_layers)]
+    return (sum(k in (ATTN, ATTN_LOCAL, CROSS) for k in kinds)
+            + sum(attends_memory(cfg, k) for k in kinds)
+            + (cfg.n_enc_layers if cfg.enc_dec else 0))
 
 
 def slstm_ff(cfg: ModelConfig) -> int:

@@ -12,8 +12,11 @@ effect on the logits, the encoder, the plain MLP, each arch's prefill
 logits and every cache leaf (``xk``/``xv`` included), decode steps (which
 never write ``xk``/``xv``), greedy generation, prefill -> decode against
 the longer prefill, prompts both shorter and longer than the memory (the
-cross-attention's Sq > Sk), and the serve CLI.
-Floats agree to ``rtol=1e-5`` (``atol=1e-5`` near zero), tokens exactly.
+cross-attention's Sq > Sk), a ``CROSS`` layer's self-attention left
+unwindowed under a sliding-window config, and the serve CLI. Floats agree
+to ``rtol=1e-5`` (``atol=1e-5`` near zero), tokens exactly. In bf16 (the
+VLM, whisper and xlstm-125m) the prefill logits and caches are held to
+the JAX package's bf16 ones in norm, against its own bf16 rounding.
 """
 
 import dataclasses
@@ -53,6 +56,7 @@ CTX = ShardCtx(enabled=False)
 RTOL, ATOL = 1e-5, 1e-5
 XGATE = 0.7
 B = 2
+BF16_FACTOR = 1.5
 
 
 def _close(got, want, msg=""):
@@ -305,6 +309,52 @@ def test_prefill_then_decode_matches_longer_prefill(arch, dtype):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("arch_name", [VLM, WHISPER, "xlstm-125m"])
+def test_bf16_prefill_and_caches_match_the_reference(arch_name):
+    """In bf16 both packages, on the same weights and memory, give prefill
+    logits and cache leaves no farther apart (in norm) than BF16_FACTOR
+    times the JAX package's own bf16 result from its f32 one: each
+    package rounds its bf16 ops its own way (XLA's bf16 logistic and GELU
+    on the CPU round elements an ulp away from PyTorch's, attention and
+    the xLSTM's recurrences carry such ulps on), so the two bf16 results
+    part about as far as bf16 parts from f32 (ratios up to 1.0 here). A cast
+    that dropped a leaf to bf16 or held it in the wrong dtype shows in the
+    dtypes checked; ``test_torch_xlstm.py`` holds the xLSTM cells' casts
+    ulp by ulp."""
+    jcfg = jax_reduced(jax_get_arch(arch_name))
+    tcfg = reduced(get_arch(arch_name))
+    tree = A.open_xgate(_numpy(jax_init_params(jcfg, jax.random.key(0))),
+                        XGATE)
+    params = jax.tree.map(jnp.asarray, tree)
+    memory = A.lm_memory(tcfg, B)
+    toks = np.random.default_rng(4).integers(0, tcfg.vocab, (B, 30),
+                                             dtype=np.int32)
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        logits, cache = jax_model.prefill(
+            params, _batch(toks, memory),
+            dataclasses.replace(jcfg, dtype=dtype), CTX, cache_seq_len=32)
+        ref[dtype] = (np.asarray(logits), _layer_caches(
+            cache, tcfg))
+    t16 = dataclasses.replace(tcfg, dtype="bfloat16")
+    got, cache = prefill(lm_params_from_numpy(tree, t16, "cpu"),
+                         torch.tensor(toks), cache_seq_len=32,
+                         extras=_extras(memory))
+    (w16, c16), (w32, c32) = ref["bfloat16"], ref["float32"]
+    assert _rel(got.numpy(), w16) <= BF16_FACTOR * _rel(w16, w32)
+    for i, (g, w, f) in enumerate(zip(cache, c16, c32)):
+        assert sorted(g) == sorted(w), i
+        for name in w:
+            assert str(g[name].dtype).split(".")[-1] == str(w[name].dtype), (
+                i, name)
+            a, b = g[name].float().numpy(), w[name].astype(np.float32)
+            assert _rel(a, b) <= BF16_FACTOR * _rel(b, f[name]), (i, name)
+
+
 @pytest.mark.parametrize("arch_name", [VLM, WHISPER, "xlstm-125m"])
 def test_serve_cli_serves_the_arch_on_the_cpu(arch_name, capsys):
     """The CLI builds the reduced arch, draws its memory and generates."""
@@ -317,3 +367,30 @@ def test_serve_cli_serves_the_arch_on_the_cpu(arch_name, capsys):
     assert bool(((out >= 0)
                  & (out < reduced(get_arch(arch_name)).vocab)).all())
     assert f"arch={arch_name}" in capsys.readouterr().out
+
+
+def test_cross_layer_self_attention_ignores_the_window(monkeypatch):
+    """A VLM config with a sliding window and no block pattern: the JAX
+    package windows the self-attention of its plain layers and not that
+    of its ``CROSS`` layers. The port does the same, and differs from a
+    port that windowed both."""
+    jcfg = dataclasses.replace(jax_reduced(jax_get_arch(VLM)), swa_window=8)
+    tcfg = dataclasses.replace(reduced(get_arch(VLM)), swa_window=8)
+    tree = A.open_xgate(_numpy(jax_init_params(jcfg, jax.random.key(1))),
+                        XGATE)
+    params = jax.tree.map(jnp.asarray, tree)
+    model = lm_params_from_numpy(tree, tcfg, "cpu")
+    memory = A.lm_memory(tcfg, B)
+    s = 20
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab, (B, s),
+                                             dtype=np.int32)
+    want, wcache = jax_model.prefill(params, _batch(toks, memory), jcfg, CTX,
+                                     cache_seq_len=s)
+    got, cache = prefill(model, torch.tensor(toks), cache_seq_len=s,
+                         extras=_extras(memory))
+    _close(got.numpy(), want, "logits")
+    _check_caches(cache, wcache, tcfg)
+    monkeypatch.setattr(blocks, "self_window", blocks.layer_window)
+    both, _ = prefill(model, torch.tensor(toks), cache_seq_len=s,
+                      extras=_extras(memory))
+    assert float((both - got).abs().max()) > 1e-3

@@ -60,7 +60,6 @@ from _torch_moe_ref import jax_dropped_slots
 from repro_torch import kernels
 from repro_torch.configs import acceptance as A
 from repro_torch.interop import lm_params_from_numpy
-from repro_torch.models import seeded_numpy_params
 
 CTX = ShardCtx(enabled=False, attention_impl="pallas")
 
@@ -73,27 +72,7 @@ def _weights(case: str):
     case's frees the other's."""
     if case not in _HELD:
         _HELD.clear()
-        if case in A.LAST_CASES:
-            cfg, batch, prompt, decode = A.last_case(case)
-            toks = A.lm_tokens(cfg, batch, prompt, decode)
-            seed = A.LAST_SEED
-        elif case == A.LM_CASE:
-            cfg = A.lm_config("float32")
-            toks = A.lm_tokens(cfg)
-            seed = A.LM_SEED
-        elif case == A.MIXTRAL_CASE:
-            cfg = A.mixtral_config(1, "float32")
-            toks = A.lm_tokens(cfg, A.MIXTRAL_BATCH, A.MIXTRAL_PROMPT,
-                               A.MIXTRAL_DECODE)
-            seed = A.MIXTRAL_SEED
-        else:
-            cfg = A.jamba_config(1, "float32")
-            toks = A.lm_tokens(cfg, A.JAMBA_BATCH, A.JAMBA_PROMPT,
-                               A.JAMBA_DECODE)
-            seed = A.JAMBA_SEED
-        tree = seeded_numpy_params(cfg, seed)
-        if case == A.VLM_CASE:
-            A.open_xgate(tree)
+        cfg, tree, toks, _ = A.lm_case_inputs(case)
         _HELD[case] = cfg, tree, toks
     return _HELD[case]
 
@@ -239,14 +218,14 @@ LAST = [(case, side) for case in A.LAST_CASES for side in ("jax", "port")]
 
 @pytest.mark.parametrize("case,side", LAST, ids=[f"{c}-{s}" for c, s in LAST])
 def test_the_last_families_meet_their_pins(case, side):
-    """The JAX package gives ``acceptance.PINNED_LAST[case]``, and the port
+    """The JAX package gives ``acceptance.PINNED_CASES[case]``, and the port
     on the CPU meets them: every argmax id, the pinned values within the
     case's tolerance (``check_lm``), the flash_attn wrapper on its plain
     version."""
     cfg, tree, toks = _weights(case)
-    _, batch, prompt, decode = A.last_case(case)
+    _, batch, prompt, decode, _ = A.lm_case(case)
     memory = A.lm_memory(cfg, batch)
-    pins = A.PINNED_LAST[case]
+    pins = A.PINNED_CASES[case]
     if side == "jax":
         jcfg = dataclasses.replace(jax_get_arch(cfg.name),
                                    n_layers=cfg.n_layers, dtype="float32")
