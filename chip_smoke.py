@@ -33,7 +33,17 @@ and no result line:
              version: per-node and per-rack values bitwise. An empty
              kernel's back-to-back time is the launch floor. The fault
              clocks' exponential transform on all 2**23 values the
-             uniform can give, card against CPU: 0 differing bits.
+             uniform can give, card against CPU: 0 differing bits. The
+             gradient rows: q, k and v's gradients through
+             ``flash_attention`` (its ``autograd.Function``: the kernel
+             forward, the plain version's vjp) against plain autograd at
+             gemma3-1b's causal and window-512 shapes and whisper's cross
+             shape, and all eight inputs' through ``mamba_scan`` at
+             jamba's (f32), within GRAD_TOL, one launch (the forward)
+             each. Both backwards are the same plain ops, so the rows
+             check the Functions' wiring, not a kernel; forward +
+             backward is timed once, at gemma3-1b's causal shape, the
+             baseline of a later backward kernel.
 4. main      ``replay_tx_gaia_1h`` through build_statics -> init_state ->
              load_jobs -> run_episode(summary_only) -> summary, the ticks
              under ``torch.cuda.set_sync_debug_mode("error")``; held to the
@@ -260,6 +270,22 @@ and no result line:
              ``generate`` in bf16 at B 4, prompt 1024 (the VLM's 2048), 32
              tokens, with the memory, as in ``serve``.
 
+21. train    gemma3-1b at full width trained on the card: three pinned
+             f32 steps (``acceptance.PINNED_TRAIN``: B 2, 1024 tokens,
+             AdamW on ``cosine_warmup``, remat "block"; drawn and run in a
+             worker beside phases durable and determinism) with 26 + 24
+             flash_attn launches a step (the forward's, then remat's
+             recompute of the body; the kernels' backward launches none);
+             then in bf16 with f32 masters (``init_params`` on the card,
+             B 4): the launches of a forward and its backward with remat
+             on and off; the loss, the gradients' global norm and four
+             leaves' gradients within TRAIN_BF16_*_TOL of the f32
+             model's on the same masters and batch (the first step's loss
+             and norm too), and two faults planted in the attention
+             failing that gate; TRAIN_BF16_STEPS steps timed (ms a step,
+             tokens/s, peak memory) and one profiled (CUDA kernels, the
+             device's busy share).
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
 what-ifs each run in a worker process of their own on the card
@@ -271,9 +297,9 @@ stops any that fails. The per-tick hours of phases ``faults`` and
 (``early_runs``, ``start_alone``), beside phase ``rl`` and phase
 ``macro``'s RL env, and are joined before the macro phase's hours are
 checked. The pins of phases ``serve_hybrid``, ``serve_moe``, ``serve_xlstm``,
-``serve_whisper`` and ``serve_vlm`` run in workers started after phase
-``durable``'s alone hour (``lm_pins_runs``) and are joined before phase
-``serve``. Each line carries ``script_s``, the
+``serve_whisper`` and ``serve_vlm`` and phase ``train``'s pinned steps run
+in workers started after phase ``durable``'s alone hour (``lm_pins_runs``)
+and are joined before phase ``serve``. Each line carries ``script_s``, the
 seconds since the script started.
 
 The launch counts are set to 0 just before each path and read just after.
@@ -400,6 +426,56 @@ MAMBA_SFU_PER_ELEM = 3
 # test_torch_moe.py``).
 HYBRID_TOL = 1e-4
 BF16_DECODE_FACTOR = 2.0
+# phase kernel's gradient rows: the kernels' autograd Functions (kernel
+# forward, the plain version's vjp as the backward) against plain autograd
+# through the plain versions on the card, at the training path's attention
+# shapes (ATTN_CASES' names) and jamba's scan (f32: name, ba, s, di, ds).
+# Both backwards are the same PyTorch ops on the same inputs, so they are
+# expected bit for bit; held to GRAD_TOL (atol = rtol). What they check is
+# the Functions' wiring (the forward's one launch, gradients reaching
+# every input), not a kernel: neither backward reads the kernel's output.
+# Forward + backward is timed only at GRAD_TIMED, the training path's
+# shape, as the baseline of a later backward kernel.
+GRAD_ATTN_CASES = ("gemma3-1b causal", "gemma3-1b window 512",
+                   "whisper cross")
+GRAD_TIMED = "gemma3-1b causal"
+GRAD_SCAN_CASE = ("jamba prefill", 2, 1024, 16384, 16)
+GRAD_TOL = 1e-5
+GRAD_KEYS = ("max_abs_err", "tol", "bitwise", "ms")
+GRAD_TIMING = (5, 2)          # timed batches, calls per batch (attention)
+GRAD_BACKWARD = ("plain vjp (the plain version recomputed and "
+                 "differentiated); the gradient rows check the Function's "
+                 "wiring and cannot reach a kernel")
+# phase train: gemma3-1b at full width trained on the card. The pinned f32
+# steps (``acceptance.PINNED_TRAIN``) run in a worker beside phases durable
+# and determinism (with the LM pins); the bf16 steps (f32 masters, the
+# cast inside autograd) at TRAIN_BF16_BATCH x acceptance.TRAIN_SEQ run
+# alone: TRAIN_BF16_WARMUP steps, TRAIN_BF16_STEPS timed, one profiled.
+# The bf16 model is held to the f32 model on the same masters and the
+# first batch, before any update: the loss within TRAIN_BF16_LOSS_TOL
+# (absolute), the gradients' global norm (the first step's, and that of
+# the gradients of a forward and backward outside the step) within
+# TRAIN_BF16_NORM_TOL (relative), and the gradients of acceptance's
+# TRAIN_LEAVES (the embedding, a body wq, a body and a tail norm) within
+# TRAIN_BF16_LEAF_TOL (||g16 - g32|| / ||g32||). At init the loss sits
+# 3.3e-3 from uniform logits' ln(vocab), so a loss gate alone passes a
+# forward that outputs nothing useful; the gradients are what a broken
+# forward or a lost gradient moves. Each limit lies between the sound
+# reading on the card and the readings of TRAIN_BF16_FAULTS, faults
+# planted in the bf16 forward (every layer's attention without its
+# window; the attention's output cut from autograd, as a kernel output
+# without its Function would be), and every run shows the planted faults
+# failing the gate. On an H100 (700 W) the sound bf16 model read: loss
+# 4.39e-5, norm 1.54e-2 to 1.57e-2, leaves 1.27e-2 to 4.55e-2 (the
+# embedding's); the window dropped: loss 1.55e-3, norm 8.9e-4, leaves
+# 0.18 to 0.24; the attention detached: loss 4.39e-5, norm 0.53, leaves
+# 0.88 to 1. Each limit sits near the geometric mean of the sound
+# reading and the nearest fault's.
+TRAIN_BF16_BATCH, TRAIN_BF16_WARMUP, TRAIN_BF16_STEPS = 4, 2, 5
+TRAIN_BF16_LOSS_TOL = 2e-4
+TRAIN_BF16_NORM_TOL = 1e-1
+TRAIN_BF16_LEAF_TOL = 1e-1
+TRAIN_BF16_FAULTS = ("window dropped", "attention detached")
 # the fleet phase's hours run beside these workers
 BESIDE_GRID = "phase mesh's worlds and phase virtual_cloud's what-ifs"
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
@@ -928,6 +1004,112 @@ def check_mamba_scan(torch, np, name, dtype, ba, s, di, ds) -> dict:
     return rec
 
 
+def _grads(torch, fn, inputs, outs_grad):
+    """Gradients of ``fn(*inputs)`` (a tensor or a tuple) at output
+    gradients ``outs_grad``, for every input."""
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, ins, outs_grad)
+
+
+def _grad_record(torch, name, got, want, **fields) -> dict:
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=GRAD_TOL, atol=GRAD_TOL,
+            msg=lambda m, i=i: f"{name} gradient [{i}]: {m}")
+    return dict(max_abs_err=err, tol=GRAD_TOL, bitwise=bitwise, **fields)
+
+
+def check_attention_grad(torch, np, name, dtype, b, sq, sk, h, kv, hd,
+                         causal, window, tol) -> dict:
+    """The gradients of q, k, v through ``flash_attention`` on the card
+    (``FlashAttention``: the kernel forward, the vjp of ``attention_torch``
+    as the backward) against plain autograd through ``attention_torch``,
+    at one ATTN_CASES shape; the backward launches no kernel. At
+    GRAD_TIMED, forward and backward timed together."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attn as pfa
+
+    rng = np.random.default_rng(hd + h + 1)
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.tensor(rng.normal(size=shape).astype(np.float32),
+                               device="cuda").to(dt)
+                  for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                                (b, sk, kv, hd), (b, sq, h, hd)))
+    mask = dict(causal=causal, window=window)
+
+    def fused(*a):
+        return pfa.flash_attention(*a, **mask)
+
+    def plain(*a):
+        return pfa.attention_torch(*a, **mask)
+
+    kernels.reset_launches()
+    got = _grads(torch, fused, (q, k, v), (g,))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = _grads(torch, plain, (q, k, v), (g,))
+    if launches != no_launches(flash_attn=1):
+        raise AssertionError(f"flash_attn gradient {name}: launches "
+                             f"{launches} (expected one forward)")
+    timed = {}
+    if name == GRAD_TIMED:
+        timed["ms"] = time_ms(torch, lambda: _grads(torch, fused, (q, k, v),
+                                                    (g,)), *GRAD_TIMING)
+    rec = _grad_record(torch, f"flash_attn {name}", got, want, **timed)
+    emit("kernel", name="flash_attn", gradient=True, case=name, dtype=dtype,
+         batch=b, seq=sq, keys=sk, heads=h, kv_heads=kv, head_dim=hd,
+         causal=causal, window=window, forward_launches=launches, **rec)
+    return rec
+
+
+def check_scan_grad(torch, np, name, ba, s, di, ds) -> dict:
+    """The gradients of all eight inputs of ``mamba_scan`` on the card
+    (``MambaScan``: the fused kernel forward, the vjp of
+    ``mamba_scan_torch`` as the backward), in f32, against plain autograd
+    through ``mamba_scan_torch``, inputs laid out as the mixer passes
+    them; both outputs' gradients random. Untimed: no training path on
+    the card runs a Mamba layer."""
+    from repro_torch import kernels
+    from repro_torch.kernels import selective_scan as pss
+
+    rng = np.random.default_rng(s + ds + 2)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device="cuda")
+
+    xz = t(rng.standard_normal((ba, s, 2 * di), np.float32))
+    proj = t(rng.standard_normal((ba, s, MAMBA_DT_RANK + 2 * ds),
+                                 np.float32))
+    A = t(-np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32),
+                           (di, ds)))
+    a = (t(rng.standard_normal((ba, s, di), np.float32)),
+         t(rng.normal(0.0, 0.5, (ba, s, di))), t(rng.uniform(-6.9, -2.3, di)),
+         A, proj[..., MAMBA_DT_RANK:MAMBA_DT_RANK + ds],
+         proj[..., MAMBA_DT_RANK + ds:], xz[..., di:],
+         t(rng.standard_normal(di, np.float32)))
+    g = (t(rng.standard_normal((ba, s, di), np.float32)),
+         t(rng.standard_normal((ba, di, ds), np.float32)))
+    kernels.reset_launches()
+    got = _grads(torch, pss.mamba_scan, a, g)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = _grads(torch, pss.mamba_scan_torch, a, g)
+    if launches != no_launches(selective_scan=1):
+        raise AssertionError(f"mamba_scan gradient {name}: launches "
+                             f"{launches} (expected one forward)")
+    rec = _grad_record(torch, f"mamba_scan {name}", got, want)
+    emit("kernel", name="selective_scan", entry="mamba_scan", gradient=True,
+         case=name, dtype="float32", batch=ba, seq=s, d_inner=di, d_state=ds,
+         forward_launches=launches, **rec)
+    return rec
+
+
 def _counted(torch, fn):
     """``fn()``, synchronised, and the kernel launches it made."""
     from repro_torch import kernels
@@ -1020,6 +1202,40 @@ def lm_case_pins(torch, case: str) -> dict:
         res["bf16_prefill_vs_f32_max_abs"] = float(
             (got - out[0]).abs().max())
     return res
+
+
+def train_launches(cfg, remat: str = "block") -> dict:
+    """flash_attn launches of one training step: one per attention call
+    of the forward (``spec.attention_calls``), and again for each body
+    layer's when remat recomputes the body in the backward pass (the tail
+    is never recomputed); the kernels' backward is the plain version's
+    vjp and launches nothing."""
+    from repro_torch.models import spec as S
+
+    period, R, _ = S.layout(cfg)
+    body = S.attention_calls(dataclasses.replace(cfg, n_layers=R * period))
+    recompute = body if remat != "none" else 0
+    return no_launches(flash_attn=S.attention_calls(cfg) + recompute)
+
+
+def train_pins(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="train_pins"``) of phase
+    train's pinned f32 steps: ``acceptance.run_train`` of the training
+    case on the card, its numpy weights drawn here. Returns the summary,
+    the launches and seconds of each step and the peak memory."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import seeded_numpy_params
+
+    t0 = time.perf_counter()
+    cfg = A.train_config()
+    tree = seeded_numpy_params(cfg, A.LM_SEED)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary, launches, step_s = A.run_train(cfg, tree, "cuda")
+    return {"summary": summary, "launches_per_step": launches,
+            "params": cfg.param_count(), "weights_s": weights_s,
+            "run_s": time.perf_counter() - t0, "step_s": step_s,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def check_lm_pins(phase: str, case: str, pins: dict) -> None:
@@ -1502,6 +1718,231 @@ def time_generate(torch, np, model, prompt, phase: str, extras=None,
          sample=toks_out[0, :8].tolist())
 
 
+def masters_grads(torch, params, batch, cfg, remat: str = "block",
+                  fault: str = "") -> dict:
+    """``forward_train``'s loss of ``batch`` and its gradients with respect
+    to the f32 masters ``params``, each cast to ``cfg.dtype`` inside
+    autograd as the train step casts it, optionally with one of
+    TRAIN_BF16_FAULTS planted in the attention: the loss, the gradients'
+    global norm, acceptance's TRAIN_LEAVES' gradients (a gradient that
+    never arrives counts as zero), and the flash_attn launches of the
+    forward and of the backward."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward_train
+    from repro_torch.sharding.ctx import ShardCtx
+    from repro_torch.utils.tree import (
+        tree_leaves_with_names,
+        tree_map_with_path_names,
+    )
+
+    real = layers.flash_attention
+
+    def planted(q, k, v, *, causal, window):
+        if fault == "window dropped":
+            return real(q, k, v, causal=causal, window=0)
+        return real(q, k, v, causal=causal, window=window).detach()
+
+    names, leaves = zip(*tree_leaves_with_names(params))
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    dtype = getattr(torch, cfg.dtype)
+    by = dict(zip(names, (p.to(dtype) for p in live)))
+    cast = tree_map_with_path_names(lambda n, _: by[n], params)
+    if fault:
+        assert fault in TRAIN_BF16_FAULTS, fault
+        layers.flash_attention = planted
+    try:
+        kernels.reset_launches()
+        loss, _ = forward_train(cast, batch, cfg, ShardCtx(remat=remat))
+        torch.cuda.synchronize()
+        fwd = kernels.LAUNCHES["flash_attn"]
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        torch.cuda.synchronize()
+    finally:
+        layers.flash_attention = real
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for n, p, g in zip(names, live, grads)}
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads.values()]))
+    return {"loss": float(loss.detach()), "grad_norm": float(norm),
+            "leaves": {n: grads[n] for n in A.TRAIN_LEAVES},
+            "forward": fwd, "backward": kernels.LAUNCHES["flash_attn"] - fwd}
+
+
+def bf16_distance(torch, got: dict, want: dict) -> dict:
+    """How far ``masters_grads``' reading ``got`` lies from ``want``'s
+    (the f32 model's): the loss's absolute distance, the global norm's
+    relative one, each kept leaf's ||g - g32|| / ||g32||, and which of
+    TRAIN_BF16_*_TOL they exceed."""
+    d = {"loss_err": abs(got["loss"] - want["loss"]),
+         "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+         / want["grad_norm"],
+         "leaf_rel": {n: float(torch.linalg.vector_norm(
+             got["leaves"][n] - w) / torch.linalg.vector_norm(w))
+             for n, w in want["leaves"].items()}}
+    d["misses"] = [k for k, bad in (
+        ("loss", d["loss_err"] > TRAIN_BF16_LOSS_TOL),
+        ("grad_norm", d["grad_norm_rel"] > TRAIN_BF16_NORM_TOL),
+        ("leaves", max(d["leaf_rel"].values()) > TRAIN_BF16_LEAF_TOL))
+        if bad]
+    return d
+
+
+def train(torch, np, pinned: dict) -> dict:
+    """Phase train: gemma3-1b at full width trained on the card. (a) The
+    pinned f32 steps (run in a worker: ``pinned``) against
+    ``acceptance.PINNED_TRAIN`` with ``train_launches`` a step. (b) In
+    bf16 with f32 masters (``init_params`` on the card), the launches of a
+    forward and of its backward pass, with remat "block" and "none". (c)
+    The bf16 model against the f32 model on the same masters and batch
+    (``bf16_distance``: the loss, the gradients' norm and the TRAIN_LEAVES'
+    gradients), and the planted TRAIN_BF16_FAULTS failing that gate; the
+    first bf16 step's loss and gradient norm held the same way. (d)
+    TRAIN_BF16_STEPS timed steps
+    (CUDA events and the host clock), then one under the profiler: ms a
+    step, tokens/s, CUDA kernels and the device's busy share, launches a
+    step, peak memory. Returns the record for the kernels line."""
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.tools.profile_tick import device_summary
+    from repro_torch.train import create_train_state, make_train_step
+
+    cfg = A.train_config()
+    report = A.check_train(pinned["summary"])
+    want = train_launches(cfg)
+    emit("train", step="pins", case=A.TRAIN_CASE, dtype="float32",
+         batch=A.TRAIN_BATCH, seq=A.TRAIN_SEQ, in_worker_beside=(
+             LM_PINS_BESIDE), **{k: pinned[k] for k in (
+                 "params", "weights_s", "run_s", "step_s", "max_memory_gb")},
+         loss=pinned["summary"]["loss"],
+         grad_norm=pinned["summary"]["grad_norm"],
+         launches_per_step=pinned["launches_per_step"],
+         expected_launches_per_step=want, **report)
+    if any(n != want for n in pinned["launches_per_step"]):
+        raise AssertionError(f"{A.TRAIN_CASE}: launches a step "
+                             f"{pinned['launches_per_step']}, expected {want}")
+
+    t0 = time.perf_counter()
+    cfg16 = A.train_config("bfloat16")
+    opt = A.train_optimizer(TRAIN_BF16_WARMUP + TRAIN_BF16_STEPS + 1)
+    state = create_train_state(cfg16, opt,
+                               torch.Generator("cuda").manual_seed(0), "cuda")
+    batches = [lm_batch_at(i, vocab=cfg.vocab, batch=TRAIN_BF16_BATCH,
+                           seq_len=A.TRAIN_SEQ, seed=A.TRAIN_DATA_SEED,
+                           device="cuda")
+               for i in range(TRAIN_BF16_WARMUP + TRAIN_BF16_STEPS + 1)]
+    torch.cuda.synchronize()
+    emit("train", step="setup", dtype="bfloat16", seconds=(
+        time.perf_counter() - t0), params=cfg.param_count())
+
+    # (b) launches of a forward and of its backward, remat on and off
+    split = {}
+    for remat in ("block", "none"):
+        got = masters_grads(torch, state["params"], batches[0], cfg16, remat)
+        split[remat] = {k: got[k] for k in ("forward", "backward")}
+        if remat == "block":
+            bf16 = got
+        del got
+        torch.cuda.empty_cache()
+        total = train_launches(cfg, remat)["flash_attn"]
+        if (split[remat]["forward"] != cfg.n_layers
+                or split[remat]["forward"] + split[remat]["backward"]
+                != total):
+            raise AssertionError(f"train (remat {remat}): flash_attn "
+                                 f"launches {split[remat]}, expected "
+                                 f"{cfg.n_layers} + {total - cfg.n_layers}")
+    emit("train", step="launches", dtype="bfloat16", remat=split,
+         note="backward = remat's recompute of the body's 24 attention "
+              "layers; the kernels' own backward (plain vjp) launches none")
+
+    # (c) the bf16 model against the f32 model on the same masters and
+    # batch; the planted faults must fail the same gate
+    f32 = masters_grads(torch, state["params"], batches[0], cfg)
+    gate = bf16_distance(torch, bf16, f32)
+    controls = {fault: bf16_distance(torch, masters_grads(
+        torch, state["params"], batches[0], cfg16, fault=fault), f32)
+        for fault in TRAIN_BF16_FAULTS}
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg16, opt)
+    kernels.reset_launches()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    first = dict(kernels.LAUNCHES)
+    step_gate = {"loss_err": abs(float(m["loss"]) - f32["loss"]),
+                 "grad_norm_rel": abs(float(m["grad_norm"])
+                                      - f32["grad_norm"]) / f32["grad_norm"]}
+    emit("train", step="bf16_vs_f32", batch=TRAIN_BF16_BATCH,
+         seq=A.TRAIN_SEQ, loss_f32=f32["loss"], loss_bf16=bf16["loss"],
+         grad_norm_f32=f32["grad_norm"], grad_norm_bf16=bf16["grad_norm"],
+         step_loss_bf16=float(m["loss"]),
+         step_grad_norm_bf16=float(m["grad_norm"]), step_gate=step_gate,
+         tols={"loss": TRAIN_BF16_LOSS_TOL, "grad_norm": TRAIN_BF16_NORM_TOL,
+               "leaves": TRAIN_BF16_LEAF_TOL},
+         sound=gate, planted=controls)
+    del bf16, f32
+    if (gate["misses"] or step_gate["loss_err"] > TRAIN_BF16_LOSS_TOL
+            or step_gate["grad_norm_rel"] > TRAIN_BF16_NORM_TOL):
+        raise AssertionError(f"train (bf16): off the f32 model by {gate} "
+                             f"(the step: {step_gate})")
+    unseen = [f for f, c in controls.items() if not c["misses"]]
+    if unseen:
+        raise AssertionError(f"train (bf16): the gate passes the planted "
+                             f"faults {unseen}: {controls}")
+    if first != train_launches(cfg):
+        raise AssertionError(f"train (bf16): launches {first} a step")
+
+    # (d) timed steps, then one profiled
+    for b in batches[1:TRAIN_BF16_WARMUP]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms, host_ms, launches, losses = [], [], [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for b in batches[TRAIN_BF16_WARMUP:-1]:
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t1))
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        launches.append(kernels.LAUNCHES["flash_attn"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step(state, batches[-1])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    prof_summary = device_summary(prof, wall_us, 1, 10)
+    ms = float(np.median(dev_ms))
+    rec = dict(ms_per_step=ms, ms_per_step_all=dev_ms,
+               host_ms_per_step=host_ms,
+               tokens_per_s=TRAIN_BF16_BATCH * A.TRAIN_SEQ / (ms / 1e3),
+               flash_attn_per_step=launches, peak_memory_gb=peak_gb,
+               losses=losses, profiled_host_ms=wall_us / 1e3,
+               **{k: prof_summary[k] for k in (
+                   "cuda_kernels", "device_us", "device_busy_share",
+                   "port_kernel_us", "top_kernels_us", "top_host_ops_us")})
+    emit("train", step="bf16_steps", batch=TRAIN_BF16_BATCH,
+         seq=A.TRAIN_SEQ, steps=TRAIN_BF16_STEPS, **rec)
+    if not all(np.isfinite(losses)) or any(
+            n != train_launches(cfg)["flash_attn"] for n in launches):
+        raise AssertionError(f"train (bf16): losses {losses}, flash_attn "
+                             f"launches {launches} a step")
+    del state, batches
+    torch.cuda.empty_cache()
+    return {"launches_per_train_step": launches[0],
+            "bf16_ms_per_step": ms, "remat_split": split}
+
+
 def flash_attn_bf16_build(build) -> dict:
     """The bf16 flash_attn kernels run on the tensor cores: ``HGMMA`` (the
     SASS of wgmma) in the library's code, and ptxas reports no spill for
@@ -1772,6 +2213,9 @@ def alone_main(src: str, out: str) -> int:
     run = torch.load(src, map_location="cuda", weights_only=False)
     if run.get("entry") == "lm_case_pins":
         torch.save(lm_case_pins(torch, run["case"]), out)
+        return 0
+    if run.get("entry") == "train_pins":
+        torch.save(train_pins(torch), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
@@ -3520,12 +3964,14 @@ def early_runs(jobs, bank) -> tuple:
 def lm_pins_runs() -> tuple:
     """The runs started beside phase durable (``start_alone``): the pins
     of phases serve_hybrid, serve_moe, serve_xlstm, serve_whisper and
-    serve_vlm, each model's numpy weights drawn in its worker. Returns
-    (their cases, the runs)."""
+    serve_vlm and phase train's pinned f32 steps, each model's numpy
+    weights drawn in its worker. Returns (their cases, the runs)."""
     from repro_torch.configs import acceptance as A
 
     cases = [A.MIXTRAL_CASE, A.JAMBA_CASE, *A.LAST_CASES]
-    return cases, [{"entry": "lm_case_pins", "case": c} for c in cases]
+    return cases + [A.TRAIN_CASE], (
+        [{"entry": "lm_case_pins", "case": c} for c in cases]
+        + [{"entry": "train_pins"}])
 
 
 def determinism(torch, jobs, bank) -> None:
@@ -3709,6 +4155,13 @@ def main() -> int:
 
     for case in ATTN_CASES:
         record["flash_attn", case[0]] = check_attention(torch, np, *case)
+    for case in ATTN_CASES:
+        if case[0] in GRAD_ATTN_CASES:
+            record["flash_attn", "gradient", case[0]] = check_attention_grad(
+                torch, np, *case)
+    record["mamba_scan", "gradient"] = check_scan_grad(torch, np,
+                                                       *GRAD_SCAN_CASE)
+    torch.cuda.empty_cache()
     for case in SCAN_CASES:
         record["selective_scan", case[0]] = check_scan(torch, np, *case)
         for dtype in ("bfloat16", "float32"):
@@ -3841,6 +4294,12 @@ def main() -> int:
         last[case] = serve_last(torch, np, case, pins[case])
         emit(case, step="done", seconds=time.perf_counter() - t0)
 
+    # 21. train: gemma3-1b at full width trained on the card; its pinned
+    # f32 steps ran in a worker beside phase durable (above)
+    t0 = time.perf_counter()
+    trained = train(torch, np, pins[acceptance.TRAIN_CASE])
+    emit("train", step="done", seconds=time.perf_counter() - t0)
+
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
     # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
@@ -3881,6 +4340,19 @@ def main() -> int:
                              for k in keys + ("library_ms",)}
                          for c in NEW_ATTN}}
            if name == "flash_attn" else {}),
+        # the training path (phase train): the launches of a bf16 step as
+        # counted, and the kernels' autograd Functions against the plain
+        # versions' autograd (the wiring: the backward is the plain vjp)
+        **({"launches_per_train_step": trained["launches_per_train_step"],
+            "backward": GRAD_BACKWARD,
+            "gradient": {c: {k: v for k, v in record[
+                "flash_attn", "gradient", c].items() if k in GRAD_KEYS}
+                         for c in GRAD_ATTN_CASES}}
+           if name == "flash_attn" else {}),
+        **({"backward": GRAD_BACKWARD,
+            "gradient": {k: v for k, v in record[
+                "mamba_scan", "gradient"].items() if k in GRAD_KEYS}}
+           if name == "selective_scan" else {}),
     } for name, (replaces, main, sig) in sources.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

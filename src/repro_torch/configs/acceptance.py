@@ -1477,6 +1477,208 @@ PINNED_CASES = {LM_CASE: PINNED_LM, JAMBA_CASE: PINNED_JAMBA,
 
 
 # ---------------------------------------------------------------------------
+# LM training: gemma3-1b at full width and depth in f32 (``lm_config``:
+# 26 layers, d_model 1152, d_ff 6912, vocab 262144, tied embeddings),
+# weights ``models.seeded_numpy_params(cfg, LM_SEED)``; TRAIN_STEPS steps
+# of ``make_train_step(cfg, AdamW(lr=cosine_warmup(TRAIN_LR, TRAIN_WARMUP,
+# TRAIN_STEPS)))`` (the defaults: remat "block", a logit chunk of 1024,
+# clipping at 1.0) on ``lm_batch_at(step, batch=TRAIN_BATCH,
+# seq_len=TRAIN_SEQ, seed=TRAIN_DATA_SEED)``. The first step's learning
+# rate is 0 (warm-up), the second's TRAIN_LR, the third's TRAIN_LR / 2.
+#
+# ``PINNED_TRAIN`` holds what the JAX package gives on the CPU (jax 0.9.0,
+# ``ShardCtx(enabled=False, attention_impl="pallas")``, the kernel in
+# interpret mode): per step the loss, the grad norm, ``skipped`` and the
+# batch's tokens (``int_digest`` per row); after the last step, for each
+# of TRAIN_LEAVES (JAX names under ``params``: the embedding, the first
+# body position's stacked wq and ln1 (R = 4 repeats), and the tail's first
+# ln1, a vector), the leaf's sum and the sum and absolute sum of its change
+# from the initial weights (float64 over the f32 values). The body norm is
+# (4, 1152), so AdamW decays it; the tail norm is (1152,) and is not: a
+# wrong rule moves their changes' sums by ~0.02 and ~0.005.
+# ``tests/torch_train_pins.py`` makes them.
+TRAIN_CASE = "train_gemma3_1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3
+TRAIN_LR, TRAIN_WARMUP, TRAIN_DATA_SEED = 3e-4, 1, 0
+TRAIN_LEAVES = ("emb", "body/0/wq", "body/0/ln1", "tail/0/ln1")
+TRAIN_METRICS = ("loss", "grad_norm")
+# ``train_distance`` of the port on the CPU from these pins (``python
+# tests/torch_train_pins.py --port``): loss 7.6e-8, grad norm 5.7e-7,
+# the leaves' sums 5.3e-7, their changes' sums 7.1e-7 and absolute sums
+# 7.5e-7. The tolerances are 13-19x those.
+TRAIN_TOLS = {"loss": 1e-6, "grad_norm": 1e-5, "sum": 1e-5,
+              "delta_sum": 1e-5, "delta_abs_sum": 1e-5}
+
+PINNED_TRAIN = {
+    "loss": [
+        12.484514236450195,
+        12.480220794677734,
+        12.339107513427734
+    ],
+    "grad_norm": [
+        8.32602310180664,
+        8.423545837402344,
+        13.353535652160645
+    ],
+    "skipped": [
+        0.0,
+        0.0,
+        0.0
+    ],
+    "tokens_digest": [
+        [
+            5149475079,
+            4286259773
+        ],
+        [
+            4784503251,
+            5156841370
+        ],
+        [
+            4637950657,
+            5486022126
+        ]
+    ],
+    "leaves": {
+        "emb": {
+            "sum": -2677.5074614937516,
+            "delta_sum": -2609.312648400443,
+            "delta_abs_sum": 85723.84984956095
+        },
+        "body/0/wq": {
+            "sum": 38.6708164789491,
+            "delta_sum": -0.5585014199507361,
+            "delta_abs_sum": 1153.4542784277944
+        },
+        "body/0/ln1": {
+            "sum": 4607.966053187847,
+            "delta_sum": -0.03394681215286255,
+            "delta_abs_sum": 1.25739985704422
+        },
+        "tail/0/ln1": {
+            "sum": 1151.9932535290718,
+            "delta_sum": -0.006746470928192139,
+            "delta_abs_sum": 0.3185543417930603
+        }
+    }
+}
+
+
+def train_config(dtype: str = "float32") -> ModelConfig:
+    return lm_config(dtype)
+
+
+def train_optimizer(steps: int = TRAIN_STEPS):
+    """The port's AdamW of the training case (``repro_torch.optim``)."""
+    from repro_torch.optim import AdamW, cosine_warmup
+
+    return AdamW(lr=cosine_warmup(TRAIN_LR, TRAIN_WARMUP, steps))
+
+
+def train_summary(metrics: list, tokens: list, params0: dict,
+                  params: dict) -> dict:
+    """The pinned form of a training run: ``metrics`` one dict of floats a
+    step, ``tokens`` each step's (B, S) token ids, ``params0`` and
+    ``params`` the TRAIN_LEAVES (name -> f32 array) before the first and
+    after the last step."""
+    leaves = {}
+    for name in TRAIN_LEAVES:
+        p0 = np.asarray(params0[name], np.float64)
+        p = np.asarray(params[name], np.float64)
+        leaves[name] = {"sum": float(p.sum()),
+                        "delta_sum": float((p - p0).sum()),
+                        "delta_abs_sum": float(np.abs(p - p0).sum())}
+    return {**{k: [float(m[k]) for m in metrics] for k in TRAIN_METRICS},
+            "skipped": [float(m["skipped"]) for m in metrics],
+            "tokens_digest": [int_digest(t) for t in tokens],
+            "leaves": leaves}
+
+
+def train_distance(got: dict, pins: dict) -> dict:
+    """How far a run's ``train_summary`` lies from ``pins``, per kind:
+    the metrics relative to the pin, a leaf's sum relative to it, its
+    change's sums relative to the change's absolute sum."""
+    out = {k: max(abs(g - w) / abs(w) for g, w in zip(got[k], pins[k]))
+           for k in TRAIN_METRICS}
+    for kind in ("sum", "delta_sum", "delta_abs_sum"):
+        out[kind] = max(
+            abs(got["leaves"][n][kind] - pins["leaves"][n][kind])
+            / abs(pins["leaves"][n]["sum" if kind == "sum"
+                                    else "delta_abs_sum"])
+            for n in TRAIN_LEAVES)
+    return out
+
+
+def check_train(got: dict, pins: dict | None = None,
+                tols: dict | None = None) -> dict:
+    """Hold a ``train_summary`` to the pins (``PINNED_TRAIN`` by default):
+    ``skipped`` and the token digests equal, every distance of
+    ``train_distance`` within ``tols`` (TRAIN_TOLS). Raises on a miss;
+    returns the distances beside their tolerances."""
+    pins = pins or PINNED_TRAIN
+    tols = tols or TRAIN_TOLS
+    if got["tokens_digest"] != pins["tokens_digest"]:
+        raise AssertionError(f"{TRAIN_CASE}: the batches' tokens differ "
+                             "from the pinned ones")
+    if got["skipped"] != pins["skipped"]:
+        raise AssertionError(f"{TRAIN_CASE}: skipped {got['skipped']}, "
+                             f"pinned {pins['skipped']}")
+    dist = train_distance(got, pins)
+    report = {f"dist_{k}": v for k, v in dist.items()}
+    report.update({f"tol_{k}": tols[k] for k in dist})
+    off = [k for k, v in dist.items() if not v <= tols[k]]
+    if off:
+        raise AssertionError(f"{TRAIN_CASE}: {off} off the pins: "
+                             f"{ {k: dist[k] for k in off} } (tolerances "
+                             f"{ {k: tols[k] for k in off} })")
+    return report
+
+
+def run_train(cfg: ModelConfig, tree: dict, device, *,
+              steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ) -> tuple:
+    """The training case on the port: the f32 numpy weights ``tree`` (the
+    JAX layout) as a train state on ``device``, ``steps`` steps of
+    ``train_optimizer``'s ``make_train_step`` on ``lm_batch_at``. Returns
+    (``train_summary``, the kernel launches of each step, each step's
+    seconds up to its metrics on the host)."""
+    import time
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.tree import tree_leaves_with_names
+
+    opt = train_optimizer(steps)
+    params = tree_from_numpy(tree, device)
+    named = dict(tree_leaves_with_names(params))
+    params0 = {n: named[n].cpu().numpy().copy() for n in TRAIN_LEAVES}
+    del named
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    del params
+    step = make_train_step(cfg, opt)
+    metrics, tokens, launches, seconds = [], [], [], []
+    for i in range(steps):
+        b = lm_batch_at(i, vocab=cfg.vocab, batch=batch, seq_len=seq,
+                        seed=TRAIN_DATA_SEED, device=device)
+        tokens.append(b["tokens"].cpu().numpy())
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(kernels.LAUNCHES))
+    named = dict(tree_leaves_with_names(state["params"]))
+    return (train_summary(metrics, tokens, params0,
+                          {n: named[n].cpu().numpy() for n in TRAIN_LEAVES}),
+            launches, seconds)
+
+
+# ---------------------------------------------------------------------------
 # The RL cases: the paper's experiment (Fig. 2), ``launch/rl_train.py
 # --cluster tx-gaia``'s setting at full width: ``tx_gaia(max_jobs=256,
 # max_nodes_per_job=16)`` (672 nodes, the whole job table), a bank of

@@ -1,5 +1,6 @@
 """Carry a ``Statics`` / ``SimState`` / ``Policy``, an LM's parameters or
-the actor-critic's of the JAX package across to the port.
+train state, or the actor-critic's parameters of the JAX package across
+to the port (and an LM train state back: ``tree_to_numpy``).
 
 Each function takes the reference's structure as a name -> numpy array
 mapping (or a NamedTuple of numpy arrays, such as ``jax.device_get`` of
@@ -88,6 +89,47 @@ def policy_from_numpy(arrays: Any) -> Policy:
                     for f in Policy._fields))
 
 
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``dev``: floats as f32, int32 kept (a
+    train state's step); on the CPU sharing the memory of a writable
+    C-contiguous array."""
+    a = np.asarray(a)
+    a = np.asarray(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")
+    return torch.from_numpy(a).to(dev)
+
+
+def tree_from_numpy(tree: Any, device=None) -> Any:
+    """A nested dict / list of numpy arrays (an LM's parameter tree or
+    train state ``{"params", "opt", "step"}`` in the JAX package's layout:
+    ``jax.device_get`` of one, or a checkpoint it wrote read back with
+    numpy) as the same structure of tensors on ``device``, for
+    ``models.forward_train`` or ``train.make_train_step``."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _leaf_from_numpy(node, dev)
+
+    return walk(tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The port's tree of tensors (a train state, a parameter tree) as the
+    same structure of numpy arrays on the host, which the JAX package takes
+    as it is (``jax.tree.map(jnp.asarray, ...)``); a 0-d int32 ``step``
+    stays a 0-d int32 array."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):
     """An LM's parameter tree in the JAX package's layout (``jax.device_get``
     of its ``init_params``, or ``models.seeded_numpy_params``; an
@@ -96,22 +138,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device=None):
     shares the memory of writable f32 arrays (no copy of the weights)."""
     from repro_torch.models.model import DecoderLM
 
-    dev = resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a, dtype=np.float32)
-        if not (a.flags.writeable and a.flags.c_contiguous):
-            a = np.array(a, order="C")
-        return torch.from_numpy(a).to(dev)
-
-    def walk(node):
-        if isinstance(node, Mapping):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return leaf(node)
-
-    return DecoderLM.from_tree(cfg, walk(tree))
+    return DecoderLM.from_tree(cfg, tree_from_numpy(tree, device))
 
 
 def actor_critic_params_from_numpy(tree: Mapping[str, Any],

@@ -6,7 +6,9 @@ prefill attention.
   hand-written kernels of ``csrc/flash_attn.cu`` (which replace the TPU
   kernel ``flash_attention_fwd``) or raises. The dtype picks the entry
   (``kernel_entry``): bf16 runs on the tensor cores (wgmma, TMA), f32 on
-  the CUDA cores, the reference path. There is no fallback.
+  the CUDA cores, the reference path. There is no fallback. On the card
+  it is differentiable through ``FlashAttention``: the kernel forward,
+  the backward the vjp of the plain version.
 - ``attention_torch``: the plain PyTorch version of the same function,
   with materialised f32 scores.
 
@@ -114,15 +116,10 @@ def kernel_entry(q, k, v) -> str:
     return entry
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Attention of q over k, v. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream."""
-    _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        return attention_torch(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The kernel on the current stream, for CUDA tensors that passed
+    ``_check``."""
+    kernels.refuse_autograd("flash_attn", q, k, v)
     launch = build.function("flash_attn", pointers=4, ints=8, floats=1,
                             entry=kernel_entry(q, k, v))
     b, sq, h, hd = q.shape
@@ -138,3 +135,34 @@ def flash_attention(q, k, v, *, causal: bool = True,
             f"flash_attn kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["flash_attn"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward is the vjp of ``attention_torch``
+    recomputed from q, k and v (the JAX package's ``_fa_bwd`` takes the
+    vjp of its jnp attention), so it launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window)
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        return kernels.plain_vjp(attention_torch, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:3], (g,),
+                                 **ctx.mask) + (None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Attention of q over k, v. CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream, differentiable
+    through ``FlashAttention``."""
+    _check(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return attention_torch(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return FlashAttention.apply(q, k, v, causal, window)

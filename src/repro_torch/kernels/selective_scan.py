@@ -4,11 +4,15 @@ prompt, the mixer's fused entry around it, and its one-token decode step.
 - ``selective_scan``: the TPU kernel's signature. For CPU tensors it runs
   the plain version; for CUDA tensors it launches the hand-written kernel
   ``csrc/selective_scan.cu`` (which replaces the TPU kernel
-  ``selective_scan_pallas``) or raises. There is no fallback.
+  ``selective_scan_pallas``) or raises. There is no fallback. Nothing
+  differentiates it: on the card it raises where autograd records its
+  inputs.
 - ``mamba_scan``: the entry ``models.mamba.mamba_apply`` calls. The same
   scan with the mixer's elementwise work around it (dt's bias and
   softplus, the f32 casts, the gated D skip), in the compute dtype; the
-  same kernel source on the card, ``mamba_scan_torch`` on the CPU.
+  same kernel source on the card, ``mamba_scan_torch`` on the CPU. On
+  the card it is differentiable (``MambaScan``): the kernel forward, the
+  backward the vjp of the plain version.
 - ``selective_scan_torch``, ``mamba_scan_torch``: the plain PyTorch
   versions, a loop over time in f32.
 - ``selective_scan_step``: one decode step, plain PyTorch, as it is jnp in
@@ -63,15 +67,15 @@ def selective_scan_torch(x, dt, A, B, C
     ba, s, di = x.shape
     state = torch.zeros(ba, di, A.shape[-1], dtype=torch.float32,
                         device=x.device)
-    y = torch.empty(ba, s, di, dtype=torch.float32, device=x.device)
+    ys = []
     for t in range(s):
         state = _update(state, x[:, t], dt[:, t], A, B[:, t])
         prod = state * C[:, t, None, :]
         acc = prod[..., 0]
         for n in range(1, prod.shape[-1]):
             acc = acc + prod[..., n]
-        y[:, t] = acc
-    return y, state
+        ys.append(acc)
+    return torch.stack(ys, dim=1), state
 
 
 def mamba_scan_torch(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
@@ -151,19 +155,15 @@ def _tma_rows(t):
     return buf.copy_(t)
 
 
-def selective_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, final state) of the scan. CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream."""
-    _check(x, dt, A, B, C)
-    ds = A.shape[1]
-    if x.device.type == "cpu":
-        return selective_scan_torch(x, dt, A, B, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan: no kernel for {x.device}")
+def _launch_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on the current stream, for CUDA tensors that passed
+    ``_check``."""
+    kernels.refuse_autograd("selective_scan", x, dt, A, B, C)
     _check_tma("selective_scan", x=x, dt=dt)
     B, C = _tma_rows(B), _tma_rows(C)
     launch = build.function("selective_scan", pointers=7, ints=8, floats=0)
     ba, s, di = x.shape
+    ds = A.shape[1]
     y = torch.empty_like(x)
     final = torch.empty(ba, di, ds, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -177,6 +177,17 @@ def selective_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
             f"selective_scan kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["selective_scan"] += 1
     return y, final
+
+
+def selective_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of the scan. CPU tensors take the plain version;
+    CUDA tensors launch the kernel on the current stream."""
+    _check(x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return selective_scan_torch(x, dt, A, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan: no kernel for {x.device}")
+    return _launch_scan(x, dt, A, B, C)
 
 
 def _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip) -> None:
@@ -212,27 +223,18 @@ def _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip) -> None:
         raise ValueError("mamba_scan: tensors must span < 2**31 values")
 
 
-def mamba_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Mamba mixer's scan with its elementwise work fused around it:
-    ``out = (y + xb * D_skip) * silu(z)`` with y the scan of (xb,
-    softplus(dt_proj + dt_b), A, Bc, Cc), in xb's dtype (f32 or bf16), and
-    the final state in f32. xb, dt_proj, z (Ba, S, di); dt_b, D_skip (di,);
-    A (di, ds) f32; Bc, Cc (Ba, S, ds). z, Bc and Cc may be views with
-    spaced rows (halves and slices of the projections' outputs). CPU
-    tensors take ``mamba_scan_torch``; CUDA tensors launch the kernel on
-    the current stream, counted under ``selective_scan``."""
-    _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
-    ds = A.shape[1]
-    if xb.device.type == "cpu":
-        return mamba_scan_torch(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
-    if xb.device.type != "cuda":
-        raise ValueError(f"mamba_scan: no kernel for {xb.device}")
+def _launch_mamba(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel on the current stream, for CUDA tensors that
+    passed ``_check_fused``."""
+    kernels.refuse_autograd("mamba_scan", xb, dt_proj, dt_b, A, Bc, Cc, z,
+                            D_skip)
     _check_tma("mamba_scan", xb=xb, dt_proj=dt_proj, z=z)
     Bc, Cc = _tma_rows(Bc), _tma_rows(Cc)
     launch = build.function("selective_scan", pointers=10, ints=11, floats=0,
                             entry="mamba_scan")
     ba, s, di = xb.shape
+    ds = A.shape[1]
     out = torch.empty_like(xb)
     final = torch.empty(ba, di, ds, dtype=torch.float32, device=xb.device)
     with torch.cuda.device(xb.device):
@@ -248,3 +250,38 @@ def mamba_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
             f"mamba_scan kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES["selective_scan"] += 1
     return out, final
+
+
+class MambaScan(torch.autograd.Function):
+    """The fused kernel forward; the backward is the vjp of
+    ``mamba_scan_torch`` recomputed from the inputs, so it launches no
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return _launch_mamba(*inputs)
+
+    @staticmethod
+    def backward(ctx, g_out, g_final):
+        return kernels.plain_vjp(mamba_scan_torch, ctx.saved_tensors,
+                                 ctx.needs_input_grad, (g_out, g_final))
+
+
+def mamba_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba mixer's scan with its elementwise work fused around it:
+    ``out = (y + xb * D_skip) * silu(z)`` with y the scan of (xb,
+    softplus(dt_proj + dt_b), A, Bc, Cc), in xb's dtype (f32 or bf16), and
+    the final state in f32. xb, dt_proj, z (Ba, S, di); dt_b, D_skip (di,);
+    A (di, ds) f32; Bc, Cc (Ba, S, ds). z, Bc and Cc may be views with
+    spaced rows (halves and slices of the projections' outputs). CPU
+    tensors take ``mamba_scan_torch``; CUDA tensors launch the kernel on
+    the current stream, counted under ``selective_scan``, differentiable
+    through ``MambaScan``."""
+    _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+    if xb.device.type == "cpu":
+        return mamba_scan_torch(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+    if xb.device.type != "cuda":
+        raise ValueError(f"mamba_scan: no kernel for {xb.device}")
+    return MambaScan.apply(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)

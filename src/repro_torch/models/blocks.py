@@ -121,27 +121,29 @@ def cross_attention_parallel(w: Weights, x: torch.Tensor,
 
 
 def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
-                 is_moe: bool) -> torch.Tensor:
-    """The residual FFN (none on a layer without ``ln2``); an MoE layer's
-    aux loss is dropped, as serving drops it in the JAX package."""
+                 is_moe: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual FFN (none on a layer without ``ln2``) and the f32 aux
+    loss of an MoE layer (None elsewhere: no tensor made for a 0)."""
     if "ln2" not in w:
-        return x
+        return x, None
     if is_moe:
-        return x + moe_apply(w, x, cfg)[0]
-    return x + mlp_apply(w, x, gated=S.mlp_gated(cfg), eps=cfg.norm_eps)
+        y, aux = moe_apply(w, x, cfg)
+        return x + y, aux
+    return x + mlp_apply(w, x, gated=S.mlp_gated(cfg), eps=cfg.norm_eps), None
 
 
-def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
-                   cfg: ModelConfig, *, rope: Rope,
-                   memory: Optional[torch.Tensor] = None,
-                   xa: Optional[Weights] = None, causal: bool = True,
-                   return_kv: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One layer. Returns (x, its cache state or None): ``{"k", "v"}``
-    (B, S, Kv, hd) of an attention layer, with ``{"xk", "xv"}`` (B, M, Kv,
-    hd) of its cross-attention onto ``memory`` (a ``CROSS`` layer, or any
-    layer given ``xa``); ``{"conv", "ssm"}`` of a Mamba layer; the mLSTM's
-    or the sLSTM's final state."""
+def block_forward(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
+                  cfg: ModelConfig, *, rope: Rope,
+                  memory: Optional[torch.Tensor] = None,
+                  xa: Optional[Weights] = None, causal: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                             Dict[str, torch.Tensor]]:
+    """One layer (the JAX package's ``block_parallel``). Returns (x, the
+    MoE aux loss or None, its cache state): ``{"k", "v"}`` (B, S, Kv, hd) of an
+    attention layer, with ``{"xk", "xv"}`` (B, M, Kv, hd) of its
+    cross-attention onto ``memory`` (a ``CROSS`` layer, or any layer
+    given ``xa``); ``{"conv", "ssm"}`` of a Mamba layer; the mLSTM's or
+    the sLSTM's final state."""
     if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, kv = self_attention_parallel(w, x, cfg, rope=rope,
                                         window=self_window(cfg, kind),
@@ -162,8 +164,24 @@ def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
         xo, kvx = cross_attention_parallel(xa, x, memory, cfg)
         x = x + xo
         kv.update(xk=kvx["k"], xv=kvx["v"])
-    x = ffn_parallel(w, x, cfg, is_moe)
+    x, aux = ffn_parallel(w, x, cfg, is_moe)
+    return x, aux, kv
+
+
+def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
+                   cfg: ModelConfig, *, rope: Rope,
+                   memory: Optional[torch.Tensor] = None,
+                   xa: Optional[Weights] = None, causal: bool = True,
+                   return_kv: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One layer of serving (``block_forward`` without the aux loss,
+    which serving drops, as the JAX package's does). Returns (x, its cache
+    state, or None without ``return_kv``)."""
+    x, _, kv = block_forward(w, x, kind, is_moe, cfg, rope=rope,
+                             memory=memory, xa=xa, causal=causal)
     return x, (kv if return_kv else None)
+
+
 # ---------------------------------------------------------------------------
 # decode path
 def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -222,4 +240,4 @@ def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         x = x + o
     if xa is not None and kind != CROSS:
         x = x + cross_decode(xa, x, cache, cfg)
-    return ffn_parallel(w, x, cfg, is_moe), cache
+    return ffn_parallel(w, x, cfg, is_moe)[0], cache

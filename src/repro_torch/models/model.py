@@ -27,6 +27,13 @@ decode. A Mamba layer's is ``{"conv" (B, d_conv - 1, di), "ssm" (B, di,
 d_state)}``, an mLSTM's ``{"C", "n", "m", "conv"}`` and an sLSTM's ``{"c",
 "n", "h", "m"}`` (``xlstm``), all f32. ``cache_len`` is a Python int
 everywhere, so prefill and decode never read the device.
+
+Training does not use ``DecoderLM``: ``forward_train`` takes the JAX
+package's stacked parameter tree itself (the train state's ``params``),
+reads per-layer views of its leaves (``layer_leaves``) and casts each at
+its use inside autograd, so the gradients are the stacked leaves' and
+land in the f32 masters; ``prefill`` and ``decode_step`` record no
+gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import (
@@ -45,11 +53,17 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import spec as S
-from repro_torch.models.blocks import block_decode, block_parallel, layer_window
+from repro_torch.models.blocks import (
+    block_decode,
+    block_forward,
+    block_parallel,
+    layer_window,
+)
 from repro_torch.models.init import NORMS
 from repro_torch.models.layers import rms_norm, rope_cos_sin
 from repro_torch.models.mamba import mamba_cache_spec
 from repro_torch.models.xlstm import mlstm_cache_spec, slstm_cache_spec
+from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
 # read in f32 from the masters by the JAX package
 F32_LEAVES = NORMS + ("A_log", "router", "r", "b")
@@ -265,19 +279,32 @@ def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
 
 # ---------------------------------------------------------------------------
 # prefill and decode
-def encoder_forward(model: DecoderLM, frames: torch.Tensor) -> torch.Tensor:
+def encode(layers, final_ln: torch.Tensor, frames: torch.Tensor,
+           cfg: ModelConfig, dtype: torch.dtype,
+           remat: bool = False) -> torch.Tensor:
     """An encoder-decoder's encoder over the audio frames (B, F, D) (the
     frontend is a stub: the frames are embeddings already): non-causal
-    attention layers with RoPE over positions 0..F-1, then the encoder's
-    final norm. Returns (B, F, D) in the compute dtype."""
-    cfg, enc = model.cfg, model.encoder
-    x = frames.to(model.dtype)
+    attention layers (``layers``: each layer's weights) with RoPE over
+    positions 0..F-1, then the final norm. With ``remat`` each layer is
+    recomputed in the backward pass. Returns (B, F, D) in ``dtype``."""
+    x = frames.to(dtype)
     positions = torch.arange(frames.shape[1], device=frames.device)
     rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
-    for layer in enc.layers:
-        x, _ = block_parallel(layer.weights(), x, ATTN, False, cfg,
-                              rope=rope, causal=False)
-    return rms_norm(x, enc.final_ln, cfg.norm_eps)
+
+    def layer(w, x):
+        return block_forward(w, x, ATTN, False, cfg, rope=rope,
+                             causal=False)[0]
+
+    for w in layers:
+        x = _checkpointed(layer, w, x) if remat else layer(w, x)
+    return rms_norm(x, final_ln, cfg.norm_eps)
+
+
+def encoder_forward(model: DecoderLM, frames: torch.Tensor) -> torch.Tensor:
+    """The model's encoder (``encode``) on its compute-dtype copies."""
+    enc = model.encoder
+    return encode([layer.weights() for layer in enc.layers], enc.final_ln,
+                  frames, model.cfg, model.dtype)
 
 
 def memory_of(model: DecoderLM, extras: Optional[Mapping[str, torch.Tensor]]
@@ -338,3 +365,128 @@ def decode_step(model: DecoderLM, cache: Cache, tokens: torch.Tensor,
                                    layer.kind, layer.is_moe, cfg, rope=rope,
                                    xa=layer.xattn_weights())
     return _logits(model, x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss, over the JAX package's stacked tree
+def _checkpointed(fn, *args):
+    """``fn(*args)`` recomputed in the backward pass instead of saved
+    (non-reentrant: tensors ``fn`` closes over get their gradients)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _at_use(w: Mapping[str, torch.Tensor], dtype: torch.dtype
+            ) -> Dict[str, torch.Tensor]:
+    """A layer's leaves as its layer code reads them: the ``F32_LEAVES``
+    as they come, every other leaf in ``dtype`` (the JAX package's casts
+    at use)."""
+    return {k: t if k in F32_LEAVES or t.dtype == dtype else t.to(dtype)
+            for k, t in w.items()}
+
+
+def _unstacked(tree: Mapping[str, Any]) -> Dict[str, List[torch.Tensor]]:
+    """A stacked leaf dict as name -> its per-repeat views (one ``unbind``
+    a leaf, whose backward stacks the repeats' gradients in one copy)."""
+    return {k: torch.unbind(t, 0) for k, t in tree.items()}
+
+
+def layer_leaves(params: Mapping[str, Any], cfg: ModelConfig,
+                 body: str = "body", tail: str = "tail"
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer views of a stacked parameter tree, in layer order: layer
+    ``r * period + p`` reads ``params[body][p][name][r]``, layer ``R *
+    period + j`` reads ``params[tail][j]`` (``xattn_body`` /
+    ``xattn_tail`` for an encoder-decoder's cross-attentions)."""
+    period, R, n_tail = S.layout(cfg)
+    views = [_unstacked(d) for d in params.get(body) or []]
+    out = [{k: v[r] for k, v in views[p].items()}
+           for r in range(R) for p in range(period)]
+    return out + [dict(params[tail][j]) for j in range(n_tail)]
+
+
+def lm_loss_chunked(xf: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                    ctx: ShardCtx = UNSHARDED
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed token losses, counted tokens) of the final hidden states xf
+    (B, S, D) under the head w (D, V), ``-1`` labels ignored. The logits
+    of one ``ctx.logit_chunk`` of the sequence exist at a time: each
+    chunk's are recomputed in the backward pass."""
+    Sq = xf.shape[1]
+    cs = min(ctx.logit_chunk, Sq)
+    if Sq % cs:
+        raise ValueError(f"sequence {Sq} is not a multiple of the logit "
+                         f"chunk {cs}")
+
+    def one(xc, w, lc):
+        logits = (xc @ w.to(xc.dtype)).float()             # (B, cs, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])
+        valid = (lc >= 0).float()
+        return torch.sum((lse - ll[..., 0]) * valid), torch.sum(valid)
+
+    losses, counts = zip(*(
+        _checkpointed(one, xf[:, c:c + cs], w, labels[:, c:c + cs].long())
+        for c in range(0, Sq, cs)))
+    return torch.sum(torch.stack(losses)), torch.sum(torch.stack(counts))
+
+
+def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
+                  cfg: ModelConfig, ctx: ShardCtx = UNSHARDED
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss (the JAX package's ``forward_train``) of
+    ``batch`` (``tokens``, ``labels`` (B, S), ``-1`` labels ignored; and
+    ``vision`` or ``audio`` where the model attends to a memory) under
+    ``params``, the JAX package's stacked tree of tensors, which autograd
+    differentiates leaf by leaf. Each leaf is cast to ``cfg.dtype`` where
+    it is used, ``F32_LEAVES`` excepted. Recomputation follows
+    ``ctx.remat``. Returns (loss + load_balance_coef * aux / n_layers,
+    {"loss", "moe_aux", "tokens"})."""
+    dtype = compute_dtype(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["emb"].index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, -1).to(dtype)
+    rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device),
+                        cfg.hd, cfg.rope_theta)
+    memory = None
+    if cfg.enc_dec:
+        enc = params["encoder"]
+        n_enc = enc["layers"]["ln1"].shape[0]
+        views = _unstacked(enc["layers"])
+        memory = encode([_at_use({k: v[i] for k, v in views.items()}, dtype)
+                         for i in range(n_enc)], enc["final_ln"],
+                        batch["audio"], cfg, dtype,
+                        remat=ctx.remat == "block")
+    elif cfg.n_vision_tokens:
+        memory = batch["vision"].to(dtype)
+
+    period, R, _ = S.layout(cfg)
+    layers = layer_leaves(params, cfg)
+    xattn = (layer_leaves(params, cfg, "xattn_body", "xattn_tail")
+             if cfg.enc_dec else [None] * cfg.n_layers)
+
+    def run(lo: int, hi: int, x, aux):
+        for i in range(lo, hi):
+            xa = xattn[i]
+            x, a = block_forward(
+                _at_use(layers[i], dtype), x, S.layer_kind_at(cfg, i),
+                cfg.is_moe_layer(i), cfg, rope=rope, memory=memory,
+                xa=None if xa is None else _at_use(xa, dtype))[:2]
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(R):
+        lo, hi = r * period, (r + 1) * period
+        if ctx.remat == "block":
+            x, aux = _checkpointed(lambda x, aux, lo=lo, hi=hi:
+                                   run(lo, hi, x, aux), x, aux)
+        else:
+            x, aux = run(lo, hi, x, aux)
+    x, aux = run(R * period, cfg.n_layers, x, aux)
+    xf = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    head = params["emb"].T if cfg.tie_embeddings else params["head"]
+    total, count = lm_loss_chunked(xf, head, labels, ctx)
+    loss = total / torch.clamp(count, min=1.0)
+    full = loss + cfg.moe.load_balance_coef * aux / max(cfg.n_layers, 1)
+    return full, {"loss": loss, "moe_aux": aux, "tokens": count}

@@ -138,8 +138,8 @@ def moe_apply(w: Mapping[str, torch.Tensor], x: torch.Tensor,
     contrib = torch.where(r.keep[..., None], hk, 0).to(dt)
     gidx = torch.arange(G, device=x.device)[:, None]
     row = (gidx * E + flat_e) * C + safe_rank               # (G, TgK)
-    buf = torch.zeros(G * E * C, D, dtype=dt, device=x.device)
-    buf.index_add_(0, row.reshape(-1), contrib.reshape(-1, D))
+    buf = torch.zeros(G * E * C, D, dtype=dt, device=x.device).index_add(
+        0, row.reshape(-1), contrib.reshape(-1, D))
 
     # expert FFN (SwiGLU), every group's C rows of an expert as one batch
     with record_function(EXPERTS_RANGE):

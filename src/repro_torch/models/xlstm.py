@@ -224,12 +224,13 @@ def slstm_apply(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
     nh = cfg.n_heads
     dh = D // nh
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    gates_x = (h @ w["w"]).float() + w["b"]                 # (B, S, 4D)
+    gates_x = (h @ w["w"]).float() + w["b"].float()         # (B, S, 4D)
     zeros = torch.zeros(B, D, device=x.device)
     carry = (zeros, zeros, zeros, torch.full((B, D), NEG, device=x.device))
     hs = []
     for t in range(Sq):
-        carry = _slstm_cell(w["r"], gates_x[:, t], carry, nh, dh)
+        carry = _slstm_cell(w["r"].float(), gates_x[:, t], carry, nh,
+                            dh)
         hs.append(carry[2])
     out = _slstm_out(w, torch.stack(hs, dim=1).to(x.dtype), cfg)
     if not return_state:
@@ -251,8 +252,8 @@ def slstm_decode(w: Weights, x: torch.Tensor, cache: Cache, cfg: ModelConfig
     D = x.shape[-1]
     nh = cfg.n_heads
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    gx = (h[:, 0] @ w["w"]).float() + w["b"]
-    c, n, hn, m = _slstm_cell(w["r"], gx,
+    gx = (h[:, 0] @ w["w"]).float() + w["b"].float()
+    c, n, hn, m = _slstm_cell(w["r"].float(), gx,
                               (cache["c"], cache["n"], cache["h"],
                                cache["m"]), nh, D // nh)
     out = _slstm_out(w, hn.to(x.dtype), cfg)[:, None, :]

@@ -1,23 +1,49 @@
-"""Gradient clipping by the global norm, as the JAX package's
-``optim.base.clip_by_global_norm`` and ``utils.tree.global_norm``."""
+"""The optimizers' shared pieces, as the JAX package's ``optim/base.py``
+and ``utils/tree.py``: a ``Schedule``, the global norm and clipping by
+it, and the finiteness test of the train step's guard.
+
+A tree is a dict (nested dicts and lists, as an LM's parameter tree in the
+JAX package's layout, or flat, as the actor-critic's) of tensors. Its
+leaves are taken in the JAX package's flatten order
+(``utils.tree.tree_leaves_with_names``: dict keys sorted, lists in order),
+so a reduction over leaves adds them in the JAX package's order.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.utils.tree import tree_leaves_with_names, tree_map
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+# step (0-d int32 tensor) -> learning rate (0-d f32 tensor)
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def leaves(tree: Any) -> list:
+    return [x for _, x in tree_leaves_with_names(tree)]
+
+
+def by_name(tree: Any) -> Dict[str, torch.Tensor]:
+    return dict(tree_leaves_with_names(tree))
+
+
+def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares (f32)."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    sums = [torch.sum(torch.square(x.to(torch.float32)))
+            for x in leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
-                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float
+                        ) -> Tuple[Any, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), norm)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+def all_finite(tree: Any) -> torch.Tensor:
+    """0-d bool tensor: every value of every leaf finite."""
+    return torch.stack([torch.isfinite(x).all() for x in leaves(tree)]).all()

@@ -1,0 +1,118 @@
+"""The LM training step (the JAX package's ``train/train_step.py``): loss
+-> gradients -> (compress, clip, guard) -> optimizer update.
+
+- Gradient (micro)accumulation: the batch split into M microbatches run
+  one after another, their gradients summed then divided by M, as the
+  JAX package's scan does: activation memory for 1/M of the batch.
+- Optional int8 gradient compression (``optim.compress``).
+- Global-norm clipping.
+- A non-finite guard: a step whose gradients or loss hold an inf or a NaN
+  keeps the params and the optimizer state (``torch.where``) and still
+  advances the step.
+
+In a bfloat16 model every f32 master is cast to bf16 before the forward,
+inside autograd, so the gradients land in the f32 masters. Nothing in the
+step reads the device from the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import forward_train
+from repro_torch.optim.base import all_finite, by_name, clip_by_global_norm
+from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
+from repro_torch.utils.tree import (
+    tree_leaves_with_names,
+    tree_map,
+    tree_map_with_path_names,
+)
+
+
+def _rebuild(like: Any, values: Dict[str, torch.Tensor]) -> Any:
+    return tree_map_with_path_names(lambda name, _: values[name], like)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
+                    *, microbatches: int = 1, grad_clip: float = 1.0,
+                    compress: Optional[str] = None) -> Callable:
+    """``train_step(state, batch) -> (new state, metrics)``: metrics
+    ``loss``, ``grad_norm``, ``skipped`` (1.0 where the guard kept the
+    state), ``moe_aux`` and ``tokens``, 0-d tensors on the state's
+    device."""
+    if compress not in (None, "int8"):
+        raise ValueError(f"compress must be None or 'int8', got {compress!r}")
+    cast = cfg.dtype == "bfloat16"
+
+    def loss_fn(params, batch):
+        if cast:
+            params = tree_map(lambda p: p.to(torch.bfloat16)
+                              if p.dtype == torch.float32 else p, params)
+        return forward_train(params, batch, cfg, ctx)
+
+    def grad_fn(params, batch):
+        names, leaves = zip(*tree_leaves_with_names(params))
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            loss, metrics = loss_fn(_rebuild(params, dict(zip(names, live))),
+                                    batch)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for n, p, g in zip(names, live, grads)}
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                _rebuild(params, grads))
+
+    def compute_grads(params, batch):
+        if microbatches == 1:
+            return grad_fn(params, batch)
+        b = batch["tokens"].shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{microbatches} microbatches")
+        parts = {k: v.reshape((microbatches, b // microbatches)
+                              + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        g_sum = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        l_sum = torch.zeros((), dtype=torch.float32,
+                            device=batch["tokens"].device)
+        seen = []
+        for i in range(microbatches):
+            loss, metrics, g = grad_fn(params, {k: v[i]
+                                                for k, v in parts.items()})
+            g_ = by_name(g)
+            g_sum = tree_map_with_path_names(
+                lambda n, acc: acc + g_[n], g_sum)
+            l_sum = l_sum + loss
+            seen.append(metrics)
+        grads = tree_map(lambda g: g / microbatches, g_sum)
+        metrics = {k: torch.mean(torch.stack([m[k] for m in seen]))
+                   for k in seen[0]}
+        return l_sum / microbatches, metrics, grads
+
+    def train_step(state: Dict[str, Any], batch) -> tuple:
+        params, opt_state, step = state["params"], state["opt"], state["step"]
+        loss, metrics, grads = compute_grads(params, batch)
+        if compress == "int8":
+            from repro_torch.optim.compress import quantize_dequantize
+
+            grads = quantize_dequantize(grads)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        good = all_finite(grads) & torch.isfinite(loss)
+        new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+        del grads
+
+        def keep(new, old):
+            old_ = by_name(old)
+            return tree_map_with_path_names(
+                lambda n, x: torch.where(good, x, old_[n], out=x), new)
+
+        new_state = {"params": keep(new_params, params),
+                     "opt": keep(new_opt, opt_state), "step": step + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm,
+                           "skipped": (~good).to(torch.float32), **metrics}
+
+    return train_step

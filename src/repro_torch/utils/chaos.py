@@ -145,9 +145,12 @@ def _complete_snapshots(directory: Optional[str]) -> set:
 def _wait_or_kill(proc, delay, snapshot_dir, before, t0, timeout_s):
     """Wait for ``proc``; with a ``delay``, SIGKILL it that long after its
     launch at ``t0`` or, with ``snapshot_dir``, after its first snapshot
-    there that is not in ``before``. Returns (killed, seconds from the
-    launch to that snapshot or None); ``subprocess.TimeoutExpired`` past
-    ``timeout_s`` from the launch."""
+    there that is not in ``before``, and at the latest when a second new
+    snapshot completes (a worker whose snapshots come closer together
+    than the delay would otherwise be killed after its last one, leaving
+    its relaunch nothing to redo). Returns (killed, seconds from the
+    launch to the first snapshot or None); ``subprocess.TimeoutExpired``
+    past ``timeout_s`` from the launch."""
     def left():
         return timeout_s - (time.monotonic() - t0)
 
@@ -163,12 +166,21 @@ def _wait_or_kill(proc, delay, snapshot_dir, before, t0, timeout_s):
                 raise subprocess.TimeoutExpired(proc.args, timeout_s)
             time.sleep(_POLL_S)
         snap_s = round(time.monotonic() - t0, 3)
-        delay = min(delay, max(left(), 0.0))
-    try:
-        proc.wait(timeout=delay)
+        deadline = time.monotonic() + min(delay, max(left(), 0.0))
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                return False, snap_s
+            if len(_complete_snapshots(snapshot_dir) - before) > 1:
+                break
+            time.sleep(_POLL_S)
+    else:
+        try:
+            proc.wait(timeout=delay)
+            return False, snap_s
+        except subprocess.TimeoutExpired:
+            pass
+    if proc.poll() is not None:
         return False, snap_s
-    except subprocess.TimeoutExpired:
-        pass
     proc.send_signal(signal.SIGKILL)
     proc.wait()
     return True, snap_s

@@ -115,13 +115,20 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def random_bits(key, shape=()) -> torch.Tensor:
+def random_bits(key, shape=(), offset: int = 0) -> torch.Tensor:
     """uint32 bits (in int64) of ``jax.random.bits(key, shape)``: shape
-    ``key.shape[:-1] + shape``, one draw of ``shape`` per key."""
+    ``key.shape[:-1] + shape``, one draw of ``shape`` per key. With
+    ``offset``, the bits of the elements ``offset, offset + 1, ...`` (flat,
+    row-major) of a larger draw from the same key: a draw taken a block of
+    rows at a time equals the whole one. Flat indices stay below 2**32
+    (the counter's high word is 0)."""
     words = _key_tensor(key)
     shape = tuple(shape)
     n = int(np.prod(shape, dtype=np.int64))
-    counts = torch.arange(n, dtype=torch.int64,
+    if offset + n > 2**32:
+        raise ValueError(f"random_bits: elements up to {offset + n} need "
+                         "the counter's high word")
+    counts = torch.arange(offset, offset + n, dtype=torch.int64,
                           device=words.device).reshape(shape)
     lead = words.shape[:-1]
     k1 = words[..., 0].reshape(lead + (1,) * len(shape))
@@ -138,14 +145,14 @@ def _unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
     """f32 ``jax.random.uniform(key, shape, minval=, maxval=)``. XLA fuses
     the scale and shift into one fused multiply-add; the product of two
     f32 values is exact in f64, so the f64 multiply-add rounds once, as
-    the fused one does."""
+    the fused one does. ``offset`` as in ``random_bits``."""
     lo = _f32(minval)
     span = _f32(np.float32(maxval) - np.float32(minval))
-    unit = _unit(random_bits(key, shape)).to(torch.float64)
+    unit = _unit(random_bits(key, shape, offset)).to(torch.float64)
     return torch.clamp((unit * span + lo).to(torch.float32), min=lo)
 
 
@@ -163,9 +170,10 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     return (minval + off % span).to(torch.int32)
 
 
-def gumbel(key, shape=()) -> torch.Tensor:
-    """f32 ``jax.random.gumbel(key, shape)`` (mode "low")."""
-    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+def gumbel(key, shape=(), offset: int = 0) -> torch.Tensor:
+    """f32 ``jax.random.gumbel(key, shape)`` (mode "low"); ``offset`` as
+    in ``random_bits``."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0, offset)))
 
 
 def categorical(key, logits: torch.Tensor) -> torch.Tensor:

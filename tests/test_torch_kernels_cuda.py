@@ -718,3 +718,133 @@ def test_snapshotted_run_on_the_card_equals_the_plain_run(cuda_device,
         for f in a._fields:
             if f not in skip and getattr(a, f) is not None:
                 assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels' autograd Functions
+def _grads_of(fn, inputs, seed=0):
+    """Gradients of a fixed random projection of ``fn(*inputs)``."""
+    ins = [t.detach().clone().requires_grad_(t.is_floating_point())
+           for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=ins[0].device).manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=gen,
+                                        device=o.device)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, [t for t in ins if t.requires_grad])
+
+
+ATTN_GRAD_CASES = (
+    # (b, sq, sk, h, kv, hd, causal, window): gemma-like causal and
+    # windowed, and an unmasked cross-attention with Sq > Sk
+    (2, 256, 256, 4, 1, 256, True, 0),
+    (2, 256, 256, 4, 1, 256, True, 64),
+    (2, 96, 40, 4, 4, 64, False, 0),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES)
+def test_flash_attention_grads_match_plain_version(cuda_device, case, dtype):
+    """Gradients through ``FlashAttention`` (the kernel forward, the plain
+    vjp backward) against plain autograd through ``attention_torch``; the
+    backward launches no kernel."""
+    b, sq, sk, h, kv, hd, causal, window = case
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.tensor(rng.standard_normal(s, np.float32),
+                            device=cuda_device).to(dtype)
+               for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+    kernels.reset_launches()
+    got = _grads_of(lambda q, k, v: pfa.flash_attention(
+        q, k, v, causal=causal, window=window), (q, k, v))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attn"] == 1
+    want = _grads_of(lambda q, k, v: pfa.attention_torch(
+        q, k, v, causal=causal, window=window), (q, k, v))
+    tol = RTOL if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_scan_grads_match_plain_version(cuda_device):
+    """Gradients through ``MambaScan`` against plain autograd through
+    ``mamba_scan_torch``, in f32; the backward launches no kernel."""
+    rng = np.random.default_rng(7)
+    ba, s, di, ds = 2, 64, 256, 16
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal(shape, np.float32),
+                            device=cuda_device)
+
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=cuda_device).repeat(di, 1)
+    inputs = (t(ba, s, di), t(ba, s, di, scale=0.5), t(di, scale=0.1),
+              A, t(ba, s, ds), t(ba, s, ds), t(ba, s, di), t(di))
+    kernels.reset_launches()
+    got = _grads_of(pss.mamba_scan, inputs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == 1
+    want = _grads_of(pss.mamba_scan_torch, inputs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_raw_kernel_output_never_meets_autograd(cuda_device):
+    """The raw launches refuse tensors that need gradients, so no kernel
+    output reaches autograd without its ``Function``."""
+    q = torch.randn(1, 16, 2, 16, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 16, 1, 16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="gradients"):
+        pfa._launch(q, k, k, True, 0)
+    x = torch.randn(1, 8, 16, device=cuda_device, requires_grad=True)
+    A = -torch.ones(16, 4, device=cuda_device)
+    B = torch.randn(1, 8, 4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="gradients"):
+        pss._launch_scan(x, x.detach().abs(), A, B, B)
+    with pytest.raises(RuntimeError, match="gradients"):
+        pss.selective_scan(x, x.detach().abs(), A, B, B)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Two ``make_train_step`` steps of gemma3-1b at reduced widths with
+    a body and a tail, f32: the card (flash_attn forward, plain vjp)
+    against the CPU (plain versions): loss, grad norm and every param
+    within 1e-5; 8 layers' flash_attn launches a forward and 6 more for
+    remat's recompute of the body's superblock."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.optim import AdamW
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves_with_names, tree_map
+
+    cfg = dataclasses.replace(reduced(get_arch("gemma3-1b")), n_layers=8)
+    opt = AdamW(lr=1e-3, eps=1e-3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = create_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                "cpu")
+        st = tree_map(lambda x: x.to(dev), st)
+        step = make_train_step(cfg, opt)
+        ms = []
+        for i in range(2):
+            b = lm_batch_at(i, vocab=cfg.vocab, batch=2, seq_len=64,
+                            device=dev)
+            kernels.reset_launches()
+            st, m = step(st, b)
+            ms.append({k: float(v) for k, v in m.items()})
+            if dev == "cuda":
+                assert kernels.LAUNCHES["flash_attn"] == 8 + 6
+        out[dev] = (ms, dict(tree_leaves_with_names(st["params"])))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5)
+    for n, a in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][n].cpu(), a, rtol=1e-5,
+                                   atol=1e-5 * float(a.abs().max()))

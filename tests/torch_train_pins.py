@@ -1,0 +1,106 @@
+"""Print the LM training pins for ``repro_torch.configs.acceptance``: what
+the JAX package gives on the CPU.
+
+- ``PINNED_TRAIN``: ``acceptance.train_summary`` of TRAIN_STEPS steps of
+  the JAX package's ``make_train_step`` (jitted, ``ShardCtx(enabled=False,
+  attention_impl="pallas")``: the flash-attention kernel in interpret
+  mode) with ``AdamW(lr=cosine_warmup(TRAIN_LR, TRAIN_WARMUP,
+  TRAIN_STEPS))`` on gemma3-1b at full width in f32
+  (``acceptance.train_config``), weights ``seeded_numpy_params(cfg,
+  LM_SEED)``, batches from the JAX package's ``lm_batch_at``.
+- With ``--port``, the same run on the port on the CPU afterwards, and its
+  ``acceptance.train_distance`` from the pins (the measured distance that
+  ``acceptance.TRAIN_TOLS`` is set from), on standard error.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_train_pins.py [--port]
+
+Not a test module: at full width each package takes ~25 GB and ~5 min on
+an 8-core CPU. It prints the assignment to paste into ``acceptance.py``
+on standard output. ``tests/test_torch_train_launch.py`` runs
+``jax_train_summary`` and the port at reduced widths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_arch as jax_get_arch
+from repro.data.synth_lm import lm_batch_at
+from repro.optim import AdamW, cosine_warmup
+from repro.sharding.ctx import ShardCtx
+from repro.train.train_step import make_train_step
+
+from repro_torch.configs import acceptance as A
+from repro_torch.utils.tree import tree_leaves_with_names
+
+CTX = ShardCtx(enabled=False, attention_impl="pallas")
+
+
+def jax_config(dtype: str = "float32"):
+    """The JAX package's config of ``acceptance.train_config``."""
+    return dataclasses.replace(jax_get_arch(A.LM_ARCH), dtype=dtype)
+
+
+def jax_train_summary(jcfg, tree: dict, *, steps: int = A.TRAIN_STEPS,
+                      batch: int = A.TRAIN_BATCH,
+                      seq: int = A.TRAIN_SEQ) -> dict:
+    """``acceptance.train_summary`` of the training case on the JAX
+    package with config ``jcfg``, from the numpy weights ``tree`` (emptied
+    as they are carried over, to free them)."""
+    params0 = dict(tree_leaves_with_names(tree))
+    params0 = {n: params0[n].copy() for n in A.TRAIN_LEAVES}
+    params = jax.tree.map(jnp.asarray, tree)
+    tree.clear()
+    gc.collect()
+    opt = AdamW(lr=cosine_warmup(A.TRAIN_LR, A.TRAIN_WARMUP, steps))
+    state = {"params": params, "opt": opt.init(params),
+             "step": jnp.int32(0)}
+    del params
+    step = jax.jit(make_train_step(jcfg, opt, CTX), donate_argnums=(0,))
+    metrics, tokens = [], []
+    for i in range(steps):
+        b = lm_batch_at(i, vocab=jcfg.vocab, batch=batch, seq_len=seq,
+                        seed=A.TRAIN_DATA_SEED)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        tokens.append(np.asarray(b["tokens"]))
+        print(f"jax step {i}: {time.perf_counter() - t0:.1f} s "
+              f"{metrics[-1]}", file=sys.stderr)
+    named = dict(tree_leaves_with_names(jax.device_get(state["params"])))
+    return A.train_summary(metrics, tokens, params0,
+                           {n: named[n] for n in A.TRAIN_LEAVES})
+
+
+def literal(got: dict) -> str:
+    return "PINNED_TRAIN = " + json.dumps(got, indent=4)
+
+
+def main(argv) -> None:
+    from repro_torch.models import seeded_numpy_params
+
+    cfg = A.train_config()
+    pins = jax_train_summary(jax_config(),
+                             seeded_numpy_params(cfg, A.LM_SEED))
+    print(literal(pins), flush=True)
+    if "--port" in argv:
+        gc.collect()
+        t0 = time.perf_counter()
+        got, _, _ = A.run_train(cfg, seeded_numpy_params(cfg, A.LM_SEED),
+                                "cpu")
+        print(json.dumps({"port_s": time.perf_counter() - t0,
+                          "port": got,
+                          "distance": A.train_distance(got, pins)}),
+              file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
