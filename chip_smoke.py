@@ -286,6 +286,20 @@ and no result line:
              tokens/s, peak memory) and one profiled (CUDA kernels, the
              device's busy share).
 
+22. train_mesh  the training case of phase train (``PINNED_TRAIN``:
+             gemma3-1b at full width, f32, B 2, 1024 tokens, 3 AdamW
+             steps) through ``launch.train``'s mesh path in
+             ``spawn_world`` ranks on cuda:0: gloo (1, 2) (tensor
+             parallel: 2 local q heads, the one KV head whole), gloo (2,
+             1) (FSDP), nccl (1, 1); each world within ``TRAIN_TOLS`` on
+             every rank, 26 + 24 flash_attn launches a step on every
+             rank; the (1, 2) world's state saved and restored onto (2,
+             1) and (1, 1), each bit for bit; on (1, 1) the bf16 step
+             timed beside phase train's (ms, CUDA kernels, busy share,
+             peak memory, collectives and their bytes). One worker
+             (``train_mesh_run``) started after phase thermal and joined
+             before phase durable; checked after phase train.
+
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
 what-ifs each run in a worker process of their own on the card
@@ -310,6 +324,7 @@ without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -476,6 +491,22 @@ TRAIN_BF16_LOSS_TOL = 2e-4
 TRAIN_BF16_NORM_TOL = 1e-1
 TRAIN_BF16_LEAF_TOL = 1e-1
 TRAIN_BF16_FAULTS = ("window dropped", "attention detached")
+# phase train_mesh: the training case of phase train (PINNED_TRAIN: f32,
+# B 2, 1,024 tokens, 3 AdamW steps, the weights drawn once) through
+# ``launch.train``'s mesh path in ``spawn_world`` ranks on cuda:0: a gloo
+# world of 2 trains on (1, 2), tensor parallel with 2 local q heads and
+# the one KV head whole, then on (2, 1), FSDP; an nccl world of 1 on (1,
+# 1). The first mesh's state is saved and restored onto the others.
+# The nccl world then times TRAIN_MESH_BF16 = (warm-up, timed) bf16 steps
+# at TRAIN_BF16_BATCH on its (1, 1) mesh, one more under the profiler and
+# one under ``CommDebugMode``. All in one worker (``start_alone``) beside
+# TRAIN_MESH_BESIDE, joined before phase durable (whose LM pins' workers
+# need the card's memory).
+TRAIN_MESH_WORLDS = (("gloo", ((1, 2), (2, 1))), ("nccl", ((1, 1),)))
+TRAIN_MESH_BF16 = (1, 3)
+TRAIN_MESH_TIMEOUT_S = 1000     # the worker (472 s alone on an H100)
+TRAIN_MESH_BESIDE = ("phases virtual_cloud, fleet, mesh, rl, macro, faults "
+                     "and serving")
 # the fleet phase's hours run beside these workers
 BESIDE_GRID = "phase mesh's worlds and phase virtual_cloud's what-ifs"
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
@@ -1943,6 +1974,347 @@ def train(torch, np, pinned: dict) -> dict:
             "bf16_ms_per_step": ms, "remat_split": split}
 
 
+def _numpy_like(cfg):
+    """The parameter tree of ``cfg`` as zero-stride numpy arrays of the
+    leaves' shapes: ``checkpoint.restore``'s template for numpy leaves,
+    with no memory behind it."""
+    import numpy as np
+
+    from repro_torch.models import spec as S
+    from repro_torch.models.init import _unflatten
+
+    zero = np.zeros((), np.float32)
+    specs = S.model_param_specs(cfg)
+    return _unflatten(specs, {n: np.broadcast_to(zero, shape)
+                              for n, shape in S.leaves_with_names(specs)})
+
+
+def comm_bytes_mode():
+    """A ``CommDebugMode`` that also sums each collective's input bytes by
+    operation (``.bytes``): what a rank hands its collectives."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class Mode(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            packet = func._overloadpacket
+            if packet in getattr(self, "comm_registry", ()):
+                first = args[0] if args else None
+                tensors = first if isinstance(first, (list, tuple)) \
+                    else [first]
+                self.bytes[str(packet)] = self.bytes.get(str(packet), 0) + sum(
+                    t.numel() * t.element_size() for t in tensors
+                    if hasattr(t, "numel"))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Mode()
+
+
+def _counts(mode) -> dict:
+    return {str(k): int(v) for k, v in mode.get_comm_counts().items()}
+
+
+def _saved_equal(torch, state, directory: str) -> dict:
+    """This rank's shard of every leaf of ``state`` against its block of
+    the checkpoint's file in ``directory``, cut here by the leaf's
+    placements (``numpy.array_split`` of the mapped file in mesh order,
+    not DTensor's own cut; only the block is read, and no collective
+    runs), bit for bit: the leaves that differ and the bytes compared."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.utils.tree import tree_leaves_with_names
+
+    differ, nbytes = [], 0
+    for name, x in tree_leaves_with_names(state):
+        block = np.load(os.path.join(directory, name.replace("/", "__")
+                                     + ".npy"), mmap_mode="r")
+        if isinstance(x, DTensor):
+            mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+            for i, p in enumerate(x.placements):
+                if isinstance(p, Shard):
+                    block = np.array_split(block, mesh.size(i),
+                                           axis=p.dim)[coord[i]]
+            x = x.to_local()
+        block = torch.from_numpy(np.array(block))
+        nbytes += block.numel() * block.element_size()
+        if x.shape != block.shape or not torch.equal(x, block.to(x.device)):
+            differ.append(name)
+    return {"leaves_differing": differ, "bytes_compared": nbytes}
+
+
+def _train_mesh_bf16(torch, np, mesh) -> dict:
+    """TRAIN_MESH_BF16's bf16 steps of phase train's case on ``mesh`` (a
+    (1, 1) mesh): ms a step (CUDA events), flash_attn launches a step, the
+    CUDA kernels and device busy share of a profiled step, the
+    collectives and their bytes of one more step, the peak memory."""
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import acceptance as A
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.sharding.ctx import make_ctx
+    from repro_torch.sharding.specs import batch_pspecs, distribute
+    from repro_torch.tools.profile_tick import device_summary
+    from repro_torch.train import (
+        create_train_state,
+        make_train_step,
+        train_state_pspecs,
+    )
+
+    warmup, timed = TRAIN_MESH_BF16
+    n = warmup + timed + 2
+    cfg = A.train_config("bfloat16")
+    opt = A.train_optimizer(n)
+    ctx = make_ctx(False, tp_size=1, dp_size=1)
+    state = distribute(create_train_state(
+        cfg, opt, torch.Generator("cuda").manual_seed(0), "cuda"),
+        train_state_pspecs(cfg, ctx, opt, mesh), mesh)
+    bps = batch_pspecs(cfg, ShapeConfig("bf16", A.TRAIN_SEQ,
+                                        TRAIN_BF16_BATCH, "train"), ctx)
+    batches = [distribute(lm_batch_at(
+        i, vocab=cfg.vocab, batch=TRAIN_BF16_BATCH, seq_len=A.TRAIN_SEQ,
+        seed=A.TRAIN_DATA_SEED, device="cuda"), bps, mesh) for i in range(n)]
+    step = make_train_step(cfg, opt, ctx)
+    for b in batches[:warmup]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms, launches, losses = [], [], []
+    for b in batches[warmup:warmup + timed]:
+        kernels.reset_launches()
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        launches.append(kernels.LAUNCHES["flash_attn"])
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step(state, batches[-2])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    summary = device_summary(prof, wall_us, 1, 10)
+    with comm_bytes_mode() as comm:
+        state, m = step(state, batches[-1])
+        torch.cuda.synchronize()
+    del state, batches
+    torch.cuda.empty_cache()
+    return {"batch": TRAIN_BF16_BATCH, "ms_per_step": float(np.median(ms)),
+            "ms_per_step_all": ms, "flash_attn_per_step": launches,
+            "losses": losses, "peak_memory_gb": peak,
+            "collectives_per_step": _counts(comm),
+            "collective_bytes_per_step": comm.bytes,
+            **{k: summary[k] for k in ("cuda_kernels", "device_us",
+                                       "device_busy_share")}}
+
+
+def _train_mesh_one(torch, fmesh, work: str, init, data: int, model: int,
+                    saved: str) -> dict:
+    """One mesh of a phase train_mesh world on this rank:
+    ``launch.train.run`` on the (data, model) mesh from the weights
+    ``init`` (the launcher's ``--model-axis``, its mesh path); the pinned
+    summary of the run, its launches, staged collectives and peak memory;
+    the mesh named ``saved`` writes its state at the end (``--ckpt``) and
+    checks its shards against the files, the others restore that
+    checkpoint onto their own mesh and check theirs."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.configs import acceptance as A
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import STAGED, make_mesh_for
+    from repro_torch.optim.base import plain
+    from repro_torch.sharding.ctx import make_ctx
+    from repro_torch.sharding.specs import named_shardings
+    from repro_torch.train import train_state_pspecs
+    from repro_torch.utils.tree import tree_leaves_with_names, tree_map
+
+    name = f"{fmesh.backend} ({data}, {model})"
+    cfg = A.train_config()
+    named = dict(tree_leaves_with_names(init))
+    params0 = {n: named[n] for n in A.TRAIN_LEAVES}
+    directory = os.path.join(work, "saved")
+    argv = ["--arch", A.LM_ARCH, "--dtype", cfg.dtype,
+            "--steps", str(A.TRAIN_STEPS),
+            "--batch", str(A.TRAIN_BATCH), "--seq", str(A.TRAIN_SEQ),
+            "--lr", str(A.TRAIN_LR), "--warmup", str(A.TRAIN_WARMUP),
+            "--seed", str(A.TRAIN_DATA_SEED), "--log-every", "1",
+            "--model-axis", str(model)]
+    if name == saved:
+        argv += ["--ckpt", directory, "--ckpt-every", str(A.TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    staged = dict(STAGED)
+    t0 = time.perf_counter()
+    history, state = T.run(T.parse_args(argv), init=init)
+    torch.cuda.synchronize()
+    rec = {"world": name, "rank": fmesh.rank,
+           "run_s": time.perf_counter() - t0,
+           "launches": dict(kernels.LAUNCHES),
+           "staged": {k: STAGED[k] - staged[k] for k in STAGED},
+           "tok_per_s": [h["tok_per_s"] for h in history],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    tokens = [lm_batch_at(i, vocab=cfg.vocab, batch=A.TRAIN_BATCH,
+                          seq_len=A.TRAIN_SEQ, seed=A.TRAIN_DATA_SEED,
+                          device="cuda")["tokens"].cpu().numpy()
+              for i in range(A.TRAIN_STEPS)]
+    named = dict(tree_leaves_with_names(state["params"]))
+    rec["summary"] = A.train_summary(
+        history, tokens, params0,
+        {n: plain(named[n]).cpu().numpy() for n in A.TRAIN_LEAVES})
+    del named
+    step = latest_step(directory)
+    t0 = time.perf_counter()
+    if name != saved:
+        like = tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                              device="meta"), state)
+        del state
+        mesh = make_mesh_for(model_axis=model)
+        ctx = make_ctx(False, tp_size=model, dp_size=data)
+        state = restore(directory, step, like, shardings=named_shardings(
+            train_state_pspecs(cfg, ctx, A.train_optimizer(), mesh), mesh))
+        rec["restored_placements"] = {
+            n: str(state["params"][n].placements) for n in ("emb",)}
+    rec["saved"] = _saved_equal(torch, state,
+                                os.path.join(directory, f"step_{step:010d}"))
+    rec["check_s"] = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_mesh_world(fmesh, work: str, meshes: tuple, saved: str) -> dict:
+    """One rank of a phase train_mesh world: the weights under
+    ``work/init`` read once, then each (data, model) of ``meshes`` in turn
+    (``_train_mesh_one``); under nccl the bf16 steps on (1, 1) after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import acceptance as A
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.utils.device import exact_matmul
+
+    exact_matmul()
+    t0 = time.perf_counter()
+    init = restore(os.path.join(work, "init"), 0,
+                   _numpy_like(A.train_config()))
+    out = {"load_s": time.perf_counter() - t0}
+    for data, model in meshes:
+        t0 = time.perf_counter()
+        out[data, model] = _train_mesh_one(torch, fmesh, work, init, data,
+                                           model, saved)
+        out[data, model]["wall_s"] = time.perf_counter() - t0
+    del init
+    if fmesh.backend == "nccl":
+        out["bf16"] = _train_mesh_bf16(torch, np, make_mesh_for(model_axis=1))
+    return out
+
+
+def train_mesh_run(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="train_mesh"``) of phase
+    train_mesh: the weights drawn once and written under
+    ``build/train_mesh/init``, then each world of TRAIN_MESH_WORLDS in
+    turn (``train_mesh_world`` on every rank), the first mesh saving its
+    state for the others. Returns each mesh's ranks' records and seconds,
+    and each world's."""
+    import shutil
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import acceptance as A
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import seeded_numpy_params
+
+    work = ROOT / "build" / "train_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    save(str(work / "init"), 0, seeded_numpy_params(A.train_config(),
+                                                     A.LM_SEED))
+    out = {"weights_s": time.perf_counter() - t0, "worlds": {},
+           "world_s": {}}
+    first = TRAIN_MESH_WORLDS[0]
+    saved = "{} ({}, {})".format(first[0], *first[1][0])
+    for backend, meshes in TRAIN_MESH_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_mesh_world, max(d * m for d, m in meshes),
+                            backend=backend, args=(str(work), meshes, saved),
+                            timeout=TRAIN_MESH_TIMEOUT_S)
+        out["world_s"][backend] = time.perf_counter() - t0
+        for data, model in meshes:
+            out["worlds"][f"{backend} ({data}, {model})"] = {
+                "ranks": [r[data, model] for r in ranks],
+                "wall_s": ranks[0][data, model]["wall_s"],
+                "load_s": ranks[0]["load_s"]}
+        if "bf16" in ranks[0]:
+            out["bf16"] = ranks[0]["bf16"]
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+RANK_KEYS = ("rank", "run_s", "check_s", "tok_per_s",
+             "peak_memory_gb", "staged", "saved", "restored_placements",
+             "launches")
+
+
+def train_mesh(torch, result: dict, trained: dict, wall_s: float) -> dict:
+    """Phase train_mesh's checks of the worker's ``result``: every rank of
+    every world within TRAIN_TOLS of PINNED_TRAIN (one summary on every
+    rank), ``train_launches`` flash_attn launches a step on every rank, the
+    saved state bit for bit in each world (as saved, and restored onto the
+    others' meshes), finite bf16 losses with the launches of a step; the
+    bf16 step on (1, 1) beside phase train's unsharded one (``trained``).
+    Returns the launches a step by world for the kernels line."""
+    from repro_torch.configs import acceptance as A
+
+    want = train_launches(A.train_config())["flash_attn"]
+    per_step = {}
+    for name, world in result["worlds"].items():
+        ranks = world["ranks"]
+        report = A.check_train(ranks[0]["summary"])
+        if any(r["summary"] != ranks[0]["summary"] for r in ranks):
+            raise AssertionError(f"train_mesh {name}: the ranks' summaries "
+                                 "differ")
+        launches = [r["launches"].get("flash_attn", 0) / A.TRAIN_STEPS
+                    for r in ranks]
+        per_step[name] = launches
+        emit("train_mesh", world=name, wall_s=world["wall_s"],
+             load_s=world["load_s"],
+             loss=ranks[0]["summary"]["loss"],
+             grad_norm=ranks[0]["summary"]["grad_norm"],
+             flash_attn_per_step_per_rank=launches,
+             expected_per_step=want, **report,
+             ranks=[{k: r[k] for k in RANK_KEYS if k in r} for r in ranks])
+        if any(n != want for n in launches):
+            raise AssertionError(f"train_mesh {name}: flash_attn launches a "
+                                 f"step {launches}, expected {want}")
+        bad = [r["saved"]["leaves_differing"] for r in ranks
+               if r["saved"]["leaves_differing"]]
+        if bad:
+            raise AssertionError(f"train_mesh {name}: the saved state "
+                                 f"differs in {bad[0][:5]}")
+    bf16 = result["bf16"]
+    emit("train_mesh", step="bf16", mesh="(1, 1)", backend="nccl",
+         unsharded_ms_per_step=trained["bf16_ms_per_step"],
+         weights_s=result["weights_s"], world_s=result["world_s"],
+         worker_wall_s=wall_s,
+         in_worker_beside=TRAIN_MESH_BESIDE, **bf16)
+    if not all(math.isfinite(x) for x in bf16["losses"]) or any(
+            n != want for n in bf16["flash_attn_per_step"]):
+        raise AssertionError(f"train_mesh (bf16): losses {bf16['losses']}, "
+                             f"launches {bf16['flash_attn_per_step']}")
+    return per_step
+
+
 def flash_attn_bf16_build(build) -> dict:
     """The bf16 flash_attn kernels run on the tensor cores: ``HGMMA`` (the
     SASS of wgmma) in the library's code, and ptxas reports no spill for
@@ -2116,7 +2488,9 @@ def start_alone(torch, runs: list, limit: int | None = None) -> dict:
         torch.save(run, src)
         paths.append((src, out, log))
     handle = {"paths": paths, "pending": list(range(len(runs))),
-              "live": {}, "limit": limit or len(runs), "wall_s": {}}
+              "live": {}, "limit": limit or len(runs), "wall_s": {},
+              "timeouts": [run.get("timeout_s", ALONE_TIMEOUT_S)
+                           for run in runs]}
     poll_alone(handle)
     return handle
 
@@ -2132,13 +2506,14 @@ def poll_alone(handle: dict) -> bool:
         with open(log, "w") as f:
             live[i] = (subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--alone",
-                 str(src), str(out)], stdout=f, stderr=subprocess.STDOUT),
+                 str(src), str(out)], stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True),
                 time.perf_counter(), time.time())
     for i, (proc, t0, started) in list(live.items()):
         if proc.poll() is None:
-            if time.perf_counter() - t0 > ALONE_TIMEOUT_S:
-                raise AssertionError(f"alone run {i}: over "
-                                     f"{ALONE_TIMEOUT_S} s")
+            limit = handle["timeouts"][i]
+            if time.perf_counter() - t0 > limit:
+                raise AssertionError(f"alone run {i}: over {limit} s")
             continue
         del live[i]
         # from its start to its result file's last write, however late
@@ -2153,9 +2528,15 @@ def poll_alone(handle: dict) -> bool:
 
 
 def stop_alone(handle: dict) -> None:
-    """Kill any live worker of the batch and wait for it."""
+    """Kill any live worker of the batch, with the processes it started
+    (its session), and wait for it."""
+    import signal
+
     for proc, _, _ in handle["live"].values():
-        proc.kill()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         proc.wait()
     handle["live"].clear()
     handle["pending"].clear()
@@ -2216,6 +2597,9 @@ def alone_main(src: str, out: str) -> int:
         return 0
     if run.get("entry") == "train_pins":
         torch.save(train_pins(torch), out)
+        return 0
+    if run.get("entry") == "train_mesh":
+        torch.save(train_mesh_run(torch), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
@@ -4181,6 +4565,13 @@ def main() -> int:
                                jobs, "thermal")
     launches["rack_thermal"] = per_tick[THERMAL_CASES[0]][0]["rack_thermal"]
 
+    # 22. train_mesh: its worlds run in a worker of their own, started here
+    # (after the timed hours of phases main and thermal) and joined before
+    # phase durable
+    mesh_train = start_alone(torch, [{"entry": "train_mesh",
+                                      "timeout_s": TRAIN_MESH_TIMEOUT_S}])
+    atexit.register(stop_alone, mesh_train)   # on a failure before its join
+
     # 6. fleet: the replay tick batched over a replica axis; phase 16's
     # what-ifs and phase 15's worlds run in workers beside its hours
     t0 = time.perf_counter()
@@ -4247,6 +4638,14 @@ def main() -> int:
     # the pins of phases serve_hybrid, serve_moe, serve_xlstm,
     # serve_whisper and serve_vlm (their numpy weights drawn in the
     # workers) run beside phases durable and determinism
+    t0 = time.perf_counter()
+    try:
+        mesh_trained = join_alone(torch, mesh_train)[0]
+    finally:
+        stop_alone(mesh_train)
+    emit("train_mesh", step="joined", worker_wall_s=mesh_train["wall_s"][0],
+         waited_s=time.perf_counter() - t0)
+
     lm_cases, lm_runs = lm_pins_runs()
     lm = {}
     try:
@@ -4300,6 +4699,13 @@ def main() -> int:
     trained = train(torch, np, pins[acceptance.TRAIN_CASE])
     emit("train", step="done", seconds=time.perf_counter() - t0)
 
+    # 22. train_mesh (continued): the worlds' runs against the pins, the
+    # bf16 step on (1, 1) beside phase train's
+    t0 = time.perf_counter()
+    mesh_launches = train_mesh(torch, mesh_trained, trained,
+                               mesh_train["wall_s"][0])
+    emit("train_mesh", step="done", seconds=time.perf_counter() - t0)
+
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
     # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
@@ -4344,6 +4750,7 @@ def main() -> int:
         # counted, and the kernels' autograd Functions against the plain
         # versions' autograd (the wiring: the backward is the plain vjp)
         **({"launches_per_train_step": trained["launches_per_train_step"],
+            "launches_per_train_mesh_step_per_rank": mesh_launches,
             "backward": GRAD_BACKWARD,
             "gradient": {c: {k: v for k, v in record[
                 "flash_attn", "gradient", c].items() if k in GRAD_KEYS}

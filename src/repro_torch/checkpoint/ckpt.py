@@ -27,6 +27,14 @@ other writes.
 Missing or corrupt manifests, missing leaf files, and shape or dtype
 mismatches raise ``CheckpointError`` naming the artifact.
 
+On an LM mesh (DTensor leaves, ``sharding.specs``) ``save`` and
+``AsyncCheckpointer.save`` gather each leaf whole (every rank takes part),
+rank 0 reads it off the card and writes the JAX package's format, so the
+checkpoint is the single-process one; ``restore(..., shardings=)`` reads
+each leaf whole on every rank and keeps the rank's shard of it, placed by
+that tree of ``sharding.specs.NamedSharding`` (any mesh's: elastic
+restore), bit for bit.
+
 On a fleet mesh (``launch.mesh.FleetMesh``) ``save_sharded`` is a
 gather-to-host save, as the JAX package's is: the ranks all-gather their
 blocks of a replica-batched tree (``sharding.specs.gather_fleet``), rank
@@ -110,11 +118,52 @@ def _write(directory: str, step: int, host, extra_meta, keep: int) -> str:
     return final
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _gathered(tree: Any):
+    """(the host tree to write, or None on a rank that does not write): a
+    tree with DTensor leaves is gathered leaf by leaf on every rank and
+    drained on rank 0; any other tree drained as it is."""
+    if not any(_is_dtensor(x) for _, x in tree_leaves_with_names(tree)):
+        return drain(tree)
+    import torch.distributed as dist
+
+    writer = dist.get_rank() == 0
+
+    def one(x):
+        if not _is_dtensor(x):
+            return x if writer else None
+        full = x.full_tensor()
+        return drain(full) if writer else None
+
+    host = tree_map_with_path_names(lambda _, x: one(x), tree)
+    return host if writer else None
+
+
 def save(directory: str, step: int, tree: Any, *,
          extra_meta: Optional[Dict[str, Any]] = None, keep: int = 3) -> str:
     """Write ``tree`` as checkpoint ``step`` of ``directory``, atomically;
-    keep the newest ``keep`` checkpoints. Returns the checkpoint's path."""
-    return _write(directory, step, drain(tree), extra_meta, keep)
+    keep the newest ``keep`` checkpoints. Returns the checkpoint's path.
+    A tree of DTensors: call it on every rank (rank 0 writes, the others
+    wait for it)."""
+    host = _gathered(tree)
+    path = _step_dir(directory, step)
+    if host is not None:
+        path = _write(directory, step, host, extra_meta, keep)
+    _mesh_barrier(tree)
+    return path
+
+
+def _mesh_barrier(tree: Any) -> None:
+    """Every rank waits here when ``tree`` holds DTensors."""
+    if any(_is_dtensor(x) for _, x in tree_leaves_with_names(tree)):
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def _gc(directory: str, keep: int) -> None:
@@ -168,11 +217,17 @@ def _as_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(directory: str, step: int, like: Any) -> Any:
+def restore(directory: str, step: int, like: Any, *,
+            shardings: Any = None) -> Any:
     """Checkpoint ``step`` of ``directory`` in the structure of ``like``
-    (see the module docstring for where each leaf lands)."""
+    (see the module docstring for where each leaf lands). ``shardings``: a
+    tree of ``sharding.specs.NamedSharding`` matching ``like``; each leaf
+    then comes back a DTensor so placed (on ``like``'s leaf's device, or
+    the mesh's for a ``meta`` one), read whole and cut to this rank's
+    shard one leaf at a time."""
     path = _step_dir(directory, step)
     meta = read_meta(directory, step)
+    placed = dict(tree_leaves_with_names(shardings)) if shardings else {}
 
     def load(name, leaf):
         fname = _file(name)
@@ -209,9 +264,25 @@ def restore(directory: str, step: int, like: Any) -> Any:
                     f"checkpoint leaf {name} dtype {dtype_name} != "
                     f"expected {leaf.dtype}", field=fname)
             out = out.to(leaf.dtype)
+        if name in placed:
+            return _placed(out, leaf, placed[name])
         return to_device(out, leaf.device)
 
     return tree_map_with_path_names(load, like)
+
+
+def _placed(full: torch.Tensor, leaf, sharding):
+    """``full`` as a DTensor on ``sharding``'s mesh and placements, this
+    rank keeping its shard: no rank's data moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    device = leaf.device
+    if device.type == "meta":
+        mesh_type = sharding.mesh.device_type
+        device = torch.device(mesh_type, torch.cuda.current_device()) \
+            if mesh_type == "cuda" else torch.device(mesh_type)
+    return distribute_tensor(to_device(full, device), sharding.mesh,
+                             sharding.placements, src_data_rank=None)
 
 
 def save_sharded(directory: str, step: int, tree: Any, mesh, *,
@@ -266,8 +337,12 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any, *,
              extra_meta: Optional[Dict[str, Any]] = None) -> None:
+        """A tree of DTensors: call it on every rank; rank 0 gathers and
+        writes, the others return once the gathers are done."""
         self.wait()
-        host = drain(tree)
+        host = _gathered(tree)
+        if host is None:
+            return
 
         def work():
             self.last_path = _write(self.directory, step, host, extra_meta,

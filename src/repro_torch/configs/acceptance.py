@@ -1568,21 +1568,23 @@ def train_config(dtype: str = "float32") -> ModelConfig:
     return lm_config(dtype)
 
 
-def train_optimizer(steps: int = TRAIN_STEPS):
-    """The port's AdamW of the training case (``repro_torch.optim``)."""
-    from repro_torch.optim import AdamW, cosine_warmup
+def train_optimizer(steps: int = TRAIN_STEPS, name: str = "adamw"):
+    """The port's optimizer of the training case (``repro_torch.optim``):
+    AdamW, or ``name`` ("adafactor"), on its schedule."""
+    from repro_torch.optim import cosine_warmup, get_optimizer
 
-    return AdamW(lr=cosine_warmup(TRAIN_LR, TRAIN_WARMUP, steps))
+    return get_optimizer(name, lr=cosine_warmup(TRAIN_LR, TRAIN_WARMUP,
+                                                steps))
 
 
 def train_summary(metrics: list, tokens: list, params0: dict,
-                  params: dict) -> dict:
+                  params: dict, leaves=TRAIN_LEAVES) -> dict:
     """The pinned form of a training run: ``metrics`` one dict of floats a
     step, ``tokens`` each step's (B, S) token ids, ``params0`` and
-    ``params`` the TRAIN_LEAVES (name -> f32 array) before the first and
-    after the last step."""
-    leaves = {}
-    for name in TRAIN_LEAVES:
+    ``params`` the ``leaves`` (name -> f32 array; TRAIN_LEAVES by
+    default) before the first and after the last step."""
+    names, leaves = leaves, {}
+    for name in names:
         p0 = np.asarray(params0[name], np.float64)
         p = np.asarray(params[name], np.float64)
         leaves[name] = {"sum": float(p.sum()),
@@ -1605,7 +1607,7 @@ def train_distance(got: dict, pins: dict) -> dict:
             abs(got["leaves"][n][kind] - pins["leaves"][n][kind])
             / abs(pins["leaves"][n]["sum" if kind == "sum"
                                     else "delta_abs_sum"])
-            for n in TRAIN_LEAVES)
+            for n in pins["leaves"])
     return out
 
 
@@ -1636,12 +1638,16 @@ def check_train(got: dict, pins: dict | None = None,
 
 def run_train(cfg: ModelConfig, tree: dict, device, *,
               steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
-              seq: int = TRAIN_SEQ) -> tuple:
+              seq: int = TRAIN_SEQ, optimizer: str = "adamw", mesh=None,
+              leaves=TRAIN_LEAVES) -> tuple:
     """The training case on the port: the f32 numpy weights ``tree`` (the
     JAX layout) as a train state on ``device``, ``steps`` steps of
-    ``train_optimizer``'s ``make_train_step`` on ``lm_batch_at``. Returns
-    (``train_summary``, the kernel launches of each step, each step's
-    seconds up to its metrics on the host)."""
+    ``train_optimizer``'s ``make_train_step`` on ``lm_batch_at``. With a
+    (data, model) ``mesh`` (``launch.mesh.make_mesh_for``) the state and
+    the batches are DTensors on it, by ``train_state_pspecs`` and
+    ``batch_pspecs``, and the step runs sharded. Returns
+    (``train_summary`` of ``leaves``, the kernel launches of each step,
+    each step's seconds up to its metrics on the host)."""
     import time
 
     import torch
@@ -1649,23 +1655,44 @@ def run_train(cfg: ModelConfig, tree: dict, device, *,
     from repro_torch import kernels
     from repro_torch.data.synth_lm import lm_batch_at
     from repro_torch.interop import tree_from_numpy
+    from repro_torch.optim.base import plain
+    from repro_torch.sharding.ctx import UNSHARDED
     from repro_torch.train import make_train_step
     from repro_torch.utils.tree import tree_leaves_with_names
 
-    opt = train_optimizer(steps)
+    opt = train_optimizer(steps, optimizer)
     params = tree_from_numpy(tree, device)
     named = dict(tree_leaves_with_names(params))
-    params0 = {n: named[n].cpu().numpy().copy() for n in TRAIN_LEAVES}
+    params0 = {n: named[n].cpu().numpy().copy() for n in leaves}
     del named
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     del params
-    step = make_train_step(cfg, opt)
+    ctx, put = UNSHARDED, lambda tree, specs: tree
+    if mesh is not None:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.sharding.ctx import make_ctx
+        from repro_torch.sharding.specs import (
+            batch_pspecs,
+            distribute,
+            train_state_pspecs,
+        )
+
+        ctx = make_ctx(False, tp_size=mesh["model"].size(),
+                       dp_size=mesh["data"].size())
+        state = distribute(state, train_state_pspecs(cfg, ctx, opt, mesh),
+                           mesh)
+        batch_ps = batch_pspecs(cfg, ShapeConfig("train", seq, batch,
+                                                 "train"), ctx)
+        put = lambda tree, specs: distribute(tree, specs, mesh)  # noqa: E731
+    step = make_train_step(cfg, opt, ctx)
     metrics, tokens, launches, seconds = [], [], [], []
     for i in range(steps):
         b = lm_batch_at(i, vocab=cfg.vocab, batch=batch, seq_len=seq,
                         seed=TRAIN_DATA_SEED, device=device)
         tokens.append(b["tokens"].cpu().numpy())
+        if mesh is not None:
+            b = put(b, batch_ps)
         kernels.reset_launches()
         t0 = time.perf_counter()
         state, m = step(state, b)
@@ -1674,7 +1701,8 @@ def run_train(cfg: ModelConfig, tree: dict, device, *,
         launches.append(dict(kernels.LAUNCHES))
     named = dict(tree_leaves_with_names(state["params"]))
     return (train_summary(metrics, tokens, params0,
-                          {n: named[n].cpu().numpy() for n in TRAIN_LEAVES}),
+                          {n: plain(named[n]).cpu().numpy() for n in leaves},
+                          leaves),
             launches, seconds)
 
 

@@ -70,6 +70,12 @@ def attention_torch(q, k, v, *, causal: bool = True,
 
 def _check(q, k, v, causal: bool, window: int) -> None:
     """Raise on anything the kernel does not take."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention: a DTensor reached the kernel; "
+                        "pass each rank's local shards "
+                        "(models.layers.local_attention)")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must be on one device")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -1,5 +1,5 @@
-"""Fleet meshes on ``torch.distributed``: the port's counterpart of the JAX
-package's ``launch/mesh.py::make_fleet_mesh``.
+"""Meshes on ``torch.distributed``: the port's counterpart of the JAX
+package's ``launch/mesh.py`` (the fleet mesh, and the LM meshes below).
 
 A ``FleetMesh`` is one rank's view of a 1-D world of W processes: the
 axis name (``"replica"``, ``sharding.specs.FLEET_AXIS``), this rank, W,
@@ -17,6 +17,15 @@ program on its block and the collectives here join the blocks.
   ``build/mesh/`` of the checkout: no network and no ``MASTER_ADDR``.
   Each rank's return value comes back to the caller, in rank order.
 
+The LM meshes are ``torch.distributed.device_mesh.DeviceMesh``es over
+the whole initialised world, their axes named as the JAX package's:
+``make_mesh_for(model_axis=M)`` a (data, model) mesh of W / M x M ranks,
+``make_production_mesh()`` the (16, 16) pod or, ``multi_pod``, (2, 16,
+16) named ("pod", "data", "model"). DTensors on them carry the LM's
+params, optimizer state and batches (``sharding.specs``). Under gloo on
+card tensors DTensor's all-gathers go through the host, the rest run on
+gloo's own kernels: ``stage_collectives_through_host``.
+
 Ranks run on the card unless the caller names the CPU: by default rank r
 of an ``nccl`` world takes ``cuda:r`` and every rank of a ``gloo`` world
 ``cuda:0``; a CPU world passes ``devices=["cpu"] * W``. The backend is the
@@ -32,6 +41,7 @@ writes them through a ``uint8`` view of the same bytes.
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -132,6 +142,118 @@ class FleetMesh:
             dist.barrier(group=self.group, device_ids=[self.device.index])
         finally:
             torch.cuda.set_sync_debug_mode(mode)
+
+
+# the functional collectives (``torch.ops._c10d_functional``, what DTensor
+# issues) that gloo does not run on card tensors: ``tools/probe_gloo.py``
+# found the all-gather ending its rank (SIGSEGV) on torch 2.11 + CUDA 12.8,
+# and the reduce-scatter, all-reduce and all-to-all running
+STAGED_OPS = ("all_gather_into_tensor",)
+# collectives run through the host by ``staged`` in this process, and the
+# bytes of their inputs
+STAGED = {"calls": 0, "bytes": 0}
+_STAGED: dict = {}
+
+
+def staged(op):
+    """``op`` (a functional collective's overload, a tensor in and one
+    out) run on a host copy of its input, for a tensor on the card of a
+    gloo world: the input goes to the host, the collective runs there
+    (gloo's CPU kernel) and is waited for, and its output comes back to
+    the input's device. Counted as one host read
+    (``utils.device.HOST_READS``), with sync-debug "error" lifted for its
+    copies, and in STAGED with its input's bytes."""
+    from repro_torch.utils.device import HOST_READS
+
+    wait = torch.ops._c10d_functional.wait_tensor.default
+
+    def impl(x, *args):
+        HOST_READS["count"] += 1
+        STAGED["calls"] += 1
+        STAGED["bytes"] += x.numel() * x.element_size()
+        if not x.is_cuda:
+            return wait(op(x, *args))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return wait(op(x.cpu(), *args)).to(x.device)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    return impl
+
+
+def stage_collectives_through_host() -> None:
+    """Register ``staged`` as the CUDA kernel of each functional collective
+    of STAGED_OPS, once per process: gloo's own kernel for card tensors is
+    not used for them (see STAGED_OPS). A gloo world of ranks that share
+    one card runs its DTensor meshes so; ``_device_mesh`` installs them."""
+    if _STAGED:
+        return
+    import warnings
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "overriding a kernel"
+        for name in STAGED_OPS:
+            lib.impl(name, staged(getattr(torch.ops._c10d_functional,
+                                          name).default), "CUDA")
+    _STAGED["lib"] = lib
+
+
+def _world(what: str, n: int) -> int:
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"{what} needs an initialised process group: run under torchrun "
+            "or launch.mesh.spawn_world, or call torch.distributed."
+            "init_process_group(backend, init_method=..., world_size=W, "
+            "rank=r) in each rank first")
+    world = dist.get_world_size()
+    if world < n:
+        raise RuntimeError(f"{what}: need {n} ranks, have {world}")
+    if world > n:
+        raise RuntimeError(f"{what}: a mesh covers the whole world: "
+                           f"{n} ranks asked for, the world has {world}")
+    return world
+
+
+def _device_mesh(shape: tuple, names: tuple, device):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = torch.device(device if device is not None else (
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    if device.type == "cuda" and str(dist.get_backend()) == "gloo":
+        stage_collectives_through_host()
+    return init_device_mesh(device.type, shape, mesh_dim_names=names)
+
+
+def make_mesh_for(n_devices: int | None = None, *, model_axis: int = 1,
+                  device=None):
+    """A (data, model) ``DeviceMesh`` of n / model_axis x model_axis over
+    the initialised world of n ranks (``n_devices``: the world's size by
+    default; a mesh covers the whole world). ``device``: the ranks'
+    device type, the card by default ("cpu" for a CPU world)."""
+    import torch.distributed as dist
+
+    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 0)
+    _world("make_mesh_for", n)
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"make_mesh_for: the model axis {model_axis} does "
+                         f"not divide {n} ranks")
+    return _device_mesh((n // model_axis, model_axis), ("data", "model"),
+                        device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh: (data=16, model=16) over 256 ranks, or
+    (pod=2, data=16, model=16) over 512; refused on a smaller world."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    _world(f"the production mesh {shape}", math.prod(shape))
+    return _device_mesh(shape, names, device)
 
 
 def _cuda_missing(device: torch.device) -> str | None:
@@ -242,4 +364,6 @@ def spawn_world(fn: Callable[..., Any], world: int, *, backend: str,
         shutil.rmtree(work, ignore_errors=True)
 
 
-__all__ = ["FleetMesh", "make_fleet_mesh", "spawn_world", "MESH_ROOT"]
+__all__ = ["FleetMesh", "make_fleet_mesh", "spawn_world", "MESH_ROOT",
+           "make_mesh_for", "make_production_mesh",
+           "stage_collectives_through_host", "STAGED_OPS", "STAGED"]

@@ -13,6 +13,16 @@ compute dtype and norm scales, the router and the sLSTM's ``r`` and ``b``
 in f32 (``model.DecoderLayer.weights``). ``rope`` is the ``(cos, sin)``
 pair of ``layers.rope_cos_sin`` for the positions in flight, computed once
 per forward and shared by the attention layers.
+
+``ctx`` (``sharding.ctx``) constrains the activations where the JAX
+package does: q, k and v to (dp, None, heads, None), the heads split
+over ``model`` where their count divides it (``ShardCtx.heads_axis``),
+and the residual stream after each mixer and FFN to (dp, sp, None); and
+where DTensor needs it: each product's input gathered over the sequence
+(``layers.normed``) and the row-parallel products' outputs laid out as
+the residual stream before they are added to it, so no gradient reaches
+a product split over the sequence. Off a mesh (``UNSHARDED``, serving,
+one card) it does nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from repro_torch.models.layers import (
     attention,
     decode_attention,
     mlp_apply,
+    normed,
     rms_norm,
 )
 from repro_torch.models.mamba import mamba_apply, mamba_decode
@@ -46,6 +57,7 @@ from repro_torch.models.xlstm import (
     slstm_apply,
     slstm_decode,
 )
+from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
 Weights = Mapping[str, torch.Tensor]
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -64,13 +76,20 @@ def self_window(cfg: ModelConfig, kind: str) -> int:
     return 0 if kind == CROSS else layer_window(cfg, kind)
 
 
-def _qkv(w: Weights, h: torch.Tensor, cfg: ModelConfig):
+def _qkv(w: Weights, h: torch.Tensor, cfg: ModelConfig,
+         ctx: ShardCtx = UNSHARDED):
+    """q (B, S, H, hd), k and v (B, S, Kv, hd). On a mesh each projection
+    is laid out by its heads (``ShardCtx.heads_axis``) before it is split
+    into heads, so a split over ``model`` falls on whole heads."""
     B, Sq, _ = h.shape
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ w["wq"]).reshape(B, Sq, H, hd)
-    k = (h @ w["wk"]).reshape(B, Sq, Kv, hd)
-    v = (h @ w["wv"]).reshape(B, Sq, Kv, hd)
-    return q, k, v
+
+    def heads(name, n):
+        y = ctx.constrain_raw(h @ w[name],
+                              (ctx.axis("dp"), None, ctx.heads_axis(n)))
+        return y.reshape(B, Sq, n, cfg.hd)
+
+    return (heads("wq", cfg.n_heads), heads("wk", cfg.n_kv_heads),
+            heads("wv", cfg.n_kv_heads))
 
 
 def _maybe_qk_norm(w: Weights, q, k, cfg: ModelConfig):
@@ -81,19 +100,24 @@ def _maybe_qk_norm(w: Weights, q, k, cfg: ModelConfig):
 
 
 def self_attention_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
-                            rope: Rope, window: int, causal: bool = True
+                            rope: Rope, window: int, causal: bool = True,
+                            ctx: ShardCtx = UNSHARDED
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Self-attention (causal in the decoders, not in the encoder).
     Returns (attention output, kv dict for cache construction)."""
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(w, h, cfg)
+    h = normed(x, w["ln1"], cfg.norm_eps, ctx)
+    q, k, v = _qkv(w, h, cfg, ctx)
     q, k = _maybe_qk_norm(w, q, k, cfg)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    dp, kv_ax = ctx.axis("dp"), ctx.heads_axis(cfg.n_kv_heads)
+    q = ctx.constrain_raw(q, (dp, None, ctx.heads_axis(cfg.n_heads), None))
+    k = ctx.constrain_raw(k, (dp, None, kv_ax, None))
+    v = ctx.constrain_raw(v, (dp, None, kv_ax, None))
     o = attention(q, k, v, causal=causal, window=window)
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.hd)
-    return o @ w["wo"], {"k": k, "v": v}
+    return ctx.constrain(o @ w["wo"], "dp", "sp", None), {"k": k, "v": v}
 
 
 def _gated(out: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
@@ -121,21 +145,25 @@ def cross_attention_parallel(w: Weights, x: torch.Tensor,
 
 
 def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
-                 is_moe: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 is_moe: bool, ctx: ShardCtx = UNSHARDED
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The residual FFN (none on a layer without ``ln2``) and the f32 aux
     loss of an MoE layer (None elsewhere: no tensor made for a 0)."""
     if "ln2" not in w:
         return x, None
     if is_moe:
         y, aux = moe_apply(w, x, cfg)
-        return x + y, aux
-    return x + mlp_apply(w, x, gated=S.mlp_gated(cfg), eps=cfg.norm_eps), None
+        return ctx.constrain(x + y, "dp", "sp", None), aux
+    y = ctx.constrain(mlp_apply(w, x, gated=S.mlp_gated(cfg),
+                                eps=cfg.norm_eps, ctx=ctx), "dp", "sp", None)
+    return ctx.constrain(x + y, "dp", "sp", None), None
 
 
 def block_forward(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
                   cfg: ModelConfig, *, rope: Rope,
                   memory: Optional[torch.Tensor] = None,
-                  xa: Optional[Weights] = None, causal: bool = True
+                  xa: Optional[Weights] = None, causal: bool = True,
+                  ctx: ShardCtx = UNSHARDED
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                              Dict[str, torch.Tensor]]:
     """One layer (the JAX package's ``block_parallel``). Returns (x, the
@@ -147,24 +175,24 @@ def block_forward(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
     if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, kv = self_attention_parallel(w, x, cfg, rope=rope,
                                         window=self_window(cfg, kind),
-                                        causal=causal)
-        x = x + o
+                                        causal=causal, ctx=ctx)
+        x = ctx.constrain(x + o, "dp", "sp", None)
         if kind == CROSS:
             xo, kvx = cross_attention_parallel(w, x, memory, cfg,
                                                gate=w["xgate"])
-            x = x + xo
+            x = ctx.constrain(x + xo, "dp", "sp", None)
             kv.update(xk=kvx["k"], xv=kvx["v"])
     else:
         apply = {MAMBA: mamba_apply, MLSTM: mlstm_apply,
                  SLSTM: slstm_apply}[kind]
         o, kv = apply(w, x, cfg, return_state=True)
-        x = x + o
+        x = ctx.constrain(x + o, "dp", "sp", None)
     if xa is not None and kind != CROSS:
         # the encoder-decoder's cross-attention, in every decoder layer
         xo, kvx = cross_attention_parallel(xa, x, memory, cfg)
-        x = x + xo
+        x = ctx.constrain(x + xo, "dp", "sp", None)
         kv.update(xk=kvx["k"], xv=kvx["v"])
-    x, aux = ffn_parallel(w, x, cfg, is_moe)
+    x, aux = ffn_parallel(w, x, cfg, is_moe, ctx)
     return x, aux, kv
 
 

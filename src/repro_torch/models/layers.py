@@ -9,6 +9,11 @@ Each function casts where the JAX package casts: ``rms_norm`` and
 MLP's products run in the compute dtype. Attention is causal and may be
 windowed in the decoders; the encoder's and the cross-attentions onto a
 memory (vision tokens, audio frames) have no mask.
+
+On a mesh the activations are DTensors and every function here but
+``attention`` runs as DTensor operations. ``attention`` hands the kernel
+each rank's local batch and heads (``local_attention``): the kernel
+launches through raw pointers and never sees a DTensor.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attn import flash_attention, scale_of
+from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -27,6 +34,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def normed(x, scale, eps: float, ctx: ShardCtx = UNSHARDED):
+    """``rms_norm`` of the residual stream, laid out (dp, None, None) on a
+    mesh: the projections after it read whole sequences (a split one
+    gathered, as sequence parallelism gathers before a column-parallel
+    product; DTensor cannot flatten (B, S) into the rows of a product
+    while S is split)."""
+    return ctx.constrain(rms_norm(x, scale, eps), "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -69,8 +85,68 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Prefill attention: the ``flash_attn`` kernel on the card, its plain
-    version on the CPU. q: (B, Sq, H, hd); k/v: (B, Sk, Kv, hd)."""
+    version on the CPU. q: (B, Sq, H, hd); k/v: (B, Sk, Kv, hd); DTensors
+    on a mesh (``local_attention``)."""
+    if isinstance(q, DTensor):
+        return local_attention(q, k, v, causal=causal, window=window)
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def kv_heads_of(h0: int, n_local: int, n_heads: int, n_kv: int) -> list:
+    """The KV heads of the q heads ``h0 .. h0 + n_local - 1`` of ``n_heads``
+    grouped over ``n_kv`` (q head g reads KV head g // (n_heads / n_kv)):
+    the contiguous run of KV heads when the local q heads fill whole
+    groups of it, else one KV head per q head."""
+    group = n_heads // n_kv
+    per_q = [(h0 + j) // group for j in range(n_local)]
+    run = list(range(per_q[0], per_q[-1] + 1))
+    if n_local % len(run) == 0 and per_q == [
+            run[j // (n_local // len(run))] for j in range(n_local)]:
+        return run
+    return per_q
+
+
+def local_attention(q, k, v, *, causal: bool, window: int):
+    """``flash_attention`` on each rank's local shards of DTensors q (B,
+    Sq, H, hd), k, v (B, Sk, Kv, hd): batch split over the dp axes or
+    whole, heads split over ``model`` or whole, the sequence and head dim
+    whole. Where q's heads are split but the KV heads are not (Kv does
+    not divide the axis), the rank hands the kernel the KV heads its q
+    heads read (``kv_heads_of``), and their gradients are partial sums
+    over that axis. Returns the output as a DTensor laid out as q."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    qp, kp = tuple(q.placements), tuple(k.placements)
+    allowed = (Replicate(), Shard(0), Shard(2))
+    if (any(p not in allowed for p in qp + kp) or tuple(v.placements) != kp
+            or any((a == Shard(0)) != (b == Shard(0))
+                   for a, b in zip(qp, kp))
+            or any(b == Shard(2) and a != Shard(2) for a, b in zip(qp, kp))):
+        raise ValueError(f"local_attention: q {qp}, k {kp}, v "
+                         f"{tuple(v.placements)}: the batch and the heads "
+                         "may be split, the KV heads only where q's are")
+    grad = tuple(Partial() if a == Shard(2) and b != Shard(2) else b
+                 for a, b in zip(qp, kp))
+    ql = q.to_local()
+    kl, vl = k.to_local(grad_placements=grad), v.to_local(
+        grad_placements=grad)
+    if grad != kp:
+        block, coord = 0, mesh.get_coordinate()
+        for i, p in enumerate(qp):
+            if p == Shard(2):
+                block = block * mesh.size(i) + coord[i]
+        heads = kv_heads_of(block * ql.shape[2], ql.shape[2], q.shape[2],
+                            k.shape[2])
+        if heads == list(range(heads[0], heads[-1] + 1)):
+            kl, vl = (t.narrow(2, heads[0], len(heads)) for t in (kl, vl))
+        else:
+            idx = torch.tensor(heads, device=kl.device)
+            kl, vl = (t.index_select(2, idx) for t in (kl, vl))
+    out = flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                          causal=causal, window=window)
+    return DTensor.from_local(out, mesh, qp, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -100,12 +176,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLPs
 def mlp_apply(w: Mapping[str, torch.Tensor], x: torch.Tensor, *,
-              gated: bool, eps: float) -> torch.Tensor:
+              gated: bool, eps: float, ctx: ShardCtx = UNSHARDED
+              ) -> torch.Tensor:
     """The gated MLP ``silu(h wg) * (h wi) wo2`` of every arch but the
     encoder-decoder, whose MLP is ``gelu(h wi) wo2`` with the tanh
     approximation (``jax.nn.gelu``'s default). ``w``: the layer's weights,
-    matrices already in x's dtype."""
-    h = rms_norm(x, w["ln2"], eps)
+    matrices already in x's dtype. On a mesh the normed input is
+    gathered over the sequence first (``normed``)."""
+    h = normed(x, w["ln2"], eps, ctx)
     if gated:
         a = F.silu(h @ w["wg"]) * (h @ w["wi"])
     else:

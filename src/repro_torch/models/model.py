@@ -33,7 +33,12 @@ package's stacked parameter tree itself (the train state's ``params``),
 reads per-layer views of its leaves (``layer_leaves``) and casts each at
 its use inside autograd, so the gradients are the stacked leaves' and
 land in the f32 masters; ``prefill`` and ``decode_step`` record no
-gradient.
+gradient. On a mesh the tree's leaves and the batch are DTensors
+(``sharding.specs.distribute``) and ``forward_train`` runs as DTensor
+operations, constrained by its ``ShardCtx`` where the JAX package
+constrains: the embedding's output and the residual stream to (dp, sp,
+None), q, k and v by their heads (``blocks``), the logits to (dp, None,
+tp).
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from repro_torch.models.blocks import (
     layer_window,
 )
 from repro_torch.models.init import NORMS
-from repro_torch.models.layers import rms_norm, rope_cos_sin
+from repro_torch.models.layers import normed, rms_norm, rope_cos_sin
 from repro_torch.models.mamba import mamba_cache_spec
 from repro_torch.models.xlstm import mlstm_cache_spec, slstm_cache_spec
 from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
@@ -246,6 +251,24 @@ def layer_cache_spec(cfg: ModelConfig, layer_idx: int, batch: int,
     return spec
 
 
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+    """The decode caches in the JAX package's stacked layout (``body[p]``
+    each layer leaf with the R superblocks on a leading axis, ``tail[j]``
+    as it is), as tensors on the ``meta`` device (never allocated): what
+    ``sharding.specs.cache_pspecs`` mirrors."""
+    dtype = compute_dtype(cfg)
+    period, R, n_tail = S.layout(cfg)
+
+    def meta(i: int, lead: tuple) -> Dict[str, torch.Tensor]:
+        return {name: torch.empty(lead + tuple(shape), dtype=dt,
+                                  device="meta")
+                for name, (shape, dt) in
+                layer_cache_spec(cfg, i, batch, seq_len, dtype).items()}
+
+    return {"body": [meta(p, (R,)) for p in range(period)] if R else [],
+            "tail": [meta(R * period + j, ()) for j in range(n_tail)]}
+
+
 def init_cache(model: DecoderLM, batch: int, seq_len: int) -> Cache:
     return [{name: torch.zeros(shape, dtype=dt, device=model.device)
              for name, (shape, dt) in
@@ -384,6 +407,18 @@ def _at_use(w: Mapping[str, torch.Tensor], dtype: torch.dtype
             for k, t in w.items()}
 
 
+def _replicated_like(t: torch.Tensor, ref) -> Any:
+    """``t`` replicated on ``ref``'s mesh where ``ref`` is a DTensor (the
+    RoPE tables beside a DTensor stream), else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def _unstacked(tree: Mapping[str, Any]) -> Dict[str, List[torch.Tensor]]:
     """A stacked leaf dict as name -> its per-repeat views (one ``unbind``
     a leaf, whose backward stacks the repeats' gradients in one copy)."""
@@ -419,6 +454,9 @@ def lm_loss_chunked(xf: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
     def one(xc, w, lc):
         logits = (xc @ w.to(xc.dtype)).float()             # (B, cs, V)
+        logits = ctx.constrain(logits, "dp", None, "tp")
+        # the log-sum-exp and the label's logit read whole vocabulary rows
+        logits = ctx.constrain(logits, "dp", None, None)
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])
         valid = (lc >= 0).float()
@@ -436,17 +474,19 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
     """The training loss (the JAX package's ``forward_train``) of
     ``batch`` (``tokens``, ``labels`` (B, S), ``-1`` labels ignored; and
     ``vision`` or ``audio`` where the model attends to a memory) under
-    ``params``, the JAX package's stacked tree of tensors, which autograd
-    differentiates leaf by leaf. Each leaf is cast to ``cfg.dtype`` where
-    it is used, ``F32_LEAVES`` excepted. Recomputation follows
-    ``ctx.remat``. Returns (loss + load_balance_coef * aux / n_layers,
-    {"loss", "moe_aux", "tokens"})."""
+    ``params``, the JAX package's stacked tree of tensors (or DTensors on
+    a mesh), which autograd differentiates leaf by leaf. Each leaf is cast
+    to ``cfg.dtype`` where it is used, ``F32_LEAVES`` excepted.
+    Recomputation follows ``ctx.remat``. Returns (loss + load_balance_coef
+    * aux / n_layers, {"loss", "moe_aux", "tokens"})."""
     dtype = compute_dtype(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     x = params["emb"].index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, -1).to(dtype)
-    rope = rope_cos_sin(torch.arange(tokens.shape[1], device=x.device),
-                        cfg.hd, cfg.rope_theta)
+    x = ctx.constrain(x, "dp", "sp", None)
+    rope = tuple(_replicated_like(t, x) for t in rope_cos_sin(
+        torch.arange(tokens.shape[1], device=tokens.device), cfg.hd,
+        cfg.rope_theta))
     memory = None
     if cfg.enc_dec:
         enc = params["encoder"]
@@ -464,13 +504,19 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
     xattn = (layer_leaves(params, cfg, "xattn_body", "xattn_tail")
              if cfg.enc_dec else [None] * cfg.n_layers)
 
+    def layer(i: int, x):
+        xa = xattn[i]
+        return block_forward(
+            _at_use(layers[i], dtype), x, S.layer_kind_at(cfg, i),
+            cfg.is_moe_layer(i), cfg, rope=rope, memory=memory,
+            xa=None if xa is None else _at_use(xa, dtype), ctx=ctx)[:2]
+
     def run(lo: int, hi: int, x, aux):
         for i in range(lo, hi):
-            xa = xattn[i]
-            x, a = block_forward(
-                _at_use(layers[i], dtype), x, S.layer_kind_at(cfg, i),
-                cfg.is_moe_layer(i), cfg, rope=rope, memory=memory,
-                xa=None if xa is None else _at_use(xa, dtype))[:2]
+            if ctx.remat == "layer" and i < R * period:
+                x, a = _checkpointed(lambda x, i=i: layer(i, x), x)
+            else:
+                x, a = layer(i, x)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -484,7 +530,7 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
         else:
             x, aux = run(lo, hi, x, aux)
     x, aux = run(R * period, cfg.n_layers, x, aux)
-    xf = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    xf = normed(x, params["final_ln"], cfg.norm_eps, ctx)
     head = params["emb"].T if cfg.tie_embeddings else params["head"]
     total, count = lm_loss_chunked(xf, head, labels, ctx)
     loss = total / torch.clamp(count, min=1.0)

@@ -83,3 +83,22 @@ class Adafactor:
         new_params = tree_map_with_path_names(upd, params)
         return new_params, {"f": tree_map_with_path_names(
             lambda n, _: new_f[n], params)}
+
+    def state_pspecs(self, param_specs: Any, param_pspecs: Any) -> dict:
+        """The state's spec tree (``sharding.specs``) from the params'
+        shapes (``models.spec.model_param_specs``) and specs: ``vr``
+        drops the param spec's last axis, ``vc`` its second-to-last."""
+        from repro_torch.models.spec import leaves_with_names
+        from repro_torch.sharding.specs import spec_map
+
+        shapes = dict(leaves_with_names(param_specs))
+
+        def make(name, spec):
+            nd = len(shapes[name])
+            axes = list(spec) + [None] * (nd - len(spec))
+            if nd >= 2:
+                return {"vr": tuple(axes[:-1]),
+                        "vc": tuple(axes[:-2] + axes[-1:])}
+            return {"v": tuple(axes)}
+
+        return {"f": spec_map(make, param_pspecs)}

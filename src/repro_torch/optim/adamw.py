@@ -64,3 +64,8 @@ class AdamW:
         return new_params, {
             "m": tree_map_with_path_names(lambda n, _: out[n][0], params),
             "v": tree_map_with_path_names(lambda n, _: out[n][1], params)}
+
+    def state_pspecs(self, param_specs: Any, param_pspecs: Any) -> dict:
+        """The state's spec tree (``sharding.specs``): both moments as
+        their params."""
+        return {"m": param_pspecs, "v": param_pspecs}

@@ -7,6 +7,11 @@ JAX package's layout, or flat, as the actor-critic's) of tensors. Its
 leaves are taken in the JAX package's flatten order
 (``utils.tree.tree_leaves_with_names``: dict keys sorted, lists in order),
 so a reduction over leaves adds them in the JAX package's order.
+
+On a mesh the leaves are DTensors: each leaf's reduction is made whole
+(``plain``: summed over its shards, on every rank) before the leaves'
+reductions are combined, so the norm and the guard are the whole tree's,
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -29,9 +34,16 @@ def by_name(tree: Any) -> Dict[str, torch.Tensor]:
     return dict(tree_leaves_with_names(tree))
 
 
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the whole tensor on every rank; a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares (f32)."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
+    sums = [plain(torch.sum(torch.square(x.to(torch.float32))))
             for x in leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
@@ -46,4 +58,5 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 def all_finite(tree: Any) -> torch.Tensor:
     """0-d bool tensor: every value of every leaf finite."""
-    return torch.stack([torch.isfinite(x).all() for x in leaves(tree)]).all()
+    return torch.stack([plain(torch.isfinite(x).all())
+                        for x in leaves(tree)]).all()

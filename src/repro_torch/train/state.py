@@ -3,7 +3,9 @@
 layout (``params`` stacked as ``models.spec.model_param_specs`` lays them
 out, ``opt`` the optimizer's state of the same leaves, ``step`` a 0-d
 int32), so gradients, optimizer rules, checkpoints and the global norm's
-leaf order all follow the JAX package's leaves."""
+leaf order all follow the JAX package's leaves; and its spec tree on a
+mesh (``train_state_pspecs``), by which ``sharding.specs.distribute``
+makes it a tree of DTensors."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import spec as S
 from repro_torch.models.init import _unflatten, init_params
+from repro_torch.sharding.specs import train_state_pspecs  # noqa: F401
 
 TrainState = Dict[str, Any]   # {"params", "opt", "step"}
 

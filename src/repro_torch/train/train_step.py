@@ -10,9 +10,20 @@
   keeps the params and the optimizer state (``torch.where``) and still
   advances the step.
 
-In a bfloat16 model every f32 master is cast to bf16 before the forward,
-inside autograd, so the gradients land in the f32 masters. Nothing in the
-step reads the device from the host.
+In a bfloat16 model every f32 master is cast to bf16 before the forward
+(``ShardCtx.cast_params_bf16``; else at each use), inside autograd, so
+the gradients land in the f32 masters. Nothing in the step reads the
+device from the host.
+
+On a mesh (an enabled ``ShardCtx``) the state and the batch are DTensors
+(``sharding.specs.distribute`` by ``train_state_pspecs`` and
+``batch_pspecs``): the forward and backward run as DTensor operations,
+each gradient comes back laid out as its parameter, the global norm and
+the guard are the whole tree's (``optim.base``), the microbatches are
+constrained to (None, dp) as in the JAX package, and every new leaf of
+the state is laid out as the old one (the JAX package's
+``out_shardings``). The dense family alone runs under a mesh here
+(``DENSE_ONLY``): any other arch raises.
 """
 
 from __future__ import annotations
@@ -21,9 +32,15 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.models import spec as S
 from repro_torch.models.model import forward_train
-from repro_torch.optim.base import all_finite, by_name, clip_by_global_norm
+from repro_torch.optim.base import (
+    all_finite,
+    by_name,
+    clip_by_global_norm,
+    plain,
+)
 from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 from repro_torch.utils.tree import (
     tree_leaves_with_names,
@@ -32,8 +49,35 @@ from repro_torch.utils.tree import (
 )
 
 
+DENSE_ONLY = ("on a mesh the port trains the dense family (attention "
+              "layers and dense FFNs: gemma3-1b, qwen3-4b, granite-3-8b, "
+              "internlm2-20b); MoE, the Mamba hybrid, xLSTM, the VLM and "
+              "the encoder-decoder under a mesh are ROADMAP queue 1, item "
+              "12.5, still to port")
+
+
 def _rebuild(like: Any, values: Dict[str, torch.Tensor]) -> Any:
     return tree_map_with_path_names(lambda name, _: values[name], like)
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise unless every layer of ``cfg`` is an attention layer with a
+    dense FFN and nothing attends to a memory."""
+    kinds = {S.layer_kind_at(cfg, i) for i in range(cfg.n_layers)}
+    moe = any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    if (not kinds <= {ATTN, ATTN_LOCAL} or moe or cfg.enc_dec
+            or cfg.n_vision_tokens):
+        raise ValueError(f"{cfg.name}: {DENSE_ONLY}")
+
+
+def _laid_out_as(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` with ``old``'s placements where both are DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(old, DTensor) and tuple(new.placements) != tuple(
+            old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
@@ -45,7 +89,9 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
     device."""
     if compress not in (None, "int8"):
         raise ValueError(f"compress must be None or 'int8', got {compress!r}")
-    cast = cfg.dtype == "bfloat16"
+    if ctx.enabled:
+        check_dense(cfg)
+    cast = cfg.dtype == "bfloat16" and ctx.cast_params_bf16
 
     def loss_fn(params, batch):
         if cast:
@@ -59,10 +105,12 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
             live = [p.detach().requires_grad_(True) for p in leaves]
             loss, metrics = loss_fn(_rebuild(params, dict(zip(names, live))),
                                     batch)
+            loss = plain(loss)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
+        grads = {n: torch.zeros_like(p) if g is None else _laid_out_as(g, p)
                  for n, p, g in zip(names, live, grads)}
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        return (loss.detach(),
+                {k: plain(v).detach() for k, v in metrics.items()},
                 _rebuild(params, grads))
 
     def compute_grads(params, batch):
@@ -72,11 +120,11 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into "
                              f"{microbatches} microbatches")
-        parts = {k: v.reshape((microbatches, b // microbatches)
-                              + tuple(v.shape[1:]))
-                 for k, v in batch.items()}
-        g_sum = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        parts = {k: ctx.constrain(v.reshape(
+            (microbatches, b // microbatches) + tuple(v.shape[1:])),
+            None, "dp") for k, v in batch.items()}
+        g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         l_sum = torch.zeros((), dtype=torch.float32,
                             device=batch["tokens"].device)
         seen = []
@@ -107,8 +155,12 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
 
         def keep(new, old):
             old_ = by_name(old)
+            if not ctx.enabled:
+                return tree_map_with_path_names(
+                    lambda n, x: torch.where(good, x, old_[n], out=x), new)
             return tree_map_with_path_names(
-                lambda n, x: torch.where(good, x, old_[n], out=x), new)
+                lambda n, x: torch.where(good, _laid_out_as(x, old_[n]),
+                                         old_[n]), new)
 
         new_state = {"params": keep(new_params, params),
                      "opt": keep(new_opt, opt_state), "step": step + 1}

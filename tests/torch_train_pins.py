@@ -34,7 +34,7 @@ import numpy as np
 
 from repro.configs import get_arch as jax_get_arch
 from repro.data.synth_lm import lm_batch_at
-from repro.optim import AdamW, cosine_warmup
+from repro.optim import cosine_warmup, get_optimizer
 from repro.sharding.ctx import ShardCtx
 from repro.train.train_step import make_train_step
 
@@ -51,16 +51,19 @@ def jax_config(dtype: str = "float32"):
 
 def jax_train_summary(jcfg, tree: dict, *, steps: int = A.TRAIN_STEPS,
                       batch: int = A.TRAIN_BATCH,
-                      seq: int = A.TRAIN_SEQ) -> dict:
-    """``acceptance.train_summary`` of the training case on the JAX
-    package with config ``jcfg``, from the numpy weights ``tree`` (emptied
-    as they are carried over, to free them)."""
+                      seq: int = A.TRAIN_SEQ, optimizer: str = "adamw",
+                      leaves=A.TRAIN_LEAVES) -> dict:
+    """``acceptance.train_summary`` of ``leaves`` of the training case on
+    the JAX package with config ``jcfg`` and ``optimizer`` ("adamw" or
+    "adafactor"), from the numpy weights ``tree`` (emptied as they are
+    carried over, to free them)."""
     params0 = dict(tree_leaves_with_names(tree))
-    params0 = {n: params0[n].copy() for n in A.TRAIN_LEAVES}
+    params0 = {n: params0[n].copy() for n in leaves}
     params = jax.tree.map(jnp.asarray, tree)
     tree.clear()
     gc.collect()
-    opt = AdamW(lr=cosine_warmup(A.TRAIN_LR, A.TRAIN_WARMUP, steps))
+    opt = get_optimizer(optimizer, lr=cosine_warmup(A.TRAIN_LR,
+                                                     A.TRAIN_WARMUP, steps))
     state = {"params": params, "opt": opt.init(params),
              "step": jnp.int32(0)}
     del params
@@ -77,7 +80,7 @@ def jax_train_summary(jcfg, tree: dict, *, steps: int = A.TRAIN_STEPS,
               f"{metrics[-1]}", file=sys.stderr)
     named = dict(tree_leaves_with_names(jax.device_get(state["params"])))
     return A.train_summary(metrics, tokens, params0,
-                           {n: named[n] for n in A.TRAIN_LEAVES})
+                           {n: named[n] for n in leaves}, leaves)
 
 
 def literal(got: dict) -> str:
