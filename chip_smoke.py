@@ -286,19 +286,39 @@ and no result line:
              tokens/s, peak memory) and one profiled (CUDA kernels, the
              device's busy share).
 
-22. train_mesh  the training case of phase train (``PINNED_TRAIN``:
-             gemma3-1b at full width, f32, B 2, 1024 tokens, 3 AdamW
-             steps) through ``launch.train``'s mesh path in
-             ``spawn_world`` ranks on cuda:0: gloo (1, 2) (tensor
-             parallel: 2 local q heads, the one KV head whole), gloo (2,
-             1) (FSDP), nccl (1, 1); each world within ``TRAIN_TOLS`` on
-             every rank, 26 + 24 flash_attn launches a step on every
-             rank; the (1, 2) world's state saved and restored onto (2,
-             1) and (1, 1), each bit for bit; on (1, 1) the bf16 step
-             timed beside phase train's (ms, CUDA kernels, busy share,
-             peak memory, collectives and their bytes). One worker
-             (``train_mesh_run``) started after phase thermal and joined
-             before phase durable; checked after phase train.
+22. train_mesh  the training case of phase train cut to its first 8
+             layers (``PINNED_TRAIN_MESH``: gemma3-1b at full width, f32,
+             B 2, 1024 tokens, 3 AdamW steps) through ``launch.train``'s
+             mesh path in ``spawn_world`` ranks on cuda:0: gloo (1, 2)
+             (tensor parallel: 2 local q heads, the one KV head whole),
+             gloo (2, 1) (FSDP), nccl (1, 1); each world within
+             ``TRAIN_TOLS`` on every rank, 8 + 6 flash_attn launches a
+             step on every rank; the (1, 2) world's state saved and
+             restored onto (2, 1) and (1, 1), each bit for bit; on (1, 1)
+             the bf16 step timed at full depth beside phase train's (ms,
+             CUDA kernels, busy share, peak memory, collectives and their
+             bytes). One worker (``train_mesh_run``) started after phase
+             thermal and joined before phase durable; checked after
+             phase train.
+
+23. train_mesh_families  the other families trained at full width on a
+             gloo world of 2 ranks sharing cuda:0, mesh (1, 2), Adafactor,
+             f32, B 2, 1024 tokens, 3 steps (``acceptance.
+             TRAIN_FAMILY_LEAVES``): mixtral-8x22b cut to 1 layer (expert
+             parallelism: 4 experts a rank; 24 local q heads), jamba cut
+             to its first layer, a Mamba mixer with the dense MLP (the
+             scan on 8,192 local channels), whisper-small whole (the
+             encoder and the cross-attentions on 6 local heads); each
+             within ``TRAIN_TOLS`` of ``PINNED_TRAIN_FAMILIES`` on both
+             ranks, ``train_launches`` flash_attn and selective_scan
+             launches a step on each rank (weights, wall seconds, staged
+             all-gathers and their bytes, peak memory by rank); a DTensor
+             handed to either kernel's wrapper raises. One worker
+             (``train_families_draw``) started with phase train_mesh's
+             draws the weights on the host; the cases run in phase
+             train_mesh's gloo world after its meshes
+             (``train_families_cases``); checked after phase
+             train_mesh.
 
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
@@ -491,22 +511,44 @@ TRAIN_BF16_LOSS_TOL = 2e-4
 TRAIN_BF16_NORM_TOL = 1e-1
 TRAIN_BF16_LEAF_TOL = 1e-1
 TRAIN_BF16_FAULTS = ("window dropped", "attention detached")
-# phase train_mesh: the training case of phase train (PINNED_TRAIN: f32,
-# B 2, 1,024 tokens, 3 AdamW steps, the weights drawn once) through
+# phase train_mesh: the training case of phase train cut to
+# acceptance.TRAIN_MESH_LAYERS layers (PINNED_TRAIN_MESH: f32, B 2, 1,024
+# tokens, 3 AdamW steps, the weights drawn once) through
 # ``launch.train``'s mesh path in ``spawn_world`` ranks on cuda:0: a gloo
 # world of 2 trains on (1, 2), tensor parallel with 2 local q heads and
 # the one KV head whole, then on (2, 1), FSDP; an nccl world of 1 on (1,
 # 1). The first mesh's state is saved and restored onto the others.
 # The nccl world then times TRAIN_MESH_BF16 = (warm-up, timed) bf16 steps
-# at TRAIN_BF16_BATCH on its (1, 1) mesh, one more under the profiler and
-# one under ``CommDebugMode``. All in one worker (``start_alone``) beside
-# TRAIN_MESH_BESIDE, joined before phase durable (whose LM pins' workers
-# need the card's memory).
+# of the whole model at TRAIN_BF16_BATCH on its (1, 1) mesh, one more
+# under the profiler and one under ``CommDebugMode``. All in one worker
+# (``start_alone``) beside TRAIN_MESH_BESIDE, joined before phase durable
+# (whose LM pins' workers need the card's memory); the gloo world then
+# runs phase train_mesh_families' cases.
 TRAIN_MESH_WORLDS = (("gloo", ((1, 2), (2, 1))), ("nccl", ((1, 1),)))
 TRAIN_MESH_BF16 = (1, 3)
-TRAIN_MESH_TIMEOUT_S = 1000     # the worker (472 s alone on an H100)
+TRAIN_MESH_TIMEOUT_S = 1100     # the worker (472 s alone on an H100,
+#                                 before phase train_mesh_families' cases)
 TRAIN_MESH_BESIDE = ("phases virtual_cloud, fleet, mesh, rl, macro, faults "
                      "and serving")
+# phase train_mesh_families: the other families trained at full width on
+# a gloo world of 2 ranks sharing cuda:0, mesh (1, 2) (the model axis of
+# 2), Adafactor: each case of TRAIN_FAMILIES_ORDER (``train_mixtral_1l``:
+# 4 experts a rank, 24 local q heads and 4 KV heads; ``train_jamba_1l``:
+# the Mamba scan on 8,192 local channels a rank; ``train_whisper``: the
+# encoder and the cross-attentions on 6 local heads) held to
+# PINNED_TRAIN_FAMILIES, the kernels' launches a step counted on each
+# rank (``train_launches``), then a DTensor handed to each kernel's
+# wrapper refused. The cases run in phase train_mesh's gloo world, on its
+# two ranks, after that phase's own meshes: beside that phase's worker
+# the card has no room for two ranks of mixtral. Their weights are drawn
+# meanwhile by a worker of their own on the host, started after phase
+# thermal, and written under TRAIN_FAMILIES_WORK; TRAIN_FAMILIES_READY
+# marks them written.
+TRAIN_FAMILIES_MESH = (1, 2)
+TRAIN_FAMILIES_ORDER = ("train_mixtral_1l", "train_jamba_1l",
+                        "train_whisper")
+TRAIN_FAMILIES_WORK = ROOT / "build" / "train_mesh_families"
+TRAIN_FAMILIES_READY = TRAIN_FAMILIES_WORK / "ready"
 # the fleet phase's hours run beside these workers
 BESIDE_GRID = "phase mesh's worlds and phase virtual_cloud's what-ifs"
 # the fleet phase: replicas timed (1, the grid, the grid tiled 16x), ticks
@@ -1236,17 +1278,20 @@ def lm_case_pins(torch, case: str) -> dict:
 
 
 def train_launches(cfg, remat: str = "block") -> dict:
-    """flash_attn launches of one training step: one per attention call
-    of the forward (``spec.attention_calls``), and again for each body
-    layer's when remat recomputes the body in the backward pass (the tail
-    is never recomputed); the kernels' backward is the plain version's
-    vjp and launches nothing."""
+    """The kernel launches of one training step (on each rank of a mesh):
+    those of a forward (``path_launches``: a flash_attn per attention
+    call, a selective_scan per Mamba layer), and again the body's when
+    remat recomputes it in the backward pass (the tail is never
+    recomputed; an encoder's layers are, with the body); the kernels'
+    backward is the plain version's vjp and launches nothing."""
     from repro_torch.models import spec as S
 
     period, R, _ = S.layout(cfg)
-    body = S.attention_calls(dataclasses.replace(cfg, n_layers=R * period))
-    recompute = body if remat != "none" else 0
-    return no_launches(flash_attn=S.attention_calls(cfg) + recompute)
+    forward = path_launches(cfg)
+    body = path_launches(dataclasses.replace(cfg, n_layers=R * period))
+    if remat == "none":
+        return forward
+    return {k: forward[k] + body[k] for k in forward}
 
 
 def train_pins(torch) -> dict:
@@ -2139,7 +2184,7 @@ def _train_mesh_one(torch, fmesh, work: str, init, data: int, model: int,
     from repro_torch.utils.tree import tree_leaves_with_names, tree_map
 
     name = f"{fmesh.backend} ({data}, {model})"
-    cfg = A.train_config()
+    cfg = A.train_mesh_config()
     named = dict(tree_leaves_with_names(init))
     params0 = {n: named[n] for n in A.TRAIN_LEAVES}
     directory = os.path.join(work, "saved")
@@ -2156,7 +2201,7 @@ def _train_mesh_one(torch, fmesh, work: str, init, data: int, model: int,
     kernels.reset_launches()
     staged = dict(STAGED)
     t0 = time.perf_counter()
-    history, state = T.run(T.parse_args(argv), init=init)
+    history, state = T.run(T.parse_args(argv), init=init, cfg=cfg)
     torch.cuda.synchronize()
     rec = {"world": name, "rank": fmesh.rank,
            "run_s": time.perf_counter() - t0,
@@ -2208,7 +2253,7 @@ def train_mesh_world(fmesh, work: str, meshes: tuple, saved: str) -> dict:
     exact_matmul()
     t0 = time.perf_counter()
     init = restore(os.path.join(work, "init"), 0,
-                   _numpy_like(A.train_config()))
+                   _numpy_like(A.train_mesh_config()))
     out = {"load_s": time.perf_counter() - t0}
     for data, model in meshes:
         t0 = time.perf_counter()
@@ -2218,6 +2263,10 @@ def train_mesh_world(fmesh, work: str, meshes: tuple, saved: str) -> dict:
     del init
     if fmesh.backend == "nccl":
         out["bf16"] = _train_mesh_bf16(torch, np, make_mesh_for(model_axis=1))
+    else:
+        t0 = time.perf_counter()
+        out["families"] = train_families_cases(torch, fmesh)
+        out["families"]["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2238,7 +2287,7 @@ def train_mesh_run(torch) -> dict:
     work = ROOT / "build" / "train_mesh"
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
-    save(str(work / "init"), 0, seeded_numpy_params(A.train_config(),
+    save(str(work / "init"), 0, seeded_numpy_params(A.train_mesh_config(),
                                                      A.LM_SEED))
     out = {"weights_s": time.perf_counter() - t0, "worlds": {},
            "world_s": {}}
@@ -2257,8 +2306,164 @@ def train_mesh_run(torch) -> dict:
                 "load_s": ranks[0]["load_s"]}
         if "bf16" in ranks[0]:
             out["bf16"] = ranks[0]["bf16"]
+        if "families" in ranks[0]:
+            out["families"] = [r["families"] for r in ranks]
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def _refusals(torch, mesh) -> dict:
+    """Each kernel's wrapper handed DTensors on ``mesh``: the TypeError
+    it raises, or None where it took them."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.selective_scan import mamba_scan
+
+    def d(*shape):
+        return distribute_tensor(torch.zeros(shape, device="cuda"), mesh,
+                                 [Replicate()] * mesh.ndim)
+
+    calls = {"flash_attn": lambda: flash_attention(
+                 d(1, 8, 2, 64), d(1, 8, 2, 64), d(1, 8, 2, 64)),
+             "mamba_scan": lambda: mamba_scan(
+                 d(1, 8, 16), d(1, 8, 16), d(16), -d(16, 16) - 1,
+                 d(1, 8, 16), d(1, 8, 16), d(1, 8, 16), d(16))}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except TypeError as e:
+            out[name] = str(e)
+    return out
+
+
+def train_families_cases(torch, fmesh) -> dict:
+    """Phase train_mesh_families on one rank of phase train_mesh's gloo
+    world of 2, once its weights are written (TRAIN_FAMILIES_READY): each
+    case of TRAIN_FAMILIES_ORDER on a (1, 2) mesh through
+    ``acceptance.run_train`` from its weights under TRAIN_FAMILIES_WORK
+    (read from their files as touched, each rank's shard of a leaf cut on
+    the host), its summary, launches a step, staged all-gathers, seconds
+    and peak memory; then the refusals."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import acceptance as A
+    from repro_torch.launch.mesh import STAGED, make_mesh_for
+
+    data, model = TRAIN_FAMILIES_MESH
+    mesh = make_mesh_for(model_axis=model)
+    assert tuple(mesh.shape) == (data, model)
+    t0 = time.perf_counter()
+    if fmesh.rank == 0:
+        while not TRAIN_FAMILIES_READY.exists():
+            time.sleep(0.5)
+    dist.barrier()
+    out = {"waited_s": time.perf_counter() - t0}
+    for case in TRAIN_FAMILIES_ORDER:
+        cfg = A.train_family_config(case)
+        t0 = time.perf_counter()
+        tree = restore(str(TRAIN_FAMILIES_WORK / case), 0, _numpy_like(cfg),
+                       mmap=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        staged = dict(STAGED)
+        summary, launches, step_s = A.run_train(
+            cfg, tree, "cuda", optimizer=A.TRAIN_FAMILY_OPTIMIZER,
+            mesh=mesh, leaves=A.TRAIN_FAMILY_LEAVES[case])
+        torch.cuda.synchronize()
+        out[case] = {"rank": fmesh.rank, "summary": summary,
+                     "launches": launches, "step_s": step_s,
+                     "run_s": time.perf_counter() - t0,
+                     "params": cfg.param_count(),
+                     "staged": {k: STAGED[k] - staged[k] for k in STAGED},
+                     "peak_memory_gb":
+                         torch.cuda.max_memory_allocated() / 1e9}
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["refusals"] = _refusals(torch, mesh)
+    return out
+
+
+def train_families_draw(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="train_mesh_families"``) of
+    phase train_mesh_families: each case's weights drawn and written under
+    TRAIN_FAMILIES_WORK, on the host alone, then TRAIN_FAMILIES_READY.
+    Returns the seconds each case took."""
+    import shutil
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import seeded_numpy_params
+
+    shutil.rmtree(TRAIN_FAMILIES_WORK, ignore_errors=True)
+    drawn_s = {}
+    for case in TRAIN_FAMILIES_ORDER:
+        t0 = time.perf_counter()
+        save(str(TRAIN_FAMILIES_WORK / case), 0, seeded_numpy_params(
+            A.train_family_config(case), A.LM_SEED))
+        drawn_s[case] = time.perf_counter() - t0
+    TRAIN_FAMILIES_READY.touch()
+    return {"drawn_s": drawn_s}
+
+
+def train_mesh_families(torch, ranks: list, drawn: dict,
+                        wall_s: float) -> dict:
+    """Phase train_mesh_families' checks of the ranks' records ``ranks``
+    (run in phase train_mesh's gloo world) and the drawing worker's
+    ``drawn`` (its wall seconds ``wall_s``):
+    every case on every rank within TRAIN_TOLS of its
+    PINNED_TRAIN_FAMILIES entry (one summary on every rank),
+    ``train_launches`` a step on every rank, and both kernels' wrappers
+    refusing a DTensor on every rank. Returns the launches a step by case
+    for the kernels line."""
+    from repro_torch.configs import acceptance as A
+
+    per_step = {}
+    for case in TRAIN_FAMILIES_ORDER:
+        recs = [r[case] for r in ranks]
+        want = train_launches(A.train_family_config(case))
+        report = A.check_train(recs[0]["summary"],
+                               A.PINNED_TRAIN_FAMILIES[case])
+        if any(r["summary"] != recs[0]["summary"] for r in recs):
+            raise AssertionError(f"train_mesh_families {case}: the ranks' "
+                                 "summaries differ")
+        per_step[case] = {k: [[step[k] for step in r["launches"]]
+                              for r in recs]
+                          for k in ("flash_attn", "selective_scan")}
+        emit("train_mesh_families", case=case, mesh=str(TRAIN_FAMILIES_MESH),
+             backend="gloo", optimizer=A.TRAIN_FAMILY_OPTIMIZER,
+             batch=A.TRAIN_BATCH, seq=A.TRAIN_SEQ,
+             loss=recs[0]["summary"]["loss"],
+             grad_norm=recs[0]["summary"]["grad_norm"],
+             launches_per_step_per_rank=per_step[case],
+             expected_per_step={k: want[k] for k in per_step[case]},
+             drawn_s=drawn["drawn_s"][case],
+             **report, ranks=[{k: r[k] for k in (
+                 "rank", "params", "run_s", "step_s", "staged",
+                 "peak_memory_gb")} for r in recs])
+        bad = [r["rank"] for r in recs if any(
+            step[k] != want[k] for step in r["launches"] for k in want)]
+        if bad:
+            raise AssertionError(f"train_mesh_families {case}: launches a "
+                                 f"step {[r['launches'] for r in recs]}, "
+                                 f"expected {want}")
+    refused = [r["refusals"] for r in ranks]
+    emit("train_mesh_families", step="refusals", ranks=refused,
+         drawing_worker_wall_s=wall_s,
+         cases_wall_s=[r["wall_s"] for r in ranks],
+         waited_for_weights_s=[r["waited_s"] for r in ranks],
+         in_world_of="phase train_mesh's gloo world, after its meshes")
+    if any(msg is None or "DTensor" not in msg for r in refused
+           for msg in r.values()):
+        raise AssertionError(f"train_mesh_families: a kernel took a "
+                             f"DTensor: {refused}")
+    return per_step
 
 
 RANK_KEYS = ("rank", "run_s", "check_s", "tok_per_s",
@@ -2268,7 +2473,7 @@ RANK_KEYS = ("rank", "run_s", "check_s", "tok_per_s",
 
 def train_mesh(torch, result: dict, trained: dict, wall_s: float) -> dict:
     """Phase train_mesh's checks of the worker's ``result``: every rank of
-    every world within TRAIN_TOLS of PINNED_TRAIN (one summary on every
+    every world within TRAIN_TOLS of PINNED_TRAIN_MESH (one summary on every
     rank), ``train_launches`` flash_attn launches a step on every rank, the
     saved state bit for bit in each world (as saved, and restored onto the
     others' meshes), finite bf16 losses with the launches of a step; the
@@ -2276,11 +2481,11 @@ def train_mesh(torch, result: dict, trained: dict, wall_s: float) -> dict:
     Returns the launches a step by world for the kernels line."""
     from repro_torch.configs import acceptance as A
 
-    want = train_launches(A.train_config())["flash_attn"]
+    want = train_launches(A.train_mesh_config())["flash_attn"]
     per_step = {}
     for name, world in result["worlds"].items():
         ranks = world["ranks"]
-        report = A.check_train(ranks[0]["summary"])
+        report = A.check_train(ranks[0]["summary"], A.PINNED_TRAIN_MESH)
         if any(r["summary"] != ranks[0]["summary"] for r in ranks):
             raise AssertionError(f"train_mesh {name}: the ranks' summaries "
                                  "differ")
@@ -2309,7 +2514,8 @@ def train_mesh(torch, result: dict, trained: dict, wall_s: float) -> dict:
          worker_wall_s=wall_s,
          in_worker_beside=TRAIN_MESH_BESIDE, **bf16)
     if not all(math.isfinite(x) for x in bf16["losses"]) or any(
-            n != want for n in bf16["flash_attn_per_step"]):
+            n != train_launches(A.train_config())["flash_attn"]
+            for n in bf16["flash_attn_per_step"]):
         raise AssertionError(f"train_mesh (bf16): losses {bf16['losses']}, "
                              f"launches {bf16['flash_attn_per_step']}")
     return per_step
@@ -2600,6 +2806,9 @@ def alone_main(src: str, out: str) -> int:
         return 0
     if run.get("entry") == "train_mesh":
         torch.save(train_mesh_run(torch), out)
+        return 0
+    if run.get("entry") == "train_mesh_families":
+        torch.save(train_families_draw(torch), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
@@ -4382,6 +4591,8 @@ def determinism(torch, jobs, bank) -> None:
 
 
 def main() -> int:
+    import shutil
+
     import numpy as np
     import torch
 
@@ -4571,6 +4782,10 @@ def main() -> int:
     mesh_train = start_alone(torch, [{"entry": "train_mesh",
                                       "timeout_s": TRAIN_MESH_TIMEOUT_S}])
     atexit.register(stop_alone, mesh_train)   # on a failure before its join
+    # 23. train_mesh_families: its weights drawn in a worker of its own on
+    # the host meanwhile; its cases run in phase train_mesh's gloo world
+    families = start_alone(torch, [{"entry": "train_mesh_families"}])
+    atexit.register(stop_alone, families)
 
     # 6. fleet: the replay tick batched over a replica axis; phase 16's
     # what-ifs and phase 15's worlds run in workers beside its hours
@@ -4640,11 +4855,15 @@ def main() -> int:
     # workers) run beside phases durable and determinism
     t0 = time.perf_counter()
     try:
+        families_drawn = join_alone(torch, families)[0]
         mesh_trained = join_alone(torch, mesh_train)[0]
     finally:
+        stop_alone(families)
         stop_alone(mesh_train)
+    shutil.rmtree(TRAIN_FAMILIES_WORK, ignore_errors=True)
     emit("train_mesh", step="joined", worker_wall_s=mesh_train["wall_s"][0],
-         waited_s=time.perf_counter() - t0)
+         waited_s=time.perf_counter() - t0,
+         families_drawing_worker_wall_s=families["wall_s"][0])
 
     lm_cases, lm_runs = lm_pins_runs()
     lm = {}
@@ -4706,6 +4925,15 @@ def main() -> int:
                                mesh_train["wall_s"][0])
     emit("train_mesh", step="done", seconds=time.perf_counter() - t0)
 
+    # 23. train_mesh_families (continued): the worker's runs against the
+    # pins, the launches and the refusals
+    t0 = time.perf_counter()
+    family_launches = train_mesh_families(
+        torch, mesh_trained["families"], families_drawn,
+        families["wall_s"][0])
+    emit("train_mesh_families", step="done",
+         seconds=time.perf_counter() - t0)
+
     # each TPU kernel's row reports the entry its path launches: the fused
     # tick entries for the replay kernels (power_tick at the main path's
     # E = 1, rack_tick at the thermal hour's) and the Mamba mixer's fused
@@ -4751,6 +4979,8 @@ def main() -> int:
         # versions' autograd (the wiring: the backward is the plain vjp)
         **({"launches_per_train_step": trained["launches_per_train_step"],
             "launches_per_train_mesh_step_per_rank": mesh_launches,
+            "launches_per_train_mesh_families_step_per_rank": {
+                c: v["flash_attn"] for c, v in family_launches.items()},
             "backward": GRAD_BACKWARD,
             "gradient": {c: {k: v for k, v in record[
                 "flash_attn", "gradient", c].items() if k in GRAD_KEYS}
@@ -4758,7 +4988,9 @@ def main() -> int:
            if name == "flash_attn" else {}),
         **({"backward": GRAD_BACKWARD,
             "gradient": {k: v for k, v in record[
-                "mamba_scan", "gradient"].items() if k in GRAD_KEYS}}
+                "mamba_scan", "gradient"].items() if k in GRAD_KEYS},
+            "launches_per_train_mesh_families_step_per_rank": {
+                c: v["selective_scan"] for c, v in family_launches.items()}}
            if name == "selective_scan" else {}),
     } for name, (replaces, main, sig) in sources.items()]}), flush=True)
     print(card, flush=True)

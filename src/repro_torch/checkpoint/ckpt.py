@@ -218,13 +218,15 @@ def _as_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(directory: str, step: int, like: Any, *,
-            shardings: Any = None) -> Any:
+            shardings: Any = None, mmap: bool = False) -> Any:
     """Checkpoint ``step`` of ``directory`` in the structure of ``like``
     (see the module docstring for where each leaf lands). ``shardings``: a
     tree of ``sharding.specs.NamedSharding`` matching ``like``; each leaf
     then comes back a DTensor so placed (on ``like``'s leaf's device, or
-    the mesh's for a ``meta`` one), read whole and cut to this rank's
-    shard one leaf at a time."""
+    the mesh's for a ``meta`` one), read on the host and cut to this
+    rank's shard one leaf at a time. ``mmap``: numpy leaves come back as
+    read-only maps of their files, read as they are touched (several
+    processes reading one checkpoint share the pages)."""
     path = _step_dir(directory, step)
     meta = read_meta(directory, step)
     placed = dict(tree_leaves_with_names(shardings)) if shardings else {}
@@ -232,7 +234,8 @@ def restore(directory: str, step: int, like: Any, *,
     def load(name, leaf):
         fname = _file(name)
         try:
-            arr = np.load(os.path.join(path, fname + ".npy"))
+            arr = np.load(os.path.join(path, fname + ".npy"),
+                          mmap_mode="r" if mmap else None)
         except FileNotFoundError:
             raise CheckpointError(
                 f"checkpoint {path} is missing leaf file {fname}.npy "
@@ -265,24 +268,19 @@ def restore(directory: str, step: int, like: Any, *,
                     f"expected {leaf.dtype}", field=fname)
             out = out.to(leaf.dtype)
         if name in placed:
-            return _placed(out, leaf, placed[name])
+            return _placed(out, placed[name])
         return to_device(out, leaf.device)
 
     return tree_map_with_path_names(load, like)
 
 
-def _placed(full: torch.Tensor, leaf, sharding):
-    """``full`` as a DTensor on ``sharding``'s mesh and placements, this
-    rank keeping its shard: no rank's data moves."""
-    from torch.distributed.tensor import distribute_tensor
+def _placed(full: torch.Tensor, sharding):
+    """``full`` (on the host) as a DTensor on ``sharding``'s mesh and
+    placements, this rank keeping its shard, cut on the host: no rank's
+    data moves."""
+    from repro_torch.sharding.specs import distribute_leaf
 
-    device = leaf.device
-    if device.type == "meta":
-        mesh_type = sharding.mesh.device_type
-        device = torch.device(mesh_type, torch.cuda.current_device()) \
-            if mesh_type == "cuda" else torch.device(mesh_type)
-    return distribute_tensor(to_device(full, device), sharding.mesh,
-                             sharding.placements, src_data_rank=None)
+    return distribute_leaf(full, sharding.spec, sharding.mesh)
 
 
 def save_sharded(directory: str, step: int, tree: Any, mesh, *,

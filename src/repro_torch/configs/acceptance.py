@@ -1564,8 +1564,292 @@ PINNED_TRAIN = {
 }
 
 
+# LM training of the other families on a mesh (``chip_smoke.py`` phase
+# train_mesh_families): each case's config at full width (depth cut as
+# named), f32, weights ``seeded_numpy_params(cfg, LM_SEED)``, TRAIN_STEPS
+# steps of ``train_optimizer(name="adafactor")`` at TRAIN_BATCH x
+# TRAIN_SEQ, with ``train_extras``, on a (1, 2) mesh: one data rank, so an
+# MoE layer routes one group. ``PINNED_TRAIN_FAMILIES`` holds the JAX
+# package's unsharded run on the CPU (jax 0.9.0, ``ShardCtx(enabled=False,
+# dp_size=TRAIN_FAMILY_DP, attention_impl="pallas")``, the attention kernel
+# in interpret mode, the Mamba scan its jnp oracle; whisper's attention
+# ``attention_impl="xla"``, as the kernel's blocks do not divide its 1,500
+# frames), made by ``python
+# tests/torch_train_pins.py --family CASE``; each case's ``train_summary``
+# of its own four leaves. No batch or length was cut.
+# - ``train_mixtral_1l``: ``mixtral_config(1)`` (2.91e9 parameters: d 6144,
+#   48 q and 8 KV heads, 8 experts of d_ff 16384, top-2, capacity factor
+#   1.25, vocab 32768);
+# - ``train_jamba_1l``: ``jamba_config(1)`` (2.10e9: its first layer, a
+#   Mamba mixer of di 16384 and d_state 16 with the dense MLP of d_ff
+#   24576, d 8192, vocab 65536);
+# - ``train_whisper``: whisper-small whole (2.38e8: 12 encoder layers over
+#   1500 audio frames, 12 decoder layers with their cross-attentions).
+# Each case pins four leaves of its family's own layers. ``check_train``
+# holds a leaf's sum relative to the sum itself, which for a zero-mean
+# matrix is ~1e-4 of its absolute sum at these sizes, so the sum's
+# distance there is its change's distance scaled up to ~1e4-fold: jamba's
+# leaves are its mixer's per-channel parameters and its conv, whisper's
+# three attention matrices and the cross-attention's norm scale (a first
+# set with whisper's embedding and jamba's in_proj and x_proj read sum
+# distances of 1.2e-5 to 3.0e-5 on the card, with every change's sum
+# within 6.5e-7; ``CHANGES.md``).
+TRAIN_FAMILY_OPTIMIZER = "adafactor"
+TRAIN_FAMILY_DP = 1
+TRAIN_FAMILY_LEAVES = {
+    "train_mixtral_1l": ("emb", "body/0/e_wg", "body/0/router", "body/0/wq"),
+    "train_jamba_1l": ("tail/0/A_log", "tail/0/D_skip", "tail/0/dt_b",
+                       "tail/0/conv_w"),
+    "train_whisper": ("encoder/layers/wq", "xattn_body/0/xk", "body/0/wq",
+                      "xattn_body/0/lnx"),
+}
+
+
+PINNED_TRAIN_FAMILIES = {
+    "train_mixtral_1l": {
+    "loss": [
+        10.956647872924805,
+        10.914239883422852,
+        21.027956008911133
+    ],
+    "grad_norm": [
+        25.64605712890625,
+        28.554584503173828,
+        121.2332992553711
+    ],
+    "skipped": [
+        0.0,
+        0.0,
+        0.0
+    ],
+    "tokens_digest": [
+        [
+            960466452,
+            1022023967
+        ],
+        [
+            890132525,
+            1083798405
+        ],
+        [
+            1076960589,
+            1020592031
+        ]
+    ],
+    "leaves": {
+        "emb": {
+            "sum": 80.00801155362318,
+            "delta_sum": -8.480368311282032,
+            "delta_abs_sum": 2728.177724581472
+        },
+        "body/0/e_wg": {
+            "sum": 89.49895303966679,
+            "delta_sum": -11.958017283203475,
+            "delta_abs_sum": 191770.5344013727
+        },
+        "body/0/router": {
+            "sum": -0.2656930252716876,
+            "delta_sum": -0.016002834676640987,
+            "delta_abs_sum": 12.702779543619158
+        },
+        "body/0/wq": {
+            "sum": -41.27707090805042,
+            "delta_sum": -1.2357408248140516,
+            "delta_abs_sum": 9326.581128134143
+        }
+    }
+},
+    "train_jamba_1l": {
+    "loss": [
+        11.651474952697754,
+        11.624408721923828,
+        16.87472915649414
+    ],
+    "grad_norm": [
+        14.809321403503418,
+        15.000675201416016,
+        92.18247985839844
+    ],
+    "skipped": [
+        0.0,
+        0.0,
+        0.0
+    ],
+    "tokens_digest": [
+        [
+            1664304130,
+            1673042962
+        ],
+        [
+            1839440692,
+            1428278125
+        ],
+        [
+            1587489361,
+            1679425407
+        ]
+    ],
+    "leaves": {
+        "tail/0/A_log": {
+            "sum": 502526.9038301483,
+            "delta_sum": -0.8578886017000737,
+            "delta_abs_sum": 67.57149539799946
+        },
+        "tail/0/D_skip": {
+            "sum": 16384.106711030006,
+            "delta_sum": 0.10671103000640869,
+            "delta_abs_sum": 4.444393515586853
+        },
+        "tail/0/dt_b": {
+            "sum": -52995.06026339531,
+            "delta_sum": 0.21325063705444336,
+            "delta_abs_sum": 4.435896873474121
+        },
+        "tail/0/conv_w": {
+            "sum": 87.80546497523574,
+            "delta_sum": 0.11569453303491173,
+            "delta_abs_sum": 17.727151722534472
+        }
+    }
+},
+    "train_whisper": {
+    "loss": [
+        10.892653465270996,
+        10.88173770904541,
+        10.430627822875977
+    ],
+    "grad_norm": [
+        4.748666286468506,
+        4.829595565795898,
+        5.359583854675293
+    ],
+    "skipped": [
+        0.0,
+        0.0,
+        0.0
+    ],
+    "tokens_digest": [
+        [
+            1665704405,
+            1294067303
+        ],
+        [
+            1385501297,
+            1605207833
+        ],
+        [
+            1381718212,
+            1484343106
+        ]
+    ],
+    "leaves": {
+        "encoder/layers/wq": {
+            "sum": 20.40046588660699,
+            "delta_sum": 0.3971104955647653,
+            "delta_abs_sum": 1725.5862845879892
+        },
+        "xattn_body/0/xk": {
+            "sum": -29.90493801951451,
+            "delta_sum": -0.04381653427316956,
+            "delta_abs_sum": 1634.5898362493388
+        },
+        "body/0/wq": {
+            "sum": 72.11827497068757,
+            "delta_sum": 0.1031630523096485,
+            "delta_abs_sum": 1809.5691951723315
+        },
+        "xattn_body/0/lnx": {
+            "sum": 9215.941991329193,
+            "delta_sum": -0.058008670806884766,
+            "delta_abs_sum": 2.0136783123016357
+        }
+    }
+},
+}
+
+
+def train_family_config(case: str, dtype: str = "float32") -> ModelConfig:
+    """The config of a case of TRAIN_FAMILY_LEAVES."""
+    return {"train_mixtral_1l": lambda: mixtral_config(1, dtype),
+            "train_jamba_1l": lambda: jamba_config(1, dtype),
+            "train_whisper": lambda: whisper_config(dtype)}[case]()
+
+
 def train_config(dtype: str = "float32") -> ModelConfig:
     return lm_config(dtype)
+
+
+# The training case on DTensor meshes (``chip_smoke.py`` phase
+# train_mesh): the case above with gemma3-1b cut to its first
+# TRAIN_MESH_LAYERS layers (one whole 5:1 period of window and global
+# layers and two more: R = 1 and a tail of 2, so every leaf of
+# TRAIN_LEAVES exists), every width kept; the weights
+# ``seeded_numpy_params`` of that config. ``PINNED_TRAIN_MESH`` holds the
+# JAX package's run of it on the CPU as ``PINNED_TRAIN`` holds the whole
+# model's (``python tests/torch_train_pins.py --mesh``). The cut keeps the
+# gloo worlds' steps and their 12 GB checkpoint of the whole depth out of
+# the script's time.
+TRAIN_MESH_LAYERS = 8
+
+
+def train_mesh_config(dtype: str = "float32") -> ModelConfig:
+    return dataclasses.replace(train_config(dtype),
+                               n_layers=TRAIN_MESH_LAYERS)
+
+
+PINNED_TRAIN_MESH = {
+    "loss": [
+        12.482345581054688,
+        12.469634056091309,
+        12.305341720581055
+    ],
+    "grad_norm": [
+        8.067793846130371,
+        8.288565635681152,
+        7.882528781890869
+    ],
+    "skipped": [
+        0.0,
+        0.0,
+        0.0
+    ],
+    "tokens_digest": [
+        [
+            5149475079,
+            4286259773
+        ],
+        [
+            4784503251,
+            5156841370
+        ],
+        [
+            4637950657,
+            5486022126
+        ]
+    ],
+    "leaves": {
+        "emb": {
+            "sum": -1225.5531690942018,
+            "delta_sum": -1254.0137851021898,
+            "delta_abs_sum": 89949.2515506757
+        },
+        "body/0/wq": {
+            "sum": 33.08813924176366,
+            "delta_sum": 0.19729888078545343,
+            "delta_abs_sum": 326.72699219272374
+        },
+        "body/0/ln1": {
+            "sum": 1151.9932775497437,
+            "delta_sum": -0.006722450256347656,
+            "delta_abs_sum": 0.3423745632171631
+        },
+        "tail/0/ln1": {
+            "sum": 1151.9905844926834,
+            "delta_sum": -0.009415507316589355,
+            "delta_abs_sum": 0.33675944805145264
+        }
+    }
+}
 
 
 def train_optimizer(steps: int = TRAIN_STEPS, name: str = "adamw"):
@@ -1577,6 +1861,9 @@ def train_optimizer(steps: int = TRAIN_STEPS, name: str = "adamw"):
                                                 steps))
 
 
+SUMMARY_BLOCK = 1 << 24   # values a leaf's sums read at a time
+
+
 def train_summary(metrics: list, tokens: list, params0: dict,
                   params: dict, leaves=TRAIN_LEAVES) -> dict:
     """The pinned form of a training run: ``metrics`` one dict of floats a
@@ -1585,11 +1872,15 @@ def train_summary(metrics: list, tokens: list, params0: dict,
     default) before the first and after the last step."""
     names, leaves = leaves, {}
     for name in names:
-        p0 = np.asarray(params0[name], np.float64)
-        p = np.asarray(params[name], np.float64)
-        leaves[name] = {"sum": float(p.sum()),
-                        "delta_sum": float((p - p0).sum()),
-                        "delta_abs_sum": float(np.abs(p - p0).sum())}
+        p0 = np.asarray(params0[name]).reshape(-1)
+        p = np.asarray(params[name]).reshape(-1)
+        sums = np.zeros(3)
+        for lo in range(0, p.size, SUMMARY_BLOCK):    # float64 a block
+            b0 = p0[lo:lo + SUMMARY_BLOCK].astype(np.float64)
+            b = p[lo:lo + SUMMARY_BLOCK].astype(np.float64)
+            sums += (b.sum(), (b - b0).sum(), np.abs(b - b0).sum())
+        leaves[name] = {"sum": float(sums[0]), "delta_sum": float(sums[1]),
+                        "delta_abs_sum": float(sums[2])}
     return {**{k: [float(m[k]) for m in metrics] for k in TRAIN_METRICS},
             "skipped": [float(m["skipped"]) for m in metrics],
             "tokens_digest": [int_digest(t) for t in tokens],
@@ -1636,6 +1927,23 @@ def check_train(got: dict, pins: dict | None = None,
     return report
 
 
+def train_extras(cfg: ModelConfig, step: int, batch: int) -> dict:
+    """The memory input of step ``step``'s training batch, where the model
+    attends to one (the VLM's ``vision`` tokens, whisper's ``audio``
+    frames), as f32 numpy: ``0.02 *`` a standard normal from numpy's
+    generator seeded with (TRAIN_DATA_SEED, step), the same in every
+    process and in both packages (``lm_batch_at``'s own extras are keyed
+    by a hash that Python salts per process)."""
+    from repro_torch.models.spec import memory_input
+
+    name, m = memory_input(cfg)
+    if name is None:
+        return {}
+    rng = np.random.default_rng([TRAIN_DATA_SEED, step])
+    return {name: np.float32(0.02) * rng.standard_normal(
+        (batch, m, cfg.d_model), dtype=np.float32)}
+
+
 def run_train(cfg: ModelConfig, tree: dict, device, *,
               steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
               seq: int = TRAIN_SEQ, optimizer: str = "adamw", mesh=None,
@@ -1645,7 +1953,9 @@ def run_train(cfg: ModelConfig, tree: dict, device, *,
     ``train_optimizer``'s ``make_train_step`` on ``lm_batch_at``. With a
     (data, model) ``mesh`` (``launch.mesh.make_mesh_for``) the state and
     the batches are DTensors on it, by ``train_state_pspecs`` and
-    ``batch_pspecs``, and the step runs sharded. Returns
+    ``batch_pspecs``, and the step runs sharded; an MoE model routes
+    groups of its data-parallel degree. A model with a memory reads
+    ``train_extras``. Returns
     (``train_summary`` of ``leaves``, the kernel launches of each step,
     each step's seconds up to its metrics on the host)."""
     import time
@@ -1661,35 +1971,50 @@ def run_train(cfg: ModelConfig, tree: dict, device, *,
     from repro_torch.utils.tree import tree_leaves_with_names
 
     opt = train_optimizer(steps, optimizer)
-    params = tree_from_numpy(tree, device)
-    named = dict(tree_leaves_with_names(params))
-    params0 = {n: named[n].cpu().numpy().copy() for n in leaves}
+    # the initial leaves, not copied: a step makes new tensors, so
+    # nothing writes into the arrays of ``tree``
+    named = dict(tree_leaves_with_names(tree))
+    params0 = {n: named[n] for n in leaves}
     del named
-    state = {"params": params, "opt": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=device)}
-    del params
     ctx, put = UNSHARDED, lambda tree, specs: tree
-    if mesh is not None:
+    step0 = torch.zeros((), dtype=torch.int32, device=device)
+    if mesh is None:
+        params = tree_from_numpy(tree, device)
+        state = {"params": params, "opt": opt.init(params), "step": step0}
+    else:
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.sharding.ctx import make_ctx
         from repro_torch.sharding.specs import (
             batch_pspecs,
             distribute,
+            distribute_leaf,
+            spec_leaves,
             train_state_pspecs,
         )
+        from repro_torch.utils.tree import tree_map_with_path_names
 
         ctx = make_ctx(False, tp_size=mesh["model"].size(),
                        dp_size=mesh["data"].size())
-        state = distribute(state, train_state_pspecs(cfg, ctx, opt, mesh),
-                           mesh)
+        specs = train_state_pspecs(cfg, ctx, opt, mesh)
+        by = dict(spec_leaves(specs["params"]))
+        # each rank's shard of each leaf cut on the host
+        params = tree_map_with_path_names(
+            lambda n, x: distribute_leaf(tree_from_numpy(x, "cpu"), by[n],
+                                         mesh), tree)
+        state = {"params": params,
+                 "opt": distribute(opt.init(params), specs["opt"], mesh),
+                 "step": distribute(step0, specs["step"], mesh)}
         batch_ps = batch_pspecs(cfg, ShapeConfig("train", seq, batch,
                                                  "train"), ctx)
         put = lambda tree, specs: distribute(tree, specs, mesh)  # noqa: E731
+    del params
     step = make_train_step(cfg, opt, ctx)
     metrics, tokens, launches, seconds = [], [], [], []
     for i in range(steps):
         b = lm_batch_at(i, vocab=cfg.vocab, batch=batch, seq_len=seq,
                         seed=TRAIN_DATA_SEED, device=device)
+        b.update({k: torch.from_numpy(v).to(device)
+                  for k, v in train_extras(cfg, i, batch).items()})
         tokens.append(b["tokens"].cpu().numpy())
         if mesh is not None:
             b = put(b, batch_ps)

@@ -106,9 +106,18 @@ def _check_common(name, ts, ba, s, di, ds) -> None:
         raise ValueError(f"{name}: batch {ba} above {MAX_BATCH}")
 
 
+def _refuse_dtensor(name: str, ts) -> None:
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{name}: a DTensor reached the kernel; pass each "
+                        "rank's local shards (models.layers.local_scan)")
+
+
 def _check(x, dt, A, B, C) -> None:
     """Raise on anything the kernel does not take."""
     ts = (x, dt, A, B, C)
+    _refuse_dtensor("selective_scan", ts)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("selective_scan: x, dt, A, B and C must be f32, got "
                         f"{[t.dtype for t in ts]}")
@@ -193,6 +202,7 @@ def selective_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
 def _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip) -> None:
     """Raise on anything the fused kernel does not take."""
     ts = (xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+    _refuse_dtensor("mamba_scan", ts)
     if xb.dtype not in COMPUTE_DTYPES or A.dtype != torch.float32 or any(
             t.dtype != xb.dtype for t in (dt_proj, dt_b, Bc, Cc, z, D_skip)):
         raise TypeError(

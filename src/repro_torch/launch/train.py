@@ -15,8 +15,11 @@ it trains on a (data, model) mesh of W / M x M ranks, M =
 ``--model-axis`` (``launch.mesh.make_mesh_for``): the state is
 distributed by ``train_state_pspecs`` (FSDP over ``data``, TP over
 ``model``), each batch by ``batch_pspecs``, the step runs on DTensors, and
-checkpoints are gathered to rank 0 and restore onto any mesh. Only rank 0
-prints. The dense family alone trains on a mesh for now.
+checkpoints are gathered to rank 0 and restore onto any mesh. Every
+family trains on a mesh; a VLM's vision tokens and whisper's audio frames
+are laid out (dp, None, None) by ``batch_pspecs``, drawn on rank 0 and
+broadcast (the corpus keys them by a hash Python salts per process, so
+each rank would draw its own). Only rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --steps 20 --batch 4 --seq 1024 --ckpt build/train/gemma [--resume]
@@ -25,6 +28,9 @@ prints. The dense family alone trains on a mesh for now.
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \\
       repro_torch.launch.train --arch qwen3-4b --reduced --model-axis 2 \\
       --steps 20 --batch 8 --seq 64 --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \\
+      repro_torch.launch.train --arch jamba-1.5-large-398b --reduced \\
+      --model-axis 2 --steps 20 --batch 8 --seq 64 --device cpu
 """
 
 from __future__ import annotations
@@ -95,21 +101,24 @@ def _world() -> int:
                                      and dist.is_initialized()) else 0
 
 
-def run(args: argparse.Namespace, init=None) -> tuple:
+def run(args: argparse.Namespace, init=None, cfg=None) -> tuple:
     """Train as ``args`` say; returns (the logged history, the final
     state). ``init``: a parameter tree in the JAX package's layout (f32
     numpy arrays or tensors) to start from instead of the seeded random
-    init."""
+    init. ``cfg``: the model's config in place of ``--arch``'s (with
+    ``--reduced`` and ``--dtype``), for a model the flags cannot name,
+    such as an arch cut to fewer layers."""
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         exact_matmul()
     world = _world()
     lead = world == 0 or torch.distributed.get_rank() == 0
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
+        if args.dtype:
+            cfg = dataclasses.replace(cfg, dtype=args.dtype)
     n_params = count_params_analytic(cfg)
     if lead:
         print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
@@ -175,6 +184,8 @@ def run(args: argparse.Namespace, init=None) -> tuple:
                             seq_len=args.seq, seed=args.seed,
                             extras=extras or None, device=dev)
         if mesh is not None:
+            for name in extras:
+                torch.distributed.broadcast(batch[name], 0)
             batch = put(batch, batch_ps)
         state, metrics = step_fn(state, batch)
         tokens_done += args.batch * args.seq

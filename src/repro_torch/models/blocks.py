@@ -15,9 +15,13 @@ pair of ``layers.rope_cos_sin`` for the positions in flight, computed once
 per forward and shared by the attention layers.
 
 ``ctx`` (``sharding.ctx``) constrains the activations where the JAX
-package does: q, k and v to (dp, None, heads, None), the heads split
-over ``model`` where their count divides it (``ShardCtx.heads_axis``),
-and the residual stream after each mixer and FFN to (dp, sp, None); and
+package does: q, k and v (the cross-attentions' too, k and v from the
+memory) to (dp, None, heads, None), the heads split over ``model`` where
+their count divides it (``ShardCtx.heads_axis``), the Mamba mixer's
+channels to (dp, None, tp) (``mamba``), and the residual stream after
+each mixer and FFN to (dp, sp, None); the MoE FFN runs each rank's
+groups (``moe``), the xLSTM cells each rank's local batch
+(``layers.on_local_batch``); and
 where DTensor needs it: each product's input gathered over the sequence
 (``layers.normed``) and the row-parallel products' outputs laid out as
 the residual stream before they are added to it, so no gradient reaches
@@ -47,6 +51,7 @@ from repro_torch.models.layers import (
     decode_attention,
     mlp_apply,
     normed,
+    on_local_batch,
     rms_norm,
 )
 from repro_torch.models.mamba import mamba_apply, mamba_decode
@@ -81,15 +86,16 @@ def _qkv(w: Weights, h: torch.Tensor, cfg: ModelConfig,
     """q (B, S, H, hd), k and v (B, S, Kv, hd). On a mesh each projection
     is laid out by its heads (``ShardCtx.heads_axis``) before it is split
     into heads, so a split over ``model`` falls on whole heads."""
-    B, Sq, _ = h.shape
+    return (_heads(w["wq"], h, cfg.n_heads, cfg, ctx),
+            _heads(w["wk"], h, cfg.n_kv_heads, cfg, ctx),
+            _heads(w["wv"], h, cfg.n_kv_heads, cfg, ctx))
 
-    def heads(name, n):
-        y = ctx.constrain_raw(h @ w[name],
-                              (ctx.axis("dp"), None, ctx.heads_axis(n)))
-        return y.reshape(B, Sq, n, cfg.hd)
 
-    return (heads("wq", cfg.n_heads), heads("wk", cfg.n_kv_heads),
-            heads("wv", cfg.n_kv_heads))
+def _heads(wp: torch.Tensor, h: torch.Tensor, n: int, cfg: ModelConfig,
+           ctx: ShardCtx) -> torch.Tensor:
+    """``h @ wp`` split into ``n`` heads (B, S, n, hd)."""
+    y = ctx.constrain_raw(h @ wp, (ctx.axis("dp"), None, ctx.heads_axis(n)))
+    return y.reshape(*h.shape[:2], n, cfg.hd)
 
 
 def _maybe_qk_norm(w: Weights, q, k, cfg: ModelConfig):
@@ -116,8 +122,27 @@ def self_attention_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
     k = ctx.constrain_raw(k, (dp, None, kv_ax, None))
     v = ctx.constrain_raw(v, (dp, None, kv_ax, None))
     o = attention(q, k, v, causal=causal, window=window)
+    return _out_proj(o, w["wo"], cfg, ctx), {"k": k, "v": v}
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardCtx) -> torch.Tensor:
+    """The attention's output o (B, S, H, hd) through its row-parallel
+    projection ``wo`` (H * hd, D), laid out as the residual stream. Where
+    the heads do not split over ``model`` but wo's rows do, wo's rows are
+    gathered whole first: o's gradient would come back split across its
+    heads, which DTensor cannot unflatten."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if (isinstance(wo, DTensor) and ctx.tp in wo.device_mesh.mesh_dim_names
+            and ctx.heads_axis(cfg.n_heads) is None):
+        model = wo.device_mesh.mesh_dim_names.index(ctx.tp)
+        if wo.placements[model] == Shard(0):
+            wo = wo.redistribute(wo.device_mesh, tuple(
+                Replicate() if i == model else p
+                for i, p in enumerate(wo.placements)))
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.hd)
-    return ctx.constrain(o @ w["wo"], "dp", "sp", None), {"k": k, "v": v}
+    return ctx.constrain(o @ wo, "dp", "sp", None)
 
 
 def _gated(out: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
@@ -128,20 +153,22 @@ def _gated(out: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
 
 def cross_attention_parallel(w: Weights, x: torch.Tensor,
                              memory: torch.Tensor, cfg: ModelConfig, *,
-                             gate: Optional[torch.Tensor] = None
+                             gate: Optional[torch.Tensor] = None,
+                             ctx: ShardCtx = UNSHARDED
                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention of x's tokens onto ``memory`` (B, M, D), the vision tokens
     or the encoder's states, with no mask (M may be shorter than the
-    prompt). Returns (output, its ``{"k", "v"}`` (B, M, Kv, hd))."""
-    B, M, _ = memory.shape
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    h = rms_norm(x, w["lnx"], cfg.norm_eps)
-    q = (h @ w["xq"]).reshape(*h.shape[:2], H, hd)
-    k = (memory @ w["xk"]).reshape(B, M, Kv, hd)
-    v = (memory @ w["xv"]).reshape(B, M, Kv, hd)
+    prompt). Returns (output, its ``{"k", "v"}`` (B, M, Kv, hd)). On a
+    mesh the memory is laid out (dp, None, None), q, k and v are split by
+    their heads as in the self-attention, and the gate multiplies the
+    output laid out as the residual stream."""
+    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    h = normed(x, w["lnx"], cfg.norm_eps, ctx)
+    q = _heads(w["xq"], h, H, cfg, ctx)
+    k = _heads(w["xk"], memory, Kv, cfg, ctx)
+    v = _heads(w["xv"], memory, Kv, cfg, ctx)
     o = attention(q, k, v, causal=False, window=0)
-    o = o.reshape(*o.shape[:2], H * hd)
-    return _gated(o @ w["xo"], gate), {"k": k, "v": v}
+    return _gated(_out_proj(o, w["xo"], cfg, ctx), gate), {"k": k, "v": v}
 
 
 def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
@@ -152,7 +179,8 @@ def ffn_parallel(w: Weights, x: torch.Tensor, cfg: ModelConfig,
     if "ln2" not in w:
         return x, None
     if is_moe:
-        y, aux = moe_apply(w, x, cfg)
+        y, aux = moe_apply(w, x, cfg, ctx=ctx)
+        y = ctx.constrain(y, "dp", "sp", None)
         return ctx.constrain(x + y, "dp", "sp", None), aux
     y = ctx.constrain(mlp_apply(w, x, gated=S.mlp_gated(cfg),
                                 eps=cfg.norm_eps, ctx=ctx), "dp", "sp", None)
@@ -179,17 +207,21 @@ def block_forward(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
         x = ctx.constrain(x + o, "dp", "sp", None)
         if kind == CROSS:
             xo, kvx = cross_attention_parallel(w, x, memory, cfg,
-                                               gate=w["xgate"])
+                                               gate=w["xgate"], ctx=ctx)
             x = ctx.constrain(x + xo, "dp", "sp", None)
             kv.update(xk=kvx["k"], xv=kvx["v"])
     else:
-        apply = {MAMBA: mamba_apply, MLSTM: mlstm_apply,
-                 SLSTM: slstm_apply}[kind]
-        o, kv = apply(w, x, cfg, return_state=True)
-        x = ctx.constrain(x + o, "dp", "sp", None)
+        if kind == MAMBA:
+            o, kv = mamba_apply(w, x, cfg, return_state=True, ctx=ctx)
+        else:
+            apply = {MLSTM: mlstm_apply, SLSTM: slstm_apply}[kind]
+            o, kv = on_local_batch(lambda w, x: apply(
+                w, x, cfg, return_state=True), w, x, ctx)
+        x = ctx.constrain(x + ctx.constrain(o, "dp", "sp", None),
+                          "dp", "sp", None)
     if xa is not None and kind != CROSS:
         # the encoder-decoder's cross-attention, in every decoder layer
-        xo, kvx = cross_attention_parallel(xa, x, memory, cfg)
+        xo, kvx = cross_attention_parallel(xa, x, memory, cfg, ctx=ctx)
         x = ctx.constrain(x + xo, "dp", "sp", None)
         kv.update(xk=kvx["k"], xv=kvx["v"])
     x, aux = ffn_parallel(w, x, cfg, is_moe, ctx)

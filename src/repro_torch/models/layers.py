@@ -12,19 +12,23 @@ memory (vision tokens, audio frames) have no mask.
 
 On a mesh the activations are DTensors and every function here but
 ``attention`` runs as DTensor operations. ``attention`` hands the kernel
-each rank's local batch and heads (``local_attention``): the kernel
-launches through raw pointers and never sees a DTensor.
+each rank's local batch and heads (``local_attention``), and
+``local_scan`` hands the Mamba scan each rank's local batch and
+channels: the kernels launch through raw pointers and never see a
+DTensor. ``on_local_batch`` runs a whole function (the xLSTM cells) on
+each rank's local batch with its weights gathered once.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attn import flash_attention, scale_of
+from repro_torch.kernels.selective_scan import mamba_scan
 from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
 
@@ -147,6 +151,102 @@ def local_attention(q, k, v, *, causal: bool, window: int):
                           causal=causal, window=window)
     return DTensor.from_local(out, mesh, qp, run_check=False,
                               shape=q.shape, stride=q.stride())
+
+
+def local_view(t, want: tuple, act: tuple):
+    """The local shard of the DTensor ``t`` laid out as ``want``, read
+    beside an activation laid out as ``act``: where ``t`` is whole on a
+    mesh axis that splits the activation, each rank's gradient is a
+    partial sum over that axis. A mesh axis of one rank keeps ``t``'s own
+    placement (no copy, no collective)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = t.device_mesh
+    want = tuple(p if mesh.size(i) == 1 else w
+                 for i, (p, w) in enumerate(zip(t.placements, want)))
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local(grad_placements=tuple(
+        Partial() if w == Replicate() and a != Replicate()
+        and mesh.size(i) > 1 else w
+        for i, (w, a) in enumerate(zip(want, act))))
+
+
+def local_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip):
+    """``mamba_scan`` on each rank's local shards of DTensors: xb,
+    dt_proj, z (B, S, di) with the batch split over the dp axes or whole
+    and the channels split over ``model`` or whole; dt_b, D_skip (di,) and
+    A (di, ds) taken on the rank's channels, Bc, Cc (B, S, ds) on its
+    rows. The scan is per channel, so each rank's output is its shard of
+    the whole scan's. Bc's and Cc's gradients are partial sums over the
+    axis that splits the channels; the weights' over the axes that split
+    the batch. Returns (out, final state (B, di, ds)) as DTensors laid
+    out as xb."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, xp = xb.device_mesh, tuple(xb.placements)
+    if (any(p not in (Replicate(), Shard(0), Shard(2)) for p in xp)
+            or tuple(dt_proj.placements) != xp
+            or tuple(z.placements) != xp):
+        raise ValueError(f"local_scan: xb {xp}, dt_proj "
+                         f"{tuple(dt_proj.placements)}, z "
+                         f"{tuple(z.placements)}: the batch and the "
+                         "channels may be split, the sequence not")
+    chan = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in xp)
+    out, final = mamba_scan(
+        xb.to_local().contiguous(), dt_proj.to_local().contiguous(),
+        local_view(dt_b, chan, xp).contiguous(),
+        local_view(A, chan, xp).contiguous(), local_view(Bc, rows, xp),
+        local_view(Cc, rows, xp), z.to_local(),
+        local_view(D_skip, chan, xp).contiguous())
+    fp = tuple(Shard(1) if p == Shard(2) else p for p in xp)
+    B, _, di = xb.shape
+    return (DTensor.from_local(out, mesh, xp, run_check=False,
+                               shape=xb.shape, stride=xb.stride()),
+            DTensor.from_local(final, mesh, fp, run_check=False,
+                               shape=(B, di, A.shape[1]),
+                               stride=(di * A.shape[1], A.shape[1], 1)))
+
+
+def scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip):
+    """The Mamba mixer's scan: the ``mamba_scan`` kernel on the card, its
+    plain version on the CPU; DTensors on a mesh (``local_scan``)."""
+    if isinstance(xb, DTensor):
+        return local_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+    return mamba_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+
+
+def on_local_batch(fn: Callable, w: Mapping[str, torch.Tensor], x, ctx):
+    """``fn(w, x)`` (returning a tensor, or a tensor and a dict of
+    batch-leading tensors) on each rank's local batch of the DTensor x
+    (B, S, D), gathered whole over the sequence, with every weight of
+    ``w`` gathered whole once: the model axis computes the same thing on
+    every rank, so the weights' gradients are partial sums over the dp
+    axes alone. Returns fn's results as DTensors laid out as the
+    gathered x (the batch on the dp axes). ``fn(w, x)`` itself on a
+    plain tensor."""
+    if not isinstance(x, DTensor):
+        return fn(w, x)
+    from torch.distributed.tensor import Replicate
+
+    x = ctx.constrain(x, "dp", None, None)
+    mesh, xp = x.device_mesh, tuple(x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    got = fn({k: local_view(t, whole, xp) if isinstance(t, DTensor) else t
+              for k, t in w.items()}, x.to_local())
+
+    def back(t, shape):
+        return DTensor.from_local(t, mesh, xp, run_check=False, shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    if isinstance(got, tuple):
+        out, state = got
+        return back(out, x.shape), {
+            k: back(v, (x.shape[0],) + tuple(v.shape[1:]))
+            for k, v in state.items()}
+    return back(got, x.shape)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

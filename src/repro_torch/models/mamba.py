@@ -1,10 +1,16 @@
 """The Mamba (selective state-space) mixer (the JAX package's
 ``models/mamba.py``).
 
-Parallel (prefill) path: ``mamba_apply``, whose scan and the elementwise
-work around it (dt's bias and softplus, the casts to f32 and back, the
-gated D skip) go through the fused ``mamba_scan`` kernel wrapper (the
-kernel on the card, its plain version on the CPU). Decode path:
+Parallel (prefill and training) path: ``mamba_apply``, whose scan and the
+elementwise work around it (dt's bias and softplus, the casts to f32 and
+back, the gated D skip) go through the fused ``mamba_scan`` kernel
+wrapper (the kernel on the card, its plain version on the CPU). On a
+mesh (``ShardCtx``) the activations are DTensors laid out as the JAX
+package constrains them: the conv's input and the scan's output
+(dp, None, tp), the channels split over ``model``; ``x_proj`` is
+row-parallel, so dt's low-rank input, B and C are summed over ``model``
+before the scan, which runs on each rank's channels
+(``layers.local_scan``). Decode path:
 ``mamba_decode``, the O(1) recurrent update of the (conv, ssm) cache,
 plain PyTorch as it is jnp in the JAX package; its causal conv is an
 einsum over (conv cache, x), as there.
@@ -23,9 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.selective_scan import mamba_scan, selective_scan_step
+from repro_torch.kernels.selective_scan import selective_scan_step
 from repro_torch.models import spec as S
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import normed, rms_norm, scan
+from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
 Weights = Mapping[str, torch.Tensor]
 
@@ -37,8 +44,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     steps before x (zeros when None)."""
     dc = w.shape[0]
     if init is None:
-        pad = torch.zeros(x.shape[0], dc - 1, x.shape[2], dtype=x.dtype,
-                          device=x.device)
+        # zeros laid out as x (a DTensor's too)
+        pad = torch.cat([torch.zeros_like(x[:, :1])] * (dc - 1), dim=1)
     else:
         pad = init.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -48,12 +55,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def _x_proj(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
+def _x_proj(w: Weights, xc: torch.Tensor, cfg: ModelConfig,
+            ctx: ShardCtx = UNSHARDED):
     """(step sizes before their bias and softplus (..., di), B (..., ds), C
     (..., ds)) from the conv's output, in its dtype; B and C are views of
-    one projection."""
+    one projection, summed over ``model`` on a mesh."""
     dr, ds = S.dt_rank(cfg), cfg.ssm.d_state
-    proj = xc @ w["x_proj"]
+    proj = ctx.constrain(xc @ w["x_proj"], "dp", None, None)
     dt_low, Bc, Cc = torch.split(proj, [dr, ds, ds], dim=-1)
     return dt_low @ w["dt_w"], Bc, Cc
 
@@ -66,18 +74,18 @@ def _dt_b_c(w: Weights, xc: torch.Tensor, cfg: ModelConfig):
 
 
 def mamba_apply(w: Weights, x: torch.Tensor, cfg: ModelConfig, *,
-                return_state: bool = False):
+                return_state: bool = False, ctx: ShardCtx = UNSHARDED):
     """x: (B, S, D) -> (B, S, D), and with ``return_state`` the layer's
     decode cache ``{"conv": (B, dc - 1, di), "ssm": (B, di, ds)}``, f32."""
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    h = normed(x, w["ln1"], cfg.norm_eps, ctx)
     xz = h @ w["in_proj"]                                   # (B, S, 2di)
-    xb_raw, z = torch.chunk(xz, 2, dim=-1)
+    xb_raw, z = (ctx.constrain(t, "dp", None, "tp")
+                 for t in torch.chunk(xz, 2, dim=-1))
     xb = F.silu(_causal_conv(xb_raw, w["conv_w"], w["conv_b"]))
-    dt_proj, Bc, Cc = _x_proj(w, xb, cfg)
+    dt_proj, Bc, Cc = _x_proj(w, xb, cfg, ctx)
     A = -torch.exp(w["A_log"].float())                      # (di, ds)
-    y, final = mamba_scan(xb, dt_proj, w["dt_b"], A, Bc, Cc, z,
-                          w["D_skip"])
-    out = y @ w["out_proj"]
+    y, final = scan(xb, dt_proj, w["dt_b"], A, Bc, Cc, z, w["D_skip"])
+    out = ctx.constrain(y, "dp", None, "tp") @ w["out_proj"]
     if not return_state:
         return out
     dc = cfg.ssm.d_conv

@@ -304,23 +304,27 @@ def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
 # prefill and decode
 def encode(layers, final_ln: torch.Tensor, frames: torch.Tensor,
            cfg: ModelConfig, dtype: torch.dtype,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, ctx: ShardCtx = UNSHARDED) -> torch.Tensor:
     """An encoder-decoder's encoder over the audio frames (B, F, D) (the
     frontend is a stub: the frames are embeddings already): non-causal
     attention layers (``layers``: each layer's weights) with RoPE over
     positions 0..F-1, then the final norm. With ``remat`` each layer is
-    recomputed in the backward pass. Returns (B, F, D) in ``dtype``."""
-    x = frames.to(dtype)
+    recomputed in the backward pass. Returns (B, F, D) in ``dtype``; on
+    a mesh the frames' stream is laid out (dp, sp, None) as the
+    decoder's, and the output (dp, None, None), as the memory its
+    cross-attentions read."""
+    x = ctx.constrain(frames.to(dtype), "dp", "sp", None)
     positions = torch.arange(frames.shape[1], device=frames.device)
-    rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    rope = tuple(_replicated_like(t, x) for t in rope_cos_sin(
+        positions, cfg.hd, cfg.rope_theta))
 
     def layer(w, x):
         return block_forward(w, x, ATTN, False, cfg, rope=rope,
-                             causal=False)[0]
+                             causal=False, ctx=ctx)[0]
 
     for w in layers:
         x = _checkpointed(layer, w, x) if remat else layer(w, x)
-    return rms_norm(x, final_ln, cfg.norm_eps)
+    return normed(x, final_ln, cfg.norm_eps, ctx)
 
 
 def encoder_forward(model: DecoderLM, frames: torch.Tensor) -> torch.Tensor:
@@ -495,9 +499,9 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
         memory = encode([_at_use({k: v[i] for k, v in views.items()}, dtype)
                          for i in range(n_enc)], enc["final_ln"],
                         batch["audio"], cfg, dtype,
-                        remat=ctx.remat == "block")
+                        remat=ctx.remat == "block", ctx=ctx)
     elif cfg.n_vision_tokens:
-        memory = batch["vision"].to(dtype)
+        memory = ctx.constrain(batch["vision"].to(dtype), "dp", None, None)
 
     period, R, _ = S.layout(cfg)
     layers = layer_leaves(params, cfg)
@@ -518,10 +522,10 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
             else:
                 x, a = layer(i, x)
             if a is not None:
-                aux = aux + a
+                aux = a if aux is None else aux + a
         return x, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = None     # the MoE layers' sum (a DTensor on a mesh), if any
     for r in range(R):
         lo, hi = r * period, (r + 1) * period
         if ctx.remat == "block":
@@ -534,5 +538,8 @@ def forward_train(params: Mapping[str, Any], batch: Mapping[str, Any],
     head = params["emb"].T if cfg.tie_embeddings else params["head"]
     total, count = lm_loss_chunked(xf, head, labels, ctx)
     loss = total / torch.clamp(count, min=1.0)
+    if aux is None:
+        return loss, {"loss": loss, "moe_aux": torch.zeros_like(loss),
+                      "tokens": count}
     full = loss + cfg.moe.load_balance_coef * aux / max(cfg.n_layers, 1)
     return full, {"loss": loss, "moe_aux": aux, "tokens": count}

@@ -60,10 +60,13 @@ class Adafactor:
             g = g_[name].to(torch.float32)
             f = {k: f_[f"{name}/{k}"] for k in ("vr", "vc", "v")
                  if f"{name}/{k}" in f_}
+            # the leaf-sized temporaries are released, or reused in place,
+            # as soon as they are spent (the same values as out of place)
             g2 = torch.square(g) + self.eps
             if p.dim() >= 2:
                 vr = beta2 * f["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
                 vc = beta2 * f["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
+                del g2
                 denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
                                     min=self.eps)
                 v = (vr[..., None] * vc[..., None, :]) / denom[..., None]
@@ -71,14 +74,18 @@ class Adafactor:
             else:
                 v = beta2 * f["v"] + (1 - beta2) * g2
                 new_f[name] = {"v": v}
-            u = g / torch.sqrt(torch.clamp(v, min=self.eps))
+            clamped = torch.clamp(v, min=self.eps)
+            del v
+            root = torch.sqrt(clamped)
+            del clamped
+            u = g / root
+            del g, root
             # update clipping (RMS <= threshold)
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
-            delta = u
+            u.div_(torch.clamp(rms / self.clip_threshold, min=1.0))
             if self.weight_decay and p.dim() >= 2:
-                delta = delta + self.weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * delta).to(p.dtype)
+                u.add_(self.weight_decay * p.to(torch.float32))
+            return (p.to(torch.float32) - u.mul_(lr)).to(p.dtype)
 
         new_params = tree_map_with_path_names(upd, params)
         return new_params, {"f": tree_map_with_path_names(

@@ -48,11 +48,17 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / norm): what clipping by the global norm scales
+    every gradient by."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: Any, max_norm: float
                         ) -> Tuple[Any, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), norm)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale, grads), norm
 
 

@@ -197,16 +197,41 @@ def named_shardings(specs: Any, mesh) -> Any:
     return spec_map(lambda _, spec: NamedSharding(mesh, spec), specs)
 
 
+def distribute_leaf(x: torch.Tensor, spec: tuple, mesh):
+    """The whole tensor ``x`` (on any device: the CPU, or the mesh's) as a
+    DTensor on ``mesh`` laid out by ``spec``. This rank cuts its own
+    shard where x lies and copies only the shard to the mesh's device,
+    into storage of its own: x is never whole on the card unless it was
+    there already, and its memory is freed with it. A leaf this rank
+    holds whole, on the mesh's device already, is kept as it is. A split
+    that does not divide its dim takes DTensor's own uneven sharding."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    pl = placements(spec, mesh)
+    if any(isinstance(p, Shard) and x.shape[p.dim] % mesh.size(i)
+           for i, p in enumerate(pl)):
+        return distribute_tensor(x.to(mesh.device_type), mesh, pl,
+                                 src_data_rank=None)
+    local, coord = x, mesh.get_coordinate()
+    for i, p in enumerate(pl):         # mesh axes in order, as DTensor
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    if local is not x or x.device.type != mesh.device_type:
+        local = local.to(mesh.device_type, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=x.shape,
+                              stride=torch.empty(x.shape,
+                                                 device="meta").stride())
+
+
 def distribute(tree: Any, specs: Any, mesh) -> Any:
     """``tree``'s tensors as DTensors on ``mesh`` by the spec tree
     ``specs`` (same structure). Every rank passes the whole tensor and
-    keeps its own shard of it: no rank's data moves."""
-    from torch.distributed.tensor import distribute_tensor
-
+    keeps its own shard of it (``distribute_leaf``): no rank's data
+    moves."""
     by = dict(spec_leaves(specs))
     return tree_map_with_path_names(
-        lambda n, x: distribute_tensor(x, mesh, placements(by[n], mesh),
-                                       src_data_rank=None), tree)
+        lambda n, x: distribute_leaf(x, by[n], mesh), tree)
 
 
 def _expert_rule(cfg: ModelConfig, name: str, tp_size: int) -> tuple:
@@ -354,6 +379,6 @@ def train_state_pspecs(cfg: ModelConfig, ctx: ShardCtx, optimizer,
 
 __all__ = ["FLEET_AXIS", "fleet_block", "gather_fleet", "spec_leaves",
            "spec_map", "mesh_sizes", "placements", "NamedSharding",
-           "named_shardings", "distribute",
+           "named_shardings", "distribute", "distribute_leaf",
            "param_pspecs", "batch_pspec", "batch_pspecs", "cache_pspecs",
            "train_state_pspecs"]

@@ -10,6 +10,15 @@
   keeps the params and the optimizer state (``torch.where``) and still
   advances the step.
 
+After the backward pass the step holds each gradient once: clipping
+scales them one leaf at a time, and the optimizer updates one leaf at a
+time (its own update on that leaf alone), each leaf's gradient released
+and its guard applied as soon as its update is made. So at the update
+the step holds the old state, the gradients not yet used, the new leaves
+made so far and one leaf's temporaries: about two copies of the params
+where a whole-tree update would hold three and every leaf's
+temporaries.
+
 In a bfloat16 model every f32 master is cast to bf16 before the forward
 (``ShardCtx.cast_params_bf16``; else at each use), inside autograd, so
 the gradients land in the f32 masters. Nothing in the step reads the
@@ -22,8 +31,8 @@ each gradient comes back laid out as its parameter, the global norm and
 the guard are the whole tree's (``optim.base``), the microbatches are
 constrained to (None, dp) as in the JAX package, and every new leaf of
 the state is laid out as the old one (the JAX package's
-``out_shardings``). The dense family alone runs under a mesh here
-(``DENSE_ONLY``): any other arch raises.
+``out_shardings``). Every family runs under a mesh; an MoE model's
+load-balancing loss enters the loss as in ``models.model.forward_train``.
 """
 
 from __future__ import annotations
@@ -32,13 +41,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
-from repro_torch.models import spec as S
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import forward_train
 from repro_torch.optim.base import (
     all_finite,
     by_name,
-    clip_by_global_norm,
+    clip_scale,
+    global_norm,
     plain,
 )
 from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
@@ -49,25 +58,15 @@ from repro_torch.utils.tree import (
 )
 
 
-DENSE_ONLY = ("on a mesh the port trains the dense family (attention "
-              "layers and dense FFNs: gemma3-1b, qwen3-4b, granite-3-8b, "
-              "internlm2-20b); MoE, the Mamba hybrid, xLSTM, the VLM and "
-              "the encoder-decoder under a mesh are ROADMAP queue 1, item "
-              "12.5, still to port")
-
-
 def _rebuild(like: Any, values: Dict[str, torch.Tensor]) -> Any:
     return tree_map_with_path_names(lambda name, _: values[name], like)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is an attention layer with a
-    dense FFN and nothing attends to a memory."""
-    kinds = {S.layer_kind_at(cfg, i) for i in range(cfg.n_layers)}
-    moe = any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    if (not kinds <= {ATTN, ATTN_LOCAL} or moe or cfg.enc_dec
-            or cfg.n_vision_tokens):
-        raise ValueError(f"{cfg.name}: {DENSE_ONLY}")
+def _at(tree: Any, name: str) -> Any:
+    """The subtree of ``tree`` at the leaf name ``name``."""
+    for part in name.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
 
 
 def _laid_out_as(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -89,8 +88,6 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
     device."""
     if compress not in (None, "int8"):
         raise ValueError(f"compress must be None or 'int8', got {compress!r}")
-    if ctx.enabled:
-        check_dense(cfg)
     cast = cfg.dtype == "bfloat16" and ctx.cast_params_bf16
 
     def loss_fn(params, batch):
@@ -148,22 +145,31 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = UNSHARDED,
             from repro_torch.optim.compress import quantize_dequantize
 
             grads = quantize_dequantize(grads)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        good = all_finite(grads) & torch.isfinite(loss)
-        new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+        gnorm = global_norm(grads)
+        scale = clip_scale(gnorm, grad_clip)
+        flat = by_name(grads)      # from here the step's only reference
         del grads
+        for name in flat:
+            flat[name] = flat[name] * scale
+        good = all_finite(flat) & torch.isfinite(loss)
 
         def keep(new, old):
-            old_ = by_name(old)
             if not ctx.enabled:
-                return tree_map_with_path_names(
-                    lambda n, x: torch.where(good, x, old_[n], out=x), new)
-            return tree_map_with_path_names(
-                lambda n, x: torch.where(good, _laid_out_as(x, old_[n]),
-                                         old_[n]), new)
+                return torch.where(good, new, old, out=new)
+            return torch.where(good, _laid_out_as(new, old), old)
 
-        new_state = {"params": keep(new_params, params),
-                     "opt": keep(new_opt, opt_state), "step": step + 1}
+        new_p, new_s = {}, {}
+        for name, p in tree_leaves_with_names(params):
+            g = {name: flat.pop(name)}
+            sub = {k: {name: _at(opt_state[k], name)} for k in opt_state}
+            upd_p, upd_s = optimizer.update(g, sub, {name: p}, step)
+            del g
+            new_p[name] = keep(upd_p[name], p)
+            old_s = by_name(sub)
+            new_s.update((n, keep(x, old_s[n]))
+                         for n, x in tree_leaves_with_names(upd_s))
+        new_state = {"params": _rebuild(params, new_p),
+                     "opt": _rebuild(opt_state, new_s), "step": step + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "skipped": (~good).to(torch.float32), **metrics}
 

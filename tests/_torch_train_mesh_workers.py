@@ -19,11 +19,43 @@ BODY_LEAVES = ("emb", "body/0/wq", "body/0/ln1", "final_ln")
 
 
 def case_configs() -> dict:
-    """name -> (arch, config, (data, model) mesh, optimizer, leaves)."""
+    """name -> (arch, config, (data, model) mesh, optimizer, leaves). An
+    MoE layer routes groups of the mesh's data axis (``moe.n_groups``)."""
     from repro_torch.configs import acceptance as A
     from repro_torch.configs import get_arch, reduced
 
+    mixtral = reduced(get_arch("mixtral-8x22b"))
     return {
+        # expert parallelism: 4 experts over a model axis of 4, G = 2;
+        # capacity factor 1 (C = 128 of a group's 512 slots): slots drop
+        "mixtral": ("mixtral-8x22b", dataclasses.replace(
+            mixtral, moe=dataclasses.replace(mixtral.moe,
+                                             capacity_factor=1.0)),
+            (2, 4), "adamw", ("emb", "body/0/e_wg", "body/0/router",
+                              "body/0/wq")),
+        # 4 experts over 8: d_ff split inside the experts; the 4 heads
+        # whole
+        "grok": ("grok-1-314b", reduced(get_arch("grok-1-314b")), (1, 8),
+                 "adamw", ("emb", "body/0/e_wo", "body/0/router",
+                           "body/0/wo")),
+        # Mamba (64 local channels), attention and experts (EP over 2):
+        # the first 4 layers of the period (Mamba, Mamba + MoE, Mamba,
+        # attention + MoE)
+        "jamba": ("jamba-1.5-large-398b", dataclasses.replace(
+            reduced(get_arch("jamba-1.5-large-398b")), n_layers=4), (4, 2),
+            "adamw", ("emb", "tail/0/x_proj", "tail/0/A_log",
+                      "tail/3/e_wo")),
+        # mLSTM and sLSTM cells on each rank's local batch
+        "xlstm": ("xlstm-125m", reduced(get_arch("xlstm-125m")), (2, 4),
+                  "adamw", ("emb", "body/0/up", "body/3/r", "body/3/w")),
+        # the gated cross-attention onto 16 vision tokens, xgate opened
+        "vlm": ("llama-3.2-vision-11b",
+                reduced(get_arch("llama-3.2-vision-11b")), (2, 4), "adamw",
+                ("emb", "body/1/xq", "body/1/lnx", "body/0/wq")),
+        # the encoder over 24 frames, the cross-attentions onto them
+        "whisper": ("whisper-small", reduced(get_arch("whisper-small")),
+                    (2, 4), "adamw", ("emb", "encoder/layers/wq",
+                                      "xattn_body/0/xk", "body/0/wq")),
         # H 4, Kv 2 over a model axis of 4: q's heads split, k and v whole
         "qwen3": ("qwen3-4b", reduced(get_arch("qwen3-4b")), (2, 4),
                   "adamw", BODY_LEAVES),
@@ -37,16 +69,27 @@ def case_configs() -> dict:
     }
 
 
-def elastic_state():
-    """A reduced granite-3-8b AdamW state at step 3 with random moments:
-    what the elastic restore saves (made the same on every rank and in
-    the test's process)."""
+def case_tree(cfg) -> dict:
+    """A case's initial weights (numpy, the JAX layout): the seeded
+    draw, a VLM's ``xgate`` opened so its cross-attention counts from the
+    first step."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.models import seeded_numpy_params
+
+    tree = seeded_numpy_params(cfg, A.LM_SEED)
+    return A.open_xgate(tree) if cfg.n_vision_tokens else tree
+
+
+def elastic_state(arch: str = "granite-3-8b"):
+    """A reduced ``arch`` AdamW state at step 3 with random moments: what
+    the elastic restore saves (made the same on every rank and in the
+    test's process)."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.optim import AdamW
     from repro_torch.train import create_train_state
     from repro_torch.utils.tree import tree_map
 
-    cfg = reduced(get_arch("granite-3-8b"))
+    cfg = reduced(get_arch(arch))
     opt = AdamW()
     state = create_train_state(cfg, opt, torch.Generator().manual_seed(1),
                                "cpu")
@@ -70,8 +113,10 @@ def _digest(tree) -> str:
     return h.hexdigest()
 
 
-def _elastic(work: str, rank: int) -> dict:
-    """(2, 4) -> save -> (8, 1) and (1, 1): every leaf bit for bit."""
+def _elastic(work: str, rank: int, arch: str = "granite-3-8b",
+             leaf: str = "wq", name: str = "elastic") -> dict:
+    """(2, 4) -> save under ``work/name`` -> (8, 1) and (1, 1): every leaf
+    bit for bit."""
     from repro_torch.checkpoint import restore, save
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.sharding.ctx import make_ctx
@@ -81,8 +126,8 @@ def _elastic(work: str, rank: int) -> dict:
         train_state_pspecs,
     )
 
-    cfg, opt, state = elastic_state()
-    directory = os.path.join(work, "elastic")
+    cfg, opt, state = elastic_state(arch)
+    directory = os.path.join(work, name)
     mesh24 = make_mesh_for(model_axis=4, device="cpu")
     specs24 = train_state_pspecs(cfg, make_ctx(False, tp_size=4, dp_size=2),
                                  opt, mesh24)
@@ -96,33 +141,115 @@ def _elastic(work: str, rank: int) -> dict:
     return {"saved": _digest(state), "on_8x1": _digest(on81),
             "on_1x1": _digest(on11), "placements_8x1": {
                 "emb": str(on81["params"]["emb"].placements),
-                "opt/m/body/0/wq": str(
-                    on81["opt"]["m"]["body"][0]["wq"].placements)}}
+                f"opt/m/body/0/{leaf}": str(
+                    on81["opt"]["m"]["body"][0][leaf].placements)}}
 
 
-def launcher_args(directory: str, *extra) -> list:
-    return ["--arch", "qwen3-4b", "--reduced", "--batch", "8", "--seq",
+def launcher_args(directory: str, *extra, arch: str = "qwen3-4b") -> list:
+    return ["--arch", arch, "--reduced", "--batch", "8", "--seq",
             "32", "--steps", "4", "--warmup", "1", "--log-every", "1",
             "--device", "cpu", "--model-axis", "2", "--ckpt", directory,
             "--ckpt-every", "2", *extra]
 
 
-def _launcher(work: str, rank: int) -> dict:
+def _launcher(work: str, rank: int, arch: str = "qwen3-4b") -> dict:
     """``launch.train.main --model-axis 2`` on (4, 2): 4 steps whole, then
     from the first run's checkpoint after step 2 with ``--resume``."""
     import torch.distributed as dist
 
     from repro_torch.launch import train
 
-    whole, resumed = (os.path.join(work, n) for n in ("whole", "resumed"))
-    first = train.main(launcher_args(whole))
+    whole, resumed = (os.path.join(work, arch, n)
+                      for n in ("whole", "resumed"))
+    first = train.main(launcher_args(whole, arch=arch))
     if rank == 0:
         os.makedirs(resumed)
         shutil.copytree(os.path.join(whole, "step_0000000001"),
                         os.path.join(resumed, "step_0000000001"))
     dist.barrier()
-    second = train.main(launcher_args(resumed, "--resume"))
+    second = train.main(launcher_args(resumed, "--resume", arch=arch))
     return {"whole": first, "resumed": second}
+
+
+def dropped_case(rank: int) -> dict:
+    """The mixtral case's forward on its (2, 4) mesh at its first batch,
+    under ``moe.record_routing``: the slots each MoE layer dropped in this
+    rank's groups, with the rank's (data, model) coordinate."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import acceptance as A
+    from repro_torch.data.synth_lm import lm_batch_at
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model import forward_train
+    from repro_torch.models.moe import record_routing
+    from repro_torch.sharding.ctx import make_ctx
+    from repro_torch.sharding.specs import (
+        batch_pspecs,
+        distribute,
+        param_pspecs,
+    )
+
+    _, cfg, (data, model), _, _ = case_configs()["mixtral"]
+    mesh = make_mesh_for(model_axis=model, device="cpu")
+    ctx = make_ctx(False, tp_size=model, dp_size=data)
+    params = distribute(tree_from_numpy(case_tree(cfg), "cpu"),
+                        param_pspecs(cfg, ctx, mesh), mesh)
+    batch = distribute(lm_batch_at(0, vocab=cfg.vocab, batch=BATCH,
+                                   seq_len=SEQ, seed=A.TRAIN_DATA_SEED,
+                                   device="cpu"),
+                       batch_pspecs(cfg, ShapeConfig("d", SEQ, BATCH,
+                                                     "train"), ctx), mesh)
+    with torch.no_grad(), record_routing() as seen:
+        forward_train(params, batch, cfg, ctx)
+    return {"coordinate": tuple(mesh.get_coordinate()),
+            "dropped": [int((~r.keep).sum()) for r in seen]}
+
+
+def scan_case(rank: int) -> dict:
+    """``models.layers.local_scan`` against the plain fused scan on the
+    whole tensors, on (4, 2) and (2, 4): the output's and the final
+    state's largest difference, and each input's gradient's largest
+    difference over its largest value (B, S, di, ds = 8, 24, 32, 8; the
+    batch over data, the channels over model)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.kernels.selective_scan import mamba_scan_torch
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.layers import local_scan
+    from repro_torch.sharding.specs import placements
+
+    names = ("xb", "dt_proj", "dt_b", "A", "Bc", "Cc", "z", "D_skip")
+    specs = (("data", None, "model"), ("data", None, "model"), ("model",),
+             ("model", None), ("data", None, None), ("data", None, None),
+             ("data", None, "model"), ("model",))
+    out = {}
+    for model in (2, 4):
+        mesh = make_mesh_for(model_axis=model, device="cpu")
+        gen = torch.Generator().manual_seed(model)
+        B, S, di, ds = 8, 24, 32, 8
+        shapes = ((B, S, di), (B, S, di), (di,), (di, ds), (B, S, ds),
+                  (B, S, ds), (B, S, di), (di,))
+        ins = [torch.randn(sh, generator=gen) for sh in shapes]
+        ins[3] = -torch.exp(ins[3])           # A < 0
+        w = torch.randn(B, S, di, generator=gen)
+        leaves = [distribute_tensor(t, mesh, placements(sp, mesh),
+                                    src_data_rank=None).requires_grad_(True)
+                  for t, sp in zip(ins, specs)]
+        got, final = local_scan(*leaves)
+        gg = torch.autograd.grad((got * distribute_tensor(
+            w, mesh, got.placements, src_data_rank=None)).sum().full_tensor(),
+            leaves)
+        plain = [t.clone().requires_grad_(True) for t in ins]
+        want, want_final = mamba_scan_torch(*plain)
+        gw = torch.autograd.grad((want * w).sum(), plain)
+        out[f"tp{model}"] = {
+            "out": float((got.full_tensor() - want).abs().max()),
+            "final": float((final.full_tensor() - want_final).abs().max()),
+            "placements": str(got.placements),
+            **{f"d{n}": float((a.full_tensor() - b).abs().max()
+                              / b.abs().max())
+               for n, a, b in zip(names, gg, gw)}}
+    return out
 
 
 def staged_case(rank: int) -> dict:
@@ -266,7 +393,6 @@ def mesh_cases(fmesh, work: str) -> dict:
     """Every case, in one world (rank ``fmesh.rank`` of 8)."""
     from repro_torch.configs import acceptance as A
     from repro_torch.launch.mesh import make_mesh_for
-    from repro_torch.models import seeded_numpy_params
 
     torch.set_num_threads(1)
     out = {}
@@ -274,9 +400,11 @@ def mesh_cases(fmesh, work: str) -> dict:
         mesh = make_mesh_for(model_axis=model, device="cpu")
         assert mesh.shape == (data, model)
         got, launches, _ = A.run_train(
-            cfg, seeded_numpy_params(cfg, A.LM_SEED), "cpu", steps=STEPS,
-            batch=BATCH, seq=SEQ, optimizer=opt, mesh=mesh, leaves=leaves)
+            cfg, case_tree(cfg), "cpu", steps=STEPS, batch=BATCH, seq=SEQ,
+            optimizer=opt, mesh=mesh, leaves=leaves)
         out[name] = {"summary": got, "launches": launches}
+    out["dropped"] = dropped_case(fmesh.rank)
+    out["scan"] = scan_case(fmesh.rank)
     out["production"] = []
     for multi in (False, True):
         try:
@@ -289,9 +417,13 @@ def mesh_cases(fmesh, work: str) -> dict:
     out["attention"] = attention_case(fmesh.rank)
     out["steps"] = step_cases(fmesh.rank)
     out["elastic"] = _elastic(work, fmesh.rank)
+    out["elastic_moe"] = _elastic(work, fmesh.rank, "mixtral-8x22b", "e_wg",
+                                  "elastic_moe")
     out["launcher"] = _launcher(work, fmesh.rank)
+    out["launcher_jamba"] = _launcher(work, fmesh.rank,
+                                      "jamba-1.5-large-398b")
     return out
 
 
-__all__ = ["mesh_cases", "case_configs", "elastic_state", "launcher_args",
-           "STEPS", "BATCH", "SEQ", "BODY_LEAVES"]
+__all__ = ["mesh_cases", "case_configs", "case_tree", "elastic_state",
+           "launcher_args", "STEPS", "BATCH", "SEQ", "BODY_LEAVES"]
