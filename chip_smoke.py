@@ -319,6 +319,32 @@ and no result line:
              train_mesh's gloo world after its meshes
              (``train_families_cases``); checked after phase
              train_mesh.
+24. serve_mesh  gemma3-1b at full width served on a gloo world of 2 ranks
+             sharing cuda:0, mesh (1, 2), f32, the ``PINNED_LM`` case (B 2,
+             prompt 1024, 8 decode steps) under ``decode_kv_shard="seq"``:
+             the weights laid out by ``param_pspecs`` (the model axis
+             splits the 4 q heads; Kv 1 whole), the cache's sequence split
+             over the model axis, so every decode step is the distributed
+             flash-decode (``layers.decode_attention_mesh``). Both ranks'
+             logits at ``PINNED_LM`` by ``check_lm`` within LM_F32_TOL, 26
+             flash_attn launches in each rank's prefill (its 2 local heads)
+             and none in a decode step, the cache's layout kept after every
+             step; the bf16 decode ms a token on (1, 2) after a prefill at
+             B SERVE_BATCH, prompt SERVE_PROMPT, reported beside phase
+             serve's one-card figure (not a gate), with the seconds and
+             peak GB a rank. One worker (``serve_mesh_run``) started with
+             phase train_mesh's, joined after phase serve.
+25. dryrun   ``launch/dryrun.py`` on the card's host (its torch), no device
+             work: gemma3-1b on the four shapes on ``single`` (256 fake
+             ranks) with the layer-delta probes, mixtral-8x22b
+             ``train_4k`` on ``single`` (experts parallel over 16) and
+             gemma3-1b ``train_4k`` on ``multi`` (512 ranks); every cell
+             ``OK``, its analytic fields at
+             ``acceptance.PINNED_DRYRUN_FIELDS`` and, where the JAX
+             dry-run's record is pinned, its argument bytes; one line a
+             cell (FLOPs, collective bytes a device, argument GiB, the
+             trace's seconds). One host-only worker (``dryrun_run``)
+             started with phase serve_mesh's, joined after phase serve.
 
 Replicas rerun alone (phases ``fleet``, ``macro``, ``faults``,
 ``serving``, and the fleet of ``durable``) and phase ``virtual_cloud``'s
@@ -530,6 +556,16 @@ TRAIN_MESH_TIMEOUT_S = 1100     # the worker (472 s alone on an H100,
 #                                 before phase train_mesh_families' cases)
 TRAIN_MESH_BESIDE = ("phases virtual_cloud, fleet, mesh, rl, macro, faults "
                      "and serving")
+# phase serve_mesh: gemma3-1b at full width on a gloo world of 2 ranks
+# sharing cuda:0, mesh (1, 2), the decode cache's sequence split over the
+# model axis; bf16 decode steps timed after one warm-up step. Its worker
+# starts with phase train_mesh's and is joined after phase serve; phase
+# dryrun's host-only worker likewise.
+SERVE_MESH_KV = "seq"
+SERVE_MESH_STEPS = 8
+SERVE_MESH_TIMEOUT_S = 900
+SERVE_MESH_BESIDE = TRAIN_MESH_BESIDE + ", beside phase train_mesh's worker"
+DRYRUN_TIMEOUT_S = 900
 # phase train_mesh_families: the other families trained at full width on
 # a gloo world of 2 ranks sharing cuda:0, mesh (1, 2) (the model axis of
 # 2), Adafactor: each case of TRAIN_FAMILIES_ORDER (``train_mixtral_1l``:
@@ -1679,11 +1715,12 @@ def serve_last(torch, np, case: str, pins: dict) -> dict:
             "path_case": path_case}
 
 
-def serve(torch, np) -> int:
+def serve(torch, np) -> tuple:
     """gemma3-1b at full width and depth on the card: the f32 and bf16
     models held to the pins, the launch counts, the bf16 prefill/decode
     invariant, and timed ``generate`` runs under sync-debug "error".
-    Returns the flash_attn launches of one prefill."""
+    Returns the flash_attn launches of one prefill and the timed runs'
+    fields."""
     from repro_torch import kernels
     from repro_torch.configs import acceptance as A
     from repro_torch.interop import lm_params_from_numpy
@@ -1748,17 +1785,17 @@ def serve(torch, np) -> int:
         np.random.default_rng(2).integers(0, cfg.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT),
                                           dtype=np.int32), device="cuda")
-    time_generate(torch, np, model, prompt, "serve")
-    return per_prefill
+    return per_prefill, time_generate(torch, np, model, prompt, "serve")
 
 
 def time_generate(torch, np, model, prompt, phase: str, extras=None,
-                  **labels) -> None:
+                  **labels) -> dict:
     """``generate`` of SERVE_GEN tokens after ``prompt`` (bf16; with the
     memory ``extras`` where the model attends to one), SERVE_RUNS timed
     runs after a warm-up, each under sync-debug "error": prefill ms and
     decode ms per token (CUDA events inside ``generate``), tokens/s (host
-    clock around a synchronised run), median and p10-p90."""
+    clock around a synchronised run), median and p10-p90. Returns the
+    fields it emits."""
     from repro_torch.train.serve_step import generate
 
     walls, prefill_ms, decode_ms = [], [], []
@@ -1784,14 +1821,16 @@ def time_generate(torch, np, model, prompt, phase: str, extras=None,
     tok_s = batch * SERVE_GEN / np.asarray(walls)
     q = lambda a: [float(v) for v in np.percentile(np.asarray(a),
                                                    [50, 10, 90])]
-    emit(phase, step="generate", **labels, dtype="bfloat16", batch=batch,
-         prompt=prompt.shape[1], new_tokens=SERVE_GEN, runs=SERVE_RUNS,
-         prefill_ms_median_p10_p90=q(prefill_ms),
-         decode_ms_per_token_median_p10_p90=q(decode_ms),
-         tokens_per_s_median_p10_p90=q(tok_s),
-         wall_s_median=float(np.median(walls)),
-         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         sample=toks_out[0, :8].tolist())
+    fields = dict(dtype="bfloat16", batch=batch, prompt=prompt.shape[1],
+                  new_tokens=SERVE_GEN, runs=SERVE_RUNS,
+                  prefill_ms_median_p10_p90=q(prefill_ms),
+                  decode_ms_per_token_median_p10_p90=q(decode_ms),
+                  tokens_per_s_median_p10_p90=q(tok_s),
+                  wall_s_median=float(np.median(walls)),
+                  max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  sample=toks_out[0, :8].tolist())
+    emit(phase, step="generate", **labels, **fields)
+    return fields
 
 
 def masters_grads(torch, params, batch, cfg, remat: str = "block",
@@ -2521,6 +2560,238 @@ def train_mesh(torch, result: dict, trained: dict, wall_s: float) -> dict:
     return per_step
 
 
+def serve_mesh_world(fmesh) -> dict:
+    """One rank of phase serve_mesh's gloo world of two ranks sharing the
+    card: gemma3-1b at full width on mesh (1, 2) under
+    ``decode_kv_shard=SERVE_MESH_KV``, its weights laid out by
+    ``param_pspecs`` (each rank draws the numpy tree and keeps its shard):
+    the f32 prefill of the ``PINNED_LM`` case and its decode steps (the
+    logits whole on this rank, the flash_attn launches of the prefill, the
+    cache leaves' layouts after each step), then the bf16 model's decode
+    steps timed after a prefill at B SERVE_BATCH, prompt SERVE_PROMPT."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import acceptance as A
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import seeded_numpy_params
+    from repro_torch.models.model import DecoderLM, decode_step, prefill
+    from repro_torch.sharding.ctx import make_ctx
+    from repro_torch.sharding.specs import (
+        distribute,
+        distribute_leaf,
+        layer_cache_pspecs,
+        param_pspecs,
+        placements,
+    )
+    from repro_torch.utils.device import exact_matmul
+    from repro_torch.utils.tree import tree_map
+
+    exact_matmul()
+    mesh = make_mesh_for(model_axis=2)
+    ctx = make_ctx(False, tp_size=2, dp_size=1,
+                   decode_kv_shard=SERVE_MESH_KV)
+    cfg = A.lm_config("float32")
+    t0 = time.perf_counter()
+    tree = tree_map(torch.from_numpy, seeded_numpy_params(cfg, A.LM_SEED))
+    out = {"rank": fmesh.rank, "weights_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    model = DecoderLM.from_tree(cfg, distribute(
+        tree, param_pspecs(cfg, ctx, mesh), mesh))
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    toks = torch.from_numpy(A.lm_tokens(cfg))
+    S, N = A.LM_PROMPT, A.LM_DECODE
+    spec = (ctx.axis("dp"), None)
+
+    def tokens(a, b):
+        return distribute_leaf(toks[:, a:b].contiguous(), spec, mesh)
+
+    specs = layer_cache_pspecs(cfg, ctx)
+
+    def layout_faults(cache):
+        return [(i, k) for i, e in enumerate(cache) for k, t in e.items()
+                if tuple(t.placements) != placements(specs[i][k], mesh)]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (logits, cache), launches = _counted(torch, lambda: prefill(
+        model, tokens(0, S), cache_seq_len=S + N, ctx=ctx))
+    out["prefill_s"] = time.perf_counter() - t0
+    out["launches_per_prefill"] = launches
+    logits_all, faults = [logits.full_tensor()], layout_faults(cache)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(N):
+        logits, cache = decode_step(model, cache, tokens(S + i, S + i + 1),
+                                    S + i, ctx=ctx)
+        logits_all.append(logits.full_tensor())
+        faults += layout_faults(cache)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["launches_in_decode"] = dict(kernels.LAUNCHES)
+    out["finite"] = all(bool(torch.isfinite(x).all()) for x in logits_all)
+    out["summary"] = A.lm_summary([x.cpu().numpy() for x in logits_all])
+    out["layout_faults"] = faults
+    out["f32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, cache, logits, logits_all
+    torch.cuda.empty_cache()
+
+    # bf16: decode steps timed after a prefill of SERVE_PROMPT tokens
+    b16 = dataclasses.replace(cfg, dtype="bfloat16")
+    model = DecoderLM.from_tree(b16, distribute(
+        tree, param_pspecs(b16, ctx, mesh), mesh))
+    del tree
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT + SERVE_MESH_STEPS + 1),
+        dtype=np.int32))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, cache = prefill(model, distribute_leaf(
+        prompt[:, :SERVE_PROMPT].contiguous(), spec, mesh),
+        cache_seq_len=SERVE_PROMPT + SERVE_MESH_STEPS + 1, ctx=ctx)
+    torch.cuda.synchronize()
+    out["bf16_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    step_ms = []
+    for i in range(SERVE_MESH_STEPS + 1):       # the first warms up
+        pos = SERVE_PROMPT + i
+        t0 = time.perf_counter()
+        _, cache = decode_step(model, cache, distribute_leaf(
+            prompt[:, pos:pos + 1].contiguous(), spec, mesh), pos, ctx=ctx)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    out["bf16_decode_ms_per_token"] = step_ms[1:]
+    out["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def serve_mesh_run(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="serve_mesh"``) of phase
+    serve_mesh: its gloo world of two ranks on cuda:0
+    (``serve_mesh_world`` on each). Returns the ranks' records and the
+    world's seconds."""
+    from repro_torch.launch.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    ranks = spawn_world(serve_mesh_world, 2, backend="gloo",
+                        timeout=SERVE_MESH_TIMEOUT_S)
+    return {"ranks": ranks, "world_s": time.perf_counter() - t0}
+
+
+def serve_mesh(torch, result: dict, wall_s: float,
+               one_card: dict) -> int:
+    """Phase serve_mesh's checks: both ranks' logits at ``PINNED_LM``
+    within ``LM_F32_TOL`` (``check_lm``), every logit finite, the cache's
+    layout kept, flash_attn launched once a layer in each rank's prefill
+    (its 2 local q heads of 4; Kv 1 whole) and never in a decode step.
+    Reports the bf16 decode ms a token on (1, 2) beside phase serve's
+    one-card figure (not a gate), the seconds and the peak GB a rank.
+    Returns the flash_attn launches of a rank's prefill."""
+    import numpy as np
+
+    from repro_torch.configs import acceptance as A
+
+    cfg = A.lm_config("float32")
+    per_prefill = []
+    for r in result["ranks"]:
+        report = A.check_lm(r["summary"], "float32")
+        got = r["launches_per_prefill"]["flash_attn"]
+        per_prefill.append(got)
+        emit("serve_mesh", step="pins", rank=r["rank"], mesh=[1, 2],
+             decode_kv_shard=SERVE_MESH_KV, case=A.LM_CASE,
+             flash_attn_per_prefill=got,
+             flash_attn_in_decode=r["launches_in_decode"]["flash_attn"],
+             weights_s=r["weights_s"], load_s=r["load_s"],
+             prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+             f32_peak_gb=r["f32_peak_gb"], **report)
+        if not r["finite"]:
+            raise AssertionError(f"serve_mesh rank {r['rank']}: non-finite "
+                                 "logits")
+        if r["layout_faults"]:
+            raise AssertionError(f"serve_mesh rank {r['rank']}: cache "
+                                 f"leaves left their layout: "
+                                 f"{r['layout_faults'][:4]}")
+        if got != cfg.n_layers or r["launches_in_decode"]["flash_attn"]:
+            raise AssertionError(
+                f"serve_mesh rank {r['rank']}: flash_attn launched {got} "
+                f"times in a prefill and {r['launches_in_decode']} in the "
+                f"decode steps (expected {cfg.n_layers} and 0)")
+    q = lambda a: [float(v) for v in np.percentile(np.asarray(a),
+                                                   [50, 10, 90])]
+    emit("serve_mesh", step="bf16 decode", mesh=[1, 2], batch=SERVE_BATCH,
+         prompt=SERVE_PROMPT, steps=SERVE_MESH_STEPS,
+         decode_ms_per_token_median_p10_p90_by_rank=[
+             q(r["bf16_decode_ms_per_token"]) for r in result["ranks"]],
+         prefill_ms_by_rank=[r["bf16_prefill_ms"] for r in result["ranks"]],
+         one_card_decode_ms_per_token_median_p10_p90=one_card.get(
+             "decode_ms_per_token_median_p10_p90"),
+         bf16_peak_gb_by_rank=[r["bf16_peak_gb"] for r in result["ranks"]],
+         world_s=result["world_s"], worker_wall_s=wall_s,
+         beside=SERVE_MESH_BESIDE)
+    return per_prefill[0]
+
+
+def dryrun_run(torch) -> dict:
+    """Worker entry (``start_alone``, ``entry="dryrun"``) of phase dryrun:
+    ``launch/dryrun.py``'s cells of ``acceptance.DRYRUN_CHIP_CELLS`` on
+    the card's host, each on a fake world of 256 or 512 ranks (no tensor
+    allocated, the card untouched), with the layer-delta probes on
+    ``single`` as the CLI runs them. Returns each cell's record and its
+    seconds."""
+    from repro_torch.configs import acceptance as A
+    from repro_torch.launch.dryrun import record_cell
+
+    out = {}
+    for arch, shape, mesh in A.DRYRUN_CHIP_CELLS:
+        t0 = time.perf_counter()
+        rec = record_cell(arch, shape, mesh, verbose=False,
+                          probes=mesh != "multi")
+        out[f"{arch}__{shape}__{mesh}"] = {"record": rec,
+                                           "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def dryrun(result: dict, wall_s: float) -> None:
+    """Phase dryrun's checks: every cell ``OK``, its analytic fields equal
+    to ``acceptance.PINNED_DRYRUN_FIELDS`` and, where the JAX dry-run's
+    record is pinned (``PINNED_DRYRUN``), its argument bytes equal; one
+    line a cell with the FLOPs, the collective bytes a device, the
+    argument GiB and the trace's seconds."""
+    from repro_torch.configs import acceptance as A
+
+    for cell, got in result.items():
+        rec = got["record"]
+        if rec["status"] != "OK":
+            raise AssertionError(f"dryrun {cell}: {rec['status']} "
+                                 f"{rec.get('error', rec.get('reason'))}")
+        pins = A.PINNED_DRYRUN_FIELDS[cell]
+        off = {k: (rec[k], v) for k, v in pins.items() if rec[k] != v}
+        pinned = A.PINNED_DRYRUN.get(cell)
+        if pinned and (rec["memory"]["argument_bytes"]
+                       != pinned["memory"]["argument_bytes"]):
+            off["argument_bytes"] = (rec["memory"]["argument_bytes"],
+                                     pinned["memory"]["argument_bytes"])
+        mem = rec["memory"]
+        emit("dryrun", cell=cell, flops_per_dev=rec["hlo_flops_per_dev"],
+             bytes_per_dev=rec["hlo_bytes_per_dev"],
+             collective_bytes_per_dev=rec["collective_bytes_per_dev"],
+             collective_bytes_by_kind=rec["collectives"]["bytes_by_kind"],
+             argument_gib=mem["argument_bytes"] / 2**30,
+             temp_gib=mem["temp_bytes"] / 2**30,
+             trace_s=rec["compile_s"],
+             probe_s=(rec["probe"] or {}).get("probe_compile_s"),
+             cell_wall_s=got["wall_s"], dominant=rec["dominant"],
+             pinned_fields=sorted(pins) + (["argument_bytes"] if pinned
+                                           else []))
+        if off:
+            raise AssertionError(f"dryrun {cell}: off the pins: {off}")
+    emit("dryrun", step="done", cells=len(result), worker_wall_s=wall_s,
+         host="the card's host (no device work)")
+
+
 def flash_attn_bf16_build(build) -> dict:
     """The bf16 flash_attn kernels run on the tensor cores: ``HGMMA`` (the
     SASS of wgmma) in the library's code, and ptxas reports no spill for
@@ -2809,6 +3080,12 @@ def alone_main(src: str, out: str) -> int:
         return 0
     if run.get("entry") == "train_mesh_families":
         torch.save(train_families_draw(torch), out)
+        return 0
+    if run.get("entry") == "serve_mesh":
+        torch.save(serve_mesh_run(torch), out)
+        return 0
+    if run.get("entry") == "dryrun":
+        torch.save(dryrun_run(torch), out)
         return 0
     entry = {"run_episode": run_episode,
              "run_fleet": run_fleet}[run.get("entry", "run_episode")]
@@ -4786,6 +5063,15 @@ def main() -> int:
     # the host meanwhile; its cases run in phase train_mesh's gloo world
     families = start_alone(torch, [{"entry": "train_mesh_families"}])
     atexit.register(stop_alone, families)
+    # 24. serve_mesh: gemma3-1b served on a gloo (1, 2) world, and 25.
+    # dryrun: launch/dryrun.py's cells on the host, each in a worker of its
+    # own, joined before phase serve
+    mesh_serve = start_alone(torch, [{"entry": "serve_mesh",
+                                      "timeout_s": SERVE_MESH_TIMEOUT_S}])
+    atexit.register(stop_alone, mesh_serve)
+    dry = start_alone(torch, [{"entry": "dryrun",
+                               "timeout_s": DRYRUN_TIMEOUT_S}])
+    atexit.register(stop_alone, dry)
 
     # 6. fleet: the replay tick batched over a replica axis; phase 16's
     # what-ifs and phase 15's worlds run in workers beside its hours
@@ -4888,7 +5174,20 @@ def main() -> int:
 
     # 11. serve: gemma3-1b at full width; the kernels line reports the
     # flash_attn launches of one prefill
-    launches["flash_attn"] = serve(torch, np)
+    launches["flash_attn"], one_card = serve(torch, np)
+
+    # 24-25. serve_mesh and dryrun (continued): their workers' runs
+    t0 = time.perf_counter()
+    try:
+        served = join_alone(torch, mesh_serve)[0]
+        traced = join_alone(torch, dry)[0]
+    finally:
+        stop_alone(mesh_serve)
+        stop_alone(dry)
+    emit("serve_mesh", step="joined", waited_s=time.perf_counter() - t0)
+    mesh_prefill = serve_mesh(torch, served, mesh_serve["wall_s"][0],
+                              one_card)
+    dryrun(traced, dry["wall_s"][0])
 
     # 12. serve_hybrid: the jamba hybrid at full width; the kernels line
     # reports the selective_scan launches of one 8-layer prefill; its pins
@@ -4977,7 +5276,8 @@ def main() -> int:
         # the training path (phase train): the launches of a bf16 step as
         # counted, and the kernels' autograd Functions against the plain
         # versions' autograd (the wiring: the backward is the plain vjp)
-        **({"launches_per_train_step": trained["launches_per_train_step"],
+        **({"launches_per_serve_mesh_prefill_per_rank": mesh_prefill,
+            "launches_per_train_step": trained["launches_per_train_step"],
             "launches_per_train_mesh_step_per_rank": mesh_launches,
             "launches_per_train_mesh_families_step_per_rank": {
                 c: v["flash_attn"] for c, v in family_launches.items()},

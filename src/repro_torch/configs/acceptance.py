@@ -4725,3 +4725,95 @@ PINNED_VIRTUAL_CLOUD = {
         "max_rack_outlet_c": 14.0,
     },
 }
+
+
+# ---------------------------------------------------------------------------
+# The dry-run (``launch/dryrun.py``): the JAX package's records of two
+# cells, made by its own dry-run on 256 fake XLA devices with jax 0.9.0 on
+# the CPU (``tests/torch_dryrun_pins.py``). ``memory.argument_bytes`` (the
+# step's inputs on one device) is what the port's record must equal: the
+# port lays every input out by the same specs, and no pinned leaf splits
+# unevenly, so XLA pads nothing there. ``output_bytes``, ``temp_bytes``,
+# the FLOPs and the collectives differ by design (DTensor and GSPMD lay the
+# step out differently) and are recorded, not held.
+DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
+                ("qwen3-4b", "decode_32k", "single"))
+# the cells ``chip_smoke.py``'s phase dryrun traces on the card's host, and
+# the fields of each that need no trace as the JAX package's functions give
+# them (``shape_applicable``, ``count_params_analytic``,
+# ``default_optimizer_for``; ``tests/torch_dryrun_pins.py`` prints them)
+DRYRUN_CHIP_CELLS = (("gemma3-1b", "train_4k", "single"),
+                     ("gemma3-1b", "prefill_32k", "single"),
+                     ("gemma3-1b", "decode_32k", "single"),
+                     ("gemma3-1b", "long_500k", "single"),
+                     ("mixtral-8x22b", "train_4k", "single"),
+                     ("gemma3-1b", "train_4k", "multi"))
+# the record's keys in the JAX package (the port's add "chip")
+DRYRUN_KEYS = (
+    "active_params_b", "arch", "collective_bytes_per_dev", "collective_s",
+    "collectives", "compile_s", "compute_s", "ctx", "dominant",
+    "hlo_bytes_per_dev", "hlo_flops_per_dev", "lower_s", "memory",
+    "memory_s", "mesh", "microbatches", "model_flops_ratio",
+    "model_flops_total", "n_chips", "optimizer", "params_b", "probe",
+    "raw_cost_analysis", "shape", "status", "tokens_per_step",
+)
+PINNED_DRYRUN = {
+    "gemma3-1b__train_4k__single": {
+        "memory": {"argument_bytes": 48280068, "output_bytes": 47758008,
+                   "temp_bytes": 12127176640, "alias_bytes": 47755780},
+        "status": "OK",
+        "n_chips": 256,
+        "optimizer": "adamw",
+        "params_b": 0.999826048,
+        "active_params_b": 0.999826048,
+        "tokens_per_step": 1048576.0,
+        "model_flops_total": 6290361588645888.0,
+    },
+    "qwen3-4b__decode_32k__single": {
+        "memory": {"argument_bytes": 2447735332, "output_bytes": 2416223000,
+                   "temp_bytes": 6389587312, "alias_bytes": 2415919104},
+        "status": "OK",
+        "n_chips": 256,
+        "optimizer": "adamw",
+        "params_b": 4.022468096,
+        "active_params_b": 4.022468096,
+        "tokens_per_step": 128.0,
+        "model_flops_total": 1029751832576.0,
+    },
+}
+PINNED_DRYRUN_FIELDS = {
+    "gemma3-1b__train_4k__single": {
+        "status": "OK", "n_chips": 256, "optimizer": "adamw",
+        "params_b": 0.999826048, "active_params_b": 0.999826048,
+        "tokens_per_step": 1048576.0,
+        "model_flops_total": 6290361588645888.0,
+    },
+    "gemma3-1b__prefill_32k__single": {
+        "status": "OK", "n_chips": 256, "optimizer": "adamw",
+        "params_b": 0.999826048, "active_params_b": 0.999826048,
+        "tokens_per_step": 1048576.0,
+        "model_flops_total": 2096787196215296.0,
+    },
+    "gemma3-1b__decode_32k__single": {
+        "status": "OK", "n_chips": 256, "optimizer": "adamw",
+        "params_b": 0.999826048, "active_params_b": 0.999826048,
+        "tokens_per_step": 128.0, "model_flops_total": 255955468288.0,
+    },
+    "gemma3-1b__long_500k__single": {
+        "status": "OK", "n_chips": 256, "optimizer": "adamw",
+        "params_b": 0.999826048, "active_params_b": 0.999826048,
+        "tokens_per_step": 1.0, "model_flops_total": 1999652096.0,
+    },
+    "mixtral-8x22b__train_4k__single": {
+        "status": "OK", "n_chips": 256, "optimizer": "adafactor",
+        "params_b": 140.630071296, "active_params_b": 39.161468928,
+        "tokens_per_step": 1048576.0,
+        "model_flops_total": 2.4638265865587917e+17,
+    },
+    "gemma3-1b__train_4k__multi": {
+        "status": "OK", "n_chips": 512, "optimizer": "adamw",
+        "params_b": 0.999826048, "active_params_b": 0.999826048,
+        "tokens_per_step": 1048576.0,
+        "model_flops_total": 6290361588645888.0,
+    },
+}

@@ -12,6 +12,12 @@ forward of a ``torch.autograd.Function`` whose backward is the vjp of the
 kernel's plain version (``plain_vjp``), as the JAX package's
 ``custom_vjp``s take theirs; a raw launch on tensors that autograd is
 recording raises (``refuse_autograd``) instead of giving no gradient.
+
+On ``meta`` tensors a wrapper launches nothing and computes nothing: it
+returns outputs of the kernel's shapes and dtypes and reports the call's
+FLOPs and bytes (``meta_cost``), by a formula beside the wrapper that
+counts what the plain version computes; that is how ``launch.dryrun``
+traces a step with no device.
 """
 
 from __future__ import annotations
@@ -28,6 +34,23 @@ LAUNCHES: dict[str, int] = {"power_scatter": 0, "rack_thermal": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# Sinks of the costs a kernel's wrapper reports when it is called on meta
+# tensors (``launch.dryrun`` traces a step so): each is called with the
+# call's (FLOPs, bytes), computed by the formula beside the wrapper.
+META_SINKS: list = []
+
+
+def meta_cost(flops: int, nbytes: int) -> None:
+    """Report one meta call's cost to every sink in META_SINKS."""
+    for sink in META_SINKS:
+        sink(int(flops), int(nbytes))
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    """The bytes of ``tensors`` at their shapes and dtypes."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:

@@ -161,14 +161,49 @@ class FlashAttention(torch.autograd.Function):
                                  **ctx.mask) + (None, None)
 
 
+def attention_cost(q, k, v) -> tuple:
+    """(FLOPs, bytes) of one call: the plain version's two products over
+    the full Sq x Sk scores (Q.K^T and P.V, 2 * B * H * Sq * Sk * hd
+    each, masked or not), as ``FlopCounterMode`` counts
+    ``attention_torch``; q, k and v read once, the output written once."""
+    b, sq, h, hd = q.shape
+    return 4 * b * h * sq * k.shape[1] * hd, kernels.nbytes(q, k, v, q)
+
+
+class MetaAttention(torch.autograd.Function):
+    """The kernel's call on meta tensors: an output of its shape and
+    dtype, no computation, no launch, the cost ``attention_cost``
+    reported (``kernels.meta_cost``). Its backward reports the plain
+    version's vjp: four products of the forward's size (dQ, dK, dP, dV),
+    q, k, v and the output's gradient read, their gradients written."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        kernels.meta_cost(*attention_cost(q, k, v))
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        flops, _ = attention_cost(q, k, v)
+        kernels.meta_cost(2 * flops, 2 * kernels.nbytes(q, k, v) +
+                          kernels.nbytes(g))
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Attention of q over k, v. CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream, differentiable
-    through ``FlashAttention``."""
+    through ``FlashAttention``; meta tensors are traced
+    (``MetaAttention``)."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_torch(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return MetaAttention.apply(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     return FlashAttention.apply(q, k, v, causal, window)

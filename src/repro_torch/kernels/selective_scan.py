@@ -188,12 +188,54 @@ def _launch_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, final
 
 
+def scan_cost(inputs, outputs) -> tuple:
+    """(FLOPs, bytes) of one call of either entry: the plain version is
+    elementwise, with no product ``FlopCounterMode`` counts, so 0 FLOPs;
+    each input read once and each output written once."""
+    return 0, kernels.nbytes(*inputs, *outputs)
+
+
+def _meta_outputs(x, A) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Outputs of the kernels' shapes and dtypes: y as x, the final state
+    (Ba, di, ds) f32."""
+    return (torch.empty_like(x),
+            x.new_empty(x.shape[0], x.shape[2], A.shape[1],
+                        dtype=torch.float32))
+
+
+class MetaScan(torch.autograd.Function):
+    """The fused entry's call on meta tensors: outputs of its shapes and
+    dtypes, no computation, no launch, the cost ``scan_cost`` reported
+    (``kernels.meta_cost``); its backward reports the plain vjp's reads
+    (the inputs and the outputs' gradients) and writes (the inputs'
+    gradients)."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        out = _meta_outputs(inputs[0], inputs[3])
+        kernels.meta_cost(*scan_cost(inputs, out))
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out, g_final):
+        inputs = ctx.saved_tensors
+        grads = tuple(torch.empty_like(t) for t in inputs)
+        kernels.meta_cost(*scan_cost(inputs + (g_out, g_final), grads))
+        return grads
+
+
 def selective_scan(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the scan. CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream."""
+    CUDA tensors launch the kernel on the current stream; meta tensors
+    are traced (outputs of the kernel's shapes, ``scan_cost`` reported)."""
     _check(x, dt, A, B, C)
     if x.device.type == "cpu":
         return selective_scan_torch(x, dt, A, B, C)
+    if x.device.type == "meta":
+        out = _meta_outputs(x, A)
+        kernels.meta_cost(*scan_cost((x, dt, A, B, C), out))
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: no kernel for {x.device}")
     return _launch_scan(x, dt, A, B, C)
@@ -288,10 +330,12 @@ def mamba_scan(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip
     spaced rows (halves and slices of the projections' outputs). CPU
     tensors take ``mamba_scan_torch``; CUDA tensors launch the kernel on
     the current stream, counted under ``selective_scan``, differentiable
-    through ``MambaScan``."""
+    through ``MambaScan``; meta tensors are traced (``MetaScan``)."""
     _check_fused(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
     if xb.device.type == "cpu":
         return mamba_scan_torch(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
+    if xb.device.type == "meta":
+        return MetaScan.apply(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)
     if xb.device.type != "cuda":
         raise ValueError(f"mamba_scan: no kernel for {xb.device}")
     return MambaScan.apply(xb, dt_proj, dt_b, A, Bc, Cc, z, D_skip)

@@ -49,6 +49,8 @@ from repro_torch.models.layers import (
     apply_rope,
     attention,
     decode_attention,
+    dtensor_from_local,
+    local_box,
     mlp_apply,
     normed,
     on_local_batch,
@@ -130,10 +132,12 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
     """The attention's output o (B, S, H, hd) through its row-parallel
     projection ``wo`` (H * hd, D), laid out as the residual stream. Where
     the heads do not split over ``model`` but wo's rows do, wo's rows are
-    gathered whole first: o's gradient would come back split across its
-    heads, which DTensor cannot unflatten."""
+    gathered whole first, and the flattened o's gradient is held to o's
+    own layout: DTensor may return it split across H * hd finer than the
+    heads (16 ranks over 4 heads), which it cannot unflatten."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
+    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.hd)
     if (isinstance(wo, DTensor) and ctx.tp in wo.device_mesh.mesh_dim_names
             and ctx.heads_axis(cfg.n_heads) is None):
         model = wo.device_mesh.mesh_dim_names.index(ctx.tp)
@@ -141,7 +145,9 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
             wo = wo.redistribute(wo.device_mesh, tuple(
                 Replicate() if i == model else p
                 for i, p in enumerate(wo.placements)))
-    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.hd)
+        if isinstance(o, DTensor):
+            o = dtensor_from_local(o.to_local(), o.device_mesh,
+                                   tuple(o.placements), o.shape)
     return ctx.constrain(o @ wo, "dp", "sp", None)
 
 
@@ -232,40 +238,60 @@ def block_parallel(w: Weights, x: torch.Tensor, kind: str, is_moe: bool,
                    cfg: ModelConfig, *, rope: Rope,
                    memory: Optional[torch.Tensor] = None,
                    xa: Optional[Weights] = None, causal: bool = True,
-                   return_kv: bool = False
+                   return_kv: bool = False, ctx: ShardCtx = UNSHARDED
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One layer of serving (``block_forward`` without the aux loss,
     which serving drops, as the JAX package's does). Returns (x, its cache
     state, or None without ``return_kv``)."""
     x, _, kv = block_forward(w, x, kind, is_moe, cfg, rope=rope,
-                             memory=memory, xa=xa, causal=causal)
+                             memory=memory, xa=xa, causal=causal, ctx=ctx)
     return x, (kv if return_kv else None)
 
 
 # ---------------------------------------------------------------------------
 # decode path
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """Write ``new`` (B, 1, Kv, hd) into slot ``slot`` of ``cache`` (B, S,
+    Kv, hd), in place, in the cache's dtype. A DTensor cache is written on
+    the rank that holds that slot, through its local shard, with ``new``
+    laid out as the cache's batch and KV heads: no other rank's shard
+    changes and nothing gathers the cache."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = new[:, 0].to(cache.dtype)
+        return
+    mesh, cp = cache.device_mesh, tuple(cache.placements)
+    local = new.redistribute(mesh, tuple(
+        Replicate() if p == Shard(1) else p for p in cp)).to_local()
+    (_, n, _, _), (_, s0, _, _) = local_box(cache)
+    if s0 <= slot < s0 + n:
+        cache.to_local()[:, slot - s0] = local[:, 0].to(cache.dtype)
+
+
 def attn_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                cache_len: int, cfg: ModelConfig, *, rope: Rope, window: int
+                cache_len: int, cfg: ModelConfig, *, rope: Rope, window: int,
+                ctx: ShardCtx = UNSHARDED
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, D). cache: {'k', 'v'} (B, S_c, Kv, hd), a ring of S_c slots
     for a sliding-window layer. Writes this token's k, v into its slot in
-    place (the JAX package returns updated copies) and returns (out,
-    cache)."""
-    B = x.shape[0]
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(w, h, cfg)
+    place (the JAX package returns updated copies; ``write_slot``) and
+    returns (out, cache). On a mesh q, k and v are laid out by their heads
+    as in prefill, the cache keeps its layout and the attention is the
+    distributed flash-decode (``layers.decode_attention_mesh``)."""
+    h = normed(x, w["ln1"], cfg.norm_eps, ctx)
+    q, k, v = _qkv(w, h, cfg, ctx)
     q, k = _maybe_qk_norm(w, q, k, cfg)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     s_cache = cache["k"].shape[1]
     slot = cache_len % s_cache if window else min(cache_len, s_cache - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    write_slot(cache["k"], k, slot)
+    write_slot(cache["v"], v, slot)
     valid = min(cache_len + 1, s_cache)
     o = decode_attention(q, cache["k"], cache["v"], valid)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.hd)
-    return o @ w["wo"], cache
+    return _out_proj(o, w["wo"], cfg, ctx), cache
 
 
 def cross_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -283,13 +309,16 @@ def cross_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cache_len: int, kind: str, is_moe: bool, cfg: ModelConfig,
-                 *, rope: Rope, xa: Optional[Weights] = None
+                 *, rope: Rope, xa: Optional[Weights] = None,
+                 ctx: ShardCtx = UNSHARDED
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token (B, 1, D) through a layer; an MoE layer routes the B
-    tokens as one group, as the JAX package's decode does."""
+    tokens as one group, as the JAX package's decode does. ``ctx`` lays
+    out an attention layer's and the dense MLP's activations on a mesh
+    (the other families serve on one device)."""
     if kind in (ATTN, ATTN_LOCAL, CROSS):
         o, cache = attn_decode(w, x, cache, cache_len, cfg, rope=rope,
-                               window=self_window(cfg, kind))
+                               window=self_window(cfg, kind), ctx=ctx)
         x = x + o
         if kind == CROSS:
             x = x + cross_decode(w, x, cache, cfg, gate=w["xgate"])
@@ -300,4 +329,4 @@ def block_decode(w: Weights, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         x = x + o
     if xa is not None and kind != CROSS:
         x = x + cross_decode(xa, x, cache, cfg)
-    return ffn_parallel(w, x, cfg, is_moe)[0], cache
+    return ffn_parallel(w, x, cfg, is_moe, ctx)[0], cache

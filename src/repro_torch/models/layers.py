@@ -21,13 +21,14 @@ each rank's local batch with its weights gathered once.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels.flash_attn import flash_attention, scale_of
+from repro_torch.kernels.flash_attn import NEG_INF, flash_attention, scale_of
 from repro_torch.kernels.selective_scan import mamba_scan
 from repro_torch.sharding.ctx import UNSHARDED, ShardCtx
 
@@ -237,9 +238,7 @@ def on_local_batch(fn: Callable, w: Mapping[str, torch.Tensor], x, ctx):
               for k, t in w.items()}, x.to_local())
 
     def back(t, shape):
-        return DTensor.from_local(t, mesh, xp, run_check=False, shape=shape,
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+        return dtensor_from_local(t, mesh, xp, shape)
 
     if isinstance(got, tuple):
         out, state = got
@@ -256,8 +255,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     ``cache_len`` is a Python int, so the valid slots are a slice rather
     than the JAX package's -1e30 mask (the masked slots add exactly 0
-    there) and nothing reads the device.
+    there) and nothing reads the device. A DTensor cache takes the mask
+    instead: ``decode_attention_mesh``, the distributed flash-decode.
     """
+    if isinstance(k_cache, DTensor):
+        return decode_attention_mesh(q, k_cache, v_cache, cache_len)
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
     n_rep = h // kv
@@ -271,6 +273,101 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bgrs,bsgd->bgrd", probs,
                        v_cache[:, :cache_len].float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def local_box(t) -> tuple:
+    """(local shape, global offset) of this rank's shard of the DTensor
+    ``t``, as DTensor cuts it (an uneven split gives the last ranks
+    fewer rows, or none)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(shape), tuple(off)
+
+
+def dtensor_from_local(t: torch.Tensor, mesh, placements, shape):
+    """The local tensor ``t`` as a DTensor of global ``shape``, its
+    strides the contiguous ones (computed, not read off a tensor: no
+    tensor of the global shape is made, not even on the meta device)."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= d
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def decode_attention_mesh(q, k_cache, v_cache, cache_len: int):
+    """``decode_attention`` over DTensor caches (B, S, Kv, hd) laid out by
+    ``ShardCtx.kv_cache_pspec``: the batch split over the dp axes or
+    whole, the sequence over one or more mesh axes (``"seq"``,
+    ``"seq2d"``), the KV heads over ``model`` (``"head"``), or neither.
+    Each rank reads only its own slots and KV heads, with q (B, 1, H, hd)
+    whole but for the batch, and masks the slots at or past ``cache_len``
+    with -1e30 as the JAX package does. The softmax's max, and its sum
+    beside the unnormalised P.V, are partial over the axes that split the
+    sequence: two all-reduces of (B, Kv, rep, hd + 1) values, the
+    distributed flash-decode. Nothing gathers the cache. Returns (B, 1,
+    H, hd) in q's dtype: split as the cache's batch and KV heads (by
+    whole groups of rep q heads), or, where the KV heads split unevenly,
+    partial over those axes (each rank's heads, zeros elsewhere)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, cp = k_cache.device_mesh, tuple(k_cache.placements)
+    if (any(p not in (Replicate(), Shard(0), Shard(1), Shard(2))
+            for p in cp) or tuple(v_cache.placements) != cp):
+        raise ValueError(f"decode_attention: k {cp}, v "
+                         f"{tuple(v_cache.placements)}: the batch, the "
+                         "sequence and the KV heads may be split")
+    b, _, h, hd = q.shape
+    kv = k_cache.shape[2]
+    rep = h // kv
+    ql = q.redistribute(mesh, tuple(
+        Shard(0) if p == Shard(0) else Replicate() for p in cp)).to_local()
+    (bl, sl, kvl, _), (_, s0, g0, _) = local_box(k_cache)
+    kl, vl = k_cache.to_local().float(), v_cache.to_local().float()
+    qg = ql[:, 0].float().reshape(bl, kv, rep, hd)[:, g0:g0 + kvl]
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, kl) * scale_of(hd)
+    pos = torch.arange(s0, s0 + sl, device=kl.device)
+    logits = torch.where(pos < cache_len, logits, NEG_INF)
+    if sl:
+        m = torch.amax(logits, dim=-1, keepdim=True)
+    else:
+        m = logits.new_full((bl, kvl, rep, 1), NEG_INF)
+    # partial over the sequence's axes; the batch and the KV heads as the
+    # cache's (dims 0 and 1 of a (B, Kv, rep, .) value)
+    lay = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+                else Replicate() for p in cp)
+
+    def reduce(t, op):
+        part = tuple(Partial(op) if p == Shard(1) else a
+                     for p, a in zip(cp, lay))
+        return dtensor_from_local(t, mesh, part, (b, kv) + tuple(
+            t.shape[2:])).redistribute(mesh, lay).to_local()
+
+    m = reduce(m, "max")
+    p = torch.exp(logits - m)
+    ol = torch.cat([torch.einsum("bgrs,bsgd->bgrd", p, vl),
+                    torch.sum(p, dim=-1, keepdim=True)], dim=-1)
+    ol = reduce(ol, "sum")
+    out = (ol[..., :hd] / torch.clamp(ol[..., hd:], min=1e-30)).reshape(
+        bl, 1, kvl * rep, hd).to(q.dtype)
+    splits = math.prod(mesh.size(i) for i, p in enumerate(cp)
+                       if p == Shard(2))
+    if kv % splits == 0:
+        heads = Shard(2)
+    else:
+        heads = Partial()
+        whole = out.new_zeros(bl, 1, h, hd)
+        whole[:, :, g0 * rep:(g0 + kvl) * rep] = out
+        out = whole
+    return dtensor_from_local(out, mesh, tuple(
+        Shard(0) if p == Shard(0) else heads if p == Shard(2)
+        else Replicate() for p in cp), (b, 1, h, hd))
 
 
 # ---------------------------------------------------------------------------

@@ -48,9 +48,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import (
     ATTN,
+    ATTN_LOCAL,
     CROSS,
     MAMBA,
     MLSTM,
@@ -278,26 +280,57 @@ def init_cache(model: DecoderLM, batch: int, seq_len: int) -> Cache:
 
 def _kv_cache_entry(kv: Dict[str, torch.Tensor], layer_idx: int,
                     cfg: ModelConfig, batch: int, cache_seq_len: int,
-                    dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                    dtype: torch.dtype,
+                    pspecs: Optional[Dict[str, tuple]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """A layer's decode-cache entry from its prefill state: k, v
     (B, S, Kv, hd) into their slots; the cross-attention's xk, xv and the
-    recurrent layers' final states as they are."""
+    recurrent layers' final states as they are. DTensor k and v (whole
+    over the sequence on every rank) become DTensor entries laid out by
+    ``pspecs`` (the layer's ``sharding.specs.layer_cache_pspecs``): each
+    rank places its own slots of the prompt, and the entry is
+    redistributed once to the cache's layout."""
     out = {}
     for name, (shape, dt) in layer_cache_spec(cfg, layer_idx, batch,
                                               cache_seq_len, dtype).items():
         src = kv[name].to(dt)
         if name not in ("k", "v"):
             out[name] = src
-            continue
-        sc, full = shape[1], src.shape[1]
-        if full >= sc:
-            # ring-buffer layout: absolute position P lives in slot P % sc
-            out[name] = torch.roll(src[:, -sc:], full % sc, dims=1)
+        elif isinstance(src, DTensor):
+            out[name] = _kv_entry_mesh(src, shape, pspecs[name])
         else:
-            entry = torch.zeros(shape, dtype=dt, device=src.device)
-            entry[:, :full] = src
-            out[name] = entry
+            out[name] = _slots(src, shape)
     return out
+
+
+def _slots(src: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The prompt's k or v (B, S, Kv, hd) in a cache of ``shape`` (B, S_c,
+    Kv, hd): the first S slots, or, where S >= S_c, a ring holding the
+    last S_c positions with absolute position P in slot P % S_c."""
+    sc, full = shape[1], src.shape[1]
+    if full >= sc:
+        return torch.roll(src[:, -sc:], full % sc, dims=1)
+    entry = torch.zeros(shape, dtype=src.dtype, device=src.device)
+    entry[:, :full] = src
+    return entry
+
+
+def _kv_entry_mesh(src, shape: tuple, spec: tuple):
+    """``_slots`` of a DTensor ``src`` whose sequence is whole on every
+    rank, then redistributed to ``spec``'s placements. A split that does
+    not divide its dim (a ring of S_c slots over more ranks than divide
+    it, Kv over a larger axis) takes DTensor's uneven cut: the first
+    ranks hold ceil(S_c / n) slots, the last fewer or none, and
+    ``blocks.write_slot`` and ``layers.decode_attention_mesh`` read the
+    same cut."""
+    from repro_torch.models.layers import dtensor_from_local
+    from repro_torch.sharding.specs import placements
+
+    mesh, local = src.device_mesh, src.to_local()
+    entry = dtensor_from_local(
+        _slots(local, (local.shape[0], shape[1]) + tuple(local.shape[2:])),
+        mesh, tuple(src.placements), shape)
+    return entry.redistribute(mesh, placements(spec, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -351,47 +384,136 @@ def memory_of(model: DecoderLM, extras: Optional[Mapping[str, torch.Tensor]]
     return extras[need].to(model.dtype)
 
 
+def check_mesh_serving(cfg: ModelConfig, ctx: ShardCtx) -> None:
+    """Refuse prefill and decode of a family that does not serve on a
+    mesh yet: under an enabled ``ctx`` the port serves the dense family
+    alone (self-attention layers, global or windowed, with the dense
+    MLP)."""
+    if not ctx.enabled:
+        return
+    kinds = {S.layer_kind_at(cfg, i) for i in range(cfg.n_layers)}
+    other = ([k for k in sorted(kinds) if k not in (ATTN, ATTN_LOCAL)]
+             + (["moe"] if any(cfg.is_moe_layer(i)
+                               for i in range(cfg.n_layers)) else [])
+             + (["encoder-decoder"] if cfg.enc_dec else []))
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill and decode on a mesh serve the dense "
+            f"family only, not {', '.join(other)} layers; serving the MoE, "
+            "Mamba, xLSTM, cross-attention and encoder-decoder families on "
+            "a mesh is the next item of ROADMAP.md queue 1 (run them with "
+            "ctx=UNSHARDED on one device)")
+
+
+def _decode_ctx(ctx: ShardCtx) -> ShardCtx:
+    """The context of a decode step: no sequence to split (the residual
+    stream is one token), and under ``decode_kv_shard="seq2d"`` (a batch
+    too small to split) no batch split either, as the tokens'
+    ``batch_pspecs``."""
+    if not ctx.enabled:
+        return ctx
+    return ctx.with_(seq_parallel=False,
+                     dp=() if ctx.decode_kv_shard == "seq2d" else ctx.dp)
+
+
+def _last_logits(model: DecoderLM, x, ctx: ShardCtx) -> torch.Tensor:
+    """The f32 logits (B, V) of position ``-1`` of x (B, S, D): on a mesh
+    x is whole over the sequence first and the logits are laid out (dp,
+    tp), as the JAX package constrains them."""
+    x = ctx.constrain(x, "dp", None, None)
+    return ctx.constrain(_logits(model, x[:, -1]), "dp", "tp")
+
+
 @torch.no_grad()
 def prefill(model: DecoderLM, tokens: torch.Tensor, *,
             cache_seq_len: Optional[int] = None,
-            extras: Optional[Mapping[str, torch.Tensor]] = None
-            ) -> Tuple[torch.Tensor, Cache]:
+            extras: Optional[Mapping[str, torch.Tensor]] = None,
+            ctx: ShardCtx = UNSHARDED) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt ``tokens`` (B, S) through every layer, with the
     memory of ``extras`` (``memory_of``) where the model has one. Returns
     the last token's f32 logits (B, V) and the cache, sized for
-    ``cache_seq_len`` tokens (default S)."""
+    ``cache_seq_len`` tokens (default S).
+
+    On a mesh (an enabled ``ctx``; the dense family, ``check_mesh_serving``)
+    the model's weights are DTensors laid out by ``param_pspecs`` and
+    ``tokens`` a DTensor laid out by ``batch_pspecs``: the layers run as in
+    the training forward (the attention on each rank's local heads,
+    ``layers.local_attention``), and the cache comes laid out by
+    ``sharding.specs.layer_cache_pspecs``."""
+    check_mesh_serving(model.cfg, ctx)
     cfg = model.cfg
     B, Sq = tokens.shape
     cache_seq_len = cache_seq_len or Sq
     memory = memory_of(model, extras)
-    x = embed(model, tokens)
+    x = ctx.constrain(embed(model, tokens), "dp", "sp", None)
     positions = torch.arange(Sq, device=tokens.device)
-    rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    rope = tuple(_replicated_like(t, x) for t in rope_cos_sin(
+        positions, cfg.hd, cfg.rope_theta))
+    if ctx.enabled:
+        from repro_torch.sharding.specs import layer_cache_pspecs
+
+        specs = layer_cache_pspecs(cfg, ctx)
+    else:
+        specs = [None] * cfg.n_layers
     cache = []
     for i, layer in enumerate(model.layers):
         x, kv = block_parallel(layer.weights(), x, layer.kind, layer.is_moe,
                                cfg, rope=rope, memory=memory,
-                               xa=layer.xattn_weights(), return_kv=True)
+                               xa=layer.xattn_weights(), return_kv=True,
+                               ctx=ctx)
         cache.append(_kv_cache_entry(kv, i, cfg, B, cache_seq_len,
-                                     model.dtype))
-    return _logits(model, x[:, -1]), cache
+                                     model.dtype, specs[i]))
+    return _last_logits(model, x, ctx), cache
 
 
 @torch.no_grad()
 def decode_step(model: DecoderLM, cache: Cache, tokens: torch.Tensor,
-                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                cache_len: int, ctx: ShardCtx = UNSHARDED
+                ) -> Tuple[torch.Tensor, Cache]:
     """One token ``tokens`` (B, 1) at position ``cache_len`` (a Python
     int: the number of tokens already in the cache). Updates ``cache`` in
-    place and returns (f32 logits (B, V), cache)."""
+    place and returns (f32 logits (B, V), cache). On a mesh the cache's
+    leaves are DTensors that keep their layout: each rank writes the new
+    token's k and v into its own slots, and the attention is the
+    distributed flash-decode (``layers.decode_attention_mesh``)."""
+    check_mesh_serving(model.cfg, ctx)
     cfg = model.cfg
-    x = embed(model, tokens)
+    ctx = _decode_ctx(ctx)
+    x = ctx.constrain(embed(model, tokens), "dp", None, None)
     pos = torch.full((1,), cache_len, dtype=torch.int32, device=tokens.device)
-    rope = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    rope = tuple(_replicated_like(t, x) for t in rope_cos_sin(
+        pos, cfg.hd, cfg.rope_theta))
     for i, layer in enumerate(model.layers):
         x, cache[i] = block_decode(layer.weights(), x, cache[i], cache_len,
                                    layer.kind, layer.is_moe, cfg, rope=rope,
-                                   xa=layer.xattn_weights())
-    return _logits(model, x[:, 0]), cache
+                                   xa=layer.xattn_weights(), ctx=ctx)
+    return _last_logits(model, x, ctx), cache
+
+
+def batch_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """The dry-run's inputs of ``shape`` (a ``configs.ShapeConfig``) as
+    tensors on the ``meta`` device (the JAX package's ``batch_specs``, its
+    ShapeDtypeStructs): train and prefill tokens (with labels for train,
+    and the VLM's or whisper's memory), or a decode step's one token,
+    cache (``cache_specs``) and cache length."""
+    B, Sq = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        out = {"tokens": meta((B, Sq))}
+        if shape.mode == "train":
+            out["labels"] = meta((B, Sq))
+        if cfg.n_vision_tokens:
+            out["vision"] = meta((B, cfg.n_vision_tokens, cfg.d_model),
+                                 compute_dtype(cfg))
+        if cfg.enc_dec:
+            out["audio"] = meta((B, cfg.n_audio_frames, cfg.d_model),
+                                compute_dtype(cfg))
+        return out
+    return {"tokens": meta((B, 1)), "cache": cache_specs(cfg, B, Sq),
+            "cache_len": meta(())}
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +565,23 @@ def layer_leaves(params: Mapping[str, Any], cfg: ModelConfig,
     return out + [dict(params[tail][j]) for j in range(n_tail)]
 
 
+def _label_logits(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, cs, 1) logits of the labels ``idx`` (B, cs) in ``logits`` (B,
+    cs, V). On a mesh (logits whole over the vocabulary, laid out as the
+    labels) each rank gathers its own rows: DTensor's gather backward
+    would make the whole (B, cs, V) gradient on every rank
+    (``new_zeros`` of the global shape)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx[..., None])
+    from repro_torch.models.layers import dtensor_from_local
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    if tuple(idx.placements) != pl:
+        idx = idx.redistribute(mesh, pl)
+    local = torch.gather(logits.to_local(), -1, idx.to_local()[..., None])
+    return dtensor_from_local(local, mesh, pl, tuple(idx.shape) + (1,))
+
+
 def lm_loss_chunked(xf: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                     ctx: ShardCtx = UNSHARDED
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -462,7 +601,7 @@ def lm_loss_chunked(xf: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         # the log-sum-exp and the label's logit read whole vocabulary rows
         logits = ctx.constrain(logits, "dp", None, None)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])
+        ll = _label_logits(logits, torch.clamp(lc, min=0))
         valid = (lc >= 0).float()
         return torch.sum((lse - ll[..., 0]) * valid), torch.sum(valid)
 

@@ -73,6 +73,8 @@ class ShardCtx:
         if logical is None:
             return None
         if logical in ("dp", "fsdp"):
+            if not self.dp:
+                return None
             return self.dp if len(self.dp) > 1 else self.dp[0]
         if logical == "sp":
             return self.tp if self.seq_parallel else None

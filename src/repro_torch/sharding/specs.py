@@ -202,8 +202,10 @@ def distribute_leaf(x: torch.Tensor, spec: tuple, mesh):
     DTensor on ``mesh`` laid out by ``spec``. This rank cuts its own
     shard where x lies and copies only the shard to the mesh's device,
     into storage of its own: x is never whole on the card unless it was
-    there already, and its memory is freed with it. A leaf this rank
-    holds whole, on the mesh's device already, is kept as it is. A split
+    there already, and its memory is freed with it. A contiguous leaf
+    this rank holds whole, on the mesh's device already, is kept as it
+    is (a view that is not contiguous is copied: DTensor's views of it
+    would fail). A split
     that does not divide its dim takes DTensor's own uneven sharding."""
     from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
@@ -216,7 +218,8 @@ def distribute_leaf(x: torch.Tensor, spec: tuple, mesh):
     for i, p in enumerate(pl):         # mesh axes in order, as DTensor
         if isinstance(p, Shard) and mesh.size(i) > 1:
             local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-    if local is not x or x.device.type != mesh.device_type:
+    if (local is not x or x.device.type != mesh.device_type
+            or not x.is_contiguous()):
         local = local.to(mesh.device_type, copy=True).contiguous()
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=x.shape,
@@ -368,6 +371,18 @@ def cache_pspecs(cfg: ModelConfig, ctx: ShardCtx) -> dict:
     return tree_map_with_path_names(one, template)
 
 
+def layer_cache_pspecs(cfg: ModelConfig, ctx: ShardCtx) -> List[dict]:
+    """``cache_pspecs`` for the port's cache, a list with one entry per
+    layer (``models.model.Cache``): layer ``r * period + p`` takes
+    ``body[p]``'s specs without the leading repeat axis, layer ``R *
+    period + j`` ``tail[j]``'s."""
+    period, R, _ = S.layout(cfg)
+    tree = cache_pspecs(cfg, ctx)
+    return [{k: v[1:] for k, v in tree["body"][i % period].items()}
+            if i < R * period else dict(tree["tail"][i - R * period])
+            for i in range(cfg.n_layers)]
+
+
 def train_state_pspecs(cfg: ModelConfig, ctx: ShardCtx, optimizer,
                        mesh=None) -> dict:
     """The spec tree of a train state (``train.state``)."""
@@ -381,4 +396,5 @@ __all__ = ["FLEET_AXIS", "fleet_block", "gather_fleet", "spec_leaves",
            "spec_map", "mesh_sizes", "placements", "NamedSharding",
            "named_shardings", "distribute", "distribute_leaf",
            "param_pspecs", "batch_pspec", "batch_pspecs", "cache_pspecs",
+           "layer_cache_pspecs",
            "train_state_pspecs"]

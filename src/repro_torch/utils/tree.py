@@ -14,6 +14,7 @@ each other's checkpoints.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, List, Tuple
 
 
@@ -74,4 +75,33 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return tree_map_with_path_names(lambda _, x: fn(x), tree)
 
 
-__all__ = ["tree_leaves_with_names", "tree_map_with_path_names", "tree_map"]
+def _arrays(tree, local: bool) -> List[Any]:
+    """The leaves of ``tree`` that have a shape and a dtype; a DTensor's
+    local shard where ``local``."""
+    out = []
+    for _, x in tree_leaves_with_names(tree):
+        if not (hasattr(x, "shape") and hasattr(x, "dtype")):
+            continue
+        if local and hasattr(x, "to_local"):
+            x = x.to_local()
+        out.append(x)
+    return out
+
+
+def tree_count(tree, *, local: bool = False) -> int:
+    """The number of elements over every array leaf of ``tree`` (tensors,
+    meta tensors, DTensors at their global shape, numpy arrays); with
+    ``local``, a DTensor's local shard."""
+    return int(sum(math.prod(x.shape) for x in _arrays(tree, local)))
+
+
+def tree_bytes(tree, *, local: bool = False) -> int:
+    """The bytes of every array leaf of ``tree`` at its dtype's item size
+    (a meta tensor's as if allocated); with ``local``, a DTensor's local
+    shard's."""
+    return int(sum(math.prod(x.shape) * x.dtype.itemsize
+                   for x in _arrays(tree, local)))
+
+
+__all__ = ["tree_leaves_with_names", "tree_map_with_path_names", "tree_map",
+           "tree_count", "tree_bytes"]

@@ -423,19 +423,29 @@ def test_disabled_means_zero_overhead_program(monkeypatch):
 def test_chaos_run_kill_loop_semantics(tmp_path):
     """The kill-loop on a trivial resumable worker: each launch appends
     one line then either dies or finishes; the loop delivers exactly the
-    configured kills, and the final launch is not killed quietly."""
+    configured kills, and the final launch is not killed quietly.
+
+    The worker is a POSIX shell script, which writes its line within
+    milliseconds of its launch, then completes a snapshot: the kill timer
+    starts at that snapshot (``snapshot_dir``), so the killed launch has
+    written its line whatever its start-up costs, and the final launch
+    has written its line long before it overruns."""
+    import shlex
+
     marker = tmp_path / "progress.txt"
-    script = tmp_path / "worker.py"
+    snaps = tmp_path / "snaps"
+    script = tmp_path / "worker.sh"
     script.write_text(textwrap.dedent(f"""
-        import sys, time
-        with open({str(marker)!r}, "a") as f:
-            f.write("attempt\\n")
-        time.sleep(30)   # long enough that every kill window hits
-        sys.exit(0)
+        echo attempt >> {shlex.quote(str(marker))}
+        step={shlex.quote(str(snaps))}/step_$$
+        mkdir -p "$step.tmp" && : > "$step.tmp/manifest.json"
+        mv "$step.tmp" "$step"
+        exec sleep 30   # long enough that every kill window hits
     """))
     with pytest.raises(RuntimeError, match="overran"):
-        chaos_run([sys.executable, str(script)], kills=1, min_delay_s=0.2,
-                  max_delay_s=0.4, seed=1, timeout_s=2.0)
+        chaos_run(["/bin/sh", str(script)], kills=1, min_delay_s=0.2,
+                  max_delay_s=0.4, seed=1, timeout_s=2.0,
+                  snapshot_dir=str(snaps))
     assert marker.read_text().count("attempt") == 2  # killed + final
 
 

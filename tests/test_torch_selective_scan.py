@@ -117,9 +117,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
         pss.selective_scan(*bad(_good()))
 
 
+class _OnDevice(torch.Tensor):
+    """A tensor that reports ``device`` and holds no data (a device with
+    no kernel here; meta tensors are traced, ``launch.dryrun``)."""
+
+    @staticmethod
+    def __new__(cls, like, device):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, strides=like.stride(), dtype=like.dtype,
+            device=torch.device(device))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"no operation on this device: {func}")
+
+
 def test_wrapper_refuses_other_devices_and_mixed_devices():
     t = _good()
-    with pytest.raises(ValueError):
-        pss.selective_scan(*(a.to("meta") for a in t))
+    with pytest.raises(ValueError, match="no kernel for hpu"):
+        pss.selective_scan(*(_OnDevice(a, "hpu") for a in t))
     with pytest.raises(ValueError):
         pss.selective_scan(t[0].to("meta"), *t[1:])
